@@ -1,0 +1,216 @@
+// Multiresolution hash-grid encode, forward, for Hopper (sm_90a).
+//
+// Replaces the encode that the JAX package runs through XLA in
+// raw_ngp_tpu/kernels/hash_fused.py (hash_encode_fused / _fused_fwd: the
+// matmul path for dense leading levels and the 2-row vrow-window gathers
+// for the rest), which stands in for the reference's hand-written CUDA
+// gridencoder. Its plain version is raw_ngp_torch/ops/hashgrid.hash_encode_01.
+//
+// One thread per (point, level): it computes the 8 corner rows with the
+// _level_indices index math in native uint32 (dense-stride early-out, xor
+// and additive variants), loads each row's C channels as float4, and sums
+// corner value x trilinear weight in f32. Inputs outside [0, 1]^3 or NaN
+// give zeros. Under bf16 the table values and the weights are rounded to
+// bf16 before the multiply (as hash_fused.py:475/:486 round them) and the
+// f32 sum is rounded to a bf16 output. Position and weight arithmetic uses
+// the _rn intrinsics so nvcc cannot contract it into FMAs: the cell and
+// fraction must round exactly as the plain version's separate mul and sub.
+//
+// Bound: bytes, as a gather. Each (point, level) reads 8 rows of C floats
+// at hashed addresses; the flagship's level-1 table (524,288 x 16 f32 =
+// 33.5 MB) fits in the 50 MB L2, so after first touch the gathers are L2
+// hits and DRAM sees the touched rows once plus the points and the output.
+// Threads with neighbouring ids share a point, so the output stores of a
+// warp are contiguous.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+// per-level row of the level table built by the Python wrapper
+// (raw_ngp_torch/kernels/hash_encode.py _level_table):
+// res, hmap, offset, n_strides, stride0, stride1, stride2, mode, axis
+constexpr int kLevelRow = 9;
+constexpr int kModeStride = 0, kModeXor = 1, kModeAdditive = 2;
+
+__device__ __forceinline__ uint32_t mix_prime(int d) {
+  // _mix_prime: dim 0 borrows the 4th prime since the 1st is 1
+  return d == 0 ? 3674653429u : (d == 1 ? 2654435761u : 805459861u);
+}
+
+__device__ __forceinline__ uint32_t level_row(const int64_t* lp,
+                                              const uint32_t c[3]) {
+  const uint32_t res = (uint32_t)lp[0];
+  const uint32_t hmap = (uint32_t)lp[1];
+  const int mode = (int)lp[7];
+  uint32_t index = 0;
+  if (mode == kModeAdditive) {
+    const int a = (int)lp[8];
+    uint32_t g = 0;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if (d != a) g ^= c[d] * mix_prime(d);
+    }
+    index = c[a] + g % (hmap - res);
+  } else if (mode == kModeXor) {
+    index = c[0] ^ (c[1] * 2654435761u) ^ (c[2] * 805459861u);
+  } else {
+    const int ns = (int)lp[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if (d < ns) index += c[d] * (uint32_t)lp[4 + d];
+    }
+  }
+  return index % hmap + (uint32_t)lp[2];
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int C, bool BF16>
+__global__ void hash_encode_kernel(const float* __restrict__ x01,
+                                   const float* __restrict__ table,
+                                   const int64_t* __restrict__ levels,
+                                   void* __restrict__ out, int64_t B, int L,
+                                   int align_corners, int smoothstep) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= B * L) return;
+  const int64_t b = t / L;
+  const int lv = (int)(t - b * L);
+  const int64_t* lp = levels + lv * kLevelRow;
+
+  float x[3];
+  bool inb = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    x[d] = x01[b * 3 + d];
+    inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
+  }
+
+  float acc[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = 0.0f;
+
+  if (inb) {
+    const uint32_t res = (uint32_t)lp[0];
+    const float top = (float)(res - 1);
+    float frac[3];
+    uint32_t g[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float pos, gf;
+      if (align_corners) {
+        pos = __fmul_rn(x[d], top);
+        gf = fminf(floorf(pos), (float)(res - 2));
+      } else {
+        pos = __fsub_rn(__fmul_rn(x[d], (float)res), 0.5f);
+        pos = fminf(fmaxf(pos, 0.0f), top);
+        gf = floorf(pos);
+      }
+      float f = __fsub_rn(pos, gf);
+      if (smoothstep) {
+        f = __fmul_rn(__fmul_rn(f, f), __fsub_rn(3.0f, __fmul_rn(2.0f, f)));
+      }
+      frac[d] = f;
+      g[d] = (uint32_t)(int)gf;
+    }
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      uint32_t c[3];
+      float w = 1.0f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const uint32_t bit = (corner >> d) & 1u;
+        c[d] = min(g[d] + bit, res - 1);
+        const float fd = bit ? frac[d] : __fsub_rn(1.0f, frac[d]);
+        w = d == 0 ? fd : __fmul_rn(w, fd);
+      }
+      if (BF16) w = round_bf16(w);
+      const float* row = table + (int64_t)level_row(lp, c) * C;
+      if constexpr (C % 4 == 0) {
+        const float4* row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+        for (int k = 0; k < C / 4; ++k) {
+          float4 v = __ldg(row4 + k);
+          if (BF16) {
+            v.x = round_bf16(v.x); v.y = round_bf16(v.y);
+            v.z = round_bf16(v.z); v.w = round_bf16(v.w);
+          }
+          acc[4 * k + 0] += v.x * w;
+          acc[4 * k + 1] += v.y * w;
+          acc[4 * k + 2] += v.z * w;
+          acc[4 * k + 3] += v.w * w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          float v = __ldg(row + k);
+          if (BF16) v = round_bf16(v);
+          acc[k] += v * w;
+        }
+      }
+    }
+  }
+
+  const int64_t o = t * C;  // out[b, lv*C + k] == out[(b*L + lv)*C + k]
+  if (BF16) {
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
+#pragma unroll
+    for (int k = 0; k < C; ++k) dst[k] = __float2bfloat16_rn(acc[k]);
+  } else {
+    float* dst = static_cast<float*>(out) + o;
+    if constexpr (C % 4 == 0) {
+      float4* dst4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+      for (int k = 0; k < C / 4; ++k) {
+        dst4[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2],
+                              acc[4 * k + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) dst[k] = acc[k];
+    }
+  }
+}
+
+template <int C>
+void launch(bool bf16, const float* x01, const float* table,
+            const int64_t* levels, void* out, int64_t B, int L,
+            int align_corners, int smoothstep, cudaStream_t s) {
+  const int64_t n = B * L;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if (bf16) {
+    hash_encode_kernel<C, true><<<blocks, kThreads, 0, s>>>(
+        x01, table, levels, out, B, L, align_corners, smoothstep);
+  } else {
+    hash_encode_kernel<C, false><<<blocks, kThreads, 0, s>>>(
+        x01, table, levels, out, B, L, align_corners, smoothstep);
+  }
+}
+
+}  // namespace
+
+// x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned),
+// levels [L, 9] i64 -> out [B, L * C] f32 or bf16.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C.
+extern "C" int hash_encode_fwd(const float* x01, const float* table,
+                               const int64_t* levels, void* out, int64_t B,
+                               int L, int C, int align_corners,
+                               int smoothstep, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool h = bf16 != 0;
+  switch (C) {
+    case 1: launch<1>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    case 2: launch<2>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    case 4: launch<4>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    case 8: launch<8>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    case 16: launch<16>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    case 32: launch<32>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,49 @@
+"""Ray generation and AABB intersection (port of ``raw_ngp_tpu/ops/rays.py``:
+``near_far_from_aabb``, ``pixel_rays``, ``full_image_rays``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.05):
+    """Slab test of rays against an axis-aligned box.
+
+    rays_o, rays_d: [..., 3]; aabb: [6] = (xmin, ymin, zmin, xmax, ymax,
+    zmax). Returns near, far [..., 1]; both 1e9 when the ray misses.
+    """
+    tmin = (aabb[:3] - rays_o) / (rays_d + 1e-15)
+    tmax = (aabb[3:] - rays_o) / (rays_d + 1e-15)
+    near = torch.minimum(tmin, tmax).amax(dim=-1, keepdim=True)
+    far = torch.maximum(tmin, tmax).amin(dim=-1, keepdim=True)
+    miss = far < near
+    near = torch.where(miss, 1e9, near)
+    far = torch.where(miss, 1e9, far)
+    near = torch.clamp_min(near, min_near)
+    return near, far
+
+
+def pixel_rays(pose, intrinsics, flat_inds, W: int):
+    """Rays through pixel centers for flat indices ``ind = row*W + col``.
+
+    OpenGL-style camera (x right, y up, looking down -z); directions are
+    not normalized, so composited ``t`` is metric depth. ``pose`` is a
+    [3, 4] or [4, 4] cam2world matrix.
+    """
+    fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
+    row = torch.div(flat_inds, W, rounding_mode="floor").float() + 0.5
+    col = (flat_inds % W).float() + 0.5
+    xs = (col - cx) / fx
+    ys = -(row - cy) / fy
+    zs = -torch.ones_like(xs)
+    directions = torch.stack([xs, ys, zs], dim=-1)     # [N, 3]
+    rot = pose[:3, :3]
+    rays_d = directions @ rot.T
+    rays_o = pose[:3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def full_image_rays(pose, intrinsics, H: int, W: int):
+    """Rays for every pixel of an image, row-major [H*W, 3]."""
+    inds = torch.arange(H * W, device=pose.device)
+    return pixel_rays(pose, intrinsics, inds, W)

@@ -1,0 +1,336 @@
+"""Occupancy-grid volume render, forward (port of
+``raw_ngp_tpu/render/occupancy.py``).
+
+The JAX design is kept: static shapes end to end. Candidates are placed
+by inverting each ray's CDF of coarse-probe hits, tested against the
+Morton bitfield, budget-decimated, compacted across rays into ``m_pad``
+slots (the compaction kernel, ``raw_ngp_torch/kernels/compact.py``), run
+through the field (whose encode is the hash kernel) and composited on the
+compacted stream. No step reads a device value back to the host.
+
+Only the branches of the flagship configuration are ported: uniform
+probes with the integer CDF branch of ``cdf_candidates``, the ``S == K``
+return of ``march_rays`` and the compact-composite branch of
+``render_occupancy``. The others raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from raw_ngp_torch.kernels.compact import (SENTINEL, compact_attrs,
+                                           compact_positions,
+                                           gather_flat_sorted)
+from raw_ngp_torch.ops.compositing import (composite_rays_compacted,
+                                           composite_with_background)
+from raw_ngp_torch.ops.morton import morton3d
+from raw_ngp_torch.ops.rays import near_far_from_aabb
+
+
+def _floor_log2_p1(x):
+    """floor(log2(x)) + 1 for positive finite f32, read from the exponent
+    field of the bits (int32)."""
+    bits = torch.clamp_min(x, 1e-12).float().view(torch.int32)
+    return (bits >> 23) - 126
+
+
+def _pow2(level):
+    """2^level (f32) built in the exponent field of a small int level."""
+    return ((level + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def _mip_level(pos, dt, grid_size: int, cascades: int):
+    """max(mip_from_pos, mip_from_dt) clamped to [0, cascades-1]
+    (raymarching.cu:42-54)."""
+    lp = _floor_log2_p1(pos.abs().amax(dim=-1))
+    ld = _floor_log2_p1(dt * grid_size * 0.5)
+    level = torch.clamp_min(torch.maximum(lp, ld), 0)
+    return torch.clamp_max(level, cascades - 1)
+
+
+def _bitfield_words(bitfield):
+    """u8 bitfield -> its little-endian 32-bit words (int32 view; bit
+    (i & 31) of word i >> 5 is bit (i & 7) of byte i >> 3)."""
+    return bitfield.contiguous().view(torch.int32)
+
+
+def occupancy_lookup(bitfield, pos, dt, bound: float, grid_size: int,
+                     cascades: int):
+    """Bitfield test of world positions [..., 3] with step sizes dt [...]
+    at their mip level (raymarching.cu:406-442). No contraction."""
+    pos = torch.clamp(pos, -bound, bound)
+    level = _mip_level(pos, dt, grid_size, cascades)
+    mip_bound = torch.clamp_max(_pow2(level), bound)
+    mip_rbound = 1.0 / mip_bound
+    n = torch.clamp(0.5 * (pos * mip_rbound[..., None] + 1.0) * grid_size,
+                    0.0, grid_size - 1).to(torch.int32)
+    index = level.to(torch.int64) * grid_size ** 3 + morton3d(n)
+    word = _bitfield_words(bitfield)[index >> 5]
+    # arithmetic >> on a negative int32 still leaves bit s at position 0
+    return ((word >> (index & 31).to(torch.int32)) & 1).bool()
+
+
+@functools.lru_cache(maxsize=8)
+def _morton_of_linear(hc: int):
+    """[Hc^3] Morton code of each x-major linear cell (host numpy)."""
+    x, y, z = np.meshgrid(np.arange(hc), np.arange(hc), np.arange(hc),
+                          indexing="ij")
+
+    def spread(v):
+        v = v.astype(np.uint32)
+        v = (v | (v << 16)) & np.uint32(0x030000FF)
+        v = (v | (v << 8)) & np.uint32(0x0300F00F)
+        v = (v | (v << 4)) & np.uint32(0x030C30C3)
+        v = (v | (v << 2)) & np.uint32(0x09249249)
+        return v
+
+    code = spread(x) | (spread(y) << 1) | (spread(z) << 2)
+    return code.reshape(-1).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=64)
+def _axis_overlap(hc: int, mb_tgt: float, mb_src: float):
+    """[hc, hc] 0/1 matrix: target-cascade axis cell a overlaps source
+    cell b (boundary touches count; out-of-extent source cells clamp to
+    the edge cell)."""
+    a = np.arange(hc + 1, dtype=np.float64)
+    t = (a / hc * 2.0 - 1.0) * mb_tgt
+    s = (a / hc * 2.0 - 1.0) * mb_src
+    ov = (t[:-1, None] <= s[None, 1:]) & (s[None, :-1] <= t[1:, None])
+    ov[0] |= s[1:] <= t[0]
+    ov[-1] |= s[:-1] >= t[-1]
+    return ov.astype(np.float32)
+
+
+def coarse_occupancy(bitfield, grid_size: int, cascades: int,
+                     dilate_radius: int, bound: float = 0.0):
+    """4^3 max-pool + cross-cascade union + dilation of the Morton
+    bitfield into linear-order coarse volumes [CAS * Hc^3] int32
+    (Hc = H/4). Coarse cell c covers the 64 fine codes [64c, 64c+64), i.e.
+    u32 words 2c and 2c+1."""
+    if cascades > 1 and bound <= 0.0:
+        raise ValueError("coarse_occupancy needs bound > 0 when "
+                         "cascades > 1 (cross-cascade union fold)")
+    hc = grid_size // 4
+    dev = bitfield.device
+    words = _bitfield_words(bitfield).reshape(cascades, hc ** 3, 2)
+    occ_m = (words[..., 0] | words[..., 1]) != 0            # Morton order
+    lin = torch.from_numpy(_morton_of_linear(hc)).to(dev)
+    vol = occ_m[:, lin].reshape(cascades, hc, hc, hc).float()
+    if bound > 0.0 and cascades > 1:
+        mbs = [float(min(2.0 ** l, bound)) for l in range(cascades)]
+        folded = []
+        for tgt in range(cascades):
+            u = vol[tgt]
+            for src in range(cascades):
+                if src == tgt:
+                    continue
+                ov = torch.from_numpy(
+                    _axis_overlap(hc, mbs[tgt], mbs[src])).to(dev)
+                r = vol[src]
+                r = torch.einsum("xa,ayz->xyz", ov, r)
+                r = torch.einsum("yb,xbz->xyz", ov, r)
+                r = torch.einsum("zc,xyc->xyz", ov, r)
+                u = u + r
+            folded.append(u)
+        vol = torch.stack(folded)
+    k = 2 * dilate_radius + 1
+    vol = F.max_pool3d(vol[:, None], k, stride=1, padding=dilate_radius)
+    return (vol > 0).reshape(-1).to(torch.int32)
+
+
+def _coarse_dilate_radius(bound: float, grid_size: int,
+                          n_probes: int) -> int:
+    """Worst-case probe half-spacing over the cascade-0 coarse cell."""
+    hc = grid_size // 4
+    max_span = 2.0 * np.sqrt(3.0) * bound
+    cell0 = 2.0 * min(1.0, bound) / hc
+    return max(1, int(np.ceil(max_span / n_probes / (2.0 * cell0))))
+
+
+def _probe_grid(nears, fars, n_probes: int):
+    """Uniform probe intervals over [near, far]: centers t [N, P] and
+    spacing [N, 1]."""
+    steps = torch.arange(n_probes, dtype=torch.float32,
+                         device=nears.device)[None, :] + 0.5
+    spacing = (fars - nears) / n_probes
+    return nears + spacing * steps, spacing
+
+
+def _probe_occupancy(rays_o, rays_d, coarse_lin, nears, fars, bound: float,
+                     grid_size: int, cascades: int, n_probes: int):
+    """Per-ray probe-interval occupancy against the dilated, union-folded
+    coarse grid: one gather per probe at its containing cascade.
+    Returns (occ [N, P] bool, t [N, P], spacing [N, 1])."""
+    hc = grid_size // 4
+    t, spacing = _probe_grid(nears, fars, n_probes)
+    pos = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
+    pos = torch.clamp(pos, -bound, bound)
+    lvl = torch.clamp(_floor_log2_p1(pos.abs().amax(dim=-1)), 0,
+                      cascades - 1)
+    mb = torch.clamp_max(_pow2(lvl), bound)[..., None]
+    n = torch.clamp(0.5 * (pos / mb + 1.0) * hc, 0.0,
+                    hc - 1).to(torch.int64)
+    idx = (lvl.to(torch.int64) * hc ** 3
+           + (n[..., 0] * hc + n[..., 1]) * hc + n[..., 2])
+    occ = coarse_lin[idx] > 0
+    return occ & (t < fars), t, spacing
+
+
+def cdf_candidates(rays_o, rays_d, coarse_lin, nears, fars, bound: float,
+                   grid_size: int, cascades: int, n_probes: int,
+                   num_candidates: int, jitter):
+    """Candidate times over the OCCUPIED probe intervals only: the S
+    candidates fill the union of occupied intervals uniformly, by
+    inverting each ray's integer CDF of probe hits (uniform probes, no
+    dt_gamma, no floor). Returns (t_cand [N, S], dt [N, 1])."""
+    occ, _, spacing = _probe_occupancy(
+        rays_o, rays_d, coarse_lin, nears, fars, bound, grid_size,
+        cascades, n_probes)
+    S = num_candidates
+    steps = torch.arange(S, dtype=torch.float32, device=nears.device)[None]
+    Wt = torch.cumsum(occ.to(torch.int32), dim=1, dtype=torch.int32)
+    w = Wt[:, -1:].float()                                  # [N, 1]
+    u = (steps + jitter) * (w / S)                          # [N, S]
+    j_occ = torch.floor(u)
+    j32 = j_occ.to(torch.int32)
+    # probe index of the (j_occ+1)-th occupied interval: count probes
+    # whose cumulative hit count has not passed j_occ
+    p_idx = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+    for p in range(n_probes):
+        p_idx = p_idx + (Wt[:, p:p + 1] <= j32).to(torch.int32)
+    frac = u - j_occ
+    t_cand = nears + (p_idx.float() + frac) * spacing
+    dt = spacing * w / S
+    return t_cand, dt
+
+
+def march_rays(rays_o, rays_d, bitfield, nears, fars, bound: float,
+               grid_size: int, cascades: int, num_candidates: int,
+               samples_per_ray: int, coarse_probes: int, coarse_lin=None):
+    """Candidate -> occupancy mask march, S == K with CDF candidates over
+    coarse probes (jitter 0.5, the deterministic ``key=None`` path).
+    Returns dict with ts [N, K] (-1 where dead), deltas [N, K] and
+    mask [N, K]."""
+    N = rays_o.shape[0]
+    S, K = num_candidates, samples_per_ray
+    if S != K or coarse_probes <= 0:
+        raise NotImplementedError("only the S == K CDF march is ported")
+    if coarse_lin is None:
+        coarse_lin = coarse_occupancy(
+            bitfield, grid_size, cascades,
+            _coarse_dilate_radius(bound, grid_size, coarse_probes),
+            bound=bound)
+    t_cand, dt = cdf_candidates(
+        rays_o, rays_d, coarse_lin, nears, fars, bound, grid_size, cascades,
+        coarse_probes, S, 0.5)
+    pos = rays_o[:, None, :] + rays_d[:, None, :] * t_cand[..., None]
+    occ = occupancy_lookup(bitfield, pos, dt.expand(N, S), bound,
+                           grid_size, cascades)
+    occ = occ & (t_cand < fars)
+    # candidates ARE the sample slots: dead candidates just mask out
+    ts = torch.where(occ, t_cand, -1.0)
+    return {"ts": ts, "deltas": dt.expand(N, K), "mask": occ}
+
+
+def compact_positions_attrs(mask, m_pad: int, attrs, plain: bool = False):
+    """Compaction of the kept samples fused with their attribute gathers.
+
+    The kernel path computes the inclusive count and the keys here, as the
+    JAX package does outside its Pallas kernel, and hands them to
+    :func:`compact_attrs`; ``plain=True`` runs the plain version
+    (compact_positions + gather_flat_sorted) on any device. Both give
+    bit-identical results.
+    Returns (kept [N, K], inv [M], pos [m_pad], attrs_c list of [m_pad]).
+    """
+    if plain:
+        kept, inv, pos = compact_positions(mask, m_pad)
+        return kept, inv, pos, [gather_flat_sorted(a.float(), pos)
+                                for a in attrs]
+    flat = mask.reshape(-1)
+    c = torch.cumsum(flat.to(torch.int32), 0, dtype=torch.int32)
+    kept = flat & (c <= m_pad)
+    inv = torch.where(kept, c - 1, m_pad).to(torch.int32)
+    keys = torch.where(kept, c - 1, SENTINEL).to(torch.int32)
+    pos, attrs_c = compact_attrs(
+        torch.stack([a.float() for a in attrs]).contiguous(), keys, c, m_pad)
+    return kept.reshape(mask.shape), inv, pos, list(attrs_c)
+
+
+def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
+                     coarse_lin=None, plain: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """Full occupancy-path render of rays [N, 3] at fixed parameters
+    (``render_occupancy(key=None, training=False)``). ``field`` is an
+    :class:`raw_ngp_torch.models.ngp.NGPField`; ``plain=True`` runs the
+    plain versions of both kernels. Returns image [N, 3], depth [N] and
+    weights_sum [N]."""
+    cfg = field.spec.cfg
+    r = cfg.render
+    N = rays_o.shape[0]
+    K = r.samples_per_ray
+    if (r.contract or r.dt_gamma > 0.0 or not r.march_cdf or r.probe_log
+            or r.cdf_floor > 0.0 or r.compact_ratio <= 0
+            or r.compute_normals):
+        raise NotImplementedError(
+            "only the flagship occupancy branch is ported (no contraction, "
+            "dt_gamma, span march, log probes, cdf floor, expand path or "
+            "normals)")
+
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, r.min_near)
+    miss = fars >= 1e8
+    nears = torch.where(miss, 1.0, nears)
+    fars = torch.where(miss, 1.001, fars)
+
+    m = march_rays(rays_o, rays_d, bitfield, nears, fars, r.bound,
+                   r.grid_size, cfg.cascades, r.march_candidates, K,
+                   r.coarse_probes, coarse_lin=coarse_lin)
+    ts, deltas, mask = m["ts"], m["deltas"], m["mask"]
+    mask = mask & ~miss
+
+    # evaluate the field on at most m_pad packed samples; the budget keys
+    # off the base cfg.train.num_rays (not the chunk), as in training
+    m_pad = max(int(min(N, cfg.train.num_rays) * K * r.compact_ratio)
+                // 128 * 128, 128)
+    # over budget: decimate uniformly along each ray and scale dt by the
+    # stride (all on the device: no host sync)
+    valid_total = mask.sum()
+    stride = torch.clamp_min((valid_total + m_pad - 1) // m_pad, 1)
+    k_idx = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    mask = mask & ((k_idx % stride) == 0)
+    deltas = deltas * stride.float()
+    attrs = [ts.reshape(-1), deltas.expand(N, K).reshape(-1)]
+    mask, _, pos, attrs_c = compact_positions_attrs(mask, m_pad, attrs,
+                                                    plain=plain)
+    t_c, dt_c = attrs_c
+    M = N * K
+    # unfilled slots (pos == M) read the dummy ray row N: origin 0, unit-z
+    # direction (a zero direction would NaN the SH normalization); the
+    # sentinel also keeps rid ascending
+    filled = pos < M
+    rid = torch.where(filled, torch.clamp_max(pos, M - 1) // K, N)
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=rays_d.dtype,
+                      device=rays_d.device)
+    odl = torch.cat([torch.cat([rays_o, torch.zeros_like(ez)[None]]),
+                     torch.cat([rays_d, ez[None]])], dim=1)
+    odl = odl[rid.to(torch.int64)]                          # gather_ray_rows
+    o_c, d_c = odl[:, :3], odl[:, 3:6]
+    xyz_c = torch.clamp(o_c + d_c * t_c[:, None], -r.bound, r.bound)
+    dnorm = torch.linalg.norm(d_c, dim=-1, keepdim=True)
+    dirs_c = torch.where(dnorm > 1e-8, d_c / dnorm, ez)
+    sig_c, rgb_c = field(xyz_c, dirs_c, plain=plain)
+
+    out = composite_rays_compacted(
+        sig_c, rgb_c, t_c, dt_c, rid, filled, mask.sum(dim=-1), N, K,
+        t_thresh=r.t_thresh)
+    return {
+        "image": composite_with_background(out["image"], out["weights_sum"],
+                                           bg_color),
+        "depth": out["depth"],
+        "weights_sum": out["weights_sum"],
+    }

@@ -1,0 +1,143 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc (marker ``gpu``) and skips
+where torch.cuda is unavailable. The file imports neither JAX nor the JAX
+package, so it also runs on a machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
+
+(``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raw_ngp_torch.kernels import compact as tc
+from raw_ngp_torch.kernels import hash_encode as th
+from raw_ngp_torch.ops.hashgrid import HashGridSpec, hash_encode_01
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA only")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep_rate", [0.0, 0.03, 0.25, 0.9, 1.0])
+def test_compact_kernel_matches_plain(cuda_device, keep_rate):
+    """Bit-exact at the render's shape (M = 1,048,576, m_pad = 262,144)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    M, m_pad = 1 << 20, 262144
+    mask = torch.rand(M, generator=gen, device=cuda_device) < keep_rate
+    attrs = torch.randn(2, M, generator=gen, device=cuda_device)
+    c = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
+    keys = torch.where(mask & (c <= m_pad), c - 1,
+                       tc.SENTINEL).to(torch.int32)
+    before = tc.compact_attrs.launches
+    pos, att = tc.compact_attrs(attrs, keys, c, m_pad)
+    assert tc.compact_attrs.launches == before + 1
+    _, _, pos_p = tc.compact_positions(keys < m_pad, m_pad)
+    att_p = torch.stack([tc.gather_flat_sorted(a, pos_p) for a in attrs])
+    torch.cuda.synchronize()
+    assert torch.equal(pos, pos_p)
+    assert torch.equal(att.view(torch.int32), att_p.view(torch.int32))
+
+
+def _points(B):
+    rng = np.random.default_rng(0)
+    x = rng.random((B, 3)).astype(np.float32)
+    x[:8] = x[:8] * 3.0 - 1.0          # out of bounds -> zeros
+    x[8:12, 1] = np.nan                # NaN -> zeros
+    x[12], x[13] = 0.0, 1.0
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,gridtype,align,interp", [
+    ("additive", "hash", False, "linear"),
+    ("xor", "hash", False, "linear"),
+    ("xor", "hash", True, "smoothstep"),
+    ("xor", "tiled", False, "linear"),
+])
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
+def test_encode_kernel_matches_plain(cuda_device, variant, gridtype, align,
+                                     interp, C):
+    """f32 at atol 1e-6; bf16 within one bf16 ulp (rtol 1e-2), since the
+    kernel sums the 8 corners in another order than the plain version."""
+    spec = HashGridSpec.create(num_levels=4, level_dim=C,
+                               log2_hashmap_size=14, desired_resolution=512,
+                               hash_variant=variant, gridtype=gridtype,
+                               align_corners=align, interpolation=interp)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.rand(spec.n_params * C, generator=gen,
+                       device=cuda_device) * 2 - 1
+    x = torch.from_numpy(_points(8192)).to(cuda_device)
+    for dtype, tol in ((torch.float32, dict(rtol=0, atol=1e-6)),
+                       (torch.bfloat16, dict(rtol=1e-2, atol=1e-6))):
+        before = th.hash_encode.launches
+        out = th.hash_encode(table, x, spec, compute_dtype=dtype)
+        assert th.hash_encode.launches == before + 1
+        ref = hash_encode_01(table, x, spec, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (8192, 4 * C)
+        assert (out[:12] == 0).all()
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_bad_inputs(cuda_device):
+    spec = HashGridSpec.create(num_levels=2, level_dim=16,
+                               log2_hashmap_size=12, desired_resolution=64)
+    table = torch.zeros(spec.n_params * 16, device=cuda_device)
+    x = torch.rand(64, 3, device=cuda_device)
+    with pytest.raises(TypeError):
+        th.hash_encode(table.double(), x, spec)
+    with pytest.raises(ValueError):
+        th.hash_encode(table, x[:, :2].contiguous(), spec)
+    with pytest.raises(ValueError):
+        th.hash_encode(table, x.t().contiguous().t(), spec)
+    keys = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tc.compact_attrs(torch.zeros(1, 16, device=cuda_device), keys,
+                         keys.long(), 8)
+
+
+@pytest.mark.gpu
+def test_render_kernel_path_matches_plain(cuda_device):
+    """A miniature of the flagship render (f32) through both kernels
+    against the same render on the plain path, on the card."""
+    from dataclasses import replace
+
+    from raw_ngp_torch import Config
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.models.ngp import init_field, make_field_spec
+    from raw_ngp_torch.ops.grid import packbits
+    from raw_ngp_torch.render.eval import render_image, scene_aabb
+
+    cfg = Config().with_preset_O().with_tpu_profile()
+    cfg = replace(cfg, model=replace(cfg.model, log2_hashmap_size=12,
+                                     hashgrid_resolution=64))
+    cfg = replace(cfg, render=replace(cfg.render, grid_size=32,
+                                      max_ray_batch=1024),
+                  train=replace(cfg.train, fp16=False, num_rays=512))
+    field = init_field(make_field_spec(cfg), seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    bits = packbits(torch.rand(cfg.cascades, 32 ** 3, generator=gen,
+                               device=cuda_device), 0.8)
+    _, val = make_synthetic_scene(n_train=2, n_val=1, H=32, W=32)
+    aabb = scene_aabb(cfg, val.pts_aabb, device=cuda_device)
+    before = (tc.compact_attrs.launches, th.hash_encode.launches)
+    rgb, depth = render_image(field, bits, val.poses[0], val.intrinsics, 48,
+                              48, aabb, device=cuda_device)
+    assert tc.compact_attrs.launches - before[0] == 3
+    assert th.hash_encode.launches - before[1] == 3
+    rgb_p, depth_p = render_image(field, bits, val.poses[0], val.intrinsics,
+                                  48, 48, aabb, device=cuda_device,
+                                  plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rgb).all() and (depth > 0).any()
+    torch.testing.assert_close(rgb, rgb_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(depth, depth_p, rtol=0, atol=1e-5)
