@@ -22,12 +22,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launch counters reset just before and read just after; the
               images must be finite and one chunk must agree with the same
               render on the plain path on the card;
-  5. timing — each kernel, its plain version and (compaction) the
-              torch.nonzero + index_select yardstick with CUDA events; the
+  5. segsum — kernel B2 (sorted segment totals) against its plain version
+              at the flagship's level-1 shape (1,048,576 records of
+              262,144 points into 524,288 rows, 16 channels), random keys
+              and a dense-skew stream, within rtol 1e-5 (1e-4 on skew);
+  6. encode_bwd — the encode's table gradient (record kernel, torch.sort,
+              B2, combine, dense-level matmul) on the kernel path against
+              the plain path at B = 262,144, f32 and bf16, within rtol
+              1e-5 of the largest entry;
+  7. train  — the flagship Trainer on make_synthetic_scene(36, 2, 128,
+              128) for 128 steps (8 grid refreshes) with every launch
+              counter reset just before and read just after: all four
+              kernels launched, finite losses that fall (last 8 below the
+              first 8), finite params and EMA, the val PSNR (EMA), and one
+              step on a fixed batch that agrees between the kernel path
+              and the plain path;
+  8. timing — each kernel, its plain version and a PyTorch yardstick where
+              one exists (torch.nonzero + index_select for the
+              compaction, index_add_ for B2) with CUDA events; the
               512x512 render in ms per chunk and rays/s (median of 7
-              images, each time listed), and a torch.profiler breakdown of
-              one chunk (device busy and idle share, top kernels).
-It prints a `kernels` JSON line, a `render` JSON line and the card's name
+              images, each time listed); the train step in ms and rays/s
+              (median of the last 32 steps, CUDA events, each listed);
+              a torch.profiler breakdown of one chunk and of one step
+              (device busy and idle share, launches, top kernels).
+It prints `render`, `train` and `kernels` JSON lines and the card's name
 and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a result when torch.cuda is not available, or
@@ -205,6 +223,145 @@ def phase_encode(dev, spec, B=262144):
                 library_ms=None)
 
 
+def _outer_stream(dev, M, B, n_rows, C, skew):
+    """A sorted outer-product record stream as the table gradient builds
+    it: keys sorted by torch.sort with their permutation, a (w0, w1) word
+    per record, C g-channels per point."""
+    import torch
+    from raw_ngp_torch.kernels import segsum as ts
+    gen = torch.Generator(device=dev).manual_seed(3)
+    keys = torch.randint(0, n_rows, (M,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if skew:        # a dense level's funnel: 90% of records into one row
+        keys = torch.where(torch.rand(M, generator=gen, device=dev) < 0.9,
+                           7, keys).to(torch.int32)
+    keys_s, perm = torch.sort(keys, stable=True)
+    w = torch.rand(2, M, generator=gen, device=dev)
+    g = torch.randn(B, C, generator=gen, device=dev)
+    return (keys_s, perm.to(torch.int32), ts.pack_bf16_pairs([w[0], w[1]])[0],
+            torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous())
+
+
+def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
+    import torch
+    from raw_ngp_torch.kernels import segsum as ts
+    errs = {}
+    for skew, rtol in ((False, 1e-5), (True, 1e-4)):
+        keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
+                                                      skew)
+        k = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
+        p = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words,
+                                          n_rows, C)
+        torch.cuda.synchronize()
+        empty = torch.ones(n_rows, dtype=torch.bool, device=dev)
+        empty[keys_s.long()] = False
+        check(bool((k[empty] == 0).all()), "segsum: an empty row is not 0")
+        err = float((k - p).abs().max())
+        check(torch.allclose(k, p, rtol=rtol, atol=1e-5),
+              f"segsum skew={skew}: max abs err {err} exceeds rtol {rtol}")
+        errs[skew] = err
+        print(f"[segsum] M={M} rows={n_rows} C={C} skew={skew}: max abs err "
+              f"{err:.3e} (rtol {rtol}, atol 1e-5), {int(empty.sum())} "
+              f"empty rows exactly 0: ok")
+
+    keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
+                                                  False)
+    out = torch.empty(n_rows, 2 * C, device=dev)
+    ms = time_ms(lambda: ts.segment_totals_outer(
+        keys_s, perm, w_word, g_words, n_rows, C, out=out), 50)
+    plain_ms = time_ms(lambda: ts.segment_totals_outer_plain(
+        keys_s, perm, w_word, g_words, n_rows, C, out=out), 5)
+    prod = ts._outer_products(perm, w_word, g_words, C)
+    keys64 = keys_s.long()
+    library_ms = time_ms(lambda: out.zero_().index_add_(0, keys64, prod), 20)
+    n_words = (C + 1) // 2
+    rows_read = int(torch.unique(perm.long() % B).numel())
+    n_bytes = 12 * M + 4 * n_words * rows_read + 4 * 2 * C * n_rows
+    n_ops = 2 * 2 * C * M          # one multiply and one add per channel
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+    print(f"[segsum] kernel {ms:.4f} ms (zero fill included), plain "
+          f"{plain_ms:.4f} ms, index_add_ of the products {library_ms:.4f} "
+          f"ms; {n_bytes} bytes ({bytes_ms * 1e3:.2f} us), {n_ops} flop "
+          f"({ops_ms * 1e3:.2f} us)")
+    return dict(name="segment_totals", route="cuda",
+                source="raw_ngp_torch/csrc/segsum.cu",
+                replaces="raw_ngp_tpu/kernels/segsum_pallas.py:124",
+                max_abs_err=errs[False], max_abs_err_skew=errs[True], ms=ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms,
+                library="index_add_ of the bf16-rounded products")
+
+
+def phase_encode_bwd(dev, spec, B=262144):
+    """The table gradient, kernel path against plain path, then its time
+    in bf16 (the flagship's compute dtype) and that of its pieces."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    gen = torch.Generator(device=dev).manual_seed(4)
+    table = (torch.rand(spec.n_params * spec.level_dim, generator=gen,
+                        device=dev) * 2 - 1) * 1e-2
+    x01 = torch.rand(B, 3, generator=gen, device=dev)
+    x01[:64] = x01[:64] * 3.0 - 1.0
+    cot = torch.randn(B, spec.output_dim, generator=gen, device=dev)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = []
+        for fn in (th.hash_encode, th.hash_encode_plain):
+            p = table.clone().requires_grad_()
+            (fn(p, x01, spec, compute_dtype=dtype).float() * cot
+             ).sum().backward()
+            grads.append(p.grad)
+        torch.cuda.synchronize()
+        scale = float(grads[1].abs().max())
+        err = float((grads[0] - grads[1]).abs().max())
+        check(scale > 0 and torch.allclose(grads[0], grads[1], rtol=1e-5,
+                                           atol=1e-6 * scale),
+              f"encode_bwd {dtype}: max abs err {err} (scale {scale})")
+        errs[dtype] = err
+        print(f"[encode_bwd] {str(dtype)[6:]}: max abs err {err:.3e} of "
+              f"largest {scale:.3e} (rtol 1e-5, atol 1e-6 x largest): ok")
+
+    bf16 = torch.bfloat16
+    g = cot.to(bf16)
+
+    def kernel_path():
+        base, w_word = th.window_records(x01, spec)
+        return th.table_grad(spec, x01, base, w_word, g, bf16)
+
+    def plain_path():
+        base, w_word = th.window_records_plain(x01, spec)
+        return th.table_grad(spec, x01, base, w_word, g, bf16, plain=True)
+
+    ms = time_ms(kernel_path, 20)
+    plain_ms = time_ms(plain_path, 3)
+    records_ms = time_ms(lambda: th.window_records(x01, spec), 20)
+    base, _ = th.window_records(x01, spec)
+    lv, w0, nw = th.level_windows(spec, th.matmul_split(spec))[-1]
+    keys = (base[w0:w0 + nw].reshape(-1) - spec.offsets[lv]).contiguous()
+    sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 20)
+    mm_ms = time_ms(lambda: th.mm_grad_table(x01, g, spec, bf16), 10)
+    n_bytes = (B * 3 * 4 + B * spec.output_dim * 2
+               + spec.n_params * spec.level_dim * 4)
+    n_ops = 2 * 8 * spec.level_dim * spec.num_levels * B
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+    print(f"[encode_bwd] B={B} bf16: records + table gradient {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; records kernel {records_ms:.4f} ms, "
+          f"torch.sort of the level-{lv} keys ({keys.numel()}) {sort_ms:.4f} "
+          f"ms, dense-level matmul {mm_ms:.4f} ms; {n_bytes} bytes "
+          f"({bytes_ms * 1e3:.2f} us), {n_ops} flop ({ops_ms * 1e3:.2f} us)")
+    return dict(name="hash_encode_bwd", route="cuda",
+                source="raw_ngp_torch/csrc/hash_encode.cu",
+                replaces="raw_ngp_tpu/kernels/hash_fused.py:756",
+                max_abs_err=errs[bf16], max_abs_err_f32=errs[torch.float32],
+                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, records_ms=records_ms, sort_ms=sort_ms,
+                mm_ms=mm_ms)
+
+
 def sphere_bitfield(cfg, dev):
     """packbits of a density grid that occupies the bench scene's three
     spheres (world positions of the cell centers, per cascade)."""
@@ -238,8 +395,6 @@ def flagship_config():
 def phase_slice(dev, cfg, small=128, large=512):
     import torch
     from raw_ngp_torch.data import make_synthetic_scene
-    from raw_ngp_torch.kernels.compact import compact_attrs
-    from raw_ngp_torch.kernels.hash_encode import hash_encode
     from raw_ngp_torch.models.ngp import init_field, make_field_spec
     from raw_ngp_torch.ops.rays import full_image_rays
     from raw_ngp_torch.render.eval import (coarse_volume, make_eval_render,
@@ -266,20 +421,20 @@ def phase_slice(dev, cfg, small=128, large=512):
     print(f"[slice] bitfield {bitfield.numel()} bytes, occupied share "
           f"{occupied:.4f}")
 
-    # the main path, with every launch counter reset just before it
+    # the serving path, with every launch counter reset just before it
+    counters = _counters()
     torch.cuda.synchronize()
-    compact_attrs.launches = 0
-    hash_encode.launches = 0
+    for c in counters.values():
+        c.launches = 0
     rgb_s, d_s = render_image(field, bitfield, pose, intr_s, small, small,
                               aabb, device=dev)
     rgb_l, d_l = render_image(field, bitfield, pose, intr_l, large, large,
                               aabb, device=dev)
     torch.cuda.synchronize()
-    launches = {"compact_attrs": compact_attrs.launches,
-                "hash_encode": hash_encode.launches}
-    print(f"[slice] launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"slice: kernel {name} was never launched")
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[slice] launches on the serving path: {launches}")
+    for name in ("compact_attrs", "hash_encode"):
+        check(launches[name] > 0, f"slice: kernel {name} was never launched")
     for name, t, shape in (("rgb small", rgb_s, (small, small, 3)),
                            ("depth small", d_s, (small, small)),
                            ("rgb large", rgb_l, (large, large, 3)),
@@ -344,19 +499,26 @@ def phase_slice(dev, cfg, small=128, large=512):
 
 def profile_chunk(cfg, field, bitfield, ro, rd, aabb, coarse, reps=3):
     """Where one chunk's time goes: torch.profiler over `reps` chunk
-    renders; the device kernels by total time and the device's busy share
-    of the host-clock window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    renders."""
     from raw_ngp_torch.render.eval import make_eval_render
     render = make_eval_render(cfg)
-    render(field, bitfield, ro, rd, aabb, coarse)
+    return profile_device(
+        lambda: render(field, bitfield, ro, rd, aabb, coarse), reps, "chunk")
+
+
+def profile_device(fn, reps, unit):
+    """torch.profiler over `reps` calls of fn (after one warm-up call): the
+    device kernels by total time and the device's busy share of the
+    host-clock window, per `unit`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            render(field, bitfield, ro, rd, aabb, coarse)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
@@ -366,14 +528,175 @@ def profile_chunk(cfg, field, bitfield, ro, rd, aabb, coarse, reps=3):
         return {"device_time": "not measured (no device events)"}
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
-    return {"chunks": reps, "wall_ms_per_chunk": wall_us / reps / 1e3,
-            "device_busy_ms_per_chunk": busy_us / reps / 1e3,
+    return {f"{unit}s": reps, f"wall_ms_per_{unit}": wall_us / reps / 1e3,
+            f"device_busy_ms_per_{unit}": busy_us / reps / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-            "kernel_launches_per_chunk": sum(e.count for e in kernels) / reps,
+            f"kernel_launches_per_{unit}":
+                sum(e.count for e in kernels) / reps,
             "top_kernels": [{"name": e.key[:70], "calls": e.count // reps,
-                             "ms_per_chunk":
+                             f"ms_per_{unit}":
                                  e.self_device_time_total / reps / 1e3}
                             for e in top]}
+
+
+def _counters():
+    from raw_ngp_torch.kernels.compact import compact_attrs
+    from raw_ngp_torch.kernels.hash_encode import hash_encode, window_records
+    from raw_ngp_torch.kernels.segsum import segment_totals_outer
+    return {"compact_attrs": compact_attrs, "hash_encode": hash_encode,
+            "hash_encode_bwd": window_records,
+            "segment_totals": segment_totals_outer}
+
+
+def step_breakdown(tr, reps=5):
+    """Where a train step's time goes: the stages of Trainer.step run one
+    by one, each ended by a synchronize, on the host clock (median of
+    `reps` steps, ms), plus one grid refresh and coarse-volume rebuild
+    (every update_extra_interval steps) on its own."""
+    import torch
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.render.eval import coarse_volume
+    from raw_ngp_torch.train.trainer import make_batch_loss_fn
+    loss_fn = make_batch_loss_fn(tr.cfg, tr.spec)
+    sa, st = tr.scene_arrays, tr.state
+    stages = {k: [] for k in ("sample", "render_and_loss", "backward",
+                              "adam_ema")}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        batch = timed("sample", lambda: sample_ray_batch(
+            tr.generator, sa["images"], sa["poses"], sa["intrinsics"],
+            tr.num_rays, random_image_batch=tr.cfg.train.random_image_batch))
+        batch["coarse_lin"] = sa["coarse_lin"]
+        for p in st.params.values():
+            p.grad = None
+        loss, _ = timed("render_and_loss", lambda: loss_fn(
+            tr.field, st, batch, tr.aabb, tr.generator,
+            point_budget=tr._point_budget))
+        timed("backward", loss.backward)
+        grads = {k: p.grad for k, p in st.params.items()}
+        timed("adam_ema", lambda: tr.net_tx.update_apply(
+            grads, st.opt_state, st.params, st.ema_params))
+    out = {k: sorted(v)[reps // 2] for k, v in stages.items()}
+    t0 = time.perf_counter()
+    tr._grid_update(tr.field, st.grid_state(), tr.host_grid_updates,
+                    tr.generator)
+    coarse_volume(tr.cfg, st.density_bitfield)
+    torch.cuda.synchronize()
+    out["grid_refresh"] = (time.perf_counter() - t0) * 1e3
+    out["grid_refresh_per_step"] = (out["grid_refresh"]
+                                    / tr.cfg.render.update_extra_interval)
+    return out
+
+
+def phase_train(dev, cfg, steps=128, timed=32):
+    """The flagship Trainer through its entry points: `steps` steps with
+    every launch counter reset just before and read just after, then the
+    checks, the val PSNR, a fixed-batch kernel-vs-plain step and a
+    profile of one step."""
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.train.trainer import Trainer, make_batch_loss_fn
+
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_s, val_s, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        events[i].record()
+        losses.append(tr.step()["loss"])
+    events[steps].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[train] {steps} steps in {wall_s:.2f} s (init {init_s:.2f} s), "
+          f"{tr.host_grid_updates} grid refreshes; launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"train: kernel {name} was never launched")
+    loss = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(loss).all()), "train: a loss is not finite")
+    first, last = float(loss[:8].mean()), float(loss[-8:].mean())
+    print(f"[train] loss mean of the first 8 steps {first:.6f}, of the last "
+          f"8 {last:.6f}")
+    check(last < first, "train: the loss did not fall")
+    for what, tensors in (("params", tr.state.params),
+                          ("ema", tr.state.ema_params)):
+        for k, t in tensors.items():
+            check(bool(torch.isfinite(t).all()), f"train: {what} {k} not "
+                                                 f"finite")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr = tr.evaluate()["psnr"]
+    print(f"[train] last {timed} steps: median {med:.3f} ms/step, "
+          f"{tr.num_rays / med * 1e3:.0f} rays/s; val PSNR (EMA) "
+          f"{psnr:.3f} dB")
+
+    # one step on a fixed batch: kernel path against plain path
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sa = tr.scene_arrays
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays)
+    batch["coarse_lin"] = sa["coarse_lin"]
+    loss_fn = make_batch_loss_fn(cfg, tr.spec)
+    out = {}
+    for plain in (False, True):
+        for p in tr.field.parameters():
+            p.grad = None
+        l, aux = loss_fn(tr.field, tr.state, batch, tr.aabb, None,
+                         plain=plain)
+        l.backward()
+        out[plain] = (float(l.detach()), int(aux["num_points"]),
+                      {k: p.grad.clone() for k, p in
+                       tr.field.named_parameters()})
+    for p in tr.field.parameters():
+        p.grad = None
+    loss_err = abs(out[False][0] - out[True][0]) / abs(out[True][0])
+    grad_err = {k: float((g - out[True][2][k]).abs().max()
+                         / out[True][2][k].abs().max().clamp_min(1e-30))
+                for k, g in out[False][2].items()}
+    print(f"[train] fixed batch, kernel vs plain: loss {out[False][0]:.6f} "
+          f"vs {out[True][0]:.6f} (rel {loss_err:.2e}), points "
+          f"{out[False][1]} vs {out[True][1]}, grad max err / leaf max "
+          f"{grad_err}")
+    # bf16 encode outputs may round one ulp apart between the kernel and
+    # the plain version (f32 sum order), which the bf16 MLPs and their
+    # bf16-rounded gradients carry into every leaf
+    check(out[False][1] == out[True][1] and loss_err <= 1e-2
+          and max(grad_err.values()) <= 5e-2,
+          f"train: kernel path disagrees with the plain path")
+
+    train = {"config": "flagship (with_preset_O + with_tpu_profile, fp16, "
+                       "num_rays 8192)",
+             "scene": "make_synthetic_scene(36, 2, 128, 128)",
+             "steps": steps, "grid_refreshes": tr.host_grid_updates,
+             "num_rays": tr.num_rays,
+             "point_budget": tr._point_budget or tr.base_point_budget(),
+             "ms_per_step": med, "rays_per_s": tr.num_rays / med * 1e3,
+             "ms_per_step_runs": window, "val_psnr_ema": psnr,
+             "loss_first8": first, "loss_last8": last,
+             "fixed_batch_kernel_vs_plain": {"loss_rel": loss_err,
+                                             "grad_rel": grad_err},
+             "stages_ms": step_breakdown(tr),
+             "profile": profile_device(tr.step, 1, "step")}
+    return launches, train
 
 
 def gpu_line():
@@ -415,19 +738,26 @@ def main() -> int:
         k_compact = phase_compact(dev)
         from raw_ngp_torch.models.ngp import make_field_spec
         cfg = flagship_config()
-        k_encode = phase_encode(dev, make_field_spec(cfg).grid_spec)
-        launches, render = phase_slice(dev, cfg)
+        spec = make_field_spec(cfg).grid_spec
+        k_encode = phase_encode(dev, spec)
+        k_segsum = phase_segsum(dev)
+        k_bwd = phase_encode_bwd(dev, spec)
+        render_launches, render = phase_slice(dev, cfg)
+        launches, train = phase_train(dev, cfg)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
-    for k in (k_compact, k_encode):
+    for k in (k_compact, k_encode, k_bwd, k_segsum):
         k = dict(k)
         k["launches"] = launches[k["name"]]
+        if k["name"] in render_launches:
+            k["launches_render"] = render_launches[k["name"]]
         kernels.append(k)
     print(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"render": render}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

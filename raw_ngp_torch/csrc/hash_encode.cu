@@ -1,4 +1,5 @@
-// Multiresolution hash-grid encode, forward, for Hopper (sm_90a).
+// Multiresolution hash-grid encode, forward, and the records of its
+// backward, for Hopper (sm_90a).
 //
 // Replaces the encode that the JAX package runs through XLA in
 // raw_ngp_tpu/kernels/hash_fused.py (hash_encode_fused / _fused_fwd: the
@@ -16,6 +17,17 @@
 // the _rn intrinsics so nvcc cannot contract it into FMAs: the cell and
 // fraction must round exactly as the plain version's separate mul and sub.
 //
+// The same file holds the record kernel of the encode's backward,
+// window_records: it writes the residuals of hash_fused._fused_fwd
+// (_window_indices_weights, the 2-row windows of every level that is not
+// on the dense matmul path) as base [P, B] i32 and the (w0, w1) pair of
+// each window as one word of two truncated bf16 halves [P, B] (the
+// _pack_bf16_pairs word the table gradient sorts and sums, see
+// csrc/segsum.cu). Its weight products follow the JAX order (pair axis
+// last, the other axes in index order) so the truncated halves match bit
+// for bit. It is bound by bytes too: it reads the points and writes two
+// words per window (8.4 MB at the flagship's 262,144 points, 4 windows).
+//
 // Bound: bytes, as a gather. Each (point, level) reads 8 rows of C floats
 // at hashed addresses; the flagship's level-1 table (524,288 x 16 f32 =
 // 33.5 MB) fits in the 50 MB L2, so after first touch the gathers are L2
@@ -32,8 +44,9 @@ namespace {
 constexpr int kThreads = 256;
 // per-level row of the level table built by the Python wrapper
 // (raw_ngp_torch/kernels/hash_encode.py _level_table):
-// res, hmap, offset, n_strides, stride0, stride1, stride2, mode, axis
-constexpr int kLevelRow = 9;
+// res, hmap, offset, n_strides, stride0, stride1, stride2, mode, axis,
+// pairable, first window (records kernel; -1 on the matmul levels)
+constexpr int kLevelRow = 11;
 constexpr int kModeStride = 0, kModeXor = 1, kModeAdditive = 2;
 
 __device__ __forceinline__ uint32_t mix_prime(int d) {
@@ -192,10 +205,129 @@ void launch(bool bf16, const float* x01, const float* table,
   }
 }
 
+// Window records of one (point, level): 2^(D-1) windows of two adjacent
+// rows when the level is pairable, else 2^D one-corner windows
+// (hash_fused._window_indices_weights, D = 3).
+__global__ void window_records_kernel(const float* __restrict__ x01,
+                                      const int64_t* __restrict__ levels,
+                                      int32_t* __restrict__ base,
+                                      uint32_t* __restrict__ w_word,
+                                      int64_t B, int m, int L, int top,
+                                      int align_corners, int smoothstep) {
+  const int Lw = L - m;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= B * Lw) return;
+  const int64_t b = t / Lw;
+  const int lv = m + (int)(t - b * Lw);
+  const int64_t* lp = levels + lv * kLevelRow;
+  const uint32_t res = (uint32_t)lp[0];
+  const int a = (int)lp[8];
+  const bool pairable = lp[9] != 0;
+  const int64_t win0 = lp[10];
+
+  float x[3];
+  bool inb = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    x[d] = x01[b * 3 + d];
+    inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
+  }
+  const float inb_f = inb ? 1.0f : 0.0f;
+  float f[3];
+  uint32_t g[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float xd = inb ? x[d] : 0.5f;
+    float pos, gf;
+    if (align_corners) {
+      pos = __fmul_rn(xd, (float)(res - 1));
+      gf = fminf(floorf(pos), (float)(res - 2));
+    } else {
+      pos = __fsub_rn(__fmul_rn(xd, (float)res), 0.5f);
+      pos = fminf(fmaxf(pos, 0.0f), (float)(res - 1));
+      gf = floorf(pos);
+    }
+    float fd = __fsub_rn(pos, gf);
+    if (smoothstep) {
+      fd = __fmul_rn(__fmul_rn(fd, fd), __fsub_rn(3.0f, __fmul_rn(2.0f, fd)));
+    }
+    f[d] = fd;
+    g[d] = (uint32_t)(int)gf;
+  }
+  int rest[2];
+  for (int d = 0, j = 0; d < 3; ++d) {
+    if (d != a) rest[j++] = d;
+  }
+  const uint32_t a_lo = g[a];
+  const uint32_t a_hi = min(a_lo + 1, res - 1);
+  const float fa = f[a];
+  const float fa1 = __fsub_rn(1.0f, fa);
+  for (int h = 0; h < 4; ++h) {
+    uint32_t c[3];
+    float w_rest = inb_f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = rest[j];
+      const uint32_t bit = (h >> j) & 1u;
+      c[d] = min(g[d] + bit, res - 1);
+      w_rest = __fmul_rn(w_rest, bit ? f[d] : __fsub_rn(1.0f, f[d]));
+    }
+    c[a] = a_lo;
+    const int u = (int)level_row(lp, c);
+    c[a] = a_hi;
+    const int v = (int)level_row(lp, c);
+    const float w_u = __fmul_rn(fa1, w_rest);
+    const float w_v = __fmul_rn(fa, w_rest);
+    int bs[2];
+    float w0s[2], w1s[2];
+    int n_win;
+    if (pairable) {
+      const int bb = min(min(u, v), top);
+      bs[0] = bb;
+      w0s[0] = __fadd_rn(u == bb ? w_u : 0.0f, v == bb ? w_v : 0.0f);
+      w1s[0] = __fadd_rn(u == bb + 1 ? w_u : 0.0f, v == bb + 1 ? w_v : 0.0f);
+      n_win = 1;
+    } else {
+      const int idx[2] = {u, v};
+      const float w[2] = {w_u, w_v};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int bb = min(idx[k], top);
+        bs[k] = bb;
+        w0s[k] = idx[k] == bb ? w[k] : 0.0f;
+        w1s[k] = idx[k] == bb + 1 ? w[k] : 0.0f;
+      }
+      n_win = 2;
+    }
+    for (int k = 0; k < n_win; ++k) {
+      const int64_t o = (win0 + h * n_win + k) * B + b;
+      base[o] = bs[k];
+      w_word[o] = (__float_as_uint(w0s[k]) & 0xffff0000u)
+                  | (__float_as_uint(w1s[k]) >> 16);
+    }
+  }
+}
+
 }  // namespace
 
+// x01 [B, 3] f32, levels [L, kLevelRow] i64 -> base [P, B] i32 and
+// w_word [P, B] u32 for the levels m..L-1 (P windows in all; B > 0).
+// Returns cudaGetLastError().
+extern "C" int hash_encode_records(const float* x01, const int64_t* levels,
+                                   int32_t* base, uint32_t* w_word,
+                                   int64_t B, int m, int L, int top,
+                                   int align_corners, int smoothstep,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = B * (L - m);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  window_records_kernel<<<blocks, kThreads, 0, s>>>(
+      x01, levels, base, w_word, B, m, L, top, align_corners, smoothstep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned),
-// levels [L, 9] i64 -> out [B, L * C] f32 or bf16.
+// levels [L, kLevelRow] i64 -> out [B, L * C] f32 or bf16.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C.
 extern "C" int hash_encode_fwd(const float* x01, const float* table,
                                const int64_t* levels, void* out, int64_t B,

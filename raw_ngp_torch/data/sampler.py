@@ -1,0 +1,60 @@
+"""Per-step ray-batch sampling (port of ``raw_ngp_tpu/data/sampler.py``
+``sample_ray_batch`` ``:34``).
+
+Two modes are ported: random pixels of random images
+(``random_image_batch``; one random image per batch otherwise) and the
+explicit ``coords`` / ``coord_image_indices`` hook. Pose refinement,
+synthetic pose noise, exposures, light directions, per-camera near/far,
+mosaiced (Bayer) images and patches raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from raw_ngp_torch.ops.rays import pixel_rays
+
+
+def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
+                     random_image_batch: bool = True, se3_refine=None,
+                     pose_noise=None, exposures=None, ldirs=None,
+                     cam_near_far=None, mosaiced: bool = False,
+                     patch_size: int = 1, coords=None,
+                     coord_image_indices=None) -> Dict[str, torch.Tensor]:
+    """A training ray bundle: rays_o, rays_d [num_rays, 3], the GT pixels
+    ``images`` [num_rays, C] and the image ``index`` of each ray.
+
+    images [n, H, W, C], poses [n, 4, 4] and intrinsics [4] are tensors on
+    one device; ``generator`` (a torch.Generator there) draws the images
+    and pixels. ``coords`` [num_rays, 2] (row, col) selects the pixels,
+    from ``coord_image_indices`` [num_rays] or one random image."""
+    if (se3_refine is not None or pose_noise is not None
+            or exposures is not None or ldirs is not None
+            or cam_near_far is not None or mosaiced or patch_size > 1):
+        raise NotImplementedError(
+            "sample_ray_batch: pose refinement, pose noise, exposures, light "
+            "directions, camera near/far, mosaiced images and patches are "
+            "not ported")
+    n, H, W, _ = images.shape
+    dev = images.device
+    if coord_image_indices is not None:
+        img_idx = torch.as_tensor(coord_image_indices, device=dev).long()
+    elif random_image_batch and coords is None:
+        img_idx = torch.randint(0, n, (num_rays,), generator=generator,
+                                device=dev)
+    else:
+        img_idx = torch.randint(0, n, (1,), generator=generator,
+                                device=dev).expand(num_rays)
+    if coords is not None:
+        coords = torch.as_tensor(coords, device=dev).long()
+        flat = coords[:, 0] * W + coords[:, 1]
+    else:
+        flat = torch.randint(0, H * W, (num_rays,), generator=generator,
+                             device=dev)
+    rows = torch.div(flat, W, rounding_mode="floor")
+    cols = flat % W
+    rays_o, rays_d = pixel_rays(poses[img_idx], intrinsics, flat, W)
+    return {"rays_o": rays_o, "rays_d": rays_d,
+            "images": images[img_idx, rows, cols], "index": img_idx}

@@ -1,7 +1,8 @@
 """Streaming compaction: wrapper of the CUDA kernel ``csrc/compact.cu``.
 
 Replaces ``raw_ngp_tpu/kernels/compact_pallas.py`` (``_compact_words_impl``
-``:118``, reached by ``compact_attrs_pallas`` ``:190``), forward only. The
+``:118``, reached by ``compact_attrs_pallas`` ``:190``), forward only:
+attributes that require a gradient raise. The
 plain version is ``compact_positions`` + ``gather_flat_sorted`` below
 (ports of ``render/occupancy.py:576`` and ``:727``); the wrapper takes it
 only for tensors on the CPU.
@@ -77,6 +78,9 @@ def compact_attrs(attrs, keys, count_incl, m_pad: int):
     slots, and the attributes at that index (0 in unfilled slots),
     bit-exact.
     """
+    if torch.is_grad_enabled() and attrs.requires_grad:
+        raise NotImplementedError("compact_attrs: the attributes' gradient "
+                                  "(B1's backward) is not ported")
     if attrs.device.type == "cpu":
         _, _, pos = compact_positions(keys < m_pad, m_pad)
         return pos, torch.stack([gather_flat_sorted(a, pos) for a in attrs])

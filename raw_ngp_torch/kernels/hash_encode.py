@@ -1,74 +1,325 @@
-"""Hash-grid encode forward: wrapper of the CUDA kernel ``csrc/hash_encode.cu``.
+"""Hash-grid encode, forward and table gradient: wrapper of the CUDA
+kernels in ``csrc/hash_encode.cu`` (encode, window records) and
+``csrc/segsum.cu`` (kernel B2, through :mod:`raw_ngp_torch.kernels.segsum`).
 
 Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
-(forward, ``:497``) and its world-space wrapper ``hash_encode_fast``
-(``:784``). The plain version is ``raw_ngp_torch.ops.hashgrid
-.hash_encode_01``; it runs only for tensors on the CPU. On a CUDA tensor
-the kernel launches or the call raises. Bound on the card: bytes (a
-gather; see the source note in ``csrc/hash_encode.cu``). The backward
-(table gradient) is not ported yet, so the kernel refuses inputs that
-would need one.
+(``:497``, forward ``_fused_fwd`` ``:513``, backward ``_fused_bwd``
+``:756`` with ``need_input_grads=False``) and its world-space wrapper
+``hash_encode_fast`` (``:784``).
+
+Forward: the encode kernel; its plain version is
+``raw_ngp_torch.ops.hashgrid.hash_encode_01``. When the table needs a
+gradient the forward also writes the backward's records, JAX's residuals
+``base`` [P, B] and the (w0, w1) pair of every window packed as two
+truncated bf16 halves (``window_records``; plain version
+:func:`window_indices_weights` + ``pack_bf16_pairs``).
+
+Backward, the table gradient, as ``_window_bwd_table_chunked``
+(``:633-689``): per window level a ``torch.sort`` of the record keys, then
+kernel B2 (per-row totals of the bf16-rounded products w0*g and w1*g),
+then the combine ``grad[r] = G0[r] + G1[r-1]`` across the concatenated
+levels; the dense leading levels (``_matmul_split``) take the transposed
+matmul ``_mm_grad_table`` with its bf16 roundings, in ``torch.matmul``
+(JAX computes it outside Pallas too). Input gradients (pose refinement)
+are not ported: the encode raises when ``x01`` requires a gradient.
+
+CPU tensors take the plain versions in both directions; CUDA tensors
+launch the kernels or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
 from raw_ngp_torch.kernels import _build
-from raw_ngp_torch.ops.hashgrid import HashGridSpec, hash_encode_01, \
-    level_layout
+from raw_ngp_torch.kernels.segsum import (pack_bf16_pairs, round_bf16,
+                                          segment_totals_outer,
+                                          segment_totals_outer_plain)
+from raw_ngp_torch.ops.hashgrid import (HashGridSpec, _level_indices,
+                                        _smoothstep, hash_encode_01,
+                                        level_layout, pair_axis)
 
 _MODES = {"stride": 0, "xor": 1, "additive": 2}
 _CHANNELS = (1, 2, 4, 8, 16, 32)
 
 
+# ---------------------------------------------------------------------------
+# level split: dense matmul levels, then window levels
+# ---------------------------------------------------------------------------
+
+def _matmul_level(spec: HashGridSpec, lv: int) -> bool:
+    """Whether level ``lv`` takes the dense matmul path
+    (``hash_fused._matmul_level``): dense, 3-D, res*C >= 128,
+    res^2 >= 128 and res^2*C <= 8192."""
+    res = spec.resolutions[lv]
+    hmap = spec.offsets[lv + 1] - spec.offsets[lv]
+    C = spec.level_dim
+    return (spec.input_dim == 3 and res ** 3 <= hmap and res * C >= 128
+            and res * res >= 128 and res * res * C <= 8192)
+
+
+def matmul_split(spec: HashGridSpec) -> int:
+    """Number of leading levels on the matmul path (``_matmul_split``):
+    at least one level stays on the window path. ``RAW_NGP_MM_LEVELS``
+    caps the count as in the JAX package (0 disables, N allows at most N,
+    unset or "auto" uncapped, any other non-integer disables)."""
+    k = 0
+    while k < spec.num_levels - 1 and _matmul_level(spec, k):
+        k += 1
+    env = os.environ.get("RAW_NGP_MM_LEVELS", "")
+    if env and env.lower() != "auto":
+        try:
+            k = min(max(int(env), 0), k)
+        except ValueError:
+            k = 0
+    return k
+
+
+def level_pairable(spec: HashGridSpec, lv: int) -> bool:
+    """Whether the two pair-axis corners of every cell are adjacent table
+    rows at this level (dense, or the additive hash)."""
+    res = spec.resolutions[lv]
+    hmap = spec.offsets[lv + 1] - spec.offsets[lv]
+    if res ** spec.input_dim <= hmap:
+        return True
+    return (spec.gridtype == "hash" and spec.hash_variant == "additive"
+            and hmap > res)
+
+
+def level_windows(spec: HashGridSpec, m: int):
+    """[(level, first window, number of windows)] of the window levels
+    m..L-1, level-major (the order of ``_window_indices_weights``)."""
+    D = spec.input_dim
+    out, w0 = [], 0
+    for lv in range(m, spec.num_levels):
+        nw = 1 << (D - 1) if level_pairable(spec, lv) else 1 << D
+        out.append((lv, w0, nw))
+        w0 += nw
+    return out
+
+
 @functools.lru_cache(maxsize=16)
-def _level_table(spec: HashGridSpec, device: torch.device):
-    """[L, 9] i64 rows the kernel reads per level: res, hmap, offset,
-    n_strides, stride0..2, mode, pair axis."""
+def _level_table(spec: HashGridSpec, m: int, device: torch.device):
+    """[L, 11] i64 rows the kernels read per level: res, hmap, offset,
+    n_strides, stride0..2, mode, pair axis, pairable, first window (-1 on
+    the matmul levels below ``m``)."""
+    first = {lv: w0 for lv, w0, _ in level_windows(spec, m)}
     rows = []
     for lv in range(spec.num_levels):
         res, hmap, offset, strides, mode, axis = level_layout(spec, lv)
         s = list(strides) + [0] * (3 - len(strides))
-        rows.append([res, hmap, offset, len(strides), *s, _MODES[mode], axis])
+        rows.append([res, hmap, offset, len(strides), *s, _MODES[mode], axis,
+                     int(level_pairable(spec, lv)), first.get(lv, -1)])
     return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
-def _lib():
+# ---------------------------------------------------------------------------
+# plain versions of the backward's pieces
+# ---------------------------------------------------------------------------
+
+def _corner_axis(x, res: int, spec: HashGridSpec):
+    """Per-axis lower corner (int64) and fraction (f32), rounded as the
+    JAX ``_corner_axis`` / ``_window_indices_weights`` compute them."""
+    if spec.align_corners:
+        pos = x * (res - 1)
+        g0 = torch.clamp_max(torch.floor(pos), res - 2)
+    else:
+        pos = torch.clamp(x * res - 0.5, 0.0, res - 1)
+        g0 = torch.floor(pos)
+    f = pos - g0
+    if spec.interpolation == "smoothstep":
+        f = _smoothstep(f)
+    return g0.to(torch.int64), f
+
+
+def _in_bounds(x01):
+    """(inb [B] bool, per-axis coords with out-of-bounds points at 0.5)."""
+    xs = [x01[:, d].float() for d in range(x01.shape[1])]
+    inb = (xs[0] >= 0.0) & (xs[0] <= 1.0)
+    for d in range(1, len(xs)):
+        inb = inb & (xs[d] >= 0.0) & (xs[d] <= 1.0)
+    return inb, [torch.where(inb, x, 0.5) for x in xs]
+
+
+def window_indices_weights(x01, spec: HashGridSpec):
+    """Window records of every window level (``_window_indices_weights``):
+    base [P, B] i32, the first table row of each 2-row window (clamped to
+    n_params - 2), and w0, w1 [P, B] f32, the weights routed to rows base
+    and base + 1. The products follow the JAX order, so the values match
+    bit for bit."""
+    B, D = x01.shape
+    inb, xs = _in_bounds(x01)
+    inb_f = inb.float()
+    top = spec.n_params - 2
+    bases, w0s, w1s = [], [], []
+    for lv, _, _ in level_windows(spec, matmul_split(spec)):
+        res = spec.resolutions[lv]
+        gr, fr = zip(*(_corner_axis(x, res, spec) for x in xs))
+        a = pair_axis(spec, lv)
+        rest = [d for d in range(D) if d != a]
+        a_lo = gr[a]
+        a_hi = torch.clamp_max(a_lo + 1, res - 1)
+        for h in range(1 << (D - 1)):
+            lo, hi = [None] * D, [None] * D
+            lo[a], hi[a] = a_lo, a_hi
+            w_rest = inb_f
+            for j, d in enumerate(rest):
+                bit = (h >> j) & 1
+                lo[d] = hi[d] = torch.clamp_max(gr[d] + bit, res - 1)
+                w_rest = w_rest * (fr[d] if bit else (1.0 - fr[d]))
+            u = _level_indices(spec, lv, torch.stack(lo, -1))
+            v = _level_indices(spec, lv, torch.stack(hi, -1))
+            w_u = (1.0 - fr[a]) * w_rest
+            w_v = fr[a] * w_rest
+            if level_pairable(spec, lv):
+                b = torch.clamp_max(torch.minimum(u, v), top)
+                bases.append(b)
+                w0s.append(w_u * (u == b) + w_v * (v == b))
+                w1s.append(w_u * (u == b + 1) + w_v * (v == b + 1))
+            else:
+                for idx, w in ((u, w_u), (v, w_v)):
+                    b = torch.clamp_max(idx, top)
+                    bases.append(b)
+                    w0s.append(w * (idx == b))
+                    w1s.append(w * (idx == b + 1))
+    return (torch.stack(bases).to(torch.int32), torch.stack(w0s),
+            torch.stack(w1s))
+
+
+def window_records_plain(x01, spec: HashGridSpec):
+    """Plain version of the record kernel: (base [P, B] i32, w_word [P, B]
+    i32 with w0 in the high and w1 in the low truncated bf16 half)."""
+    base, w0, w1 = window_indices_weights(x01, spec)
+    return base, pack_bf16_pairs([w0, w1])[0]
+
+
+def mm_axis_weights(x01, spec: HashGridSpec, lv: int):
+    """(wyz [B, res^2], wx_p [B, res*C]) f32 weight operands of level
+    ``lv``'s separable contraction (``_mm_axis_weights``); out-of-bounds
+    points get zero rows."""
+    res = spec.resolutions[lv]
+    inb, xs = _in_bounds(x01)
+    lanes = torch.arange(res, device=x01.device)[None, :]
+
+    def axis_w(x):
+        g0, f = _corner_axis(x, res, spec)
+        g1 = torch.clamp_max(g0 + 1, res - 1)
+        return ((1.0 - f)[:, None] * (lanes == g0[:, None])
+                + f[:, None] * (lanes == g1[:, None]))
+
+    wx, wy, wz = (axis_w(x) for x in xs)
+    wyz = (wz[:, :, None] * wy[:, None, :]).reshape(-1, res * res) \
+        * inb.float()[:, None]
+    return wyz, wx.repeat_interleave(spec.level_dim, dim=1)
+
+
+def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None):
+    """Table gradient of the matmul-path levels (``_mm_grad_table``):
+    grad_T2 = wyz^T @ (wx * g) per level, flat [offsets[m] * C] f32.
+    Under bf16 the operands and the elementwise product are rounded to
+    bf16 and the f32-accumulated product is rounded once, as the JAX bf16
+    matmuls do; the products run in f32 (TF32 must be off) so that the
+    card's reduced-precision bf16 reductions cannot enter."""
+    m = matmul_split(spec)
+    C = spec.level_dim
+    bf16 = compute_dtype == torch.bfloat16
+    rnd = round_bf16 if bf16 else (lambda t: t)
+    parts = []
+    for lv in range(m):
+        res = spec.resolutions[lv]
+        hmap = spec.offsets[lv + 1] - spec.offsets[lv]
+        wyz, wx_p = mm_axis_weights(x01, spec, lv)
+        g_lv = rnd(g[:, lv * C:(lv + 1) * C].float())
+        gx = rnd(g_lv.repeat(1, res) * rnd(wx_p))
+        flat = rnd(rnd(wyz).T @ gx).reshape(-1)
+        if hmap > res ** 3:                 # rows past res^3 are unused
+            flat = torch.cat([flat, flat.new_zeros((hmap - res ** 3) * C)])
+        parts.append(flat)
+    if not parts:
+        return g.new_zeros(0, dtype=torch.float32)
+    return torch.cat(parts)
+
+
+def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
+               plain: bool = False):
+    """Gradient of the flat table from the records of the forward and the
+    encode's cotangent g [B, L*C] (``_window_bwd_table_chunked``). Per
+    window level: sort the keys (rows relative to the level), sum the
+    bf16-rounded outer products per row (kernel B2, or its plain version
+    for ``plain`` and CPU tensors), then combine G0[r] + G1[r-1] across
+    the concatenated levels. Returns [n_params * C] f32."""
+    C = spec.level_dim
+    m = matmul_split(spec)
+    off_m = spec.offsets[m]
+    g32 = g.float()
+    totals = torch.empty(spec.n_params - off_m, 2 * C, dtype=torch.float32,
+                         device=g.device)
+    seg = segment_totals_outer_plain if plain else segment_totals_outer
+    for lv, w0, nw in level_windows(spec, m):
+        off = spec.offsets[lv]
+        rows = spec.offsets[lv + 1] - off
+        keys = base[w0:w0 + nw].reshape(-1) - off
+        keys_s, perm = torch.sort(keys, stable=True)
+        g_words = torch.stack(pack_bf16_pairs(
+            [g32[:, lv * C + c] for c in range(C)]), dim=1)   # [B, C/2]
+        seg(keys_s, perm.to(torch.int32), w_word[w0:w0 + nw].reshape(-1),
+            g_words, rows, C, out=totals[off - off_m:off - off_m + rows])
+    # the w1 total at row r belongs to row r + 1; the first window row
+    # receives none (the matmul levels have no window records)
+    grad = totals[:, :C] + torch.cat([totals.new_zeros(1, C),
+                                      totals[:-1, C:]])
+    return torch.cat([mm_grad_table(x01, g, spec, compute_dtype),
+                      grad.reshape(-1)])
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def _lib(name):
     lib = _build.load("hash_encode")
-    fn = lib.hash_encode_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = getattr(lib, name)
+    if name == "hash_encode_fwd":
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def hash_encode(params, x01, spec: HashGridSpec, compute_dtype=None):
-    """Encode x01 [B, 3] in [0, 1]^3 against the flat table ``params``
-    [n_params*C] f32 -> [B, L*C] in ``compute_dtype`` (f32 or bf16;
-    default the table's f32). CPU tensors take the plain version."""
+def _check_x01(x01, spec: HashGridSpec, who: str):
+    if x01.device.type != "cuda":
+        raise ValueError(f"{who}: inputs must be on one CUDA device")
+    if spec.input_dim != 3 or x01.ndim != 2 or x01.shape[1] != 3:
+        raise ValueError(f"{who}: x01 must be [B, 3], got "
+                         f"{tuple(x01.shape)}")
+    if x01.dtype != torch.float32:
+        raise TypeError(f"{who}: x01 must be float32")
+    if not x01.is_contiguous():
+        raise ValueError(f"{who}: x01 must be contiguous")
+
+
+def _encode_forward(params, x01, spec: HashGridSpec, compute_dtype=None):
+    """The forward: kernel for CUDA tensors, plain version on the CPU."""
     if params.device.type == "cpu":
         return hash_encode_01(params, x01, spec, compute_dtype=compute_dtype)
     out_dtype = compute_dtype or params.dtype
     B = x01.shape[0]
     L, C = spec.num_levels, spec.level_dim
-    if params.device.type != "cuda" or x01.device != params.device:
+    _check_x01(x01, spec, "hash_encode")
+    if x01.device != params.device:
         raise ValueError("hash_encode: params and x01 must be on one CUDA "
                          "device")
-    if torch.is_grad_enabled() and (params.requires_grad
-                                    or x01.requires_grad):
-        raise NotImplementedError("hash_encode: the kernel's backward is "
-                                  "not ported; call under torch.no_grad()")
-    if spec.input_dim != 3 or x01.ndim != 2 or x01.shape[1] != 3:
-        raise ValueError(f"hash_encode: x01 must be [B, 3], got "
-                         f"{tuple(x01.shape)}")
-    if params.dtype != torch.float32 or x01.dtype != torch.float32:
-        raise TypeError("hash_encode: params and x01 must be float32")
+    if params.dtype != torch.float32:
+        raise TypeError("hash_encode: params must be float32")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"hash_encode: compute_dtype {out_dtype} not in "
                         f"(float32, bfloat16)")
@@ -76,24 +327,102 @@ def hash_encode(params, x01, spec: HashGridSpec, compute_dtype=None):
         raise ValueError(f"hash_encode: level_dim {C} not in {_CHANNELS}")
     if params.numel() != spec.n_params * C:
         raise ValueError("hash_encode: table size does not match the spec")
-    if not (params.is_contiguous() and x01.is_contiguous()):
-        raise ValueError("hash_encode: params and x01 must be contiguous")
-    if params.data_ptr() % 16:
-        raise ValueError("hash_encode: table must be 16-byte aligned")
+    if not params.is_contiguous() or params.data_ptr() % 16:
+        raise ValueError("hash_encode: table must be contiguous and 16-byte "
+                         "aligned")
     out = torch.empty(B, L * C, dtype=out_dtype, device=x01.device)
     if B == 0:
         return out
-    levels = _level_table(spec, x01.device)
-    fn = _lib()
-    err = fn(x01.data_ptr(), params.data_ptr(), levels.data_ptr(),
-             out.data_ptr(), B, L, C, int(spec.align_corners),
-             int(spec.interpolation == "smoothstep"),
-             int(out_dtype == torch.bfloat16),
-             torch.cuda.current_stream(x01.device).cuda_stream)
+    levels = _level_table(spec, matmul_split(spec), x01.device)
+    err = _lib("hash_encode_fwd")(
+        x01.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
+        B, L, C, int(spec.align_corners),
+        int(spec.interpolation == "smoothstep"),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x01.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hash_encode: CUDA launch failed (error {err})")
     hash_encode.launches += 1
     return out
 
 
+def window_records(x01, spec: HashGridSpec):
+    """The backward's records of x01 [B, 3] in [0, 1]^3: (base [P, B] i32,
+    w_word [P, B] i32). CPU tensors take :func:`window_records_plain`;
+    CUDA tensors launch the record kernel."""
+    if x01.device.type == "cpu":
+        return window_records_plain(x01, spec)
+    _check_x01(x01, spec, "window_records")
+    m = matmul_split(spec)
+    P = sum(nw for _, _, nw in level_windows(spec, m))
+    B = x01.shape[0]
+    base = torch.empty(P, B, dtype=torch.int32, device=x01.device)
+    w_word = torch.empty(P, B, dtype=torch.int32, device=x01.device)
+    if B == 0:
+        return base, w_word
+    levels = _level_table(spec, m, x01.device)
+    err = _lib("hash_encode_records")(
+        x01.data_ptr(), levels.data_ptr(), base.data_ptr(),
+        w_word.data_ptr(), B, m, spec.num_levels, spec.n_params - 2,
+        int(spec.align_corners), int(spec.interpolation == "smoothstep"),
+        torch.cuda.current_stream(x01.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window_records: CUDA launch failed (error {err})")
+    window_records.launches += 1
+    return base, w_word
+
+
+window_records.launches = 0   # kernel launches, counted where they happen
+
+
+class _EncodeFn(torch.autograd.Function):
+    """The encode with its table gradient; ``plain`` runs the plain
+    versions of every kernel on any device."""
+
+    @staticmethod
+    def forward(ctx, params, x01, spec, compute_dtype, plain):
+        if plain:
+            out = hash_encode_01(params, x01, spec,
+                                 compute_dtype=compute_dtype)
+            base, w_word = window_records_plain(x01, spec)
+        else:
+            out = _encode_forward(params, x01, spec, compute_dtype)
+            base, w_word = window_records(x01, spec)
+        ctx.save_for_backward(x01, base, w_word)
+        ctx.spec, ctx.compute_dtype, ctx.plain = spec, compute_dtype, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x01, base, w_word = ctx.saved_tensors
+        grad = table_grad(ctx.spec, x01, base, w_word, g, ctx.compute_dtype,
+                          plain=ctx.plain)
+        return grad, None, None, None, None
+
+
+def _encode(params, x01, spec, compute_dtype, plain):
+    if torch.is_grad_enabled() and x01.requires_grad:
+        raise NotImplementedError(
+            "hash_encode: input gradients (pose refinement) are not ported")
+    if torch.is_grad_enabled() and params.requires_grad:
+        return _EncodeFn.apply(params, x01, spec, compute_dtype, plain)
+    if plain:
+        return hash_encode_01(params, x01, spec, compute_dtype=compute_dtype)
+    return _encode_forward(params, x01, spec, compute_dtype)
+
+
+def hash_encode(params, x01, spec: HashGridSpec, compute_dtype=None):
+    """Encode x01 [B, 3] in [0, 1]^3 against the flat table ``params``
+    [n_params*C] f32 -> [B, L*C] in ``compute_dtype`` (f32 or bf16;
+    default the table's f32), differentiable in ``params``. CPU tensors
+    take the plain versions."""
+    return _encode(params, x01, spec, compute_dtype, plain=False)
+
+
 hash_encode.launches = 0   # kernel launches, counted where they happen
+
+
+def hash_encode_plain(params, x01, spec: HashGridSpec, compute_dtype=None):
+    """The plain version of :func:`hash_encode` on any device, with the
+    same table gradient (plain records, plain segment totals)."""
+    return _encode(params, x01, spec, compute_dtype, plain=True)

@@ -4,6 +4,10 @@
 
 ``NGPField`` is an ``nn.Module`` whose parameters keep the JAX pytree's
 layout: a flat hash table ``grid`` [n_params*C] and MLP weights [in, out].
+It is differentiable in its parameters: the encode's table gradient is the
+fused backward of :mod:`raw_ngp_torch.kernels.hash_encode`, the MLPs'
+bf16 emulation rounds gradients where JAX's bf16 ``dot_general``
+transposes do (an f32 product converted to bf16).
 Only the occupancy-mode field with ``pose_opt.mode == "none"`` and no
 light conditioning is ported; the other modes raise.
 """
@@ -17,11 +21,10 @@ from torch import nn
 
 from raw_ngp_torch.config import Config
 from raw_ngp_torch.device import resolve_device
-from raw_ngp_torch.kernels.hash_encode import hash_encode
+from raw_ngp_torch.kernels.hash_encode import hash_encode, hash_encode_plain
 from raw_ngp_torch.models.mlp import apply_mlp, init_mlp
 from raw_ngp_torch.ops.activation import color_activation, density_activation
-from raw_ngp_torch.ops.hashgrid import (HashGridSpec, hash_encode_01,
-                                        init_hashgrid_params)
+from raw_ngp_torch.ops.hashgrid import HashGridSpec, init_hashgrid_params
 from raw_ngp_torch.ops.sh import sh_encode
 
 
@@ -78,7 +81,7 @@ class NGPField(nn.Module):
         cfg = self.spec.cfg
         m = cfg.model
         x01 = (x + cfg.grid_bound) / (2.0 * cfg.grid_bound)
-        encode = hash_encode_01 if plain else hash_encode
+        encode = hash_encode_plain if plain else hash_encode
         f = encode(self.grid, x01, self.spec.grid_spec,
                    compute_dtype=self.spec.encode_dtype)
         h = apply_mlp(list(self.grid_mlp), f, m.internal_activation, m.beta,

@@ -1,6 +1,5 @@
-"""Density / color / hidden activations, forward only (port of
-``raw_ngp_tpu/ops/activation.py``). The ±15 clamped backward of
-``trunc_exp`` comes with the training slice."""
+"""Density / color / hidden activations (port of
+``raw_ngp_tpu/ops/activation.py``)."""
 
 from __future__ import annotations
 
@@ -8,9 +7,22 @@ import torch
 import torch.nn.functional as F
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x):
-    """exp; its clamped backward is not ported yet (forward only)."""
-    return torch.exp(x)
+    """exp whose backward clamps the saved input to [-15, 15]
+    (``trunc_exp`` ``:13-35``): g * exp(clip(x, -15, 15))."""
+    return _TruncExp.apply(x)
 
 
 def softplus_beta(x, beta: float = 2.0, threshold: float = 20.0):

@@ -28,7 +28,7 @@ def pixel_rays(pose, intrinsics, flat_inds, W: int):
 
     OpenGL-style camera (x right, y up, looking down -z); directions are
     not normalized, so composited ``t`` is metric depth. ``pose`` is a
-    [3, 4] or [4, 4] cam2world matrix.
+    [3, 4] or [4, 4] cam2world matrix, or [N, 3|4, 4] one per ray.
     """
     fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
     row = torch.div(flat_inds, W, rounding_mode="floor").float() + 0.5
@@ -37,9 +37,20 @@ def pixel_rays(pose, intrinsics, flat_inds, W: int):
     ys = -(row - cy) / fy
     zs = -torch.ones_like(xs)
     directions = torch.stack([xs, ys, zs], dim=-1)     # [N, 3]
-    rot = pose[:3, :3]
-    rays_d = directions @ rot.T
-    rays_o = pose[:3, 3].expand(rays_d.shape)
+    rot = pose[..., :3, :3]
+    if pose.ndim == 2:
+        rays_d = directions @ rot.T
+    else:
+        # one pose per ray: the per-ray product as the chain of fused
+        # multiply-adds that the reference's batched dot rounds with
+        # (r0*d0, then fma(r1, d1, .), then fma(r2, d2, .)); each fma is
+        # taken in f64 and rounded to f32
+        acc = rot[..., 0] * directions[:, None, 0]
+        for k in (1, 2):
+            acc = (rot[..., k].double() * directions[:, None, k].double()
+                   + acc.double()).float()
+        rays_d = acc
+    rays_o = pose[..., :3, 3].expand(rays_d.shape)
     return rays_o, rays_d
 
 

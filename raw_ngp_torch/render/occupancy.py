@@ -1,4 +1,4 @@
-"""Occupancy-grid volume render, forward (port of
+"""Occupancy-grid volume render, for eval and for training (port of
 ``raw_ngp_tpu/render/occupancy.py``).
 
 The JAX design is kept: static shapes end to end. Candidates are placed
@@ -11,7 +11,9 @@ compacted stream. No step reads a device value back to the host.
 Only the branches of the flagship configuration are ported: uniform
 probes with the integer CDF branch of ``cdf_candidates``, the ``S == K``
 return of ``march_rays`` and the compact-composite branch of
-``render_occupancy``. The others raise ``NotImplementedError``.
+``render_occupancy``. The others raise ``NotImplementedError``. In
+training the gradient reaches the field's parameters through the field
+and the composite; rays carry none (pose refinement is not ported).
 """
 
 from __future__ import annotations
@@ -212,9 +214,11 @@ def cdf_candidates(rays_o, rays_d, coarse_lin, nears, fars, bound: float,
 
 def march_rays(rays_o, rays_d, bitfield, nears, fars, bound: float,
                grid_size: int, cascades: int, num_candidates: int,
-               samples_per_ray: int, coarse_probes: int, coarse_lin=None):
+               samples_per_ray: int, coarse_probes: int, coarse_lin=None,
+               jitter=0.5):
     """Candidate -> occupancy mask march, S == K with CDF candidates over
-    coarse probes (jitter 0.5, the deterministic ``key=None`` path).
+    coarse probes. ``jitter`` is 0.5 (the deterministic ``key=None``
+    path) or a [N, 1] tensor of uniforms (the keyed march, ``:489-492``).
     Returns dict with ts [N, K] (-1 where dead), deltas [N, K] and
     mask [N, K]."""
     N = rays_o.shape[0]
@@ -228,7 +232,7 @@ def march_rays(rays_o, rays_d, bitfield, nears, fars, bound: float,
             bound=bound)
     t_cand, dt = cdf_candidates(
         rays_o, rays_d, coarse_lin, nears, fars, bound, grid_size, cascades,
-        coarse_probes, S, 0.5)
+        coarse_probes, S, jitter)
     pos = rays_o[:, None, :] + rays_d[:, None, :] * t_cand[..., None]
     occ = occupancy_lookup(bitfield, pos, dt.expand(N, S), bound,
                            grid_size, cascades)
@@ -263,13 +267,18 @@ def compact_positions_attrs(mask, m_pad: int, attrs, plain: bool = False):
 
 
 def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
-                     coarse_lin=None, plain: bool = False
-                     ) -> Dict[str, torch.Tensor]:
-    """Full occupancy-path render of rays [N, 3] at fixed parameters
-    (``render_occupancy(key=None, training=False)``). ``field`` is an
-    :class:`raw_ngp_torch.models.ngp.NGPField`; ``plain=True`` runs the
-    plain versions of both kernels. Returns image [N, 3], depth [N] and
-    weights_sum [N]."""
+                     coarse_lin=None, plain: bool = False,
+                     training: bool = False, generator=None,
+                     point_budget=None) -> Dict[str, torch.Tensor]:
+    """Full occupancy-path render of rays [N, 3] (``render_occupancy``).
+    ``field`` is an :class:`raw_ngp_torch.models.ngp.NGPField`;
+    ``plain=True`` runs the plain versions of the kernels. ``bg_color`` is
+    a number or a tensor broadcasting to [N, 3]. ``generator`` draws the
+    march jitter [N, 1] (None: the deterministic jitter 0.5 of
+    ``key=None``). In training, ``point_budget`` (default
+    ``cfg.render.point_budget``) overrides the compacted point budget and
+    the result adds num_points and num_points_raw. Returns image [N, 3],
+    depth [N] and weights_sum [N]."""
     cfg = field.spec.cfg
     r = cfg.render
     N = rays_o.shape[0]
@@ -287,16 +296,25 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     nears = torch.where(miss, 1.0, nears)
     fars = torch.where(miss, 1.001, fars)
 
+    jitter = 0.5
+    if generator is not None:
+        jitter = torch.rand(N, 1, generator=generator, device=rays_o.device)
     m = march_rays(rays_o, rays_d, bitfield, nears, fars, r.bound,
                    r.grid_size, cfg.cascades, r.march_candidates, K,
-                   r.coarse_probes, coarse_lin=coarse_lin)
+                   r.coarse_probes, coarse_lin=coarse_lin, jitter=jitter)
     ts, deltas, mask = m["ts"], m["deltas"], m["mask"]
     mask = mask & ~miss
 
     # evaluate the field on at most m_pad packed samples; the budget keys
-    # off the base cfg.train.num_rays (not the chunk), as in training
-    m_pad = max(int(min(N, cfg.train.num_rays) * K * r.compact_ratio)
-                // 128 * 128, 128)
+    # off the base cfg.train.num_rays (not the chunk); in training an
+    # explicit point budget overrides it
+    if point_budget is None:
+        point_budget = r.point_budget
+    if point_budget is not None and training:
+        m_pad = max(point_budget // 128 * 128, 128)
+    else:
+        m_pad = max(int(min(N, cfg.train.num_rays) * K * r.compact_ratio)
+                    // 128 * 128, 128)
     # over budget: decimate uniformly along each ray and scale dt by the
     # stride (all on the device: no host sync)
     valid_total = mask.sum()
@@ -328,9 +346,13 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     out = composite_rays_compacted(
         sig_c, rgb_c, t_c, dt_c, rid, filled, mask.sum(dim=-1), N, K,
         t_thresh=r.t_thresh)
-    return {
+    results = {
         "image": composite_with_background(out["image"], out["weights_sum"],
                                            bg_color),
         "depth": out["depth"],
         "weights_sum": out["weights_sum"],
     }
+    if training:
+        results["num_points"] = mask.sum()
+        results["num_points_raw"] = valid_total
+    return results

@@ -1,0 +1,40 @@
+"""Training state (port of ``raw_ngp_tpu/train/state.py`` ``TrainState``)
+as a plain dataclass of tensors. The parameter dicts map the field's
+parameter names (``grid``, ``grid_mlp.0``, ...) to its tensors, so an
+update in place is an update of the field; pose refinement has no fields
+here, since it is not ported."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+
+@dataclass
+class AdamState:
+    """Moments of :func:`raw_ngp_torch.train.trainer.fused_adam_ema`;
+    ``count`` is the number of updates taken (a host integer)."""
+
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+@dataclass
+class TrainState:
+    params: Dict[str, torch.Tensor]
+    opt_state: AdamState
+    ema_params: Dict[str, torch.Tensor]
+    step: int                                # host integer
+    density_grid: torch.Tensor               # [CAS, H^3] f32
+    density_bitfield: torch.Tensor           # [CAS * H^3 // 8] u8
+    mean_density: torch.Tensor               # scalar f32
+    iter_density: torch.Tensor               # scalar i32
+
+    def grid_state(self) -> Dict[str, torch.Tensor]:
+        return dict(density_grid=self.density_grid,
+                    density_bitfield=self.density_bitfield,
+                    mean_density=self.mean_density,
+                    iter_density=self.iter_density)

@@ -1,0 +1,421 @@
+"""Occupancy training on one device (port of
+``raw_ngp_tpu/train/trainer.py``: ``network_lr_schedule`` ``:51``,
+``fused_adam_ema`` ``:95-164``, ``init_train_state`` ``:186``,
+``_bg_color`` ``:223``, ``make_batch_loss_fn`` ``:249``, ``make_loss_fn``
+``:304``, ``make_train_step`` ``:351`` and ``Trainer`` ``:459``).
+
+JAX jits the step and chains steps with ``lax.scan``; here a step is one
+eager Python call that updates the state in place. The random streams
+differ (Philox ``torch.Generator`` against threefry keys); a ``None``
+generator gives the deterministic path of ``key=None``.
+
+Not ported (each raises ``NotImplementedError``): the proposal path,
+pose refinement (``pose_opt.mode``, ``pose_opt.identity``), HDR images and
+losses, the entropy / TV / weight-decay / orientation regularizers, the
+unfused encoder, multi-device meshes, checkpoints, artifacts and the
+logger, histograms, exposure levels and metrics other than PSNR.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from raw_ngp_torch.config import Config
+from raw_ngp_torch.data.sampler import sample_ray_batch
+from raw_ngp_torch.data.scene import SceneData
+from raw_ngp_torch.device import resolve_device
+from raw_ngp_torch.models.ngp import FieldSpec, init_field, make_field_spec
+from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
+                                    mark_untrained_grid)
+from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
+from raw_ngp_torch.render.occupancy import render_occupancy
+from raw_ngp_torch.train.losses import blend_gt_background, ldr_loss
+from raw_ngp_torch.train.metrics import PSNRMeter
+from raw_ngp_torch.train.state import AdamState, TrainState
+
+_F32 = np.float32
+
+
+def network_lr_schedule(cfg: Config):
+    """step -> lr (f32): 0.1^(step/iters) decay of the base LR, or a
+    cosine decay over 6000 steps when ``anneal_lr``."""
+    lr = _F32(cfg.train.lr)
+    if cfg.train.anneal_lr:
+        def sched(step):
+            c = _F32(min(step, 6000))
+            cos = _F32(0.5) * (_F32(1.0) + np.cos(_F32(np.pi) * c
+                                                  / _F32(6000)))
+            return lr * (_F32(1.0) * cos + _F32(0.0))
+        return sched
+
+    def sched(step):
+        x = min(_F32(step) / _F32(cfg.train.iters), _F32(1.0))
+        return lr * _F32(0.1) ** _F32(x)
+    return sched
+
+
+class _FusedOpt:
+    """init / update_apply pair from :func:`fused_adam_ema`."""
+
+    def __init__(self, init, update_apply):
+        self.init = init
+        self.update_apply = update_apply
+
+
+def fused_adam_ema(cfg: Config) -> _FusedOpt:
+    """Adam + skip-nonfinite + EMA in one pass over every parameter.
+
+    Not ``torch.optim.Adam``: eps is ``cfg.train.adam_eps`` (1e-7) outside
+    the square root, the LR is read at ``count`` before the increment, the
+    EMA (decay ``cfg.train.ema_decay``) moves every step, and a step whose
+    gradients hold any non-finite value leaves the params *and* the
+    moments as they were (the EMA still moves toward the params). The
+    decision is taken on the device: no host sync.
+
+    ``update_apply(grads, state, params, ema)`` updates params, ema and
+    the moments in place and returns (params, ema, state).
+    """
+    lr_fn = network_lr_schedule(cfg)
+    b1, b2 = 0.9, 0.999
+    eps = cfg.train.adam_eps
+    d = cfg.train.ema_decay
+
+    def init(params):
+        return AdamState(
+            count=0, mu={k: torch.zeros_like(p) for k, p in params.items()},
+            nu={k: torch.zeros_like(p) for k, p in params.items()})
+
+    @torch.no_grad()
+    def update_apply(grads, state: AdamState, params, ema):
+        ok = torch.stack([torch.isfinite(g).all()
+                          for g in grads.values()]).all()
+        okf = ok.float()
+        cf = _F32(state.count + 1)
+        scale = float(lr_fn(state.count) / (_F32(1.0) - _F32(b1) ** cf))
+        nu_corr = float(_F32(1.0) - _F32(b2) ** cf)
+        step_scale = okf * scale
+        for k, p in params.items():
+            m, v, e = state.mu[k], state.nu[k], ema[k]
+            # select, not multiply: inf * 0 == NaN would poison the step
+            g = torch.where(ok, grads[k], 0.0)
+            m2 = b1 * m + (1.0 - b1) * g
+            v2 = b2 * v + (1.0 - b2) * g * g
+            p2 = p - step_scale * m2 / (torch.sqrt(v2 / nu_corr) + eps)
+            m.copy_(okf * m2 + (1.0 - okf) * m)
+            v.copy_(okf * v2 + (1.0 - okf) * v)
+            e.copy_(d * e + (1.0 - d) * p2)
+            p.copy_(p2)
+        state.count += 1
+        return params, ema, state
+
+    return _FusedOpt(init=init, update_apply=update_apply)
+
+
+def init_train_state(cfg: Config, spec: FieldSpec, device="cuda"):
+    """(field, TrainState): a field from ``cfg.train.seed``, its EMA as a
+    copy, zero moments and zero grid buffers."""
+    field = init_field(spec, seed=cfg.train.seed, device=device)
+    params = dict(field.named_parameters())
+    ema = {k: p.detach().clone() for k, p in params.items()}
+    state = TrainState(params=params,
+                       opt_state=fused_adam_ema(cfg).init(params),
+                       ema_params=ema, step=0,
+                       **init_grid_state(cfg, device))
+    return field, state
+
+
+def _bg_color(cfg: Config, generator, n: int, device):
+    mode = cfg.render.background
+    if mode == "random":
+        if generator is None:
+            raise ValueError("a random background needs a generator")
+        return torch.rand(n, 3, generator=generator, device=device)
+    if mode in ("white", "last_sample"):
+        return 1.0
+    return 0.0
+
+
+def _check_ported(cfg: Config):
+    t = cfg.train
+    if cfg.data.image_mode == "HDR":
+        raise NotImplementedError("HDR images and losses are not ported")
+    if (t.lambda_entropy > 0 or t.lambda_tv > 0 or t.lambda_wd > 0
+            or t.lambda_orientation > 0):
+        raise NotImplementedError("the entropy, TV, weight-decay and "
+                                  "orientation regularizers are not ported")
+    if not cfg.model.fused_encoder:
+        raise NotImplementedError("training with the unfused encoder is "
+                                  "not ported")
+
+
+def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
+    """Render + loss over an explicit ray batch:
+    ``batch_loss_fn(field, state, batch, aabb, generator=None,
+    plain=False, point_budget=None) -> (loss, aux)``. A ``None``
+    generator is the deterministic mode (march jitter 0.5)."""
+    _check_ported(cfg)
+
+    def batch_loss_fn(field, state: TrainState, batch, aabb, generator=None,
+                      plain: bool = False, point_budget=None):
+        rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+        bg = _bg_color(cfg, generator, rays_o.shape[0], rays_o.device)
+        gt_rgb = blend_gt_background(batch["images"], bg)
+        out = render_occupancy(
+            field, rays_o, rays_d, aabb, state.density_bitfield,
+            bg_color=bg, coarse_lin=batch.get("coarse_lin"), plain=plain,
+            training=True, generator=generator, point_budget=point_budget)
+        loss = ldr_loss(out["image"], gt_rgb)
+        aux = {"num_points": out["num_points"],
+               "num_points_raw": out["num_points_raw"],
+               "weights_sum": out["weights_sum"].mean()}
+        return loss, aux
+
+    return batch_loss_fn
+
+
+def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
+    """Batch sampling + :func:`make_batch_loss_fn`:
+    ``loss_fn(field, state, scene, aabb, generator, plain=False,
+    point_budget=None)``; ``scene`` holds images, poses, intrinsics and,
+    when the Trainer has cached it, coarse_lin."""
+    batch_loss_fn = make_batch_loss_fn(cfg, spec)
+
+    def loss_fn(field, state, scene, aabb, generator, plain: bool = False,
+                point_budget=None):
+        batch = sample_ray_batch(
+            generator, scene["images"], scene["poses"], scene["intrinsics"],
+            num_rays, random_image_batch=cfg.train.random_image_batch)
+        if "coarse_lin" in scene:
+            batch["coarse_lin"] = scene["coarse_lin"]
+        return batch_loss_fn(field, state, batch, aabb, generator, plain,
+                             point_budget)
+
+    return loss_fn
+
+
+def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _FusedOpt,
+                    num_rays: int, point_budget=None):
+    """One training step, ``train_step(field, state, scene, aabb,
+    generator) -> metrics``: sample, render, loss, backward and the fused
+    Adam + EMA update, in place on ``state`` (whose params are the
+    field's). Metrics stay on the device."""
+    loss_fn = make_loss_fn(cfg, spec, num_rays)
+
+    def train_step(field, state: TrainState, scene, aabb, generator):
+        for p in state.params.values():
+            p.grad = None
+        loss, aux = loss_fn(field, state, scene, aabb, generator,
+                            point_budget=point_budget)
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in state.params.items()}
+        net_tx.update_apply(grads, state.opt_state, state.params,
+                            state.ema_params)
+        state.step += 1
+        return {"loss": loss.detach(), **aux}
+
+    return train_step
+
+
+class Trainer:
+    """Host-side orchestration of occupancy training on one device:
+    ``train(iters)``, ``render_image(pose)`` with the EMA parameters and
+    ``evaluate()`` (PSNR). Runs on the card unless ``device="cpu"``."""
+
+    def __init__(self, cfg: Config, train_scene: SceneData,
+                 val_scene: Optional[SceneData] = None, device="cuda"):
+        if not cfg.render.occupancy:
+            raise NotImplementedError("only the occupancy path is ported "
+                                      "(no proposal networks)")
+        if cfg.pose_opt.identity:
+            raise NotImplementedError("pose refinement is not ported")
+        if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
+            raise NotImplementedError("multi-device training is not ported")
+        _check_ported(cfg)
+        for name in ("exposures", "cam_near_far", "ldirs"):
+            if getattr(train_scene, name) is not None:
+                raise NotImplementedError(f"scenes with {name} are not "
+                                          f"ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.spec = make_field_spec(cfg)
+        self.train_scene = train_scene
+        self.val_scene = val_scene
+        dev = self.device
+        self.scene_arrays: Dict[str, torch.Tensor] = {
+            "images": torch.as_tensor(train_scene.images, device=dev),
+            "poses": torch.as_tensor(train_scene.poses, device=dev),
+            "intrinsics": torch.as_tensor(train_scene.intrinsics,
+                                          device=dev),
+        }
+        self.aabb = scene_aabb(cfg, train_scene.pts_aabb, device=dev)
+        self.field, self.state = init_train_state(cfg, self.spec, dev)
+        # the EMA field renders from the state's EMA tensors (shared)
+        self.ema_field = copy.deepcopy(self.field)
+        for k, p in self.ema_field.named_parameters():
+            p.requires_grad_(False)
+            p.data = self.state.ema_params[k]
+        self.net_tx = fused_adam_ema(cfg)
+        self.generator = torch.Generator(device=dev).manual_seed(
+            cfg.train.seed)
+        self.num_rays = cfg.train.num_rays
+        self._grid_update = make_grid_update(cfg)
+        if cfg.render.mark_untrained:
+            grid = mark_untrained_grid(
+                cfg, np.asarray(train_scene.poses),
+                np.asarray(train_scene.intrinsics), self.aabb.cpu().numpy(),
+                cam_near_far=train_scene.cam_near_far)
+            self.state.density_grid = torch.from_numpy(grid).to(dev)
+        self.stats: Dict[str, Any] = {"loss": [], "psnr": []}
+        self.host_step = 0
+        self.host_grid_updates = 0
+        self._pts_ema = None
+        self._point_budget = None      # None = base (config-derived)
+        self._adapt_stash = None
+        self._metrics = None
+        self._train_step = self._make_step()
+
+    # ------------------------------------------------------------------
+    def base_point_budget(self) -> int:
+        """The config-derived compacted point budget."""
+        cfg = self.cfg
+        return max(int(cfg.train.num_rays * cfg.render.samples_per_ray
+                       * cfg.render.compact_ratio) // 128 * 128, 128)
+
+    def _make_step(self):
+        """The train step for the current adaptive-batch key (num_rays,
+        point budget; budget None = the config-derived base)."""
+        return make_train_step(self.cfg, self.spec, self.net_tx,
+                               self.num_rays, point_budget=self._point_budget)
+
+    def _adapt_batch(self, metrics):
+        """Adaptive batching (``trainer.py:694``): grow num_rays by powers
+        of two while the live-sample EMA uses under half the base budget,
+        shrink the point budget toward 1.3x the EMA (power-of-two
+        fractions, at least 1/8), re-grow it when demand saturates it."""
+        cfg = self.cfg
+        pts = float(metrics.get("num_points_raw", metrics["num_points"]))
+        self._pts_ema = (pts if self._pts_ema is None
+                         else 0.7 * self._pts_ema + 0.3 * pts)
+        base_budget = self.base_point_budget()
+        cap = cfg.train.max_num_rays or 4 * cfg.train.num_rays
+        num_rays = self.num_rays
+        if (num_rays * 2 <= cap
+                and self._pts_ema * 2.0 <= 0.9 * base_budget):
+            num_rays *= 2
+            self._pts_ema *= 2.0     # same scene, twice the rays
+        budget = base_budget
+        while (budget // 2 >= base_budget // 8
+               and 1.3 * self._pts_ema <= budget // 2):
+            budget //= 2
+        if 1.1 * self._pts_ema > budget:
+            budget = min(budget * 2, base_budget)
+        budget_key = None if budget == base_budget else budget
+        if (num_rays, budget_key) == (self.num_rays, self._point_budget):
+            return
+        self.num_rays, self._point_budget = num_rays, budget_key
+        self._train_step = self._make_step()
+
+    def _refresh_coarse_cache(self):
+        """The probe coarse-occupancy volume of the current bitfield, valid
+        for the whole refresh interval."""
+        if self.cfg.render.coarse_probes <= 0:
+            return
+        self.scene_arrays["coarse_lin"] = coarse_volume(
+            self.cfg, self.state.density_bitfield)
+
+    def adaptation_quiescent(self, margin: float = 1.1) -> bool:
+        """True when no adaptive-batch change is within ``margin`` of
+        firing at the current live-sample EMA (``trainer.py:765``)."""
+        cfg = self.cfg
+        if not (cfg.train.adaptive_num_rays and cfg.render.compact_ratio > 0):
+            return True
+        if self._pts_ema is None:
+            return False
+        base_budget = self.base_point_budget()
+        budget = self._point_budget or base_budget
+        cap = cfg.train.max_num_rays or 4 * cfg.train.num_rays
+        growth_pending = (
+            self.num_rays * 2 <= cap
+            and self._pts_ema * 2.0 <= margin * 0.9 * base_budget)
+        shrink_pending = (
+            budget // 2 >= base_budget // 8
+            and 1.3 * self._pts_ema <= margin * (budget // 2))
+        regrow_pending = (
+            budget < base_budget
+            and 1.1 * self._pts_ema * margin > budget)
+        return not (growth_pending or shrink_pending or regrow_pending)
+
+    def step(self):
+        """One training step, preceded at every ``update_extra_interval``
+        boundary by the grid refresh, the coarse cache and (after the 16
+        full sweeps) the batch adaptation from the previous interval's
+        metrics. Returns the step's metrics (device tensors)."""
+        cfg = self.cfg
+        if self.host_step % cfg.render.update_extra_interval == 0:
+            grid = self._grid_update(self.field, self.state.grid_state(),
+                                     self.host_grid_updates, self.generator)
+            for k, v in grid.items():
+                setattr(self.state, k, v)
+            self.host_grid_updates += 1
+            self._refresh_coarse_cache()
+            if (cfg.train.adaptive_num_rays and cfg.render.compact_ratio > 0
+                    and self.host_grid_updates > 16):
+                if self._adapt_stash is not None:
+                    self._adapt_batch(self._adapt_stash)
+                self._adapt_stash = self._metrics
+        self._metrics = self._train_step(self.field, self.state,
+                                         self.scene_arrays, self.aabb,
+                                         self.generator)
+        self.host_step += 1
+        return self._metrics
+
+    def train(self, iters: Optional[int] = None, log_every: int = 100):
+        """``iters`` steps; returns wall time and rays/s (the clock stops
+        after the last step's loss has reached the host)."""
+        iters = iters or self.cfg.train.iters
+        t0 = time.time()
+        total_rays = 0
+        for i in range(iters):
+            metrics = self.step()
+            total_rays += self.num_rays
+            if i == 0 or i // log_every != (i + 1) // log_every:
+                self.stats["loss"].append(float(metrics["loss"]))
+        self.stats["loss"].append(float(metrics["loss"]))
+        dt = time.time() - t0
+        return {"wall_time": dt, "rays_per_sec": total_rays / dt}
+
+    # ------------------------------------------------------------------
+    def render_image(self, pose, intrinsics=None, H=None, W=None,
+                     use_ema: bool = True):
+        """Full-image chunked render with the EMA parameters (raw ones
+        with ``use_ema=False``) -> numpy (rgb [H, W, 3], depth [H, W])."""
+        scene = self.train_scene
+        intrinsics = intrinsics if intrinsics is not None \
+            else scene.intrinsics
+        field = self.ema_field if use_ema else self.field
+        rgb, depth = render_image(field, self.state.density_bitfield, pose,
+                                  intrinsics, H or scene.H, W or scene.W,
+                                  self.aabb, device=self.device)
+        return rgb.cpu().numpy(), depth.cpu().numpy()
+
+    def evaluate(self, scene: Optional[SceneData] = None,
+                 use_ema: bool = True) -> Dict[str, float]:
+        """Mean PSNR of the renders of ``scene`` (default the val scene)
+        against its images."""
+        scene = scene or self.val_scene
+        if scene is None:
+            raise ValueError("evaluate: no scene")
+        meter = PSNRMeter()
+        for i in range(scene.n_images):
+            rgb, _ = self.render_image(scene.poses[i], scene.intrinsics,
+                                       scene.H, scene.W, use_ema=use_ema)
+            meter.update(rgb, scene.images[i][..., :3])
+        result = {"psnr": meter.measure()}
+        self.stats["psnr"].append(result["psnr"])
+        return result

@@ -15,6 +15,7 @@ import torch
 
 from raw_ngp_torch.kernels import compact as tc
 from raw_ngp_torch.kernels import hash_encode as th
+from raw_ngp_torch.kernels import segsum as ts
 from raw_ngp_torch.ops.hashgrid import HashGridSpec, hash_encode_01
 
 
@@ -141,3 +142,114 @@ def test_render_kernel_path_matches_plain(cuda_device):
     assert torch.isfinite(rgb).all() and (depth > 0).any()
     torch.testing.assert_close(rgb, rgb_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(depth, depth_p, rtol=0, atol=1e-5)
+
+
+def _flagship_grid():
+    """The flagship's grid: 2 levels x 16 channels, additive hash, log2 19,
+    resolutions 16 and 4096 (Config().with_preset_O().with_tpu_profile())."""
+    from raw_ngp_torch import Config
+    from raw_ngp_torch.models.ngp import make_field_spec
+    return make_field_spec(Config().with_preset_O().with_tpu_profile()
+                           ).grid_spec
+
+
+def _outer_stream(device, M, B, n_rows, C, skew=False, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keys = torch.randint(0, n_rows, (M,), generator=gen, device=device,
+                         dtype=torch.int32)
+    if skew:                          # most records funnel into one row
+        keys = torch.where(torch.rand(M, generator=gen, device=device) < 0.9,
+                           7, keys).to(torch.int32)
+    keys_s, perm = torch.sort(keys, stable=True)
+    w = torch.rand(2, M, generator=gen, device=device)
+    w_word = ts.pack_bf16_pairs([w[0], w[1]])[0]
+    g = torch.randn(B, C, generator=gen, device=device)
+    g_words = torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous()
+    return keys_s, perm.to(torch.int32), w_word, g_words
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skew", [False, True])
+def test_segsum_kernel_matches_plain_at_flagship_shape(cuda_device, skew):
+    """B2 at the flagship's level-1 shape (1,048,576 records of 262,144
+    points into 524,288 rows, C = 16) against its plain version: the same
+    bf16 products, summed in another f32 order. rtol 1e-5 on random keys;
+    on the skew stream the ~940k-term row sums in another order, rtol
+    1e-4 there. Rows without records are exactly 0."""
+    M, B, n_rows, C = 1 << 20, 1 << 18, 1 << 19, 16
+    keys_s, perm, w_word, g_words = _outer_stream(cuda_device, M, B, n_rows,
+                                                  C, skew=skew)
+    before = ts.segment_totals_outer.launches
+    out = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
+    assert ts.segment_totals_outer.launches == before + 1
+    ref = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words,
+                                        n_rows, C)
+    torch.cuda.synchronize()
+    empty = torch.ones(n_rows, dtype=torch.bool, device=cuda_device)
+    empty[keys_s.long()] = False
+    assert empty.any() and (out[empty] == 0).all()
+    torch.testing.assert_close(out, ref, rtol=1e-4 if skew else 1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 32])
+def test_segsum_kernel_channel_widths(cuda_device, C):
+    """Every channel width the kernel takes (two channels a lane at C=32,
+    idle lanes below C=16), on a small stream."""
+    keys_s, perm, w_word, g_words = _outer_stream(cuda_device, 50000, 9000,
+                                                  4000, C, seed=C)
+    out = ts.segment_totals_outer(keys_s, perm, w_word, g_words, 4000, C)
+    ref = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words, 4000,
+                                        C)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,mm", [("additive", "auto"),
+                                        ("additive", "0"), ("xor", "auto")])
+def test_window_records_kernel_bit_exact(cuda_device, monkeypatch, variant,
+                                         mm):
+    """The backward's records (base, packed w0/w1) from the kernel equal
+    the plain version bit for bit, with out-of-bounds and NaN points."""
+    monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
+    spec = HashGridSpec.create(num_levels=4, level_dim=8,
+                               log2_hashmap_size=14, desired_resolution=512,
+                               hash_variant=variant)
+    x = torch.from_numpy(_points(65536)).to(cuda_device)
+    before = th.window_records.launches
+    base, w_word = th.window_records(x, spec)
+    assert th.window_records.launches == before + 1
+    base_p, w_word_p = th.window_records_plain(x, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(base, base_p) and torch.equal(w_word, w_word_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
+    """The table gradient at B = 262,144 on the flagship grid, kernel path
+    (record kernel, torch.sort, B2) against the plain path (plain records,
+    index_add_): the same records and products, f32 totals in another
+    order; rtol 1e-5 and atol 1e-6 of the largest entry."""
+    spec = _flagship_grid()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    table = (torch.rand(spec.n_params * spec.level_dim, generator=gen,
+                        device=cuda_device) * 2 - 1) * 1e-2
+    x = torch.rand(262144, 3, generator=gen, device=cuda_device)
+    cot = torch.randn(262144, spec.output_dim, generator=gen,
+                      device=cuda_device)
+    counts = (th.window_records.launches, ts.segment_totals_outer.launches)
+    grads = []
+    for fn in (th.hash_encode, th.hash_encode_plain):
+        p = table.clone().requires_grad_()
+        (fn(p, x, spec, compute_dtype=dtype).float() * cot).sum().backward()
+        grads.append(p.grad)
+    assert th.window_records.launches == counts[0] + 1
+    assert ts.segment_totals_outer.launches == counts[1] + 1
+    torch.cuda.synchronize()
+    scale = float(grads[1].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
+                               atol=1e-6 * scale)
