@@ -28,6 +28,31 @@
 // for bit. It is bound by bytes too: it reads the points and writes two
 // words per window (8.4 MB at the flagship's 262,144 points, 4 windows).
 //
+// The file also holds the input gradient of the encode,
+// hash_encode_bwd_input (pose refinement). It replaces the VJP that JAX
+// takes through the interpolation weights with the table frozen
+// (hash_fused.py _fused_bwd, need_input_grads, :760-778), which stands in
+// for the reference gridencoder's dy_dx contraction. One thread per point
+// loops over the L levels in registers and writes grad_x [B, 3] f32 once:
+// no atomics, deterministic. Per level it recomputes the cell and the
+// fractions exactly as the record kernel does, reads the 8 corner rows and
+// contracts each with the level's cotangent g. On a window level the
+// corner value is V = sum_c rnd(g_c * T_c) (JAX's per-window cotangent)
+// and d/df_d = sum over the other axes' corners of (V[d=1] - V[d=0]) x
+// their weights; on a dense matmul level the kernel follows JAX's
+// _mm_forward chain instead (partial interpolations Z per x lane, the
+// weight cotangents rounded where the bf16 matmuls round them). Then the
+// chain rule: df/dx = res (res - 1 with align_corners), half of it where
+// the clip bound is met exactly (jnp.clip's tie), none beyond it, times
+// the smoothstep derivative; 0 outside [0, 1]^3. Under bf16, rnd rounds to
+// bf16 and the table is read rounded, as JAX's VJP reads it; in f32 rnd
+// is the identity. Every product and sum uses the _rn intrinsics in the
+// plain version's order (kernels/hash_encode.py encode_input_grad_plain),
+// so nvcc cannot contract them into FMAs. Bound: bytes: the touched rows
+// (the forward's), g (B x L x C bf16), x01 and grad_x; the flagship's
+// B = 262,144 uniform points touch 517,036 rows and move 56,158,976 B,
+// 16.8 us at 3.35 TB/s (chip_smoke.py counts them from its inputs).
+//
 // Bound: bytes, as a gather. Each (point, level) reads 8 rows of C floats
 // at hashed addresses; the flagship's level-1 table (524,288 x 16 f32 =
 // 33.5 MB) fits in the 50 MB L2, so after first touch the gathers are L2
@@ -308,7 +333,255 @@ __global__ void window_records_kernel(const float* __restrict__ x01,
   }
 }
 
+__device__ __forceinline__ float rnd_if(bool bf16, float v) {
+  return bf16 ? round_bf16(v) : v;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float load_g(const void* g, int64_t i) {
+  if (BF16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  }
+  return static_cast<const float*>(g)[i];
+}
+
+// sum_c rnd(gv_c * rnd(T_c)) over one table row, channels in order
+template <int C, bool BF16>
+__device__ __forceinline__ float row_dot(const float* __restrict__ row,
+                                         const float* gv) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const float t = rnd_if(BF16, __ldg(row + k));
+    acc = __fadd_rn(acc, rnd_if(BF16, __fmul_rn(gv[k], t)));
+  }
+  return acc;
+}
+
+// d(out_lv . g)/d f_d on a window level (encode_input_grad_plain
+// _window_level_ct): corner values, then per axis the differences across
+// it weighted by the other two axes' factors, in dimension order.
+template <int C, bool BF16>
+__device__ void window_level_ct(const float* __restrict__ table,
+                                const int64_t* lp, const uint32_t g0[3],
+                                const float f[3], const float* gv,
+                                float ct[3]) {
+  const uint32_t res = (uint32_t)lp[0];
+  float V[8];
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    uint32_t c[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) c[d] = min(g0[d] + ((corner >> d) & 1), res - 1);
+    V[corner] = row_dot<C, BF16>(table + (int64_t)level_row(lp, c) * C, gv);
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int o0 = d == 0 ? 1 : 0;
+    const int o1 = d == 2 ? 1 : 2;
+    float acc = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int b0 = h & 1, b1 = (h >> 1) & 1;
+      const float w0 = b0 ? f[o0] : __fsub_rn(1.0f, f[o0]);
+      const float w1 = b1 ? f[o1] : __fsub_rn(1.0f, f[o1]);
+      const int lo = (b0 << o0) | (b1 << o1);
+      const float diff = __fsub_rn(V[lo | (1 << d)], V[lo]);
+      acc = __fadd_rn(acc, __fmul_rn(diff, __fmul_rn(w0, w1)));
+    }
+    ct[d] = acc;
+  }
+}
+
+// d(out_lv . g)/d f_d on a dense matmul level, through JAX's _mm_forward
+// chain (encode_input_grad_plain _mm_level_ct). Axis d has lanes c0 = g0
+// and c1 = min(g0 + 1, res - 1) with weights (1 - f, f), or, where c1 is
+// clamped onto c0, one lane of weight (1 - f) + f (and c1's weight 0).
+template <int C, bool BF16>
+__device__ void mm_level_ct(const float* __restrict__ table,
+                            const int64_t* lp, const uint32_t g0[3],
+                            const float f[3], const float* gv, float ct[3]) {
+  const uint32_t res = (uint32_t)lp[0];
+  uint32_t cl[3][2];
+  float A[3][2];
+  bool present[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    cl[d][0] = g0[d];
+    cl[d][1] = min(g0[d] + 1, res - 1);
+    present[d] = cl[d][1] != cl[d][0];
+    const float a0 = __fsub_rn(1.0f, f[d]);
+    A[d][0] = present[d] ? a0 : __fadd_rn(a0, f[d]);
+    A[d][1] = present[d] ? f[d] : 0.0f;
+  }
+  float wyz[2][2], acc_wyz[2][2];
+#pragma unroll
+  for (int zi = 0; zi < 2; ++zi) {
+#pragma unroll
+    for (int yi = 0; yi < 2; ++yi) {
+      wyz[zi][yi] = rnd_if(BF16, __fmul_rn(A[2][zi], A[1][yi]));
+      acc_wyz[zi][yi] = 0.0f;
+    }
+  }
+  float ct_wx[2];
+#pragma unroll
+  for (int xi = 0; xi < 2; ++xi) {
+    const float wx = rnd_if(BF16, A[0][xi]);
+    float gw[C], z[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      gw[k] = rnd_if(BF16, __fmul_rn(gv[k], wx));
+      z[k] = 0.0f;
+    }
+#pragma unroll
+    for (int zi = 0; zi < 2; ++zi) {
+#pragma unroll
+      for (int yi = 0; yi < 2; ++yi) {
+        const uint32_t c[3] = {cl[0][xi], cl[1][yi], cl[2][zi]};
+        const float* row = table + (int64_t)level_row(lp, c) * C;
+        float a = acc_wyz[zi][yi];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          const float t = rnd_if(BF16, __ldg(row + k));
+          z[k] = __fadd_rn(z[k], __fmul_rn(wyz[zi][yi], t));
+          a = __fadd_rn(a, __fmul_rn(gw[k], t));
+        }
+        acc_wyz[zi][yi] = a;
+      }
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      s = __fadd_rn(s, rnd_if(BF16, __fmul_rn(gv[k], rnd_if(BF16, z[k]))));
+    }
+    ct_wx[xi] = s;
+  }
+  float cw[2][2];
+#pragma unroll
+  for (int zi = 0; zi < 2; ++zi) {
+#pragma unroll
+    for (int yi = 0; yi < 2; ++yi) cw[zi][yi] = rnd_if(BF16, acc_wyz[zi][yi]);
+  }
+  const float* az = A[2];
+  const float* ay = A[1];
+  ct[0] = present[0] ? __fsub_rn(ct_wx[1], ct_wx[0]) : 0.0f;
+  ct[1] = present[1]
+      ? __fsub_rn(__fadd_rn(__fmul_rn(cw[0][1], az[0]), __fmul_rn(cw[1][1], az[1])),
+                  __fadd_rn(__fmul_rn(cw[0][0], az[0]), __fmul_rn(cw[1][0], az[1])))
+      : 0.0f;
+  ct[2] = present[2]
+      ? __fsub_rn(__fadd_rn(__fmul_rn(cw[1][0], ay[0]), __fmul_rn(cw[1][1], ay[1])),
+                  __fadd_rn(__fmul_rn(cw[0][0], ay[0]), __fmul_rn(cw[0][1], ay[1])))
+      : 0.0f;
+}
+
+template <int C, bool BF16>
+__global__ void __launch_bounds__(kThreads)
+encode_input_grad_kernel(const float* __restrict__ x01,
+                         const float* __restrict__ table,
+                         const void* __restrict__ g,
+                         const int64_t* __restrict__ levels,
+                         float* __restrict__ grad, int64_t B, int L, int m,
+                         int align_corners, int smoothstep) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  float x[3];
+  bool inb = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    x[d] = x01[b * 3 + d];
+    inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
+  }
+  float gx[3] = {0.0f, 0.0f, 0.0f};
+  if (inb) {
+    for (int lv = 0; lv < L; ++lv) {
+      const int64_t* lp = levels + lv * kLevelRow;
+      const uint32_t res = (uint32_t)lp[0];
+      const float top = (float)(res - 1);
+      uint32_t g0[3];
+      float f[3], dfdx[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        float pos, gf, dpos;
+        if (align_corners) {
+          pos = __fmul_rn(x[d], top);
+          gf = fminf(floorf(pos), (float)(res - 2));
+          dpos = top;
+        } else {
+          const float raw = __fsub_rn(__fmul_rn(x[d], (float)res), 0.5f);
+          pos = fminf(fmaxf(raw, 0.0f), top);
+          gf = floorf(pos);
+          const float share = (raw > 0.0f && raw < top) ? 1.0f
+              : ((raw == 0.0f || raw == top) ? 0.5f : 0.0f);
+          dpos = __fmul_rn(share, (float)res);
+        }
+        const float t = __fsub_rn(pos, gf);
+        if (smoothstep) {
+          f[d] = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.0f, __fmul_rn(2.0f, t)));
+          dfdx[d] = __fmul_rn(dpos, __fmul_rn(__fmul_rn(6.0f, t), __fsub_rn(1.0f, t)));
+        } else {
+          f[d] = t;
+          dfdx[d] = dpos;
+        }
+        g0[d] = (uint32_t)(int)gf;
+      }
+      float gv[C];
+      const int64_t go = (b * L + lv) * C;
+#pragma unroll
+      for (int k = 0; k < C; ++k) gv[k] = load_g<BF16>(g, go + k);
+      float ct[3];
+      if (lv < m) {
+        mm_level_ct<C, BF16>(table, lp, g0, f, gv, ct);
+      } else {
+        window_level_ct<C, BF16>(table, lp, g0, f, gv, ct);
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) gx[d] = __fadd_rn(gx[d], __fmul_rn(ct[d], dfdx[d]));
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) grad[b * 3 + d] = gx[d];
+}
+
+template <int C>
+void launch_input_grad(bool bf16, const float* x01, const float* table,
+                       const void* g, const int64_t* levels, float* grad,
+                       int64_t B, int L, int m, int align_corners,
+                       int smoothstep, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  if (bf16) {
+    encode_input_grad_kernel<C, true><<<blocks, kThreads, 0, s>>>(
+        x01, table, g, levels, grad, B, L, m, align_corners, smoothstep);
+  } else {
+    encode_input_grad_kernel<C, false><<<blocks, kThreads, 0, s>>>(
+        x01, table, g, levels, grad, B, L, m, align_corners, smoothstep);
+  }
+}
+
 }  // namespace
+
+// x01 [B, 3] f32, table [n_params * C] f32, g [B, L * C] (bf16 if bf16,
+// else f32), levels [L, kLevelRow] i64, m matmul levels -> grad [B, 3] f32
+// (B > 0). Returns cudaGetLastError(), or cudaErrorInvalidValue for an
+// unsupported C.
+extern "C" int hash_encode_bwd_input(const float* x01, const float* table,
+                                     const void* g, const int64_t* levels,
+                                     float* grad, int64_t B, int L, int C,
+                                     int m, int align_corners, int smoothstep,
+                                     int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool h = bf16 != 0;
+  switch (C) {
+    case 1: launch_input_grad<1>(h, x01, table, g, levels, grad, B, L, m, align_corners, smoothstep, s); break;
+    case 2: launch_input_grad<2>(h, x01, table, g, levels, grad, B, L, m, align_corners, smoothstep, s); break;
+    case 4: launch_input_grad<4>(h, x01, table, g, levels, grad, B, L, m, align_corners, smoothstep, s); break;
+    case 8: launch_input_grad<8>(h, x01, table, g, levels, grad, B, L, m, align_corners, smoothstep, s); break;
+    case 16: launch_input_grad<16>(h, x01, table, g, levels, grad, B, L, m, align_corners, smoothstep, s); break;
+    case 32: launch_input_grad<32>(h, x01, table, g, levels, grad, B, L, m, align_corners, smoothstep, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x01 [B, 3] f32, levels [L, kLevelRow] i64 -> base [P, B] i32 and
 // w_word [P, B] u32 for the levels m..L-1 (P windows in all; B > 0).

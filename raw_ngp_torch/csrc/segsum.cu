@@ -179,7 +179,102 @@ void launch(const int32_t* keys, const int32_t* perm, const uint32_t* w_word,
       keys, perm, w_word, g_words, out, M, B, n_rows);
 }
 
+constexpr int kMaxChan = 64;                // two channels a lane
+
+__global__ void __launch_bounds__(kWarps * 32)
+segsum_channel_kernel(const int32_t* __restrict__ keys,
+                      const uint32_t* __restrict__ packed,
+                      float* __restrict__ out, int M, int n_rows,
+                      int n_chan) {
+  constexpr int kPerLane = kMaxChan / 32;
+  const int n_words = (n_chan + 1) / 2;
+  // record-major staging, padded so that both the per-word writes and
+  // the per-record reads of neighbouring words hit distinct banks
+  __shared__ uint32_t sw[kWarps][32][kMaxChan / 2 + 1];
+
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int64_t start = ((int64_t)blockIdx.x * kWarps + wib) * kChunk;
+  if (start >= M) return;                  // whole warp leaves together
+  const int s0 = (int)start;
+  const int end = min(s0 + kChunk, M);
+
+  const int first_key = keys[s0];
+  const bool first_shared = s0 > 0 && keys[s0 - 1] == first_key;
+  const bool last_shared = end < M && keys[end] == keys[end - 1];
+
+  float acc[kPerLane];
+#pragma unroll
+  for (int s = 0; s < kPerLane; ++s) acc[s] = 0.0f;
+  int cur = first_key;
+  bool in_first = true;
+
+  auto store = [&](bool shared_row) {
+    if (cur < 0 || cur >= n_rows) return;  // outside the table: dropped
+    float* dst = out + (int64_t)cur * n_chan;
+#pragma unroll
+    for (int s = 0; s < kPerLane; ++s) {
+      const int ch = lane + 32 * s;
+      if (ch < n_chan) {
+        if (shared_row) {
+          atomicAdd(dst + ch, acc[s]);
+        } else {
+          dst[ch] = acc[s];
+        }
+      }
+    }
+  };
+
+  for (int base = s0; base < end; base += 32) {
+    const int n = min(32, end - base);
+    const int i = base + lane;
+    const int k = lane < n ? keys[i] : -1;
+    for (int w = 0; w < n_words; ++w) {
+      sw[wib][lane][w] = lane < n ? packed[(int64_t)w * M + i] : 0u;
+    }
+    __syncwarp();
+    for (int j = 0; j < n; ++j) {
+      const int kj = __shfl_sync(kFull, k, j);
+      if (kj != cur) {
+        store(in_first && first_shared);
+        in_first = false;
+        cur = kj;
+#pragma unroll
+        for (int s = 0; s < kPerLane; ++s) acc[s] = 0.0f;
+      }
+#pragma unroll
+      for (int s = 0; s < kPerLane; ++s) {
+        const int ch = lane + 32 * s;
+        if (ch < n_chan) {
+          const uint32_t word = sw[wib][j][ch >> 1];
+          acc[s] += (ch & 1) ? lo_bf16(word) : hi_bf16(word);
+        }
+      }
+    }
+    __syncwarp();
+  }
+  store((in_first && first_shared) || last_shared);
+}
+
 }  // namespace
+
+// keys [M] i32 ascending, packed [ceil(n_chan/2), M] u32 -> out
+// [n_rows, n_chan] f32, which the caller has zeroed (M > 0, 0 < n_chan <=
+// 64). Returns cudaGetLastError(), or cudaErrorInvalidValue for n_chan
+// out of range.
+extern "C" int segment_totals_fwd(const int32_t* keys, const uint32_t* packed,
+                                  float* out, int M, int n_chan, int n_rows,
+                                  void* stream) {
+  if (n_chan <= 0 || n_chan > kMaxChan) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t warps = ((int64_t)M + kChunk - 1) / kChunk;
+  const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+  segsum_channel_kernel<<<blocks, kWarps * 32, 0, s>>>(keys, packed, out, M,
+                                                       n_rows, n_chan);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // keys [M] i32 ascending, perm [M] i32, w_word [*] u32, g_words [B, (C+1)/2]
 // u32 -> out [n_rows, 2C] f32, which the caller has zeroed (M > 0, B > 0).

@@ -3,9 +3,11 @@
 
 Two modes are ported: random pixels of random images
 (``random_image_batch``; one random image per batch otherwise) and the
-explicit ``coords`` / ``coord_image_indices`` hook. Pose refinement,
-synthetic pose noise, exposures, light directions, per-camera near/far,
-mosaiced (Bayer) images and patches raise ``NotImplementedError``.
+explicit ``coords`` / ``coord_image_indices`` hook; so are the synthetic
+pose noise and the learned se(3) refinements of pose refinement, composed
+onto each ray's pose in the differentiated step. Exposures, light
+directions, per-camera near/far, mosaiced (Bayer) images and patches
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict
 
 import torch
 
+from raw_ngp_torch.ops.lie import apply_refinement, compose_pose
 from raw_ngp_torch.ops.rays import pixel_rays
 
 
@@ -29,14 +32,15 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
     images [n, H, W, C], poses [n, 4, 4] and intrinsics [4] are tensors on
     one device; ``generator`` (a torch.Generator there) draws the images
     and pixels. ``coords`` [num_rays, 2] (row, col) selects the pixels,
-    from ``coord_image_indices`` [num_rays] or one random image."""
-    if (se3_refine is not None or pose_noise is not None
-            or exposures is not None or ldirs is not None
+    from ``coord_image_indices`` [num_rays] or one random image.
+    ``pose_noise`` [n, 3, 4] is composed under each ray's pose, then
+    ``se3_refine`` [n, 6] on top (camera space, ``apply_refinement``); the
+    rays are differentiable in both."""
+    if (exposures is not None or ldirs is not None
             or cam_near_far is not None or mosaiced or patch_size > 1):
         raise NotImplementedError(
-            "sample_ray_batch: pose refinement, pose noise, exposures, light "
-            "directions, camera near/far, mosaiced images and patches are "
-            "not ported")
+            "sample_ray_batch: exposures, light directions, camera near/far, "
+            "mosaiced images and patches are not ported")
     n, H, W, _ = images.shape
     dev = images.device
     if coord_image_indices is not None:
@@ -55,6 +59,11 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
                              device=dev)
     rows = torch.div(flat, W, rounding_mode="floor")
     cols = flat % W
-    rays_o, rays_d = pixel_rays(poses[img_idx], intrinsics, flat, W)
+    sel_poses = poses[img_idx]                              # [N, 4, 4]
+    if pose_noise is not None:
+        sel_poses = compose_pose(pose_noise[img_idx], sel_poses[:, :3, :4])
+    if se3_refine is not None:
+        sel_poses = apply_refinement(se3_refine[img_idx], sel_poses)
+    rays_o, rays_d = pixel_rays(sel_poses, intrinsics, flat, W)
     return {"rays_o": rays_o, "rays_d": rays_d,
             "images": images[img_idx, rows, cols], "index": img_idx}

@@ -1,13 +1,17 @@
-"""Streaming compaction: wrapper of the CUDA kernel ``csrc/compact.cu``.
+"""Streaming compaction and its backward: wrappers of the CUDA kernels in
+``csrc/compact.cu``.
 
-Replaces ``raw_ngp_tpu/kernels/compact_pallas.py`` (``_compact_words_impl``
-``:118``, reached by ``compact_attrs_pallas`` ``:190``), forward only:
-attributes that require a gradient raise. The
-plain version is ``compact_positions`` + ``gather_flat_sorted`` below
-(ports of ``render/occupancy.py:576`` and ``:727``); the wrapper takes it
-only for tensors on the CPU.
-On a CUDA tensor the kernel launches or the call raises. Bound on the
-card: bytes (see the source note in ``csrc/compact.cu``).
+Replaces ``raw_ngp_tpu/kernels/compact_pallas.py``: the forward
+``_compact_words_impl`` (``:118``, reached by ``compact_attrs_pallas``
+``:190``) and its VJP ``_compact_attrs_bwd`` (``:224``).
+:func:`compact_attrs` is differentiable in the attributes (pose refinement
+sends gradients back through the compacted t and dt). The plain versions
+are ``compact_positions`` + ``gather_flat_sorted`` (ports of
+``render/occupancy.py:576`` and ``:727``) forward and
+:func:`compact_attrs_bwd_plain` backward; the wrappers take them only for
+tensors on the CPU. On a CUDA tensor the kernels launch or the call
+raises. Bound on the card: bytes (see the source notes in
+``csrc/compact.cu``).
 """
 
 from __future__ import annotations
@@ -58,16 +62,92 @@ def gather_flat_sorted(values, pos):
                                                device=v.device))
 
 
-def _lib():
+def compact_attrs_bwd_plain(g_attrs, pos, M: int):
+    """Plain backward (JAX's scatter-set): the cotangent of each filled
+    slot [n_attr, m_pad] written to its source index ``pos``, 0 at every
+    other of the M flat records."""
+    filled = torch.nonzero(pos < M).squeeze(1)
+    out = torch.zeros(g_attrs.shape[0], M, dtype=g_attrs.dtype,
+                      device=g_attrs.device)
+    return out.index_copy_(1, pos[filled].to(torch.int64),
+                           g_attrs[:, filled])
+
+
+def _lib(name="compact_attrs_fwd"):
     lib = _build.load("compact")
-    fn = lib.compact_attrs_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    fn = getattr(lib, name)
+    if name == "compact_attrs_fwd":
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def compact_attrs(attrs, keys, count_incl, m_pad: int):
+def compact_attrs_bwd(g_attrs, keys, pos, m_pad: int):
+    """Gradient of :func:`compact_attrs` in its attributes: g_attrs
+    [n_attr, m_pad] f32 slot cotangents, keys [M] i32 and pos [m_pad] i32
+    of the forward -> [n_attr, M] f32. CPU tensors take
+    :func:`compact_attrs_bwd_plain`; CUDA tensors launch the kernel, which
+    gathers by ``keys`` (bit-exact with the plain version)."""
+    M = keys.shape[0]
+    if g_attrs.device.type == "cpu":
+        return compact_attrs_bwd_plain(g_attrs, pos, M)
+    n_attr = g_attrs.shape[0]
+    dev = g_attrs.device
+    if dev.type != "cuda" or keys.device != dev:
+        raise ValueError("compact_attrs_bwd: all inputs must be on one CUDA "
+                         "device")
+    if g_attrs.dtype != torch.float32 or keys.dtype != torch.int32:
+        raise TypeError("compact_attrs_bwd: g_attrs f32, keys i32")
+    if g_attrs.shape != (n_attr, m_pad) or keys.ndim != 1:
+        raise ValueError("compact_attrs_bwd: need g_attrs [n_attr, m_pad] "
+                         "and keys [M]")
+    if not (g_attrs.is_contiguous() and keys.is_contiguous()):
+        raise ValueError("compact_attrs_bwd: inputs must be contiguous")
+    out = torch.empty(n_attr, M, dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    err = _lib("compact_attrs_bwd")(
+        g_attrs.data_ptr(), keys.data_ptr(), out.data_ptr(), M, m_pad,
+        n_attr, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"compact_attrs_bwd: CUDA launch failed "
+                           f"(error {err})")
+    compact_attrs_bwd.launches += 1
+    return out
+
+
+compact_attrs_bwd.launches = 0   # kernel launches, counted where they happen
+
+
+class _CompactFn(torch.autograd.Function):
+    """:func:`compact_attrs` with its attribute gradient; ``plain`` runs
+    the plain versions in both directions on any device."""
+
+    @staticmethod
+    def forward(ctx, attrs, keys, count_incl, m_pad, plain):
+        pos, attrs_c = _compact_forward(attrs, keys, count_incl, m_pad,
+                                        plain)
+        ctx.save_for_backward(keys, pos)
+        ctx.m_pad, ctx.plain = m_pad, plain
+        ctx.mark_non_differentiable(pos)
+        return pos, attrs_c
+
+    @staticmethod
+    def backward(ctx, g_pos, g_attrs):
+        keys, pos = ctx.saved_tensors
+        g = g_attrs.contiguous()
+        if ctx.plain:
+            grad = compact_attrs_bwd_plain(g, pos, keys.shape[0])
+        else:
+            grad = compact_attrs_bwd(g, keys, pos, ctx.m_pad)
+        return grad, None, None, None, None
+
+
+def compact_attrs(attrs, keys, count_incl, m_pad: int, plain: bool = False):
     """Compact the kept records of a flat stream.
 
     attrs: [n_attr, M] f32 per-record attributes; keys: [M] i32 rank
@@ -76,12 +156,18 @@ def compact_attrs(attrs, keys, count_incl, m_pad: int):
     Returns (pos [m_pad] i32, attrs_c [n_attr, m_pad] f32): the flat source
     index of the rank-r kept record, ascending, with sentinel M in unfilled
     slots, and the attributes at that index (0 in unfilled slots),
-    bit-exact.
+    bit-exact. Differentiable in ``attrs`` (:func:`compact_attrs_bwd`).
+    ``plain=True`` runs the plain versions on any device.
     """
     if torch.is_grad_enabled() and attrs.requires_grad:
-        raise NotImplementedError("compact_attrs: the attributes' gradient "
-                                  "(B1's backward) is not ported")
-    if attrs.device.type == "cpu":
+        return _CompactFn.apply(attrs, keys, count_incl, m_pad, plain)
+    return _compact_forward(attrs, keys, count_incl, m_pad, plain)
+
+
+def _compact_forward(attrs, keys, count_incl, m_pad: int, plain=False):
+    """The forward: kernel for CUDA tensors, plain version on the CPU (or
+    for ``plain``)."""
+    if plain or attrs.device.type == "cpu":
         _, _, pos = compact_positions(keys < m_pad, m_pad)
         return pos, torch.stack([gather_flat_sorted(a, pos) for a in attrs])
     n_attr, M = attrs.shape

@@ -1,11 +1,12 @@
-"""Hash-grid encode, forward and table gradient: wrapper of the CUDA
-kernels in ``csrc/hash_encode.cu`` (encode, window records) and
-``csrc/segsum.cu`` (kernel B2, through :mod:`raw_ngp_torch.kernels.segsum`).
+"""Hash-grid encode, forward, table gradient and input gradient: wrapper of
+the CUDA kernels in ``csrc/hash_encode.cu`` (encode, window records,
+input gradient) and ``csrc/segsum.cu`` (kernel B2, through
+:mod:`raw_ngp_torch.kernels.segsum`).
 
 Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
 (``:497``, forward ``_fused_fwd`` ``:513``, backward ``_fused_bwd``
-``:756`` with ``need_input_grads=False``) and its world-space wrapper
-``hash_encode_fast`` (``:784``).
+``:756``, with and without ``need_input_grads``) and its world-space
+wrapper ``hash_encode_fast`` (``:784``).
 
 Forward: the encode kernel; its plain version is
 ``raw_ngp_torch.ops.hashgrid.hash_encode_01``. When the table needs a
@@ -20,8 +21,13 @@ kernel B2 (per-row totals of the bf16-rounded products w0*g and w1*g),
 then the combine ``grad[r] = G0[r] + G1[r-1]`` across the concatenated
 levels; the dense leading levels (``_matmul_split``) take the transposed
 matmul ``_mm_grad_table`` with its bf16 roundings, in ``torch.matmul``
-(JAX computes it outside Pallas too). Input gradients (pose refinement)
-are not ported: the encode raises when ``x01`` requires a gradient.
+(JAX computes it outside Pallas too).
+
+Backward, the input gradient (pose refinement, ``hash_fused.py:760-778``:
+the VJP of the interpolation weights with the table frozen): the kernel
+``hash_encode_bwd_input``, one thread per point; its plain version is
+:func:`encode_input_grad_plain`. Both take JAX's rounding points under
+bf16 (see that function).
 
 CPU tensors take the plain versions in both directions; CUDA tensors
 launch the kernels or the call raises.
@@ -276,6 +282,146 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
                       grad.reshape(-1)])
 
 
+def _axis_terms(x, res: int, spec: HashGridSpec):
+    """Per-axis lower corner (int64), fraction f (f32) and df/dx (f32),
+    with JAX's clip semantics: a clip bound met exactly passes half the
+    gradient (``jnp.clip`` is ``minimum(maximum(.))``), beyond it none."""
+    if spec.align_corners:
+        pos = x * (res - 1)
+        g0 = torch.clamp_max(torch.floor(pos), res - 2)
+        dpos = torch.full_like(x, float(res - 1))
+    else:
+        raw = x * res - 0.5
+        top = float(res - 1)
+        pos = torch.clamp(raw, 0.0, top)
+        g0 = torch.floor(pos)
+        inside = ((raw > 0.0) & (raw < top)).float()
+        tie = ((raw == 0.0) | (raw == top)).float()
+        dpos = (inside + 0.5 * tie) * float(res)
+    t = pos - g0
+    if spec.interpolation == "smoothstep":
+        return g0.to(torch.int64), _smoothstep(t), \
+            dpos * (6.0 * t * (1.0 - t))
+    return g0.to(torch.int64), t, dpos
+
+
+def _dot_rounded(g_lv, rows, rnd):
+    """sum_c rnd(g_c * rows[:, c]) in f32, channels in order."""
+    acc = torch.zeros_like(rows[:, 0])
+    for c in range(rows.shape[1]):
+        acc = acc + rnd(g_lv[:, c] * rows[:, c])
+    return acc
+
+
+def _window_level_ct(tab, g_lv, g0s, fs, res, spec, lv, rnd):
+    """d(out_lv . g_lv) / d f_d of a window level: the corner values
+    V = sum_c rnd(g_c * T[row, c]) (JAX's per-window cotangent, the
+    rounded lanes of ``_window_forward``'s product summed in f32), then
+    (V[bit_d = 1] - V[bit_d = 0]) times the other axes' weights."""
+    D = len(g0s)
+    V = []
+    for corner in range(1 << D):
+        coords = torch.stack([torch.clamp_max(g0s[d] + ((corner >> d) & 1),
+                                              res - 1) for d in range(D)],
+                             -1)
+        V.append(_dot_rounded(g_lv, tab[_level_indices(spec, lv, coords)],
+                              rnd))
+    ct = []
+    for d in range(D):
+        others = [o for o in range(D) if o != d]
+        acc = torch.zeros_like(V[0])
+        for h in range(1 << (D - 1)):
+            w, c1 = None, 1 << d
+            for j, o in enumerate(others):
+                bit = (h >> j) & 1
+                fo = fs[o] if bit else 1.0 - fs[o]
+                w = fo if w is None else w * fo
+                c1 |= bit << o
+            diff = V[c1] - V[c1 & ~(1 << d)]
+            acc = acc + (diff if w is None else diff * w)
+        ct.append(acc)
+    return ct
+
+
+def _mm_level_ct(tab, g_lv, g0s, fs, res, spec, lv, rnd):
+    """d(out_lv . g_lv) / d f_d of a matmul level, through JAX's chain
+    (``_mm_forward``): per axis two lanes with weights (1 - f, f), or one
+    lane (1 - f) + f where the upper corner is clamped onto the lower;
+    Z = rnd(sum_yz rnd(wz wy) T) per x lane; d/d wx = sum_c rnd(g_c Z_c);
+    d/d wyz = rnd(sum_{x, c} rnd(g_c rnd(wx)) T); then the one-hot lane
+    derivatives. ``rnd`` is the bf16 rounding under bf16, else identity."""
+    lanes = []
+    for d in range(3):
+        c1 = torch.clamp_max(g0s[d] + 1, res - 1)
+        present = c1 != g0s[d]
+        a0 = torch.where(present, 1.0 - fs[d], (1.0 - fs[d]) + fs[d])
+        a1 = torch.where(present, fs[d], torch.zeros_like(fs[d]))
+        lanes.append(((g0s[d], c1), (a0, a1), present))
+    (cx, ax, px), (cy, ay, py), (cz, az, pz) = lanes
+
+    def rows(xi, yi, zi):
+        coords = torch.stack([cx[xi], cy[yi], cz[zi]], -1)
+        return tab[_level_indices(spec, lv, coords)]
+
+    C = g_lv.shape[1]
+    wyz = [[rnd(az[zi] * ay[yi]) for yi in range(2)] for zi in range(2)]
+    acc_wyz = [[torch.zeros_like(fs[0]) for _ in range(2)] for _ in range(2)]
+    ct_wx = []
+    for xi in range(2):
+        gw = rnd(g_lv * rnd(ax[xi])[:, None])                 # [B, C]
+        z_acc = torch.zeros_like(g_lv)
+        for zi in range(2):
+            for yi in range(2):
+                r = rows(xi, yi, zi)                          # [B, C]
+                z_acc = z_acc + wyz[zi][yi][:, None] * r
+                for c in range(C):
+                    acc_wyz[zi][yi] = acc_wyz[zi][yi] + gw[:, c] * r[:, c]
+        ct_wx.append(_dot_rounded(g_lv, rnd(z_acc), rnd))
+    cw = [[rnd(acc_wyz[zi][yi]) for yi in range(2)] for zi in range(2)]
+    zero = torch.zeros_like(fs[0])
+    ct_fx = torch.where(px, ct_wx[1] - ct_wx[0], zero)
+    ct_fy = torch.where(py, (cw[0][1] * az[0] + cw[1][1] * az[1])
+                        - (cw[0][0] * az[0] + cw[1][0] * az[1]), zero)
+    ct_fz = torch.where(pz, (cw[1][0] * ay[0] + cw[1][1] * ay[1])
+                        - (cw[0][0] * ay[0] + cw[0][1] * ay[1]), zero)
+    return [ct_fx, ct_fy, ct_fz]
+
+
+def encode_input_grad_plain(params, x01, g, spec: HashGridSpec,
+                            compute_dtype=None):
+    """Gradient of ``sum(hash_encode(params, x01) * g)`` in x01 [B, D]
+    with the table frozen (``hash_fused._fused_bwd``'s input gradient,
+    the reference gridencoder's dy_dx contraction): [B, D] f32, 0 for
+    points outside [0, 1]^D (and NaN).
+
+    Under bf16 it takes JAX's rounding points: the table in bf16; on a
+    window level each lane product g_c * T rounded to bf16 and summed in
+    f32; on a matmul level the partial interpolations Z and the weight
+    cotangents rounded as ``_mm_forward``'s bf16 matmuls round them (see
+    :func:`_mm_level_ct`). What is left to differ from JAX is the order of
+    f32 sums. The kernel computes the same expressions in the same order.
+    """
+    B, D = x01.shape
+    C = spec.level_dim
+    bf16 = compute_dtype == torch.bfloat16
+    rnd = round_bf16 if bf16 else (lambda t: t)
+    tab = rnd(params.detach().reshape(spec.n_params, C).float())
+    gf = g.float()
+    inb, xs = _in_bounds(x01.detach())
+    m = matmul_split(spec)
+    grad = [torch.zeros(B, dtype=torch.float32, device=x01.device)
+            for _ in range(D)]
+    for lv in range(spec.num_levels):
+        res = spec.resolutions[lv]
+        g0s, fs, dfs = zip(*(_axis_terms(x, res, spec) for x in xs))
+        level_ct = _mm_level_ct if lv < m else _window_level_ct
+        ct = level_ct(tab, gf[:, lv * C:(lv + 1) * C], list(g0s), list(fs),
+                      res, spec, lv, rnd)
+        for d in range(D):
+            grad[d] = grad[d] + ct[d] * dfs[d]
+    return torch.where(inb[:, None], torch.stack(grad, -1), 0.0)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -288,6 +434,9 @@ def _lib(name):
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
+    elif name == "hash_encode_bwd_input":
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     else:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -375,9 +524,55 @@ def window_records(x01, spec: HashGridSpec):
 window_records.launches = 0   # kernel launches, counted where they happen
 
 
+def encode_input_grad(params, x01, g, spec: HashGridSpec,
+                      compute_dtype=None):
+    """Gradient of the encode in x01 [B, 3] for the cotangent g [B, L*C]
+    (in the encode's output dtype), with the table frozen -> [B, 3] f32.
+    CPU tensors take :func:`encode_input_grad_plain`; CUDA tensors launch
+    the kernel (one thread per point, no atomics)."""
+    if x01.device.type == "cpu":
+        return encode_input_grad_plain(params, x01, g, spec, compute_dtype)
+    _check_x01(x01, spec, "encode_input_grad")
+    bf16 = compute_dtype == torch.bfloat16
+    B = x01.shape[0]
+    L, C = spec.num_levels, spec.level_dim
+    if params.device != x01.device or g.device != x01.device:
+        raise ValueError("encode_input_grad: all inputs must be on one CUDA "
+                         "device")
+    if params.dtype != torch.float32 or g.dtype != (
+            torch.bfloat16 if bf16 else torch.float32):
+        raise TypeError("encode_input_grad: params f32, g in the compute "
+                        "dtype (bf16 or f32)")
+    if C not in _CHANNELS or params.numel() != spec.n_params * C \
+            or g.shape != (B, L * C):
+        raise ValueError("encode_input_grad: need level_dim in "
+                         f"{_CHANNELS}, the spec's table and g [B, L*C]")
+    if not (params.is_contiguous() and g.is_contiguous()):
+        raise ValueError("encode_input_grad: params and g must be "
+                         "contiguous")
+    out = torch.empty(B, 3, dtype=torch.float32, device=x01.device)
+    if B == 0:
+        return out
+    m = matmul_split(spec)
+    levels = _level_table(spec, m, x01.device)
+    err = _lib("hash_encode_bwd_input")(
+        x01.data_ptr(), params.data_ptr(), g.data_ptr(), levels.data_ptr(),
+        out.data_ptr(), B, L, C, m, int(spec.align_corners),
+        int(spec.interpolation == "smoothstep"), int(bf16),
+        torch.cuda.current_stream(x01.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"encode_input_grad: CUDA launch failed "
+                           f"(error {err})")
+    encode_input_grad.launches += 1
+    return out
+
+
+encode_input_grad.launches = 0   # kernel launches, counted where they happen
+
+
 class _EncodeFn(torch.autograd.Function):
-    """The encode with its table gradient; ``plain`` runs the plain
-    versions of every kernel on any device."""
+    """The encode with its table and input gradients; ``plain`` runs the
+    plain versions of every kernel on any device."""
 
     @staticmethod
     def forward(ctx, params, x01, spec, compute_dtype, plain):
@@ -388,23 +583,29 @@ class _EncodeFn(torch.autograd.Function):
         else:
             out = _encode_forward(params, x01, spec, compute_dtype)
             base, w_word = window_records(x01, spec)
-        ctx.save_for_backward(x01, base, w_word)
+        ctx.save_for_backward(params, x01, base, w_word)
         ctx.spec, ctx.compute_dtype, ctx.plain = spec, compute_dtype, plain
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x01, base, w_word = ctx.saved_tensors
-        grad = table_grad(ctx.spec, x01, base, w_word, g, ctx.compute_dtype,
-                          plain=ctx.plain)
-        return grad, None, None, None, None
+        params, x01, base, w_word = ctx.saved_tensors
+        spec, dtype = ctx.spec, ctx.compute_dtype
+        grad_table = grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad_table = table_grad(spec, x01, base, w_word, g, dtype,
+                                    plain=ctx.plain)
+        if ctx.needs_input_grad[1]:
+            g_in = g.to(torch.bfloat16 if dtype == torch.bfloat16
+                        else torch.float32).contiguous()
+            fn = encode_input_grad_plain if ctx.plain else encode_input_grad
+            grad_x = fn(params.detach(), x01.detach(), g_in, spec, dtype)
+        return grad_table, grad_x, None, None, None
 
 
 def _encode(params, x01, spec, compute_dtype, plain):
-    if torch.is_grad_enabled() and x01.requires_grad:
-        raise NotImplementedError(
-            "hash_encode: input gradients (pose refinement) are not ported")
-    if torch.is_grad_enabled() and params.requires_grad:
+    if torch.is_grad_enabled() and (params.requires_grad
+                                    or x01.requires_grad):
         return _EncodeFn.apply(params, x01, spec, compute_dtype, plain)
     if plain:
         return hash_encode_01(params, x01, spec, compute_dtype=compute_dtype)
@@ -414,8 +615,8 @@ def _encode(params, x01, spec, compute_dtype, plain):
 def hash_encode(params, x01, spec: HashGridSpec, compute_dtype=None):
     """Encode x01 [B, 3] in [0, 1]^3 against the flat table ``params``
     [n_params*C] f32 -> [B, L*C] in ``compute_dtype`` (f32 or bf16;
-    default the table's f32), differentiable in ``params``. CPU tensors
-    take the plain versions."""
+    default the table's f32), differentiable in ``params`` and in
+    ``x01``. CPU tensors take the plain versions."""
     return _encode(params, x01, spec, compute_dtype, plain=False)
 
 

@@ -1,9 +1,12 @@
 """Sorted segment totals (kernel B2): wrapper of ``csrc/segsum.cu``.
 
 Replaces the Pallas TPU kernel ``raw_ngp_tpu/kernels/segsum_pallas.py``
-(``_segment_totals_impl`` ``:124``, reached by
-``segment_totals_outer_pallas`` ``:196`` from the hash-table gradient,
-``kernels/hash_fused.py:671-673``). What carries over, bit for bit: the
+(``_segment_totals_impl`` ``:124``) in both of its modes: the outer mode,
+reached by ``segment_totals_outer_pallas`` ``:196`` from the hash-table
+gradient (``kernels/hash_fused.py:671-673``), and the channel mode,
+``segment_totals_pallas`` ``:182`` (:func:`segment_totals`, plain version
+:func:`segment_totals_plain`; nothing on the training path calls it). In
+the outer mode, what carries over, bit for bit: the
 record values are bf16 *truncations* of f32 (``hash_fused._pack_bf16_pairs``
 keeps the top 16 bits), each product w*g is rounded to bf16, and the
 per-row totals are exact f32 sums (rows without records are 0). Only the
@@ -70,9 +73,9 @@ def unpack_bf16_pairs(words, n: int):
 def segment_totals_plain(keys_sorted, packed, n_rows: int, n_chan: int):
     """Per-row f32 totals of a sorted record stream whose ``n_chan``
     channels ride bf16 pairs in the int32 words ``packed`` [n_packed, M]
-    (the channel mode of the Pallas kernel, ``segment_totals_pallas``).
-    Not on the ported path; kept as the plain reference of that mode.
-    Returns [n_rows, n_chan] f32."""
+    (the channel mode of the Pallas kernel, ``segment_totals_pallas``):
+    the plain version of :func:`segment_totals`. Returns [n_rows, n_chan]
+    f32."""
     vals = torch.stack(unpack_bf16_pairs(list(packed), n_chan), dim=1)
     out = torch.zeros(n_rows, n_chan, dtype=torch.float32,
                       device=vals.device)
@@ -108,13 +111,55 @@ def segment_totals_outer_plain(keys_sorted, perm, w_word, g_words,
                           _outer_products(perm, w_word, g_words, C))
 
 
-def _lib():
+def _lib(name="segment_totals_outer_fwd"):
     lib = _build.load("segsum")
-    fn = lib.segment_totals_outer_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    fn = getattr(lib, name)
+    if name == "segment_totals_outer_fwd":
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def segment_totals(keys_sorted, packed, n_rows: int, n_chan: int):
+    """Per-row f32 totals of the ``n_chan`` bf16 channels of a sorted
+    record stream: keys_sorted [M] i32 ascending rows in [0, n_rows),
+    packed [ceil(n_chan/2), M] i32 words (``pack_bf16_pairs``) ->
+    [n_rows, n_chan] f32, rows without records 0. CPU tensors take
+    :func:`segment_totals_plain`; CUDA tensors launch the kernel."""
+    if keys_sorted.device.type == "cpu":
+        return segment_totals_plain(keys_sorted, packed, n_rows, n_chan)
+    dev = keys_sorted.device
+    M = keys_sorted.shape[0]
+    if dev.type != "cuda" or packed.device != dev:
+        raise ValueError("segment_totals: all inputs must be on one CUDA "
+                         "device")
+    if keys_sorted.dtype != torch.int32 or packed.dtype != torch.int32:
+        raise TypeError("segment_totals: keys and packed must be int32")
+    if keys_sorted.ndim != 1 or packed.shape != ((n_chan + 1) // 2, M):
+        raise ValueError("segment_totals: need keys [M] and packed "
+                         "[ceil(n_chan/2), M]")
+    if not (keys_sorted.is_contiguous() and packed.is_contiguous()):
+        raise ValueError("segment_totals: inputs must be contiguous")
+    if not 0 < n_chan <= 64 or not 0 <= M < 2 ** 31 or n_rows <= 0:
+        raise ValueError(f"segment_totals: need 0 < n_chan <= 64, M < 2^31 "
+                         f"and rows > 0 (n_chan={n_chan}, M={M})")
+    out = torch.zeros(n_rows, n_chan, dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    err = _lib("segment_totals_fwd")(
+        keys_sorted.data_ptr(), packed.data_ptr(), out.data_ptr(), M, n_chan,
+        n_rows, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_totals: CUDA launch failed (error {err})")
+    segment_totals.launches += 1
+    return out
+
+
+segment_totals.launches = 0   # kernel launches, counted where they happen
 
 
 def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,

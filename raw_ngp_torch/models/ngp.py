@@ -1,21 +1,27 @@
 """The NGP radiance field: hash grid + bias-free MLPs + SH view encoding
 (port of ``raw_ngp_tpu/models/ngp.py``: ``FieldSpec``, ``make_field_spec``,
-``init_field``, ``_common_forward``, ``field_density``, ``field_forward``).
+``init_field``, the BARF / BAA-NGP annealing ``_anneal_alpha``,
+``barf_level_weights`` and ``baangp_blend``, ``_common_forward``,
+``field_density``, ``field_forward``).
 
 ``NGPField`` is an ``nn.Module`` whose parameters keep the JAX pytree's
 layout: a flat hash table ``grid`` [n_params*C] and MLP weights [in, out].
-It is differentiable in its parameters: the encode's table gradient is the
-fused backward of :mod:`raw_ngp_torch.kernels.hash_encode`, the MLPs'
-bf16 emulation rounds gradients where JAX's bf16 ``dot_general``
-transposes do (an f32 product converted to bf16).
-Only the occupancy-mode field with ``pose_opt.mode == "none"`` and no
-light conditioning is ported; the other modes raise.
+It is differentiable in its parameters and in the positions: the encode's
+table and input gradients are the fused backward of
+:mod:`raw_ngp_torch.kernels.hash_encode`, the MLPs' bf16 emulation rounds
+gradients where JAX's bf16 ``dot_general`` transposes do (an f32 product
+converted to bf16). JAX's static ``FieldSpec.needs_input_grads`` has no
+counterpart: autograd sees per call whether the positions need a gradient
+(the encode's ``ctx.needs_input_grad``). Only the occupancy-mode field
+without light conditioning (rfield) is ported; the other modes raise.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,9 +59,9 @@ def make_field_spec(cfg: Config) -> FieldSpec:
     if not cfg.render.occupancy:
         raise NotImplementedError("raw_ngp_torch ports the occupancy-grid "
                                   "field only (no proposal networks yet)")
-    if m.rfield or cfg.pose_opt.mode != "none":
-        raise NotImplementedError("rfield and pose refinement are not "
-                                  "ported yet")
+    if m.rfield:
+        raise NotImplementedError("rfield (light-direction conditioning) is "
+                                  "not ported yet")
     grid_spec = HashGridSpec.create(
         input_dim=3, num_levels=m.num_levels, level_dim=m.level_dim,
         log2_hashmap_size=m.log2_hashmap_size,
@@ -63,6 +69,61 @@ def make_field_spec(cfg: Config) -> FieldSpec:
         gridtype=m.gridtype, interpolation=m.interpolation,
         align_corners=m.align_corners, hash_variant=m.hash_variant)
     return FieldSpec(cfg=cfg, grid_spec=grid_spec)
+
+
+# ---------------------------------------------------------------------------
+# coarse-to-fine annealing (BARF / BAA-NGP)
+# ---------------------------------------------------------------------------
+
+def _anneal_alpha(cfg: Config, annealing, L: int):
+    """The ramp position, an f32 host scalar: JAX computes it from an f32
+    annealing with the config's numbers taken as f32."""
+    f32 = np.float32
+    start, end = cfg.pose_opt.start_annealing, cfg.pose_opt.end_annealing
+    if end == 0:
+        end = 1e-12
+    return (f32(annealing) - f32(start)) / f32(end - start) * f32(L)
+
+
+def _cosine_ramp(alpha, L: int, device):
+    """(1 - cos(clip(alpha - k, 0, 1) * pi)) / 2 for levels k < L, f32."""
+    k = torch.arange(L, dtype=torch.float32, device=device)
+    return (1.0 - torch.cos(torch.clamp(float(alpha) - k, 0.0, 1.0)
+                            * math.pi)) / 2.0
+
+
+def barf_level_weights(cfg: Config, annealing, device=None):
+    """BARF cosine level mask over the L * level_dim grid features, the
+    first level always on. Returns [L * level_dim] f32."""
+    m = cfg.model
+    L = m.num_levels
+    w = _cosine_ramp(_anneal_alpha(cfg, annealing, L), L, device)
+    w = w.repeat_interleave(m.level_dim)
+    w[: m.level_dim] = 1.0
+    return w
+
+
+def baangp_blend(cfg: Config, annealing, feats):
+    """BAA-NGP: blend the masked-out fine levels with the features of the
+    finest *active* level. feats [N, L*C] -> f32 [N, L*C].
+
+    The annealed levels are L - 1 (the reference anneals dim_out - 1). The
+    weight vector's first two *features* are forced to 1, as the reference
+    does (``weights[:2] = 1``): two features, not two levels."""
+    m = cfg.model
+    C = m.level_dim
+    L_levels = m.num_levels
+    L = L_levels - 1
+    alpha = _anneal_alpha(cfg, annealing, L)
+    w = _cosine_ramp(alpha, L, feats.device)
+    weights = torch.cat([torch.ones(C, device=feats.device),
+                         w.repeat_interleave(C)])
+    weights[:2] = 1.0
+    # the finest level with weight > 0 (level 0 always active)
+    j_star = min(max(math.ceil(float(alpha)), 0), L_levels - 1)
+    coarse = feats[..., j_star * C:(j_star + 1) * C]
+    coarse_f = coarse.repeat(*([1] * (feats.ndim - 1)), L_levels)
+    return feats.float() * weights + coarse_f.float() * (1.0 - weights)
 
 
 class NGPField(nn.Module):
@@ -77,28 +138,34 @@ class NGPField(nn.Module):
         self.grid_mlp = nn.ParameterList(grid_mlp)
         self.view_mlp = nn.ParameterList(view_mlp)
 
-    def _common(self, x, plain: bool):
+    def _common(self, x, plain: bool, annealing):
         cfg = self.spec.cfg
         m = cfg.model
         x01 = (x + cfg.grid_bound) / (2.0 * cfg.grid_bound)
         encode = hash_encode_plain if plain else hash_encode
         f = encode(self.grid, x01, self.spec.grid_spec,
                    compute_dtype=self.spec.encode_dtype)
+        if cfg.pose_opt.mode == "baangp":
+            f = baangp_blend(cfg, annealing, f)
+        elif cfg.pose_opt.mode == "barf":
+            f = f.float() * barf_level_weights(cfg, annealing, f.device)
         h = apply_mlp(list(self.grid_mlp), f, m.internal_activation, m.beta,
                       self.spec.compute_dtype)
         sigma = density_activation(h[..., 0], m.density_activation, m.beta)
         return sigma, h[..., 1:]
 
-    def density(self, x, plain: bool = False):
-        """sigma [N] at world positions x [N, 3] (``field_density``)."""
-        return self._common(x, plain)[0]
+    def density(self, x, plain: bool = False, annealing=1.0):
+        """sigma [N] at world positions x [N, 3] (``field_density``; the
+        grid refresh queries it at the default annealing 1.0)."""
+        return self._common(x, plain, annealing)[0]
 
-    def forward(self, x, d, plain: bool = False):
+    def forward(self, x, d, plain: bool = False, annealing=1.0):
         """(sigma [N], color [N, 3]) at positions x [N, 3] seen along
         unit directions d [N, 3] (``field_forward``). ``plain=True`` runs
-        the encode's plain version instead of its kernel."""
+        the encode's plain version instead of its kernel; ``annealing``
+        (a number in [0, 1]) drives the BARF / BAA-NGP level mask."""
         m = self.spec.cfg.model
-        sigma, feat = self._common(x, plain)
+        sigma, feat = self._common(x, plain, annealing)
         h = torch.cat([feat, sh_encode(d, m.sh_degree)], dim=-1)
         c = apply_mlp(list(self.view_mlp), h, m.internal_activation, m.beta,
                       self.spec.compute_dtype)

@@ -19,7 +19,8 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.05):
     miss = far < near
     near = torch.where(miss, 1e9, near)
     far = torch.where(miss, 1e9, far)
-    near = torch.clamp_min(near, min_near)
+    # maximum, not clamp_min: a tie splits the gradient as jnp.maximum does
+    near = torch.maximum(near, near.new_tensor(min_near))
     return near, far
 
 

@@ -37,22 +37,23 @@ def coarse_volume(cfg: Config, bitfield) -> torch.Tensor:
 
 def make_eval_render(cfg: Config, plain: bool = False):
     """Chunk renderer for full-image eval: (field, bitfield, rays_o,
-    rays_d, aabb, coarse_lin) -> (image [n, 3], depth [n], weights_sum
-    [n]). ``plain=True`` runs the kernels' plain versions."""
+    rays_d, aabb, coarse_lin, annealing) -> (image [n, 3], depth [n],
+    weights_sum [n]). ``plain=True`` runs the kernels' plain versions."""
     bg = 1.0 if cfg.render.background != "black" else 0.0
 
-    def render_chunk(field, bitfield, rays_o, rays_d, aabb, coarse_lin=None):
+    def render_chunk(field, bitfield, rays_o, rays_d, aabb, coarse_lin=None,
+                     annealing=1.0):
         with torch.inference_mode():
             out = render_occupancy(field, rays_o, rays_d, aabb, bitfield,
                                    bg_color=bg, coarse_lin=coarse_lin,
-                                   plain=plain)
+                                   plain=plain, annealing=annealing)
         return out["image"], out["depth"], out["weights_sum"]
 
     return render_chunk
 
 
 def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
-                 device="cuda", plain: bool = False):
+                 device="cuda", plain: bool = False, annealing=1.0):
     """Full-image chunked render -> (rgb [H, W, 3], depth [H, W]) on
     ``device``.
 
@@ -61,7 +62,8 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     ``intrinsics`` (fx, fy, cx, cy). Rays go in chunks of
     ``cfg.render.max_ray_batch``; the last chunk is padded
     to full size with origin 0 / direction 1 rays, as the JAX trainer
-    pads it, so every chunk has one shape.
+    pads it, so every chunk has one shape. ``annealing`` is the BARF /
+    BAA-NGP state to render at (the Trainer passes its current one).
     """
     dev = resolve_device(device)
     cfg = field.spec.cfg
@@ -82,7 +84,7 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
                 ro = torch.cat([ro, torch.zeros(pad, 3, device=dev)])
                 rd = torch.cat([rd, torch.ones(pad, 3, device=dev)])
             img, depth, _ = render_chunk(field, bitfield, ro, rd, aabb,
-                                         coarse_lin)
+                                         coarse_lin, annealing)
             imgs.append(img[: e - s])
             depths.append(depth[: e - s])
     return (torch.cat(imgs).reshape(H, W, 3),

@@ -13,7 +13,12 @@ probes with the integer CDF branch of ``cdf_candidates``, the ``S == K``
 return of ``march_rays`` and the compact-composite branch of
 ``render_occupancy``. The others raise ``NotImplementedError``. In
 training the gradient reaches the field's parameters through the field
-and the composite; rays carry none (pose refinement is not ported).
+and the composite, and, under pose refinement, the rays: through the
+compacted t and dt (near/far and the CDF spacing depend on the rays; the
+compaction's backward is kernel B1's), the ray-row gather
+(:func:`gather_ray_rows`) and the positions' encode input gradient.
+Clips that a gradient crosses use ``torch.minimum``/``torch.maximum``,
+which split the gradient at a tie as ``jnp.clip`` does.
 """
 
 from __future__ import annotations
@@ -25,9 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from raw_ngp_torch.kernels.compact import (SENTINEL, compact_attrs,
-                                           compact_positions,
-                                           gather_flat_sorted)
+from raw_ngp_torch.kernels.compact import SENTINEL, compact_attrs
 from raw_ngp_torch.ops.compositing import (composite_rays_compacted,
                                            composite_with_background)
 from raw_ngp_torch.ops.morton import morton3d
@@ -243,33 +246,73 @@ def march_rays(rays_o, rays_d, bitfield, nears, fars, bound: float,
 
 
 def compact_positions_attrs(mask, m_pad: int, attrs, plain: bool = False):
-    """Compaction of the kept samples fused with their attribute gathers.
+    """Compaction of the kept samples fused with their attribute gathers,
+    differentiable in the attributes.
 
-    The kernel path computes the inclusive count and the keys here, as the
-    JAX package does outside its Pallas kernel, and hands them to
-    :func:`compact_attrs`; ``plain=True`` runs the plain version
-    (compact_positions + gather_flat_sorted) on any device. Both give
-    bit-identical results.
+    The inclusive count and the keys are computed here, as the JAX package
+    does outside its Pallas kernel, and handed to :func:`compact_attrs`
+    (kernel B1, forward and backward); ``plain=True`` runs its plain
+    versions (compact_positions + gather_flat_sorted; zeros + index_copy_)
+    on any device. Both give bit-identical results.
     Returns (kept [N, K], inv [M], pos [m_pad], attrs_c list of [m_pad]).
     """
-    if plain:
-        kept, inv, pos = compact_positions(mask, m_pad)
-        return kept, inv, pos, [gather_flat_sorted(a.float(), pos)
-                                for a in attrs]
     flat = mask.reshape(-1)
     c = torch.cumsum(flat.to(torch.int32), 0, dtype=torch.int32)
     kept = flat & (c <= m_pad)
     inv = torch.where(kept, c - 1, m_pad).to(torch.int32)
     keys = torch.where(kept, c - 1, SENTINEL).to(torch.int32)
     pos, attrs_c = compact_attrs(
-        torch.stack([a.float() for a in attrs]).contiguous(), keys, c, m_pad)
-    return kept.reshape(mask.shape), inv, pos, list(attrs_c)
+        torch.stack([a.float() for a in attrs]).contiguous(), keys, c, m_pad,
+        plain=plain)
+    return kept.reshape(mask.shape), inv, pos, list(attrs_c.unbind(0))
+
+
+def _truncate_bf16(x):
+    """f32 -> f32 keeping the top 16 bits (bf16 by truncation, as
+    ``hash_fused._pack_bf16_pairs`` packs)."""
+    return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+
+class _GatherRowsFn(torch.autograd.Function):
+    """``buf[rid]`` with the JAX package's backward."""
+
+    @staticmethod
+    def forward(ctx, buf, rid):
+        ctx.save_for_backward(rid)
+        ctx.n_rows = buf.shape[0]
+        return buf[rid.to(torch.int64)]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rid,) = ctx.saved_tensors
+        totals = torch.zeros(ctx.n_rows, g.shape[1], dtype=torch.float32,
+                             device=g.device)
+        totals.index_add_(0, rid.to(torch.int64), g.float())
+        return _truncate_bf16(totals).to(g.dtype), None
+
+
+def gather_ray_rows(buf, rid):
+    """``buf[rid]`` for a per-ray attribute buffer [N + 1, D] (last row a
+    dummy) indexed by an ascending ray-id stream [m] (``gather_ray_rows``,
+    ``occupancy.py:760-789``). Its backward is JAX's
+    (``_gather_rows_bwd``): per-ray f32 totals of the rows' cotangents,
+    each *truncated* to bf16 (the top 16 bits, as
+    ``_segment_sum_sorted_scatter`` packs its totals), rows without
+    samples 0. JAX computes it in XLA, outside any Pallas kernel, so it
+    has no TPU kernel to port and stays plain PyTorch here: an f32
+    ``index_add_``, then the truncation by bit operations. The f32 sums
+    run in another order than JAX's shift-mask scan, so a total near a
+    truncation boundary can land one bf16 ulp apart."""
+    if torch.is_grad_enabled() and buf.requires_grad:
+        return _GatherRowsFn.apply(buf, rid)
+    return buf[rid.to(torch.int64)]
 
 
 def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                      coarse_lin=None, plain: bool = False,
                      training: bool = False, generator=None,
-                     point_budget=None) -> Dict[str, torch.Tensor]:
+                     point_budget=None,
+                     annealing=1.0) -> Dict[str, torch.Tensor]:
     """Full occupancy-path render of rays [N, 3] (``render_occupancy``).
     ``field`` is an :class:`raw_ngp_torch.models.ngp.NGPField`;
     ``plain=True`` runs the plain versions of the kernels. ``bg_color`` is
@@ -277,8 +320,9 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     march jitter [N, 1] (None: the deterministic jitter 0.5 of
     ``key=None``). In training, ``point_budget`` (default
     ``cfg.render.point_budget``) overrides the compacted point budget and
-    the result adds num_points and num_points_raw. Returns image [N, 3],
-    depth [N] and weights_sum [N]."""
+    the result adds num_points and num_points_raw. ``annealing`` drives the
+    field's BARF / BAA-NGP level mask. Returns image [N, 3], depth [N] and
+    weights_sum [N]."""
     cfg = field.spec.cfg
     r = cfg.render
     N = rays_o.shape[0]
@@ -336,12 +380,14 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                       device=rays_d.device)
     odl = torch.cat([torch.cat([rays_o, torch.zeros_like(ez)[None]]),
                      torch.cat([rays_d, ez[None]])], dim=1)
-    odl = odl[rid.to(torch.int64)]                          # gather_ray_rows
+    odl = gather_ray_rows(odl, rid)
     o_c, d_c = odl[:, :3], odl[:, 3:6]
-    xyz_c = torch.clamp(o_c + d_c * t_c[:, None], -r.bound, r.bound)
+    bound = torch.tensor(r.bound, dtype=torch.float32, device=odl.device)
+    xyz_c = torch.minimum(torch.maximum(o_c + d_c * t_c[:, None], -bound),
+                          bound)
     dnorm = torch.linalg.norm(d_c, dim=-1, keepdim=True)
     dirs_c = torch.where(dnorm > 1e-8, d_c / dnorm, ez)
-    sig_c, rgb_c = field(xyz_c, dirs_c, plain=plain)
+    sig_c, rgb_c = field(xyz_c, dirs_c, plain=plain, annealing=annealing)
 
     out = composite_rays_compacted(
         sig_c, rgb_c, t_c, dt_c, rid, filled, mask.sum(dim=-1), N, K,

@@ -1,13 +1,14 @@
 """Training state (port of ``raw_ngp_tpu/train/state.py`` ``TrainState``)
 as a plain dataclass of tensors. The parameter dicts map the field's
 parameter names (``grid``, ``grid_mlp.0``, ...) to its tensors, so an
-update in place is an update of the field; pose refinement has no fields
-here, since it is not ported."""
+update in place is an update of the field. Under pose refinement the
+state also holds the per-camera se(3) refinements, their Adam state and
+the synthetic pose noise of the self-test."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -32,6 +33,10 @@ class TrainState:
     density_bitfield: torch.Tensor           # [CAS * H^3 // 8] u8
     mean_density: torch.Tensor               # scalar f32
     iter_density: torch.Tensor               # scalar i32
+    # pose refinement (None when cfg.pose_opt.mode == "none")
+    pose_params: Optional[torch.Tensor] = None       # [n_cameras, 6] f32
+    pose_opt_state: Optional[AdamState] = None       # moments under "pose"
+    pose_noise: Optional[torch.Tensor] = None        # [n_cameras, 3, 4] f32
 
     def grid_state(self) -> Dict[str, torch.Tensor]:
         return dict(density_grid=self.density_grid,

@@ -1,24 +1,36 @@
-"""Occupancy training on one device (port of
-``raw_ngp_tpu/train/trainer.py``: ``network_lr_schedule`` ``:51``,
-``fused_adam_ema`` ``:95-164``, ``init_train_state`` ``:186``,
-``_bg_color`` ``:223``, ``make_batch_loss_fn`` ``:249``, ``make_loss_fn``
-``:304``, ``make_train_step`` ``:351`` and ``Trainer`` ``:459``).
+"""Occupancy training on one device, with or without pose refinement (port
+of ``raw_ngp_tpu/train/trainer.py``: ``network_lr_schedule`` ``:51``,
+``pose_lr_schedule`` ``:63``, ``skip_nonfinite`` ``:73``,
+``fused_adam_ema`` ``:95-164``, the pose optimizer of ``make_optimizers``
+``:176``, ``init_train_state`` ``:186``, ``_bg_color`` ``:223``,
+``make_batch_loss_fn`` ``:249``, ``make_loss_fn`` ``:304``,
+``make_train_step`` ``:351``, ``dataclasses_replace_scene`` ``:451`` and
+``Trainer`` ``:459``).
 
 JAX jits the step and chains steps with ``lax.scan``; here a step is one
 eager Python call that updates the state in place. The random streams
 differ (Philox ``torch.Generator`` against threefry keys); a ``None``
 generator gives the deterministic path of ``key=None``.
 
-Not ported (each raises ``NotImplementedError``): the proposal path,
-pose refinement (``pose_opt.mode``, ``pose_opt.identity``), HDR images and
-losses, the entropy / TV / weight-decay / orientation regularizers, the
-unfused encoder, multi-device meshes, checkpoints, artifacts and the
-logger, histograms, exposure levels and metrics other than PSNR.
+Pose refinement (``pose_opt.mode`` "barf" or "baangp", ``noise``,
+``identity``): the per-camera se(3) refinements enter the sampler inside
+the differentiated step, the annealing ``clip(step / iters, 0, 1)`` drives
+the field's level mask, and a second optimizer (skip-nonfinite, then
+optax's Adam with the exponential pose LR) updates them until
+``end_annealing * iters``.
+
+Not ported (each raises ``NotImplementedError``): the proposal path, HDR
+images and losses, the entropy / TV / weight-decay / orientation
+regularizers, the unfused encoder, multi-device meshes, rfield light
+directions; absent: checkpoints, artifacts and the logger (so
+``pose_opt.log_poses``), histograms, exposure levels and metrics other
+than PSNR.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from typing import Any, Dict, Optional
 
@@ -30,6 +42,7 @@ from raw_ngp_torch.data.sampler import sample_ray_batch
 from raw_ngp_torch.data.scene import SceneData
 from raw_ngp_torch.device import resolve_device
 from raw_ngp_torch.models.ngp import FieldSpec, init_field, make_field_spec
+from raw_ngp_torch.ops.lie import se3_to_SE3
 from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
@@ -59,15 +72,27 @@ def network_lr_schedule(cfg: Config):
     return sched
 
 
-class _FusedOpt:
-    """init / update_apply pair from :func:`fused_adam_ema`."""
+def pose_lr_schedule(cfg: Config):
+    """step -> lr (f32): c_lr decaying exponentially to 1e-2 * c_lr over
+    ``train.iters`` steps (f32 pow, as JAX computes it)."""
+    gamma = _F32((1e-2) ** (1.0 / cfg.train.iters))
+    c_lr = _F32(cfg.pose_opt.c_lr)
+
+    def sched(step):
+        return c_lr * gamma ** _F32(step)
+    return sched
+
+
+class _Optimizer:
+    """init / update_apply pair from :func:`fused_adam_ema` or
+    :func:`pose_adam`."""
 
     def __init__(self, init, update_apply):
         self.init = init
         self.update_apply = update_apply
 
 
-def fused_adam_ema(cfg: Config) -> _FusedOpt:
+def fused_adam_ema(cfg: Config) -> _Optimizer:
     """Adam + skip-nonfinite + EMA in one pass over every parameter.
 
     Not ``torch.optim.Adam``: eps is ``cfg.train.adam_eps`` (1e-7) outside
@@ -113,19 +138,75 @@ def fused_adam_ema(cfg: Config) -> _FusedOpt:
         state.count += 1
         return params, ema, state
 
-    return _FusedOpt(init=init, update_apply=update_apply)
+    return _Optimizer(init=init, update_apply=update_apply)
 
 
-def init_train_state(cfg: Config, spec: FieldSpec, device="cuda"):
+def pose_adam(cfg: Config) -> _Optimizer:
+    """The pose optimizer: ``optax.chain(skip_nonfinite(),
+    optax.adam(pose_lr_schedule, eps=1e-8))`` with optax's semantics.
+
+    Not ``torch.optim.Adam`` and not :func:`fused_adam_ema`: b1 0.9, b2
+    0.999, eps 1e-8 outside the square root, the LR read at the count
+    before the increment, no EMA. A step whose gradient holds a non-finite
+    value *zeroes the gradient before Adam* (skip_nonfinite), so the
+    moments still decay and the pose still moves by the momentum.
+
+    ``update_apply(grad, state, params)`` updates params and the moments
+    in place and returns (params, state)."""
+    lr_fn = pose_lr_schedule(cfg)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def init(params):
+        return AdamState(count=0, mu={"pose": torch.zeros_like(params)},
+                         nu={"pose": torch.zeros_like(params)})
+
+    @torch.no_grad()
+    def update_apply(grad, state: AdamState, params):
+        # skip_nonfinite: select, not multiply (inf * 0 == NaN)
+        g = torch.where(torch.isfinite(grad).all(), grad, 0.0)
+        mu, nu = state.mu["pose"], state.nu["pose"]
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        cf = _F32(state.count + 1)
+        mu_hat = mu / float(_F32(1.0) - _F32(b1) ** cf)
+        nu_hat = nu / float(_F32(1.0) - _F32(b2) ** cf)
+        step = float(-lr_fn(state.count))
+        params.add_(step * (mu_hat / (torch.sqrt(nu_hat) + eps)))
+        state.count += 1
+        return params, state
+
+    return _Optimizer(init=init, update_apply=update_apply)
+
+
+def init_train_state(cfg: Config, spec: FieldSpec, device="cuda",
+                     num_cameras: int = 0):
     """(field, TrainState): a field from ``cfg.train.seed``, its EMA as a
-    copy, zero moments and zero grid buffers."""
-    field = init_field(spec, seed=cfg.train.seed, device=device)
+    copy, zero moments and zero grid buffers; under pose refinement also
+    zero refinements [num_cameras, 6] (a leaf that requires a gradient),
+    their optimizer state and, when ``pose_opt.noise > 0``, the synthetic
+    perturbation se3_to_SE3([r | t]) of seeded normal r and t scaled by
+    the noise (t also by ``data.scale`` when it is set)."""
+    dev = resolve_device(device)
+    field = init_field(spec, seed=cfg.train.seed, device=dev)
     params = dict(field.named_parameters())
     ema = {k: p.detach().clone() for k, p in params.items()}
     state = TrainState(params=params,
                        opt_state=fused_adam_ema(cfg).init(params),
                        ema_params=ema, step=0,
-                       **init_grid_state(cfg, device))
+                       **init_grid_state(cfg, dev))
+    if cfg.pose_opt.mode != "none":
+        pose = torch.zeros(num_cameras, 6, dtype=torch.float32, device=dev)
+        state.pose_params = pose.requires_grad_()
+        state.pose_opt_state = pose_adam(cfg).init(pose.detach())
+        if cfg.pose_opt.noise > 0:
+            gen = torch.Generator().manual_seed(cfg.train.seed + 1)
+            scale = cfg.data.scale if cfg.data.scale > 0 else 1.0
+            se3_t = (torch.randn(num_cameras, 3, generator=gen)
+                     * cfg.pose_opt.noise * scale)
+            se3_r = torch.randn(num_cameras, 3, generator=gen) \
+                * cfg.pose_opt.noise
+            state.pose_noise = se3_to_SE3(
+                torch.cat([se3_r, se3_t], dim=-1)).to(dev)
     return field, state
 
 
@@ -156,19 +237,21 @@ def _check_ported(cfg: Config):
 def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
     """Render + loss over an explicit ray batch:
     ``batch_loss_fn(field, state, batch, aabb, generator=None,
-    plain=False, point_budget=None) -> (loss, aux)``. A ``None``
-    generator is the deterministic mode (march jitter 0.5)."""
+    plain=False, point_budget=None, annealing=1.0) -> (loss, aux)``. A
+    ``None`` generator is the deterministic mode (march jitter 0.5)."""
     _check_ported(cfg)
 
     def batch_loss_fn(field, state: TrainState, batch, aabb, generator=None,
-                      plain: bool = False, point_budget=None):
+                      plain: bool = False, point_budget=None,
+                      annealing=1.0):
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         bg = _bg_color(cfg, generator, rays_o.shape[0], rays_o.device)
         gt_rgb = blend_gt_background(batch["images"], bg)
         out = render_occupancy(
             field, rays_o, rays_d, aabb, state.density_bitfield,
             bg_color=bg, coarse_lin=batch.get("coarse_lin"), plain=plain,
-            training=True, generator=generator, point_budget=point_budget)
+            training=True, generator=generator, point_budget=point_budget,
+            annealing=annealing)
         loss = ldr_loss(out["image"], gt_rgb)
         aux = {"num_points": out["num_points"],
                "num_points_raw": out["num_points_raw"],
@@ -181,45 +264,76 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
 def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
     """Batch sampling + :func:`make_batch_loss_fn`:
     ``loss_fn(field, state, scene, aabb, generator, plain=False,
-    point_budget=None)``; ``scene`` holds images, poses, intrinsics and,
-    when the Trainer has cached it, coarse_lin."""
+    point_budget=None, annealing=1.0)``; ``scene`` holds images, poses,
+    intrinsics and, when the Trainer has cached it, coarse_lin. The rays
+    are made inside the differentiated function from the state's pose
+    refinements and noise, so the loss's gradient reaches
+    ``state.pose_params``."""
     batch_loss_fn = make_batch_loss_fn(cfg, spec)
 
     def loss_fn(field, state, scene, aabb, generator, plain: bool = False,
-                point_budget=None):
+                point_budget=None, annealing=1.0):
         batch = sample_ray_batch(
             generator, scene["images"], scene["poses"], scene["intrinsics"],
-            num_rays, random_image_batch=cfg.train.random_image_batch)
+            num_rays, random_image_batch=cfg.train.random_image_batch,
+            se3_refine=state.pose_params, pose_noise=state.pose_noise)
         if "coarse_lin" in scene:
             batch["coarse_lin"] = scene["coarse_lin"]
         return batch_loss_fn(field, state, batch, aabb, generator, plain,
-                             point_budget)
+                             point_budget, annealing)
 
     return loss_fn
 
 
-def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _FusedOpt,
-                    num_rays: int, point_budget=None):
+def annealing_at(cfg: Config, step: int):
+    """The BARF / BAA-NGP annealing of a train step, clip(step / iters, 0,
+    1) in f32 at the step before its increment."""
+    return min(max(_F32(step) / _F32(cfg.train.iters), _F32(0.0)),
+               _F32(1.0))
+
+
+def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
+                    num_rays: int, point_budget=None,
+                    pose_tx: Optional[_Optimizer] = None):
     """One training step, ``train_step(field, state, scene, aabb,
     generator) -> metrics``: sample, render, loss, backward and the fused
     Adam + EMA update, in place on ``state`` (whose params are the
-    field's). Metrics stay on the device."""
+    field's); under pose refinement also the pose update, its gradient
+    multiplied by 0 from ``int(end_annealing * iters)`` on (Adam's
+    momentum still moves the poses). Metrics stay on the device."""
     loss_fn = make_loss_fn(cfg, spec, num_rays)
+    pose_freeze_step = int(cfg.pose_opt.end_annealing * cfg.train.iters)
 
     def train_step(field, state: TrainState, scene, aabb, generator):
         for p in state.params.values():
             p.grad = None
+        pose = state.pose_params
+        if pose is not None:
+            pose.grad = None
         loss, aux = loss_fn(field, state, scene, aabb, generator,
-                            point_budget=point_budget)
+                            point_budget=point_budget,
+                            annealing=annealing_at(cfg, state.step))
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
         net_tx.update_apply(grads, state.opt_state, state.params,
                             state.ema_params)
+        if pose is not None:
+            g = pose.grad if pose.grad is not None else torch.zeros_like(pose)
+            freeze = 1.0 if state.step >= pose_freeze_step else 0.0
+            pose_tx.update_apply(g * (1.0 - freeze), state.pose_opt_state,
+                                 pose.data)
         state.step += 1
         return {"loss": loss.detach(), **aux}
 
     return train_step
+
+
+def dataclasses_replace_scene(scene: SceneData, new_poses):
+    """SceneData with replaced poses (keeps poses_gt for evaluation)."""
+    if scene.poses_gt is None:
+        scene = dataclasses.replace(scene, poses_gt=scene.poses.copy())
+    return dataclasses.replace(scene, poses=new_poses)
 
 
 class Trainer:
@@ -232,8 +346,6 @@ class Trainer:
         if not cfg.render.occupancy:
             raise NotImplementedError("only the occupancy path is ported "
                                       "(no proposal networks)")
-        if cfg.pose_opt.identity:
-            raise NotImplementedError("pose refinement is not ported")
         if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
             raise NotImplementedError("multi-device training is not ported")
         _check_ported(cfg)
@@ -244,6 +356,12 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec = make_field_spec(cfg)
+        if cfg.pose_opt.identity:
+            # BARF from scratch: every camera starts at the identity pose;
+            # the ground truth stays in poses_gt
+            ident = np.tile(np.eye(4, dtype=np.float32),
+                            (train_scene.n_images, 1, 1))
+            train_scene = dataclasses_replace_scene(train_scene, ident)
         self.train_scene = train_scene
         self.val_scene = val_scene
         dev = self.device
@@ -254,13 +372,16 @@ class Trainer:
                                           device=dev),
         }
         self.aabb = scene_aabb(cfg, train_scene.pts_aabb, device=dev)
-        self.field, self.state = init_train_state(cfg, self.spec, dev)
+        self.field, self.state = init_train_state(cfg, self.spec, dev,
+                                                  train_scene.n_images)
         # the EMA field renders from the state's EMA tensors (shared)
         self.ema_field = copy.deepcopy(self.field)
         for k, p in self.ema_field.named_parameters():
             p.requires_grad_(False)
             p.data = self.state.ema_params[k]
         self.net_tx = fused_adam_ema(cfg)
+        self.pose_tx = pose_adam(cfg) if cfg.pose_opt.mode != "none" \
+            else None
         self.generator = torch.Generator(device=dev).manual_seed(
             cfg.train.seed)
         self.num_rays = cfg.train.num_rays
@@ -291,7 +412,8 @@ class Trainer:
         """The train step for the current adaptive-batch key (num_rays,
         point budget; budget None = the config-derived base)."""
         return make_train_step(self.cfg, self.spec, self.net_tx,
-                               self.num_rays, point_budget=self._point_budget)
+                               self.num_rays, point_budget=self._point_budget,
+                               pose_tx=self.pose_tx)
 
     def _adapt_batch(self, metrics):
         """Adaptive batching (``trainer.py:694``): grow num_rays by powers
@@ -394,14 +516,17 @@ class Trainer:
     def render_image(self, pose, intrinsics=None, H=None, W=None,
                      use_ema: bool = True):
         """Full-image chunked render with the EMA parameters (raw ones
-        with ``use_ema=False``) -> numpy (rgb [H, W, 3], depth [H, W])."""
+        with ``use_ema=False``) at the current annealing,
+        min(host_step / iters, 1) -> numpy (rgb [H, W, 3], depth [H, W])."""
         scene = self.train_scene
         intrinsics = intrinsics if intrinsics is not None \
             else scene.intrinsics
         field = self.ema_field if use_ema else self.field
+        annealing = min(self.host_step / max(self.cfg.train.iters, 1), 1.0)
         rgb, depth = render_image(field, self.state.density_bitfield, pose,
                                   intrinsics, H or scene.H, W or scene.W,
-                                  self.aabb, device=self.device)
+                                  self.aabb, device=self.device,
+                                  annealing=annealing)
         return rgb.cpu().numpy(), depth.cpu().numpy()
 
     def evaluate(self, scene: Optional[SceneData] = None,

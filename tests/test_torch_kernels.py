@@ -174,8 +174,12 @@ def test_segsum_kernel_matches_plain_at_flagship_shape(cuda_device, skew):
     """B2 at the flagship's level-1 shape (1,048,576 records of 262,144
     points into 524,288 rows, C = 16) against its plain version: the same
     bf16 products, summed in another f32 order. rtol 1e-5 on random keys;
-    on the skew stream the ~940k-term row sums in another order, rtol
-    1e-4 there. Rows without records are exactly 0."""
+    on the skew stream the ~940k-term row sums in another order (both
+    sides with atomics, so in an order that changes from run to run) and
+    its signed terms cancel to a total some 1e5 times smaller than their
+    absolute sum, so there the bound is the error of two f32 sums: rtol
+    1e-5 plus 2^-20 of the row's absolute sum (:func:`_within_sum_error`).
+    Rows without records are exactly 0."""
     M, B, n_rows, C = 1 << 20, 1 << 18, 1 << 19, 16
     keys_s, perm, w_word, g_words = _outer_stream(cuda_device, M, B, n_rows,
                                                   C, skew=skew)
@@ -188,8 +192,22 @@ def test_segsum_kernel_matches_plain_at_flagship_shape(cuda_device, skew):
     empty = torch.ones(n_rows, dtype=torch.bool, device=cuda_device)
     empty[keys_s.long()] = False
     assert empty.any() and (out[empty] == 0).all()
-    torch.testing.assert_close(out, ref, rtol=1e-4 if skew else 1e-5,
-                               atol=1e-5)
+    if skew:
+        mass = torch.zeros_like(ref).index_add_(
+            0, keys_s.long(),
+            ts._outer_products(perm, w_word, g_words, C).abs())
+        assert _within_sum_error(out, ref, mass, 1e-5)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def _within_sum_error(out, ref, mass, rtol):
+    """|out - ref| <= rtol |ref| + 1e-5 + 2^-20 mass: two f32 sums of the
+    same terms in different orders differ by at most a few units of
+    rounding of the partial sums, i.e. a small multiple of 2^-24 times the
+    terms' absolute sum ``mass``; 2^-20 leaves a factor 16."""
+    return bool(((out - ref).abs()
+                 <= rtol * ref.abs() + 1e-5 + 2.0 ** -20 * mass).all())
 
 
 @pytest.mark.gpu
@@ -253,3 +271,143 @@ def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
     assert scale > 0
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
                                atol=1e-6 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep_rate", [0.0, 0.03, 0.25, 0.9, 1.0])
+def test_compact_backward_kernel_bit_exact(cuda_device, keep_rate):
+    """B1's backward at the train shape (M = 524,288, m_pad = 262,144; keep
+    rates 0.9 and 1.0 overflow the budget) against the plain version
+    (zeros + index_copy_ at the filled pos), through compact_attrs'
+    autograd: bit-exact, a copy of bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    M, m_pad = 1 << 19, 262144
+    mask = torch.rand(M, generator=gen, device=cuda_device) < keep_rate
+    attrs = torch.randn(2, M, generator=gen, device=cuda_device)
+    g = torch.randn(2, m_pad, generator=gen, device=cuda_device)
+    c = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
+    keys = torch.where(mask & (c <= m_pad), c - 1,
+                       tc.SENTINEL).to(torch.int32)
+    a = attrs.clone().requires_grad_()
+    before = tc.compact_attrs_bwd.launches
+    pos, att = tc.compact_attrs(a, keys, c, m_pad)
+    att.backward(g)
+    assert tc.compact_attrs_bwd.launches == before + 1
+    ref = tc.compact_attrs_bwd_plain(g, pos, M)
+    torch.cuda.synchronize()
+    assert torch.equal(a.grad.view(torch.int32), ref.view(torch.int32))
+    assert (a.grad[:, keys >= m_pad] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,gridtype,align,interp", [
+    ("additive", "hash", False, "linear"),
+    ("xor", "hash", False, "linear"),
+    ("xor", "hash", True, "smoothstep"),
+    ("xor", "tiled", False, "linear"),
+])
+@pytest.mark.parametrize("C", [2, 8, 16])
+def test_encode_input_grad_kernel_matches_plain(cuda_device, variant,
+                                                gridtype, align, interp, C):
+    """The encode's input gradient, kernel against plain version, f32 and
+    bf16, with out-of-bounds and NaN points: the same expressions in the
+    same order on both sides; rtol 1e-5 of the largest entry (as the f32
+    sums of the table gradient)."""
+    spec = HashGridSpec.create(num_levels=4, level_dim=C,
+                               log2_hashmap_size=14, desired_resolution=512,
+                               hash_variant=variant, gridtype=gridtype,
+                               align_corners=align, interpolation=interp)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.rand(spec.n_params * C, generator=gen,
+                       device=cuda_device) * 2 - 1
+    x = torch.from_numpy(_points(8192)).to(cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn(8192, 4 * C, generator=gen,
+                        device=cuda_device).to(dtype)
+        before = th.encode_input_grad.launches
+        out = th.encode_input_grad(table, x, g, spec, dtype)
+        assert th.encode_input_grad.launches == before + 1
+        ref = th.encode_input_grad_plain(table, x, g, spec, dtype)
+        torch.cuda.synchronize()
+        assert (out[:12] == 0).all()
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_input_grad_kernel_at_flagship_shape(cuda_device, dtype):
+    """B = 262,144 points on the flagship grid (the dense matmul level and
+    the additive-hash level), through the encode's autograd: the kernel
+    launches once and agrees with the plain version within rtol 1e-5 of
+    the largest entry."""
+    spec = _flagship_grid()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    table = (torch.rand(spec.n_params * spec.level_dim, generator=gen,
+                        device=cuda_device) * 2 - 1) * 1e-2
+    x = torch.rand(262144, 3, generator=gen, device=cuda_device)
+    cot = torch.randn(262144, spec.output_dim, generator=gen,
+                      device=cuda_device)
+    xs = x.clone().requires_grad_()
+    before = th.encode_input_grad.launches
+    (th.hash_encode(table, xs, spec, compute_dtype=dtype).float()
+     * cot).sum().backward()
+    assert th.encode_input_grad.launches == before + 1
+    ref = th.encode_input_grad_plain(table, x, cot.to(dtype), spec, dtype)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(xs.grad, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+def _channel_stream(device, M, n_rows, n_chan, skew=False, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keys = torch.randint(0, n_rows, (M,), generator=gen, device=device,
+                         dtype=torch.int32)
+    if skew:
+        keys = torch.where(torch.rand(M, generator=gen, device=device) < 0.9,
+                           7, keys).to(torch.int32)
+    keys_s, _ = torch.sort(keys)
+    vals = torch.randn(n_chan, M, generator=gen, device=device)
+    packed = torch.stack(ts.pack_bf16_pairs(list(vals))).contiguous()
+    return keys_s.to(torch.int32).contiguous(), packed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skew", [False, True])
+def test_segsum_channel_kernel_at_level1_shape(cuda_device, skew):
+    """B2's channel mode at the flagship's level-1 shape (1,048,576 records
+    into 524,288 rows, 32 channels) against segment_totals_plain: the same
+    bf16 values summed in another f32 order; rtol 1e-5, and on the skew
+    stream's cancelling ~940k-term row the bound of the f32 sums
+    (rtol 1e-5 plus 2^-20 of the row's absolute sum, as the outer mode).
+    Empty rows exactly 0."""
+    M, n_rows, n_chan = 1 << 20, 1 << 19, 32
+    keys_s, packed = _channel_stream(cuda_device, M, n_rows, n_chan, skew)
+    before = ts.segment_totals.launches
+    out = ts.segment_totals(keys_s, packed, n_rows, n_chan)
+    assert ts.segment_totals.launches == before + 1
+    ref = ts.segment_totals_plain(keys_s, packed, n_rows, n_chan)
+    torch.cuda.synchronize()
+    empty = torch.ones(n_rows, dtype=torch.bool, device=cuda_device)
+    empty[keys_s.long()] = False
+    assert empty.any() and (out[empty] == 0).all()
+    if skew:
+        vals = torch.stack(ts.unpack_bf16_pairs(list(packed), n_chan), 1)
+        mass = torch.zeros_like(ref).index_add_(0, keys_s.long(), vals.abs())
+        assert _within_sum_error(out, ref, mass, 1e-5)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chan", [1, 3, 16, 33, 64])
+def test_segsum_channel_mode_widths(cuda_device, n_chan):
+    """Every channel count the kernel takes (odd counts pad the last word,
+    two channels a lane above 32), on a small stream."""
+    keys_s, packed = _channel_stream(cuda_device, 50000, 4000, n_chan,
+                                     seed=n_chan)
+    out = ts.segment_totals(keys_s, packed, 4000, n_chan)
+    ref = ts.segment_totals_plain(keys_s, packed, 4000, n_chan)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)

@@ -200,17 +200,30 @@ def test_encode_plain_and_default_paths_agree():
 
 
 def test_unported_gradients_raise():
-    """Input gradients of the encode and B1's backward belong to the pose
-    slice: both raise instead of returning a wrong gradient."""
+    """The gradients the pose slice ported (the encode's input gradient,
+    B1's backward) now flow; what is still unported raises instead of
+    returning a wrong result: rfield fields and the sampler's exposures,
+    light directions and per-camera near/far."""
     tspec = TSpec.create(**_SPECS["L2xC16"])
     table = torch.zeros(tspec.n_params * tspec.level_dim)
     x = torch.rand(8, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        th.hash_encode(table, x, tspec)
+    th.hash_encode(table, x, tspec).sum().backward()
+    assert x.grad is not None and x.grad.shape == (8, 3)
     attrs = torch.rand(2, 16, requires_grad=True)
     keys = torch.full((16,), SENTINEL, dtype=torch.int32)
+    compact_attrs(attrs, keys, torch.zeros(16, dtype=torch.int32),
+                  8)[1].sum().backward()
+    assert torch.equal(attrs.grad, torch.zeros(2, 16))
+    cfg = tcfg.Config().with_preset_O()
     with pytest.raises(NotImplementedError):
-        compact_attrs(attrs, keys, torch.zeros(16, dtype=torch.int32), 8)
+        t_make_spec(replace(cfg, model=replace(cfg.model, rfield=True)))
+    train, _ = make_synthetic_scene(n_train=2, n_val=1, H=8, W=8, seed=0)
+    arrays = [torch.from_numpy(a) for a in
+              (train.images, train.poses, train.intrinsics)]
+    for kw in ({"exposures": torch.ones(2, 1)}, {"ldirs": torch.ones(2, 3)},
+               {"cam_near_far": torch.ones(2, 2)}):
+        with pytest.raises(NotImplementedError):
+            t_sample(torch.Generator().manual_seed(0), *arrays, 8, **kw)
 
 
 # ---------------------------------------------------------------- (d)
