@@ -5,15 +5,17 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. build  — compile every kernel of the path from raw_ngp_torch/csrc/
-              with nvcc for sm_90a (one nvcc per source, in parallel);
+              (four sources) with nvcc for sm_90a (one nvcc per source, in
+              parallel);
   2. compact — the compaction kernel against its plain version at the
               render's shape (M = 1,048,576 records, m_pad = 262,144
               slots), keep rates 0.03 / 0.25 / 0.9 plus a full mask and an
               empty one: bit-exact;
   3. encode — the hash-encode kernel against its plain version at
               B = 262,144 points on the flagship grid (2 levels x 16
-              channels, additive hash): f32 within atol 1e-6, bf16 within
-              rtol 1e-2 (atol 1e-6);
+              channels, additive hash): f32 within atol 1e-6 of
+              hash_encode_01, bf16 bit-exact with hash_encode_fused_plain
+              (the JAX fused encoder's rounding chain);
   4. slice  — the flagship configuration (Config().with_preset_O()
               .with_tpu_profile(), fp16, num_rays 8192) at full width with
               a seeded random field and a bitfield occupying the bench
@@ -27,21 +29,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               262,144 points into 524,288 rows, 16 channels), random keys
               within rtol 1e-5, and a dense-skew stream within rtol 1e-5
               plus 2^-20 of each row's absolute sum (within_sum_error);
-  6. encode_bwd — the encode's table gradient (record kernel, torch.sort,
-              B2, combine, dense-level matmul) on the kernel path against
-              the plain path at B = 262,144, f32 and bf16, within rtol
-              1e-5 of the largest entry;
+  6. encode_bwd — the encode's table gradient (dense-level scatter kernel,
+              record kernel, g packing, torch.sort, B2, combine kernel) on
+              the kernel path against the plain path at B = 262,144,
+              uniform and ray-ordered points, f32 and bf16: the window
+              rows within rtol 1e-5 of the largest entry, the dense rows
+              by dense_rows_agree (rtol 1e-5 plus 2^-20 of the entry's
+              absolute mass before rounding); then the whole path, the
+              dense kernel alone (index_add_ of its exact products as the
+              library yardstick) and the two glue kernels (bit-exact)
+              timed;
   7. train  — the flagship Trainer on make_synthetic_scene(36, 2, 128,
               128) for 128 steps (8 grid refreshes) with every launch
-              counter reset just before and read just after: all four
-              kernels launched, finite losses that fall (last 8 below the
-              first 8), finite params and EMA, the val PSNR (EMA), and one
-              step on a fixed batch that agrees between the kernel path
-              and the plain path;
+              counter reset just before and read just after: all seven
+              kernels launched (the dense-level kernel once a step), finite
+              losses that fall (last 8 below the first 8), finite params
+              and EMA, the val PSNR (EMA), and one step on a fixed batch
+              that agrees between the kernel path and the plain path;
   8. compact_bwd — kernel B1's backward against its plain version (zeros +
               index_copy_) at the train shape (M = 524,288, m_pad =
               262,144), keep rates 0.03 / 0.25 / 0.9, full and empty (0.9
-              and full overflow the budget): bit-exact;
+              and full overflow the budget): bit-exact; timed beside the
+              device time of zero_ + index_copy_;
   9. encode_input — the encode's input gradient against its plain version
               at B = 262,144 on the flagship grid, f32 and bf16, within
               rtol 1e-5 of the largest entry;
@@ -53,17 +62,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pose_opt.noise 0.05 and train.iters = 128 (so the annealing
               ramp and the pose freeze at int(0.33 * 128) fall inside)
               trained 128 steps by its Trainer, every launch counter reset
-              just before and read just after: all six kernels of the path
-              launched (compaction forward and backward, encode, records,
-              B2, encode input gradient), finite losses that fall, finite
-              params, EMA and pose params, nonzero pose params, the
-              Procrustes pose errors before and after (printed, not
+              just before and read just after: all nine kernels of the
+              path launched (compaction forward and backward, encode,
+              records, B2, the dense-level gradient once a step, g
+              packing, combine, encode input gradient), finite losses that
+              fall, finite params, EMA and pose params, nonzero pose
+              params, the Procrustes pose errors before and after (printed, not
               gated), one fixed-batch step whose loss, net gradients and
               pose gradient agree between the kernel and the plain path;
  12. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
-              compaction, index_copy_ for its backward, index_add_ for
-              B2's two modes) with CUDA events; the 512x512 render in ms
+              compaction, index_copy_ for its backward, index_add_ for the
+              dense-level gradient and for B2's two modes) with CUDA
+              events and device times; the 512x512 render in ms
               per chunk and rays/s (median of 7 images, each time listed);
               the train and pose steps in ms and rays/s (median of the
               last 32 steps, CUDA events, each listed) with their stages;
@@ -206,7 +217,8 @@ def phase_compact(dev, M=1 << 20, m_pad=262144):
 
 def phase_encode(dev, spec, B=262144):
     import torch
-    from raw_ngp_torch.kernels.hash_encode import hash_encode
+    from raw_ngp_torch.kernels.hash_encode import (hash_encode,
+                                                   hash_encode_fused_plain)
     from raw_ngp_torch.ops.hashgrid import hash_encode_01
     L, C = spec.num_levels, spec.level_dim
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -216,21 +228,21 @@ def phase_encode(dev, spec, B=262144):
     x01[:64] = x01[:64] * 3.0 - 1.0
     x01[64:72, 1] = float("nan")
     errs = {}
-    for dtype, tol in ((torch.float32, dict(rtol=0.0, atol=1e-6)),
-                       (torch.bfloat16, dict(rtol=1e-2, atol=1e-6))):
+    # f32 against hash_encode_01 within atol 1e-6 (another f32 sum order
+    # where nvcc fuses); bf16 against the fused encoder's chain, bit-exact
+    for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 0.0)):
         k = hash_encode(table, x01, spec, compute_dtype=dtype)
-        p = hash_encode_01(table, x01, spec, compute_dtype=dtype)
+        p = (hash_encode_01(table, x01, spec) if dtype == torch.float32
+             else hash_encode_fused_plain(table, x01, spec, dtype))
         torch.cuda.synchronize()
         check(k.dtype == dtype and k.shape == (B, L * C),
               f"encode {dtype}: got {k.dtype} {tuple(k.shape)}")
         kf, pf = k.float(), p.float()
         err = float((kf - pf).abs().max())
-        rel = float(((kf - pf).abs() / pf.abs().clamp_min(1e-30)).max())
-        check(torch.allclose(kf, pf, **tol),
-              f"encode {dtype}: max abs err {err} exceeds {tol}")
+        check(err <= atol, f"encode {dtype}: max abs err {err} exceeds {atol}")
         errs[dtype] = err
-        print(f"[encode] {str(dtype)[6:]}: max abs err {err:.3e}, max rel "
-              f"err {rel:.3e} (tolerance {tol}): ok")
+        print(f"[encode] {str(dtype)[6:]}: max abs err {err:.3e} "
+              f"(tolerance {atol}{', bit-exact' if atol == 0 else ''}): ok")
 
     bf16 = torch.bfloat16
     ms = time_ms(lambda: hash_encode(table, x01, spec, compute_dtype=bf16),
@@ -238,7 +250,7 @@ def phase_encode(dev, spec, B=262144):
     dev_ms = device_ms(lambda: hash_encode(table, x01, spec,
                                            compute_dtype=bf16))
     plain_ms = time_ms(
-        lambda: hash_encode_01(table, x01, spec, compute_dtype=bf16), 10)
+        lambda: hash_encode_fused_plain(table, x01, spec, bf16), 3)
     # least traffic: the points, the table rows this input touches (once
     # each), the bf16 output; least work: one f32 multiply-add per corner
     # and channel
@@ -342,36 +354,119 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                 library="index_add_ of the bf16-rounded products")
 
 
+def ray_points(B, gen, dev, per_ray=32):
+    """B points in ray order, as the compaction leaves them: B / per_ray
+    rays from random points in [0.1, 0.9]^3 in random directions, samples
+    0.004 apart (32 samples span 2-4 cells of the res-16 level)."""
+    import torch
+    n = B // per_ray
+    o = torch.rand(n, 3, generator=gen, device=dev) * 0.8 + 0.1
+    d = torch.randn(n, 3, generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.arange(per_ray, device=dev) * 0.004
+    return (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3) \
+        .clamp(0.0, 1.0).contiguous()
+
+
+def dense_products(x01, g, spec, bf16):
+    """The dense level's exact products rnd(wyz) * rnd(g * rnd(wx)) per
+    in-bounds point and lane (8 a point: [n, C] f32), their flat table
+    rows [n], their absolute-sum ``mass`` per entry, and the number of
+    nonzero lane products this input needs (clamped lanes weigh 0)."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.kernels.segsum import round_bf16
+    res, C = spec.resolutions[0], spec.level_dim
+    rnd = round_bf16 if bf16 else (lambda t: t)
+    inb, xs = th._in_bounds(x01)
+    lanes = [th._mm_lanes(*th._corner_axis(x[inb], res, spec), res)
+             for x in xs]
+    gl = rnd(g[inb, :C].float())
+    (cx, ax, px), (cy, ay, py), (cz, az, pz) = lanes
+    rows, prods = [], []
+    for i in range(8):
+        xi, yi, zi = i & 1, (i >> 1) & 1, i >> 2
+        rows.append(cx[xi] + res * (cy[yi] + res * cz[zi]))
+        w = rnd(az[zi] * ay[yi])
+        prods.append(w[:, None] * rnd(gl * rnd(ax[xi])[:, None]))
+    rows, prods = torch.cat(rows), torch.cat(prods)
+    mass = torch.zeros(res ** 3, C, device=x01.device).index_add_(
+        0, rows, prods.abs())
+    n_terms = int(((1 + px.long()) * (1 + py.long()) * (1 + pz.long()))
+                  .sum())
+    return rows, prods, mass, n_terms * C
+
+
+def dense_rows_agree(out, ref_total, mass, bf16):
+    """The dense-row rule: the kernel's totals before rounding lie within
+    rtol 1e-5 plus 2^-20 of the entry's absolute mass of the exact f32
+    total (the f32 sum order; atomics vary it between runs); under bf16
+    the output is then a rounding of a value in that band (equal to the
+    plain version's or one bf16 ulp from it)."""
+    from raw_ngp_torch.kernels.segsum import round_bf16
+    err = 1e-5 * ref_total.abs() + 2.0 ** -20 * mass
+    if not bf16:
+        return bool(((out - ref_total).abs() <= err).all())
+    return bool(((out >= round_bf16(ref_total - err))
+                 & (out <= round_bf16(ref_total + err))).all())
+
+
 def phase_encode_bwd(dev, spec, B=262144):
-    """The table gradient, kernel path against plain path, then its time
-    in bf16 (the flagship's compute dtype) and that of its pieces."""
+    """The table gradient, kernel path against plain path (uniform and
+    ray-ordered points, f32 and bf16), then its time in bf16 (the
+    flagship's compute dtype), that of its pieces, and the three kernels
+    of the table gradient on their own: the dense level's scatter (with
+    index_add_ of its exact products as the library yardstick), the
+    packing of g and the combine."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     gen = torch.Generator(device=dev).manual_seed(4)
     table = (torch.rand(spec.n_params * spec.level_dim, generator=gen,
                         device=dev) * 2 - 1) * 1e-2
-    x01 = torch.rand(B, 3, generator=gen, device=dev)
-    x01[:64] = x01[:64] * 3.0 - 1.0
+    inputs = {"uniform": torch.rand(B, 3, generator=gen, device=dev),
+              "ray": ray_points(B, gen, dev)}
+    inputs["uniform"][:64] = inputs["uniform"][:64] * 3.0 - 1.0
     cot = torch.randn(B, spec.output_dim, generator=gen, device=dev)
+    res, C = spec.resolutions[0], spec.level_dim
+    n_dense = spec.offsets[th.matmul_split(spec)] * C
+    check(n_dense == spec.offsets[1] * C, "encode_bwd: the flagship grid "
+          "should have one dense level")
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        grads = []
-        for fn in (th.hash_encode, th.hash_encode_plain):
-            p = table.clone().requires_grad_()
-            (fn(p, x01, spec, compute_dtype=dtype).float() * cot
-             ).sum().backward()
-            grads.append(p.grad)
-        torch.cuda.synchronize()
-        scale = float(grads[1].abs().max())
-        err = float((grads[0] - grads[1]).abs().max())
-        check(scale > 0 and torch.allclose(grads[0], grads[1], rtol=1e-5,
-                                           atol=1e-6 * scale),
-              f"encode_bwd {dtype}: max abs err {err} (scale {scale})")
-        errs[dtype] = err
-        print(f"[encode_bwd] {str(dtype)[6:]}: max abs err {err:.3e} of "
-              f"largest {scale:.3e} (rtol 1e-5, atol 1e-6 x largest): ok")
+    for kind, x01 in inputs.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            grads = []
+            for fn in (th.hash_encode, th.hash_encode_plain):
+                p = table.clone().requires_grad_()
+                (fn(p, x01, spec, compute_dtype=dtype).float() * cot
+                 ).sum().backward()
+                grads.append(p.grad)
+            bf16 = dtype == torch.bfloat16
+            rows, prods, mass, _ = dense_products(x01, cot.to(dtype), spec,
+                                                  bf16)
+            total = torch.zeros_like(mass).index_add_(0, rows, prods)
+            torch.cuda.synchronize()
+            nr = res ** 3 * C
+            dense_ok = (dense_rows_agree(grads[0][:nr], total.reshape(-1),
+                                         mass.reshape(-1), bf16)
+                        and bool((grads[0][nr:n_dense] == 0).all()))
+            scale = float(grads[1].abs().max())
+            err_d = float((grads[0][:n_dense] - grads[1][:n_dense]).abs()
+                          .max())
+            err_w = float((grads[0][n_dense:] - grads[1][n_dense:]).abs()
+                          .max())
+            check(scale > 0 and dense_ok and torch.allclose(
+                grads[0][n_dense:], grads[1][n_dense:], rtol=1e-5,
+                atol=1e-6 * scale),
+                f"encode_bwd {kind} {dtype}: dense rows ok {dense_ok}, "
+                f"dense err {err_d}, window err {err_w} (scale {scale})")
+            errs[(kind, dtype)] = (err_d, err_w)
+            print(f"[encode_bwd] {kind} {str(dtype)[6:]}: dense rows within "
+                  f"the rule (max abs err to plain {err_d:.3e}), window rows "
+                  f"max abs err {err_w:.3e} of largest {scale:.3e} (rtol "
+                  f"1e-5, atol 1e-6 x largest): ok")
 
     bf16 = torch.bfloat16
+    x01 = inputs["uniform"]
     g = cot.to(bf16)
 
     def kernel_path():
@@ -383,34 +478,139 @@ def phase_encode_bwd(dev, spec, B=262144):
         return th.table_grad(spec, x01, base, w_word, g, bf16, plain=True)
 
     ms = time_ms(kernel_path, 20)
-    dev_ms = device_ms(kernel_path)
+    prof = profile_device(kernel_path, 20, "call")
+    dev_ms = prof.get("device_busy_ms_per_call")
     plain_ms = time_ms(plain_path, 3)
+    n_aten = aten_ops(kernel_path)
     records_ms = time_ms(lambda: th.window_records(x01, spec), 20)
     base, _ = th.window_records(x01, spec)
     lv, w0, nw = th.level_windows(spec, th.matmul_split(spec))[-1]
     keys = (base[w0:w0 + nw].reshape(-1) - spec.offsets[lv]).contiguous()
     sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 20)
-    mm_ms = time_ms(lambda: th.mm_grad_table(x01, g, spec, bf16), 10)
     n_bytes = (B * 3 * 4 + B * spec.output_dim * 2
                + spec.n_params * spec.level_dim * 4)
     n_ops = 2 * 8 * spec.level_dim * spec.num_levels * B
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_FLOP_PER_S * 1e3
     print(f"[encode_bwd] B={B} bf16: records + table gradient {ms:.4f} ms "
-          f"(device {dev_ms} ms), "
+          f"(device {dev_ms} ms, {prof.get('kernel_launches_per_call')} "
+          f"device launches and {n_aten} aten ops a call), "
           f"plain {plain_ms:.4f} ms; records kernel {records_ms:.4f} ms, "
           f"torch.sort of the level-{lv} keys ({keys.numel()}) {sort_ms:.4f} "
-          f"ms, dense-level matmul {mm_ms:.4f} ms; {n_bytes} bytes "
-          f"({bytes_ms * 1e3:.2f} us), {n_ops} flop ({ops_ms * 1e3:.2f} us)")
-    return dict(name="hash_encode_bwd", route="cuda",
-                source="raw_ngp_torch/csrc/hash_encode.cu",
-                replaces="raw_ngp_tpu/kernels/hash_fused.py:756",
-                max_abs_err=errs[bf16], max_abs_err_f32=errs[torch.float32],
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None, records_ms=records_ms, sort_ms=sort_ms,
-                mm_ms=mm_ms)
+          f"ms; {n_bytes} bytes ({bytes_ms * 1e3:.2f} us), {n_ops} flop "
+          f"({ops_ms * 1e3:.2f} us)")
+    print(f"[encode_bwd] profile of one call: {json.dumps(prof)}")
+    # the window levels' part: the path less the dense-level kernel; its
+    # bound reads x01 and the window levels' g and writes their rows
+    m = th.matmul_split(spec)
+    mm_prof = sum(k["ms_per_call"] for k in prof.get("top_kernels", ())
+                  if "mm_grad_table_kernel" in k["name"]
+                  or "round_bf16_kernel" in k["name"])
+    window_dev = None if dev_ms is None else dev_ms - mm_prof
+    window_bound = (B * 12 + B * (spec.num_levels - m) * C * 2
+                    + (spec.n_params - spec.offsets[m]) * C * 4
+                    ) / HBM_BYTES_PER_S * 1e3
+    print(f"[encode_bwd] window levels' part: device {window_dev} ms, bound "
+          f"{window_bound * 1e3:.2f} us (bytes)")
+    whole = dict(name="hash_encode_bwd", route="cuda",
+                 source="raw_ngp_torch/csrc/hash_encode.cu",
+                 replaces="raw_ngp_tpu/kernels/hash_fused.py:756",
+                 max_abs_err=max(errs[("uniform", bf16)]),
+                 max_abs_err_f32=max(errs[("uniform", torch.float32)]),
+                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 library_ms=None, records_ms=records_ms, sort_ms=sort_ms,
+                 device_launches_per_call=prof.get(
+                     "kernel_launches_per_call"),
+                 aten_ops_per_call=n_aten,
+                 window_part_device_ms=window_dev,
+                 window_part_bound_ms=window_bound,
+                 top_kernels=prof.get("top_kernels"))
+
+    # the dense level's kernel alone, on both inputs
+    out = torch.empty(n_dense, device=dev)
+    dense = {}
+    for kind, xk in inputs.items():
+        rows, prods, _, n_terms = dense_products(xk, g, spec, True)
+        acc = torch.empty(res ** 3, C, device=dev)
+        mm_ms = time_ms(lambda: th.mm_grad_table(xk, g, spec, bf16, out=out),
+                        50)
+        mm_dev = device_ms(lambda: th.mm_grad_table(xk, g, spec, bf16,
+                                                    out=out))
+        lib_ms = time_ms(lambda: acc.zero_().index_add_(0, rows, prods), 20)
+        lib_dev = device_ms(lambda: acc.zero_().index_add_(0, rows, prods))
+        mm_plain = time_ms(lambda: th.mm_grad_table_plain(xk, g, spec, bf16),
+                           5)
+        nb = B * 3 * 4 + B * C * 2 + n_dense * 4
+        b_ms, o_ms = (nb / HBM_BYTES_PER_S * 1e3,
+                      2 * n_terms / F32_FLOP_PER_S * 1e3)
+        dense[kind] = dict(ms=mm_ms, device_ms=mm_dev, plain_ms=mm_plain,
+                           library_ms=lib_ms, library_device_ms=lib_dev,
+                           bound_ms=max(b_ms, o_ms),
+                           bound_by="bytes" if b_ms >= o_ms else "operations",
+                           bytes=nb, flop=2 * n_terms)
+        print(f"[encode_bwd] dense level ({kind} points) bf16: kernel "
+              f"{mm_ms:.4f} ms (device {mm_dev} ms), plain (matmul) "
+              f"{mm_plain:.4f} ms, zero_ + index_add_ of the exact products "
+              f"{lib_ms:.4f} ms (device {lib_dev} ms); {nb} bytes "
+              f"({b_ms * 1e3:.2f} us), {2 * n_terms} flop "
+              f"({o_ms * 1e3:.2f} us)")
+    mm_k = dict(name="mm_grad_table", route="cuda",
+                source="raw_ngp_torch/csrc/hash_grad.cu",
+                replaces="raw_ngp_tpu/kernels/hash_fused.py:349",
+                max_abs_err=errs[("uniform", bf16)][0],
+                max_abs_err_ray=errs[("ray", bf16)][0],
+                library="zero_ + index_add_ of the exact products",
+                ray_ordered=dense["ray"], **dense["uniform"])
+
+    # the glue kernels at the flagship's shapes, against their plain versions
+    words = th.pack_g_words(g, spec)
+    check(torch.equal(words, th.pack_g_words_plain(g, spec)),
+          "pack_g_words: words differ from the plain version")
+    R = spec.n_params - spec.offsets[th.matmul_split(spec)]
+    totals = torch.randn(R, 2 * C, generator=gen, device=dev)
+    comb = torch.empty(R * C, device=dev)
+    th.combine_totals(totals, comb)
+    comb_p = th.combine_totals_plain(totals, torch.empty_like(comb))
+    torch.cuda.synchronize()
+    check(torch.equal(comb.view(torch.int32), comb_p.view(torch.int32)),
+          "combine_totals: differs from the plain version in its bits")
+    glue = []
+    n_words = words.numel()
+    for name, src, fn, plain_fn, nb in (
+            ("pack_g_words", "raw_ngp_tpu/kernels/hash_fused.py:666",
+             lambda: th.pack_g_words(g, spec),
+             lambda: th.pack_g_words_plain(g, spec),
+             B * (spec.num_levels - th.matmul_split(spec)) * C * 2
+             + 4 * n_words),
+            ("combine_totals", "raw_ngp_tpu/kernels/hash_fused.py:686",
+             lambda: th.combine_totals(totals, comb),
+             lambda: th.combine_totals_plain(totals, comb),
+             R * 2 * C * 4 + R * C * 4)):
+        k_ms, k_dev = time_ms(fn, 50), device_ms(fn)
+        p_ms = time_ms(plain_fn, 10)
+        b_ms = nb / HBM_BYTES_PER_S * 1e3
+        print(f"[encode_bwd] {name}: kernel {k_ms:.4f} ms (device {k_dev} "
+              f"ms), plain {p_ms:.4f} ms, bit-exact; {nb} bytes "
+              f"({b_ms * 1e3:.2f} us)")
+        glue.append(dict(name=name, route="cuda",
+                         source="raw_ngp_torch/csrc/hash_grad.cu",
+                         replaces=src, max_abs_err=0.0, ms=k_ms,
+                         device_ms=k_dev, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by="bytes", library_ms=None))
+    return [whole, mm_k] + glue
+
+
+def aten_ops(fn):
+    """The aten operators one call of fn dispatches (torch.profiler, CPU
+    activity): the host-side count that launches follow."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("aten::"))
 
 
 def phase_compact_bwd(dev, M=1 << 19, m_pad=262144):
@@ -453,18 +653,21 @@ def phase_compact_bwd(dev, M=1 << 19, m_pad=262144):
     out = torch.empty(2, M, device=dev)
     library_ms = time_ms(lambda: out.zero_().index_copy_(1, dest, g_kept),
                          20)
+    library_dev = device_ms(lambda: out.zero_().index_copy_(1, dest, g_kept))
     n_bytes = 4 * M + 4 * 2 * M + 4 * 2 * n_kept
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     print(f"[compact_bwd] M={M} m_pad={m_pad} keep 0.25: kernel {ms:.4f} "
           f"ms (device {dev_ms} ms), plain {plain_ms:.4f} ms, "
           f"zero_ + index_copy_ "
-          f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({n_bytes} "
+          f"{library_ms:.4f} ms (device {library_dev} ms), bound "
+          f"{bound_ms * 1e3:.2f} us ({n_bytes} "
           f"bytes)")
     return dict(name="compact_attrs_bwd", route="cuda",
                 source="raw_ngp_torch/csrc/compact.cu",
                 replaces="raw_ngp_tpu/kernels/compact_pallas.py:224",
                 max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                library_device_ms=library_dev,
                 library="zero_ + index_copy_ at the filled pos")
 
 
@@ -792,8 +995,10 @@ def profile_device(fn, reps, unit):
 
 def _counters():
     from raw_ngp_torch.kernels.compact import compact_attrs, compact_attrs_bwd
-    from raw_ngp_torch.kernels.hash_encode import (encode_input_grad,
-                                                   hash_encode,
+    from raw_ngp_torch.kernels.hash_encode import (combine_totals,
+                                                   encode_input_grad,
+                                                   hash_encode, mm_grad_table,
+                                                   pack_g_words,
                                                    window_records)
     from raw_ngp_torch.kernels.segsum import (segment_totals,
                                               segment_totals_outer)
@@ -802,12 +1007,15 @@ def _counters():
             "segment_totals": segment_totals_outer,
             "compact_attrs_bwd": compact_attrs_bwd,
             "encode_input_grad": encode_input_grad,
-            "segment_totals_channel": segment_totals}
+            "segment_totals_channel": segment_totals,
+            "mm_grad_table": mm_grad_table, "pack_g_words": pack_g_words,
+            "combine_totals": combine_totals}
 
 
 # the kernels each path must launch
 TRAIN_KERNELS = ("compact_attrs", "hash_encode", "hash_encode_bwd",
-                 "segment_totals")
+                 "segment_totals", "mm_grad_table", "pack_g_words",
+                 "combine_totals")
 POSE_KERNELS = TRAIN_KERNELS + ("compact_attrs_bwd", "encode_input_grad")
 
 
@@ -894,6 +1102,10 @@ def run_steps(tr, steps, kernels, what):
           f"{tr.host_grid_updates} grid refreshes; launches {launches}")
     for name in kernels:
         check(launches[name] > 0, f"{what}: kernel {name} was never launched")
+    # one backward a step, one dense level on the flagship grid
+    check(launches["mm_grad_table"] == steps,
+          f"{what}: the dense-level kernel launched "
+          f"{launches['mm_grad_table']} times in {steps} steps")
     loss = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(loss).all()), f"{what}: a loss is not finite")
     first, last = float(loss[:8].mean()), float(loss[-8:].mean())
@@ -1121,7 +1333,7 @@ def main() -> int:
         spec = make_field_spec(cfg).grid_spec
         k_encode = phase_encode(dev, spec)
         k_segsum = phase_segsum(dev)
-        k_bwd = phase_encode_bwd(dev, spec)
+        k_bwd, k_mm, k_pack, k_comb = phase_encode_bwd(dev, spec)
         k_compact_bwd = phase_compact_bwd(dev)
         k_input = phase_encode_input(dev, spec)
         k_channel = phase_segsum_channel(dev)
@@ -1133,8 +1345,8 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
-    for k in (k_compact, k_compact_bwd, k_encode, k_bwd, k_input, k_segsum,
-              k_channel):
+    for k in (k_compact, k_compact_bwd, k_encode, k_bwd, k_mm, k_pack, k_comb,
+              k_input, k_segsum, k_channel):
         k = dict(k)
         # this slice's main path is the pose phase; the earlier paths'
         # counts ride beside it

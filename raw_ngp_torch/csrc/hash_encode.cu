@@ -5,17 +5,24 @@
 // raw_ngp_tpu/kernels/hash_fused.py (hash_encode_fused / _fused_fwd: the
 // matmul path for dense leading levels and the 2-row vrow-window gathers
 // for the rest), which stands in for the reference's hand-written CUDA
-// gridencoder. Its plain version is raw_ngp_torch/ops/hashgrid.hash_encode_01.
+// gridencoder. Its plain version is
+// raw_ngp_torch/kernels/hash_encode.hash_encode_fused_plain.
 //
-// One thread per (point, level): it computes the 8 corner rows with the
+// One thread per (point, level): it computes the corner rows with the
 // _level_indices index math in native uint32 (dense-stride early-out, xor
-// and additive variants), loads each row's C channels as float4, and sums
-// corner value x trilinear weight in f32. Inputs outside [0, 1]^3 or NaN
-// give zeros. Under bf16 the table values and the weights are rounded to
-// bf16 before the multiply (as hash_fused.py:475/:486 round them) and the
-// f32 sum is rounded to a bf16 output. Position and weight arithmetic uses
-// the _rn intrinsics so nvcc cannot contract it into FMAs: the cell and
-// fraction must round exactly as the plain version's separate mul and sub.
+// and additive variants) and loads each row's C channels as float4.
+// Inputs outside [0, 1]^3 or NaN give zeros. In f32 it sums the 8 corner
+// values x trilinear weights in f32 (ops/hashgrid.hash_encode_01). Under
+// bf16 it takes the JAX fused encoder's rounding chain, bit for bit: on a
+// window level the windows of the record kernel (point_windows), each lane
+// product rounded, each window's two rows added and rounded, the windows
+// summed in f32 (_window_forward); on a dense matmul level the partial
+// interpolation Z per x lane rounded, then Z x rnd(wx) rounded, the x
+// lanes summed (_mm_forward); the f32 level sum is rounded once by the
+// store, which writes the C bf16 outputs as 16-byte vectors. Position,
+// weight and bf16 arithmetic use the _rn intrinsics so nvcc cannot
+// contract them into FMAs: the cell, fraction and every rounded product
+// must round exactly as the plain version's separate operations.
 //
 // The same file holds the record kernel of the encode's backward,
 // window_records: it writes the residuals of hash_fused._fused_fwd
@@ -25,8 +32,9 @@
 // _pack_bf16_pairs word the table gradient sorts and sums, see
 // csrc/segsum.cu). Its weight products follow the JAX order (pair axis
 // last, the other axes in index order) so the truncated halves match bit
-// for bit. It is bound by bytes too: it reads the points and writes two
-// words per window (8.4 MB at the flagship's 262,144 points, 4 windows).
+// for bit (point_windows, shared with the bf16 forward). It is bound by
+// bytes too: it reads the points and writes two words per window (8.4 MB
+// at the flagship's 262,144 points, 4 windows).
 //
 // The file also holds the input gradient of the encode,
 // hash_encode_bwd_input (pose refinement). It replaces the VJP that JAX
@@ -109,12 +117,209 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The 2-row windows of one (point, level) (hash_fused._window_indices_weights,
+// D = 3): 4 windows of two adjacent rows when the level is pairable, else 8
+// one-corner windows, in JAX's window order (h over the two non-pair axes,
+// then the corner u, v of a non-pairable level). bs is each window's first
+// row (clamped to top = n_params - 2), w0/w1 the f32 weights routed to
+// rows bs and bs + 1, multiplied in JAX's order (pair axis last, the other
+// axes in index order) so they match bit for bit. Returns the count.
+__device__ __forceinline__ int point_windows(const int64_t* lp,
+                                             const uint32_t g[3],
+                                             const float f[3], float inb_f,
+                                             int top, int bs[8], float w0s[8],
+                                             float w1s[8]) {
+  const uint32_t res = (uint32_t)lp[0];
+  const int a = (int)lp[8];
+  const bool pairable = lp[9] != 0;
+  int rest[2];
+  for (int d = 0, j = 0; d < 3; ++d) {
+    if (d != a) rest[j++] = d;
+  }
+  const uint32_t a_lo = g[a];
+  const uint32_t a_hi = min(a_lo + 1, res - 1);
+  const float fa = f[a];
+  const float fa1 = __fsub_rn(1.0f, fa);
+  int n = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    uint32_t c[3];
+    float w_rest = inb_f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = rest[j];
+      const uint32_t bit = (h >> j) & 1u;
+      c[d] = min(g[d] + bit, res - 1);
+      w_rest = __fmul_rn(w_rest, bit ? f[d] : __fsub_rn(1.0f, f[d]));
+    }
+    c[a] = a_lo;
+    const int u = (int)level_row(lp, c);
+    c[a] = a_hi;
+    const int v = (int)level_row(lp, c);
+    const float w_u = __fmul_rn(fa1, w_rest);
+    const float w_v = __fmul_rn(fa, w_rest);
+    if (pairable) {
+      const int bb = min(min(u, v), top);
+      bs[n] = bb;
+      w0s[n] = __fadd_rn(u == bb ? w_u : 0.0f, v == bb ? w_v : 0.0f);
+      w1s[n] = __fadd_rn(u == bb + 1 ? w_u : 0.0f, v == bb + 1 ? w_v : 0.0f);
+      ++n;
+    } else {
+      const int idx[2] = {u, v};
+      const float w[2] = {w_u, w_v};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int bb = min(idx[k], top);
+        bs[n] = bb;
+        w0s[n] = idx[k] == bb ? w[k] : 0.0f;
+        w1s[n] = idx[k] == bb + 1 ? w[k] : 0.0f;
+        ++n;
+      }
+    }
+  }
+  return n;
+}
+
+// Channels [k0, k0 + 4) of a table row, as one float4 where C allows it.
+template <int C>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row,
+                                        int k0) {
+  if constexpr (C % 4 == 0) {
+    return __ldg(reinterpret_cast<const float4*>(row + k0));
+  } else {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k0 + k < C) v[k] = __ldg(row + k0 + k);
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// One window level of the bf16 forward, _window_forward's chain: each lane
+// product rnd(rnd(T) * rnd(w)), the window's two rows added and rounded,
+// the windows summed in f32 in window order (XLA's CPU reduce accumulates
+// its bf16 sum in f32 and rounds once, tested bit for bit against JAX).
+template <int C>
+__device__ __forceinline__ void window_level_bf16(
+    const float* __restrict__ table, const int64_t* lp, const uint32_t g[3],
+    const float f[3], int top, float acc[C]) {
+  int bs[8];
+  float w0s[8], w1s[8];
+  const int n = point_windows(lp, g, f, 1.0f, top, bs, w0s, w1s);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k >= n) break;
+    const float* r0 = table + (int64_t)bs[k] * C;
+    const float wa = round_bf16(w0s[k]);
+    const float wb = round_bf16(w1s[k]);
+#pragma unroll
+    for (int q = 0; q < (C + 3) / 4; ++q) {
+      const float4 ta = load4<C>(r0, 4 * q);
+      const float4 tb = load4<C>(r0 + C, 4 * q);
+      const float va[4] = {ta.x, ta.y, ta.z, ta.w};
+      const float vb[4] = {tb.x, tb.y, tb.z, tb.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * q + j >= C) break;
+        const float pa = round_bf16(__fmul_rn(round_bf16(va[j]), wa));
+        const float pb = round_bf16(__fmul_rn(round_bf16(vb[j]), wb));
+        acc[4 * q + j] = __fadd_rn(acc[4 * q + j],
+                                   round_bf16(__fadd_rn(pa, pb)));
+      }
+    }
+  }
+}
+
+// One dense (matmul) level of the bf16 forward, _mm_forward's chain: per x
+// lane Z = rnd(sum_yz rnd(wz wy) rnd(T)) over the yz lanes in XLA's order
+// (z-major, then y; f32 sum, rounded once), then rnd(Z rnd(wx)), the two x
+// lanes added in f32 (the final rounding is the store's). A clamped lane
+// weighs 0 and the lane below it (1 - f) + f, as _mm_axis_weights merges.
+template <int C>
+__device__ __forceinline__ void mm_level_bf16(const float* __restrict__ table,
+                                              const int64_t* lp,
+                                              const uint32_t g[3],
+                                              const float f[3], float acc[C]) {
+  const uint32_t res = (uint32_t)lp[0];
+  uint32_t cl[3][2];
+  float A[3][2];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    cl[d][0] = g[d];
+    cl[d][1] = min(g[d] + 1, res - 1);
+    const bool present = cl[d][1] != cl[d][0];
+    const float a0 = __fsub_rn(1.0f, f[d]);
+    A[d][0] = present ? a0 : __fadd_rn(a0, f[d]);
+    A[d][1] = present ? f[d] : 0.0f;
+  }
+#pragma unroll
+  for (int xi = 0; xi < 2; ++xi) {
+    float z[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) z[k] = 0.0f;
+#pragma unroll
+    for (int yz = 0; yz < 4; ++yz) {
+      const int zi = yz >> 1, yi = yz & 1;
+      const float w = round_bf16(__fmul_rn(A[2][zi], A[1][yi]));
+      const uint32_t c[3] = {cl[0][xi], cl[1][yi], cl[2][zi]};
+      const float* row = table + (int64_t)level_row(lp, c) * C;
+#pragma unroll
+      for (int q = 0; q < (C + 3) / 4; ++q) {
+        const float4 t4 = load4<C>(row, 4 * q);
+        const float t[4] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * q + j >= C) break;
+          z[4 * q + j] = __fadd_rn(z[4 * q + j],
+                                   __fmul_rn(w, round_bf16(t[j])));
+        }
+      }
+    }
+    const float wx = round_bf16(A[0][xi]);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      acc[k] = __fadd_rn(acc[k], round_bf16(__fmul_rn(round_bf16(z[k]), wx)));
+    }
+  }
+}
+
+// The C bf16 outputs of one (point, level), rounded from f32, written as
+// 16-byte stores (one store of 2C bytes below C = 8).
+template <int C>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst,
+                                           const float acc[C]) {
+  if constexpr (C == 1) {
+    dst[0] = __float2bfloat16_rn(acc[0]);
+  } else {
+    uint32_t w[C / 2];
+#pragma unroll
+    for (int k = 0; k < C / 2; ++k) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(acc[2 * k],
+                                                     acc[2 * k + 1]);
+      w[k] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    if constexpr (C >= 8) {
+      uint4* d4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+      for (int k = 0; k < C / 8; ++k) {
+        d4[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+      }
+    } else if constexpr (C == 4) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+    }
+  }
+}
+
 template <int C, bool BF16>
 __global__ void hash_encode_kernel(const float* __restrict__ x01,
                                    const float* __restrict__ table,
                                    const int64_t* __restrict__ levels,
                                    void* __restrict__ out, int64_t B, int L,
-                                   int align_corners, int smoothstep) {
+                                   int m, int top, int align_corners,
+                                   int smoothstep) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B * L) return;
   const int64_t b = t / L;
@@ -135,18 +340,18 @@ __global__ void hash_encode_kernel(const float* __restrict__ x01,
 
   if (inb) {
     const uint32_t res = (uint32_t)lp[0];
-    const float top = (float)(res - 1);
+    const float top_f = (float)(res - 1);
     float frac[3];
     uint32_t g[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       float pos, gf;
       if (align_corners) {
-        pos = __fmul_rn(x[d], top);
+        pos = __fmul_rn(x[d], top_f);
         gf = fminf(floorf(pos), (float)(res - 2));
       } else {
         pos = __fsub_rn(__fmul_rn(x[d], (float)res), 0.5f);
-        pos = fminf(fmaxf(pos, 0.0f), top);
+        pos = fminf(fmaxf(pos, 0.0f), top_f);
         gf = floorf(pos);
       }
       float f = __fsub_rn(pos, gf);
@@ -156,39 +361,38 @@ __global__ void hash_encode_kernel(const float* __restrict__ x01,
       frac[d] = f;
       g[d] = (uint32_t)(int)gf;
     }
-#pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
-      uint32_t c[3];
-      float w = 1.0f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const uint32_t bit = (corner >> d) & 1u;
-        c[d] = min(g[d] + bit, res - 1);
-        const float fd = bit ? frac[d] : __fsub_rn(1.0f, frac[d]);
-        w = d == 0 ? fd : __fmul_rn(w, fd);
-      }
-      if (BF16) w = round_bf16(w);
-      const float* row = table + (int64_t)level_row(lp, c) * C;
-      if constexpr (C % 4 == 0) {
-        const float4* row4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-        for (int k = 0; k < C / 4; ++k) {
-          float4 v = __ldg(row4 + k);
-          if (BF16) {
-            v.x = round_bf16(v.x); v.y = round_bf16(v.y);
-            v.z = round_bf16(v.z); v.w = round_bf16(v.w);
-          }
-          acc[4 * k + 0] += v.x * w;
-          acc[4 * k + 1] += v.y * w;
-          acc[4 * k + 2] += v.z * w;
-          acc[4 * k + 3] += v.w * w;
-        }
+    if (BF16) {
+      if (lv < m) {
+        mm_level_bf16<C>(table, lp, g, frac, acc);
       } else {
+        window_level_bf16<C>(table, lp, g, frac, top, acc);
+      }
+    } else {
 #pragma unroll
-        for (int k = 0; k < C; ++k) {
-          float v = __ldg(row + k);
-          if (BF16) v = round_bf16(v);
-          acc[k] += v * w;
+      for (int corner = 0; corner < 8; ++corner) {
+        uint32_t c[3];
+        float w = 1.0f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const uint32_t bit = (corner >> d) & 1u;
+          c[d] = min(g[d] + bit, res - 1);
+          const float fd = bit ? frac[d] : __fsub_rn(1.0f, frac[d]);
+          w = d == 0 ? fd : __fmul_rn(w, fd);
+        }
+        const float* row = table + (int64_t)level_row(lp, c) * C;
+        if constexpr (C % 4 == 0) {
+          const float4* row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+          for (int k = 0; k < C / 4; ++k) {
+            const float4 v = __ldg(row4 + k);
+            acc[4 * k + 0] += v.x * w;
+            acc[4 * k + 1] += v.y * w;
+            acc[4 * k + 2] += v.z * w;
+            acc[4 * k + 3] += v.w * w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < C; ++k) acc[k] += __ldg(row + k) * w;
         }
       }
     }
@@ -196,9 +400,7 @@ __global__ void hash_encode_kernel(const float* __restrict__ x01,
 
   const int64_t o = t * C;  // out[b, lv*C + k] == out[(b*L + lv)*C + k]
   if (BF16) {
-    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
-#pragma unroll
-    for (int k = 0; k < C; ++k) dst[k] = __float2bfloat16_rn(acc[k]);
+    store_bf16<C>(static_cast<__nv_bfloat16*>(out) + o, acc);
   } else {
     float* dst = static_cast<float*>(out) + o;
     if constexpr (C % 4 == 0) {
@@ -217,16 +419,16 @@ __global__ void hash_encode_kernel(const float* __restrict__ x01,
 
 template <int C>
 void launch(bool bf16, const float* x01, const float* table,
-            const int64_t* levels, void* out, int64_t B, int L,
-            int align_corners, int smoothstep, cudaStream_t s) {
+            const int64_t* levels, void* out, int64_t B, int L, int m,
+            int top, int align_corners, int smoothstep, cudaStream_t s) {
   const int64_t n = B * L;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (bf16) {
     hash_encode_kernel<C, true><<<blocks, kThreads, 0, s>>>(
-        x01, table, levels, out, B, L, align_corners, smoothstep);
+        x01, table, levels, out, B, L, m, top, align_corners, smoothstep);
   } else {
     hash_encode_kernel<C, false><<<blocks, kThreads, 0, s>>>(
-        x01, table, levels, out, B, L, align_corners, smoothstep);
+        x01, table, levels, out, B, L, m, top, align_corners, smoothstep);
   }
 }
 
@@ -246,8 +448,6 @@ __global__ void window_records_kernel(const float* __restrict__ x01,
   const int lv = m + (int)(t - b * Lw);
   const int64_t* lp = levels + lv * kLevelRow;
   const uint32_t res = (uint32_t)lp[0];
-  const int a = (int)lp[8];
-  const bool pairable = lp[9] != 0;
   const int64_t win0 = lp[10];
 
   float x[3];
@@ -279,57 +479,16 @@ __global__ void window_records_kernel(const float* __restrict__ x01,
     f[d] = fd;
     g[d] = (uint32_t)(int)gf;
   }
-  int rest[2];
-  for (int d = 0, j = 0; d < 3; ++d) {
-    if (d != a) rest[j++] = d;
-  }
-  const uint32_t a_lo = g[a];
-  const uint32_t a_hi = min(a_lo + 1, res - 1);
-  const float fa = f[a];
-  const float fa1 = __fsub_rn(1.0f, fa);
-  for (int h = 0; h < 4; ++h) {
-    uint32_t c[3];
-    float w_rest = inb_f;
+  int bs[8];
+  float w0s[8], w1s[8];
+  const int n = point_windows(lp, g, f, inb_f, top, bs, w0s, w1s);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int d = rest[j];
-      const uint32_t bit = (h >> j) & 1u;
-      c[d] = min(g[d] + bit, res - 1);
-      w_rest = __fmul_rn(w_rest, bit ? f[d] : __fsub_rn(1.0f, f[d]));
-    }
-    c[a] = a_lo;
-    const int u = (int)level_row(lp, c);
-    c[a] = a_hi;
-    const int v = (int)level_row(lp, c);
-    const float w_u = __fmul_rn(fa1, w_rest);
-    const float w_v = __fmul_rn(fa, w_rest);
-    int bs[2];
-    float w0s[2], w1s[2];
-    int n_win;
-    if (pairable) {
-      const int bb = min(min(u, v), top);
-      bs[0] = bb;
-      w0s[0] = __fadd_rn(u == bb ? w_u : 0.0f, v == bb ? w_v : 0.0f);
-      w1s[0] = __fadd_rn(u == bb + 1 ? w_u : 0.0f, v == bb + 1 ? w_v : 0.0f);
-      n_win = 1;
-    } else {
-      const int idx[2] = {u, v};
-      const float w[2] = {w_u, w_v};
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int bb = min(idx[k], top);
-        bs[k] = bb;
-        w0s[k] = idx[k] == bb ? w[k] : 0.0f;
-        w1s[k] = idx[k] == bb + 1 ? w[k] : 0.0f;
-      }
-      n_win = 2;
-    }
-    for (int k = 0; k < n_win; ++k) {
-      const int64_t o = (win0 + h * n_win + k) * B + b;
-      base[o] = bs[k];
-      w_word[o] = (__float_as_uint(w0s[k]) & 0xffff0000u)
-                  | (__float_as_uint(w1s[k]) >> 16);
-    }
+  for (int k = 0; k < 8; ++k) {
+    if (k >= n) break;
+    const int64_t o = (win0 + k) * B + b;
+    base[o] = bs[k];
+    w_word[o] = (__float_as_uint(w0s[k]) & 0xffff0000u)
+                | (__float_as_uint(w1s[k]) >> 16);
   }
 }
 
@@ -600,21 +759,22 @@ extern "C" int hash_encode_records(const float* x01, const int64_t* levels,
 }
 
 // x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned),
-// levels [L, kLevelRow] i64 -> out [B, L * C] f32 or bf16.
+// levels [L, kLevelRow] i64 (m dense matmul levels first, top =
+// n_params - 2) -> out [B, L * C] f32 or bf16 (16-byte aligned).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C.
 extern "C" int hash_encode_fwd(const float* x01, const float* table,
                                const int64_t* levels, void* out, int64_t B,
-                               int L, int C, int align_corners,
+                               int L, int C, int m, int top, int align_corners,
                                int smoothstep, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool h = bf16 != 0;
   switch (C) {
-    case 1: launch<1>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
-    case 2: launch<2>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
-    case 4: launch<4>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
-    case 8: launch<8>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
-    case 16: launch<16>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
-    case 32: launch<32>(h, x01, table, levels, out, B, L, align_corners, smoothstep, s); break;
+    case 1: launch<1>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
+    case 2: launch<2>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
+    case 4: launch<4>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
+    case 8: launch<8>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
+    case 16: launch<16>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
+    case 32: launch<32>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

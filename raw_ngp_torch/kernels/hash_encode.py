@@ -1,6 +1,7 @@
 """Hash-grid encode, forward, table gradient and input gradient: wrapper of
 the CUDA kernels in ``csrc/hash_encode.cu`` (encode, window records,
-input gradient) and ``csrc/segsum.cu`` (kernel B2, through
+input gradient), ``csrc/hash_grad.cu`` (the dense levels' table gradient
+and the glue around B2) and ``csrc/segsum.cu`` (kernel B2, through
 :mod:`raw_ngp_torch.kernels.segsum`).
 
 Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
@@ -9,19 +10,22 @@ Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
 wrapper ``hash_encode_fast`` (``:784``).
 
 Forward: the encode kernel; its plain version is
-``raw_ngp_torch.ops.hashgrid.hash_encode_01``. When the table needs a
-gradient the forward also writes the backward's records, JAX's residuals
-``base`` [P, B] and the (w0, w1) pair of every window packed as two
-truncated bf16 halves (``window_records``; plain version
+:func:`hash_encode_fused_plain` (``ops/hashgrid.hash_encode_01`` in f32;
+JAX's bf16 rounding chain under bf16). When the table needs a gradient
+the forward also writes the backward's records, JAX's residuals ``base``
+[P, B] and the (w0, w1) pair of every window packed as two truncated
+bf16 halves (``window_records``; plain version
 :func:`window_indices_weights` + ``pack_bf16_pairs``).
 
-Backward, the table gradient, as ``_window_bwd_table_chunked``
-(``:633-689``): per window level a ``torch.sort`` of the record keys, then
-kernel B2 (per-row totals of the bf16-rounded products w0*g and w1*g),
-then the combine ``grad[r] = G0[r] + G1[r-1]`` across the concatenated
-levels; the dense leading levels (``_matmul_split``) take the transposed
-matmul ``_mm_grad_table`` with its bf16 roundings, in ``torch.matmul``
-(JAX computes it outside Pallas too).
+Backward, the table gradient (:func:`table_grad`), into one flat f32
+gradient: the dense leading levels (``_matmul_split``) by the scatter
+kernel :func:`mm_grad_table` (``_mm_grad_table``; plain version
+:func:`mm_grad_table_plain`, the transposed matmul); the window levels as
+``_window_bwd_table_chunked`` (``:633-689``): g's channel pairs packed
+into B2's payload words once (:func:`pack_g_words`), per level a
+``torch.sort`` of the record keys and kernel B2 (per-row totals of the
+bf16-rounded products w0*g and w1*g), then the combine
+``grad[r] = G0[r] + G1[r-1]`` (:func:`combine_totals`).
 
 Backward, the input gradient (pose refinement, ``hash_fused.py:760-778``:
 the VJP of the interpolation weights with the table frozen): the kernel
@@ -203,6 +207,70 @@ def window_records_plain(x01, spec: HashGridSpec):
     return base, pack_bf16_pairs([w0, w1])[0]
 
 
+def _mm_lanes(g0, f, res: int):
+    """The two lanes of one axis at a dense level (``_mm_axis_weights``'
+    ``axis_w``): coords (g0, g1 = min(g0 + 1, res - 1)), weights
+    (1 - f, f), or, where g1 is clamped onto g0, ((1 - f) + f, 0), and
+    whether the upper lane is present."""
+    c1 = torch.clamp_max(g0 + 1, res - 1)
+    present = c1 != g0
+    a0 = torch.where(present, 1.0 - f, (1.0 - f) + f)
+    a1 = torch.where(present, f, torch.zeros_like(f))
+    return (g0, c1), (a0, a1), present
+
+
+def hash_encode_fused_plain(params, x01, spec: HashGridSpec,
+                            compute_dtype=None):
+    """Plain version of the encode kernel: the forward of JAX's
+    ``hash_encode_fused`` (``_fused_fwd``) -> [B, L*C] in
+    ``compute_dtype`` (default f32).
+
+    In f32 it is ``ops/hashgrid.hash_encode_01``. Under bf16 it takes the
+    fused encoder's rounding chain, which the CPU tests hold to JAX bit
+    for bit: the table read as rnd(T); on a window level
+    (``_window_forward``) each lane product rnd(rnd(T) * rnd(w)) of the
+    records' (w0, w1), the window's two rows added and rounded, the
+    level's windows summed in f32 in window order and rounded once (XLA's
+    CPU reduce of bf16 accumulates in f32); on a dense matmul level
+    (``_mm_forward``) per x lane Z = rnd(sum_yz rnd(wz wy) rnd(T)) with the
+    yz lanes summed in f32 z-major, then rnd(Z * rnd(wx)), the two x lanes
+    added in f32 and rounded once."""
+    if compute_dtype != torch.bfloat16:
+        return hash_encode_01(params, x01, spec)
+    B = x01.shape[0]
+    C = spec.level_dim
+    tab = round_bf16(params.detach().reshape(spec.n_params, C).float())
+    inb, xs = _in_bounds(x01)
+    inb_f = inb.float()
+    m = matmul_split(spec)
+    outs = []
+    for lv in range(m):
+        res = spec.resolutions[lv]
+        (cx, ax, _), (cy, ay, _), (cz, az, _) = (
+            _mm_lanes(*_corner_axis(x, res, spec), res) for x in xs)
+        out = torch.zeros(B, C, dtype=torch.float32, device=x01.device)
+        for xi in range(2):
+            z = torch.zeros_like(out)
+            for zi in range(2):
+                for yi in range(2):
+                    w = round_bf16(az[zi] * ay[yi] * inb_f)
+                    rows = _level_indices(spec, lv, torch.stack(
+                        [cx[xi], cy[yi], cz[zi]], -1))
+                    z = z + w[:, None] * tab[rows]
+            out = out + round_bf16(round_bf16(z) * round_bf16(ax[xi])[:, None])
+        outs.append(out)
+    base, w0, w1 = window_indices_weights(x01, spec)
+    for _, first, nw in level_windows(spec, m):
+        out = torch.zeros(B, C, dtype=torch.float32, device=x01.device)
+        for w in range(first, first + nw):
+            rows = base[w].long()
+            a = round_bf16(tab[rows] * round_bf16(w0[w])[:, None])
+            b = round_bf16(tab[rows + 1] * round_bf16(w1[w])[:, None])
+            out = out + round_bf16(a + b)
+        outs.append(out)
+    return torch.cat(outs, dim=1).to(torch.bfloat16)
+
+
 def mm_axis_weights(x01, spec: HashGridSpec, lv: int):
     """(wyz [B, res^2], wx_p [B, res*C]) f32 weight operands of level
     ``lv``'s separable contraction (``_mm_axis_weights``); out-of-bounds
@@ -223,9 +291,11 @@ def mm_axis_weights(x01, spec: HashGridSpec, lv: int):
     return wyz, wx.repeat_interleave(spec.level_dim, dim=1)
 
 
-def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None):
-    """Table gradient of the matmul-path levels (``_mm_grad_table``):
-    grad_T2 = wyz^T @ (wx * g) per level, flat [offsets[m] * C] f32.
+def mm_grad_table_plain(x01, g, spec: HashGridSpec, compute_dtype=None,
+                        out=None):
+    """Plain version of :func:`mm_grad_table` (``_mm_grad_table``):
+    grad_T2 = wyz^T @ (wx * g) per level, flat [offsets[m] * C] f32
+    (copied into ``out`` if given).
     Under bf16 the operands and the elementwise product are rounded to
     bf16 and the f32-accumulated product is rounded once, as the JAX bf16
     matmuls do; the products run in f32 (TF32 must be off) so that the
@@ -245,41 +315,64 @@ def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None):
         if hmap > res ** 3:                 # rows past res^3 are unused
             flat = torch.cat([flat, flat.new_zeros((hmap - res ** 3) * C)])
         parts.append(flat)
-    if not parts:
-        return g.new_zeros(0, dtype=torch.float32)
-    return torch.cat(parts)
+    flat = torch.cat(parts) if parts else g.new_zeros(0, dtype=torch.float32)
+    return flat if out is None else out.copy_(flat)
+
+
+def pack_g_words_plain(g, spec: HashGridSpec):
+    """Plain version of :func:`pack_g_words`: [L - m, B, ceil(C/2)] i32,
+    ``pack_bf16_pairs`` of each window level's C g-channels."""
+    C = spec.level_dim
+    g32 = g.float()
+    return torch.stack([torch.stack(pack_bf16_pairs(
+        [g32[:, lv * C + c] for c in range(C)]), dim=1)
+        for lv, _, _ in level_windows(spec, matmul_split(spec))])
+
+
+def combine_totals_plain(totals, out):
+    """Plain version of :func:`combine_totals`: out [R * C] =
+    (G0[r] + G1[r - 1]) of B2's totals [R, 2C]; the first row receives no
+    G1 (the window levels' records start there)."""
+    C = totals.shape[1] // 2
+    out.view(-1, C).copy_(totals[:, :C] + torch.cat(
+        [totals.new_zeros(1, C), totals[:-1, C:]]))
+    return out
 
 
 def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
                plain: bool = False):
     """Gradient of the flat table from the records of the forward and the
-    encode's cotangent g [B, L*C] (``_window_bwd_table_chunked``). Per
-    window level: sort the keys (rows relative to the level), sum the
-    bf16-rounded outer products per row (kernel B2, or its plain version
-    for ``plain`` and CPU tensors), then combine G0[r] + G1[r-1] across
-    the concatenated levels. Returns [n_params * C] f32."""
+    encode's cotangent g [B, L*C] (``_window_bwd_table_chunked``), written
+    into one flat [n_params * C] f32 tensor: the dense levels' slice by
+    :func:`mm_grad_table`; g's channel pairs packed once
+    (:func:`pack_g_words`); per window level the keys (rows relative to
+    the level) sorted and the bf16-rounded outer products summed per row
+    (kernel B2); then :func:`combine_totals` writes G0[r] + G1[r-1] into
+    the window levels' slice. ``plain`` (and CPU tensors) take every
+    kernel's plain version."""
     C = spec.level_dim
     m = matmul_split(spec)
     off_m = spec.offsets[m]
-    g32 = g.float()
+    grad = torch.empty(spec.n_params * C, dtype=torch.float32,
+                       device=g.device)
+    mm = mm_grad_table_plain if plain else mm_grad_table
+    pack = pack_g_words_plain if plain else pack_g_words
+    seg = segment_totals_outer_plain if plain else segment_totals_outer
+    combine = combine_totals_plain if plain else combine_totals
+    if m:
+        mm(x01, g, spec, compute_dtype, out=grad[:off_m * C])
+    words = pack(g, spec)
     totals = torch.empty(spec.n_params - off_m, 2 * C, dtype=torch.float32,
                          device=g.device)
-    seg = segment_totals_outer_plain if plain else segment_totals_outer
-    for lv, w0, nw in level_windows(spec, m):
+    for i, (lv, w0, nw) in enumerate(level_windows(spec, m)):
         off = spec.offsets[lv]
         rows = spec.offsets[lv + 1] - off
         keys = base[w0:w0 + nw].reshape(-1) - off
         keys_s, perm = torch.sort(keys, stable=True)
-        g_words = torch.stack(pack_bf16_pairs(
-            [g32[:, lv * C + c] for c in range(C)]), dim=1)   # [B, C/2]
         seg(keys_s, perm.to(torch.int32), w_word[w0:w0 + nw].reshape(-1),
-            g_words, rows, C, out=totals[off - off_m:off - off_m + rows])
-    # the w1 total at row r belongs to row r + 1; the first window row
-    # receives none (the matmul levels have no window records)
-    grad = totals[:, :C] + torch.cat([totals.new_zeros(1, C),
-                                      totals[:-1, C:]])
-    return torch.cat([mm_grad_table(x01, g, spec, compute_dtype),
-                      grad.reshape(-1)])
+            words[i], rows, C, out=totals[off - off_m:off - off_m + rows])
+    combine(totals, out=grad[off_m * C:])
+    return grad
 
 
 def _axis_terms(x, res: int, spec: HashGridSpec):
@@ -350,14 +443,8 @@ def _mm_level_ct(tab, g_lv, g0s, fs, res, spec, lv, rnd):
     Z = rnd(sum_yz rnd(wz wy) T) per x lane; d/d wx = sum_c rnd(g_c Z_c);
     d/d wyz = rnd(sum_{x, c} rnd(g_c rnd(wx)) T); then the one-hot lane
     derivatives. ``rnd`` is the bf16 rounding under bf16, else identity."""
-    lanes = []
-    for d in range(3):
-        c1 = torch.clamp_max(g0s[d] + 1, res - 1)
-        present = c1 != g0s[d]
-        a0 = torch.where(present, 1.0 - fs[d], (1.0 - fs[d]) + fs[d])
-        a1 = torch.where(present, fs[d], torch.zeros_like(fs[d]))
-        lanes.append(((g0s[d], c1), (a0, a1), present))
-    (cx, ax, px), (cy, ay, py), (cz, az, pz) = lanes
+    (cx, ax, px), (cy, ay, py), (cz, az, pz) = (
+        _mm_lanes(g0s[d], fs[d], res) for d in range(3))
 
     def rows(xi, yi, zi):
         coords = torch.stack([cx[xi], cy[yi], cz[zi]], -1)
@@ -426,22 +513,37 @@ def encode_input_grad_plain(params, x01, g, spec: HashGridSpec,
 # kernels
 # ---------------------------------------------------------------------------
 
+_ARGTYPES = {
+    "hash_encode_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "hash_encode_bwd_input": [ctypes.c_void_p] * 5 + [ctypes.c_int64]
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "hash_encode_records": [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "mm_grad_table_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+    + [ctypes.c_int] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "pack_g_words_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "combine_totals_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64,
+                                                   ctypes.c_int,
+                                                   ctypes.c_void_p],
+}
+
+
 def _lib(name):
-    lib = _build.load("hash_encode")
-    fn = getattr(lib, name)
-    if name == "hash_encode_fwd":
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-    elif name == "hash_encode_bwd_input":
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    """A kernel's C entry point; the table gradient's live in
+    ``csrc/hash_grad.cu``, the rest in ``csrc/hash_encode.cu``."""
+    src = "hash_encode" if name.startswith("hash_encode") else "hash_grad"
+    fn = getattr(_build.load(src), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _raise_if(err, who):
+    if err != 0:
+        raise RuntimeError(f"{who}: CUDA launch failed (error {err})")
 
 
 def _check_x01(x01, spec: HashGridSpec, who: str):
@@ -459,7 +561,7 @@ def _check_x01(x01, spec: HashGridSpec, who: str):
 def _encode_forward(params, x01, spec: HashGridSpec, compute_dtype=None):
     """The forward: kernel for CUDA tensors, plain version on the CPU."""
     if params.device.type == "cpu":
-        return hash_encode_01(params, x01, spec, compute_dtype=compute_dtype)
+        return hash_encode_fused_plain(params, x01, spec, compute_dtype)
     out_dtype = compute_dtype or params.dtype
     B = x01.shape[0]
     L, C = spec.num_levels, spec.level_dim
@@ -482,15 +584,15 @@ def _encode_forward(params, x01, spec: HashGridSpec, compute_dtype=None):
     out = torch.empty(B, L * C, dtype=out_dtype, device=x01.device)
     if B == 0:
         return out
-    levels = _level_table(spec, matmul_split(spec), x01.device)
+    m = matmul_split(spec)
+    levels = _level_table(spec, m, x01.device)
     err = _lib("hash_encode_fwd")(
         x01.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
-        B, L, C, int(spec.align_corners),
+        B, L, C, m, spec.n_params - 2, int(spec.align_corners),
         int(spec.interpolation == "smoothstep"),
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x01.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hash_encode: CUDA launch failed (error {err})")
+    _raise_if(err, "hash_encode")
     hash_encode.launches += 1
     return out
 
@@ -515,8 +617,7 @@ def window_records(x01, spec: HashGridSpec):
         w_word.data_ptr(), B, m, spec.num_levels, spec.n_params - 2,
         int(spec.align_corners), int(spec.interpolation == "smoothstep"),
         torch.cuda.current_stream(x01.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_records: CUDA launch failed (error {err})")
+    _raise_if(err, "window_records")
     window_records.launches += 1
     return base, w_word
 
@@ -560,14 +661,119 @@ def encode_input_grad(params, x01, g, spec: HashGridSpec,
         out.data_ptr(), B, L, C, m, int(spec.align_corners),
         int(spec.interpolation == "smoothstep"), int(bf16),
         torch.cuda.current_stream(x01.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"encode_input_grad: CUDA launch failed "
-                           f"(error {err})")
+    _raise_if(err, "encode_input_grad")
     encode_input_grad.launches += 1
     return out
 
 
 encode_input_grad.launches = 0   # kernel launches, counted where they happen
+
+
+def _check_g(g, spec: HashGridSpec, B: int, who: str):
+    if g.device.type != "cuda" or g.dtype not in (torch.float32,
+                                                   torch.bfloat16):
+        raise TypeError(f"{who}: g must be a CUDA f32 or bf16 tensor")
+    if g.shape != (B, spec.output_dim) or not g.is_contiguous():
+        raise ValueError(f"{who}: g must be a contiguous [B, L*C] tensor")
+    if spec.level_dim not in _CHANNELS:
+        raise ValueError(f"{who}: level_dim {spec.level_dim} not in "
+                         f"{_CHANNELS}")
+
+
+def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None, out=None):
+    """Table gradient of the dense matmul levels (``_mm_grad_table``) for
+    the encode's cotangent g [B, L*C] -> flat [offsets[m] * C] f32 (into
+    ``out`` if given). CPU tensors take :func:`mm_grad_table_plain`; CUDA
+    tensors launch the scatter kernel once per dense level (see
+    ``csrc/hash_grad.cu``): the same exact products, f32 sums in another
+    order, rounded once under bf16."""
+    if x01.device.type == "cpu":
+        return mm_grad_table_plain(x01, g, spec, compute_dtype, out=out)
+    _check_x01(x01, spec, "mm_grad_table")
+    bf16 = compute_dtype == torch.bfloat16
+    B, C = x01.shape[0], spec.level_dim
+    g = g.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    _check_g(g, spec, B, "mm_grad_table")
+    m = matmul_split(spec)
+    n = spec.offsets[m] * C
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=x01.device)
+    elif (out.shape != (n,) or out.dtype != torch.float32
+          or out.device != x01.device or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError("mm_grad_table: out must be a contiguous, 16-byte "
+                         "aligned [offsets[m] * C] f32 tensor on x01's device")
+    if B == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(x01.device).cuda_stream
+    for lv in range(m):
+        off, res = spec.offsets[lv], spec.resolutions[lv]
+        err = _lib("mm_grad_table_fwd")(
+            x01.data_ptr(), g.data_ptr(), out[off * C:].data_ptr(), B, res,
+            C, spec.offsets[lv + 1] - off, spec.output_dim, lv * C,
+            int(spec.align_corners), int(spec.interpolation == "smoothstep"),
+            int(bf16), stream)
+        _raise_if(err, "mm_grad_table")
+        mm_grad_table.launches += 1
+    return out
+
+
+mm_grad_table.launches = 0   # kernel launches, counted where they happen
+
+
+def pack_g_words(g, spec: HashGridSpec):
+    """B2's payload words of the encode's cotangent g [B, L*C] (f32 or
+    bf16): per window level the C channels as ceil(C/2) words of two
+    truncated bf16 halves -> [L - m, B, ceil(C/2)] i32. CPU tensors take
+    :func:`pack_g_words_plain`; CUDA tensors launch the kernel."""
+    if g.device.type == "cpu":
+        return pack_g_words_plain(g, spec)
+    B = g.shape[0]
+    g = g.contiguous()
+    _check_g(g, spec, B, "pack_g_words")
+    m = matmul_split(spec)
+    L, C = spec.num_levels, spec.level_dim
+    words = torch.empty(L - m, B, (C + 1) // 2, dtype=torch.int32,
+                        device=g.device)
+    if B == 0:
+        return words
+    err = _lib("pack_g_words_fwd")(
+        g.data_ptr(), words.data_ptr(), B, L, C, m,
+        int(g.dtype == torch.bfloat16),
+        torch.cuda.current_stream(g.device).cuda_stream)
+    _raise_if(err, "pack_g_words")
+    pack_g_words.launches += 1
+    return words
+
+
+pack_g_words.launches = 0   # kernel launches, counted where they happen
+
+
+def combine_totals(totals, out):
+    """The window levels' gradient from B2's totals [R, 2C] (columns G0 |
+    G1): out [R * C] f32 = G0[r] + G1[r - 1], none into the first row.
+    CPU tensors take :func:`combine_totals_plain`; CUDA tensors launch the
+    kernel."""
+    if totals.device.type == "cpu":
+        return combine_totals_plain(totals, out)
+    R, C2 = totals.shape
+    if (totals.dtype != torch.float32 or out.dtype != torch.float32
+            or out.device != totals.device or not totals.is_contiguous()
+            or not out.is_contiguous() or C2 % 2
+            or out.numel() != R * C2 // 2):
+        raise ValueError("combine_totals: need contiguous f32 totals [R, 2C] "
+                         "and out [R * C] on one CUDA device")
+    if R == 0:
+        return out
+    err = _lib("combine_totals_fwd")(
+        totals.data_ptr(), out.data_ptr(), R, C2 // 2,
+        torch.cuda.current_stream(totals.device).cuda_stream)
+    _raise_if(err, "combine_totals")
+    combine_totals.launches += 1
+    return out
+
+
+combine_totals.launches = 0   # kernel launches, counted where they happen
 
 
 class _EncodeFn(torch.autograd.Function):
@@ -577,8 +783,7 @@ class _EncodeFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, x01, spec, compute_dtype, plain):
         if plain:
-            out = hash_encode_01(params, x01, spec,
-                                 compute_dtype=compute_dtype)
+            out = hash_encode_fused_plain(params, x01, spec, compute_dtype)
             base, w_word = window_records_plain(x01, spec)
         else:
             out = _encode_forward(params, x01, spec, compute_dtype)
@@ -608,7 +813,7 @@ def _encode(params, x01, spec, compute_dtype, plain):
                                     or x01.requires_grad):
         return _EncodeFn.apply(params, x01, spec, compute_dtype, plain)
     if plain:
-        return hash_encode_01(params, x01, spec, compute_dtype=compute_dtype)
+        return hash_encode_fused_plain(params, x01, spec, compute_dtype)
     return _encode_forward(params, x01, spec, compute_dtype)
 
 

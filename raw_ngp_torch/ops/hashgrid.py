@@ -1,10 +1,11 @@
 """Multiresolution hash-grid encoding — the plain PyTorch version (port of
 ``raw_ngp_tpu/ops/hashgrid.py``).
 
-``hash_encode_01`` here is the plain version of the hand-written encode
-kernel (``raw_ngp_torch/kernels/hash_encode.py``): the CPU tests hold it
-against the JAX function, and ``chip_smoke.py`` holds the kernel against
-it on the card.
+``hash_encode_01`` here is the f32 plain version of the hand-written
+encode kernel (``raw_ngp_torch/kernels/hash_encode.py``
+``hash_encode_fused_plain``, which adds the fused encoder's bf16 chain):
+the CPU tests hold it against the JAX function, and ``chip_smoke.py``
+holds the kernel against it on the card.
 
 Torch has little uint32 arithmetic, so the table index is computed in
 int64 and every product is masked with ``& 0xFFFFFFFF``: the same values
@@ -168,16 +169,12 @@ def _smoothstep(t):
     return t * t * (3.0 - 2.0 * t)
 
 
-def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None,
-                   compute_dtype=None):
+def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None):
     """Encode positions already mapped to [0, 1]^D (plain version).
 
     params: flat [n_params*C] table; x01: [B, D]. Inputs outside [0, 1]^D
     (and NaN) give zeros. ``max_level`` zeroes levels >= max_level.
-    ``compute_dtype=torch.bfloat16`` rounds table values and corner
-    weights to bf16 before the multiply (the JAX fused encoder's fp16
-    mode), sums in f32 and returns bf16. Returns [B, L*C] in
-    ``compute_dtype`` or the table's dtype.
+    Returns [B, L*C] in the table's dtype.
     """
     B, D = x01.shape
     L, C = spec.num_levels, spec.level_dim
@@ -209,7 +206,7 @@ def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None,
                                  + bits.to(torch.int64), res - 1)
         idx = _level_indices(spec, lv, corner)              # [B, 2^D]
         # per-dim factor frac or 1 - frac, multiplied in dim order (the
-        # kernel's order: a bf16-rounded weight must not depend on it)
+        # kernel's f32 order)
         fac = bits * frac[:, None, :] + (1.0 - bits) * (1.0 - frac[:, None, :])
         w = fac[..., 0]
         for d in range(1, D):
@@ -222,18 +219,12 @@ def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None,
     idx = torch.cat(all_idx, dim=1)                         # [B, L*2^D]
     w = torch.cat(all_w, dim=1)
     vals = table[idx]                                       # [B, L*2^D, C]
-    out_dtype = compute_dtype or params.dtype
-    if out_dtype != torch.float32:
-        vals = vals.to(out_dtype).float()
-        w = w.to(out_dtype).float()
     feats = (vals * w[..., None]).reshape(B, L, n_corners, C).sum(dim=2)
-    feats = torch.where(inb, feats.reshape(B, L * C), 0.0)
-    return feats.to(out_dtype)
+    return torch.where(inb, feats.reshape(B, L * C), 0.0)
 
 
 def hash_encode(params, x, spec: HashGridSpec, bound: float = 1.0,
-                max_level=None, compute_dtype=None):
+                max_level=None):
     """Encode world positions in [-bound, bound]^D."""
     x01 = (x + bound) / (2.0 * bound)
-    return hash_encode_01(params, x01, spec, max_level=max_level,
-                          compute_dtype=compute_dtype)
+    return hash_encode_01(params, x01, spec, max_level=max_level)

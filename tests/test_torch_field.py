@@ -72,7 +72,10 @@ def test_field_forward_matches_jax(fp16):
     den_j = np.asarray(j_field_density(params, jspec, jnp.asarray(x)))
     assert sig_t.shape == (512,) and rgb_t.shape == (512, 3)
     if fp16:
-        tol = dict(rtol=1e-2, atol=0)
+        # the bf16 encode takes JAX's rounding chain bit for bit; what is
+        # left is the MLPs' f32 sum order (measured: 1.4e-4 relative on
+        # rgb, 1.2e-7 on sigma)
+        tol = dict(rtol=1e-3, atol=0)
     else:
         tol = dict(rtol=0, atol=1e-5)
     np.testing.assert_allclose(sig_t, sig_j, **tol)

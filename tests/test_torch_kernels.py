@@ -66,8 +66,9 @@ def _points(B):
 @pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
 def test_encode_kernel_matches_plain(cuda_device, variant, gridtype, align,
                                      interp, C):
-    """f32 at atol 1e-6; bf16 within one bf16 ulp (rtol 1e-2), since the
-    kernel sums the 8 corners in another order than the plain version."""
+    """f32 against hash_encode_01 at atol 1e-6; bf16 against
+    hash_encode_fused_plain bit for bit: both take the fused encoder's
+    rounding chain with the same operations in the same order."""
     spec = HashGridSpec.create(num_levels=4, level_dim=C,
                                log2_hashmap_size=14, desired_resolution=512,
                                hash_variant=variant, gridtype=gridtype,
@@ -76,16 +77,19 @@ def test_encode_kernel_matches_plain(cuda_device, variant, gridtype, align,
     table = torch.rand(spec.n_params * C, generator=gen,
                        device=cuda_device) * 2 - 1
     x = torch.from_numpy(_points(8192)).to(cuda_device)
-    for dtype, tol in ((torch.float32, dict(rtol=0, atol=1e-6)),
-                       (torch.bfloat16, dict(rtol=1e-2, atol=1e-6))):
+    for dtype in (torch.float32, torch.bfloat16):
         before = th.hash_encode.launches
         out = th.hash_encode(table, x, spec, compute_dtype=dtype)
         assert th.hash_encode.launches == before + 1
-        ref = hash_encode_01(table, x, spec, compute_dtype=dtype)
+        ref = th.hash_encode_fused_plain(table, x, spec, dtype)
         torch.cuda.synchronize()
         assert out.dtype == dtype and out.shape == (8192, 4 * C)
         assert (out[:12] == 0).all()
-        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, hash_encode_01(table, x, spec),
+                                       rtol=0, atol=1e-6)
+        else:
+            assert torch.equal(out, ref)
 
 
 @pytest.mark.gpu
@@ -244,13 +248,45 @@ def test_window_records_kernel_bit_exact(cuda_device, monkeypatch, variant,
     assert torch.equal(base, base_p) and torch.equal(w_word, w_word_p)
 
 
+def _dense_totals(x, g, spec, bf16):
+    """The dense level's unrounded f32 totals and the absolute sum of
+    their terms (its ``mass``), from the plain version's operands: the
+    exact products rnd(wyz) * rnd(g * rnd(wx)) (no rnd in f32)."""
+    res, C = spec.resolutions[0], spec.level_dim
+    rnd = ts.round_bf16 if bf16 else (lambda t: t)
+    wyz, wx_p = th.mm_axis_weights(x, spec, 0)
+    gx = rnd(rnd(g[:, :C].float()).repeat(1, res) * rnd(wx_p))
+    wyz = rnd(wyz).T
+    n = (spec.offsets[1] - spec.offsets[0] - res ** 3) * C
+    pad = gx.new_zeros(n)
+    return (torch.cat([(wyz @ gx).reshape(-1), pad]),
+            torch.cat([(wyz @ gx.abs()).reshape(-1), pad]))
+
+
+def _dense_rows_agree(out, x, g, spec, bf16):
+    """The dense-row rule: the kernel's totals before rounding lie within
+    rtol 1e-5 plus 2^-20 of the entry's absolute mass of the plain f32
+    totals (the f32 sum order; atomics vary it between runs), so in f32
+    |out - total| is within that bound and under bf16 out lies between
+    the bf16 roundings of the bound's two ends (equal to the plain
+    version's output or one bf16 ulp from it)."""
+    tot, mass = _dense_totals(x, g, spec, bf16)
+    err = 1e-5 * tot.abs() + 2.0 ** -20 * mass
+    if not bf16:
+        return bool(((out - tot).abs() <= err).all())
+    lo, hi = ts.round_bf16(tot - err), ts.round_bf16(tot + err)
+    return bool(((out >= lo) & (out <= hi)).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
     """The table gradient at B = 262,144 on the flagship grid, kernel path
-    (record kernel, torch.sort, B2) against the plain path (plain records,
-    index_add_): the same records and products, f32 totals in another
-    order; rtol 1e-5 and atol 1e-6 of the largest entry."""
+    (dense-level scatter kernel, record kernel, packing, torch.sort, B2,
+    combine) against the plain path (transposed matmul, plain records,
+    index_add_): the dense rows by :func:`_dense_rows_agree`; the window
+    rows are the same records and products, f32 totals in another order:
+    rtol 1e-5 and atol 1e-6 of the largest entry."""
     spec = _flagship_grid()
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     table = (torch.rand(spec.n_params * spec.level_dim, generator=gen,
@@ -258,19 +294,108 @@ def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
     x = torch.rand(262144, 3, generator=gen, device=cuda_device)
     cot = torch.randn(262144, spec.output_dim, generator=gen,
                       device=cuda_device)
-    counts = (th.window_records.launches, ts.segment_totals_outer.launches)
+    counters = (th.window_records, ts.segment_totals_outer, th.mm_grad_table,
+                th.pack_g_words, th.combine_totals)
+    counts = [c.launches for c in counters]
     grads = []
     for fn in (th.hash_encode, th.hash_encode_plain):
         p = table.clone().requires_grad_()
         (fn(p, x, spec, compute_dtype=dtype).float() * cot).sum().backward()
         grads.append(p.grad)
-    assert th.window_records.launches == counts[0] + 1
-    assert ts.segment_totals_outer.launches == counts[1] + 1
+    assert [c.launches for c in counters] == [n + 1 for n in counts]
     torch.cuda.synchronize()
+    n_dense = spec.offsets[th.matmul_split(spec)] * spec.level_dim
+    assert n_dense > 0
+    assert _dense_rows_agree(grads[0][:n_dense], x, cot.to(dtype), spec,
+                             dtype == torch.bfloat16)
     scale = float(grads[1].abs().max())
     assert scale > 0
-    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
-                               atol=1e-6 * scale)
+    torch.testing.assert_close(grads[0][n_dense:], grads[1][n_dense:],
+                               rtol=1e-5, atol=1e-6 * scale)
+
+
+def _ray_points(B, gen, device, per_ray=32):
+    """B points in ray order, as the compaction leaves them: B / per_ray
+    rays from random points in [0.1, 0.9]^3 in random directions, samples
+    0.004 apart (32 samples span 2-4 cells of the res-16 level)."""
+    n = B // per_ray
+    o = torch.rand(n, 3, generator=gen, device=device) * 0.8 + 0.1
+    d = torch.randn(n, 3, generator=gen, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.arange(per_ray, device=device) * 0.004
+    return (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3) \
+        .clamp(0.0, 1.0).contiguous()
+
+
+def _dense_inputs(kind, B, gen, device):
+    if kind == "uniform":
+        return torch.rand(B, 3, generator=gen, device=device)
+    if kind == "ray":
+        return _ray_points(B, gen, device)
+    if kind == "skew":                       # every point in one cell
+        return (7.5 + torch.rand(B, 3, generator=gen, device=device)) / 16
+    x = torch.rand(B, 3, generator=gen, device=device)   # "edges"
+    x[: B // 4, 0] = 1.0 - torch.rand(B // 4, generator=gen,
+                                      device=device) / 32   # clamped corner
+    x[B // 4: B // 2] = torch.rand(B // 4, 3, generator=gen,
+                                   device=device) / 32       # near 0
+    x[B // 2: B // 2 + 64] = x[B // 2: B // 2 + 64] * 3.0 - 1.0
+    x[B // 2 + 64: B // 2 + 72, 1] = float("nan")
+    x[-2], x[-1] = 0.0, 1.0
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "ray", "skew", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mm_grad_table_kernel_matches_plain(cuda_device, kind, dtype):
+    """The dense level's table gradient at B = 262,144 on the flagship
+    grid, kernel against mm_grad_table_plain, with uniform points,
+    ray-ordered points, every point in one cell, and clamped corners,
+    points near 0, outside [0, 1]^3 and NaN: the dense-row rule
+    (:func:`_dense_rows_agree`); rows past res^3 are exactly 0 and the
+    kernel launches once."""
+    spec = _flagship_grid()
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B = 262144
+    x = _dense_inputs(kind, B, gen, cuda_device)
+    g = torch.randn(B, spec.output_dim, generator=gen,
+                    device=cuda_device).to(dtype)
+    before = th.mm_grad_table.launches
+    out = th.mm_grad_table(x, g, spec, dtype)
+    assert th.mm_grad_table.launches == before + 1
+    ref = th.mm_grad_table_plain(x, g, spec, dtype)
+    torch.cuda.synchronize()
+    res, C = spec.resolutions[0], spec.level_dim
+    assert out.shape == ref.shape and (out[res ** 3 * C:] == 0).all()
+    assert _dense_rows_agree(out, x, g, spec, dtype == torch.bfloat16)
+    assert float((out - ref).abs().max()) <= 2.0 ** -7 * float(
+        ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_grad_glue_kernels_bit_exact(cuda_device, C, dtype):
+    """The packing of g into B2's payload words and the G0 + G1 combine,
+    kernel against plain version: bit for bit (truncations and one f32
+    add each)."""
+    spec = HashGridSpec.create(num_levels=4, level_dim=C,
+                               log2_hashmap_size=14, desired_resolution=512)
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    g = torch.randn(5000, spec.output_dim, generator=gen,
+                    device=cuda_device).to(dtype)
+    counts = (th.pack_g_words.launches, th.combine_totals.launches)
+    words = th.pack_g_words(g, spec)
+    assert torch.equal(words, th.pack_g_words_plain(g, spec))
+    totals = torch.randn(3000, 2 * C, generator=gen, device=cuda_device)
+    out = th.combine_totals(totals, torch.empty(3000 * C,
+                                                device=cuda_device))
+    ref = th.combine_totals_plain(totals, torch.empty_like(out))
+    torch.cuda.synchronize()
+    assert (th.pack_g_words.launches, th.combine_totals.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -110,8 +110,10 @@ def test_hash_encode_world_and_max_level():
 
 
 def test_hash_kernel_wrapper_uses_plain_version_on_cpu():
-    """On a CPU tensor the wrapper returns the plain version's result and
-    launches nothing; bf16 rounds values and weights, then sums in f32."""
+    """On a CPU tensor the wrapper returns the plain version's result
+    (hash_encode_fused_plain: hash_encode_01 in f32, the fused encoder's
+    bf16 chain under bf16) and launches nothing; bf16 stays within 2e-2
+    of f32."""
     _, ts = _specs(num_levels=2, level_dim=16, log2_hashmap_size=12,
                    desired_resolution=128, hash_variant="additive")
     rng = np.random.default_rng(3)
@@ -121,11 +123,12 @@ def test_hash_kernel_wrapper_uses_plain_version_on_cpu():
     before = t_kernel.hash_encode.launches
     for dtype in (torch.float32, torch.bfloat16):
         out = t_kernel.hash_encode(table, x, ts, compute_dtype=dtype)
-        ref = thg.hash_encode_01(table, x, ts, compute_dtype=dtype)
+        ref = t_kernel.hash_encode_fused_plain(table, x, ts, dtype)
         assert out.dtype == dtype and torch.equal(out, ref)
     assert t_kernel.hash_encode.launches == before
     f32 = thg.hash_encode_01(table, x, ts)
-    bf = thg.hash_encode_01(table, x, ts, compute_dtype=torch.bfloat16)
+    assert torch.equal(t_kernel.hash_encode_fused_plain(table, x, ts), f32)
+    bf = t_kernel.hash_encode_fused_plain(table, x, ts, torch.bfloat16)
     np.testing.assert_allclose(bf.float().numpy(), f32.numpy(), rtol=2e-2,
                                atol=2e-2)
 
