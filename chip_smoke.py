@@ -2,20 +2,27 @@
 """Smoke run of the PyTorch + CUDA port (raw_ngp_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against TREE [TREE ...]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. build  — compile every kernel of the path from raw_ngp_torch/csrc/
               (four sources) with nvcc for sm_90a (one nvcc per source, in
-              parallel);
+              parallel), print each kernel's registers, stack frame and
+              spills (ptxas), and fail if an instantiation of the encode
+              forward or input gradient spills or keeps a stack frame;
   2. compact — the compaction kernel against its plain version at the
               render's shape (M = 1,048,576 records, m_pad = 262,144
               slots), keep rates 0.03 / 0.25 / 0.9 plus a full mask and an
               empty one: bit-exact;
-  3. encode — the hash-encode kernel against its plain version at
-              B = 262,144 points on the flagship grid (2 levels x 16
-              channels, additive hash): f32 within atol 1e-6 of
-              hash_encode_01, bf16 bit-exact with hash_encode_fused_plain
-              (the JAX fused encoder's rounding chain);
+  3. encode — the hash-encode kernel against its plain version on the
+              flagship grid (2 levels x 16 channels, additive hash) at the
+              inputs the path gives it: 262,144 uniform points (some
+              outside [0, 1]^3 or NaN), 262,144 ray-ordered points (the
+              train forward's) and one 65,536-point grid refresh chunk
+              (Morton-ordered jittered cell centres): f32 within atol 1e-6
+              of hash_encode_01, bf16 bit-exact with
+              hash_encode_fused_plain (the JAX fused encoder's rounding
+              chain), each timed beside its own bound;
   4. slice  — the flagship configuration (Config().with_preset_O()
               .with_tpu_profile(), fp16, num_rays 8192) at full width with
               a seeded random field and a bitfield occupying the bench
@@ -52,8 +59,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and full overflow the budget): bit-exact; timed beside the
               device time of zero_ + index_copy_;
   9. encode_input — the encode's input gradient against its plain version
-              at B = 262,144 on the flagship grid, f32 and bf16, within
-              rtol 1e-5 of the largest entry;
+              at 262,144 uniform and ray-ordered points on the flagship
+              grid, f32 and bf16, within rtol 1e-5 of the largest entry,
+              0 outside [0, 1]^3, two calls bitwise equal; each timed;
  10. segsum_channel — B2's channel mode against segment_totals_plain at
               the level-1 shape (1,048,576 records into 524,288 rows, 32
               channels), random keys within rtol 1e-5 and a dense-skew
@@ -80,11 +88,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               last 32 steps, CUDA events, each listed) with their stages;
               a torch.profiler breakdown of one chunk and of one step of
               each (device busy and idle share, launches, top kernels).
+The train and pose phases also count the encode's launches by caller
+(train forwards, grid refresh chunks, evaluation).
 It prints `render`, `train`, `pose` and `kernels` JSON lines and the card's
 name and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero without a result when torch.cuda is not available, or
 when the raw_ngp_torch package is not beside it.
+
+With --against, it only builds and compares: each TREE's
+raw_ngp_torch/csrc/hash_encode.cu (another version of this repository,
+e.g. a git archive of a parent commit; the same C entry points) is built
+beside this tree's, and the encode forward and input gradient of both run
+on the phase-3 and phase-9 inputs through this tree's wrappers, outputs
+compared and device times taken in turns (other, this, this, other); one
+`ab` JSON line per TREE.
 """
 
 from __future__ import annotations
@@ -144,16 +162,89 @@ def device_ms(fn, reps=20):
     return profile_device(fn, reps, "call").get("device_busy_ms_per_call")
 
 
+def _kernel_name(mangled):
+    """A readable name of a mangled kernel symbol: the innermost name of
+    its (nested) name and its integer / bool template arguments
+    (hash_encode_kernel<16, true>)."""
+    import re
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        n = int(m.group())
+        start = pos + m.end()
+        name, pos = mangled[start:start + n], start + n
+    if name is None:
+        return mangled
+    rest = mangled[pos:]
+    if rest.startswith("I"):
+        args = re.findall(r"L([a-z])(n?\d+)E", rest.split("EE", 1)[0] + "E")
+        if args:
+            name += "<" + ", ".join(
+                ("true" if v == "1" else "false") if k == "b"
+                else v.replace("n", "-") for k, v in args) + ">"
+    return name
+
+
+def ptxas_report(log):
+    """[{kernel, registers, stack_frame, spill_stores, spill_loads}] of
+    every entry function in an nvcc -Xptxas -v log."""
+    import re
+    frames, kernels, entry = {}, [], None
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current:
+            frames[current] = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            stack, st, ld = frames.get(entry, (0, 0, 0))
+            kernels.append(dict(kernel=_kernel_name(entry),
+                                registers=int(m.group(1)), stack_frame=stack,
+                                spill_stores=st, spill_loads=ld))
+            entry = None
+    return kernels
+
+
 def phase_build():
+    """Build every source; print each kernel's registers, stack frame and
+    spills (ptxas), and return them by source."""
     from raw_ngp_torch.kernels import _build
     t0 = time.time()
     reports = _build.build_all()
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    ptxas = {}
+    for name, log in sorted(reports.items()):
+        ptxas[name] = ptxas_report(log)
+        for k in ptxas[name]:
+            print(f"[build] {name}: {k['kernel']}: {k['registers']} registers, "
+                  f"{k['stack_frame']} bytes stack frame, {k['spill_stores']} "
+                  f"bytes spill stores, {k['spill_loads']} bytes spill loads")
     print(f"[build] {sorted(_build.SOURCES)} ready in "
           f"{time.time() - t0:.1f} s")
+    return ptxas
+
+
+def check_encode_registers(ptxas):
+    """The encode's two gathers keep every channel quad, window and row in
+    registers: no instantiation spills or keeps a stack frame."""
+    for k in ptxas.get("hash_encode", ()):
+        if k["kernel"].startswith(("hash_encode_kernel",
+                                   "encode_input_grad_kernel")):
+            check(k["spill_stores"] == 0 and k["spill_loads"] == 0
+                  and k["stack_frame"] == 0,
+                  f"build: {k['kernel']} spills or keeps a stack frame {k}")
 
 
 def phase_compact(dev, M=1 << 20, m_pad=262144):
@@ -215,62 +306,119 @@ def phase_compact(dev, M=1 << 20, m_pad=262144):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
-def phase_encode(dev, spec, B=262144):
+def refresh_chunk(cfg, gen, dev):
+    """The first 65,536-point chunk of a full grid sweep as
+    ops/grid.full_sweep builds it: Morton-ordered cell centres of cascade
+    0, jittered by uniform noise, as the field's x01 = (x + grid_bound) /
+    (2 grid_bound)."""
+    import torch
+    from raw_ngp_torch.ops.grid import _CHUNK, cascade_coords_to_world
+    from raw_ngp_torch.ops.morton import morton3d_invert
+    n = cfg.render.grid_size
+    codes = torch.arange(_CHUNK, device=dev)
+    cas_bound = min(1.0, cfg.grid_bound)
+    noise = torch.rand(_CHUNK, 3, generator=gen, device=dev)
+    xyz = cascade_coords_to_world(morton3d_invert(codes), cas_bound,
+                                  cas_bound / n, n, noise)
+    return ((xyz + cfg.grid_bound) / (2.0 * cfg.grid_bound)).contiguous()
+
+
+def encode_inputs(cfg, gen, dev, B, kinds=("uniform", "ray", "refresh")):
+    """The encode's inputs on the path: B uniform points (the first 64
+    outside [0, 1]^3, 8 with a NaN), B ray-ordered points (the train
+    forward's), one refresh chunk (the grid refresh's)."""
+    import torch
+    out = {}
+    if "uniform" in kinds:
+        x = torch.rand(B, 3, generator=gen, device=dev)
+        x[:64] = x[:64] * 3.0 - 1.0
+        x[64:72, 1] = float("nan")
+        out["uniform"] = x
+    if "ray" in kinds:
+        out["ray"] = ray_points(B, gen, dev)
+    if "refresh" in kinds:
+        out["refresh"] = refresh_chunk(cfg, gen, dev)
+    return out
+
+
+def encode_bound(spec, x01, out_bytes, extra_bytes=0, ops_per_term=2):
+    """(bound ms, bound_by, bytes, touched rows) of one encode call on x01:
+    the points, the table rows this input touches (once each), the output
+    (`out_bytes` an element) and `extra_bytes`; `ops_per_term` f32
+    operations per corner and channel of every in-bounds point and
+    level."""
+    B = x01.shape[0]
+    L, C = spec.num_levels, spec.level_dim
+    rows, n_in = touched_rows(spec, x01)
+    n_bytes = B * 3 * 4 + rows * C * 4 + B * L * C * out_bytes + extra_bytes
+    n_ops = ops_per_term * 8 * C * L * n_in
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, rows)
+
+
+def phase_encode(dev, cfg, B=262144):
+    """The encode kernel against its plain version at each input the path
+    gives it (uniform and ray-ordered points, a refresh chunk), f32 and
+    bf16, each timed (CUDA events and device time) beside its own bound."""
     import torch
     from raw_ngp_torch.kernels.hash_encode import (hash_encode,
                                                    hash_encode_fused_plain)
+    from raw_ngp_torch.models.ngp import make_field_spec
     from raw_ngp_torch.ops.hashgrid import hash_encode_01
+    spec = make_field_spec(cfg).grid_spec
     L, C = spec.num_levels, spec.level_dim
     gen = torch.Generator(device=dev).manual_seed(2)
     table = torch.rand(spec.n_params * C, generator=gen, device=dev) * 2 - 1
-    x01 = torch.rand(B, 3, generator=gen, device=dev)
-    # a few points outside [0, 1]^3 and NaN, which must encode to zeros
-    x01[:64] = x01[:64] * 3.0 - 1.0
-    x01[64:72, 1] = float("nan")
-    errs = {}
+    inputs = encode_inputs(cfg, gen, dev, B)
+    per_input = {}
     # f32 against hash_encode_01 within atol 1e-6 (another f32 sum order
     # where nvcc fuses); bf16 against the fused encoder's chain, bit-exact
-    for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 0.0)):
-        k = hash_encode(table, x01, spec, compute_dtype=dtype)
-        p = (hash_encode_01(table, x01, spec) if dtype == torch.float32
-             else hash_encode_fused_plain(table, x01, spec, dtype))
-        torch.cuda.synchronize()
-        check(k.dtype == dtype and k.shape == (B, L * C),
-              f"encode {dtype}: got {k.dtype} {tuple(k.shape)}")
-        kf, pf = k.float(), p.float()
-        err = float((kf - pf).abs().max())
-        check(err <= atol, f"encode {dtype}: max abs err {err} exceeds {atol}")
-        errs[dtype] = err
-        print(f"[encode] {str(dtype)[6:]}: max abs err {err:.3e} "
-              f"(tolerance {atol}{', bit-exact' if atol == 0 else ''}): ok")
+    for kind, x01 in inputs.items():
+        per_input[kind] = {}
+        for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 0.0)):
+            name = str(dtype)[6:]
+            k = hash_encode(table, x01, spec, compute_dtype=dtype)
+            p = (hash_encode_01(table, x01, spec) if dtype == torch.float32
+                 else hash_encode_fused_plain(table, x01, spec, dtype))
+            torch.cuda.synchronize()
+            n = x01.shape[0]
+            check(k.dtype == dtype and k.shape == (n, L * C),
+                  f"encode {kind} {name}: got {k.dtype} {tuple(k.shape)}")
+            err = float((k.float() - p.float()).abs().max())
+            check(err <= atol, f"encode {kind} {name}: max abs err {err} "
+                               f"exceeds {atol}")
 
+            def call(x01=x01, dtype=dtype):
+                return hash_encode(table, x01, spec, compute_dtype=dtype)
+
+            ms, dev_ms = time_ms(call, 50), device_ms(call)
+            bound_ms, bound_by, n_bytes, rows = encode_bound(
+                spec, x01, 2 if dtype == torch.bfloat16 else 4)
+            per_input[kind][name] = dict(
+                points=n, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                touched_rows=rows)
+            print(f"[encode] {kind} B={n} {name}: max abs err {err:.3e} "
+                  f"(tolerance {atol}{', bit-exact' if atol == 0 else ''}); "
+                  f"kernel {ms:.4f} ms (device {dev_ms} ms), bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}: touched rows {rows}, "
+                  f"{n_bytes} bytes)")
     bf16 = torch.bfloat16
-    ms = time_ms(lambda: hash_encode(table, x01, spec, compute_dtype=bf16),
-                 50)
-    dev_ms = device_ms(lambda: hash_encode(table, x01, spec,
-                                           compute_dtype=bf16))
+    x01 = inputs["uniform"]
     plain_ms = time_ms(
         lambda: hash_encode_fused_plain(table, x01, spec, bf16), 3)
-    # least traffic: the points, the table rows this input touches (once
-    # each), the bf16 output; least work: one f32 multiply-add per corner
-    # and channel
-    rows, n_in = touched_rows(spec, x01)
-    n_bytes = B * 3 * 4 + rows * C * 4 + B * L * C * 2
-    n_ops = 2 * 8 * C * L * n_in
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
-    print(f"[encode] B={B} L={L} C={C} bf16: kernel {ms:.4f} ms (device "
-          f"{dev_ms} ms), plain "
-          f"{plain_ms:.4f} ms; touched rows {rows}, {n_bytes} bytes "
-          f"({bytes_ms * 1e3:.2f} us), {n_ops} flop ({ops_ms * 1e3:.2f} us)")
+    top = per_input["uniform"]["bfloat16"]
+    print(f"[encode] uniform B={B} bf16 plain {plain_ms:.4f} ms")
     return dict(name="hash_encode", route="cuda",
                 source="raw_ngp_torch/csrc/hash_encode.cu",
                 replaces="raw_ngp_tpu/kernels/hash_fused.py:497",
-                max_abs_err=errs[bf16], max_abs_err_f32=errs[torch.float32],
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None)
+                max_abs_err=top["max_abs_err"],
+                max_abs_err_f32=per_input["uniform"]["float32"]["max_abs_err"],
+                ms=top["ms"], device_ms=top["device_ms"], plain_ms=plain_ms,
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=None, inputs=per_input)
 
 
 def _outer_stream(dev, M, B, n_rows, C, skew):
@@ -691,58 +839,70 @@ def touched_rows(spec, x01):
     return rows, int(inb.sum())
 
 
-def phase_encode_input(dev, spec, B=262144):
+def phase_encode_input(dev, cfg, B=262144):
     """The encode's input gradient at the flagship shape: kernel against
-    plain version in f32 and bf16, then timed in bf16."""
+    plain version at uniform and ray-ordered points, f32 and bf16 (two
+    calls bitwise equal), each timed beside its own bound."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.models.ngp import make_field_spec
+    spec = make_field_spec(cfg).grid_spec
     L, C = spec.num_levels, spec.level_dim
     gen = torch.Generator(device=dev).manual_seed(7)
     table = (torch.rand(spec.n_params * C, generator=gen, device=dev) * 2
              - 1) * 1e-2
-    x01 = torch.rand(B, 3, generator=gen, device=dev)
-    x01[:64] = x01[:64] * 3.0 - 1.0
-    x01[64:72, 1] = float("nan")
+    inputs = encode_inputs(cfg, gen, dev, B, kinds=("uniform", "ray"))
     cot = torch.randn(B, L * C, generator=gen, device=dev)
-    outside = ~((x01 >= 0) & (x01 <= 1)).all(-1)      # NaN rows too
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        g = cot.to(dtype)
-        k = th.encode_input_grad(table, x01, g, spec, dtype)
-        p = th.encode_input_grad_plain(table, x01, g, spec, dtype)
-        torch.cuda.synchronize()
-        scale = float(p.abs().max())
-        err = float((k - p).abs().max())
-        check(scale > 0 and bool((k[outside] == 0).all())
-              and torch.allclose(k, p, rtol=1e-5, atol=1e-5 * scale),
-              f"encode_input {dtype}: max abs err {err} (scale {scale})")
-        errs[dtype] = err
-        print(f"[encode_input] {str(dtype)[6:]}: max abs err {err:.3e} of "
-              f"largest {scale:.3e} (rtol 1e-5 of the largest): ok")
+    per_input = {}
+    for kind, x01 in inputs.items():
+        per_input[kind] = {}
+        outside = ~((x01 >= 0) & (x01 <= 1)).all(-1)      # NaN rows too
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            g = cot.to(dtype)
+            k = th.encode_input_grad(table, x01, g, spec, dtype)
+            k2 = th.encode_input_grad(table, x01, g, spec, dtype)
+            p = th.encode_input_grad_plain(table, x01, g, spec, dtype)
+            torch.cuda.synchronize()
+            scale = float(p.abs().max())
+            err = float((k - p).abs().max())
+            check(scale > 0 and bool((k[outside] == 0).all())
+                  and torch.equal(k.view(torch.int32), k2.view(torch.int32))
+                  and torch.allclose(k, p, rtol=1e-5, atol=1e-5 * scale),
+                  f"encode_input {kind} {name}: max abs err {err} (scale "
+                  f"{scale}), or two calls differ")
+
+            def call(x01=x01, g=g, dtype=dtype):
+                return th.encode_input_grad(table, x01, g, spec, dtype)
+
+            ms, dev_ms = time_ms(call, 50), device_ms(call)
+            # g in, grad_x [B, 3] out; products and sums, 8 corners
+            bound_ms, bound_by, n_bytes, rows = encode_bound(
+                spec, x01, 2 if dtype == torch.bfloat16 else 4,
+                extra_bytes=B * 12, ops_per_term=4)
+            per_input[kind][name] = dict(
+                max_abs_err=err, scale=scale, ms=ms, device_ms=dev_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                touched_rows=rows)
+            print(f"[encode_input] {kind} B={B} {name}: max abs err "
+                  f"{err:.3e} of largest {scale:.3e} (rtol 1e-5 of the "
+                  f"largest), two calls bitwise equal; kernel {ms:.4f} ms "
+                  f"(device {dev_ms} ms), bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by}: touched rows {rows}, {n_bytes} bytes)")
     bf16 = torch.bfloat16
-    g = cot.to(bf16)
-    ms = time_ms(lambda: th.encode_input_grad(table, x01, g, spec, bf16), 50)
-    dev_ms = device_ms(lambda: th.encode_input_grad(table, x01, g, spec,
-                                                    bf16))
+    x01, g = inputs["uniform"], cot.to(bf16)
     plain_ms = time_ms(
         lambda: th.encode_input_grad_plain(table, x01, g, spec, bf16), 3)
-    rows, n_in = touched_rows(spec, x01)
-    n_bytes = B * 12 + rows * C * 4 + B * L * C * 2 + B * 12
-    n_ops = 2 * 2 * 8 * C * L * n_in     # products and sums, 8 corners
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
-    print(f"[encode_input] B={B} bf16: kernel {ms:.4f} ms (device "
-          f"{dev_ms} ms), plain "
-          f"{plain_ms:.4f} ms; touched rows {rows}, {n_bytes} bytes "
-          f"({bytes_ms * 1e3:.2f} us), {n_ops} flop ({ops_ms * 1e3:.2f} us)")
+    top = per_input["uniform"]["bfloat16"]
+    print(f"[encode_input] uniform B={B} bf16 plain {plain_ms:.4f} ms")
     return dict(name="encode_input_grad", route="cuda",
                 source="raw_ngp_torch/csrc/hash_encode.cu",
                 replaces="raw_ngp_tpu/kernels/hash_fused.py:760",
-                max_abs_err=errs[bf16], max_abs_err_f32=errs[torch.float32],
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None)
+                max_abs_err=top["max_abs_err"],
+                max_abs_err_f32=per_input["uniform"]["float32"]["max_abs_err"],
+                ms=top["ms"], device_ms=top["device_ms"], plain_ms=plain_ms,
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=None, inputs=per_input)
 
 
 def _channel_stream(dev, M, n_rows, n_chan, skew):
@@ -1084,22 +1244,47 @@ def run_steps(tr, steps, kernels, what):
     the losses are finite and fall (last 8 below the first 8) and that
     the params and EMA are finite. Returns (launches, losses, step ms)."""
     import torch
+    from raw_ngp_torch.kernels.hash_encode import hash_encode
+    from raw_ngp_torch.ops.grid import _CHUNK
     counters = _counters()
+    # the encode's launches inside the grid refreshes, counted around them
+    refresh = {"calls": 0, "encode_launches": 0}
+    update = tr._grid_update
+
+    def counted_update(*args, **kwargs):
+        before = hash_encode.launches
+        out = update(*args, **kwargs)
+        refresh["calls"] += 1
+        refresh["encode_launches"] += hash_encode.launches - before
+        return out
+
+    tr._grid_update = counted_update
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     losses = []
     t0 = time.perf_counter()
-    for i in range(steps):
-        events[i].record()
-        losses.append(tr.step()["loss"])
-    events[steps].record()
-    torch.cuda.synchronize()
+    try:
+        for i in range(steps):
+            events[i].record()
+            losses.append(tr.step()["loss"])
+        events[steps].record()
+        torch.cuda.synchronize()
+    finally:
+        tr._grid_update = update
     wall_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
+    budget = tr._point_budget or tr.base_point_budget()
+    by_caller = {
+        "train_forwards": launches["hash_encode"] - refresh["encode_launches"],
+        "train_forward_points": budget,
+        "refresh_chunks": refresh["encode_launches"],
+        "refresh_chunk_points": _CHUNK, "refreshes": refresh["calls"]}
     print(f"[{what}] {steps} steps in {wall_s:.2f} s, "
-          f"{tr.host_grid_updates} grid refreshes; launches {launches}")
+          f"{tr.host_grid_updates} grid refreshes; launches {launches}; "
+          f"encode launches by caller {by_caller}")
+    launches["hash_encode_by_caller"] = by_caller
     for name in kernels:
         check(launches[name] > 0, f"{what}: kernel {name} was never launched")
     # one backward a step, one dense level on the flagship grid
@@ -1119,6 +1304,14 @@ def run_steps(tr, steps, kernels, what):
                   f"{what}: {kind} {k} not finite")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     return launches, (first, last), step_ms
+
+
+def evaluate_counted(tr):
+    """The val PSNR (EMA) and the encode launches of that evaluation."""
+    from raw_ngp_torch.kernels.hash_encode import hash_encode
+    before = hash_encode.launches
+    psnr = tr.evaluate()["psnr"]
+    return psnr, hash_encode.launches - before
 
 
 def fixed_batch_check(tr, batch_fn, what, annealing=1.0, grad_tol=5e-2):
@@ -1179,7 +1372,7 @@ def phase_train(dev, cfg, steps=128, timed=32):
                                                  "train")
     window = step_ms[-timed:]
     med = sorted(window)[timed // 2]
-    psnr = tr.evaluate()["psnr"]
+    psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
     print(f"[train] last {timed} steps: median {med:.3f} ms/step, "
           f"{tr.num_rays / med * 1e3:.0f} rays/s; val PSNR (EMA) "
           f"{psnr:.3f} dB")
@@ -1247,7 +1440,7 @@ def phase_pose(dev, steps=128, timed=32):
           f"largest refinement {float(pose.abs().max()):.3e}")
     window = step_ms[-timed:]
     med = sorted(window)[timed // 2]
-    psnr = tr.evaluate()["psnr"]
+    psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
     print(f"[pose] last {timed} steps: median {med:.3f} ms/step, "
           f"{tr.num_rays / med * 1e3:.0f} rays/s; val PSNR (EMA) "
           f"{psnr:.3f} dB")
@@ -1303,7 +1496,102 @@ def gpu_line():
         return f"nvidia-smi unavailable ({e})"
 
 
+def build_other(tree):
+    """Build `tree`'s raw_ngp_torch/csrc/hash_encode.cu with this tree's
+    nvcc flags into build/raw_ngp_torch/against/ and bind its forward and
+    input-gradient entry points (the same C signatures as this tree's)."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+    from raw_ngp_torch.kernels import _build
+    from raw_ngp_torch.kernels.hash_encode import _ARGTYPES
+    src = Path(tree) / "raw_ngp_torch" / "csrc" / "hash_encode.cu"
+    out_dir = _build.BUILD_DIR / "against"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / (f"libhash_encode-"
+                          f"{hashlib.sha256(src.read_bytes()).hexdigest()[:12]}"
+                          f".so")
+    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                          str(lib_path), str(src)], capture_output=True,
+                         text=True)
+    check(run.returncode == 0, f"against: {src} does not build\n"
+                               f"{run.stdout}{run.stderr}")
+    for k in ptxas_report(run.stdout + run.stderr):
+        print(f"[against] {tree}: {k}")
+    lib = ctypes.CDLL(str(lib_path))
+    fns = {}
+    for name in ("hash_encode_fwd", "hash_encode_bwd_input"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def compare_encode(dev, cfg, tree, B=262144, reps=20):
+    """Same-call A/B of the encode forward and input gradient: `tree`'s
+    kernels (through this tree's wrappers) against this tree's on the same
+    inputs as phase_encode / phase_encode_input, device time in turns
+    other, this, this, other; outputs compared on the way."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.models.ngp import make_field_spec
+    spec = make_field_spec(cfg).grid_spec
+    L, C = spec.num_levels, spec.level_dim
+    other = build_other(tree)
+    mine = th._lib
+
+    def lib_of(which):
+        return mine if which == "this" else (
+            lambda name: other[name] if name in other else mine(name))
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table = torch.rand(spec.n_params * C, generator=gen, device=dev) * 2 - 1
+    inputs = encode_inputs(cfg, gen, dev, B)
+    cot = torch.randn(B, L * C, generator=gen, device=dev)
+    cases = []
+    for kind, x01 in inputs.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"forward {kind} {str(dtype)[6:]}",
+                          lambda x01=x01, dtype=dtype: th.hash_encode(
+                              table, x01, spec, compute_dtype=dtype)))
+    for kind in ("uniform", "ray"):
+        for dtype in (torch.bfloat16, torch.float32):
+            x01, g = inputs[kind], cot.to(dtype)
+            cases.append((f"input_grad {kind} {str(dtype)[6:]}",
+                          lambda x01=x01, g=g, dtype=dtype: (
+                              th.encode_input_grad(table, x01, g, spec,
+                                                   dtype))))
+    result = {"against": str(tree)}
+    try:
+        for name, fn in cases:
+            row = {}
+            outs = {}
+            for which in ("other", "this"):
+                th._lib = lib_of(which)
+                outs[which] = fn().float()
+            torch.cuda.synchronize()
+            row["max_abs_diff"] = float((outs["this"] - outs["other"]).abs()
+                                        .max())
+            for i, which in enumerate(("other", "this", "this", "other")):
+                th._lib = lib_of(which)
+                row[f"{which}_device_ms_{i}"] = device_ms(fn, reps)
+                row[f"{which}_ms_{i}"] = time_ms(fn, 50)
+            result[name] = row
+            print(f"[against] {name}: {row}")
+    finally:
+        th._lib = mine
+    return result
+
+
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--against", metavar="TREE", nargs="+", default=(),
+        help="only build and compare the encode forward and input gradient "
+             "of each TREE's raw_ngp_torch/csrc/hash_encode.cu with this "
+             "tree's, in one process (prints one `ab` line per TREE)")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -1325,17 +1613,30 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t_start = time.time()
+    if args.against:
+        try:
+            phase_build()
+            for tree in args.against:
+                print(json.dumps({"ab": compare_encode(
+                    dev, flagship_config(), tree)}))
+        except Exception:
+            traceback.print_exc()
+            print("chip_smoke: FAILED", file=sys.stderr)
+            return 1
+        print(gpu_line())
+        return 0
     try:
-        phase_build()
+        ptxas = phase_build()
+        check_encode_registers(ptxas)
         k_compact = phase_compact(dev)
         from raw_ngp_torch.models.ngp import make_field_spec
         cfg = flagship_config()
         spec = make_field_spec(cfg).grid_spec
-        k_encode = phase_encode(dev, spec)
+        k_encode = phase_encode(dev, cfg)
         k_segsum = phase_segsum(dev)
         k_bwd, k_mm, k_pack, k_comb = phase_encode_bwd(dev, spec)
         k_compact_bwd = phase_compact_bwd(dev)
-        k_input = phase_encode_input(dev, spec)
+        k_input = phase_encode_input(dev, cfg)
         k_channel = phase_segsum_channel(dev)
         render_launches, render = phase_slice(dev, cfg)
         train_launches, train = phase_train(dev, cfg)
@@ -1353,6 +1654,16 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
+        if k["name"] == "hash_encode":
+            k["launches_by_caller"] = {
+                "pose": launches["hash_encode_by_caller"],
+                "train": train_launches["hash_encode_by_caller"]}
+        kernel_fn = {"hash_encode": "hash_encode_kernel",
+                     "encode_input_grad": "encode_input_grad_kernel"}.get(
+                         k["name"])
+        if kernel_fn:
+            k["ptxas"] = [p for p in ptxas.get("hash_encode", ())
+                          if p["kernel"].startswith(kernel_fn)]
         kernels.append(k)
     print(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"render": render}))

@@ -1,72 +1,84 @@
-// Multiresolution hash-grid encode, forward, and the records of its
-// backward, for Hopper (sm_90a).
+// Multiresolution hash-grid encode for Hopper (sm_90a): the forward, the
+// records of its table gradient and its input gradient.
 //
 // Replaces the encode that the JAX package runs through XLA in
-// raw_ngp_tpu/kernels/hash_fused.py (hash_encode_fused / _fused_fwd: the
-// matmul path for dense leading levels and the 2-row vrow-window gathers
-// for the rest), which stands in for the reference's hand-written CUDA
-// gridencoder. Its plain version is
-// raw_ngp_torch/kernels/hash_encode.hash_encode_fused_plain.
+// raw_ngp_tpu/kernels/hash_fused.py: hash_encode_fused / _fused_fwd (the
+// matmul path _mm_forward for dense leading levels, the 2-row vrow
+// windows of _window_forward for the rest), the residuals of _fused_fwd
+// (_window_indices_weights) and the input VJP of _fused_bwd
+// (need_input_grads, :760-778). They stand in for the reference's
+// hand-written CUDA gridencoder. Plain versions:
+// raw_ngp_torch/kernels/hash_encode.py hash_encode_fused_plain,
+// window_records_plain and encode_input_grad_plain.
 //
-// One thread per (point, level): it computes the corner rows with the
-// _level_indices index math in native uint32 (dense-stride early-out, xor
-// and additive variants) and loads each row's C channels as float4.
-// Inputs outside [0, 1]^3 or NaN give zeros. In f32 it sums the 8 corner
-// values x trilinear weights in f32 (ops/hashgrid.hash_encode_01). Under
-// bf16 it takes the JAX fused encoder's rounding chain, bit for bit: on a
-// window level the windows of the record kernel (point_windows), each lane
-// product rounded, each window's two rows added and rounded, the windows
-// summed in f32 (_window_forward); on a dense matmul level the partial
-// interpolation Z per x lane rounded, then Z x rnd(wx) rounded, the x
-// lanes summed (_mm_forward); the f32 level sum is rounded once by the
-// store, which writes the C bf16 outputs as 16-byte vectors. Position,
-// weight and bf16 arithmetic use the _rn intrinsics so nvcc cannot
-// contract them into FMAs: the cell, fraction and every rounded product
-// must round exactly as the plain version's separate operations.
+// What bounds them. The forward and the input gradient are gathers: per
+// (point, level) 8 table rows of C f32 at hashed addresses. The flagship's
+// 262,144 uniform points touch 517,036 rows: 15.8 us (forward) and 16.8 us
+// (input gradient, g included) at 3.35 TB/s if each row came from DRAM
+// once. The level-1 table (524,288 x 16 f32, 33.5 MB) fits in the 50 MB
+// L2, so after first touch the gathers are L2 hits, and what decides the
+// time is how many sectors and load instructions each row costs and how
+// many gathers each SM keeps in flight, not DRAM bytes.
 //
-// The same file holds the record kernel of the encode's backward,
-// window_records: it writes the residuals of hash_fused._fused_fwd
-// (_window_indices_weights, the 2-row windows of every level that is not
-// on the dense matmul path) as base [P, B] i32 and the (w0, w1) pair of
-// each window as one word of two truncated bf16 halves [P, B] (the
-// _pack_bf16_pairs word the table gradient sorts and sums, see
-// csrc/segsum.cu). Its weight products follow the JAX order (pair axis
-// last, the other axes in index order) so the truncated halves match bit
-// for bit (point_windows, shared with the bf16 forward). It is bound by
-// bytes too: it reads the points and writes two words per window (8.4 MB
-// at the flagship's 262,144 points, 4 windows).
+// Thread layout of the forward and the input gradient: a group of
+// G = ceil(C / 4) adjacent threads per point (4 at the flagship's C = 16),
+// thread j of the group owning channels [4j, 4j + 4). So:
+// - a corner row is read by the group as one contiguous 16 G-byte piece
+//   (two full sectors at C = 16; the two rows of a pairable window are
+//   adjacent, 128 B), one float4 a thread, instead of one thread's four
+//   float4 at 32 scattered rows per warp instruction;
+// - the group walks the levels in order, so every warp runs one level's
+//   code path at a time: no warp mixes the dense (matmul) level's chain
+//   with the window levels' (the old one-thread-per-(point, level) layout
+//   ran both in every warp at L = 2);
+// - the hashing is shared: thread j hashes corners j, j + G, ... and the
+//   group broadcasts the 8 rows with __shfl_sync (level_rows), so the
+//   modulo-heavy index math is not repeated G times;
+// - each channel's arithmetic stays inside one thread in the plain
+//   version's order, so the bf16 forward keeps JAX's rounding chain bit
+//   for bit by construction; each thread keeps 4 channels of state;
+// - the windows are walked as they are formed (for_each_window), never
+//   stored in arrays indexed by a running count, so nothing is in local
+//   memory; runtime axis choices are selects, not array indices.
 //
-// The file also holds the input gradient of the encode,
-// hash_encode_bwd_input (pose refinement). It replaces the VJP that JAX
-// takes through the interpolation weights with the table frozen
-// (hash_fused.py _fused_bwd, need_input_grads, :760-778), which stands in
-// for the reference gridencoder's dy_dx contraction. One thread per point
-// loops over the L levels in registers and writes grad_x [B, 3] f32 once:
-// no atomics, deterministic. Per level it recomputes the cell and the
-// fractions exactly as the record kernel does, reads the 8 corner rows and
-// contracts each with the level's cotangent g. On a window level the
-// corner value is V = sum_c rnd(g_c * T_c) (JAX's per-window cotangent)
-// and d/df_d = sum over the other axes' corners of (V[d=1] - V[d=0]) x
-// their weights; on a dense matmul level the kernel follows JAX's
-// _mm_forward chain instead (partial interpolations Z per x lane, the
-// weight cotangents rounded where the bf16 matmuls round them). Then the
-// chain rule: df/dx = res (res - 1 with align_corners), half of it where
-// the clip bound is met exactly (jnp.clip's tie), none beyond it, times
-// the smoothstep derivative; 0 outside [0, 1]^3. Under bf16, rnd rounds to
-// bf16 and the table is read rounded, as JAX's VJP reads it; in f32 rnd
-// is the identity. Every product and sum uses the _rn intrinsics in the
-// plain version's order (kernels/hash_encode.py encode_input_grad_plain),
-// so nvcc cannot contract them into FMAs. Bound: bytes: the touched rows
-// (the forward's), g (B x L x C bf16), x01 and grad_x; the flagship's
-// B = 262,144 uniform points touch 517,036 rows and move 56,158,976 B,
-// 16.8 us at 3.35 TB/s (chip_smoke.py counts them from its inputs).
+// The forward. Inputs outside [0, 1]^3 or NaN give zeros. In f32 it sums
+// the 8 corner values x trilinear weights (ops/hashgrid.hash_encode_01).
+// Under bf16 it takes the JAX fused encoder's rounding chain: on a window
+// level each lane product rounded, each window's two rows added and
+// rounded, the windows summed in f32 (_window_forward); on a dense matmul
+// level the partial interpolation Z per x lane rounded, then Z x rnd(wx)
+// rounded, the x lanes summed (_mm_forward); the f32 level sum is rounded
+// once by the store. Each (point, level) writes its C outputs
+// contiguously, 4 a thread (8 B in bf16, 16 B in f32). Position, weight
+// and bf16 arithmetic use the _rn intrinsics so nvcc cannot contract them
+// into FMAs: the cell, fraction and every rounded product must round
+// exactly as the plain version's separate operations. The bf16 chain
+// rounds two channels with one conversion (round_bf16x2; the same bits,
+// 12-16% less device time than one conversion a value, PERF.md).
 //
-// Bound: bytes, as a gather. Each (point, level) reads 8 rows of C floats
-// at hashed addresses; the flagship's level-1 table (524,288 x 16 f32 =
-// 33.5 MB) fits in the 50 MB L2, so after first touch the gathers are L2
-// hits and DRAM sees the touched rows once plus the points and the output.
-// Threads with neighbouring ids share a point, so the output stores of a
-// warp are contiguous.
+// The input gradient (pose refinement) takes the same groups: each thread
+// reads its quad of every corner row and of g (four bf16 or f32), and the
+// sums across channels (a window level's corner value V = sum_c rnd(g_c
+// T_c), a dense level's weight cotangents) are formed in channel order by
+// a chain of shuffles (group_chain): each thread adds its own terms to the
+// running sum of the threads before it, so the f32 sums are the plain
+// version's, one add at a time, and the result equals it bit for bit.
+// Then d/df_d from the corner values (window level) or through JAX's
+// _mm_forward chain (dense level), and the chain rule: df/dx = res
+// (res - 1 with align_corners), half of it where the clip bound is met
+// exactly (jnp.clip's tie), none beyond it, times the smoothstep
+// derivative; 0 outside [0, 1]^3. Thread 0 of the group writes
+// grad_x [B, 3] once, the levels summed in order: no atomics,
+// deterministic.
+//
+// The records kernel, window_records: one thread per (point, window
+// level) writes base [P, B] i32 and the (w0, w1) pair of each window as
+// one word of two truncated bf16 halves [P, B] (the _pack_bf16_pairs word
+// the table gradient sorts and sums, see csrc/segsum.cu), with the
+// forward's windows (for_each_window): the weight products follow the JAX
+// order (pair axis last, the other axes in index order), so the truncated
+// halves match bit for bit. Bound: bytes, 8.4 MB written at the flagship's
+// 262,144 points and 4 windows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,117 +94,218 @@ constexpr int kThreads = 256;
 constexpr int kLevelRow = 11;
 constexpr int kModeStride = 0, kModeXor = 1, kModeAdditive = 2;
 
+// threads per point (one per channel quad) and channels per thread
+template <int C>
+constexpr int kGroup = (C + 3) / 4;
+template <int C>
+constexpr int kQuad = C < 4 ? C : 4;
+
+struct Level {
+  uint32_t res, hmap, offset, stride[3];
+  int n_strides, mode, axis;
+  bool pairable;
+};
+
+__device__ __forceinline__ Level load_level(const int64_t* __restrict__ lp) {
+  Level l;
+  l.res = (uint32_t)lp[0];
+  l.hmap = (uint32_t)lp[1];
+  l.offset = (uint32_t)lp[2];
+  l.n_strides = (int)lp[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) l.stride[d] = (uint32_t)lp[4 + d];
+  l.mode = (int)lp[7];
+  l.axis = (int)lp[8];
+  l.pairable = lp[9] != 0;
+  return l;
+}
+
+// v[i] for a runtime i, as selects (an array index would go to local memory)
+template <typename T>
+__device__ __forceinline__ T sel3(const T v[3], int i) {
+  return i == 0 ? v[0] : (i == 1 ? v[1] : v[2]);
+}
+
 __device__ __forceinline__ uint32_t mix_prime(int d) {
   // _mix_prime: dim 0 borrows the 4th prime since the 1st is 1
   return d == 0 ? 3674653429u : (d == 1 ? 2654435761u : 805459861u);
 }
 
-__device__ __forceinline__ uint32_t level_row(const int64_t* lp,
+// the table row of grid corner c (_level_indices: dense stride, xor and
+// additive hashes, in native uint32)
+__device__ __forceinline__ uint32_t level_row(const Level& l,
                                               const uint32_t c[3]) {
-  const uint32_t res = (uint32_t)lp[0];
-  const uint32_t hmap = (uint32_t)lp[1];
-  const int mode = (int)lp[7];
   uint32_t index = 0;
-  if (mode == kModeAdditive) {
-    const int a = (int)lp[8];
+  if (l.mode == kModeAdditive) {
     uint32_t g = 0;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      if (d != a) g ^= c[d] * mix_prime(d);
+      if (d != l.axis) g ^= c[d] * mix_prime(d);
     }
-    index = c[a] + g % (hmap - res);
-  } else if (mode == kModeXor) {
+    index = sel3(c, l.axis) + g % (l.hmap - l.res);
+  } else if (l.mode == kModeXor) {
     index = c[0] ^ (c[1] * 2654435761u) ^ (c[2] * 805459861u);
   } else {
-    const int ns = (int)lp[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      if (d < ns) index += c[d] * (uint32_t)lp[4 + d];
+      if (d < l.n_strides) index += c[d] * l.stride[d];
     }
   }
-  return index % hmap + (uint32_t)lp[2];
+  return index % l.hmap + l.offset;
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The 2-row windows of one (point, level) (hash_fused._window_indices_weights,
-// D = 3): 4 windows of two adjacent rows when the level is pairable, else 8
-// one-corner windows, in JAX's window order (h over the two non-pair axes,
-// then the corner u, v of a non-pairable level). bs is each window's first
-// row (clamped to top = n_params - 2), w0/w1 the f32 weights routed to
-// rows bs and bs + 1, multiplied in JAX's order (pair axis last, the other
-// axes in index order) so they match bit for bit. Returns the count.
-__device__ __forceinline__ int point_windows(const int64_t* lp,
-                                             const uint32_t g[3],
-                                             const float f[3], float inb_f,
-                                             int top, int bs[8], float w0s[8],
-                                             float w1s[8]) {
-  const uint32_t res = (uint32_t)lp[0];
-  const int a = (int)lp[8];
-  const bool pairable = lp[9] != 0;
-  int rest[2];
-  for (int d = 0, j = 0; d < 3; ++d) {
-    if (d != a) rest[j++] = d;
-  }
-  const uint32_t a_lo = g[a];
-  const uint32_t a_hi = min(a_lo + 1, res - 1);
-  const float fa = f[a];
-  const float fa1 = __fsub_rn(1.0f, fa);
-  int n = 0;
-#pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    uint32_t c[3];
-    float w_rest = inb_f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int d = rest[j];
-      const uint32_t bit = (h >> j) & 1u;
-      c[d] = min(g[d] + bit, res - 1);
-      w_rest = __fmul_rn(w_rest, bit ? f[d] : __fsub_rn(1.0f, f[d]));
-    }
-    c[a] = a_lo;
-    const int u = (int)level_row(lp, c);
-    c[a] = a_hi;
-    const int v = (int)level_row(lp, c);
-    const float w_u = __fmul_rn(fa1, w_rest);
-    const float w_v = __fmul_rn(fa, w_rest);
-    if (pairable) {
-      const int bb = min(min(u, v), top);
-      bs[n] = bb;
-      w0s[n] = __fadd_rn(u == bb ? w_u : 0.0f, v == bb ? w_v : 0.0f);
-      w1s[n] = __fadd_rn(u == bb + 1 ? w_u : 0.0f, v == bb + 1 ? w_v : 0.0f);
-      ++n;
-    } else {
-      const int idx[2] = {u, v};
-      const float w[2] = {w_u, w_v};
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int bb = min(idx[k], top);
-        bs[n] = bb;
-        w0s[n] = idx[k] == bb ? w[k] : 0.0f;
-        w1s[n] = idx[k] == bb + 1 ? w[k] : 0.0f;
-        ++n;
-      }
-    }
-  }
-  return n;
+__device__ __forceinline__ float rnd_if(bool bf16, float v) {
+  return bf16 ? round_bf16(v) : v;
 }
 
-// Channels [k0, k0 + 4) of a table row, as one float4 where C allows it.
-template <int C>
-__device__ __forceinline__ float4 load4(const float* __restrict__ row,
-                                        int k0) {
-  if constexpr (C % 4 == 0) {
-    return __ldg(reinterpret_cast<const float4*>(row + k0));
-  } else {
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+// two values rounded to bf16 by one conversion, back in f32
+__device__ __forceinline__ float2 round_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+// Lower corner g and fraction f of x in one level (_corner_axis).
+__device__ __forceinline__ void level_cell(const Level& l, const float x[3],
+                                           int align_corners, int smoothstep,
+                                           uint32_t g[3], float f[3]) {
+  const float top_f = (float)(l.res - 1);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k0 + k < C) v[k] = __ldg(row + k0 + k);
+  for (int d = 0; d < 3; ++d) {
+    float pos, gf;
+    if (align_corners) {
+      pos = __fmul_rn(x[d], top_f);
+      gf = fminf(floorf(pos), (float)(l.res - 2));
+    } else {
+      pos = __fsub_rn(__fmul_rn(x[d], (float)l.res), 0.5f);
+      pos = fminf(fmaxf(pos, 0.0f), top_f);
+      gf = floorf(pos);
     }
-    return make_float4(v[0], v[1], v[2], v[3]);
+    float fd = __fsub_rn(pos, gf);
+    if (smoothstep) {
+      fd = __fmul_rn(__fmul_rn(fd, fd), __fsub_rn(3.0f, __fmul_rn(2.0f, fd)));
+    }
+    f[d] = fd;
+    g[d] = (uint32_t)(int)gf;
+  }
+}
+
+// Corner k of the cell at g with bit d of k on axis d (clamped to res - 1):
+// the trilinear order, and the dense path's lanes (xi, yi, zi).
+struct BitCorners {
+  uint32_t g[3];
+  uint32_t hi;
+  __device__ __forceinline__ void operator()(int k, uint32_t c[3]) const {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) c[d] = min(g[d] + ((uint32_t)(k >> d) & 1u), hi);
+  }
+};
+
+// Corner k = 2h + side in JAX's window order (_window_indices_weights): bit
+// 0 and 1 of h on the two non-pair axes in index order, side on the pair
+// axis a.
+struct WindowCorners {
+  uint32_t g[3];
+  uint32_t hi;
+  int a;
+  __device__ __forceinline__ void operator()(int k, uint32_t c[3]) const {
+    const int h = k >> 1;
+    const int r0 = a == 0 ? 1 : 0;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int bit = d == a ? (k & 1) : ((d == r0 ? h : h >> 1) & 1);
+      c[d] = min(g[d] + (uint32_t)bit, hi);
+    }
+  }
+};
+
+// The mask of this thread's group of G lanes (G divides the warp).
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  const unsigned lane = threadIdx.x & 31u;
+  return G >= 32 ? 0xffffffffu
+                 : ((1u << G) - 1u) << (lane & ~(unsigned)(G - 1));
+}
+
+// The 8 corner rows of one (point, level): rows[k] is the row of corner
+// coords(k). The S threads of a group share the hashing: thread j hashes
+// corners j, j + S, ... and the rows are broadcast with __shfl_sync. Every
+// index is a compile-time constant after unrolling, so rows stay in
+// registers.
+template <int S, typename Coords>
+__device__ __forceinline__ void level_rows(const Level& l, int j,
+                                           unsigned gmask, Coords coords,
+                                           int rows[8]) {
+  constexpr int kPer = 8 / S;
+  int mine[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    uint32_t c[3];
+    coords(j + i * S, c);
+    mine[i] = (int)level_row(l, c);
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if constexpr (S == 1) {
+      rows[k] = mine[k];
+    } else {
+      rows[k] = __shfl_sync(gmask, mine[k / S], k % S, S);
+    }
+  }
+}
+
+// The 2-row windows of one (point, level) from its corner rows in window
+// order, in JAX's window order: fn(k, first row, w0, w1) for 4 windows of
+// two adjacent rows when the level is pairable, else for 8 one-corner
+// windows. The first row is clamped to top = n_params - 2 and w0 / w1 are
+// the f32 weights routed to it and the next row, multiplied in JAX's order
+// (pair axis last, the other axes in index order) so they match bit for
+// bit.
+template <typename Fn>
+__device__ __forceinline__ void for_each_window(const Level& l,
+                                                const int rows[8],
+                                                const float f[3], float inb_f,
+                                                int top, Fn&& fn) {
+  const int a = l.axis;
+  const float fa = sel3(f, a);
+  const float f0 = sel3(f, a == 0 ? 1 : 0);
+  const float f1 = sel3(f, a == 2 ? 1 : 2);
+  const float fa1 = __fsub_rn(1.0f, fa);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    float w_rest = __fmul_rn(inb_f, (h & 1) ? f0 : __fsub_rn(1.0f, f0));
+    w_rest = __fmul_rn(w_rest, (h & 2) ? f1 : __fsub_rn(1.0f, f1));
+    const int u = rows[2 * h], v = rows[2 * h + 1];
+    const float w_u = __fmul_rn(fa1, w_rest);
+    const float w_v = __fmul_rn(fa, w_rest);
+    if (l.pairable) {
+      const int bb = min(min(u, v), top);
+      fn(h, bb, __fadd_rn(u == bb ? w_u : 0.0f, v == bb ? w_v : 0.0f),
+         __fadd_rn(u == bb + 1 ? w_u : 0.0f, v == bb + 1 ? w_v : 0.0f));
+    } else {
+      const int bu = min(u, top), bv = min(v, top);
+      fn(2 * h, bu, u == bu ? w_u : 0.0f, u == bu + 1 ? w_u : 0.0f);
+      fn(2 * h + 1, bv, v == bv ? w_v : 0.0f, v == bv + 1 ? w_v : 0.0f);
+    }
+  }
+}
+
+// This thread's channels of a row (p points at channel 4j): one float4
+// where C allows it.
+template <int C>
+__device__ __forceinline__ void load_quad(const float* __restrict__ p,
+                                          float v[kQuad<C>]) {
+  if constexpr (C >= 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (C == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
   }
 }
 
@@ -201,130 +314,175 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row,
 // the windows summed in f32 in window order (XLA's CPU reduce accumulates
 // its bf16 sum in f32 and rounds once, tested bit for bit against JAX).
 template <int C>
-__device__ __forceinline__ void window_level_bf16(
-    const float* __restrict__ table, const int64_t* lp, const uint32_t g[3],
-    const float f[3], int top, float acc[C]) {
-  int bs[8];
-  float w0s[8], w1s[8];
-  const int n = point_windows(lp, g, f, 1.0f, top, bs, w0s, w1s);
+__device__ __forceinline__ void window_level_bf16(const float* __restrict__ tq,
+                                                  const Level& l,
+                                                  const int rows[8],
+                                                  const float f[3], int top,
+                                                  float acc[kQuad<C>]) {
+  constexpr int Q = kQuad<C>;
+  for_each_window(l, rows, f, 1.0f, top,
+                  [&](int, int bb, float w0, float w1) {
+    const float wa = round_bf16(w0);
+    const float wb = round_bf16(w1);
+    float ta[Q], tb[Q];
+    load_quad<C>(tq + (int64_t)bb * C, ta);
+    load_quad<C>(tq + (int64_t)bb * C + C, tb);
+    if constexpr (Q == 1) {
+      const float pa = round_bf16(__fmul_rn(round_bf16(ta[0]), wa));
+      const float pb = round_bf16(__fmul_rn(round_bf16(tb[0]), wb));
+      acc[0] = __fadd_rn(acc[0], round_bf16(__fadd_rn(pa, pb)));
+    } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (k >= n) break;
-    const float* r0 = table + (int64_t)bs[k] * C;
-    const float wa = round_bf16(w0s[k]);
-    const float wb = round_bf16(w1s[k]);
-#pragma unroll
-    for (int q = 0; q < (C + 3) / 4; ++q) {
-      const float4 ta = load4<C>(r0, 4 * q);
-      const float4 tb = load4<C>(r0 + C, 4 * q);
-      const float va[4] = {ta.x, ta.y, ta.z, ta.w};
-      const float vb[4] = {tb.x, tb.y, tb.z, tb.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (4 * q + j >= C) break;
-        const float pa = round_bf16(__fmul_rn(round_bf16(va[j]), wa));
-        const float pb = round_bf16(__fmul_rn(round_bf16(vb[j]), wb));
-        acc[4 * q + j] = __fadd_rn(acc[4 * q + j],
-                                   round_bf16(__fadd_rn(pa, pb)));
+      for (int q = 0; q < Q; q += 2) {
+        const float2 ra = round_bf16x2(ta[q], ta[q + 1]);
+        const float2 rb = round_bf16x2(tb[q], tb[q + 1]);
+        const float2 pa = round_bf16x2(__fmul_rn(ra.x, wa), __fmul_rn(ra.y, wa));
+        const float2 pb = round_bf16x2(__fmul_rn(rb.x, wb), __fmul_rn(rb.y, wb));
+        const float2 s = round_bf16x2(__fadd_rn(pa.x, pb.x), __fadd_rn(pa.y, pb.y));
+        acc[q] = __fadd_rn(acc[q], s.x);
+        acc[q + 1] = __fadd_rn(acc[q + 1], s.y);
       }
     }
+  });
+}
+
+// The two lanes' weights of each axis at a dense level (_mm_axis_weights):
+// (1 - f, f), or, where the upper lane is clamped onto the lower, one lane
+// of weight (1 - f) + f and the other 0.
+__device__ __forceinline__ void mm_weights(const uint32_t g[3],
+                                           const float f[3], uint32_t res,
+                                           float A[3][2], bool present[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    present[d] = min(g[d] + 1, res - 1) != g[d];
+    const float a0 = __fsub_rn(1.0f, f[d]);
+    A[d][0] = present[d] ? a0 : __fadd_rn(a0, f[d]);
+    A[d][1] = present[d] ? f[d] : 0.0f;
   }
 }
 
 // One dense (matmul) level of the bf16 forward, _mm_forward's chain: per x
 // lane Z = rnd(sum_yz rnd(wz wy) rnd(T)) over the yz lanes in XLA's order
-// (z-major, then y; f32 sum, rounded once), then rnd(Z rnd(wx)), the two x
-// lanes added in f32 (the final rounding is the store's). A clamped lane
-// weighs 0 and the lane below it (1 - f) + f, as _mm_axis_weights merges.
+// (z-major, then y; f32 sum, rounded once), then rnd(Z x rnd(wx)), the two
+// x lanes added in f32 (the final rounding is the store's). rows are in
+// BitCorners order.
 template <int C>
-__device__ __forceinline__ void mm_level_bf16(const float* __restrict__ table,
-                                              const int64_t* lp,
+__device__ __forceinline__ void mm_level_bf16(const float* __restrict__ tq,
+                                              const Level& l,
                                               const uint32_t g[3],
-                                              const float f[3], float acc[C]) {
-  const uint32_t res = (uint32_t)lp[0];
-  uint32_t cl[3][2];
+                                              const float f[3],
+                                              const int rows[8],
+                                              float acc[kQuad<C>]) {
+  constexpr int Q = kQuad<C>;
   float A[3][2];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    cl[d][0] = g[d];
-    cl[d][1] = min(g[d] + 1, res - 1);
-    const bool present = cl[d][1] != cl[d][0];
-    const float a0 = __fsub_rn(1.0f, f[d]);
-    A[d][0] = present ? a0 : __fadd_rn(a0, f[d]);
-    A[d][1] = present ? f[d] : 0.0f;
-  }
+  bool present[3];
+  mm_weights(g, f, l.res, A, present);
 #pragma unroll
   for (int xi = 0; xi < 2; ++xi) {
-    float z[C];
+    float z[Q];
 #pragma unroll
-    for (int k = 0; k < C; ++k) z[k] = 0.0f;
+    for (int q = 0; q < Q; ++q) z[q] = 0.0f;
 #pragma unroll
     for (int yz = 0; yz < 4; ++yz) {
       const int zi = yz >> 1, yi = yz & 1;
       const float w = round_bf16(__fmul_rn(A[2][zi], A[1][yi]));
-      const uint32_t c[3] = {cl[0][xi], cl[1][yi], cl[2][zi]};
-      const float* row = table + (int64_t)level_row(lp, c) * C;
+      float t[Q];
+      load_quad<C>(tq + (int64_t)rows[xi | yi << 1 | zi << 2] * C, t);
+      if constexpr (Q == 1) {
+        z[0] = __fadd_rn(z[0], __fmul_rn(w, round_bf16(t[0])));
+      } else {
 #pragma unroll
-      for (int q = 0; q < (C + 3) / 4; ++q) {
-        const float4 t4 = load4<C>(row, 4 * q);
-        const float t[4] = {t4.x, t4.y, t4.z, t4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (4 * q + j >= C) break;
-          z[4 * q + j] = __fadd_rn(z[4 * q + j],
-                                   __fmul_rn(w, round_bf16(t[j])));
+        for (int q = 0; q < Q; q += 2) {
+          const float2 r = round_bf16x2(t[q], t[q + 1]);
+          z[q] = __fadd_rn(z[q], __fmul_rn(w, r.x));
+          z[q + 1] = __fadd_rn(z[q + 1], __fmul_rn(w, r.y));
         }
       }
     }
     const float wx = round_bf16(A[0][xi]);
+    if constexpr (Q == 1) {
+      acc[0] = __fadd_rn(acc[0], round_bf16(__fmul_rn(round_bf16(z[0]), wx)));
+    } else {
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      acc[k] = __fadd_rn(acc[k], round_bf16(__fmul_rn(round_bf16(z[k]), wx)));
+      for (int q = 0; q < Q; q += 2) {
+        const float2 rz = round_bf16x2(z[q], z[q + 1]);
+        const float2 p = round_bf16x2(__fmul_rn(rz.x, wx), __fmul_rn(rz.y, wx));
+        acc[q] = __fadd_rn(acc[q], p.x);
+        acc[q + 1] = __fadd_rn(acc[q + 1], p.y);
+      }
     }
   }
 }
 
-// The C bf16 outputs of one (point, level), rounded from f32, written as
-// 16-byte stores (one store of 2C bytes below C = 8).
+// One level of the f32 forward: the 8 corners' values x trilinear weights
+// (weights multiplied in dimension order), rows in BitCorners order.
 template <int C>
-__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst,
-                                           const float acc[C]) {
-  if constexpr (C == 1) {
-    dst[0] = __float2bfloat16_rn(acc[0]);
-  } else {
-    uint32_t w[C / 2];
+__device__ __forceinline__ void level_f32(const float* __restrict__ tq,
+                                          const float f[3], const int rows[8],
+                                          float acc[kQuad<C>]) {
+  constexpr int Q = kQuad<C>;
 #pragma unroll
-    for (int k = 0; k < C / 2; ++k) {
-      const __nv_bfloat162 p = __floats2bfloat162_rn(acc[2 * k],
-                                                     acc[2 * k + 1]);
-      w[k] = *reinterpret_cast<const uint32_t*>(&p);
+  for (int corner = 0; corner < 8; ++corner) {
+    float w = 1.0f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float fd = (corner >> d) & 1 ? f[d] : __fsub_rn(1.0f, f[d]);
+      w = d == 0 ? fd : __fmul_rn(w, fd);
     }
-    if constexpr (C >= 8) {
-      uint4* d4 = reinterpret_cast<uint4*>(dst);
+    float t[Q];
+    load_quad<C>(tq + (int64_t)rows[corner] * C, t);
 #pragma unroll
-      for (int k = 0; k < C / 8; ++k) {
-        d4[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
-      }
-    } else if constexpr (C == 4) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    for (int q = 0; q < Q; ++q) acc[q] += t[q] * w;
+  }
+}
+
+// This thread's outputs of one (point, level): 4 channels (fewer below
+// C = 4), rounded to bf16 in pairs or stored as f32.
+template <int C, bool BF16>
+__device__ __forceinline__ void store_quad(void* __restrict__ out, int64_t o,
+                                           const float acc[kQuad<C>]) {
+  if constexpr (BF16) {
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
+    if constexpr (C == 1) {
+      dst[0] = __float2bfloat16_rn(acc[0]);
     } else {
-      *reinterpret_cast<uint32_t*>(dst) = w[0];
+      const __nv_bfloat162 p0 = __floats2bfloat162_rn(acc[0], acc[1]);
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(&p0);
+      if constexpr (C == 2) {
+        *reinterpret_cast<uint32_t*>(dst) = w0;
+      } else {
+        const __nv_bfloat162 p1 = __floats2bfloat162_rn(acc[2], acc[3]);
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(w0, *reinterpret_cast<const uint32_t*>(&p1));
+      }
+    }
+  } else {
+    float* dst = static_cast<float*>(out) + o;
+    if constexpr (C >= 4) {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else if constexpr (C == 2) {
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+    } else {
+      dst[0] = acc[0];
     }
   }
 }
 
 template <int C, bool BF16>
-__global__ void hash_encode_kernel(const float* __restrict__ x01,
-                                   const float* __restrict__ table,
-                                   const int64_t* __restrict__ levels,
-                                   void* __restrict__ out, int64_t B, int L,
-                                   int m, int top, int align_corners,
-                                   int smoothstep) {
+__global__ void __launch_bounds__(kThreads)
+hash_encode_kernel(const float* __restrict__ x01,
+                   const float* __restrict__ table,
+                   const int64_t* __restrict__ levels, void* __restrict__ out,
+                   int64_t B, int L, int m, int top, int align_corners,
+                   int smoothstep) {
+  constexpr int G = kGroup<C>, Q = kQuad<C>;
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= B * L) return;
-  const int64_t b = t / L;
-  const int lv = (int)(t - b * L);
-  const int64_t* lp = levels + lv * kLevelRow;
+  const int64_t b = t / G;
+  if (b >= B) return;  // whole groups: G divides the warp
+  const int j = (int)(t % G);
+  const unsigned gmask = group_mask<G>();
+  const float* tq = table + 4 * j;  // this thread's channels of row 0
 
   float x[3];
   bool inb = true;
@@ -334,86 +492,32 @@ __global__ void hash_encode_kernel(const float* __restrict__ x01,
     inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
   }
 
-  float acc[C];
+  for (int lv = 0; lv < L; ++lv) {
+    float acc[Q];
 #pragma unroll
-  for (int k = 0; k < C; ++k) acc[k] = 0.0f;
-
-  if (inb) {
-    const uint32_t res = (uint32_t)lp[0];
-    const float top_f = (float)(res - 1);
-    float frac[3];
-    uint32_t g[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      float pos, gf;
-      if (align_corners) {
-        pos = __fmul_rn(x[d], top_f);
-        gf = fminf(floorf(pos), (float)(res - 2));
+    for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
+    if (inb) {  // uniform within the group
+      const Level l = load_level(levels + lv * kLevelRow);
+      uint32_t g[3];
+      float f[3];
+      level_cell(l, x, align_corners, smoothstep, g, f);
+      int rows[8];
+      if (BF16 && lv >= m) {
+        level_rows<G>(l, j, gmask,
+                      WindowCorners{{g[0], g[1], g[2]}, l.res - 1, l.axis},
+                      rows);
+        window_level_bf16<C>(tq, l, rows, f, top, acc);
       } else {
-        pos = __fsub_rn(__fmul_rn(x[d], (float)res), 0.5f);
-        pos = fminf(fmaxf(pos, 0.0f), top_f);
-        gf = floorf(pos);
-      }
-      float f = __fsub_rn(pos, gf);
-      if (smoothstep) {
-        f = __fmul_rn(__fmul_rn(f, f), __fsub_rn(3.0f, __fmul_rn(2.0f, f)));
-      }
-      frac[d] = f;
-      g[d] = (uint32_t)(int)gf;
-    }
-    if (BF16) {
-      if (lv < m) {
-        mm_level_bf16<C>(table, lp, g, frac, acc);
-      } else {
-        window_level_bf16<C>(table, lp, g, frac, top, acc);
-      }
-    } else {
-#pragma unroll
-      for (int corner = 0; corner < 8; ++corner) {
-        uint32_t c[3];
-        float w = 1.0f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const uint32_t bit = (corner >> d) & 1u;
-          c[d] = min(g[d] + bit, res - 1);
-          const float fd = bit ? frac[d] : __fsub_rn(1.0f, frac[d]);
-          w = d == 0 ? fd : __fmul_rn(w, fd);
-        }
-        const float* row = table + (int64_t)level_row(lp, c) * C;
-        if constexpr (C % 4 == 0) {
-          const float4* row4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-          for (int k = 0; k < C / 4; ++k) {
-            const float4 v = __ldg(row4 + k);
-            acc[4 * k + 0] += v.x * w;
-            acc[4 * k + 1] += v.y * w;
-            acc[4 * k + 2] += v.z * w;
-            acc[4 * k + 3] += v.w * w;
-          }
+        level_rows<G>(l, j, gmask, BitCorners{{g[0], g[1], g[2]}, l.res - 1},
+                      rows);
+        if (BF16) {
+          mm_level_bf16<C>(tq, l, g, f, rows, acc);
         } else {
-#pragma unroll
-          for (int k = 0; k < C; ++k) acc[k] += __ldg(row + k) * w;
+          level_f32<C>(tq, f, rows, acc);
         }
       }
     }
-  }
-
-  const int64_t o = t * C;  // out[b, lv*C + k] == out[(b*L + lv)*C + k]
-  if (BF16) {
-    store_bf16<C>(static_cast<__nv_bfloat16*>(out) + o, acc);
-  } else {
-    float* dst = static_cast<float*>(out) + o;
-    if constexpr (C % 4 == 0) {
-      float4* dst4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-      for (int k = 0; k < C / 4; ++k) {
-        dst4[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2],
-                              acc[4 * k + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < C; ++k) dst[k] = acc[k];
-    }
+    store_quad<C, BF16>(out, (b * L + lv) * C + 4 * j, acc);
   }
 }
 
@@ -421,7 +525,7 @@ template <int C>
 void launch(bool bf16, const float* x01, const float* table,
             const int64_t* levels, void* out, int64_t B, int L, int m,
             int top, int align_corners, int smoothstep, cudaStream_t s) {
-  const int64_t n = B * L;
+  const int64_t n = B * kGroup<C>;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (bf16) {
     hash_encode_kernel<C, true><<<blocks, kThreads, 0, s>>>(
@@ -432,9 +536,10 @@ void launch(bool bf16, const float* x01, const float* table,
   }
 }
 
-// Window records of one (point, level): 2^(D-1) windows of two adjacent
-// rows when the level is pairable, else 2^D one-corner windows
-// (hash_fused._window_indices_weights, D = 3).
+// Window records of one (point, window level): 2^(D-1) windows of two
+// adjacent rows when the level is pairable, else 2^D one-corner windows
+// (hash_fused._window_indices_weights, D = 3). Points outside [0, 1]^3
+// take the cell of 0.5 and weigh 0.
 __global__ void window_records_kernel(const float* __restrict__ x01,
                                       const int64_t* __restrict__ levels,
                                       int32_t* __restrict__ base,
@@ -447,7 +552,7 @@ __global__ void window_records_kernel(const float* __restrict__ x01,
   const int64_t b = t / Lw;
   const int lv = m + (int)(t - b * Lw);
   const int64_t* lp = levels + lv * kLevelRow;
-  const uint32_t res = (uint32_t)lp[0];
+  const Level l = load_level(lp);
   const int64_t win0 = lp[10];
 
   float x[3];
@@ -457,82 +562,87 @@ __global__ void window_records_kernel(const float* __restrict__ x01,
     x[d] = x01[b * 3 + d];
     inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
   }
-  const float inb_f = inb ? 1.0f : 0.0f;
-  float f[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) x[d] = inb ? x[d] : 0.5f;
   uint32_t g[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float xd = inb ? x[d] : 0.5f;
-    float pos, gf;
-    if (align_corners) {
-      pos = __fmul_rn(xd, (float)(res - 1));
-      gf = fminf(floorf(pos), (float)(res - 2));
-    } else {
-      pos = __fsub_rn(__fmul_rn(xd, (float)res), 0.5f);
-      pos = fminf(fmaxf(pos, 0.0f), (float)(res - 1));
-      gf = floorf(pos);
-    }
-    float fd = __fsub_rn(pos, gf);
-    if (smoothstep) {
-      fd = __fmul_rn(__fmul_rn(fd, fd), __fsub_rn(3.0f, __fmul_rn(2.0f, fd)));
-    }
-    f[d] = fd;
-    g[d] = (uint32_t)(int)gf;
-  }
-  int bs[8];
-  float w0s[8], w1s[8];
-  const int n = point_windows(lp, g, f, inb_f, top, bs, w0s, w1s);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (k >= n) break;
+  float f[3];
+  level_cell(l, x, align_corners, smoothstep, g, f);
+  int rows[8];
+  level_rows<1>(l, 0, 0u, WindowCorners{{g[0], g[1], g[2]}, l.res - 1, l.axis},
+                rows);
+  for_each_window(l, rows, f, inb ? 1.0f : 0.0f, top,
+                  [&](int k, int bb, float w0, float w1) {
     const int64_t o = (win0 + k) * B + b;
-    base[o] = bs[k];
-    w_word[o] = (__float_as_uint(w0s[k]) & 0xffff0000u)
-                | (__float_as_uint(w1s[k]) >> 16);
-  }
+    base[o] = bb;
+    w_word[o] = (__float_as_uint(w0) & 0xffff0000u) | (__float_as_uint(w1) >> 16);
+  });
 }
 
-__device__ __forceinline__ float rnd_if(bool bf16, float v) {
-  return bf16 ? round_bf16(v) : v;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float load_g(const void* g, int64_t i) {
-  if (BF16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
-  }
-  return static_cast<const float*>(g)[i];
-}
-
-// sum_c rnd(gv_c * rnd(T_c)) over one table row, channels in order
+// This thread's channels of g at element o (channel 4j of a (point, level)).
 template <int C, bool BF16>
-__device__ __forceinline__ float row_dot(const float* __restrict__ row,
-                                         const float* gv) {
-  float acc = 0.0f;
+__device__ __forceinline__ void load_g_quad(const void* __restrict__ g,
+                                            int64_t o, float v[kQuad<C>]) {
+  if constexpr (BF16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(g) + o;
+    if constexpr (C >= 4) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = __uint_as_float(w.x << 16);
+      v[1] = __uint_as_float(w.x & 0xffff0000u);
+      v[2] = __uint_as_float(w.y << 16);
+      v[3] = __uint_as_float(w.y & 0xffff0000u);
+    } else {
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
-    const float t = rnd_if(BF16, __ldg(row + k));
-    acc = __fadd_rn(acc, rnd_if(BF16, __fmul_rn(gv[k], t)));
+      for (int q = 0; q < C; ++q) v[q] = __bfloat162float(p[q]);
+    }
+  } else {
+    load_quad<C>(static_cast<const float*>(g) + o, v);
+  }
+}
+
+// init + the group's terms in channel order (thread 0's Q terms, then
+// thread 1's, ...), one f32 add at a time: each step every thread adds its
+// own terms to the running sum and thread s's result is broadcast, so the
+// sum is the sequential one over the C channels. Every thread of the
+// group gets it.
+template <int G, int Q>
+__device__ __forceinline__ float group_chain(float init, const float t[Q],
+                                             unsigned gmask) {
+  float acc = init;
+#pragma unroll
+  for (int s = 0; s < G; ++s) {
+    float a = acc;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) a = __fadd_rn(a, t[q]);
+    if constexpr (G == 1) {
+      acc = a;
+    } else {
+      acc = __shfl_sync(gmask, a, s, G);
+    }
   }
   return acc;
 }
 
 // d(out_lv . g)/d f_d on a window level (encode_input_grad_plain
-// _window_level_ct): corner values, then per axis the differences across
-// it weighted by the other two axes' factors, in dimension order.
+// _window_level_ct): corner values V = sum_c rnd(g_c * rnd(T_c)), then per
+// axis the differences across it weighted by the other two axes' factors,
+// in dimension order. rows are in BitCorners order.
 template <int C, bool BF16>
-__device__ void window_level_ct(const float* __restrict__ table,
-                                const int64_t* lp, const uint32_t g0[3],
-                                const float f[3], const float* gv,
-                                float ct[3]) {
-  const uint32_t res = (uint32_t)lp[0];
+__device__ __forceinline__ void window_level_ct(const float* __restrict__ tq,
+                                                const int rows[8],
+                                                const float f[3],
+                                                const float gv[kQuad<C>],
+                                                unsigned gmask, float ct[3]) {
+  constexpr int G = kGroup<C>, Q = kQuad<C>;
   float V[8];
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
-    uint32_t c[3];
+    float t[Q];
+    load_quad<C>(tq + (int64_t)rows[corner] * C, t);
 #pragma unroll
-    for (int d = 0; d < 3; ++d) c[d] = min(g0[d] + ((corner >> d) & 1), res - 1);
-    V[corner] = row_dot<C, BF16>(table + (int64_t)level_row(lp, c) * C, gv);
+    for (int q = 0; q < Q; ++q) {
+      t[q] = rnd_if(BF16, __fmul_rn(gv[q], rnd_if(BF16, t[q])));
+    }
+    V[corner] = group_chain<G, Q>(0.0f, t, gmask);
   }
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -553,26 +663,22 @@ __device__ void window_level_ct(const float* __restrict__ table,
 }
 
 // d(out_lv . g)/d f_d on a dense matmul level, through JAX's _mm_forward
-// chain (encode_input_grad_plain _mm_level_ct). Axis d has lanes c0 = g0
-// and c1 = min(g0 + 1, res - 1) with weights (1 - f, f), or, where c1 is
-// clamped onto c0, one lane of weight (1 - f) + f (and c1's weight 0).
+// chain (encode_input_grad_plain _mm_level_ct): Z = sum_yz rnd(wz wy) T per
+// x lane, d/d wx = sum_c rnd(g_c rnd(Z_c)), d/d wyz = rnd(sum over x lanes
+// and channels of rnd(g_c rnd(wx)) T), then the one-hot lanes'
+// derivatives. The two cross-channel sums run as group chains. rows are in
+// BitCorners order.
 template <int C, bool BF16>
-__device__ void mm_level_ct(const float* __restrict__ table,
-                            const int64_t* lp, const uint32_t g0[3],
-                            const float f[3], const float* gv, float ct[3]) {
-  const uint32_t res = (uint32_t)lp[0];
-  uint32_t cl[3][2];
+__device__ __forceinline__ void mm_level_ct(const float* __restrict__ tq,
+                                            const int rows[8],
+                                            const uint32_t g0[3],
+                                            const float f[3], uint32_t res,
+                                            const float gv[kQuad<C>],
+                                            unsigned gmask, float ct[3]) {
+  constexpr int G = kGroup<C>, Q = kQuad<C>;
   float A[3][2];
   bool present[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    cl[d][0] = g0[d];
-    cl[d][1] = min(g0[d] + 1, res - 1);
-    present[d] = cl[d][1] != cl[d][0];
-    const float a0 = __fsub_rn(1.0f, f[d]);
-    A[d][0] = present[d] ? a0 : __fadd_rn(a0, f[d]);
-    A[d][1] = present[d] ? f[d] : 0.0f;
-  }
+  mm_weights(g0, f, res, A, present);
   float wyz[2][2], acc_wyz[2][2];
 #pragma unroll
   for (int zi = 0; zi < 2; ++zi) {
@@ -586,34 +692,33 @@ __device__ void mm_level_ct(const float* __restrict__ table,
 #pragma unroll
   for (int xi = 0; xi < 2; ++xi) {
     const float wx = rnd_if(BF16, A[0][xi]);
-    float gw[C], z[C];
+    float gw[Q], z[Q];
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      gw[k] = rnd_if(BF16, __fmul_rn(gv[k], wx));
-      z[k] = 0.0f;
+    for (int q = 0; q < Q; ++q) {
+      gw[q] = rnd_if(BF16, __fmul_rn(gv[q], wx));
+      z[q] = 0.0f;
     }
 #pragma unroll
     for (int zi = 0; zi < 2; ++zi) {
 #pragma unroll
       for (int yi = 0; yi < 2; ++yi) {
-        const uint32_t c[3] = {cl[0][xi], cl[1][yi], cl[2][zi]};
-        const float* row = table + (int64_t)level_row(lp, c) * C;
-        float a = acc_wyz[zi][yi];
+        float t[Q], p[Q];
+        load_quad<C>(tq + (int64_t)rows[xi | yi << 1 | zi << 2] * C, t);
 #pragma unroll
-        for (int k = 0; k < C; ++k) {
-          const float t = rnd_if(BF16, __ldg(row + k));
-          z[k] = __fadd_rn(z[k], __fmul_rn(wyz[zi][yi], t));
-          a = __fadd_rn(a, __fmul_rn(gw[k], t));
+        for (int q = 0; q < Q; ++q) {
+          const float tr = rnd_if(BF16, t[q]);
+          z[q] = __fadd_rn(z[q], __fmul_rn(wyz[zi][yi], tr));
+          p[q] = __fmul_rn(gw[q], tr);
         }
-        acc_wyz[zi][yi] = a;
+        acc_wyz[zi][yi] = group_chain<G, Q>(acc_wyz[zi][yi], p, gmask);
       }
     }
-    float s = 0.0f;
+    float p[Q];
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      s = __fadd_rn(s, rnd_if(BF16, __fmul_rn(gv[k], rnd_if(BF16, z[k]))));
+    for (int q = 0; q < Q; ++q) {
+      p[q] = rnd_if(BF16, __fmul_rn(gv[q], rnd_if(BF16, z[q])));
     }
-    ct_wx[xi] = s;
+    ct_wx[xi] = group_chain<G, Q>(0.0f, p, gmask);
   }
   float cw[2][2];
 #pragma unroll
@@ -634,16 +739,25 @@ __device__ void mm_level_ct(const float* __restrict__ table,
       : 0.0f;
 }
 
+// No launch bounds: with __launch_bounds__(256) ptxas caps the C >= 4
+// instantiations at 64 registers and spills; (256, 1) lets them take
+// 92-96 and keeps 2 blocks an SM; without, they take 64-79, spill nothing
+// and keep 3 (as fast as the spilling build, PERF.md).
 template <int C, bool BF16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void
 encode_input_grad_kernel(const float* __restrict__ x01,
                          const float* __restrict__ table,
                          const void* __restrict__ g,
                          const int64_t* __restrict__ levels,
                          float* __restrict__ grad, int64_t B, int L, int m,
                          int align_corners, int smoothstep) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int G = kGroup<C>, Q = kQuad<C>;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t b = t / G;
+  if (b >= B) return;  // whole groups: G divides the warp
+  const int j = (int)(t % G);
+  const unsigned gmask = group_mask<G>();
+  const float* tq = table + 4 * j;  // this thread's channels of row 0
   float x[3];
   bool inb = true;
 #pragma unroll
@@ -652,11 +766,10 @@ encode_input_grad_kernel(const float* __restrict__ x01,
     inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
   }
   float gx[3] = {0.0f, 0.0f, 0.0f};
-  if (inb) {
+  if (inb) {  // uniform within the group
     for (int lv = 0; lv < L; ++lv) {
-      const int64_t* lp = levels + lv * kLevelRow;
-      const uint32_t res = (uint32_t)lp[0];
-      const float top = (float)(res - 1);
+      const Level l = load_level(levels + lv * kLevelRow);
+      const float top = (float)(l.res - 1);
       uint32_t g0[3];
       float f[3], dfdx[3];
 #pragma unroll
@@ -664,42 +777,45 @@ encode_input_grad_kernel(const float* __restrict__ x01,
         float pos, gf, dpos;
         if (align_corners) {
           pos = __fmul_rn(x[d], top);
-          gf = fminf(floorf(pos), (float)(res - 2));
+          gf = fminf(floorf(pos), (float)(l.res - 2));
           dpos = top;
         } else {
-          const float raw = __fsub_rn(__fmul_rn(x[d], (float)res), 0.5f);
+          const float raw = __fsub_rn(__fmul_rn(x[d], (float)l.res), 0.5f);
           pos = fminf(fmaxf(raw, 0.0f), top);
           gf = floorf(pos);
           const float share = (raw > 0.0f && raw < top) ? 1.0f
               : ((raw == 0.0f || raw == top) ? 0.5f : 0.0f);
-          dpos = __fmul_rn(share, (float)res);
+          dpos = __fmul_rn(share, (float)l.res);
         }
-        const float t = __fsub_rn(pos, gf);
+        const float tt = __fsub_rn(pos, gf);
         if (smoothstep) {
-          f[d] = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.0f, __fmul_rn(2.0f, t)));
-          dfdx[d] = __fmul_rn(dpos, __fmul_rn(__fmul_rn(6.0f, t), __fsub_rn(1.0f, t)));
+          f[d] = __fmul_rn(__fmul_rn(tt, tt), __fsub_rn(3.0f, __fmul_rn(2.0f, tt)));
+          dfdx[d] = __fmul_rn(dpos, __fmul_rn(__fmul_rn(6.0f, tt), __fsub_rn(1.0f, tt)));
         } else {
-          f[d] = t;
+          f[d] = tt;
           dfdx[d] = dpos;
         }
         g0[d] = (uint32_t)(int)gf;
       }
-      float gv[C];
-      const int64_t go = (b * L + lv) * C;
-#pragma unroll
-      for (int k = 0; k < C; ++k) gv[k] = load_g<BF16>(g, go + k);
+      float gv[Q];
+      load_g_quad<C, BF16>(g, (b * L + lv) * C + 4 * j, gv);
+      int rows[8];
+      level_rows<G>(l, j, gmask, BitCorners{{g0[0], g0[1], g0[2]}, l.res - 1},
+                    rows);
       float ct[3];
       if (lv < m) {
-        mm_level_ct<C, BF16>(table, lp, g0, f, gv, ct);
+        mm_level_ct<C, BF16>(tq, rows, g0, f, l.res, gv, gmask, ct);
       } else {
-        window_level_ct<C, BF16>(table, lp, g0, f, gv, ct);
+        window_level_ct<C, BF16>(tq, rows, f, gv, gmask, ct);
       }
 #pragma unroll
       for (int d = 0; d < 3; ++d) gx[d] = __fadd_rn(gx[d], __fmul_rn(ct[d], dfdx[d]));
     }
   }
+  if (j == 0) {
 #pragma unroll
-  for (int d = 0; d < 3; ++d) grad[b * 3 + d] = gx[d];
+    for (int d = 0; d < 3; ++d) grad[b * 3 + d] = gx[d];
+  }
 }
 
 template <int C>
@@ -707,7 +823,8 @@ void launch_input_grad(bool bf16, const float* x01, const float* table,
                        const void* g, const int64_t* levels, float* grad,
                        int64_t B, int L, int m, int align_corners,
                        int smoothstep, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  const int64_t n = B * kGroup<C>;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (bf16) {
     encode_input_grad_kernel<C, true><<<blocks, kThreads, 0, s>>>(
         x01, table, g, levels, grad, B, L, m, align_corners, smoothstep);
@@ -719,10 +836,10 @@ void launch_input_grad(bool bf16, const float* x01, const float* table,
 
 }  // namespace
 
-// x01 [B, 3] f32, table [n_params * C] f32, g [B, L * C] (bf16 if bf16,
-// else f32), levels [L, kLevelRow] i64, m matmul levels -> grad [B, 3] f32
-// (B > 0). Returns cudaGetLastError(), or cudaErrorInvalidValue for an
-// unsupported C.
+// x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned), g [B, L * C]
+// (bf16 if bf16, else f32), levels [L, kLevelRow] i64, m matmul levels ->
+// grad [B, 3] f32 (B > 0). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported C.
 extern "C" int hash_encode_bwd_input(const float* x01, const float* table,
                                      const void* g, const int64_t* levels,
                                      float* grad, int64_t B, int L, int C,

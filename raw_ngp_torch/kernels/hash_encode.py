@@ -29,9 +29,10 @@ bf16-rounded products w0*g and w1*g), then the combine
 
 Backward, the input gradient (pose refinement, ``hash_fused.py:760-778``:
 the VJP of the interpolation weights with the table frozen): the kernel
-``hash_encode_bwd_input``, one thread per point; its plain version is
-:func:`encode_input_grad_plain`. Both take JAX's rounding points under
-bf16 (see that function).
+``hash_encode_bwd_input``, one group of ceil(C/4) threads per point as
+the forward's (lanes over channel quads, cross-channel sums in channel
+order); its plain version is :func:`encode_input_grad_plain`. Both take
+JAX's rounding points under bf16 (see that function).
 
 CPU tensors take the plain versions in both directions; CUDA tensors
 launch the kernels or the call raises.
@@ -630,7 +631,7 @@ def encode_input_grad(params, x01, g, spec: HashGridSpec,
     """Gradient of the encode in x01 [B, 3] for the cotangent g [B, L*C]
     (in the encode's output dtype), with the table frozen -> [B, 3] f32.
     CPU tensors take :func:`encode_input_grad_plain`; CUDA tensors launch
-    the kernel (one thread per point, no atomics)."""
+    the kernel (ceil(C/4) threads per point, no atomics)."""
     if x01.device.type == "cpu":
         return encode_input_grad_plain(params, x01, g, spec, compute_dtype)
     _check_x01(x01, spec, "encode_input_grad")

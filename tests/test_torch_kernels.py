@@ -56,40 +56,118 @@ def _points(B):
     return x
 
 
+# the encode kernels' grid specs: four hash / interpolation variants at
+# L = 4 (level 0 dense, on the matmul path from C = 8), and a spec that
+# mixes the paths at L = 6: levels 0-2 dense (0-1 on the matmul path at
+# C = 8, 0 at C = 16 and 32, none below C = 8; the rest dense window
+# levels), levels 3-5 hashed
+_ENCODE_SPECS = {
+    "additive": dict(num_levels=4, log2_hashmap_size=14,
+                     desired_resolution=512, hash_variant="additive"),
+    "xor": dict(num_levels=4, log2_hashmap_size=14, desired_resolution=512,
+                hash_variant="xor"),
+    "xor_align_smoothstep": dict(num_levels=4, log2_hashmap_size=14,
+                                 desired_resolution=512, hash_variant="xor",
+                                 align_corners=True,
+                                 interpolation="smoothstep"),
+    "xor_tiled": dict(num_levels=4, log2_hashmap_size=14,
+                      desired_resolution=512, hash_variant="xor",
+                      gridtype="tiled"),
+    "mixed": dict(num_levels=6, base_resolution=16, log2_hashmap_size=17,
+                  desired_resolution=128),
+}
+
+
+def _encode_points(kind, B, spec, device, seed=0):
+    """B points of one kind: uniform, ray-ordered (the train forward's
+    input) or a Morton-ordered run of jittered cell centres (a grid
+    refresh chunk), with the edge cases in the first 10 rows: 4 outside
+    [0, 1]^3 and 2 with a NaN (all encode to 0), 0.0, 1.0, and the clip
+    ties x * res - 0.5 == 0 and == res - 1 of the finest level."""
+    from raw_ngp_torch.ops.grid import cascade_coords_to_world
+    from raw_ngp_torch.ops.morton import morton3d_invert
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "uniform":
+        x = torch.rand(B, 3, generator=gen, device=device)
+    elif kind == "ray":
+        x = _ray_points(B + 31, gen, device)[:B].contiguous()
+    else:                                   # "morton": 128^3 grid, bound 1
+        n = 128
+        codes = torch.arange(B, device=device) + 12345
+        noise = torch.rand(B, 3, generator=gen, device=device)
+        xyz = cascade_coords_to_world(morton3d_invert(codes), 1.0, 1.0 / n, n,
+                                      noise)
+        x = ((xyz + 1.0) / 2.0).clamp(0.0, 1.0).contiguous()
+    res = spec.resolutions[-1]
+    x[0] = torch.tensor([-0.5, 0.5, 0.5])
+    x[1] = torch.tensor([0.5, 1.5, 0.5])
+    x[2] = torch.tensor([0.5, 0.5, -1e-3])
+    x[3] = 2.0
+    x[4:6, 1] = float("nan")
+    x[6], x[7] = 0.0, 1.0
+    x[8, 0] = 0.5 / res
+    x[9, 2] = (res - 0.5) / res
+    return x
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant,gridtype,align,interp", [
-    ("additive", "hash", False, "linear"),
-    ("xor", "hash", False, "linear"),
-    ("xor", "hash", True, "smoothstep"),
-    ("xor", "tiled", False, "linear"),
-])
+@pytest.mark.parametrize("kind", ["uniform", "ray", "morton"])
+@pytest.mark.parametrize("spec_name", sorted(_ENCODE_SPECS))
 @pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
-def test_encode_kernel_matches_plain(cuda_device, variant, gridtype, align,
-                                     interp, C):
+def test_encode_kernel_matches_plain(cuda_device, spec_name, kind, C):
     """f32 against hash_encode_01 at atol 1e-6; bf16 against
     hash_encode_fused_plain bit for bit: both take the fused encoder's
-    rounding chain with the same operations in the same order."""
-    spec = HashGridSpec.create(num_levels=4, level_dim=C,
-                               log2_hashmap_size=14, desired_resolution=512,
-                               hash_variant=variant, gridtype=gridtype,
-                               align_corners=align, interpolation=interp)
+    rounding chain with the same operations in the same order. At
+    uniform, ray-ordered and Morton-ordered (grid refresh) points, with
+    points outside [0, 1]^3, NaN and clip ties."""
+    spec = HashGridSpec.create(level_dim=C, **_ENCODE_SPECS[spec_name])
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     table = torch.rand(spec.n_params * C, generator=gen,
                        device=cuda_device) * 2 - 1
-    x = torch.from_numpy(_points(8192)).to(cuda_device)
+    B = 8191
+    x = _encode_points(kind, B, spec, cuda_device)
+    L = spec.num_levels
     for dtype in (torch.float32, torch.bfloat16):
         before = th.hash_encode.launches
         out = th.hash_encode(table, x, spec, compute_dtype=dtype)
         assert th.hash_encode.launches == before + 1
         ref = th.hash_encode_fused_plain(table, x, spec, dtype)
         torch.cuda.synchronize()
-        assert out.dtype == dtype and out.shape == (8192, 4 * C)
-        assert (out[:12] == 0).all()
+        assert out.dtype == dtype and out.shape == (B, L * C)
+        assert (out[:6] == 0).all()
         if dtype == torch.float32:
             torch.testing.assert_close(out, hash_encode_01(table, x, spec),
                                        rtol=0, atol=1e-6)
         else:
             assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 31, 8191])
+@pytest.mark.parametrize("C", [4, 16, 32])
+def test_encode_kernels_ragged_batch(cuda_device, B, C):
+    """B not a multiple of the point group (ceil(C/4) threads) or of the
+    warp: the forward (bf16 bit-exact, f32 at atol 1e-6) and the input
+    gradient (rtol 1e-5 of the largest entry) on the mixed spec, every
+    point written and none past B."""
+    spec = HashGridSpec.create(level_dim=C, **_ENCODE_SPECS["mixed"])
+    gen = torch.Generator(device=cuda_device).manual_seed(B)
+    table = torch.rand(spec.n_params * C, generator=gen,
+                       device=cuda_device) * 2 - 1
+    x = torch.rand(B, 3, generator=gen, device=cuda_device)
+    L = spec.num_levels
+    out = th.hash_encode(table, x, spec, compute_dtype=torch.bfloat16)
+    out32 = th.hash_encode(table, x, spec)
+    g = torch.randn(B, L * C, generator=gen, device=cuda_device)
+    grad = th.encode_input_grad(table, x, g, spec)
+    ref_g = th.encode_input_grad_plain(table, x, g, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(out, th.hash_encode_fused_plain(table, x, spec,
+                                                       torch.bfloat16))
+    torch.testing.assert_close(out32, hash_encode_01(table, x, spec), rtol=0,
+                               atol=1e-6)
+    scale = float(ref_g.abs().max())
+    torch.testing.assert_close(grad, ref_g, rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.gpu
@@ -425,36 +503,34 @@ def test_compact_backward_kernel_bit_exact(cuda_device, keep_rate):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant,gridtype,align,interp", [
-    ("additive", "hash", False, "linear"),
-    ("xor", "hash", False, "linear"),
-    ("xor", "hash", True, "smoothstep"),
-    ("xor", "tiled", False, "linear"),
-])
-@pytest.mark.parametrize("C", [2, 8, 16])
-def test_encode_input_grad_kernel_matches_plain(cuda_device, variant,
-                                                gridtype, align, interp, C):
+@pytest.mark.parametrize("kind", ["uniform", "ray"])
+@pytest.mark.parametrize("spec_name", sorted(_ENCODE_SPECS))
+@pytest.mark.parametrize("C", [1, 2, 8, 16, 32])
+def test_encode_input_grad_kernel_matches_plain(cuda_device, spec_name, kind,
+                                                C):
     """The encode's input gradient, kernel against plain version, f32 and
-    bf16, with out-of-bounds and NaN points: the same expressions in the
-    same order on both sides; rtol 1e-5 of the largest entry (as the f32
-    sums of the table gradient)."""
-    spec = HashGridSpec.create(num_levels=4, level_dim=C,
-                               log2_hashmap_size=14, desired_resolution=512,
-                               hash_variant=variant, gridtype=gridtype,
-                               align_corners=align, interpolation=interp)
+    bf16, at uniform and ray-ordered points with points outside [0, 1]^3,
+    NaN and clip ties: the same expressions in the same order on both
+    sides (the cross-channel sums as a chain in channel order); rtol 1e-5
+    of the largest entry (as the f32 sums of the table gradient), exactly
+    0 outside [0, 1]^3 and on NaN, and two calls bitwise equal."""
+    spec = HashGridSpec.create(level_dim=C, **_ENCODE_SPECS[spec_name])
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     table = torch.rand(spec.n_params * C, generator=gen,
                        device=cuda_device) * 2 - 1
-    x = torch.from_numpy(_points(8192)).to(cuda_device)
+    B, L = 8191, spec.num_levels
+    x = _encode_points(kind, B, spec, cuda_device)
     for dtype in (torch.float32, torch.bfloat16):
-        g = torch.randn(8192, 4 * C, generator=gen,
+        g = torch.randn(B, L * C, generator=gen,
                         device=cuda_device).to(dtype)
         before = th.encode_input_grad.launches
         out = th.encode_input_grad(table, x, g, spec, dtype)
-        assert th.encode_input_grad.launches == before + 1
+        again = th.encode_input_grad(table, x, g, spec, dtype)
+        assert th.encode_input_grad.launches == before + 2
         ref = th.encode_input_grad_plain(table, x, g, spec, dtype)
         torch.cuda.synchronize()
-        assert (out[:12] == 0).all()
+        assert (out[:6] == 0).all()
+        assert torch.equal(out.view(torch.int32), again.view(torch.int32))
         scale = float(ref.abs().max())
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * scale)
 

@@ -276,16 +276,33 @@ def _points(B, res):
     return x
 
 
+def _ray_points(B, seed=1, per_ray=32):
+    """B points in ray order, as the compaction hands them to the train
+    forward: rays from random points in [0.1, 0.9]^3 in random directions,
+    samples 0.004 apart, clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    n = -(-B // per_ray)
+    o = rng.random((n, 3)) * 0.8 + 0.1
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.arange(per_ray) * 0.004
+    x = (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3)[:B]
+    return np.clip(x, 0.0, 1.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ray"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("name,mm", [("xor", "auto"), ("additive", "auto"),
                                      ("L2xC16", "auto"), ("L2xC16", "0"),
                                      ("smoothstep", "auto"),
                                      ("align", "auto")])
-def test_encode_input_gradient_matches_jax(monkeypatch, name, mm, dtype):
+def test_encode_input_gradient_matches_jax(monkeypatch, name, mm, dtype,
+                                           kind):
     """The encode's input gradient (plain version, also through the
     encode's autograd with x01 requiring a gradient) against the VJP of
-    hash_encode_fused(..., need_input_grads=True) in x01, with points
-    outside [0, 1]^3, NaN and a clip tie. Under bf16 both round the table,
+    hash_encode_fused(..., need_input_grads=True) in x01, at uniform and
+    ray-ordered points, with points outside [0, 1]^3, NaN and a clip tie
+    in the first rows. Under bf16 both round the table,
     the lane products and (on the matmul level) the partial
     interpolations at the same points; only f32 sums run in another order
     (measured: at most 2.1e-7 of the largest entry): rtol 1e-5 of the
@@ -298,6 +315,8 @@ def test_encode_input_gradient_matches_jax(monkeypatch, name, mm, dtype):
     B = 400
     rng = np.random.default_rng(2)
     x = _points(B, ts.resolutions[-1])
+    if kind == "ray":
+        x[9:] = _ray_points(B - 9)
     params = (rng.standard_normal(js.n_params * js.level_dim) * 0.1
               ).astype(np.float32)
     cot = rng.standard_normal((B, js.output_dim)).astype(np.float32)

@@ -142,12 +142,50 @@ def test_window_records_match_jax(monkeypatch, name, mm):
                                   np.asarray(w1j).view(np.int32))
 
 
+def _ray_points(B, seed=1, per_ray=32):
+    """B points in ray order, as the compaction hands them to the train
+    forward: rays from random points in [0.1, 0.9]^3 in random directions,
+    samples 0.004 apart, clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    n = -(-B // per_ray)
+    o = rng.random((n, 3)) * 0.8 + 0.1
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.arange(per_ray) * 0.004
+    x = (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3)[:B]
+    return np.clip(x, 0.0, 1.0).astype(np.float32)
+
+
+def _morton_points(B, seed=1, n=32, first=0):
+    """B jittered cell centres in Morton order, as a grid refresh chunk
+    (ops/grid.full_sweep) queries them: codes first..first+B of an n^3
+    grid at cascade 0 with bound 1, as x01 = (x + 1) / 2."""
+    codes = np.arange(first, first + B)
+    coords = np.stack([sum(((codes >> (3 * i + d)) & 1) << i
+                           for i in range(10)) for d in range(3)], -1)
+    noise = np.random.default_rng(seed).random((B, 3))
+    xyz = (2.0 * coords / (n - 1) - 1.0) * (1.0 - 1.0 / n) \
+        + (noise * 2.0 - 1.0) / n
+    return ((xyz + 1.0) / 2.0).astype(np.float32)
+
+
+def _kind_points(kind, B):
+    """Points of one input kind (uniform, ray-ordered, Morton-ordered
+    refresh chunk) with _points' edge cases in the first 8 rows."""
+    x = {"uniform": _points, "ray": _ray_points,
+         "morton": _morton_points}[kind](B)
+    x[:8] = _points(8)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ray", "morton"])
 @pytest.mark.parametrize("mm", ["1", "0"])
 @pytest.mark.parametrize("name", sorted(_SPECS))
-def test_encode_bf16_forward_matches_jax(monkeypatch, name, mm):
+def test_encode_bf16_forward_matches_jax(monkeypatch, name, mm, kind):
     """The port's bf16 encode forward (hash_encode on CPU tensors, i.e.
     hash_encode_fused_plain) equals hash_encode_fused(..., jnp.bfloat16)
-    bit for bit, with points outside [0, 1]^3, NaN, 0.0 and 1.0. This
+    bit for bit at uniform, ray-ordered and Morton-ordered (grid refresh)
+    points, with points outside [0, 1]^3, NaN, 0.0 and 1.0. This
     holds because the port takes JAX's rounding chain, which was settled
     bitwise here: XLA's CPU reduce over the windows accumulates its bf16
     sum in f32 and rounds once (not after each add), and the dense level's
@@ -157,7 +195,7 @@ def test_encode_bf16_forward_matches_jax(monkeypatch, name, mm):
     monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
     js, tspec = JSpec.create(**_SPECS[name]), TSpec.create(**_SPECS[name])
     assert th.matmul_split(tspec) == hf._matmul_split(js)
-    x = _points(1500)
+    x = _kind_points(kind, 1500)
     params = (np.random.default_rng(2).standard_normal(
         js.n_params * js.level_dim) * 0.1).astype(np.float32)
     out_j = np.asarray(hf.hash_encode_fused(
