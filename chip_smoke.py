@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against TREE [TREE ...]
+    python3 chip_smoke.py --deterministic-ops
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. build  — compile every kernel of the path from raw_ngp_torch/csrc/
@@ -36,23 +37,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               262,144 points into 524,288 rows, 16 channels), random keys
               within rtol 1e-5, and a dense-skew stream within rtol 1e-5
               plus 2^-20 of each row's absolute sum (within_sum_error);
-  6. encode_bwd — the encode's table gradient (dense-level scatter kernel,
+              two calls bitwise equal on each; both streams timed;
+  6. encode_bwd — the encode's table gradient (dense-level kernels: cell
+              keys, torch.sort by cell, cell sums, edge fix-up, gather;
               record kernel, g packing, torch.sort, B2, combine kernel) on
               the kernel path against the plain path at B = 262,144,
               uniform and ray-ordered points, f32 and bf16: the window
               rows within rtol 1e-5 of the largest entry, the dense rows
               by dense_rows_agree (rtol 1e-5 plus 2^-20 of the entry's
               absolute mass before rounding); then the whole path, the
-              dense kernel alone (index_add_ of its exact products as the
-              library yardstick) and the two glue kernels (bit-exact)
+              dense level alone (two calls bitwise equal; its device time
+              split into the keys, the sort and the passes; the sort alone
+              on CUDA events; zero_ + index_add_ of its exact products as
+              the library yardstick) and the two glue kernels (bit-exact)
               timed;
   7. train  — the flagship Trainer on make_synthetic_scene(36, 2, 128,
               128) for 128 steps (8 grid refreshes) with every launch
               counter reset just before and read just after: all seven
               kernels launched (the dense-level kernel once a step), finite
               losses that fall (last 8 below the first 8), finite params
-              and EMA, the val PSNR (EMA), and one step on a fixed batch
-              that agrees between the kernel path and the plain path;
+              and EMA, the val PSNR (EMA), one step on a fixed batch
+              that agrees between the kernel path and the plain path, and
+              the repro check: the Trainer's state from before step 1
+              restored and 32 steps (two grid refreshes) run again, params,
+              EMA and Adam moments bitwise equal to the first run's;
   8. compact_bwd — kernel B1's backward against its plain version (zeros +
               index_copy_) at the train shape (M = 524,288, m_pad =
               262,144), keep rates 0.03 / 0.25 / 0.9, full and empty (0.9
@@ -77,7 +85,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               fall, finite params, EMA and pose params, nonzero pose
               params, the Procrustes pose errors before and after (printed, not
               gated), one fixed-batch step whose loss, net gradients and
-              pose gradient agree between the kernel and the plain path;
+              pose gradient agree between the kernel and the plain path,
+              and the repro check of phase 7 (pose params and moments
+              included);
  12. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
@@ -93,6 +103,8 @@ The train and pose phases also count the encode's launches by caller
 It prints `render`, `train`, `pose` and `kernels` JSON lines and the card's
 name and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The `kernels` line marks `deterministic: true` on each kernel whose two
+calls on the same inputs gave the same bits.
 It exits non-zero without a result when torch.cuda is not available, or
 when the raw_ngp_torch package is not beside it.
 
@@ -103,6 +115,12 @@ beside this tree's, and the encode forward and input gradient of both run
 on the phase-3 and phase-9 inputs through this tree's wrappers, outputs
 compared and device times taken in turns (other, this, this, other); one
 `ab` JSON line per TREE.
+
+With --deterministic-ops, a diagnostic only: two train steps and two pose
+steps of the flagship (4 cameras) under
+torch.use_deterministic_algorithms(True, warn_only=True), printing each
+warning PyTorch gives for an op on the path that has no deterministic
+CUDA implementation; one `deterministic_ops` line.
 """
 
 from __future__ import annotations
@@ -126,6 +144,13 @@ class PhaseError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
+
+
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (NaN-safe)."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 def within_sum_error(out, ref, mass, rtol):
@@ -271,14 +296,17 @@ def phase_compact(dev, M=1 << 20, m_pad=262144):
     for name, mask in cases.items():
         keys, c = inputs(mask)
         pos_k, att_k = ck.compact_attrs(attrs, keys, c, m_pad)
+        pos_2, att_2 = ck.compact_attrs(attrs, keys, c, m_pad)
         pos_p, att_p = plain(keys)
         torch.cuda.synchronize()
+        check(same_bits(pos_k, pos_2) and same_bits(att_k, att_2),
+              f"compact {name}: two calls differ")
         check(torch.equal(pos_k, pos_p), f"compact {name}: pos differs")
         check(torch.equal(att_k.view(torch.int32), att_p.view(torch.int32)),
               f"compact {name}: attrs differ in their bits")
         n_kept = int(min(int(c[-1]), m_pad))
         print(f"[compact] {name}: kept {int(c[-1])}, filled {n_kept}/"
-              f"{m_pad}: bit-exact")
+              f"{m_pad}: bit-exact, two calls bitwise equal")
 
     # timing at keep rate 0.25, the render's typical occupancy of the budget
     keys, c = inputs(cases["keep 0.25"])
@@ -303,7 +331,8 @@ def phase_compact(dev, M=1 << 20, m_pad=262144):
                 source="raw_ngp_torch/csrc/compact.cu",
                 replaces="raw_ngp_tpu/kernels/compact_pallas.py:118",
                 max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                deterministic=True)
 
 
 def refresh_chunk(cfg, gen, dev):
@@ -380,9 +409,11 @@ def phase_encode(dev, cfg, B=262144):
         for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 0.0)):
             name = str(dtype)[6:]
             k = hash_encode(table, x01, spec, compute_dtype=dtype)
+            k2 = hash_encode(table, x01, spec, compute_dtype=dtype)
             p = (hash_encode_01(table, x01, spec) if dtype == torch.float32
                  else hash_encode_fused_plain(table, x01, spec, dtype))
             torch.cuda.synchronize()
+            check(same_bits(k, k2), f"encode {kind} {name}: two calls differ")
             n = x01.shape[0]
             check(k.dtype == dtype and k.shape == (n, L * C),
                   f"encode {kind} {name}: got {k.dtype} {tuple(k.shape)}")
@@ -418,7 +449,7 @@ def phase_encode(dev, cfg, B=262144):
                 max_abs_err_f32=per_input["uniform"]["float32"]["max_abs_err"],
                 ms=top["ms"], device_ms=top["device_ms"], plain_ms=plain_ms,
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                library_ms=None, inputs=per_input)
+                library_ms=None, inputs=per_input, deterministic=True)
 
 
 def _outer_stream(dev, M, B, n_rows, C, skew):
@@ -443,14 +474,17 @@ def _outer_stream(dev, M, B, n_rows, C, skew):
 def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
     import torch
     from raw_ngp_torch.kernels import segsum as ts
-    errs = {}
+    errs, skew_dev = {}, None
     for skew, rtol in ((False, 1e-5), (True, 1e-5)):
         keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
                                                       skew)
         k = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
+        k2 = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows,
+                                     C)
         p = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words,
                                           n_rows, C)
         torch.cuda.synchronize()
+        check(same_bits(k, k2), f"segsum skew={skew}: two calls differ")
         empty = torch.ones(n_rows, dtype=torch.bool, device=dev)
         empty[keys_s.long()] = False
         check(bool((k[empty] == 0).all()), "segsum: an empty row is not 0")
@@ -463,10 +497,21 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
         check(ok, f"segsum skew={skew}: max abs err {err} exceeds the "
                   f"bound (rtol {rtol})")
         errs[skew] = err
+        longest = int(torch.unique_consecutive(keys_s, return_counts=True)[1]
+                      .max())
+        prof = profile_device(lambda: ts.segment_totals_outer(
+            keys_s, perm, w_word, g_words, n_rows, C, out=k), 20, "call")
+        dev_ms = prof.get("device_busy_ms_per_call")
+        split = stage_split(prof, SEGSUM_STAGES, "zero_fill")
+        if skew:
+            skew_dev = dev_ms
         print(f"[segsum] M={M} rows={n_rows} C={C} skew={skew}: max abs err "
               f"{err:.3e} (rtol {rtol}, atol 1e-5"
               f"{', + 2^-20 x row absolute sum' if skew else ''}), "
-              f"{int(empty.sum())} empty rows exactly 0: ok")
+              f"{int(empty.sum())} empty rows exactly 0, two calls bitwise "
+              f"equal; longest row {longest} records "
+              f"({-(-longest // 128)} chunks); device {dev_ms} ms "
+              f"{json.dumps(split)}: ok")
 
     keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
                                                   False)
@@ -499,7 +544,8 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms,
-                library="index_add_ of the bf16-rounded products")
+                library="index_add_ of the bf16-rounded products",
+                skew_device_ms=skew_dev, deterministic=True)
 
 
 def ray_points(B, gen, dev, per_ray=32):
@@ -557,6 +603,31 @@ def dense_rows_agree(out, ref_total, mass, bf16):
         return bool(((out - ref_total).abs() <= err).all())
     return bool(((out >= round_bf16(ref_total - err))
                  & (out <= round_bf16(ref_total + err))).all())
+
+
+# the stages of mm_grad_table and of B2 by kernel name; every other
+# launch of mm_grad_table is torch.sort's, every other one of B2 the
+# wrapper's zero fill
+DENSE_STAGES = (("cell_keys_kernel", "keys"),
+                ("cell_sums_kernel", "cell_sums"),
+                ("cell_edge_group_kernel", "group_sums"),
+                ("cell_edge_fixup_kernel", "fixup"),
+                ("cell_gather_kernel", "gather"))
+SEGSUM_STAGES = (("segsum_outer_kernel", "main"),
+                 ("segsum_edge_group_kernel", "group_sums"),
+                 ("segsum_edge_fixup_kernel", "fixup"))
+
+
+def stage_split(prof, stages, rest):
+    """Device ms a call spends in each stage, from a profile_device of it:
+    each kernel whose name holds a stage's kernel name counts there, every
+    other one under `rest`."""
+    out = {v: 0.0 for _, v in stages}
+    out[rest] = 0.0
+    for k in prof.get("top_kernels", ()):
+        stage = next((v for n, v in stages if n in k["name"]), rest)
+        out[stage] += k["ms_per_call"]
+    return out
 
 
 def phase_encode_bwd(dev, spec, B=262144):
@@ -625,6 +696,8 @@ def phase_encode_bwd(dev, spec, B=262144):
         base, w_word = th.window_records_plain(x01, spec)
         return th.table_grad(spec, x01, base, w_word, g, bf16, plain=True)
 
+    check(same_bits(kernel_path(), kernel_path()),
+          "encode_bwd: two calls of the table gradient differ")
     ms = time_ms(kernel_path, 20)
     prof = profile_device(kernel_path, 20, "call")
     dev_ms = prof.get("device_busy_ms_per_call")
@@ -634,7 +707,7 @@ def phase_encode_bwd(dev, spec, B=262144):
     base, _ = th.window_records(x01, spec)
     lv, w0, nw = th.level_windows(spec, th.matmul_split(spec))[-1]
     keys = (base[w0:w0 + nw].reshape(-1) - spec.offsets[lv]).contiguous()
-    sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 20)
+    window_sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 20)
     n_bytes = (B * 3 * 4 + B * spec.output_dim * 2
                + spec.n_params * spec.level_dim * 4)
     n_ops = 2 * 8 * spec.level_dim * spec.num_levels * B
@@ -644,17 +717,73 @@ def phase_encode_bwd(dev, spec, B=262144):
           f"(device {dev_ms} ms, {prof.get('kernel_launches_per_call')} "
           f"device launches and {n_aten} aten ops a call), "
           f"plain {plain_ms:.4f} ms; records kernel {records_ms:.4f} ms, "
-          f"torch.sort of the level-{lv} keys ({keys.numel()}) {sort_ms:.4f} "
+          f"torch.sort of the level-{lv} keys ({keys.numel()}) "
+          f"{window_sort_ms:.4f} "
           f"ms; {n_bytes} bytes ({bytes_ms * 1e3:.2f} us), {n_ops} flop "
           f"({ops_ms * 1e3:.2f} us)")
     print(f"[encode_bwd] profile of one call: {json.dumps(prof)}")
-    # the window levels' part: the path less the dense-level kernel; its
-    # bound reads x01 and the window levels' g and writes their rows
+    # the dense level alone, on both inputs: two calls bitwise equal, then
+    # its time, the device time of each stage (the keys, torch.sort's own
+    # launches, the cell sums, the edge fix-up, the gather) and the sort
+    # alone on CUDA events
+    out = torch.empty(n_dense, device=dev)
+    dense = {}
+    for kind, xk in inputs.items():
+        first = th.mm_grad_table(xk, g, spec, bf16)
+        second = th.mm_grad_table(xk, g, spec, bf16)
+        torch.cuda.synchronize()
+        check(same_bits(first, second),
+              f"mm_grad_table {kind}: two calls differ")
+        rows, prods, _, n_terms = dense_products(xk, g, spec, True)
+        acc = torch.empty(res ** 3, C, device=dev)
+        mm_ms = time_ms(lambda: th.mm_grad_table(xk, g, spec, bf16, out=out),
+                        50)
+        mm_prof = profile_device(
+            lambda: th.mm_grad_table(xk, g, spec, bf16, out=out), 20, "call")
+        mm_dev = mm_prof.get("device_busy_ms_per_call")
+        keys = th.dense_cell_keys(xk, spec, 0).to(torch.int32)
+        sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 50)
+        lib_ms = time_ms(lambda: acc.zero_().index_add_(0, rows, prods), 20)
+        lib_dev = device_ms(lambda: acc.zero_().index_add_(0, rows, prods))
+        mm_plain = time_ms(lambda: th.mm_grad_table_plain(xk, g, spec, bf16),
+                           5)
+        nb = B * 3 * 4 + B * C * 2 + n_dense * 4
+        b_ms, o_ms = (nb / HBM_BYTES_PER_S * 1e3,
+                      2 * n_terms / F32_FLOP_PER_S * 1e3)
+        dense[kind] = dict(ms=mm_ms, device_ms=mm_dev, plain_ms=mm_plain,
+                           library_ms=lib_ms, library_device_ms=lib_dev,
+                           bound_ms=max(b_ms, o_ms),
+                           bound_by="bytes" if b_ms >= o_ms else "operations",
+                           bytes=nb, flop=2 * n_terms,
+                           stages_device_ms=stage_split(
+                               mm_prof, DENSE_STAGES, "sort"),
+                           sort_ms=sort_ms,
+                           device_launches_per_call=mm_prof.get(
+                               "kernel_launches_per_call"))
+        print(f"[encode_bwd] dense level ({kind} points) bf16: two calls "
+              f"bitwise equal; kernels {mm_ms:.4f} ms (device {mm_dev} ms, "
+              f"{dense[kind]['device_launches_per_call']} device launches: "
+              f"{json.dumps(dense[kind]['stages_device_ms'])}), torch.sort "
+              f"alone {sort_ms:.4f} ms, plain (matmul) {mm_plain:.4f} ms, "
+              f"zero_ + index_add_ of the exact products {lib_ms:.4f} ms "
+              f"(device {lib_dev} ms); {nb} bytes ({b_ms * 1e3:.2f} us), "
+              f"{2 * n_terms} flop ({o_ms * 1e3:.2f} us)")
+    mm_k = dict(name="mm_grad_table", route="cuda",
+                source="raw_ngp_torch/csrc/hash_grad.cu",
+                replaces="raw_ngp_tpu/kernels/hash_fused.py:349",
+                max_abs_err=errs[("uniform", bf16)][0],
+                max_abs_err_ray=errs[("ray", bf16)][0],
+                library="zero_ + index_add_ of the exact products",
+                ray_ordered=dense["ray"], deterministic=True,
+                **dense["uniform"])
+
+    # the window levels' part: the path less the dense level (its device
+    # time measured alone on the same input: its stages share torch.sort's
+    # kernels with the window levels' sort); its bound reads x01 and the
+    # window levels' g and writes their rows
     m = th.matmul_split(spec)
-    mm_prof = sum(k["ms_per_call"] for k in prof.get("top_kernels", ())
-                  if "mm_grad_table_kernel" in k["name"]
-                  or "round_bf16_kernel" in k["name"])
-    window_dev = None if dev_ms is None else dev_ms - mm_prof
+    window_dev = (None if dev_ms is None or dense["uniform"]["device_ms"]
+                  is None else dev_ms - dense["uniform"]["device_ms"])
     window_bound = (B * 12 + B * (spec.num_levels - m) * C * 2
                     + (spec.n_params - spec.offsets[m]) * C * 4
                     ) / HBM_BYTES_PER_S * 1e3
@@ -668,62 +797,31 @@ def phase_encode_bwd(dev, spec, B=262144):
                  ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                 library_ms=None, records_ms=records_ms, sort_ms=sort_ms,
+                 library_ms=None, records_ms=records_ms,
+                 sort_ms=window_sort_ms,
                  device_launches_per_call=prof.get(
                      "kernel_launches_per_call"),
                  aten_ops_per_call=n_aten,
                  window_part_device_ms=window_dev,
                  window_part_bound_ms=window_bound,
-                 top_kernels=prof.get("top_kernels"))
-
-    # the dense level's kernel alone, on both inputs
-    out = torch.empty(n_dense, device=dev)
-    dense = {}
-    for kind, xk in inputs.items():
-        rows, prods, _, n_terms = dense_products(xk, g, spec, True)
-        acc = torch.empty(res ** 3, C, device=dev)
-        mm_ms = time_ms(lambda: th.mm_grad_table(xk, g, spec, bf16, out=out),
-                        50)
-        mm_dev = device_ms(lambda: th.mm_grad_table(xk, g, spec, bf16,
-                                                    out=out))
-        lib_ms = time_ms(lambda: acc.zero_().index_add_(0, rows, prods), 20)
-        lib_dev = device_ms(lambda: acc.zero_().index_add_(0, rows, prods))
-        mm_plain = time_ms(lambda: th.mm_grad_table_plain(xk, g, spec, bf16),
-                           5)
-        nb = B * 3 * 4 + B * C * 2 + n_dense * 4
-        b_ms, o_ms = (nb / HBM_BYTES_PER_S * 1e3,
-                      2 * n_terms / F32_FLOP_PER_S * 1e3)
-        dense[kind] = dict(ms=mm_ms, device_ms=mm_dev, plain_ms=mm_plain,
-                           library_ms=lib_ms, library_device_ms=lib_dev,
-                           bound_ms=max(b_ms, o_ms),
-                           bound_by="bytes" if b_ms >= o_ms else "operations",
-                           bytes=nb, flop=2 * n_terms)
-        print(f"[encode_bwd] dense level ({kind} points) bf16: kernel "
-              f"{mm_ms:.4f} ms (device {mm_dev} ms), plain (matmul) "
-              f"{mm_plain:.4f} ms, zero_ + index_add_ of the exact products "
-              f"{lib_ms:.4f} ms (device {lib_dev} ms); {nb} bytes "
-              f"({b_ms * 1e3:.2f} us), {2 * n_terms} flop "
-              f"({o_ms * 1e3:.2f} us)")
-    mm_k = dict(name="mm_grad_table", route="cuda",
-                source="raw_ngp_torch/csrc/hash_grad.cu",
-                replaces="raw_ngp_tpu/kernels/hash_fused.py:349",
-                max_abs_err=errs[("uniform", bf16)][0],
-                max_abs_err_ray=errs[("ray", bf16)][0],
-                library="zero_ + index_add_ of the exact products",
-                ray_ordered=dense["ray"], **dense["uniform"])
+                 top_kernels=prof.get("top_kernels"), deterministic=True)
 
     # the glue kernels at the flagship's shapes, against their plain versions
     words = th.pack_g_words(g, spec)
-    check(torch.equal(words, th.pack_g_words_plain(g, spec)),
-          "pack_g_words: words differ from the plain version")
+    check(torch.equal(words, th.pack_g_words_plain(g, spec))
+          and same_bits(words, th.pack_g_words(g, spec)),
+          "pack_g_words: words differ from the plain version or between "
+          "two calls")
     R = spec.n_params - spec.offsets[th.matmul_split(spec)]
     totals = torch.randn(R, 2 * C, generator=gen, device=dev)
     comb = torch.empty(R * C, device=dev)
     th.combine_totals(totals, comb)
+    comb_2 = th.combine_totals(totals, torch.empty_like(comb))
     comb_p = th.combine_totals_plain(totals, torch.empty_like(comb))
     torch.cuda.synchronize()
-    check(torch.equal(comb.view(torch.int32), comb_p.view(torch.int32)),
-          "combine_totals: differs from the plain version in its bits")
+    check(same_bits(comb, comb_p) and same_bits(comb, comb_2),
+          "combine_totals: differs from the plain version in its bits or "
+          "between two calls")
     glue = []
     n_words = words.numel()
     for name, src, fn, plain_fn, nb in (
@@ -746,7 +844,8 @@ def phase_encode_bwd(dev, spec, B=262144):
                          source="raw_ngp_torch/csrc/hash_grad.cu",
                          replaces=src, max_abs_err=0.0, ms=k_ms,
                          device_ms=k_dev, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by="bytes", library_ms=None))
+                         bound_by="bytes", library_ms=None,
+                         deterministic=True))
     return [whole, mm_k] + glue
 
 
@@ -784,8 +883,10 @@ def phase_compact_bwd(dev, M=1 << 19, m_pad=262144):
     for name, mask in cases.items():
         keys, pos, c = inputs(mask)
         k = ck.compact_attrs_bwd(g, keys, pos, m_pad)
+        k2 = ck.compact_attrs_bwd(g, keys, pos, m_pad)
         p = ck.compact_attrs_bwd_plain(g, pos, M)
         torch.cuda.synchronize()
+        check(same_bits(k, k2), f"compact_bwd {name}: two calls differ")
         check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
               f"compact_bwd {name}: gradients differ in their bits")
         print(f"[compact_bwd] {name}: kept {int(c[-1])} of {M}, slots "
@@ -816,7 +917,8 @@ def phase_compact_bwd(dev, M=1 << 19, m_pad=262144):
                 max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
                 library_device_ms=library_dev,
-                library="zero_ + index_copy_ at the filled pos")
+                library="zero_ + index_copy_ at the filled pos",
+                deterministic=True)
 
 
 def touched_rows(spec, x01):
@@ -902,7 +1004,7 @@ def phase_encode_input(dev, cfg, B=262144):
                 max_abs_err_f32=per_input["uniform"]["float32"]["max_abs_err"],
                 ms=top["ms"], device_ms=top["device_ms"], plain_ms=plain_ms,
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                library_ms=None, inputs=per_input)
+                library_ms=None, inputs=per_input, deterministic=True)
 
 
 def _channel_stream(dev, M, n_rows, n_chan, skew):
@@ -928,8 +1030,11 @@ def phase_segsum_channel(dev, M=1 << 20, n_rows=1 << 19, n_chan=32):
     for skew, rtol in ((False, 1e-5), (True, 1e-5)):
         keys_s, packed = _channel_stream(dev, M, n_rows, n_chan, skew)
         k = ts.segment_totals(keys_s, packed, n_rows, n_chan)
+        k2 = ts.segment_totals(keys_s, packed, n_rows, n_chan)
         p = ts.segment_totals_plain(keys_s, packed, n_rows, n_chan)
         torch.cuda.synchronize()
+        check(same_bits(k, k2),
+              f"segsum_channel skew={skew}: two calls differ")
         empty = torch.ones(n_rows, dtype=torch.bool, device=dev)
         empty[keys_s.long()] = False
         check(bool((k[empty] == 0).all()),
@@ -944,7 +1049,7 @@ def phase_segsum_channel(dev, M=1 << 20, n_rows=1 << 19, n_chan=32):
         errs[skew] = err
         print(f"[segsum_channel] M={M} rows={n_rows} n_chan={n_chan} "
               f"skew={skew}: max abs err {err:.3e} (rtol {rtol}, atol "
-              f"1e-5): ok")
+              f"1e-5), two calls bitwise equal: ok")
     keys_s, packed = _channel_stream(dev, M, n_rows, n_chan, False)
     ms = time_ms(lambda: ts.segment_totals(keys_s, packed, n_rows, n_chan),
                  50)
@@ -973,7 +1078,7 @@ def phase_segsum_channel(dev, M=1 << 20, n_rows=1 << 19, n_chan=32):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms,
                 library="index_add_ of the unpacked values",
-                on_main_path=False)
+                on_main_path=False, deterministic=True)
 
 
 def sphere_bitfield(cfg, dev):
@@ -1238,11 +1343,99 @@ def step_breakdown(tr, reps=5):
     return out
 
 
-def run_steps(tr, steps, kernels, what):
+def training_tensors(tr):
+    """Copies of what training steps leave behind: params, EMA, Adam
+    moments, the density grid and, under pose refinement, the pose params
+    and their moments."""
+    st = tr.state
+    out = {}
+    for name, tensors in (("param", st.params), ("ema", st.ema_params),
+                          ("mu", st.opt_state.mu), ("nu", st.opt_state.nu)):
+        for k, t in tensors.items():
+            out[f"{name}.{k}"] = t.detach().clone()
+    out["density_grid"] = st.density_grid.clone()
+    if st.pose_params is not None:
+        out["pose"] = st.pose_params.detach().clone()
+        out["pose.mu"] = st.pose_opt_state.mu["pose"].clone()
+        out["pose.nu"] = st.pose_opt_state.nu["pose"].clone()
+    return out
+
+
+def trainer_snapshot(tr):
+    """Everything Trainer.step reads and changes, taken before a step: the
+    training tensors and the grid state, the optimizers' counts, the step
+    and host counters, the coarse cache and the generator's state."""
+    st = tr.state
+    return {"tensors": training_tensors(tr),
+            "grid": {k: v.clone() for k, v in st.grid_state().items()},
+            "counts": (st.opt_state.count,
+                       None if st.pose_opt_state is None
+                       else st.pose_opt_state.count),
+            "step": st.step,
+            "host": (tr.host_step, tr.host_grid_updates, tr._pts_ema,
+                     tr._point_budget, tr.num_rays, tr._adapt_stash,
+                     tr._metrics, tr._train_step),
+            "coarse": tr.scene_arrays.get("coarse_lin"),
+            "generator": tr.generator.get_state()}
+
+
+def trainer_restore(tr, snap):
+    """Puts the Trainer back to `snap` (trainer_snapshot), in place."""
+    import torch
+    st, t = tr.state, snap["tensors"]
+    with torch.no_grad():
+        for name, tensors in (("param", st.params), ("ema", st.ema_params),
+                              ("mu", st.opt_state.mu),
+                              ("nu", st.opt_state.nu)):
+            for k, v in tensors.items():
+                v.copy_(t[f"{name}.{k}"])
+        if st.pose_params is not None:
+            st.pose_params.copy_(t["pose"])
+            st.pose_opt_state.mu["pose"].copy_(t["pose.mu"])
+            st.pose_opt_state.nu["pose"].copy_(t["pose.nu"])
+    for k, v in snap["grid"].items():
+        setattr(st, k, v.clone())
+    st.opt_state.count = snap["counts"][0]
+    if st.pose_opt_state is not None:
+        st.pose_opt_state.count = snap["counts"][1]
+    st.step = snap["step"]
+    (tr.host_step, tr.host_grid_updates, tr._pts_ema, tr._point_budget,
+     tr.num_rays, tr._adapt_stash, tr._metrics, tr._train_step) = snap["host"]
+    if snap["coarse"] is None:
+        tr.scene_arrays.pop("coarse_lin", None)
+    else:
+        tr.scene_arrays["coarse_lin"] = snap["coarse"]
+    tr.generator.set_state(snap["generator"])
+
+
+def repro_check(tr, snap, ref, steps, what):
+    """The repro check: the Trainer put back to `snap` (taken before step
+    1), `steps` steps run again, and what they leave compared bit for bit
+    with `ref`, captured after the same steps of the first run."""
+    import torch
+    trainer_restore(tr, snap)
+    for _ in range(steps):
+        tr.step()
+    torch.cuda.synchronize()
+    now = training_tensors(tr)
+    diff = {k: float((now[k].double() - v.double()).abs().max())
+            for k, v in ref.items() if not same_bits(now[k], v)}
+    differ = f"; max abs diff {json.dumps(diff)}" if diff else ""
+    print(f"[{what}] repro: {steps} steps ({tr.host_grid_updates} grid "
+          f"refreshes) again from the state before step 1: "
+          f"{len(ref) - len(diff)} of {len(ref)} tensors bitwise equal to "
+          f"the first run's{differ}")
+    check(not diff, f"{what}: training did not reproduce at a fixed seed")
+    return {"steps": steps, "grid_refreshes": tr.host_grid_updates,
+            "tensors": sorted(ref), "bitwise_equal": not diff}
+
+
+def run_steps(tr, steps, kernels, what, capture_at=None):
     """`steps` Trainer steps with every launch counter reset just before
     and read just after; checks that each of `kernels` launched, that
     the losses are finite and fall (last 8 below the first 8) and that
-    the params and EMA are finite. Returns (launches, losses, step ms)."""
+    the params and EMA are finite. Returns (launches, losses, step ms,
+    the training_tensors after `capture_at` steps)."""
     import torch
     from raw_ngp_torch.kernels.hash_encode import hash_encode
     from raw_ngp_torch.ops.grid import _CHUNK
@@ -1264,11 +1457,14 @@ def run_steps(tr, steps, kernels, what):
         c.launches = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     losses = []
+    captured = None
     t0 = time.perf_counter()
     try:
         for i in range(steps):
             events[i].record()
             losses.append(tr.step()["loss"])
+            if i + 1 == capture_at:
+                captured = training_tensors(tr)
         events[steps].record()
         torch.cuda.synchronize()
     finally:
@@ -1303,7 +1499,7 @@ def run_steps(tr, steps, kernels, what):
             check(bool(torch.isfinite(t).all()),
                   f"{what}: {kind} {k} not finite")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
-    return launches, (first, last), step_ms
+    return launches, (first, last), step_ms, captured
 
 
 def evaluate_counted(tr):
@@ -1352,11 +1548,11 @@ def fixed_batch_check(tr, batch_fn, what, annealing=1.0, grad_tol=5e-2):
     return {"loss_rel": loss_err, "grad_rel": grad_err}
 
 
-def phase_train(dev, cfg, steps=128, timed=32):
+def phase_train(dev, cfg, steps=128, timed=32, repro=32):
     """The flagship Trainer through its entry points: `steps` steps with
     every launch counter reset just before and read just after, then the
-    checks, the val PSNR, a fixed-batch kernel-vs-plain step and a
-    profile of one step."""
+    checks, the val PSNR, a fixed-batch kernel-vs-plain step, a profile of
+    one step and the repro check over the first `repro` steps."""
     import torch
     from raw_ngp_torch.data import make_synthetic_scene
     from raw_ngp_torch.data.sampler import sample_ray_batch
@@ -1368,8 +1564,9 @@ def phase_train(dev, cfg, steps=128, timed=32):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     print(f"[train] Trainer ready in {init_s:.2f} s")
-    launches, (first, last), step_ms = run_steps(tr, steps, TRAIN_KERNELS,
-                                                 "train")
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, TRAIN_KERNELS, "train", capture_at=repro)
     window = step_ms[-timed:]
     med = sorted(window)[timed // 2]
     psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
@@ -1396,24 +1593,26 @@ def phase_train(dev, cfg, steps=128, timed=32):
              "fixed_batch_kernel_vs_plain": fixed,
              "stages_ms": step_breakdown(tr),
              "profile": profile_device(tr.step, 1, "step")}
+    train["repro"] = repro_check(tr, snap, ref, repro, "train")
     return launches, train
 
 
-def pose_config(steps):
+def pose_config(steps, n_cameras=36):
     """The flagship with BARF refinement and the noise self-test; iters =
     `steps`, so the annealing ramp and the pose freeze fall in the run."""
-    cfg = flagship_config().with_pose_opt("barf", 36)
+    cfg = flagship_config().with_pose_opt("barf", n_cameras)
     cfg = replace(cfg, train=replace(cfg.train, iters=steps),
                   pose_opt=replace(cfg.pose_opt, noise=0.05))
     return cfg.validate()
 
 
-def phase_pose(dev, steps=128, timed=32):
+def phase_pose(dev, steps=128, timed=32, repro=32):
     """Pose refinement through the Trainer's entry points: `steps` steps
     with every launch counter reset just before and read just after, the
     checks, the Procrustes pose errors before and after, a fixed-batch
-    kernel-vs-plain step (pose gradient included) and a profile of one
-    step."""
+    kernel-vs-plain step (pose gradient included), a profile of one step
+    and the repro check over the first `repro` steps (pose params and
+    moments included)."""
     import torch
     from raw_ngp_torch.data import make_synthetic_scene
     from raw_ngp_torch.data.sampler import sample_ray_batch
@@ -1430,8 +1629,9 @@ def phase_pose(dev, steps=128, timed=32):
     print(f"[pose] Trainer ready in {init_s:.2f} s; pose errors before: "
           f"{err0}; freeze at step "
           f"{int(cfg.pose_opt.end_annealing * cfg.train.iters)}")
-    launches, (first, last), step_ms = run_steps(tr, steps, POSE_KERNELS,
-                                                 "pose")
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, POSE_KERNELS, "pose", capture_at=repro)
     pose = tr.state.pose_params.detach()
     check(bool(torch.isfinite(pose).all()), "pose: pose params not finite")
     check(float(pose.abs().max()) > 0, "pose: the pose params never moved")
@@ -1481,7 +1681,69 @@ def phase_pose(dev, steps=128, timed=32):
            "fixed_batch_kernel_vs_plain": fixed}
     out["stages_ms"] = step_breakdown(tr)
     out["profile"] = profile_device(tr.step, 1, "step")
+    out["repro"] = repro_check(tr, snap, ref, repro, "pose")
     return launches, out
+
+
+def deterministic_ops(dev):
+    """A diagnostic: two train steps and two pose steps of the flagship on
+    4 cameras under torch.use_deterministic_algorithms(True, warn_only=True)
+    (the first step holds a grid refresh); the warnings PyTorch gives for
+    ops on the path without a deterministic CUDA implementation, by path.
+    Ops that have one (index_add_, scatter_add_, cumsum) take it in this
+    mode silently: the repro check, not this list, shows that the normal
+    mode reproduces."""
+    import warnings
+
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.train.trainer import Trainer
+    train_s, val_s = make_synthetic_scene(n_train=4, n_val=1, H=128, W=128)
+    # the probes: torch.histc has no deterministic CUDA implementation, so
+    # it must warn here (the capture works); index_add_ into ascending ids,
+    # as gather_ray_rows' backward summed before it took index_put_'s
+    # accumulate, switches to a deterministic kernel in this mode without
+    # a warning, so two calls outside it show whether its sums vary
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ids = torch.sort(torch.randint(0, 8192, (262144,), generator=gen,
+                                   device=dev)).values
+    vals = torch.randn(262144, 8, generator=gen, device=dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.histc(vals, bins=16)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sums = [torch.zeros(8192, 8, device=dev).index_add_(0, ids, vals)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    found = {"probe": {
+        "histc_warns": bool(caught),
+        "index_add_two_calls_bitwise_equal": same_bits(*sums),
+        "index_add_max_abs_diff": float((sums[0] - sums[1]).abs().max())}}
+    print(f"[deterministic_ops] probe: {found['probe']}")
+    check(found["probe"]["histc_warns"],
+          "deterministic_ops: the warnings are not captured")
+    for what, cfg in (("train", flagship_config()),
+                      ("pose", pose_config(128, n_cameras=4))):
+        tr = Trainer(cfg, train_s, val_s, device=dev)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _ in range(2):
+                    tr.step()
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        found[what] = sorted({str(w.message).strip().splitlines()[0][:400]
+                              for w in caught})
+        for msg in found[what]:
+            print(f"[deterministic_ops] {what}: {msg}")
+        print(f"[deterministic_ops] {what}: {len(found[what])} distinct "
+              f"warnings")
+    return found
 
 
 def gpu_line():
@@ -1591,6 +1853,11 @@ def main() -> int:
         help="only build and compare the encode forward and input gradient "
              "of each TREE's raw_ngp_torch/csrc/hash_encode.cu with this "
              "tree's, in one process (prints one `ab` line per TREE)")
+    parser.add_argument(
+        "--deterministic-ops", action="store_true",
+        help="only build and run the deterministic-algorithms diagnostic: "
+             "one train and one pose step under torch."
+             "use_deterministic_algorithms(True, warn_only=True)")
     args = parser.parse_args()
     try:
         import torch
@@ -1619,6 +1886,16 @@ def main() -> int:
             for tree in args.against:
                 print(json.dumps({"ab": compare_encode(
                     dev, flagship_config(), tree)}))
+        except Exception:
+            traceback.print_exc()
+            print("chip_smoke: FAILED", file=sys.stderr)
+            return 1
+        print(gpu_line())
+        return 0
+    if args.deterministic_ops:
+        try:
+            phase_build()
+            print(json.dumps({"deterministic_ops": deterministic_ops(dev)}))
         except Exception:
             traceback.print_exc()
             print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels from ``raw_ngp_torch/csrc/`` and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+Each ``csrc/<name>.cu`` (with the headers ``csrc/*.cuh`` it includes) has
+a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/raw_ngp_torch/lib<name>.so``
 at the repository root, then bound with ctypes. Nothing is built at
 import time: the first launch builds, or a caller builds every source at
@@ -43,10 +44,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    """Library path keyed by the source's content, so an edited source is
-    never served by a stale build."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Library path keyed by the content of the source and of the headers
+    beside it (``csrc/*.cuh``), so an edited source is never served by a
+    stale build."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -18,9 +18,12 @@ bf16 halves (``window_records``; plain version
 :func:`window_indices_weights` + ``pack_bf16_pairs``).
 
 Backward, the table gradient (:func:`table_grad`), into one flat f32
-gradient: the dense leading levels (``_matmul_split``) by the scatter
-kernel :func:`mm_grad_table` (``_mm_grad_table``; plain version
-:func:`mm_grad_table_plain`, the transposed matmul); the window levels as
+gradient: the dense leading levels (``_matmul_split``) by
+:func:`mm_grad_table` (``_mm_grad_table``; plain version
+:func:`mm_grad_table_plain`, the transposed matmul): the points sorted by
+cell, per-cell corner sums and a per-row gather, in a fixed order without
+atomics (:func:`mm_grad_table_cells_plain` is that arithmetic in torch,
+for the tests); the window levels as
 ``_window_bwd_table_chunked`` (``:633-689``): g's channel pairs packed
 into B2's payload words once (:func:`pack_g_words`), per level a
 ``torch.sort`` of the record keys and kernel B2 (per-row totals of the
@@ -47,8 +50,8 @@ import os
 import torch
 
 from raw_ngp_torch.kernels import _build
-from raw_ngp_torch.kernels.segsum import (pack_bf16_pairs, round_bf16,
-                                          segment_totals_outer,
+from raw_ngp_torch.kernels.segsum import (edge_buffer, pack_bf16_pairs,
+                                          round_bf16, segment_totals_outer,
                                           segment_totals_outer_plain)
 from raw_ngp_torch.ops.hashgrid import (HashGridSpec, _level_indices,
                                         _smoothstep, hash_encode_01,
@@ -292,32 +295,87 @@ def mm_axis_weights(x01, spec: HashGridSpec, lv: int):
     return wyz, wx.repeat_interleave(spec.level_dim, dim=1)
 
 
+def mm_grad_level_plain(x01, g, spec: HashGridSpec, lv: int,
+                        compute_dtype=None):
+    """Plain version of :func:`mm_grad_level`: dense level ``lv``'s table
+    gradient grad_T2 = wyz^T @ (wx * g) (``_mm_grad_table``), flat
+    [hmap * C] f32, rows past res^3 zero. Under bf16 the operands and the
+    elementwise product are rounded to bf16 and the f32-accumulated
+    product is rounded once, as the JAX bf16 matmuls do; the products run
+    in f32 (TF32 must be off) so that the card's reduced-precision bf16
+    reductions cannot enter."""
+    C = spec.level_dim
+    rnd = round_bf16 if compute_dtype == torch.bfloat16 else (lambda t: t)
+    res = spec.resolutions[lv]
+    hmap = spec.offsets[lv + 1] - spec.offsets[lv]
+    wyz, wx_p = mm_axis_weights(x01, spec, lv)
+    g_lv = rnd(g[:, lv * C:(lv + 1) * C].float())
+    gx = rnd(g_lv.repeat(1, res) * rnd(wx_p))
+    flat = rnd(rnd(wyz).T @ gx).reshape(-1)
+    return torch.cat([flat, flat.new_zeros((hmap - res ** 3) * C)])
+
+
 def mm_grad_table_plain(x01, g, spec: HashGridSpec, compute_dtype=None,
                         out=None):
-    """Plain version of :func:`mm_grad_table` (``_mm_grad_table``):
-    grad_T2 = wyz^T @ (wx * g) per level, flat [offsets[m] * C] f32
-    (copied into ``out`` if given).
-    Under bf16 the operands and the elementwise product are rounded to
-    bf16 and the f32-accumulated product is rounded once, as the JAX bf16
-    matmuls do; the products run in f32 (TF32 must be off) so that the
-    card's reduced-precision bf16 reductions cannot enter."""
-    m = matmul_split(spec)
-    C = spec.level_dim
-    bf16 = compute_dtype == torch.bfloat16
-    rnd = round_bf16 if bf16 else (lambda t: t)
-    parts = []
-    for lv in range(m):
-        res = spec.resolutions[lv]
-        hmap = spec.offsets[lv + 1] - spec.offsets[lv]
-        wyz, wx_p = mm_axis_weights(x01, spec, lv)
-        g_lv = rnd(g[:, lv * C:(lv + 1) * C].float())
-        gx = rnd(g_lv.repeat(1, res) * rnd(wx_p))
-        flat = rnd(rnd(wyz).T @ gx).reshape(-1)
-        if hmap > res ** 3:                 # rows past res^3 are unused
-            flat = torch.cat([flat, flat.new_zeros((hmap - res ** 3) * C)])
-        parts.append(flat)
+    """Plain version of :func:`mm_grad_table` (``_mm_grad_table``): every
+    dense matmul level by :func:`mm_grad_level_plain`, flat [offsets[m] *
+    C] f32 (copied into ``out`` if given)."""
+    parts = [mm_grad_level_plain(x01, g, spec, lv, compute_dtype)
+             for lv in range(matmul_split(spec))]
     flat = torch.cat(parts) if parts else g.new_zeros(0, dtype=torch.float32)
     return flat if out is None else out.copy_(flat)
+
+
+def dense_cell_keys(x01, spec: HashGridSpec, lv: int):
+    """Each point's cell at dense level ``lv``, the key the kernels sort
+    by: its lower corner x + res (y + res z), res^3 for a point outside
+    [0, 1]^3 or NaN -> [B] i64."""
+    res = spec.resolutions[lv]
+    inb, xs = _in_bounds(x01)
+    cx, cy, cz = (_corner_axis(x, res, spec)[0] for x in xs)
+    return torch.where(inb, cx + res * (cy + res * cz), res ** 3)
+
+
+def mm_grad_table_cells_plain(x01, g, spec: HashGridSpec, compute_dtype=None):
+    """The arithmetic of the kernels' design in plain torch, for the tests:
+    per dense matmul level, each point's cell (lower corner; res^3 outside
+    [0, 1]^3 or NaN) and a stable sort by cell, the per-cell corner sums
+    [res^3, 8, C] of the sorted points' exact products rnd(wyz) *
+    rnd(g * rnd(wx)) (corner i = xi + 2 yi + 4 zi), then per row the sum
+    over corners i = 0..7 in order of the sums of cell (x - xi, y - yi,
+    z - zi) where that cell exists, rounded once under bf16. A clamped
+    upper corner weighs exactly 0 and has no row of its own: the gather
+    drops it. -> flat [offsets[m] * C] f32, as :func:`mm_grad_table`."""
+    C = spec.level_dim
+    rnd = round_bf16 if compute_dtype == torch.bfloat16 else (lambda t: t)
+    _, xs = _in_bounds(x01)
+    parts = []
+    for lv in range(matmul_split(spec)):
+        res = spec.resolutions[lv]
+        hmap = spec.offsets[lv + 1] - spec.offsets[lv]
+        (_, ax, _), (_, ay, _), (_, az, _) = (
+            _mm_lanes(*_corner_axis(x, res, spec), res) for x in xs)
+        keys = dense_cell_keys(x01, spec, lv)
+        perm = torch.sort(keys, stable=True).indices
+        g_lv = rnd(g[:, lv * C:(lv + 1) * C].float())
+        prods = torch.stack([
+            (rnd(az[i >> 2] * ay[(i >> 1) & 1])[:, None]
+             * rnd(g_lv * rnd(ax[i & 1])[:, None])) for i in range(8)], 1)
+        cells = torch.zeros(res ** 3 + 1, 8, C, dtype=torch.float32,
+                            device=x01.device).index_add_(
+            0, keys[perm], prods[perm])[:res ** 3]
+        r = torch.arange(res ** 3, device=x01.device)
+        x, y, z = r % res, (r // res) % res, r // (res * res)
+        grad = torch.zeros(res ** 3, C, dtype=torch.float32,
+                           device=x01.device)
+        for i in range(8):
+            ccx, ccy, ccz = x - (i & 1), y - ((i >> 1) & 1), z - (i >> 2)
+            ok = (ccx >= 0) & (ccy >= 0) & (ccz >= 0)
+            cell = (ccx + res * (ccy + res * ccz)).clamp_min(0)
+            grad = grad + torch.where(ok[:, None], cells[cell, i], 0.0)
+        parts += [rnd(grad).reshape(-1),
+                  grad.new_zeros((hmap - res ** 3) * C)]
+    return torch.cat(parts) if parts else g.new_zeros(0, dtype=torch.float32)
 
 
 def pack_g_words_plain(g, spec: HashGridSpec):
@@ -521,9 +579,10 @@ _ARGTYPES = {
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "hash_encode_records": [ctypes.c_void_p] * 4 + [ctypes.c_int64]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "mm_grad_table_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int64]
-    + [ctypes.c_int] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4
+    "mm_grad_keys_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "mm_grad_table_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    + [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "pack_g_words_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "combine_totals_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64,
@@ -681,41 +740,78 @@ def _check_g(g, spec: HashGridSpec, B: int, who: str):
                          f"{_CHANNELS}")
 
 
-def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None, out=None):
-    """Table gradient of the dense matmul levels (``_mm_grad_table``) for
-    the encode's cotangent g [B, L*C] -> flat [offsets[m] * C] f32 (into
-    ``out`` if given). CPU tensors take :func:`mm_grad_table_plain`; CUDA
-    tensors launch the scatter kernel once per dense level (see
-    ``csrc/hash_grad.cu``): the same exact products, f32 sums in another
-    order, rounded once under bf16."""
+def mm_grad_level(x01, g, spec: HashGridSpec, lv: int, compute_dtype=None,
+                  out=None):
+    """Table gradient of dense level ``lv`` (res^3 <= its rows) for the
+    encode's cotangent g [B, L*C] -> flat [hmap * C] f32 (into ``out`` if
+    given). CPU tensors take :func:`mm_grad_level_plain`; CUDA tensors
+    launch the kernels of ``csrc/hash_grad.cu`` (one counted launch of
+    :func:`mm_grad_table`): the points' cells, ``torch.sort(stable=True)``
+    by cell, per-cell corner sums and the per-row gather, every sum in a
+    fixed order without atomics, so two calls give the same bits. Against
+    the plain version: the same exact products, f32 sums in another order,
+    rounded once under bf16."""
     if x01.device.type == "cpu":
-        return mm_grad_table_plain(x01, g, spec, compute_dtype, out=out)
+        flat = mm_grad_level_plain(x01, g, spec, lv, compute_dtype)
+        return flat if out is None else out.copy_(flat)
     _check_x01(x01, spec, "mm_grad_table")
     bf16 = compute_dtype == torch.bfloat16
     B, C = x01.shape[0], spec.level_dim
     g = g.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
     _check_g(g, spec, B, "mm_grad_table")
+    res, off = spec.resolutions[lv], spec.offsets[lv]
+    hmap = spec.offsets[lv + 1] - off
+    if res ** 3 > hmap or B >= 2 ** 31:
+        raise ValueError(f"mm_grad_table: level {lv} is not dense or B "
+                         f"({B}) exceeds 2^31 - 1")
+    if out is None:
+        out = torch.empty(hmap * C, dtype=torch.float32, device=x01.device)
+    elif (out.shape != (hmap * C,) or out.dtype != torch.float32
+          or out.device != x01.device or not out.is_contiguous()):
+        raise ValueError("mm_grad_table: out must be a contiguous [hmap * C] "
+                         "f32 tensor on x01's device")
+    if B == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(x01.device).cuda_stream
+    align = int(spec.align_corners)
+    smooth = int(spec.interpolation == "smoothstep")
+    keys = torch.empty(B, dtype=torch.int32, device=x01.device)
+    cellsum = torch.empty(res ** 3 * 8 * C, dtype=torch.float32,
+                          device=x01.device)
+    _raise_if(_lib("mm_grad_keys_fwd")(
+        x01.data_ptr(), keys.data_ptr(), cellsum.data_ptr(), B, res, C,
+        align, smooth, stream), "mm_grad_table")
+    keys_s, perm = torch.sort(keys, stable=True)
+    edges, n_edge = edge_buffer(B, 8 * C, x01.device)
+    _raise_if(_lib("mm_grad_table_fwd")(
+        keys_s.data_ptr(), perm.data_ptr(), x01.data_ptr(), g.data_ptr(),
+        cellsum.data_ptr(), edges.data_ptr(), out.data_ptr(), B, res, C,
+        hmap, spec.output_dim, lv * C, n_edge, align, smooth, int(bf16),
+        stream), "mm_grad_table")
+    mm_grad_table.launches += 1
+    return out
+
+
+def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None, out=None):
+    """Table gradient of the dense matmul levels (``_mm_grad_table``) for
+    the encode's cotangent g [B, L*C] -> flat [offsets[m] * C] f32 (into
+    ``out`` if given), one :func:`mm_grad_level` a level. CPU tensors take
+    :func:`mm_grad_table_plain`; CUDA tensors launch the kernels (one
+    counted launch a dense level)."""
+    if x01.device.type == "cpu":
+        return mm_grad_table_plain(x01, g, spec, compute_dtype, out=out)
+    C = spec.level_dim
     m = matmul_split(spec)
     n = spec.offsets[m] * C
     if out is None:
         out = torch.empty(n, dtype=torch.float32, device=x01.device)
     elif (out.shape != (n,) or out.dtype != torch.float32
-          or out.device != x01.device or not out.is_contiguous()
-          or out.data_ptr() % 16):
-        raise ValueError("mm_grad_table: out must be a contiguous, 16-byte "
-                         "aligned [offsets[m] * C] f32 tensor on x01's device")
-    if B == 0:
-        return out.zero_()
-    stream = torch.cuda.current_stream(x01.device).cuda_stream
+          or out.device != x01.device or not out.is_contiguous()):
+        raise ValueError("mm_grad_table: out must be a contiguous "
+                         "[offsets[m] * C] f32 tensor on x01's device")
     for lv in range(m):
-        off, res = spec.offsets[lv], spec.resolutions[lv]
-        err = _lib("mm_grad_table_fwd")(
-            x01.data_ptr(), g.data_ptr(), out[off * C:].data_ptr(), B, res,
-            C, spec.offsets[lv + 1] - off, spec.output_dim, lv * C,
-            int(spec.align_corners), int(spec.interpolation == "smoothstep"),
-            int(bf16), stream)
-        _raise_if(err, "mm_grad_table")
-        mm_grad_table.launches += 1
+        mm_grad_level(x01, g, spec, lv, compute_dtype,
+                      out=out[spec.offsets[lv] * C:spec.offsets[lv + 1] * C])
     return out
 
 

@@ -10,7 +10,8 @@ the outer mode, what carries over, bit for bit: the
 record values are bf16 *truncations* of f32 (``hash_fused._pack_bf16_pairs``
 keeps the top 16 bits), each product w*g is rounded to bf16, and the
 per-row totals are exact f32 sums (rows without records are 0). Only the
-order of the f32 additions may differ.
+order of the f32 additions may differ, and the kernel's order is fixed
+(no float atomics: two calls on the same stream give the same bits).
 
 The stream is the record stream of one hash level: ``keys_sorted`` [M]
 (table rows, ascending, from ``torch.sort``) and ``perm`` [M], the
@@ -115,13 +116,24 @@ def _lib(name="segment_totals_outer_fwd"):
     lib = _build.load("segsum")
     fn = getattr(lib, name)
     if name == "segment_totals_outer_fwd":
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     else:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def edge_buffer(M: int, width: int, device):
+    """Scratch of the kernels' fixed-order chunk edges
+    (``csrc/segments.cuh``) for a sorted stream of M records whose rows
+    are ``width`` f32: head and tail partials of each 128-record chunk
+    (``segments::kChunk``), then the sums of each group of 32 chunks
+    (``segments::kGroup``) -> (buffer, chunks)."""
+    n = -(-M // 128)
+    return torch.empty(2 * n + -(-n // 32), width, dtype=torch.float32,
+                       device=device), n
 
 
 def segment_totals(keys_sorted, packed, n_rows: int, n_chan: int):
@@ -150,9 +162,11 @@ def segment_totals(keys_sorted, packed, n_rows: int, n_chan: int):
     out = torch.zeros(n_rows, n_chan, dtype=torch.float32, device=dev)
     if M == 0:
         return out
+    edges, n_edge = edge_buffer(M, n_chan, dev)
     err = _lib("segment_totals_fwd")(
-        keys_sorted.data_ptr(), packed.data_ptr(), out.data_ptr(), M, n_chan,
-        n_rows, torch.cuda.current_stream(dev).cuda_stream)
+        keys_sorted.data_ptr(), packed.data_ptr(), out.data_ptr(),
+        edges.data_ptr(), M, n_chan, n_rows, n_edge,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_totals: CUDA launch failed (error {err})")
     segment_totals.launches += 1
@@ -203,9 +217,11 @@ def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
     out.zero_()
     if M == 0:
         return out
+    edges, n_edge = edge_buffer(M, 2 * C, dev)
     err = _lib()(keys_sorted.data_ptr(), perm.data_ptr(), w_word.data_ptr(),
-                 g_words.data_ptr(), out.data_ptr(), M, g_words.shape[0],
-                 C, n_rows, torch.cuda.current_stream(dev).cuda_stream)
+                 g_words.data_ptr(), out.data_ptr(), edges.data_ptr(), M,
+                 g_words.shape[0], C, n_rows, n_edge,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_totals_outer: CUDA launch failed "
                            f"(error {err})")

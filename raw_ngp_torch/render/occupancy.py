@@ -287,7 +287,14 @@ class _GatherRowsFn(torch.autograd.Function):
         (rid,) = ctx.saved_tensors
         totals = torch.zeros(ctx.n_rows, g.shape[1], dtype=torch.float32,
                              device=g.device)
-        totals.index_add_(0, rid.to(torch.int64), g.float())
+        rid64 = rid.to(torch.int64)
+        if g.device.type == "cuda":
+            # index_add_ adds with atomics on the card, in an order that
+            # changes from run to run; index_put_'s accumulate sorts the
+            # ids (stably) and sums each run of them in order
+            totals.index_put_((rid64,), g.float(), accumulate=True)
+        else:
+            totals.index_add_(0, rid64, g.float())
         return _truncate_bf16(totals).to(g.dtype), None
 
 
@@ -299,8 +306,10 @@ def gather_ray_rows(buf, rid):
     each *truncated* to bf16 (the top 16 bits, as
     ``_segment_sum_sorted_scatter`` packs its totals), rows without
     samples 0. JAX computes it in XLA, outside any Pallas kernel, so it
-    has no TPU kernel to port and stays plain PyTorch here: an f32
-    ``index_add_``, then the truncation by bit operations. The f32 sums
+    has no TPU kernel to port and stays plain PyTorch here: f32 per-ray
+    sums in a fixed order (``index_add_`` on the CPU, the sorting
+    ``index_put_(accumulate=True)`` on the card, where ``index_add_``
+    uses atomics), then the truncation by bit operations. The f32 sums
     run in another order than JAX's shift-mask scan, so a total near a
     truncation boundary can land one bf16 ulp apart."""
     if torch.is_grad_enabled() and buf.requires_grad:

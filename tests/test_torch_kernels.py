@@ -256,21 +256,24 @@ def test_segsum_kernel_matches_plain_at_flagship_shape(cuda_device, skew):
     """B2 at the flagship's level-1 shape (1,048,576 records of 262,144
     points into 524,288 rows, C = 16) against its plain version: the same
     bf16 products, summed in another f32 order. rtol 1e-5 on random keys;
-    on the skew stream the ~940k-term row sums in another order (both
-    sides with atomics, so in an order that changes from run to run) and
-    its signed terms cancel to a total some 1e5 times smaller than their
-    absolute sum, so there the bound is the error of two f32 sums: rtol
-    1e-5 plus 2^-20 of the row's absolute sum (:func:`_within_sum_error`).
-    Rows without records are exactly 0."""
+    on the skew stream the ~940k-term row (over 7,000 chunks) sums in
+    another order than index_add_'s and its signed terms cancel to a
+    total some 1e5 times smaller than their absolute sum, so there the
+    bound is the error of two f32 sums: rtol 1e-5 plus 2^-20 of the row's
+    absolute sum (:func:`_within_sum_error`). Rows without records are
+    exactly 0, and two calls give the same bits (the kernel's sum order is
+    fixed: no float atomics)."""
     M, B, n_rows, C = 1 << 20, 1 << 18, 1 << 19, 16
     keys_s, perm, w_word, g_words = _outer_stream(cuda_device, M, B, n_rows,
                                                   C, skew=skew)
     before = ts.segment_totals_outer.launches
     out = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
     assert ts.segment_totals_outer.launches == before + 1
+    again = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
     ref = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words,
                                         n_rows, C)
     torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
     empty = torch.ones(n_rows, dtype=torch.bool, device=cuda_device)
     empty[keys_s.long()] = False
     assert empty.any() and (out[empty] == 0).all()
@@ -326,29 +329,31 @@ def test_window_records_kernel_bit_exact(cuda_device, monkeypatch, variant,
     assert torch.equal(base, base_p) and torch.equal(w_word, w_word_p)
 
 
-def _dense_totals(x, g, spec, bf16):
-    """The dense level's unrounded f32 totals and the absolute sum of
+def _dense_totals(x, g, spec, bf16, lv=0):
+    """Dense level ``lv``'s unrounded f32 totals and the absolute sum of
     their terms (its ``mass``), from the plain version's operands: the
     exact products rnd(wyz) * rnd(g * rnd(wx)) (no rnd in f32)."""
-    res, C = spec.resolutions[0], spec.level_dim
+    res, C = spec.resolutions[lv], spec.level_dim
     rnd = ts.round_bf16 if bf16 else (lambda t: t)
-    wyz, wx_p = th.mm_axis_weights(x, spec, 0)
-    gx = rnd(rnd(g[:, :C].float()).repeat(1, res) * rnd(wx_p))
+    wyz, wx_p = th.mm_axis_weights(x, spec, lv)
+    gx = rnd(rnd(g[:, lv * C:(lv + 1) * C].float()).repeat(1, res)
+             * rnd(wx_p))
     wyz = rnd(wyz).T
-    n = (spec.offsets[1] - spec.offsets[0] - res ** 3) * C
+    n = (spec.offsets[lv + 1] - spec.offsets[lv] - res ** 3) * C
     pad = gx.new_zeros(n)
     return (torch.cat([(wyz @ gx).reshape(-1), pad]),
             torch.cat([(wyz @ gx.abs()).reshape(-1), pad]))
 
 
-def _dense_rows_agree(out, x, g, spec, bf16):
-    """The dense-row rule: the kernel's totals before rounding lie within
-    rtol 1e-5 plus 2^-20 of the entry's absolute mass of the plain f32
-    totals (the f32 sum order; atomics vary it between runs), so in f32
+def _dense_rows_agree(out, x, g, spec, bf16, lv=0):
+    """The dense-row rule for level ``lv``'s slice ``out``: the kernel's
+    totals before rounding lie within rtol 1e-5 plus 2^-20 of the entry's
+    absolute mass of the plain f32 totals (the f32 sum order: cells in
+    sorted order, partials in chunk order, corners in order), so in f32
     |out - total| is within that bound and under bf16 out lies between
     the bf16 roundings of the bound's two ends (equal to the plain
     version's output or one bf16 ulp from it)."""
-    tot, mass = _dense_totals(x, g, spec, bf16)
+    tot, mass = _dense_totals(x, g, spec, bf16, lv)
     err = 1e-5 * tot.abs() + 2.0 ** -20 * mass
     if not bf16:
         return bool(((out - tot).abs() <= err).all())
@@ -415,7 +420,7 @@ def _dense_inputs(kind, B, gen, device):
     x = torch.rand(B, 3, generator=gen, device=device)   # "edges"
     x[: B // 4, 0] = 1.0 - torch.rand(B // 4, generator=gen,
                                       device=device) / 32   # clamped corner
-    x[B // 4: B // 2] = torch.rand(B // 4, 3, generator=gen,
+    x[B // 4: B // 2] = torch.rand(B // 2 - B // 4, 3, generator=gen,
                                    device=device) / 32       # near 0
     x[B // 2: B // 2 + 64] = x[B // 2: B // 2 + 64] * 3.0 - 1.0
     x[B // 2 + 64: B // 2 + 72, 1] = float("nan")
@@ -432,7 +437,9 @@ def test_mm_grad_table_kernel_matches_plain(cuda_device, kind, dtype):
     ray-ordered points, every point in one cell, and clamped corners,
     points near 0, outside [0, 1]^3 and NaN: the dense-row rule
     (:func:`_dense_rows_agree`); rows past res^3 are exactly 0 and the
-    kernel launches once."""
+    kernel launches once. Two calls give the same bits, and so does a
+    third made after other work on the stream (the plain version, a B2
+    call): the sum order is fixed, no float atomics."""
     spec = _flagship_grid()
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     B = 262144
@@ -442,13 +449,107 @@ def test_mm_grad_table_kernel_matches_plain(cuda_device, kind, dtype):
     before = th.mm_grad_table.launches
     out = th.mm_grad_table(x, g, spec, dtype)
     assert th.mm_grad_table.launches == before + 1
+    again = th.mm_grad_table(x, g, spec, dtype)
     ref = th.mm_grad_table_plain(x, g, spec, dtype)
+    ts.segment_totals_outer(*_outer_stream(cuda_device, 1 << 16, 4096, 1000,
+                                           16, skew=True), 1000, 16)
+    third = th.mm_grad_table(x, g, spec, dtype)
     torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), third.view(torch.int32))
     res, C = spec.resolutions[0], spec.level_dim
     assert out.shape == ref.shape and (out[res ** 3 * C:] == 0).all()
     assert _dense_rows_agree(out, x, g, spec, dtype == torch.bfloat16)
     assert float((out - ref).abs().max()) <= 2.0 ** -7 * float(
         ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 127, 129, 8191])
+@pytest.mark.parametrize("C", [1, 4, 16, 32])
+def test_mm_grad_table_kernel_ragged_batch(cuda_device, B, C):
+    """The dense-level kernels (mm_grad_level) at level 0 of a grid with C
+    channels (res 15, dense, one row past res^3), B not a multiple of the
+    128-point chunk or of the warp, f32 and bf16: the dense-row rule against
+    mm_grad_level_plain, rows past res^3 exactly 0, two calls bitwise
+    equal, one counted launch each."""
+    spec = HashGridSpec.create(num_levels=2, level_dim=C, base_resolution=15,
+                               log2_hashmap_size=13, desired_resolution=64)
+    res, hmap = spec.resolutions[0], spec.offsets[1] - spec.offsets[0]
+    assert res == 15 and hmap > res ** 3
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 64 + C)
+    x = _dense_inputs("edges" if B >= 129 else "uniform", B, gen,
+                      cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn(B, spec.output_dim, generator=gen,
+                        device=cuda_device).to(dtype)
+        before = th.mm_grad_table.launches
+        out = th.mm_grad_level(x, g, spec, 0, dtype)
+        again = th.mm_grad_level(x, g, spec, 0, dtype)
+        assert th.mm_grad_table.launches == before + 2
+        ref = th.mm_grad_level_plain(x, g, spec, 0, dtype)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape == (hmap * C,)
+        assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+        assert (out[res ** 3 * C:] == 0).all()
+        assert _dense_rows_agree(out, x, g, spec, dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mm_grad_table_kernel_two_dense_levels(cuda_device, dtype):
+    """A grid with two dense matmul levels (the mixed spec at C = 8: res 16
+    and 24): one counted launch a level, each level's slice by the
+    dense-row rule against mm_grad_table_plain, two calls bitwise equal."""
+    spec = HashGridSpec.create(level_dim=8, **_ENCODE_SPECS["mixed"])
+    assert th.matmul_split(spec) == 2
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    B = 65536
+    x = _dense_inputs("edges", B, gen, cuda_device)
+    g = torch.randn(B, spec.output_dim, generator=gen,
+                    device=cuda_device).to(dtype)
+    before = th.mm_grad_table.launches
+    out = th.mm_grad_table(x, g, spec, dtype)
+    again = th.mm_grad_table(x, g, spec, dtype)
+    assert th.mm_grad_table.launches == before + 4
+    ref = th.mm_grad_table_plain(x, g, spec, dtype)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    C = spec.level_dim
+    for lv in range(2):
+        part = out[spec.offsets[lv] * C:spec.offsets[lv + 1] * C]
+        assert _dense_rows_agree(part, x, g, spec, dtype == torch.bfloat16,
+                                 lv)
+
+
+@pytest.mark.gpu
+def test_segsum_kernels_row_over_three_chunk_edges(cuda_device):
+    """A stream whose one long row holds 385 records (three full 128-record
+    chunks and one more: its partials cross three chunk edges), behind a
+    few short rows and before others, in both of B2's modes: within rtol
+    1e-5 of the plain versions and two calls bitwise equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    keys = torch.cat([torch.arange(0, 5), torch.full((385,), 5),
+                      torch.arange(6, 200)]).to(torch.int32).to(cuda_device)
+    M, B, n_rows, C = keys.numel(), 300, 256, 16
+    perm = torch.randperm(M, generator=gen, device=cuda_device)
+    w = torch.rand(2, M, generator=gen, device=cuda_device)
+    w_word = ts.pack_bf16_pairs([w[0], w[1]])[0]
+    g = torch.randn(B, C, generator=gen, device=cuda_device)
+    g_words = torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous()
+    args = (keys, perm.to(torch.int32), w_word, g_words, n_rows, C)
+    out, again = (ts.segment_totals_outer(*args) for _ in range(2))
+    ref = ts.segment_totals_outer_plain(*args)
+    vals = torch.randn(32, M, generator=gen, device=cuda_device)
+    packed = torch.stack(ts.pack_bf16_pairs(list(vals))).contiguous()
+    ch, ch2 = (ts.segment_totals(keys, packed, n_rows, 32) for _ in range(2))
+    ch_ref = ts.segment_totals_plain(keys, packed, n_rows, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(ch.view(torch.int32), ch2.view(torch.int32))
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ch, ch_ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -582,14 +683,16 @@ def test_segsum_channel_kernel_at_level1_shape(cuda_device, skew):
     bf16 values summed in another f32 order; rtol 1e-5, and on the skew
     stream's cancelling ~940k-term row the bound of the f32 sums
     (rtol 1e-5 plus 2^-20 of the row's absolute sum, as the outer mode).
-    Empty rows exactly 0."""
+    Empty rows exactly 0; two calls give the same bits."""
     M, n_rows, n_chan = 1 << 20, 1 << 19, 32
     keys_s, packed = _channel_stream(cuda_device, M, n_rows, n_chan, skew)
     before = ts.segment_totals.launches
     out = ts.segment_totals(keys_s, packed, n_rows, n_chan)
     assert ts.segment_totals.launches == before + 1
+    again = ts.segment_totals(keys_s, packed, n_rows, n_chan)
     ref = ts.segment_totals_plain(keys_s, packed, n_rows, n_chan)
     torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
     empty = torch.ones(n_rows, dtype=torch.bool, device=cuda_device)
     empty[keys_s.long()] = False
     assert empty.any() and (out[empty] == 0).all()

@@ -219,8 +219,11 @@ def test_encode_table_gradient_matches_jax(monkeypatch, name, mm, dtype):
     another order, so rtol 1e-5 (atol 1e-6 of the largest entry); under
     bf16 the dense level's output is rounded to bf16 once, so a total near
     a rounding boundary may land one bf16 ulp apart (rtol 8e-3). The dense
-    levels' plain version, mm_grad_table_plain, is also held to JAX's
-    _mm_grad_table alone, at the same tolerances."""
+    levels' plain version, mm_grad_table_plain, and the arithmetic of the
+    card's design, mm_grad_table_cells_plain (cells, stable sort, corner
+    sums, 8-corner gather), are also held to JAX's _mm_grad_table alone,
+    at the same tolerances, the latter also with points on the top faces
+    and at the clamped corner (_top_face_points)."""
     monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
     js, tspec = JSpec.create(**_SPECS[name]), TSpec.create(**_SPECS[name])
     assert th.matmul_split(tspec) == hf._matmul_split(js)
@@ -255,6 +258,66 @@ def test_encode_table_gradient_matches_jax(monkeypatch, name, mm, dtype):
         assert mm_t.shape == mm_j.shape and np.abs(mm_j).max() > 0
         np.testing.assert_allclose(_np(mm_t), mm_j, rtol=rtol,
                                    atol=1e-6 * np.abs(mm_j).max())
+        _assert_cells_match_jax(_top_face_points(x), cot, js, tspec, dtype)
+
+
+def _top_face_points(x):
+    """x with rows 8-13 on the top faces (a coordinate exactly 1.0, where
+    the upper corner clamps onto the lower), at the clamped corner
+    (1, 1, 1) and at the origin."""
+    x = x.copy()
+    x[8:11] = [[1.0, 0.3, 0.6], [0.2, 1.0, 0.5], [0.7, 0.4, 1.0]]
+    x[11], x[12], x[13] = [1.0, 1.0, 0.25], 1.0, 0.0
+    return x
+
+
+def _assert_cells_match_jax(x, cot, js, tspec, dtype):
+    """mm_grad_table_cells_plain against JAX's _mm_grad_table on x: rtol
+    1e-5 in f32, 8e-3 under bf16 (one rounding of a total that sums in
+    another f32 order), atol 1e-6 of the largest entry."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    mm_j = np.asarray(hf._mm_grad_table(jnp.asarray(x), jnp.asarray(cot),
+                                        js, jdt))
+    mm_c = th.mm_grad_table_cells_plain(torch.from_numpy(x),
+                                        torch.from_numpy(cot), tspec, tdt)
+    assert mm_c.shape == mm_j.shape and np.abs(mm_j).max() > 0
+    np.testing.assert_allclose(_np(mm_c), mm_j,
+                               rtol=1e-5 if dtype == "f32" else 8e-3,
+                               atol=1e-6 * np.abs(mm_j).max())
+
+
+# specs with dense matmul levels: the flagship-like one, the same with
+# aligned corners and smoothstep, and one with two dense levels (res 16
+# and 24 at C = 8)
+_CELL_SPECS = {
+    "L2xC16": _SPECS["L2xC16"],
+    "L2xC16_align_smooth": dict(_SPECS["L2xC16"], align_corners=True,
+                                interpolation="smoothstep"),
+    "L6xC8": dict(input_dim=3, num_levels=6, level_dim=8, base_resolution=16,
+                  log2_hashmap_size=17, desired_resolution=128,
+                  hash_variant="additive"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["uniform", "ray", "morton"])
+@pytest.mark.parametrize("name", sorted(_CELL_SPECS))
+def test_mm_grad_table_cells_matches_jax(monkeypatch, name, kind, dtype):
+    """The card design's arithmetic (mm_grad_table_cells_plain: each
+    point's cell, a stable sort by cell, per-cell corner sums, the per-row
+    gather of 8 corners with clamped upper corners dropped) against JAX's
+    _mm_grad_table at uniform, ray-ordered and Morton-ordered points, with
+    points outside [0, 1]^3, NaN, on the top faces and at the clamped
+    corner: a corner-mapping error shows here, before any card run."""
+    monkeypatch.setenv("RAW_NGP_MM_LEVELS", "auto")
+    js = JSpec.create(**_CELL_SPECS[name])
+    tspec = TSpec.create(**_CELL_SPECS[name])
+    assert th.matmul_split(tspec) == hf._matmul_split(js) > 0
+    x = _top_face_points(_kind_points(kind, 1500))
+    cot = np.random.default_rng(4).standard_normal(
+        (x.shape[0], js.output_dim)).astype(np.float32)
+    _assert_cells_match_jax(x, cot, js, tspec, dtype)
 
 
 def test_encode_plain_and_default_paths_agree():
