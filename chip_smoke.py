@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (four sources) with nvcc for sm_90a (one nvcc per source, in
               parallel), print each kernel's registers, stack frame and
               spills (ptxas), and fail if an instantiation of the encode
-              forward or input gradient spills or keeps a stack frame;
+              forward or input gradient, or of B2's flat form (main pass,
+              fix-up, join), spills or keeps a stack frame;
   2. compact — the compaction kernel against its plain version at the
               render's shape (M = 1,048,576 records, m_pad = 262,144
               slots), keep rates 0.03 / 0.25 / 0.9 plus a full mask and an
@@ -32,15 +33,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launch counters reset just before and read just after; the
               images must be finite and one chunk must agree with the same
               render on the plain path on the card;
-  5. segsum — kernel B2 (sorted segment totals) against its plain version
-              at the flagship's level-1 shape (1,048,576 records of
-              262,144 points into 524,288 rows, 16 channels), random keys
-              within rtol 1e-5, and a dense-skew stream within rtol 1e-5
-              plus 2^-20 of each row's absolute sum (within_sum_error);
-              two calls bitwise equal on each; both streams timed;
+  5. segsum — kernel B2's outer mode at the flagship's level-1 shape
+              (1,048,576 records of 262,144 points into 524,288 rows, 16
+              channels) in both forms: the [n_rows, 2C] totals (off the
+              training path) and the flat form the table gradient calls
+              (G0[r] + G1[r - 1] written into the flat rows), each against
+              its plain version, random keys within rtol 1e-5 and a
+              dense-skew stream within rtol 1e-5 plus 2^-20 of each row's
+              absolute sum (within_sum_error); the flat form bit for bit
+              the totals plus combine_totals_plain (one f32 add a row);
+              two calls bitwise equal on each; both streams timed, split
+              by stage; the plain versions and zero_ + index_add_ timed
+              beside them;
   6. encode_bwd — the encode's table gradient (dense-level kernels: cell
               keys, torch.sort by cell, cell sums, edge fix-up, gather;
-              record kernel, g packing, torch.sort, B2, combine kernel) on
+              record kernel, g packing, torch.sort, B2's flat form) on
               the kernel path against the plain path at B = 262,144,
               uniform and ray-ordered points, f32 and bf16: the window
               rows within rtol 1e-5 of the largest entry, the dense rows
@@ -49,12 +56,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               dense level alone (two calls bitwise equal; its device time
               split into the keys, the sort and the passes; the sort alone
               on CUDA events; zero_ + index_add_ of its exact products as
-              the library yardstick) and the two glue kernels (bit-exact)
+              the library yardstick) and the packing of g (bit-exact)
               timed;
   7. train  — the flagship Trainer on make_synthetic_scene(36, 2, 128,
               128) for 128 steps (8 grid refreshes) with every launch
-              counter reset just before and read just after: all seven
-              kernels launched (the dense-level kernel once a step), finite
+              counter reset just before and read just after: all six
+              kernels launched (the dense-level kernel and B2's flat form
+              once a step; the 2C totals never), finite
               losses that fall (last 8 below the first 8), finite params
               and EMA, the val PSNR (EMA), one step on a fixed batch
               that agrees between the kernel path and the plain path, and
@@ -78,10 +86,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pose_opt.noise 0.05 and train.iters = 128 (so the annealing
               ramp and the pose freeze at int(0.33 * 128) fall inside)
               trained 128 steps by its Trainer, every launch counter reset
-              just before and read just after: all nine kernels of the
+              just before and read just after: all eight kernels of the
               path launched (compaction forward and backward, encode,
-              records, B2, the dense-level gradient once a step, g
-              packing, combine, encode input gradient), finite losses that
+              records, B2's flat form and the dense-level gradient once a
+              step, g packing, encode input gradient), finite losses that
               fall, finite params, EMA and pose params, nonzero pose
               params, the Procrustes pose errors before and after (printed, not
               gated), one fixed-batch step whose loss, net gradients and
@@ -261,12 +269,32 @@ def phase_build():
     return ptxas
 
 
-def check_encode_registers(ptxas):
-    """The encode's two gathers keep every channel quad, window and row in
-    registers: no instantiation spills or keeps a stack frame."""
-    for k in ptxas.get("hash_encode", ()):
-        if k["kernel"].startswith(("hash_encode_kernel",
-                                   "encode_input_grad_kernel")):
+# kernel entry -> (source, instantiations) that must keep everything in
+# registers: the encode's two gathers (every channel quad, window and row)
+# and B2's flat form (its running totals and the previous segment's G1)
+REGISTER_CHECKED = {
+    "hash_encode": ("hash_encode", ("hash_encode_kernel",)),
+    "encode_input_grad": ("hash_encode", ("encode_input_grad_kernel",)),
+    "segment_grad_outer": ("segsum", ("segsum_outer_kernel<",
+                                      "segsum_edge_fixup_kernel<",
+                                      "segsum_flat_join_kernel")),
+}
+
+
+def checked_instantiations(ptxas, entry):
+    """The ptxas reports of REGISTER_CHECKED[entry] (for B2 only the flat
+    form's instantiations: template argument `true`)."""
+    source, prefixes = REGISTER_CHECKED[entry]
+    return [k for k in ptxas.get(source, ())
+            if k["kernel"].startswith(prefixes)
+            and not (source == "segsum" and k["kernel"].endswith("false>"))]
+
+
+def check_registers(ptxas):
+    """No instantiation of REGISTER_CHECKED spills or keeps a stack
+    frame."""
+    for entry in REGISTER_CHECKED:
+        for k in checked_instantiations(ptxas, entry):
             check(k["spill_stores"] == 0 and k["spill_loads"] == 0
                   and k["stack_frame"] == 0,
                   f"build: {k['kernel']} spills or keeps a stack frame {k}")
@@ -472,17 +500,24 @@ def _outer_stream(dev, M, B, n_rows, C, skew):
 
 
 def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
+    """B2's outer mode at level 1 in both of its forms, random keys and the
+    skew stream: the 2C totals (segment_totals_outer; off the training
+    path, the flat form's oracle) and the flat form the table gradient
+    calls (segment_grad_outer: G0[r] + G1[r - 1] written straight into the
+    flat rows), each against its plain version, the flat form also bit for
+    bit against the 2C totals plus combine_totals_plain; then the times of
+    both, the plain versions' and the library yardsticks'. Returns the two
+    `kernels` entries."""
     import torch
     from raw_ngp_torch.kernels import segsum as ts
-    errs, skew_dev = {}, None
+    errs, flat_errs, skew_dev, flat_skew = {}, {}, None, None
     for skew, rtol in ((False, 1e-5), (True, 1e-5)):
         keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
                                                       skew)
-        k = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
-        k2 = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows,
-                                     C)
-        p = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words,
-                                          n_rows, C)
+        stream = (keys_s, perm, w_word, g_words, n_rows, C)
+        k = ts.segment_totals_outer(*stream)
+        k2 = ts.segment_totals_outer(*stream)
+        p = ts.segment_totals_outer_plain(*stream)
         torch.cuda.synchronize()
         check(same_bits(k, k2), f"segsum skew={skew}: two calls differ")
         empty = torch.ones(n_rows, dtype=torch.bool, device=dev)
@@ -500,7 +535,7 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
         longest = int(torch.unique_consecutive(keys_s, return_counts=True)[1]
                       .max())
         prof = profile_device(lambda: ts.segment_totals_outer(
-            keys_s, perm, w_word, g_words, n_rows, C, out=k), 20, "call")
+            *stream, out=k), 20, "call")
         dev_ms = prof.get("device_busy_ms_per_call")
         split = stage_split(prof, SEGSUM_STAGES, "zero_fill")
         if skew:
@@ -513,15 +548,47 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
               f"({-(-longest // 128)} chunks); device {dev_ms} ms "
               f"{json.dumps(split)}: ok")
 
+        # the flat form: the oracle's bits, its plain version's values
+        flat = ts.segment_grad_outer(*stream)
+        flat_2 = ts.segment_grad_outer(*stream)
+        oracle = ts.combine_totals_plain(k, torch.empty(n_rows * C,
+                                                         device=dev))
+        flat_p = ts.segment_grad_outer_plain(*stream)
+        torch.cuda.synchronize()
+        check(same_bits(flat, oracle), f"segment_grad_outer skew={skew}: "
+              "differs in its bits from segment_totals_outer + "
+              "combine_totals_plain")
+        check(same_bits(flat, flat_2),
+              f"segment_grad_outer skew={skew}: two calls differ")
+        flat_mass = (mass[:, :C] + torch.cat(
+            [mass.new_zeros(1, C), mass[:-1, C:]])).reshape(-1)
+        ferr = float((flat - flat_p).abs().max())
+        ok = (within_sum_error(flat, flat_p, flat_mass, rtol) if skew
+              else torch.allclose(flat, flat_p, rtol=rtol, atol=1e-5))
+        check(ok, f"segment_grad_outer skew={skew}: max abs err {ferr} "
+                  f"exceeds the bound (rtol {rtol})")
+        flat_errs[skew] = ferr
+        prof = profile_device(lambda: ts.segment_grad_outer(
+            *stream, out=flat), 20, "call")
+        f_dev = prof.get("device_busy_ms_per_call")
+        f_split = stage_split(prof, FLAT_STAGES, "zero_fill")
+        if skew:
+            flat_skew = f_dev
+        print(f"[segsum] flat form skew={skew}: bitwise equal to the 2C "
+              f"totals + combine_totals_plain and between two calls; max "
+              f"abs err "
+              f"to its plain version {ferr:.3e}; device {f_dev} ms, "
+              f"{prof.get('kernel_launches_per_call')} device launches "
+              f"{json.dumps(f_split)}: ok")
+
     keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
                                                   False)
+    stream = (keys_s, perm, w_word, g_words, n_rows, C)
     out = torch.empty(n_rows, 2 * C, device=dev)
-    ms = time_ms(lambda: ts.segment_totals_outer(
-        keys_s, perm, w_word, g_words, n_rows, C, out=out), 50)
-    dev_ms = device_ms(lambda: ts.segment_totals_outer(
-        keys_s, perm, w_word, g_words, n_rows, C, out=out))
+    ms = time_ms(lambda: ts.segment_totals_outer(*stream, out=out), 50)
+    dev_ms = device_ms(lambda: ts.segment_totals_outer(*stream, out=out))
     plain_ms = time_ms(lambda: ts.segment_totals_outer_plain(
-        keys_s, perm, w_word, g_words, n_rows, C, out=out), 5)
+        *stream, out=out), 5)
     prod = ts._outer_products(perm, w_word, g_words, C)
     keys64 = keys_s.long()
     library_ms = time_ms(lambda: out.zero_().index_add_(0, keys64, prod), 20)
@@ -531,12 +598,12 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
     n_ops = 2 * 2 * C * M          # one multiply and one add per channel
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_FLOP_PER_S * 1e3
-    print(f"[segsum] kernel {ms:.4f} ms (zero fill included; device "
+    print(f"[segsum] 2C totals {ms:.4f} ms (zero fill included; device "
           f"{dev_ms} ms), plain "
           f"{plain_ms:.4f} ms, index_add_ of the products {library_ms:.4f} "
           f"ms; {n_bytes} bytes ({bytes_ms * 1e3:.2f} us), {n_ops} flop "
           f"({ops_ms * 1e3:.2f} us)")
-    return dict(name="segment_totals", route="cuda",
+    k_2c = dict(name="segment_totals", route="cuda",
                 source="raw_ngp_torch/csrc/segsum.cu",
                 replaces="raw_ngp_tpu/kernels/segsum_pallas.py:124",
                 max_abs_err=errs[False], max_abs_err_skew=errs[True], ms=ms,
@@ -545,7 +612,49 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms,
                 library="index_add_ of the bf16-rounded products",
-                skew_device_ms=skew_dev, deterministic=True)
+                skew_device_ms=skew_dev, on_main_path=False,
+                deterministic=True)
+
+    # the flat form
+    flat = torch.empty(n_rows * C, device=dev)
+    f_ms = time_ms(lambda: ts.segment_grad_outer(*stream, out=flat), 50)
+    f_dev = device_ms(lambda: ts.segment_grad_outer(*stream, out=flat))
+    f_plain = time_ms(lambda: ts.segment_grad_outer_plain(*stream, out=flat),
+                      5)
+    # the library call: one zero_ + index_add_ of the 2M rounded products
+    # into the flat rows keys (w0 g) and keys + 1 (w1 g)
+    lib_rows = torch.cat([keys64, keys64 + 1])
+    lib_vals = torch.cat([prod[:, :C], prod[:, C:]])
+    keep = lib_rows < n_rows
+    lib_rows, lib_vals = lib_rows[keep], lib_vals[keep].contiguous()
+    flat_rows = flat.view(n_rows, C)
+    f_lib = time_ms(lambda: flat_rows.zero_().index_add_(0, lib_rows,
+                                                          lib_vals), 20)
+    f_lib_dev = device_ms(lambda: flat_rows.zero_().index_add_(
+        0, lib_rows, lib_vals))
+    f_bytes = 12 * M + 4 * n_words * rows_read + 4 * C * n_rows
+    f_bytes_ms = f_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[segsum] flat form {f_ms:.4f} ms (zero fill included; device "
+          f"{f_dev} ms), plain {f_plain:.4f} ms, zero_ + "
+          f"index_add_ of the products into rows keys and keys + 1 "
+          f"{f_lib:.4f} ms (device {f_lib_dev} ms); {f_bytes} bytes "
+          f"({f_bytes_ms * 1e3:.2f} us), {n_ops} flop "
+          f"({ops_ms * 1e3:.2f} us)")
+    k_flat = dict(name="segment_grad_outer", route="cuda",
+                  source="raw_ngp_torch/csrc/segsum.cu",
+                  replaces="raw_ngp_tpu/kernels/segsum_pallas.py:124",
+                  max_abs_err=flat_errs[False],
+                  max_abs_err_skew=flat_errs[True], ms=f_ms,
+                  device_ms=f_dev, plain_ms=f_plain,
+                  bound_ms=max(f_bytes_ms, ops_ms),
+                  bound_by="bytes" if f_bytes_ms >= ops_ms else "operations",
+                  library_ms=f_lib, library_device_ms=f_lib_dev,
+                  library="zero_ + index_add_ of the bf16-rounded products "
+                          "into rows keys and keys + 1",
+                  skew_device_ms=flat_skew,
+                  bit_equal_to_totals_plus_combine=True,
+                  deterministic=True)
+    return k_2c, k_flat
 
 
 def ray_points(B, gen, dev, per_ray=32):
@@ -616,6 +725,7 @@ DENSE_STAGES = (("cell_keys_kernel", "keys"),
 SEGSUM_STAGES = (("segsum_outer_kernel", "main"),
                  ("segsum_edge_group_kernel", "group_sums"),
                  ("segsum_edge_fixup_kernel", "fixup"))
+FLAT_STAGES = SEGSUM_STAGES + (("segsum_flat_join_kernel", "join"),)
 
 
 def stage_split(prof, stages, rest):
@@ -633,10 +743,10 @@ def stage_split(prof, stages, rest):
 def phase_encode_bwd(dev, spec, B=262144):
     """The table gradient, kernel path against plain path (uniform and
     ray-ordered points, f32 and bf16), then its time in bf16 (the
-    flagship's compute dtype), that of its pieces, and the three kernels
-    of the table gradient on their own: the dense level's scatter (with
-    index_add_ of its exact products as the library yardstick), the
-    packing of g and the combine."""
+    flagship's compute dtype), that of its pieces (the window levels' part
+    is the records, the packing, the sort and B2's flat form), and two
+    kernels on their own: the dense level's gradient (with index_add_ of
+    its exact products as the library yardstick) and the packing of g."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -806,47 +916,28 @@ def phase_encode_bwd(dev, spec, B=262144):
                  window_part_bound_ms=window_bound,
                  top_kernels=prof.get("top_kernels"), deterministic=True)
 
-    # the glue kernels at the flagship's shapes, against their plain versions
+    # the packing of g at the flagship's shape, against its plain version
     words = th.pack_g_words(g, spec)
     check(torch.equal(words, th.pack_g_words_plain(g, spec))
           and same_bits(words, th.pack_g_words(g, spec)),
           "pack_g_words: words differ from the plain version or between "
           "two calls")
-    R = spec.n_params - spec.offsets[th.matmul_split(spec)]
-    totals = torch.randn(R, 2 * C, generator=gen, device=dev)
-    comb = torch.empty(R * C, device=dev)
-    th.combine_totals(totals, comb)
-    comb_2 = th.combine_totals(totals, torch.empty_like(comb))
-    comb_p = th.combine_totals_plain(totals, torch.empty_like(comb))
-    torch.cuda.synchronize()
-    check(same_bits(comb, comb_p) and same_bits(comb, comb_2),
-          "combine_totals: differs from the plain version in its bits or "
-          "between two calls")
-    glue = []
-    n_words = words.numel()
-    for name, src, fn, plain_fn, nb in (
-            ("pack_g_words", "raw_ngp_tpu/kernels/hash_fused.py:666",
-             lambda: th.pack_g_words(g, spec),
-             lambda: th.pack_g_words_plain(g, spec),
-             B * (spec.num_levels - th.matmul_split(spec)) * C * 2
-             + 4 * n_words),
-            ("combine_totals", "raw_ngp_tpu/kernels/hash_fused.py:686",
-             lambda: th.combine_totals(totals, comb),
-             lambda: th.combine_totals_plain(totals, comb),
-             R * 2 * C * 4 + R * C * 4)):
-        k_ms, k_dev = time_ms(fn, 50), device_ms(fn)
-        p_ms = time_ms(plain_fn, 10)
-        b_ms = nb / HBM_BYTES_PER_S * 1e3
-        print(f"[encode_bwd] {name}: kernel {k_ms:.4f} ms (device {k_dev} "
-              f"ms), plain {p_ms:.4f} ms, bit-exact; {nb} bytes "
-              f"({b_ms * 1e3:.2f} us)")
-        glue.append(dict(name=name, route="cuda",
-                         source="raw_ngp_torch/csrc/hash_grad.cu",
-                         replaces=src, max_abs_err=0.0, ms=k_ms,
-                         device_ms=k_dev, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by="bytes", library_ms=None,
-                         deterministic=True))
-    return [whole, mm_k] + glue
+    k_ms = time_ms(lambda: th.pack_g_words(g, spec), 50)
+    k_dev = device_ms(lambda: th.pack_g_words(g, spec))
+    p_ms = time_ms(lambda: th.pack_g_words_plain(g, spec), 10)
+    nb = (B * (spec.num_levels - th.matmul_split(spec)) * C * 2
+          + 4 * words.numel())
+    b_ms = nb / HBM_BYTES_PER_S * 1e3
+    print(f"[encode_bwd] pack_g_words: kernel {k_ms:.4f} ms (device {k_dev} "
+          f"ms), plain {p_ms:.4f} ms, bit-exact; {nb} bytes "
+          f"({b_ms * 1e3:.2f} us)")
+    pack = dict(name="pack_g_words", route="cuda",
+                source="raw_ngp_torch/csrc/hash_grad.cu",
+                replaces="raw_ngp_tpu/kernels/hash_fused.py:666",
+                max_abs_err=0.0, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by="bytes", library_ms=None,
+                deterministic=True)
+    return whole, mm_k, pack
 
 
 def aten_ops(fn):
@@ -1260,27 +1351,28 @@ def profile_device(fn, reps, unit):
 
 def _counters():
     from raw_ngp_torch.kernels.compact import compact_attrs, compact_attrs_bwd
-    from raw_ngp_torch.kernels.hash_encode import (combine_totals,
-                                                   encode_input_grad,
+    from raw_ngp_torch.kernels.hash_encode import (encode_input_grad,
                                                    hash_encode, mm_grad_table,
                                                    pack_g_words,
                                                    window_records)
-    from raw_ngp_torch.kernels.segsum import (segment_totals,
+    from raw_ngp_torch.kernels.segsum import (segment_grad_outer,
+                                              segment_totals,
                                               segment_totals_outer)
     return {"compact_attrs": compact_attrs, "hash_encode": hash_encode,
             "hash_encode_bwd": window_records,
+            "segment_grad_outer": segment_grad_outer,
             "segment_totals": segment_totals_outer,
             "compact_attrs_bwd": compact_attrs_bwd,
             "encode_input_grad": encode_input_grad,
             "segment_totals_channel": segment_totals,
-            "mm_grad_table": mm_grad_table, "pack_g_words": pack_g_words,
-            "combine_totals": combine_totals}
+            "mm_grad_table": mm_grad_table, "pack_g_words": pack_g_words}
 
 
-# the kernels each path must launch
+# the kernels each path must launch, and those it must not: B2's flat
+# form writes the window rows, so its 2C totals are off the path
 TRAIN_KERNELS = ("compact_attrs", "hash_encode", "hash_encode_bwd",
-                 "segment_totals", "mm_grad_table", "pack_g_words",
-                 "combine_totals")
+                 "segment_grad_outer", "mm_grad_table", "pack_g_words")
+OFF_PATH_KERNELS = ("segment_totals",)
 POSE_KERNELS = TRAIN_KERNELS + ("compact_attrs_bwd", "encode_input_grad")
 
 
@@ -1483,10 +1575,14 @@ def run_steps(tr, steps, kernels, what, capture_at=None):
     launches["hash_encode_by_caller"] = by_caller
     for name in kernels:
         check(launches[name] > 0, f"{what}: kernel {name} was never launched")
-    # one backward a step, one dense level on the flagship grid
-    check(launches["mm_grad_table"] == steps,
-          f"{what}: the dense-level kernel launched "
-          f"{launches['mm_grad_table']} times in {steps} steps")
+    for name in OFF_PATH_KERNELS:
+        check(launches[name] == 0, f"{what}: kernel {name} is off the path "
+              f"but launched {launches[name]} times")
+    # one backward a step, one dense and one window level on the flagship
+    # grid
+    for name in ("mm_grad_table", "segment_grad_outer"):
+        check(launches[name] == steps, f"{what}: kernel {name} launched "
+              f"{launches[name]} times in {steps} steps")
     loss = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(loss).all()), f"{what}: a loss is not finite")
     first, last = float(loss[:8].mean()), float(loss[-8:].mean())
@@ -1904,14 +2000,14 @@ def main() -> int:
         return 0
     try:
         ptxas = phase_build()
-        check_encode_registers(ptxas)
+        check_registers(ptxas)
         k_compact = phase_compact(dev)
         from raw_ngp_torch.models.ngp import make_field_spec
         cfg = flagship_config()
         spec = make_field_spec(cfg).grid_spec
         k_encode = phase_encode(dev, cfg)
-        k_segsum = phase_segsum(dev)
-        k_bwd, k_mm, k_pack, k_comb = phase_encode_bwd(dev, spec)
+        k_segsum, k_flat = phase_segsum(dev)
+        k_bwd, k_mm, k_pack = phase_encode_bwd(dev, spec)
         k_compact_bwd = phase_compact_bwd(dev)
         k_input = phase_encode_input(dev, cfg)
         k_channel = phase_segsum_channel(dev)
@@ -1923,8 +2019,8 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
-    for k in (k_compact, k_compact_bwd, k_encode, k_bwd, k_mm, k_pack, k_comb,
-              k_input, k_segsum, k_channel):
+    for k in (k_compact, k_compact_bwd, k_encode, k_bwd, k_mm, k_pack,
+              k_input, k_flat, k_segsum, k_channel):
         k = dict(k)
         # this slice's main path is the pose phase; the earlier paths'
         # counts ride beside it
@@ -1935,12 +2031,8 @@ def main() -> int:
             k["launches_by_caller"] = {
                 "pose": launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
-        kernel_fn = {"hash_encode": "hash_encode_kernel",
-                     "encode_input_grad": "encode_input_grad_kernel"}.get(
-                         k["name"])
-        if kernel_fn:
-            k["ptxas"] = [p for p in ptxas.get("hash_encode", ())
-                          if p["kernel"].startswith(kernel_fn)]
+        if k["name"] in REGISTER_CHECKED:
+            k["ptxas"] = checked_instantiations(ptxas, k["name"])
         kernels.append(k)
     print(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"render": render}))

@@ -1,6 +1,6 @@
 // Table gradient of the hash-grid encode, for Hopper (sm_90a): the dense
 // (matmul) levels' gradient, summed in a fixed order without atomics, and
-// the two glue passes around kernel B2 on the window levels.
+// the packing of g into kernel B2's payload words for the window levels.
 //
 // mm_grad_table replaces hash_fused._mm_grad_table
 // (raw_ngp_tpu/kernels/hash_fused.py:349-378), the transposed one-hot
@@ -82,13 +82,9 @@
 // g-channels of every point as ceil(C/2) words of two *truncated* bf16
 // halves (hash_fused._pack_bf16_pairs; exact for bf16 g, the top 16 bits
 // of f32 g), [L - m, B, ceil(C/2)] int32 in one launch, replacing C
-// column slices and the bit operations of pack_bf16_pairs per level.
-//
-// combine_totals writes the window levels' gradient from B2's totals
-// [R, 2C]: grad[r] = G0[r] + G1[r - 1] (hash_fused.py:686; the first
-// window row receives no G1), straight into the flat gradient, replacing
-// a concatenation, an add and a copy. Both glue passes are bound by
-// bytes (one read and one write of their tensors).
+// column slices and the bit operations of pack_bf16_pairs per level. It
+// is bound by bytes (one read of g and one write of the words). B2's flat
+// mode (segsum.cu) writes the window levels' gradient itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -354,18 +350,6 @@ __global__ void pack_g_words_kernel(const void* __restrict__ g,
   words[t] = hi | lo;
 }
 
-__global__ void combine_totals_kernel(const float* __restrict__ totals,
-                                      float* __restrict__ grad, int64_t R,
-                                      int C) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= R * C) return;
-  const int64_t r = t / C;
-  const int c = (int)(t - r * C);
-  const float g0 = totals[r * 2 * C + c];
-  grad[t] = r > 0 ? __fadd_rn(g0, totals[(r - 1) * 2 * C + C + c])
-                  : __fadd_rn(g0, 0.0f);
-}
-
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -488,15 +472,5 @@ extern "C" int pack_g_words_fwd(const void* g, uint32_t* words, int64_t B,
     pack_g_words_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
         g, words, B, L, C, m);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// totals [R, 2C] f32 (B2's G0 | G1 columns) -> grad [R * C] f32 with
-// grad[r] = G0[r] + G1[r - 1] (R > 0). Returns cudaGetLastError().
-extern "C" int combine_totals_fwd(const float* totals, float* grad, int64_t R,
-                                  int C, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  combine_totals_kernel<<<blocks_for(R * C), kThreads, 0, s>>>(totals, grad,
-                                                               R, C);
   return static_cast<int>(cudaGetLastError());
 }

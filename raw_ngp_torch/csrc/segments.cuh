@@ -161,28 +161,35 @@ __device__ __forceinline__ void group_sum(const int32_t* __restrict__ keys,
   }
 }
 
-// The fix-up of chunk w (see the note above); the warp's lanes hold the
-// row's channels lane + 32 s. Warp-uniform: every lane takes the same
-// branches.
-template <int kPerLane>
-__device__ __forceinline__ void fixup_chain(const int32_t* __restrict__ keys,
-                                            int M,
-                                            const float* __restrict__ head,
-                                            const float* __restrict__ tail,
-                                            const float* __restrict__ group,
-                                            float* __restrict__ out,
-                                            int n_rows, int width, int64_t w,
-                                            int lane) {
-  constexpr int kBatch = 64 / kPerLane < 32 ? 64 / kPerLane : 32;
+// Whether chunk w starts a row that crosses into chunk w + 1 (the row's
+// first record lies in chunk w, its last beyond it); sets *row to its key.
+// Warp-uniform.
+__device__ __forceinline__ bool crossing_row(const int32_t* __restrict__ keys,
+                                             int M, int64_t w, int* row) {
   const int64_t s0 = w * kChunk;
-  if (s0 >= M) return;
+  if (s0 >= M) return false;
   const int64_t end = s0 + kChunk < M ? s0 + kChunk : M;
-  if (end >= M) return;
+  if (end >= M) return false;
   const int r = keys[end - 1];
-  if (keys[end] != r) return;                           // nothing continues
-  if (keys[s0] == r && s0 > 0 && keys[s0 - 1] == r) return;   // a middle
-  if (r < 0 || r >= n_rows) return;                     // dropped
-  float acc[kPerLane];
+  if (keys[end] != r) return false;                     // nothing continues
+  if (keys[s0] == r && s0 > 0 && keys[s0 - 1] == r) return false;  // a middle
+  *row = r;
+  return true;
+}
+
+// The total of row r, which starts in chunk w and crosses (crossing_row):
+// acc = tail[w] + the heads of the chunks after it, in chunk order (see
+// the note above); the warp's lanes hold the row's channels lane + 32 s.
+// Returns the row's last chunk. Warp-uniform.
+template <int kPerLane>
+__device__ __forceinline__ int64_t row_total(const int32_t* __restrict__ keys,
+                                             int M,
+                                             const float* __restrict__ head,
+                                             const float* __restrict__ tail,
+                                             const float* __restrict__ group,
+                                             int width, int64_t w, int r,
+                                             int lane, float* acc) {
+  constexpr int kBatch = 64 / kPerLane < 32 ? 64 / kPerLane : 32;
 #pragma unroll
   for (int s = 0; s < kPerLane; ++s) {
     const int c = lane + 32 * s;
@@ -211,9 +218,28 @@ __device__ __forceinline__ void fixup_chain(const int32_t* __restrict__ keys,
     const int stop = ~mask ? __ffs(~mask) - 1 : 32;  // the row's last chunk
     add_rows<kPerLane>(acc, head, q, stop + 1 < limit ? stop + 1 : limit,
                        width, lane);
-    if (stop < limit) break;
+    if (stop < limit) return q + stop;
     q += limit;
   }
+}
+
+// The fix-up of chunk w (see the note above): the row that starts there
+// and crosses, stored once into out; a row outside [0, n_rows) is dropped.
+// Warp-uniform.
+template <int kPerLane>
+__device__ __forceinline__ void fixup_chain(const int32_t* __restrict__ keys,
+                                            int M,
+                                            const float* __restrict__ head,
+                                            const float* __restrict__ tail,
+                                            const float* __restrict__ group,
+                                            float* __restrict__ out,
+                                            int n_rows, int width, int64_t w,
+                                            int lane) {
+  int r;
+  if (!crossing_row(keys, M, w, &r)) return;
+  if (r < 0 || r >= n_rows) return;                     // dropped
+  float acc[kPerLane];
+  row_total<kPerLane>(keys, M, head, tail, group, width, w, r, lane, acc);
   float* dst = out + (int64_t)r * width;
 #pragma unroll
   for (int s = 0; s < kPerLane; ++s) {

@@ -48,6 +48,25 @@
 // and the fix-up, which reads two or three keys a chunk. The skew
 // streams' row of ~940k records spans some 7,300 chunks: 230 group sums
 // of 32 chunks each, which its fix-up warp adds 32 at a time.
+//
+// The flat mode (segment_grad_outer_fwd; kFlat) writes the table
+// gradient's window rows itself, out[r] = G0[r] + G1[r - 1] in [n_rows *
+// C] f32 (JAX's g0 + shift(g1), hash_fused.py:682-686), so neither the
+// [n_rows, 2C] totals nor a combine pass exist. The sums are the 2C mode's,
+// bit for bit (the same walk, chunk edges and fix-up); only where a
+// finished total goes changes. Take the finished keys in order: each row
+// with a contribution belongs to one consecutive pair (a, b), written by
+// one warp with one __fadd_rn (write_pair), no atomics. A pair of two
+// plain segments of one chunk is written by the main kernel, which keeps
+// the previous plain segment's key and G1 in registers (lanes C..2C-1
+// hold G1; a shuffle moves it onto lanes 0..C-1; at C = 32 each lane holds
+// both halves). Every other pair involves a chunk's first or last plain
+// segment (their G0 / G1 go to per-chunk slots) or a row that crosses
+// chunks (the fix-up stores its total in a slot with the chunk where it
+// ends), and a third small launch, the join, writes it: one warp a chunk,
+// its successor found in O(1) (segsum_flat_join_kernel). The wrapper
+// zeroes `out` once, which leaves the rows between pairs at +0. Bound at
+// level 1: 12.6 + 8.4 MB read, 33.5 MB written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,14 +88,42 @@ __device__ __forceinline__ float lo_bf16(uint32_t w) {
   return __uint_as_float(w << 16);
 }
 
-template <int C>
+// Flat mode: row b of the flat gradient out [n_rows * C] gets
+// __fadd_rn(G0[b], G1[a]) where the finished key before b is a = b - 1;
+// otherwise row a + 1 gets __fadd_rn(+0, G1[a]) and row b
+// __fadd_rn(G0[b], +0). Rows outside [0, n_rows) are dropped, and a dropped
+// key passes no G1 on. Lane c < C holds channel c of both halves.
+__device__ __forceinline__ void write_pair(float* __restrict__ out,
+                                           int n_rows, int C, int lane,
+                                           bool has_a, int a, float g1a,
+                                           bool has_b, int b, float g0b) {
+  if (lane >= C) return;
+  const bool a_in = has_a && a >= 0 && a < n_rows;
+  const bool adj = has_a && has_b && (int64_t)b == (int64_t)a + 1;
+  if (has_b && b >= 0 && b < n_rows) {
+    out[(int64_t)b * C + lane] = __fadd_rn(g0b, adj && a_in ? g1a : 0.0f);
+  }
+  if (a_in && !adj && a + 1 < n_rows) {
+    out[((int64_t)a + 1) * C + lane] = __fadd_rn(0.0f, g1a);
+  }
+}
+
+// The flat mode's per-chunk slots (laid out by edges_of): meta
+// [n_chunks, 4] i32 = (has a plain segment, first plain key, last plain
+// key, last chunk of the row that starts here and crosses); plain
+// [n_chunks, 2C] = (G0 of the first plain segment | G1 of the last);
+// cross [n_chunks, 2C] = the complete total of the crossing row.
+enum Meta { kHasPlain = 0, kFirstKey = 1, kLastKey = 2, kRowEnd = 3 };
+
+template <int C, bool kFlat>
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_outer_kernel(const int32_t* __restrict__ keys,
                     const int32_t* __restrict__ perm,
                     const uint32_t* __restrict__ w_word,
                     const uint32_t* __restrict__ g_words,
                     float* __restrict__ out, float* __restrict__ head,
-                    float* __restrict__ tail, int M, int B, int n_rows) {
+                    float* __restrict__ tail, float* __restrict__ plain,
+                    int32_t* __restrict__ meta, int M, int B, int n_rows) {
   constexpr int kNW = (C + 1) / 2;         // g words per point
   constexpr int kCh = 2 * C;               // output channels per row
   constexpr int kPerLane = (kCh + 31) / 32;
@@ -109,6 +156,42 @@ segsum_outer_kernel(const int32_t* __restrict__ keys,
   bool in_first = true;
   uint32_t* stage = sg[wib];
 
+  // the finished segment `cur`: its head / tail partial, its 2C totals
+  // (the 2C mode), or (the flat mode) the rows of its pair with the
+  // previous plain segment of this chunk, whose key and G1 stay here
+  bool has_prev = false;
+  int prev_key = 0;
+  float prev_g1 = 0.0f;
+  auto finish = [&](bool is_last) {
+    const int which = segments::role(chunk, in_first, is_last);
+    if (!kFlat || which != segments::kPlain) {
+      segments::store<kPerLane>(out, head, tail, chunk, which, cur, n_rows,
+                                kCh, acc, lane);
+      return;
+    }
+    if constexpr (kFlat) {
+      const float g0 = acc[0];
+      float g1;
+      if constexpr (kPerLane == 2) {
+        g1 = acc[1];
+      } else {
+        g1 = __shfl_sync(kFull, acc[0], (lane + C) & 31);
+      }
+      if (has_prev) {
+        write_pair(out, n_rows, C, lane, true, prev_key, prev_g1, true, cur,
+                   g0);
+      } else if (chunk.w == 0) {           // the stream's first key
+        write_pair(out, n_rows, C, lane, false, 0, 0.0f, true, cur, g0);
+      } else {                             // the join pairs it
+        if (lane < C) plain[chunk.w * kCh + lane] = g0;
+        if (lane == 0) meta[chunk.w * 4 + kFirstKey] = cur;
+      }
+      has_prev = true;
+      prev_key = cur;
+      prev_g1 = g1;
+    }
+  };
+
   for (int base = s0; base < end; base += 32) {
     const int n = min(32, end - base);
     const int i = base + lane;
@@ -133,9 +216,7 @@ segsum_outer_kernel(const int32_t* __restrict__ keys,
       const int kj = __shfl_sync(kFull, k, j);
       const uint32_t wj = __shfl_sync(kFull, ww, j);
       if (kj != cur) {
-        segments::store<kPerLane>(out, head, tail, chunk,
-                                  segments::role(chunk, in_first, false), cur,
-                                  n_rows, kCh, acc, lane);
+        finish(false);
         in_first = false;
         cur = kj;
 #pragma unroll
@@ -154,9 +235,14 @@ segsum_outer_kernel(const int32_t* __restrict__ keys,
     }
     __syncwarp();
   }
-  segments::store<kPerLane>(out, head, tail, chunk,
-                            segments::role(chunk, in_first, true), cur, n_rows,
-                            kCh, acc, lane);
+  finish(true);
+  if constexpr (kFlat) {
+    if (lane < C && has_prev) plain[chunk.w * kCh + C + lane] = prev_g1;
+    if (lane == 0) {
+      meta[chunk.w * 4 + kHasPlain] = has_prev;
+      meta[chunk.w * 4 + kLastKey] = prev_key;
+    }
+  }
 }
 
 // the sums of the chunk groups that lie inside one row
@@ -172,18 +258,93 @@ segsum_edge_group_kernel(const int32_t* __restrict__ keys,
 }
 
 // adds each row that crosses chunks from its edge partials, in chunk
-// order (segments::fixup_chain), one warp a chunk
-template <int kPerLane>
+// order (segments::fixup_chain), one warp a chunk; in the flat mode the
+// total and the row's last chunk go to the chunk's cross and meta slots
+// instead, for the join
+template <int kPerLane, bool kFlat>
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_edge_fixup_kernel(const int32_t* __restrict__ keys,
                          const float* __restrict__ head,
                          const float* __restrict__ tail,
                          const float* __restrict__ group,
-                         float* __restrict__ out, int M, int n_rows,
+                         float* __restrict__ out, float* __restrict__ cross,
+                         int32_t* __restrict__ meta, int M, int n_rows,
                          int width) {
-  segments::fixup_chain<kPerLane>(
-      keys, M, head, tail, group, out, n_rows, width,
-      (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5), threadIdx.x & 31);
+  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if constexpr (!kFlat) {
+    segments::fixup_chain<kPerLane>(keys, M, head, tail, group, out, n_rows,
+                                    width, w, lane);
+  } else {
+    int r;
+    if (!segments::crossing_row(keys, M, w, &r)) return;
+    float acc[kPerLane];
+    const int64_t last = segments::row_total<kPerLane>(
+        keys, M, head, tail, group, width, w, r, lane, acc);
+#pragma unroll
+    for (int s = 0; s < kPerLane; ++s) {
+      const int c = lane + 32 * s;
+      if (c < width) cross[w * width + c] = acc[s];
+    }
+    if (lane == 0) meta[w * 4 + kRowEnd] = (int32_t)last;
+  }
+}
+
+// The flat mode's join, one warp a chunk w: the pairs of finished keys
+// that are not two plain segments of one chunk. Chunk w's last finished
+// key a is the row that starts in w and crosses, else w's last plain
+// segment; its successor b is the first finished key of the chunk where
+// a ends (w + 1 for a plain segment, the row's last chunk for a crossing
+// row), or of the chunk after that when a's row fills its last chunk to
+// the end. A crossing row also pairs with w's last plain segment before
+// it, and is the stream's first key when chunk 0 has no plain segment.
+__global__ void __launch_bounds__(kWarps * 32)
+segsum_flat_join_kernel(const int32_t* __restrict__ keys,
+                        const float* __restrict__ plain,
+                        const float* __restrict__ cross,
+                        const int32_t* __restrict__ meta,
+                        float* __restrict__ out, int M, int n_rows, int C) {
+  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int64_t n = ((int64_t)M + kChunk - 1) / kChunk;
+  if (w >= n) return;
+  const int width = 2 * C;
+  const int c = lane < C ? lane : 0;
+  const bool has_plain = meta[w * 4 + kHasPlain] != 0;
+  int a;
+  float g1a;
+  int64_t next;
+  if (segments::crossing_row(keys, M, w, &a)) {
+    const float* total = cross + w * width;
+    if (has_plain) {
+      write_pair(out, n_rows, C, lane, true, meta[w * 4 + kLastKey],
+                 plain[w * width + C + c], true, a, total[c]);
+    } else if (w == 0) {
+      write_pair(out, n_rows, C, lane, false, 0, 0.0f, true, a, total[c]);
+    }
+    g1a = total[C + c];
+    next = meta[w * 4 + kRowEnd];
+  } else if (has_plain) {
+    a = meta[w * 4 + kLastKey];
+    g1a = plain[w * width + C + c];
+    next = w + 1;
+  } else {
+    return;                 // a middle chunk, or one holding only a head
+  }
+  bool has_b = false;
+  int b = 0;
+  float g0b = 0.0f;
+  for (int64_t q = next; q < n && q <= next + 1 && !has_b; ++q) {
+    if (meta[q * 4 + kHasPlain]) {
+      has_b = true;
+      b = meta[q * 4 + kFirstKey];
+      g0b = plain[q * width + c];
+    } else if (segments::crossing_row(keys, M, q, &b)) {
+      has_b = true;
+      g0b = cross[q * width + c];
+    }
+  }
+  write_pair(out, n_rows, C, lane, true, a, g1a, has_b, b, g0b);
 }
 
 unsigned blocks_for(int64_t warps) {
@@ -192,39 +353,62 @@ unsigned blocks_for(int64_t warps) {
 
 int64_t chunks_of(int M) { return ((int64_t)M + kChunk - 1) / kChunk; }
 
-// the group sums and the fix-up of a stream whose main kernel has run;
-// edges holds head, tail and group rows of `width` (n_edge chunk slots)
-template <int kPerLane>
-cudaError_t finish_rows(const int32_t* keys, float* edges, float* out,
-                        int M, int n_rows, int width, int64_t n_edge,
-                        cudaStream_t s) {
-  float* head = edges;
-  float* tail = edges + n_edge * width;
-  float* group = edges + 2 * n_edge * width;
+// The scratch `edges` of a stream with n_edge chunk slots, rows of
+// `width` f32: head, tail, group sums; then, in the flat mode, plain and
+// cross rows and the meta words (segsum.py flat_edge_buffer).
+struct Edges {
+  float *head, *tail, *group, *plain, *cross;
+  int32_t* meta;
+};
+
+Edges edges_of(float* edges, int64_t n_edge, int width) {
+  Edges e;
+  e.head = edges;
+  e.tail = e.head + n_edge * width;
+  e.group = e.tail + n_edge * width;
+  e.plain = e.group
+            + (n_edge + segments::kGroup - 1) / segments::kGroup * width;
+  e.cross = e.plain + n_edge * width;
+  e.meta = reinterpret_cast<int32_t*>(e.cross + n_edge * width);
+  return e;
+}
+
+// the group sums and the fix-up of a stream whose main kernel has run,
+// and in the flat mode the join
+template <int kPerLane, bool kFlat>
+cudaError_t finish_rows(const int32_t* keys, const Edges& e, float* out,
+                        int M, int n_rows, int width, cudaStream_t s) {
   const int64_t n_chunks = chunks_of(M);
   segsum_edge_group_kernel<kPerLane>
       <<<blocks_for((n_chunks + segments::kGroup - 1) / segments::kGroup),
-         kWarps * 32, 0, s>>>(keys, head, group, M, width);
-  const cudaError_t err = cudaGetLastError();
+         kWarps * 32, 0, s>>>(keys, e.head, e.group, M, width);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segsum_edge_fixup_kernel<kPerLane><<<blocks_for(n_chunks), kWarps * 32, 0,
-                                       s>>>(keys, head, tail, group, out, M,
-                                            n_rows, width);
+  segsum_edge_fixup_kernel<kPerLane, kFlat>
+      <<<blocks_for(n_chunks), kWarps * 32, 0, s>>>(
+          keys, e.head, e.tail, e.group, out, e.cross, e.meta, M, n_rows,
+          width);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kFlat) return err;
+  segsum_flat_join_kernel<<<blocks_for(n_chunks), kWarps * 32, 0, s>>>(
+      keys, e.plain, e.cross, e.meta, out, M, n_rows, width / 2);
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, bool kFlat>
 cudaError_t launch(const int32_t* keys, const int32_t* perm,
                    const uint32_t* w_word, const uint32_t* g_words,
                    float* out, float* edges, int M, int B, int n_rows,
                    int64_t n_edge, cudaStream_t s) {
-  segsum_outer_kernel<C><<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
-      keys, perm, w_word, g_words, out, edges, edges + n_edge * 2 * C, M, B,
-      n_rows);
+  const Edges e = edges_of(edges, n_edge, 2 * C);
+  segsum_outer_kernel<C, kFlat><<<blocks_for(chunks_of(M)), kWarps * 32, 0,
+                                  s>>>(
+      keys, perm, w_word, g_words, out, e.head, e.tail, e.plain, e.meta, M,
+      B, n_rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return finish_rows<(2 * C + 31) / 32>(keys, edges, out, M, n_rows, 2 * C,
-                                        n_edge, s);
+  return finish_rows<(2 * C + 31) / 32, kFlat>(keys, e, out, M, n_rows,
+                                               2 * C, s);
 }
 
 constexpr int kMaxChan = 64;                // two channels a lane
@@ -289,6 +473,28 @@ segsum_channel_kernel(const int32_t* __restrict__ keys,
                             n_chan, acc, lane);
 }
 
+template <bool kFlat>
+int launch_outer(const int32_t* keys, const int32_t* perm,
+                 const uint32_t* w_word, const uint32_t* g_words, float* out,
+                 float* edges, int M, int B, int C, int n_rows, int n_edge,
+                 void* stream) {
+  if (n_edge < chunks_of(M)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (C) {
+#define RAW_NGP_CASE(c)                                                     \
+    case c:                                                                 \
+      err = launch<c, kFlat>(keys, perm, w_word, g_words, out, edges, M, B, \
+                             n_rows, n_edge, s);                            \
+      break;
+    RAW_NGP_CASE(1) RAW_NGP_CASE(2) RAW_NGP_CASE(4) RAW_NGP_CASE(8)
+    RAW_NGP_CASE(16) RAW_NGP_CASE(32)
+#undef RAW_NGP_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // keys [M] i32 ascending, packed [ceil(n_chan/2), M] u32 -> out
@@ -304,14 +510,13 @@ extern "C" int segment_totals_fwd(const int32_t* keys, const uint32_t* packed,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Edges e = edges_of(edges, n_edge, n_chan);
   segsum_channel_kernel<<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
-      keys, packed, out, edges, edges + (int64_t)n_edge * n_chan, M, n_rows,
-      n_chan);
+      keys, packed, out, e.head, e.tail, M, n_rows, n_chan);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish_rows<kMaxChan / 32>(keys, edges, out, M,
-                                                      n_rows, n_chan, n_edge,
-                                                      s));
+  return static_cast<int>(finish_rows<kMaxChan / 32, false>(
+      keys, e, out, M, n_rows, n_chan, s));
 }
 
 // keys [M] i32 ascending, perm [M] i32, w_word [*] u32, g_words [B, (C+1)/2]
@@ -327,19 +532,21 @@ extern "C" int segment_totals_outer_fwd(const int32_t* keys,
                                         float* edges, int M, int B, int C,
                                         int n_rows, int n_edge,
                                         void* stream) {
-  if (n_edge < chunks_of(M)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-#define RAW_NGP_CASE(c)                                                     \
-    case c:                                                                 \
-      err = launch<c>(keys, perm, w_word, g_words, out, edges, M, B, n_rows, \
-                      n_edge, s);                                           \
-      break;
-    RAW_NGP_CASE(1) RAW_NGP_CASE(2) RAW_NGP_CASE(4) RAW_NGP_CASE(8)
-    RAW_NGP_CASE(16) RAW_NGP_CASE(32)
-#undef RAW_NGP_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return launch_outer<false>(keys, perm, w_word, g_words, out, edges, M, B,
+                             C, n_rows, n_edge, stream);
+}
+
+// The flat mode, on the same stream: out [n_rows * C] f32, which the
+// caller has zeroed, gets row r = G0[r] + G1[r - 1] (see write_pair);
+// edges is f32 scratch of (4 n_edge + ceil(n_edge / 32)) rows of 2C (head,
+// tail, group sums, plain, cross) followed by 4 n_edge i32 meta words.
+// Returns as segment_totals_outer_fwd.
+extern "C" int segment_grad_outer_fwd(const int32_t* keys,
+                                      const int32_t* perm,
+                                      const uint32_t* w_word,
+                                      const uint32_t* g_words, float* out,
+                                      float* edges, int M, int B, int C,
+                                      int n_rows, int n_edge, void* stream) {
+  return launch_outer<true>(keys, perm, w_word, g_words, out, edges, M, B, C,
+                            n_rows, n_edge, stream);
 }

@@ -1,7 +1,7 @@
 """Hash-grid encode, forward, table gradient and input gradient: wrapper of
 the CUDA kernels in ``csrc/hash_encode.cu`` (encode, window records,
 input gradient), ``csrc/hash_grad.cu`` (the dense levels' table gradient
-and the glue around B2) and ``csrc/segsum.cu`` (kernel B2, through
+and the packing of g for B2) and ``csrc/segsum.cu`` (kernel B2, through
 :mod:`raw_ngp_torch.kernels.segsum`).
 
 Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
@@ -26,9 +26,11 @@ atomics (:func:`mm_grad_table_cells_plain` is that arithmetic in torch,
 for the tests); the window levels as
 ``_window_bwd_table_chunked`` (``:633-689``): g's channel pairs packed
 into B2's payload words once (:func:`pack_g_words`), per level a
-``torch.sort`` of the record keys and kernel B2 (per-row totals of the
-bf16-rounded products w0*g and w1*g), then the combine
-``grad[r] = G0[r] + G1[r-1]`` (:func:`combine_totals`).
+``torch.sort`` of the record keys and kernel B2's flat mode, which sums
+the bf16-rounded products w0*g and w1*g per row and writes
+``grad[r] = G0[r] + G1[r-1]`` into the level's slice itself
+(:func:`raw_ngp_torch.kernels.segsum.segment_grad_outer`). The plain
+path keeps JAX's shape: the totals, then :func:`combine_totals_plain`.
 
 Backward, the input gradient (pose refinement, ``hash_fused.py:760-778``:
 the VJP of the interpolation weights with the table frozen): the kernel
@@ -50,8 +52,9 @@ import os
 import torch
 
 from raw_ngp_torch.kernels import _build
-from raw_ngp_torch.kernels.segsum import (edge_buffer, pack_bf16_pairs,
-                                          round_bf16, segment_totals_outer,
+from raw_ngp_torch.kernels.segsum import (combine_totals_plain, edge_buffer,
+                                          pack_bf16_pairs, round_bf16,
+                                          segment_grad_outer,
                                           segment_totals_outer_plain)
 from raw_ngp_torch.ops.hashgrid import (HashGridSpec, _level_indices,
                                         _smoothstep, hash_encode_01,
@@ -388,16 +391,6 @@ def pack_g_words_plain(g, spec: HashGridSpec):
         for lv, _, _ in level_windows(spec, matmul_split(spec))])
 
 
-def combine_totals_plain(totals, out):
-    """Plain version of :func:`combine_totals`: out [R * C] =
-    (G0[r] + G1[r - 1]) of B2's totals [R, 2C]; the first row receives no
-    G1 (the window levels' records start there)."""
-    C = totals.shape[1] // 2
-    out.view(-1, C).copy_(totals[:, :C] + torch.cat(
-        [totals.new_zeros(1, C), totals[:-1, C:]]))
-    return out
-
-
 def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
                plain: bool = False):
     """Gradient of the flat table from the records of the forward and the
@@ -406,31 +399,40 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
     :func:`mm_grad_table`; g's channel pairs packed once
     (:func:`pack_g_words`); per window level the keys (rows relative to
     the level) sorted and the bf16-rounded outer products summed per row
-    (kernel B2); then :func:`combine_totals` writes G0[r] + G1[r-1] into
-    the window levels' slice. ``plain`` (and CPU tensors) take every
-    kernel's plain version."""
+    (kernel B2). On CUDA, B2's flat mode (:func:`segment_grad_outer`)
+    writes G0[r] + G1[r-1] into each level's slice itself; ``plain`` and
+    CPU tensors take JAX's shape with every kernel's plain version: the
+    levels' [rows, 2C] totals, then :func:`combine_totals_plain` over all
+    of them (the same bits for a finite g; a non-finite g can differ in
+    the first row of a window level after the first: see
+    ``kernels/segsum.py``)."""
     C = spec.level_dim
     m = matmul_split(spec)
     off_m = spec.offsets[m]
     grad = torch.empty(spec.n_params * C, dtype=torch.float32,
                        device=g.device)
-    mm = mm_grad_table_plain if plain else mm_grad_table
-    pack = pack_g_words_plain if plain else pack_g_words
-    seg = segment_totals_outer_plain if plain else segment_totals_outer
-    combine = combine_totals_plain if plain else combine_totals
+    flat = not plain and g.device.type != "cpu"
     if m:
-        mm(x01, g, spec, compute_dtype, out=grad[:off_m * C])
-    words = pack(g, spec)
-    totals = torch.empty(spec.n_params - off_m, 2 * C, dtype=torch.float32,
-                         device=g.device)
+        (mm_grad_table if flat else mm_grad_table_plain)(
+            x01, g, spec, compute_dtype, out=grad[:off_m * C])
+    words = (pack_g_words if flat else pack_g_words_plain)(g, spec)
+    if not flat:
+        totals = torch.empty(spec.n_params - off_m, 2 * C,
+                             dtype=torch.float32, device=g.device)
     for i, (lv, w0, nw) in enumerate(level_windows(spec, m)):
         off = spec.offsets[lv]
         rows = spec.offsets[lv + 1] - off
         keys = base[w0:w0 + nw].reshape(-1) - off
         keys_s, perm = torch.sort(keys, stable=True)
-        seg(keys_s, perm.to(torch.int32), w_word[w0:w0 + nw].reshape(-1),
-            words[i], rows, C, out=totals[off - off_m:off - off_m + rows])
-    combine(totals, out=grad[off_m * C:])
+        stream = (keys_s, perm.to(torch.int32),
+                  w_word[w0:w0 + nw].reshape(-1), words[i], rows, C)
+        if flat:
+            segment_grad_outer(*stream, out=grad[off * C:(off + rows) * C])
+        else:
+            segment_totals_outer_plain(
+                *stream, out=totals[off - off_m:off - off_m + rows])
+    if not flat:
+        combine_totals_plain(totals, out=grad[off_m * C:])
     return grad
 
 
@@ -585,9 +587,6 @@ _ARGTYPES = {
     + [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "pack_g_words_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "combine_totals_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64,
-                                                   ctypes.c_int,
-                                                   ctypes.c_void_p],
 }
 
 
@@ -844,33 +843,6 @@ def pack_g_words(g, spec: HashGridSpec):
 
 
 pack_g_words.launches = 0   # kernel launches, counted where they happen
-
-
-def combine_totals(totals, out):
-    """The window levels' gradient from B2's totals [R, 2C] (columns G0 |
-    G1): out [R * C] f32 = G0[r] + G1[r - 1], none into the first row.
-    CPU tensors take :func:`combine_totals_plain`; CUDA tensors launch the
-    kernel."""
-    if totals.device.type == "cpu":
-        return combine_totals_plain(totals, out)
-    R, C2 = totals.shape
-    if (totals.dtype != torch.float32 or out.dtype != torch.float32
-            or out.device != totals.device or not totals.is_contiguous()
-            or not out.is_contiguous() or C2 % 2
-            or out.numel() != R * C2 // 2):
-        raise ValueError("combine_totals: need contiguous f32 totals [R, 2C] "
-                         "and out [R * C] on one CUDA device")
-    if R == 0:
-        return out
-    err = _lib("combine_totals_fwd")(
-        totals.data_ptr(), out.data_ptr(), R, C2 // 2,
-        torch.cuda.current_stream(totals.device).cuda_stream)
-    _raise_if(err, "combine_totals")
-    combine_totals.launches += 1
-    return out
-
-
-combine_totals.launches = 0   # kernel launches, counted where they happen
 
 
 class _EncodeFn(torch.autograd.Function):

@@ -25,6 +25,23 @@ The plain version, :func:`segment_totals_outer_plain`, is an
 ``index_add_`` of the rounded products; the wrapper takes it only for
 tensors on the CPU. On a CUDA tensor the kernel launches or the call
 raises. Bound on the card: bytes (see the note in ``csrc/segsum.cu``).
+
+The outer mode's flat form, :func:`segment_grad_outer` (plain version
+:func:`segment_grad_outer_plain`), is what the table gradient calls per
+window level: the same totals G0 | G1, bit for bit, written by the kernel
+straight into the level's slice of the flat gradient as
+``out[r] = G0[r] + G1[r - 1]`` (JAX's ``g0 + shift(g1)``,
+``hash_fused.py:682-686``), with no ``[n_rows, 2C]`` totals tensor and no
+combine pass. JAX shifts the *concatenated* totals of all window levels,
+so a level's last G1 lands in the next level's first row; a call per
+level drops it. That changes no bit for a finite cotangent: w1 is +0 for
+every record whose base is a level's last row (``window_indices_weights``
+gives w1 != 0 only where the corner is base + 1 inside the level), so
+each of its products bf16(w1 * g) is a zero, the total of zeros started at
++0 is +0 under round-to-nearest, and G0 + (+0) is what the per-level call
+writes (``tests/test_torch_train.py`` checks both facts). A non-finite
+cotangent departs from JAX there: bf16(+0 * inf) is NaN, which JAX
+carries into the next level's first row and the per-level call drops.
 """
 
 from __future__ import annotations
@@ -112,10 +129,33 @@ def segment_totals_outer_plain(keys_sorted, perm, w_word, g_words,
                           _outer_products(perm, w_word, g_words, C))
 
 
+def combine_totals_plain(totals, out):
+    """out [R * C] = G0[r] + G1[r - 1] of outer-mode totals [R, 2C]
+    (JAX's ``g0 + shift(g1)``); the first row receives no G1 (+0). The
+    second half of :func:`segment_grad_outer_plain`, and with the 2C
+    mode's totals the flat mode's bit-exact oracle on the card."""
+    C = totals.shape[1] // 2
+    out.view(-1, C).copy_(totals[:, :C] + torch.cat(
+        [totals.new_zeros(1, C), totals[:-1, C:]]))
+    return out
+
+
+def segment_grad_outer_plain(keys_sorted, perm, w_word, g_words,
+                             n_rows: int, C: int, out=None):
+    """Plain version of :func:`segment_grad_outer`: the totals of
+    :func:`segment_totals_outer_plain`, then :func:`combine_totals_plain`
+    -> ``out`` (or a new tensor) [n_rows * C] f32."""
+    if out is None:
+        out = torch.empty(n_rows * C, dtype=torch.float32,
+                          device=keys_sorted.device)
+    return combine_totals_plain(segment_totals_outer_plain(
+        keys_sorted, perm, w_word, g_words, n_rows, C), out)
+
+
 def _lib(name="segment_totals_outer_fwd"):
     lib = _build.load("segsum")
     fn = getattr(lib, name)
-    if name == "segment_totals_outer_fwd":
+    if name in ("segment_totals_outer_fwd", "segment_grad_outer_fwd"):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     else:
@@ -134,6 +174,17 @@ def edge_buffer(M: int, width: int, device):
     n = -(-M // 128)
     return torch.empty(2 * n + -(-n // 32), width, dtype=torch.float32,
                        device=device), n
+
+
+def flat_edge_buffer(M: int, C: int, device):
+    """Scratch of the outer mode's flat form for M records: the edge rows
+    of :func:`edge_buffer` (width 2C), then per chunk the first and last
+    plain segments' G0 | G1 and the total of the row that starts there and
+    crosses (2C each), then four int32 words per chunk, flat f32 ->
+    (buffer, chunks)."""
+    n = -(-M // 128)
+    return torch.empty((4 * n + -(-n // 32)) * 2 * C + 4 * n,
+                       dtype=torch.float32, device=device), n
 
 
 def segment_totals(keys_sorted, packed, n_rows: int, n_chan: int):
@@ -176,6 +227,31 @@ def segment_totals(keys_sorted, packed, n_rows: int, n_chan: int):
 segment_totals.launches = 0   # kernel launches, counted where they happen
 
 
+def _check_outer(who, keys_sorted, perm, w_word, g_words, n_rows, C):
+    """Raises unless the outer stream is one the kernel takes."""
+    dev = keys_sorted.device
+    M = keys_sorted.shape[0]
+    n_words = (C + 1) // 2
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (perm, w_word, g_words)):
+        raise ValueError(f"{who}: all inputs must be on one CUDA device")
+    if any(t.dtype != torch.int32 for t in (keys_sorted, perm, w_word,
+                                             g_words)):
+        raise TypeError(f"{who}: keys, perm, w_word and g_words must be "
+                        "int32")
+    if keys_sorted.ndim != 1 or perm.shape != (M,) or g_words.ndim != 2 \
+            or g_words.shape[1] != n_words or w_word.ndim != 1:
+        raise ValueError(f"{who}: need keys and perm [M], w_word [M_all], "
+                         "g_words [B, ceil(C/2)]")
+    if not all(t.is_contiguous() for t in (keys_sorted, perm, w_word,
+                                           g_words)):
+        raise ValueError(f"{who}: inputs must be contiguous")
+    if C not in _CHANNELS or not 0 <= M < 2 ** 31 or n_rows <= 0 \
+            or g_words.shape[0] <= 0:
+        raise ValueError(f"{who}: need C in {_CHANNELS}, M < 2^31, rows "
+                         f"and points > 0 (C={C}, M={M})")
+
+
 def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
                          C: int, out=None):
     """Per-row totals of the outer-product record stream (see
@@ -185,28 +261,10 @@ def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
     if keys_sorted.device.type == "cpu":
         return segment_totals_outer_plain(keys_sorted, perm, w_word,
                                           g_words, n_rows, C, out=out)
+    _check_outer("segment_totals_outer", keys_sorted, perm, w_word, g_words,
+                 n_rows, C)
     dev = keys_sorted.device
     M = keys_sorted.shape[0]
-    n_words = (C + 1) // 2
-    if dev.type != "cuda" or any(t.device != dev
-                                 for t in (perm, w_word, g_words)):
-        raise ValueError("segment_totals_outer: all inputs must be on one "
-                         "CUDA device")
-    if any(t.dtype != torch.int32 for t in (keys_sorted, perm, w_word,
-                                             g_words)):
-        raise TypeError("segment_totals_outer: keys, perm, w_word and "
-                        "g_words must be int32")
-    if keys_sorted.ndim != 1 or perm.shape != (M,) or g_words.ndim != 2 \
-            or g_words.shape[1] != n_words or w_word.ndim != 1:
-        raise ValueError("segment_totals_outer: need keys and perm [M], "
-                         "w_word [M_all], g_words [B, ceil(C/2)]")
-    if not all(t.is_contiguous() for t in (keys_sorted, perm, w_word,
-                                           g_words)):
-        raise ValueError("segment_totals_outer: inputs must be contiguous")
-    if C not in _CHANNELS or not 0 <= M < 2 ** 31 or n_rows <= 0 \
-            or g_words.shape[0] <= 0:
-        raise ValueError(f"segment_totals_outer: need C in {_CHANNELS}, "
-                         f"M < 2^31, rows and points > 0 (C={C}, M={M})")
     if out is None:
         out = torch.empty(n_rows, 2 * C, dtype=torch.float32, device=dev)
     elif (out.shape != (n_rows, 2 * C) or out.dtype != torch.float32
@@ -230,3 +288,46 @@ def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
 
 
 segment_totals_outer.launches = 0   # kernel launches, counted where they happen
+
+
+def segment_grad_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
+                       C: int, out=None):
+    """The window level's flat table gradient from its outer-product
+    record stream (the arguments of :func:`segment_totals_outer_plain`):
+    ``out`` [n_rows * C] f32, a contiguous slice of the flat gradient (a
+    new tensor if None), overwritten with ``G0[r] + G1[r - 1]`` (+0 into
+    row 0; rows without records +0). CPU tensors take
+    :func:`segment_grad_outer_plain`; CUDA tensors launch the kernel's flat
+    mode: a zero fill of ``out``, then the main pass, the group sums, the
+    fix-up and the join."""
+    if keys_sorted.device.type == "cpu":
+        return segment_grad_outer_plain(keys_sorted, perm, w_word, g_words,
+                                        n_rows, C, out=out)
+    _check_outer("segment_grad_outer", keys_sorted, perm, w_word, g_words,
+                 n_rows, C)
+    dev = keys_sorted.device
+    M = keys_sorted.shape[0]
+    if out is None:
+        out = torch.empty(n_rows * C, dtype=torch.float32, device=dev)
+    elif (out.shape != (n_rows * C,) or out.dtype != torch.float32
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError("segment_grad_outer: out must be a contiguous "
+                         "[n_rows * C] f32 tensor on the inputs' device")
+    # rows no pair writes must read exactly +0
+    out.zero_()
+    if M == 0:
+        return out
+    scratch, n_edge = flat_edge_buffer(M, C, dev)
+    err = _lib("segment_grad_outer_fwd")(
+        keys_sorted.data_ptr(), perm.data_ptr(), w_word.data_ptr(),
+        g_words.data_ptr(), out.data_ptr(), scratch.data_ptr(), M,
+        g_words.shape[0], C, n_rows, n_edge,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_grad_outer: CUDA launch failed "
+                           f"(error {err})")
+    segment_grad_outer.launches += 1
+    return out
+
+
+segment_grad_outer.launches = 0   # kernel launches, counted where they happen

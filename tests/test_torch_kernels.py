@@ -186,6 +186,12 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(TypeError):
         tc.compact_attrs(torch.zeros(1, 16, device=cuda_device), keys,
                          keys.long(), 8)
+    g_words = torch.zeros(4, 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):      # out is [n_rows, 2C], not flat
+        ts.segment_grad_outer(keys, keys, keys, g_words, 8, 16,
+                              out=torch.empty(8, 32, device=cuda_device))
+    with pytest.raises(TypeError):
+        ts.segment_grad_outer(keys, keys.long(), keys, g_words, 8, 16)
 
 
 @pytest.mark.gpu
@@ -365,8 +371,8 @@ def _dense_rows_agree(out, x, g, spec, bf16, lv=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
     """The table gradient at B = 262,144 on the flagship grid, kernel path
-    (dense-level scatter kernel, record kernel, packing, torch.sort, B2,
-    combine) against the plain path (transposed matmul, plain records,
+    (dense-level kernels, record kernel, packing, torch.sort, B2's flat
+    mode) against the plain path (transposed matmul, plain records,
     index_add_): the dense rows by :func:`_dense_rows_agree`; the window
     rows are the same records and products, f32 totals in another order:
     rtol 1e-5 and atol 1e-6 of the largest entry."""
@@ -377,15 +383,17 @@ def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
     x = torch.rand(262144, 3, generator=gen, device=cuda_device)
     cot = torch.randn(262144, spec.output_dim, generator=gen,
                       device=cuda_device)
-    counters = (th.window_records, ts.segment_totals_outer, th.mm_grad_table,
-                th.pack_g_words, th.combine_totals)
+    counters = (th.window_records, ts.segment_grad_outer, th.mm_grad_table,
+                th.pack_g_words, ts.segment_totals_outer)
     counts = [c.launches for c in counters]
     grads = []
     for fn in (th.hash_encode, th.hash_encode_plain):
         p = table.clone().requires_grad_()
         (fn(p, x, spec, compute_dtype=dtype).float() * cot).sum().backward()
         grads.append(p.grad)
-    assert [c.launches for c in counters] == [n + 1 for n in counts]
+    # B2's flat mode writes the window rows: no 2C totals
+    assert [c.launches for c in counters] == [n + d for n, d in zip(
+        counts, (1, 1, 1, 1, 0))]
     torch.cuda.synchronize()
     n_dense = spec.offsets[th.matmul_split(spec)] * spec.level_dim
     assert n_dense > 0
@@ -552,29 +560,141 @@ def test_segsum_kernels_row_over_three_chunk_edges(cuda_device):
     torch.testing.assert_close(ch, ch_ref, rtol=1e-5, atol=1e-5)
 
 
+def _runs(*runs):
+    """Sorted keys from (key, count) runs."""
+    return torch.cat([torch.full((n,), k, dtype=torch.int32)
+                      for k, n in runs])
+
+
+# streams whose rows meet the 128-record chunk edges in every way the flat
+# mode's pairs, slots and join must handle: (keys, n_rows)
+_FLAT_STREAMS = {
+    # one row over three chunk edges, short rows around it
+    "three_edges": (torch.cat([torch.arange(0, 5), torch.full((385,), 5),
+                               torch.arange(6, 200)]).to(torch.int32), 256),
+    # rows 100 and 101 both cross edges, 101 starting where 100 ends
+    "adjacent_crossing": (torch.cat([torch.arange(0, 100).to(torch.int32),
+                                     _runs((100, 200), (101, 300)),
+                                     torch.arange(102, 150).to(torch.int32)]),
+                          160),
+    # row 28 ends exactly on the edge at 256, row 29 fills chunk 2 alone
+    # and crosses, row 31 ends on the edge at 640
+    "row_ends_on_edge": (torch.cat([torch.arange(0, 28).to(torch.int32),
+                                    _runs((28, 228), (29, 200), (31, 184),
+                                          (33, 5))]), 64),
+    # chunk 1 holds only the end of row 3 and the start of row 4; chunk 4
+    # the end of row 9, row 10 and the start of row 12
+    "ends_and_starts": (_runs((3, 200), (4, 200), (9, 200), (10, 3),
+                              (12, 130), (13, 1)), 20),
+    # gaps of three rows at every edge (64-record rows), then rows that
+    # fill chunks exactly (128 records) with gaps of two
+    "gaps_at_edges": (torch.cat([
+        torch.arange(0, 96, 3).repeat_interleave(64),
+        torch.arange(100, 140, 2).repeat_interleave(128)]).to(torch.int32),
+        150),
+    # rows 0 and n_rows - 1 cross chunks
+    "first_and_last_rows": (_runs((0, 300), (1, 3), (5, 140), (63, 260)),
+                            64),
+    # keys below 0 and from n_rows up are dropped, as in the 2C mode
+    "out_of_range": (_runs((-3, 150), (-1, 2), (0, 3), (2, 130), (9, 40),
+                           (10, 200), (12, 7)), 10),
+}
+
+
+def _flat_case(device, keys, n_rows, C, B=300, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    M = keys.numel()
+    perm = torch.randperm(M, generator=gen, device=device).to(torch.int32)
+    w = torch.rand(2, M, generator=gen, device=device)
+    g = torch.randn(B, C, generator=gen, device=device)
+    return (keys.to(device), perm, ts.pack_bf16_pairs([w[0], w[1]])[0],
+            torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous(),
+            n_rows, C)
+
+
+def _assert_flat_bits(args):
+    """segment_grad_outer (B2's flat mode) against the 2C totals then
+    combine_totals_plain (the same f32 sums, then one f32 add a row): the
+    same bits, two calls the same bits, one counted launch a call."""
+    n_rows, C = args[4], args[5]
+    before = ts.segment_grad_outer.launches
+    flat = ts.segment_grad_outer(*args)
+    again = ts.segment_grad_outer(*args)
+    assert ts.segment_grad_outer.launches == before + 2
+    ref = ts.combine_totals_plain(ts.segment_totals_outer(*args),
+                                  torch.empty(n_rows * C, device=flat.device))
+    torch.cuda.synchronize()
+    assert torch.equal(flat.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(flat.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("stream", sorted(_FLAT_STREAMS))
+def test_segsum_flat_mode_bit_exact_at_chunk_edges(cuda_device, stream, C):
+    """B2's flat mode on streams built around the chunk edges (crossing
+    rows side by side, rows ending on an edge, chunks holding only a row's
+    end and the next one's start, gaps at edges, the first and last rows,
+    out-of-range keys), every channel width: bit for bit the 2C mode plus
+    combine_totals_plain."""
+    keys, n_rows = _FLAT_STREAMS[stream]
+    _assert_flat_bits(_flat_case(cuda_device, keys, n_rows, C, seed=C))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 8191])
+def test_segsum_flat_mode_bit_exact_ragged(cuda_device, M, C):
+    """B2's flat mode on random keys at ragged stream lengths (one record,
+    one chunk less one, one chunk, one more, 64 chunks less one) and every
+    channel width: bit for bit the 2C mode plus combine_totals_plain;
+    called into a slice of a larger tensor it writes that slice only."""
+    gen = torch.Generator().manual_seed(M + C)
+    n_rows = max(M // 3, 2)
+    keys = torch.sort(torch.randint(0, n_rows, (M,), generator=gen,
+                                    dtype=torch.int32)).values
+    args = _flat_case(cuda_device, keys, n_rows, C, seed=M)
+    _assert_flat_bits(args)
+    big = torch.full((n_rows * C + 2 * C,), 7.0, device=cuda_device)
+    ts.segment_grad_outer(*args, out=big[C:C + n_rows * C])
+    torch.cuda.synchronize()
+    assert (big[:C] == 7.0).all() and (big[-C:] == 7.0).all()
+    assert torch.equal(big[C:C + n_rows * C],
+                       ts.segment_grad_outer(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skew", [False, True])
+def test_segsum_flat_mode_bit_exact_at_flagship_shape(cuda_device, skew):
+    """B2's flat mode at the flagship's level-1 shape (1,048,576 records
+    of 262,144 points into 524,288 rows, C = 16), random keys and the skew
+    stream (a ~940k-record row over some 7,300 chunks): bit for bit the 2C
+    mode plus combine_totals_plain, two calls the same bits; the zero-length
+    stream leaves the zero fill only."""
+    M, B, n_rows, C = 1 << 20, 1 << 18, 1 << 19, 16
+    _assert_flat_bits(_outer_stream(cuda_device, M, B, n_rows, C, skew=skew)
+                      + (n_rows, C))
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    _, _, w_word, g_words = _outer_stream(cuda_device, 64, 64, 64, C)
+    out = ts.segment_grad_outer(empty, empty, w_word, g_words, 64, C)
+    assert out.shape == (64 * C,) and not out.any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("C", [1, 2, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_table_grad_glue_kernels_bit_exact(cuda_device, C, dtype):
-    """The packing of g into B2's payload words and the G0 + G1 combine,
-    kernel against plain version: bit for bit (truncations and one f32
-    add each)."""
+    """The packing of g into B2's payload words, kernel against plain
+    version: bit for bit (truncations), one counted launch a call."""
     spec = HashGridSpec.create(num_levels=4, level_dim=C,
                                log2_hashmap_size=14, desired_resolution=512)
     gen = torch.Generator(device=cuda_device).manual_seed(C)
     g = torch.randn(5000, spec.output_dim, generator=gen,
                     device=cuda_device).to(dtype)
-    counts = (th.pack_g_words.launches, th.combine_totals.launches)
+    count = th.pack_g_words.launches
     words = th.pack_g_words(g, spec)
     assert torch.equal(words, th.pack_g_words_plain(g, spec))
-    totals = torch.randn(3000, 2 * C, generator=gen, device=cuda_device)
-    out = th.combine_totals(totals, torch.empty(3000 * C,
-                                                device=cuda_device))
-    ref = th.combine_totals_plain(totals, torch.empty_like(out))
-    torch.cuda.synchronize()
-    assert (th.pack_g_words.launches, th.combine_totals.launches) == (
-        counts[0] + 1, counts[1] + 1)
-    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert th.pack_g_words.launches == count + 1
 
 
 @pytest.mark.gpu

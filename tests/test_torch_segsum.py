@@ -145,6 +145,45 @@ def test_outer_reads_payload_through_permutation():
     np.testing.assert_allclose(out_perm, out_j, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("C", [2, 16])
+def test_outer_flat_gradient_matches_jax(C):
+    """The flat form of the outer mode (segment_grad_outer on CPU tensors,
+    i.e. segment_grad_outer_plain) against JAX's window-level gradient:
+    the interpreted Pallas totals, then g0 + shift(g1)
+    (hash_fused.py:682-686). Rows 0 and n_rows - 1 hold records (row 0
+    receives no G1, the last row's G1 is dropped); rows no record reaches
+    directly or through G1 are exactly 0."""
+    rng = np.random.default_rng(6)
+    M, n_rows = 3072, 1300
+    keys = np.concatenate([[0, 0, n_rows - 1], rng.integers(0, n_rows,
+                                                              M - 3)])
+    w0, w1 = rng.random((2, M)).astype(np.float32)
+    g = rng.standard_normal((M, C)).astype(np.float32)
+    keys_s, (w0s, w1s, *gs) = _sorted_stream(keys, [w0, w1] + list(g.T))
+    totals_j = _interpret(
+        sp.segment_totals_outer_pallas, jnp.asarray(keys_s),
+        _pack_bf16_pairs([jnp.asarray(w0s), jnp.asarray(w1s)])[0],
+        _pack_bf16_pairs([jnp.asarray(c) for c in gs]), n_rows, C)
+    flat_j = (totals_j[:, :C] + np.concatenate(
+        [np.zeros((1, C), np.float32), totals_j[:-1, C:]])).reshape(-1)
+    w_t = ts.pack_bf16_pairs([torch.from_numpy(w0s),
+                              torch.from_numpy(w1s)])[0]
+    g_t = torch.stack(ts.pack_bf16_pairs([torch.from_numpy(c) for c in gs]),
+                      dim=1)
+    args = (torch.from_numpy(keys_s), torch.arange(M, dtype=torch.int32),
+            w_t, g_t, n_rows, C)
+    out = torch.full((n_rows * C,), float("nan"))
+    assert ts.segment_grad_outer(*args, out=out) is out
+    np.testing.assert_array_equal(
+        out.numpy(), ts.segment_grad_outer_plain(*args).numpy())
+    np.testing.assert_allclose(out.numpy(), flat_j, rtol=1e-5, atol=1e-5)
+    reached = np.zeros(n_rows, bool)
+    reached[keys] = True
+    reached[np.minimum(keys + 1, n_rows - 1)] = True
+    assert (~reached).any()
+    assert np.all(out.numpy().reshape(n_rows, C)[~reached] == 0)
+
+
 def test_pack_truncates_and_products_round():
     """Packing keeps the top 16 bits (truncation, like _pack_bf16_pairs),
     and the outer products round to the nearest bf16."""

@@ -142,6 +142,67 @@ def test_window_records_match_jax(monkeypatch, name, mm):
                                   np.asarray(w1j).view(np.int32))
 
 
+# the specs and level splits with two or more window levels
+_MULTI_WINDOW = [("xor", "auto"), ("xor", "0"), ("additive", "auto"),
+                 ("additive", "0"), ("L2xC16", "0")]
+
+
+@pytest.mark.parametrize("name,mm", _MULTI_WINDOW)
+def test_window_level_last_row_gets_no_w1(monkeypatch, name, mm):
+    """w1 is +0 for every record whose base is a window level's last row,
+    in JAX's _window_indices_weights and in the port's: a level's G1
+    never reaches the next level's first row, which is why B2's flat mode
+    may run one call per window level where JAX shifts G1 over the
+    concatenated totals (kernels/segsum.py). Points on the top faces and
+    at the clamped corner reach the last rows of levels whose res^3 fills
+    the table; hashed levels reach theirs at random."""
+    monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
+    js, tspec = JSpec.create(**_SPECS[name]), TSpec.create(**_SPECS[name])
+    x = np.concatenate([_points(6000), _top_face_points(_points(16))])
+    windows = th.level_windows(tspec, th.matmul_split(tspec))
+    assert len(windows) >= 2
+    hits = 0
+    for b, w1 in (hf._window_indices_weights(jnp.asarray(x), js)[::2],
+                  th.window_indices_weights(torch.from_numpy(x), tspec)[::2]):
+        b, w1 = np.asarray(b), np.asarray(w1)
+        for lv, w0, nw in windows:
+            at = b[w0:w0 + nw] == tspec.offsets[lv + 1] - 1
+            hits += int(at.sum())
+            assert np.all(w1[w0:w0 + nw][at].view(np.int32) == 0)
+    assert hits > 0
+
+
+@pytest.mark.parametrize("name,mm", _MULTI_WINDOW)
+def test_window_levels_flat_calls_equal_one_combine(monkeypatch, name, mm):
+    """B2's flat form run once per window level, each call into its
+    level's slice (segment_grad_outer on CPU tensors, as table_grad on the
+    card), gives the window rows of the plain table gradient, whose
+    combine runs over the concatenated totals of all window levels (JAX's
+    shape), bit for bit: signed zeros included."""
+    from raw_ngp_torch.kernels import segsum as ts
+    monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
+    tspec = TSpec.create(**_SPECS[name])
+    C, m = tspec.level_dim, th.matmul_split(tspec)
+    x = torch.from_numpy(_top_face_points(_points(900)))
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (900, tspec.output_dim)).astype(np.float32))
+    base, w_word = th.window_records_plain(x, tspec)
+    ref = th.table_grad(tspec, x, base, w_word, g, plain=True)
+    words = th.pack_g_words_plain(g, tspec)
+    out = torch.full_like(ref, float("nan"))
+    for i, (lv, w0, nw) in enumerate(th.level_windows(tspec, m)):
+        off = tspec.offsets[lv]
+        rows = tspec.offsets[lv + 1] - off
+        keys_s, perm = torch.sort(base[w0:w0 + nw].reshape(-1) - off,
+                                  stable=True)
+        ts.segment_grad_outer(keys_s, perm.to(torch.int32),
+                              w_word[w0:w0 + nw].reshape(-1), words[i],
+                              rows, C, out=out[off * C:(off + rows) * C])
+    off_m = tspec.offsets[m] * C
+    assert torch.equal(out[off_m:].view(torch.int32),
+                       ref[off_m:].view(torch.int32))
+
+
 def _ray_points(B, seed=1, per_ray=32):
     """B points in ray order, as the compaction hands them to the train
     forward: rays from random points in [0.1, 0.9]^3 in random directions,
@@ -342,8 +403,9 @@ def test_encode_plain_and_default_paths_agree():
 def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
     """The table gradient's glue on CPU tensors (the plain versions, no
     launch): pack_g_words equals JAX's _pack_bf16_pairs of each window
-    level's g-channels (truncations of the f32 values) and combine_totals
-    JAX's G0 + shift(G1) (hash_fused.py:686), bit for bit."""
+    level's g-channels (truncations of the f32 values) and
+    combine_totals_plain JAX's G0 + shift(G1) (hash_fused.py:686), bit for
+    bit."""
     monkeypatch.setenv("RAW_NGP_MM_LEVELS", "1")
     tspec = TSpec.create(**_SPECS["L2xC16"])
     C, m = tspec.level_dim, th.matmul_split(tspec)
@@ -352,7 +414,7 @@ def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
     g_t = torch.from_numpy(g).to(torch.bfloat16 if gdtype == "bf16"
                                  else torch.float32)
     g32 = g_t.float().numpy()
-    launches = (th.pack_g_words.launches, th.combine_totals.launches)
+    launches = th.pack_g_words.launches
     words = th.pack_g_words(g_t, tspec)
     assert words.shape == (tspec.num_levels - m, 300, C // 2)
     for i, lv in enumerate(range(m, tspec.num_levels)):
@@ -362,11 +424,12 @@ def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
             _np(words[i]).view(np.uint32),
             np.stack([np.asarray(w) for w in want], axis=1))
     totals = rng.standard_normal((500, 2 * C)).astype(np.float32)
-    out = th.combine_totals(torch.from_numpy(totals), torch.empty(500 * C))
+    out = th.combine_totals_plain(torch.from_numpy(totals),
+                                  torch.empty(500 * C))
     want = totals[:, :C] + np.concatenate([np.zeros((1, C), np.float32),
                                            totals[:-1, C:]])
     np.testing.assert_array_equal(_np(out).reshape(500, C), want)
-    assert (th.pack_g_words.launches, th.combine_totals.launches) == launches
+    assert th.pack_g_words.launches == launches
 
 
 def test_unported_gradients_raise():
