@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (four sources) with nvcc for sm_90a (one nvcc per source, in
               parallel), print each kernel's registers, stack frame and
               spills (ptxas), and fail if an instantiation of the encode
-              forward or input gradient, or of B2's flat form (main pass,
-              fix-up, join), spills or keeps a stack frame;
+              forward (with and without records) or input gradient, or of
+              B2's flat form (main pass, fix-up, join), spills or keeps a
+              stack frame;
   2. compact — the compaction kernel against its plain version at the
               render's shape (M = 1,048,576 records, m_pad = 262,144
               slots), keep rates 0.03 / 0.25 / 0.9 plus a full mask and an
@@ -35,34 +36,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
               render on the plain path on the card;
   5. segsum — kernel B2's outer mode at the flagship's level-1 shape
               (1,048,576 records of 262,144 points into 524,288 rows, 16
-              channels) in both forms: the [n_rows, 2C] totals (off the
-              training path) and the flat form the table gradient calls
-              (G0[r] + G1[r - 1] written into the flat rows), each against
-              its plain version, random keys within rtol 1e-5 and a
+              channels, read in place from level 1's columns of a bf16
+              cotangent [B, 32]) in both forms: the [n_rows, 2C] totals
+              (off the training path) and the flat form the table gradient
+              calls (G0[r] + G1[r - 1] written into the flat rows), each
+              against its plain version (on the packed words), random keys within rtol 1e-5 and a
               dense-skew stream within rtol 1e-5 plus 2^-20 of each row's
               absolute sum (within_sum_error); the flat form bit for bit
               the totals plus combine_totals_plain (one f32 add a row);
               two calls bitwise equal on each; both streams timed, split
               by stage; the plain versions and zero_ + index_add_ timed
               beside them;
-  6. encode_bwd — the encode's table gradient (dense-level kernels: cell
-              keys, torch.sort by cell, cell sums, edge fix-up, gather;
-              record kernel, g packing, torch.sort, B2's flat form) on
-              the kernel path against the plain path at B = 262,144,
-              uniform and ray-ordered points, f32 and bf16: the window
-              rows within rtol 1e-5 of the largest entry, the dense rows
-              by dense_rows_agree (rtol 1e-5 plus 2^-20 of the entry's
-              absolute mass before rounding); then the whole path, the
-              dense level alone (two calls bitwise equal; its device time
-              split into the keys, the sort and the passes; the sort alone
-              on CUDA events; zero_ + index_add_ of its exact products as
-              the library yardstick) and the packing of g (bit-exact)
-              timed;
+  6. encode_bwd — the encode forward's records mode (the window records
+              written by the forward's launch) at uniform and ray-ordered
+              points, f32 and bf16: records bit for bit
+              window_records_plain, output bit for bit the forward
+              without records, two calls the same bits, timed with and
+              without records; the encode's table gradient (dense-level
+              kernels: cell keys, torch.sort by cell, cell sums, edge
+              fix-up, gather; torch.sort and B2's flat form reading g in
+              place) on the kernel path against the plain path at B =
+              262,144, uniform and ray-ordered points, f32 and bf16: the
+              window rows within rtol 1e-5 of the largest entry, the dense
+              rows by dense_rows_agree (rtol 1e-5 plus 2^-20 of the
+              entry's absolute mass before rounding); then the table
+              gradient and the dense level alone (two calls bitwise equal;
+              its device time split into the keys, the sort and the
+              passes; the sort alone on CUDA events; zero_ + index_add_ of
+              its exact products as the library yardstick) timed;
   7. train  — the flagship Trainer on make_synthetic_scene(36, 2, 128,
               128) for 128 steps (8 grid refreshes) with every launch
-              counter reset just before and read just after: all six
-              kernels launched (the dense-level kernel and B2's flat form
-              once a step; the 2C totals never), finite
+              counter reset just before and read just after: all five
+              kernels launched (the forward with records, the dense-level
+              kernel and B2's flat form once a step; the 2C totals
+              never), finite
               losses that fall (last 8 below the first 8), finite params
               and EMA, the val PSNR (EMA), one step on a fixed batch
               that agrees between the kernel path and the plain path, and
@@ -86,10 +93,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pose_opt.noise 0.05 and train.iters = 128 (so the annealing
               ramp and the pose freeze at int(0.33 * 128) fall inside)
               trained 128 steps by its Trainer, every launch counter reset
-              just before and read just after: all eight kernels of the
-              path launched (compaction forward and backward, encode,
-              records, B2's flat form and the dense-level gradient once a
-              step, g packing, encode input gradient), finite losses that
+              just before and read just after: all seven kernels of the
+              path launched (compaction forward and backward, encode, the
+              forward with records, B2's flat form and the dense-level
+              gradient once a step, encode input gradient), finite losses
+              that
               fall, finite params, EMA and pose params, nonzero pose
               params, the Procrustes pose errors before and after (printed, not
               gated), one fixed-batch step whose loss, net gradients and
@@ -105,10 +113,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the train and pose steps in ms and rays/s (median of the
               last 32 steps, CUDA events, each listed) with their stages;
               a torch.profiler breakdown of one chunk and of one step of
-              each (device busy and idle share, launches, top kernels).
+              each (device busy and idle share, launches, top kernels,
+              host-to-device copies and the runtime's copy, synchronize
+              and launch calls).
 The train and pose phases also count the encode's launches by caller
 (train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `pose` and `kernels` JSON lines and the card's
+It prints `render`, `train`, `pose`, `table_grad` and `kernels` JSON lines
+and the card's
 name and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The `kernels` line marks `deterministic: true` on each kernel whose two
@@ -269,25 +280,33 @@ def phase_build():
     return ptxas
 
 
-# kernel entry -> (source, instantiations) that must keep everything in
-# registers: the encode's two gathers (every channel quad, window and row)
-# and B2's flat form (its running totals and the previous segment's G1)
+# kernel entry -> (source, instantiations, (template argument, value) they
+# must have or None) that must keep everything in registers: the encode's
+# two gathers (every channel quad, window and row; the forward without
+# and with records, its third argument) and B2's flat form (its running
+# totals and the previous segment's G1; the second argument)
 REGISTER_CHECKED = {
-    "hash_encode": ("hash_encode", ("hash_encode_kernel",)),
-    "encode_input_grad": ("hash_encode", ("encode_input_grad_kernel",)),
+    "hash_encode": ("hash_encode", ("hash_encode_kernel<",), (2, "false")),
+    "hash_encode_records": ("hash_encode", ("hash_encode_kernel<",),
+                            (2, "true")),
+    "encode_input_grad": ("hash_encode", ("encode_input_grad_kernel",), None),
     "segment_grad_outer": ("segsum", ("segsum_outer_kernel<",
                                       "segsum_edge_fixup_kernel<",
-                                      "segsum_flat_join_kernel")),
+                                      "segsum_flat_join_kernel"), (1, "true")),
 }
 
 
 def checked_instantiations(ptxas, entry):
-    """The ptxas reports of REGISTER_CHECKED[entry] (for B2 only the flat
-    form's instantiations: template argument `true`)."""
-    source, prefixes = REGISTER_CHECKED[entry]
-    return [k for k in ptxas.get(source, ())
-            if k["kernel"].startswith(prefixes)
-            and not (source == "segsum" and k["kernel"].endswith("false>"))]
+    """The ptxas reports of REGISTER_CHECKED[entry]."""
+    source, prefixes, arg = REGISTER_CHECKED[entry]
+
+    def wanted(name):
+        if not name.startswith(prefixes):
+            return False
+        args = name.partition("<")[2].rstrip(">").split(", ")
+        return arg is None or len(args) <= 1 or args[arg[0]] == arg[1]
+
+    return [k for k in ptxas.get(source, ()) if wanted(k["kernel"])]
 
 
 def check_registers(ptxas):
@@ -483,7 +502,9 @@ def phase_encode(dev, cfg, B=262144):
 def _outer_stream(dev, M, B, n_rows, C, skew):
     """A sorted outer-product record stream as the table gradient builds
     it: keys sorted by torch.sort with their permutation, a (w0, w1) word
-    per record, C g-channels per point."""
+    per record, and the flagship's bf16 cotangent g [B, 2C], whose level-1
+    channels (column C) B2 reads in place -> (the kernel's stream, the
+    plain version's stream with those channels packed)."""
     import torch
     from raw_ngp_torch.kernels import segsum as ts
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -494,9 +515,10 @@ def _outer_stream(dev, M, B, n_rows, C, skew):
                            7, keys).to(torch.int32)
     keys_s, perm = torch.sort(keys, stable=True)
     w = torch.rand(2, M, generator=gen, device=dev)
-    g = torch.randn(B, C, generator=gen, device=dev)
-    return (keys_s, perm.to(torch.int32), ts.pack_bf16_pairs([w[0], w[1]])[0],
-            torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous())
+    g = torch.randn(B, 2 * C, generator=gen, device=dev).to(torch.bfloat16)
+    head = (keys_s, perm.to(torch.int32), ts.pack_bf16_pairs([w[0], w[1]])[0])
+    return (head + (g, n_rows, C),
+            head + (ts.g_words_plain(g, C, C), n_rows, C))
 
 
 def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
@@ -512,12 +534,11 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
     from raw_ngp_torch.kernels import segsum as ts
     errs, flat_errs, skew_dev, flat_skew = {}, {}, None, None
     for skew, rtol in ((False, 1e-5), (True, 1e-5)):
-        keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
-                                                      skew)
-        stream = (keys_s, perm, w_word, g_words, n_rows, C)
-        k = ts.segment_totals_outer(*stream)
-        k2 = ts.segment_totals_outer(*stream)
-        p = ts.segment_totals_outer_plain(*stream)
+        stream, packed = _outer_stream(dev, M, B, n_rows, C, skew)
+        keys_s, perm, w_word, g_words = packed[:4]
+        k = ts.segment_totals_outer(*stream, g_col=C)
+        k2 = ts.segment_totals_outer(*stream, g_col=C)
+        p = ts.segment_totals_outer_plain(*packed)
         torch.cuda.synchronize()
         check(same_bits(k, k2), f"segsum skew={skew}: two calls differ")
         empty = torch.ones(n_rows, dtype=torch.bool, device=dev)
@@ -535,7 +556,7 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
         longest = int(torch.unique_consecutive(keys_s, return_counts=True)[1]
                       .max())
         prof = profile_device(lambda: ts.segment_totals_outer(
-            *stream, out=k), 20, "call")
+            *stream, g_col=C, out=k), 20, "call")
         dev_ms = prof.get("device_busy_ms_per_call")
         split = stage_split(prof, SEGSUM_STAGES, "zero_fill")
         if skew:
@@ -549,11 +570,11 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
               f"{json.dumps(split)}: ok")
 
         # the flat form: the oracle's bits, its plain version's values
-        flat = ts.segment_grad_outer(*stream)
-        flat_2 = ts.segment_grad_outer(*stream)
+        flat = ts.segment_grad_outer(*stream, g_col=C)
+        flat_2 = ts.segment_grad_outer(*stream, g_col=C)
         oracle = ts.combine_totals_plain(k, torch.empty(n_rows * C,
                                                          device=dev))
-        flat_p = ts.segment_grad_outer_plain(*stream)
+        flat_p = ts.segment_grad_outer_plain(*packed)
         torch.cuda.synchronize()
         check(same_bits(flat, oracle), f"segment_grad_outer skew={skew}: "
               "differs in its bits from segment_totals_outer + "
@@ -569,26 +590,27 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                   f"exceeds the bound (rtol {rtol})")
         flat_errs[skew] = ferr
         prof = profile_device(lambda: ts.segment_grad_outer(
-            *stream, out=flat), 20, "call")
+            *stream, g_col=C, out=flat), 20, "call")
         f_dev = prof.get("device_busy_ms_per_call")
         f_split = stage_split(prof, FLAT_STAGES, "zero_fill")
         if skew:
             flat_skew = f_dev
-        print(f"[segsum] flat form skew={skew}: bitwise equal to the 2C "
-              f"totals + combine_totals_plain and between two calls; max "
-              f"abs err "
+        print(f"[segsum] flat form skew={skew}, g read in place: bitwise "
+              f"equal to the 2C totals + combine_totals_plain and between "
+              f"two calls; max abs err "
               f"to its plain version {ferr:.3e}; device {f_dev} ms, "
               f"{prof.get('kernel_launches_per_call')} device launches "
               f"{json.dumps(f_split)}: ok")
 
-    keys_s, perm, w_word, g_words = _outer_stream(dev, M, B, n_rows, C,
-                                                  False)
-    stream = (keys_s, perm, w_word, g_words, n_rows, C)
+    stream, packed = _outer_stream(dev, M, B, n_rows, C, False)
+    keys_s, perm, w_word, g_words = packed[:4]
     out = torch.empty(n_rows, 2 * C, device=dev)
-    ms = time_ms(lambda: ts.segment_totals_outer(*stream, out=out), 50)
-    dev_ms = device_ms(lambda: ts.segment_totals_outer(*stream, out=out))
+    ms = time_ms(lambda: ts.segment_totals_outer(*stream, g_col=C, out=out),
+                 50)
+    dev_ms = device_ms(lambda: ts.segment_totals_outer(*stream, g_col=C,
+                                                       out=out))
     plain_ms = time_ms(lambda: ts.segment_totals_outer_plain(
-        *stream, out=out), 5)
+        *packed, out=out), 5)
     prod = ts._outer_products(perm, w_word, g_words, C)
     keys64 = keys_s.long()
     library_ms = time_ms(lambda: out.zero_().index_add_(0, keys64, prod), 20)
@@ -617,9 +639,11 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
 
     # the flat form
     flat = torch.empty(n_rows * C, device=dev)
-    f_ms = time_ms(lambda: ts.segment_grad_outer(*stream, out=flat), 50)
-    f_dev = device_ms(lambda: ts.segment_grad_outer(*stream, out=flat))
-    f_plain = time_ms(lambda: ts.segment_grad_outer_plain(*stream, out=flat),
+    f_ms = time_ms(lambda: ts.segment_grad_outer(*stream, g_col=C, out=flat),
+                   50)
+    f_dev = device_ms(lambda: ts.segment_grad_outer(*stream, g_col=C,
+                                                    out=flat))
+    f_plain = time_ms(lambda: ts.segment_grad_outer_plain(*packed, out=flat),
                       5)
     # the library call: one zero_ + index_add_ of the 2M rounded products
     # into the flat rows keys (w0 g) and keys + 1 (w1 g)
@@ -653,6 +677,7 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                           "into rows keys and keys + 1",
                   skew_device_ms=flat_skew,
                   bit_equal_to_totals_plus_combine=True,
+                  reads_g_in_place="bf16, level 1's columns of [B, 2C]",
                   deterministic=True)
     return k_2c, k_flat
 
@@ -741,12 +766,17 @@ def stage_split(prof, stages, rest):
 
 
 def phase_encode_bwd(dev, spec, B=262144):
-    """The table gradient, kernel path against plain path (uniform and
-    ray-ordered points, f32 and bf16), then its time in bf16 (the
-    flagship's compute dtype), that of its pieces (the window levels' part
-    is the records, the packing, the sort and B2's flat form), and two
-    kernels on their own: the dense level's gradient (with index_add_ of
-    its exact products as the library yardstick) and the packing of g."""
+    """The encode forward's records mode, then the table gradient. The
+    records (uniform and ray-ordered points, f32 and bf16): bit for bit
+    window_records_plain, the output bit for bit the forward's without
+    records, two calls the same bits; the forward timed with and without
+    them. The table gradient, kernel path against plain path (same
+    inputs), then its time in bf16 (the flagship's compute dtype), the
+    window levels' part (the sort and B2's flat form reading g in place)
+    and the dense level's gradient on its own (with index_add_ of its
+    exact products as the library yardstick). Returns the `kernels`
+    entries of the records mode and of the dense level, and the table
+    gradient's numbers."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -755,11 +785,77 @@ def phase_encode_bwd(dev, spec, B=262144):
     inputs = {"uniform": torch.rand(B, 3, generator=gen, device=dev),
               "ray": ray_points(B, gen, dev)}
     inputs["uniform"][:64] = inputs["uniform"][:64] * 3.0 - 1.0
+    inputs["uniform"][64:72, 1] = float("nan")
     cot = torch.randn(B, spec.output_dim, generator=gen, device=dev)
     res, C = spec.resolutions[0], spec.level_dim
     n_dense = spec.offsets[th.matmul_split(spec)] * C
     check(n_dense == spec.offsets[1] * C, "encode_bwd: the flagship grid "
           "should have one dense level")
+    m = th.matmul_split(spec)
+    P = sum(nw for _, _, nw in th.level_windows(spec, m))
+    bf16 = torch.bfloat16
+
+    # the forward's records mode, against the plain records and the
+    # forward without records, then both forwards timed
+    records = {}
+    for kind, x01 in inputs.items():
+        base_p, w_word_p = th.window_records_plain(x01, spec)
+        for dtype in (torch.float32, bf16):
+            name = str(dtype)[6:]
+            out, base, w_word = th.hash_encode_records(table, x01, spec,
+                                                       dtype)
+            again = th.hash_encode_records(table, x01, spec, dtype)
+            plain_out = th.hash_encode(table, x01, spec, dtype)
+            torch.cuda.synchronize()
+            check(torch.equal(base, base_p) and torch.equal(w_word, w_word_p),
+                  f"encode_bwd records {kind} {name}: the records differ "
+                  "from window_records_plain")
+            check(same_bits(out, plain_out), f"encode_bwd records {kind} "
+                  f"{name}: the output differs from the forward without "
+                  "records")
+            check(all(same_bits(a, b) for a, b in zip((out, base, w_word),
+                                                      again)),
+                  f"encode_bwd records {kind} {name}: two calls differ")
+
+            def with_rec(x01=x01, dtype=dtype):
+                return th.hash_encode_records(table, x01, spec, dtype)
+
+            def without(x01=x01, dtype=dtype):
+                return th.hash_encode(table, x01, spec, compute_dtype=dtype)
+
+            bound_ms, bound_by, n_bytes, rows = encode_bound(
+                spec, x01, 2 if dtype == bf16 else 4, extra_bytes=8 * P * B)
+            row = dict(ms=time_ms(with_rec, 50), device_ms=device_ms(with_rec),
+                       without_records_ms=time_ms(without, 50),
+                       without_records_device_ms=device_ms(without),
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes)
+            records[(kind, name)] = row
+            print(f"[encode_bwd] forward with records {kind} B={B} {name}: "
+                  f"records bit for bit window_records_plain, output bit for "
+                  f"bit the forward without records, two calls bitwise "
+                  f"equal; {row['ms']:.4f} ms (device {row['device_ms']} ms) "
+                  f"against {row['without_records_ms']:.4f} ms (device "
+                  f"{row['without_records_device_ms']} ms) without records; "
+                  f"bound {bound_ms * 1e3:.2f} us ({bound_by}: touched rows "
+                  f"{rows}, {n_bytes} bytes)")
+    x01 = inputs["uniform"]
+    rec_plain_ms = time_ms(lambda: (
+        th.hash_encode_fused_plain(table, x01, spec, bf16),
+        th.window_records_plain(x01, spec)), 3)
+    top = records[("uniform", "bfloat16")]
+    k_records = dict(name="hash_encode_records", route="cuda",
+                     source="raw_ngp_torch/csrc/hash_encode.cu",
+                     replaces="raw_ngp_tpu/kernels/hash_fused.py:513",
+                     max_abs_err=0.0, ms=top["ms"],
+                     device_ms=top["device_ms"], plain_ms=rec_plain_ms,
+                     bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                     library_ms=None,
+                     without_records_ms=top["without_records_ms"],
+                     without_records_device_ms=top[
+                         "without_records_device_ms"],
+                     inputs={f"{k} {n}": v for (k, n), v in records.items()},
+                     deterministic=True)
+
     errs = {}
     for kind, x01 in inputs.items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -797,14 +893,14 @@ def phase_encode_bwd(dev, spec, B=262144):
     bf16 = torch.bfloat16
     x01 = inputs["uniform"]
     g = cot.to(bf16)
+    _, base, w_word = th.hash_encode_records(table, x01, spec, bf16)
+    base_p, w_word_p = th.window_records_plain(x01, spec)
 
     def kernel_path():
-        base, w_word = th.window_records(x01, spec)
         return th.table_grad(spec, x01, base, w_word, g, bf16)
 
     def plain_path():
-        base, w_word = th.window_records_plain(x01, spec)
-        return th.table_grad(spec, x01, base, w_word, g, bf16, plain=True)
+        return th.table_grad(spec, x01, base_p, w_word_p, g, bf16, plain=True)
 
     check(same_bits(kernel_path(), kernel_path()),
           "encode_bwd: two calls of the table gradient differ")
@@ -813,9 +909,7 @@ def phase_encode_bwd(dev, spec, B=262144):
     dev_ms = prof.get("device_busy_ms_per_call")
     plain_ms = time_ms(plain_path, 3)
     n_aten = aten_ops(kernel_path)
-    records_ms = time_ms(lambda: th.window_records(x01, spec), 20)
-    base, _ = th.window_records(x01, spec)
-    lv, w0, nw = th.level_windows(spec, th.matmul_split(spec))[-1]
+    lv, w0, nw = th.level_windows(spec, m)[-1]
     keys = (base[w0:w0 + nw].reshape(-1) - spec.offsets[lv]).contiguous()
     window_sort_ms = time_ms(lambda: torch.sort(keys, stable=True), 20)
     n_bytes = (B * 3 * 4 + B * spec.output_dim * 2
@@ -823,10 +917,10 @@ def phase_encode_bwd(dev, spec, B=262144):
     n_ops = 2 * 8 * spec.level_dim * spec.num_levels * B
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_FLOP_PER_S * 1e3
-    print(f"[encode_bwd] B={B} bf16: records + table gradient {ms:.4f} ms "
+    print(f"[encode_bwd] B={B} bf16: table gradient {ms:.4f} ms "
           f"(device {dev_ms} ms, {prof.get('kernel_launches_per_call')} "
           f"device launches and {n_aten} aten ops a call), "
-          f"plain {plain_ms:.4f} ms; records kernel {records_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; "
           f"torch.sort of the level-{lv} keys ({keys.numel()}) "
           f"{window_sort_ms:.4f} "
           f"ms; {n_bytes} bytes ({bytes_ms * 1e3:.2f} us), {n_ops} flop "
@@ -891,7 +985,6 @@ def phase_encode_bwd(dev, spec, B=262144):
     # time measured alone on the same input: its stages share torch.sort's
     # kernels with the window levels' sort); its bound reads x01 and the
     # window levels' g and writes their rows
-    m = th.matmul_split(spec)
     window_dev = (None if dev_ms is None or dense["uniform"]["device_ms"]
                   is None else dev_ms - dense["uniform"]["device_ms"])
     window_bound = (B * 12 + B * (spec.num_levels - m) * C * 2
@@ -899,15 +992,14 @@ def phase_encode_bwd(dev, spec, B=262144):
                     ) / HBM_BYTES_PER_S * 1e3
     print(f"[encode_bwd] window levels' part: device {window_dev} ms, bound "
           f"{window_bound * 1e3:.2f} us (bytes)")
-    whole = dict(name="hash_encode_bwd", route="cuda",
-                 source="raw_ngp_torch/csrc/hash_encode.cu",
+    whole = dict(what="the table gradient (table_grad) without the "
+                      "records, which the forward writes",
                  replaces="raw_ngp_tpu/kernels/hash_fused.py:756",
                  max_abs_err=max(errs[("uniform", bf16)]),
                  max_abs_err_f32=max(errs[("uniform", torch.float32)]),
                  ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                 library_ms=None, records_ms=records_ms,
                  sort_ms=window_sort_ms,
                  device_launches_per_call=prof.get(
                      "kernel_launches_per_call"),
@@ -916,28 +1008,7 @@ def phase_encode_bwd(dev, spec, B=262144):
                  window_part_bound_ms=window_bound,
                  top_kernels=prof.get("top_kernels"), deterministic=True)
 
-    # the packing of g at the flagship's shape, against its plain version
-    words = th.pack_g_words(g, spec)
-    check(torch.equal(words, th.pack_g_words_plain(g, spec))
-          and same_bits(words, th.pack_g_words(g, spec)),
-          "pack_g_words: words differ from the plain version or between "
-          "two calls")
-    k_ms = time_ms(lambda: th.pack_g_words(g, spec), 50)
-    k_dev = device_ms(lambda: th.pack_g_words(g, spec))
-    p_ms = time_ms(lambda: th.pack_g_words_plain(g, spec), 10)
-    nb = (B * (spec.num_levels - th.matmul_split(spec)) * C * 2
-          + 4 * words.numel())
-    b_ms = nb / HBM_BYTES_PER_S * 1e3
-    print(f"[encode_bwd] pack_g_words: kernel {k_ms:.4f} ms (device {k_dev} "
-          f"ms), plain {p_ms:.4f} ms, bit-exact; {nb} bytes "
-          f"({b_ms * 1e3:.2f} us)")
-    pack = dict(name="pack_g_words", route="cuda",
-                source="raw_ngp_torch/csrc/hash_grad.cu",
-                replaces="raw_ngp_tpu/kernels/hash_fused.py:666",
-                max_abs_err=0.0, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by="bytes", library_ms=None,
-                deterministic=True)
-    return whole, mm_k, pack
+    return k_records, mm_k, whole
 
 
 def aten_ops(fn):
@@ -1316,26 +1387,35 @@ def profile_chunk(cfg, field, bitfield, ro, rd, aabb, coarse, reps=3):
         lambda: render(field, bitfield, ro, rd, aabb, coarse), reps, "chunk")
 
 
-def profile_device(fn, reps, unit):
+def profile_device(fn, reps, unit, tries=3):
     """torch.profiler over `reps` calls of fn (after one warm-up call): the
     device kernels by total time and the device's busy share of the
-    host-clock window, per `unit`."""
+    host-clock window, per `unit`. A profile that caught no device event
+    (it happens now and then on the card) is taken again, up to `tries`
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        if busy_us > 0:
+            break
+    else:
         return {"device_time": "not measured (no device events)"}
+    runtime = {name: sum(e.count for e in events if e.key == name) / reps
+               for name in ("cudaMemcpyAsync", "cudaStreamSynchronize",
+                            "cudaDeviceSynchronize", "cudaLaunchKernel")}
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
     return {f"{unit}s": reps, f"wall_ms_per_{unit}": wall_us / reps / 1e3,
@@ -1343,6 +1423,9 @@ def profile_device(fn, reps, unit):
             "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
             f"kernel_launches_per_{unit}":
                 sum(e.count for e in kernels) / reps,
+            f"htod_copies_per_{unit}":
+                sum(e.count for e in kernels if "HtoD" in e.key) / reps,
+            f"runtime_calls_per_{unit}": runtime,
             "top_kernels": [{"name": e.key[:70], "calls": e.count // reps,
                              f"ms_per_{unit}":
                                  e.self_device_time_total / reps / 1e3}
@@ -1352,26 +1435,27 @@ def profile_device(fn, reps, unit):
 def _counters():
     from raw_ngp_torch.kernels.compact import compact_attrs, compact_attrs_bwd
     from raw_ngp_torch.kernels.hash_encode import (encode_input_grad,
-                                                   hash_encode, mm_grad_table,
-                                                   pack_g_words,
-                                                   window_records)
+                                                   hash_encode,
+                                                   hash_encode_records,
+                                                   mm_grad_table)
     from raw_ngp_torch.kernels.segsum import (segment_grad_outer,
                                               segment_totals,
                                               segment_totals_outer)
     return {"compact_attrs": compact_attrs, "hash_encode": hash_encode,
-            "hash_encode_bwd": window_records,
+            "hash_encode_records": hash_encode_records,
             "segment_grad_outer": segment_grad_outer,
             "segment_totals": segment_totals_outer,
             "compact_attrs_bwd": compact_attrs_bwd,
             "encode_input_grad": encode_input_grad,
             "segment_totals_channel": segment_totals,
-            "mm_grad_table": mm_grad_table, "pack_g_words": pack_g_words}
+            "mm_grad_table": mm_grad_table}
 
 
-# the kernels each path must launch, and those it must not: B2's flat
-# form writes the window rows, so its 2C totals are off the path
-TRAIN_KERNELS = ("compact_attrs", "hash_encode", "hash_encode_bwd",
-                 "segment_grad_outer", "mm_grad_table", "pack_g_words")
+# the kernels each path must launch, and those it must not: the forward
+# writes the records, B2's flat form reads g in place and writes the
+# window rows, so its 2C totals are off the path
+TRAIN_KERNELS = ("compact_attrs", "hash_encode", "hash_encode_records",
+                 "segment_grad_outer", "mm_grad_table")
 OFF_PATH_KERNELS = ("segment_totals",)
 POSE_KERNELS = TRAIN_KERNELS + ("compact_attrs_bwd", "encode_input_grad")
 
@@ -1565,7 +1649,9 @@ def run_steps(tr, steps, kernels, what, capture_at=None):
     launches = {k: c.launches for k, c in counters.items()}
     budget = tr._point_budget or tr.base_point_budget()
     by_caller = {
-        "train_forwards": launches["hash_encode"] - refresh["encode_launches"],
+        "train_forwards": launches["hash_encode_records"],
+        "other_forwards_without_records":
+            launches["hash_encode"] - refresh["encode_launches"],
         "train_forward_points": budget,
         "refresh_chunks": refresh["encode_launches"],
         "refresh_chunk_points": _CHUNK, "refreshes": refresh["calls"]}
@@ -1578,9 +1664,10 @@ def run_steps(tr, steps, kernels, what, capture_at=None):
     for name in OFF_PATH_KERNELS:
         check(launches[name] == 0, f"{what}: kernel {name} is off the path "
               f"but launched {launches[name]} times")
-    # one backward a step, one dense and one window level on the flagship
-    # grid
-    for name in ("mm_grad_table", "segment_grad_outer"):
+    # one forward with records and one backward a step, one dense and one
+    # window level on the flagship grid
+    for name in ("hash_encode_records", "mm_grad_table",
+                 "segment_grad_outer"):
         check(launches[name] == steps, f"{what}: kernel {name} launched "
               f"{launches[name]} times in {steps} steps")
     loss = torch.stack(losses).float().cpu()
@@ -2007,7 +2094,7 @@ def main() -> int:
         spec = make_field_spec(cfg).grid_spec
         k_encode = phase_encode(dev, cfg)
         k_segsum, k_flat = phase_segsum(dev)
-        k_bwd, k_mm, k_pack = phase_encode_bwd(dev, spec)
+        k_records, k_mm, table_grad = phase_encode_bwd(dev, spec)
         k_compact_bwd = phase_compact_bwd(dev)
         k_input = phase_encode_input(dev, cfg)
         k_channel = phase_segsum_channel(dev)
@@ -2019,15 +2106,15 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
-    for k in (k_compact, k_compact_bwd, k_encode, k_bwd, k_mm, k_pack,
-              k_input, k_flat, k_segsum, k_channel):
+    for k in (k_compact, k_compact_bwd, k_encode, k_records, k_mm, k_input,
+              k_flat, k_segsum, k_channel):
         k = dict(k)
         # this slice's main path is the pose phase; the earlier paths'
         # counts ride beside it
         k["launches"] = launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
-        if k["name"] == "hash_encode":
+        if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
                 "pose": launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
@@ -2038,6 +2125,7 @@ def main() -> int:
     print(json.dumps({"render": render}))
     print(json.dumps({"train": train}))
     print(json.dumps({"pose": pose}))
+    print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

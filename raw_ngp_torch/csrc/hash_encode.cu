@@ -1,5 +1,5 @@
-// Multiresolution hash-grid encode for Hopper (sm_90a): the forward, the
-// records of its table gradient and its input gradient.
+// Multiresolution hash-grid encode for Hopper (sm_90a): the forward (which
+// also writes the records of its table gradient) and its input gradient.
 //
 // Replaces the encode that the JAX package runs through XLA in
 // raw_ngp_tpu/kernels/hash_fused.py: hash_encode_fused / _fused_fwd (the
@@ -71,14 +71,22 @@
 // grad_x [B, 3] once, the levels summed in order: no atomics,
 // deterministic.
 //
-// The records kernel, window_records: one thread per (point, window
-// level) writes base [P, B] i32 and the (w0, w1) pair of each window as
-// one word of two truncated bf16 halves [P, B] (the _pack_bf16_pairs word
-// the table gradient sorts and sums, see csrc/segsum.cu), with the
-// forward's windows (for_each_window): the weight products follow the JAX
-// order (pair axis last, the other axes in index order), so the truncated
-// halves match bit for bit. Bound: bytes, 8.4 MB written at the flagship's
-// 262,144 points and 4 windows.
+// The records (kRec, the forward of a table that needs a gradient): per
+// window level the forward also writes base [P, B] i32 and the (w0, w1)
+// pair of each window as one word of two truncated bf16 halves [P, B]
+// (the _pack_bf16_pairs word the table gradient sorts and sums, see
+// csrc/segsum.cu), as JAX's _fused_fwd returns _window_indices_weights
+// with the output. The windows are the ones the forward walks
+// (for_each_window): their weight products follow the JAX order (pair
+// axis last, the other axes in index order), so the truncated halves
+// match bit for bit. The bf16 forward forms them anyway; the f32 forward
+// reads its rows in BitCorners order, and window order is a fixed
+// permutation of those 8 rows for each pair axis (window_order), so no
+// corner is hashed twice. Lane j of a group stores windows j, j + G, ...
+// (one each at C = 16: 4 windows, G = 4). A point outside [0, 1]^3 or NaN
+// still gets its records, at the cell of x = 0.5 with weight 0, while its
+// outputs stay 0. The records add 8.4 MB written to the forward's bytes
+// at the flagship's 262,144 points and 4 windows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +98,7 @@ constexpr int kThreads = 256;
 // per-level row of the level table built by the Python wrapper
 // (raw_ngp_torch/kernels/hash_encode.py _level_table):
 // res, hmap, offset, n_strides, stride0, stride1, stride2, mode, axis,
-// pairable, first window (records kernel; -1 on the matmul levels)
+// pairable, first window (the records; -1 on the matmul levels)
 constexpr int kLevelRow = 11;
 constexpr int kModeStride = 0, kModeXor = 1, kModeAdditive = 2;
 
@@ -313,15 +321,18 @@ __device__ __forceinline__ void load_quad(const float* __restrict__ p,
 // product rnd(rnd(T) * rnd(w)), the window's two rows added and rounded,
 // the windows summed in f32 in window order (XLA's CPU reduce accumulates
 // its bf16 sum in f32 and rounds once, tested bit for bit against JAX).
-template <int C>
+// rec(k, first row, w0, w1) sees every window (the records).
+template <int C, typename Rec>
 __device__ __forceinline__ void window_level_bf16(const float* __restrict__ tq,
                                                   const Level& l,
                                                   const int rows[8],
                                                   const float f[3], int top,
-                                                  float acc[kQuad<C>]) {
+                                                  float acc[kQuad<C>],
+                                                  Rec&& rec) {
   constexpr int Q = kQuad<C>;
   for_each_window(l, rows, f, 1.0f, top,
-                  [&](int, int bb, float w0, float w1) {
+                  [&](int k, int bb, float w0, float w1) {
+    rec(k, bb, w0, w1);
     const float wa = round_bf16(w0);
     const float wb = round_bf16(w1);
     float ta[Q], tb[Q];
@@ -436,6 +447,23 @@ __device__ __forceinline__ void level_f32(const float* __restrict__ tq,
   }
 }
 
+// The 8 rows of a cell in WindowCorners order from its rows in
+// BitCorners order: window corner k = 2h + side has side on the pair axis
+// a and bits 0 and 1 of h on the other two axes in index order, so its
+// bit index is k for a = 0, k with bits 0 and 1 swapped for a = 1, and k
+// rotated (bit 0 to 2, 1 to 0, 2 to 1) for a = 2. Selects on a, constant
+// indices: the rows stay in registers.
+__device__ __forceinline__ void window_order(const int bit_rows[8], int a,
+                                             int rows[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int s = k & 1, h0 = (k >> 1) & 1, h1 = k >> 2;
+    rows[k] = a == 0 ? bit_rows[k]
+              : (a == 1 ? bit_rows[s << 1 | h0 | h1 << 2]
+                        : bit_rows[s << 2 | h0 | h1 << 1]);
+  }
+}
+
 // This thread's outputs of one (point, level): 4 channels (fewer below
 // C = 4), rounded to bf16 in pairs or stored as f32.
 template <int C, bool BF16>
@@ -469,11 +497,12 @@ __device__ __forceinline__ void store_quad(void* __restrict__ out, int64_t o,
   }
 }
 
-template <int C, bool BF16>
+template <int C, bool BF16, bool kRec>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_kernel(const float* __restrict__ x01,
                    const float* __restrict__ table,
                    const int64_t* __restrict__ levels, void* __restrict__ out,
+                   int32_t* __restrict__ base, uint32_t* __restrict__ w_word,
                    int64_t B, int L, int m, int top, int align_corners,
                    int smoothstep) {
   constexpr int G = kGroup<C>, Q = kQuad<C>;
@@ -491,29 +520,57 @@ hash_encode_kernel(const float* __restrict__ x01,
     x[d] = x01[b * 3 + d];
     inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
   }
+  if (kRec) {  // a point outside takes the cell of 0.5 for its records
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[d] = inb ? x[d] : 0.5f;
+  }
 
   for (int lv = 0; lv < L; ++lv) {
     float acc[Q];
 #pragma unroll
     for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
-    if (inb) {  // uniform within the group
+    const bool rec = kRec && lv >= m;
+    if (inb || rec) {  // uniform within the group
       const Level l = load_level(levels + lv * kLevelRow);
       uint32_t g[3];
       float f[3];
       level_cell(l, x, align_corners, smoothstep, g, f);
+      // this lane's windows of the level's records: j, j + G, ...
+      const int64_t win0 = rec ? levels[lv * kLevelRow + 10] : 0;
+      auto put = [&](int k, int bb, float w0, float w1) {
+        if (kRec && rec && k % G == j) {
+          const int64_t o = (win0 + k) * B + b;
+          base[o] = bb;
+          w_word[o] = (__float_as_uint(w0) & 0xffff0000u)
+                      | (__float_as_uint(w1) >> 16);
+        }
+      };
       int rows[8];
       if (BF16 && lv >= m) {
         level_rows<G>(l, j, gmask,
                       WindowCorners{{g[0], g[1], g[2]}, l.res - 1, l.axis},
                       rows);
-        window_level_bf16<C>(tq, l, rows, f, top, acc);
+        if (inb) {
+          window_level_bf16<C>(tq, l, rows, f, top, acc, put);
+        } else {
+          for_each_window(l, rows, f, 0.0f, top, put);
+        }
       } else {
         level_rows<G>(l, j, gmask, BitCorners{{g[0], g[1], g[2]}, l.res - 1},
                       rows);
-        if (BF16) {
-          mm_level_bf16<C>(tq, l, g, f, rows, acc);
-        } else {
-          level_f32<C>(tq, f, rows, acc);
+        // the f32 forward's window levels: the records first (after the
+        // gathers, ptxas spilled the C = 32 instantiation)
+        if (rec) {
+          int wrows[8];
+          window_order(rows, l.axis, wrows);
+          for_each_window(l, wrows, f, inb ? 1.0f : 0.0f, top, put);
+        }
+        if (inb) {
+          if (BF16) {
+            mm_level_bf16<C>(tq, l, g, f, rows, acc);
+          } else {
+            level_f32<C>(tq, f, rows, acc);
+          }
         }
       }
     }
@@ -521,61 +578,22 @@ hash_encode_kernel(const float* __restrict__ x01,
   }
 }
 
-template <int C>
+template <int C, bool kRec>
 void launch(bool bf16, const float* x01, const float* table,
-            const int64_t* levels, void* out, int64_t B, int L, int m,
-            int top, int align_corners, int smoothstep, cudaStream_t s) {
+            const int64_t* levels, void* out, int32_t* base, uint32_t* w_word,
+            int64_t B, int L, int m, int top, int align_corners,
+            int smoothstep, cudaStream_t s) {
   const int64_t n = B * kGroup<C>;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (bf16) {
-    hash_encode_kernel<C, true><<<blocks, kThreads, 0, s>>>(
-        x01, table, levels, out, B, L, m, top, align_corners, smoothstep);
+    hash_encode_kernel<C, true, kRec><<<blocks, kThreads, 0, s>>>(
+        x01, table, levels, out, base, w_word, B, L, m, top, align_corners,
+        smoothstep);
   } else {
-    hash_encode_kernel<C, false><<<blocks, kThreads, 0, s>>>(
-        x01, table, levels, out, B, L, m, top, align_corners, smoothstep);
+    hash_encode_kernel<C, false, kRec><<<blocks, kThreads, 0, s>>>(
+        x01, table, levels, out, base, w_word, B, L, m, top, align_corners,
+        smoothstep);
   }
-}
-
-// Window records of one (point, window level): 2^(D-1) windows of two
-// adjacent rows when the level is pairable, else 2^D one-corner windows
-// (hash_fused._window_indices_weights, D = 3). Points outside [0, 1]^3
-// take the cell of 0.5 and weigh 0.
-__global__ void window_records_kernel(const float* __restrict__ x01,
-                                      const int64_t* __restrict__ levels,
-                                      int32_t* __restrict__ base,
-                                      uint32_t* __restrict__ w_word,
-                                      int64_t B, int m, int L, int top,
-                                      int align_corners, int smoothstep) {
-  const int Lw = L - m;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= B * Lw) return;
-  const int64_t b = t / Lw;
-  const int lv = m + (int)(t - b * Lw);
-  const int64_t* lp = levels + lv * kLevelRow;
-  const Level l = load_level(lp);
-  const int64_t win0 = lp[10];
-
-  float x[3];
-  bool inb = true;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    x[d] = x01[b * 3 + d];
-    inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
-  }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) x[d] = inb ? x[d] : 0.5f;
-  uint32_t g[3];
-  float f[3];
-  level_cell(l, x, align_corners, smoothstep, g, f);
-  int rows[8];
-  level_rows<1>(l, 0, 0u, WindowCorners{{g[0], g[1], g[2]}, l.res - 1, l.axis},
-                rows);
-  for_each_window(l, rows, f, inb ? 1.0f : 0.0f, top,
-                  [&](int k, int bb, float w0, float w1) {
-    const int64_t o = (win0 + k) * B + b;
-    base[o] = bb;
-    w_word[o] = (__float_as_uint(w0) & 0xffff0000u) | (__float_as_uint(w1) >> 16);
-  });
 }
 
 // This thread's channels of g at element o (channel 4j of a (point, level)).
@@ -859,39 +877,34 @@ extern "C" int hash_encode_bwd_input(const float* x01, const float* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x01 [B, 3] f32, levels [L, kLevelRow] i64 -> base [P, B] i32 and
-// w_word [P, B] u32 for the levels m..L-1 (P windows in all; B > 0).
-// Returns cudaGetLastError().
-extern "C" int hash_encode_records(const float* x01, const int64_t* levels,
-                                   int32_t* base, uint32_t* w_word,
-                                   int64_t B, int m, int L, int top,
-                                   int align_corners, int smoothstep,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n = B * (L - m);
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  window_records_kernel<<<blocks, kThreads, 0, s>>>(
-      x01, levels, base, w_word, B, m, L, top, align_corners, smoothstep);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned),
 // levels [L, kLevelRow] i64 (m dense matmul levels first, top =
-// n_params - 2) -> out [B, L * C] f32 or bf16 (16-byte aligned).
+// n_params - 2) -> out [B, L * C] f32 or bf16 (16-byte aligned); with
+// base and w_word not null also the records of the window levels m..L-1,
+// base [P, B] i32 and w_word [P, B] u32 (P windows in all). B > 0.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C.
 extern "C" int hash_encode_fwd(const float* x01, const float* table,
-                               const int64_t* levels, void* out, int64_t B,
+                               const int64_t* levels, void* out,
+                               int32_t* base, uint32_t* w_word, int64_t B,
                                int L, int C, int m, int top, int align_corners,
                                int smoothstep, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool h = bf16 != 0;
+  const bool rec = base != nullptr && w_word != nullptr;
   switch (C) {
-    case 1: launch<1>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
-    case 2: launch<2>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
-    case 4: launch<4>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
-    case 8: launch<8>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
-    case 16: launch<16>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
-    case 32: launch<32>(h, x01, table, levels, out, B, L, m, top, align_corners, smoothstep, s); break;
+#define RAW_NGP_CASE(c)                                                      \
+    case c:                                                                  \
+      if (rec) {                                                             \
+        launch<c, true>(h, x01, table, levels, out, base, w_word, B, L, m,   \
+                        top, align_corners, smoothstep, s);                  \
+      } else {                                                               \
+        launch<c, false>(h, x01, table, levels, out, base, w_word, B, L, m,  \
+                         top, align_corners, smoothstep, s);                 \
+      }                                                                      \
+      break;
+    RAW_NGP_CASE(1) RAW_NGP_CASE(2) RAW_NGP_CASE(4) RAW_NGP_CASE(8)
+    RAW_NGP_CASE(16) RAW_NGP_CASE(32)
+#undef RAW_NGP_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,7 @@
 // Table gradient of the hash-grid encode, for Hopper (sm_90a): the dense
-// (matmul) levels' gradient, summed in a fixed order without atomics, and
-// the packing of g into kernel B2's payload words for the window levels.
+// (matmul) levels' gradient, summed in a fixed order without atomics. The
+// window levels' gradient is kernel B2's (csrc/segsum.cu), which reads g
+// in place as this file's cell sums do.
 //
 // mm_grad_table replaces hash_fused._mm_grad_table
 // (raw_ngp_tpu/kernels/hash_fused.py:349-378), the transposed one-hot
@@ -78,14 +79,6 @@
 // and 0.050 ms of device time at B = 262,144, the largest part of the
 // function's time.
 //
-// pack_g_words writes B2's payload words: per window level, the level's C
-// g-channels of every point as ceil(C/2) words of two *truncated* bf16
-// halves (hash_fused._pack_bf16_pairs; exact for bf16 g, the top 16 bits
-// of f32 g), [L - m, B, ceil(C/2)] int32 in one launch, replacing C
-// column slices and the bit operations of pack_bf16_pairs per level. It
-// is bound by bytes (one read of g and one write of the words). B2's flat
-// mode (segsum.cu) writes the window levels' gradient itself.
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -326,30 +319,6 @@ cell_gather_kernel(const float* __restrict__ cellsum,
   grad[t] = BF16 ? round_bf16(acc) : acc;
 }
 
-template <bool BF16>
-__global__ void pack_g_words_kernel(const void* __restrict__ g,
-                                    uint32_t* __restrict__ words, int64_t B,
-                                    int L, int C, int m) {
-  const int W = (C + 1) / 2;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)(L - m) * B * W) return;
-  const int p = (int)(t % W);
-  const int64_t b = (t / W) % B;
-  const int lv = m + (int)(t / ((int64_t)W * B));
-  const int64_t col = b * L * C + (int64_t)lv * C + 2 * p;
-  uint32_t hi, lo = 0;
-  if (BF16) {
-    const uint16_t* gb = static_cast<const uint16_t*>(g);
-    hi = (uint32_t)gb[col] << 16;
-    if (2 * p + 1 < C) lo = gb[col + 1];
-  } else {
-    const uint32_t* gf = static_cast<const uint32_t*>(g);
-    hi = gf[col] & 0xffff0000u;
-    if (2 * p + 1 < C) lo = gf[col + 1] >> 16;
-  }
-  words[t] = hi | lo;
-}
-
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -455,22 +424,6 @@ extern "C" int mm_grad_table_fwd(const int32_t* keys_sorted,
   } else {
     cell_gather_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
         cellsum, grad, res, C, n);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// g [B, L * C] (bf16 if bf16, else f32) -> words [L - m, B, ceil(C/2)]
-// int32 (B > 0, m < L). Returns cudaGetLastError().
-extern "C" int pack_g_words_fwd(const void* g, uint32_t* words, int64_t B,
-                                int L, int C, int m, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n = (int64_t)(L - m) * B * ((C + 1) / 2);
-  if (bf16) {
-    pack_g_words_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-        g, words, B, L, C, m);
-  } else {
-    pack_g_words_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-        g, words, B, L, C, m);
   }
   return static_cast<int>(cudaGetLastError());
 }

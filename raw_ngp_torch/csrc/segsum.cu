@@ -18,8 +18,16 @@
 //
 // Records arrive sorted by key (torch.sort, outside the kernel, as JAX
 // sorts outside Pallas) with the permutation `perm`; the kernel reads the
-// (w0, w1) word of record perm[i] and the g words of point perm[i] % B,
+// (w0, w1) word of record perm[i] and the g channels of point perm[i] % B,
 // so the sort moves one key column instead of the C/2 g-words per record.
+// It reads g in place, the level's C channels at column g_col of the
+// encode's cotangent g [B, g_stride] (bf16 or f32), and forms each payload
+// word there (payload_word): channel g_col + 2p in the high half and
+// g_col + 2p + 1 in the low, each truncated to bf16, the word JAX's
+// _pack_bf16_pairs gives (hash_fused.py:661-664). For bf16 g that is one
+// u32 load with its halves swapped; for f32 g, the top halves of two f32.
+// So no packed copy of g exists, and the words, and every sum, are the
+// bits of a packed copy.
 //
 // Design. One warp owns a chunk of segments::kChunk (128) consecutive
 // sorted records; its lanes are output channels (2C of them, two per
@@ -33,13 +41,13 @@
 // buffer, and a second launch adds each crossing row's partials in chunk
 // order and stores it once (csrc/segments.cuh; no float atomic). Per 32
 // records, the lanes load the keys, permutation and w-words in one
-// coalesced pass, then stage the 32 points' g rows in shared memory (8
-// lanes read one point's 32 bytes), so every global load of a sub-chunk
-// is issued before any is consumed.
+// coalesced pass, then stage the 32 points' g words in shared memory (8
+// lanes read one point's 32 bytes of bf16 g at C = 16), so every global
+// load of a sub-chunk is issued before any is consumed.
 //
 // Bound: bytes. Per record the kernel reads the key, the permutation and
-// one w-word (12 B) and one point's g row (C/2 words; cached, at most B
-// distinct rows); it writes each touched row of 2C f32 once, and the
+// one w-word (12 B) and one point's C g-channels (2C B in bf16; cached, at
+// most B distinct points); it writes each touched row of 2C f32 once, and the
 // wrapper's zero fill writes the whole [n_rows, 2C] output once. At the
 // flagship's level 1 (1,048,576 records, 262,144 points, C = 16, 524,288
 // rows) that is about 12.6 + 8.4 + 67 MB. The work is 4C flops a record.
@@ -88,6 +96,34 @@ __device__ __forceinline__ float lo_bf16(uint32_t w) {
   return __uint_as_float(w << 16);
 }
 
+// Payload word p of one point whose level channels start at element `at`
+// of g: channel 2p in the high half, 2p + 1 in the low (0 past C), each
+// truncated to bf16. For C >= 2 the wrapper guarantees that `at` and the
+// row stride are even and g is 4-byte (bf16) or 8-byte (f32) aligned, so
+// the pair is one aligned load; C = 1 reads its one channel alone.
+template <int C, bool kBf16>
+__device__ __forceinline__ uint32_t payload_word(const void* __restrict__ g,
+                                                 int64_t at, int p) {
+  if constexpr (kBf16) {
+    const uint16_t* gb = static_cast<const uint16_t*>(g) + at + 2 * p;
+    if constexpr (C == 1) {
+      return (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(gb))
+             << 16;
+    } else {
+      const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(gb));
+      return (v << 16) | (v >> 16);  // little endian: channel 2p is low
+    }
+  } else {
+    const float* gf = static_cast<const float*>(g) + at + 2 * p;
+    if constexpr (C == 1) {
+      return __float_as_uint(__ldg(gf)) & 0xffff0000u;
+    } else {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(gf));
+      return (__float_as_uint(v.x) & 0xffff0000u) | (__float_as_uint(v.y) >> 16);
+    }
+  }
+}
+
 // Flat mode: row b of the flat gradient out [n_rows * C] gets
 // __fadd_rn(G0[b], G1[a]) where the finished key before b is a = b - 1;
 // otherwise row a + 1 gets __fadd_rn(+0, G1[a]) and row b
@@ -115,12 +151,12 @@ __device__ __forceinline__ void write_pair(float* __restrict__ out,
 // cross [n_chunks, 2C] = the complete total of the crossing row.
 enum Meta { kHasPlain = 0, kFirstKey = 1, kLastKey = 2, kRowEnd = 3 };
 
-template <int C, bool kFlat>
+template <int C, bool kFlat, bool kBf16>
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_outer_kernel(const int32_t* __restrict__ keys,
                     const int32_t* __restrict__ perm,
                     const uint32_t* __restrict__ w_word,
-                    const uint32_t* __restrict__ g_words,
+                    const void* __restrict__ g, int64_t g_stride, int g_col,
                     float* __restrict__ out, float* __restrict__ head,
                     float* __restrict__ tail, float* __restrict__ plain,
                     int32_t* __restrict__ meta, int M, int B, int n_rows) {
@@ -203,13 +239,15 @@ segsum_outer_kernel(const int32_t* __restrict__ keys,
       ww = w_word[p];
       b = (int)(p % (uint32_t)B);
     }
-    // stage the g rows of these 32 points: word t is word t % kNW of the
+    // stage the g words of these 32 points: word t is word t % kNW of the
     // point of record t / kNW
 #pragma unroll
     for (int t = lane; t < 32 * kNW; t += 32) {
       const int r = t / kNW;
       const int br = __shfl_sync(kFull, b, r);
-      stage[t] = r < n ? __ldg(g_words + (int64_t)br * kNW + (t % kNW)) : 0u;
+      stage[t] = r < n ? payload_word<C, kBf16>(
+                             g, (int64_t)br * g_stride + g_col, t % kNW)
+                       : 0u;
     }
     __syncwarp();
     for (int j = 0; j < n; ++j) {
@@ -397,14 +435,21 @@ cudaError_t finish_rows(const int32_t* keys, const Edges& e, float* out,
 
 template <int C, bool kFlat>
 cudaError_t launch(const int32_t* keys, const int32_t* perm,
-                   const uint32_t* w_word, const uint32_t* g_words,
-                   float* out, float* edges, int M, int B, int n_rows,
-                   int64_t n_edge, cudaStream_t s) {
+                   const uint32_t* w_word, const void* g, int64_t g_stride,
+                   int g_col, bool g_bf16, float* out, float* edges, int M,
+                   int B, int n_rows, int64_t n_edge, cudaStream_t s) {
   const Edges e = edges_of(edges, n_edge, 2 * C);
-  segsum_outer_kernel<C, kFlat><<<blocks_for(chunks_of(M)), kWarps * 32, 0,
-                                  s>>>(
-      keys, perm, w_word, g_words, out, e.head, e.tail, e.plain, e.meta, M,
-      B, n_rows);
+  if (g_bf16) {
+    segsum_outer_kernel<C, kFlat, true>
+        <<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
+            keys, perm, w_word, g, g_stride, g_col, out, e.head, e.tail,
+            e.plain, e.meta, M, B, n_rows);
+  } else {
+    segsum_outer_kernel<C, kFlat, false>
+        <<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
+            keys, perm, w_word, g, g_stride, g_col, out, e.head, e.tail,
+            e.plain, e.meta, M, B, n_rows);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return finish_rows<(2 * C + 31) / 32, kFlat>(keys, e, out, M, n_rows,
@@ -475,17 +520,18 @@ segsum_channel_kernel(const int32_t* __restrict__ keys,
 
 template <bool kFlat>
 int launch_outer(const int32_t* keys, const int32_t* perm,
-                 const uint32_t* w_word, const uint32_t* g_words, float* out,
-                 float* edges, int M, int B, int C, int n_rows, int n_edge,
-                 void* stream) {
+                 const uint32_t* w_word, const void* g, int64_t g_stride,
+                 int g_col, int g_bf16, float* out, float* edges, int M, int B,
+                 int C, int n_rows, int n_edge, void* stream) {
   if (n_edge < chunks_of(M)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (C) {
 #define RAW_NGP_CASE(c)                                                     \
     case c:                                                                 \
-      err = launch<c, kFlat>(keys, perm, w_word, g_words, out, edges, M, B, \
-                             n_rows, n_edge, s);                            \
+      err = launch<c, kFlat>(keys, perm, w_word, g, g_stride, g_col,       \
+                             g_bf16 != 0, out, edges, M, B, n_rows, n_edge, \
+                             s);                                            \
       break;
     RAW_NGP_CASE(1) RAW_NGP_CASE(2) RAW_NGP_CASE(4) RAW_NGP_CASE(8)
     RAW_NGP_CASE(16) RAW_NGP_CASE(32)
@@ -519,21 +565,23 @@ extern "C" int segment_totals_fwd(const int32_t* keys, const uint32_t* packed,
       keys, e, out, M, n_rows, n_chan, s));
 }
 
-// keys [M] i32 ascending, perm [M] i32, w_word [*] u32, g_words [B, (C+1)/2]
-// u32 -> out [n_rows, 2C] f32, which the caller has zeroed (M > 0, B > 0);
-// edges is scratch of segments::edge_rows(n_edge) rows of 2C f32 with
-// n_edge >= ceil(M / 128). Returns the first CUDA error, else
+// keys [M] i32 ascending, perm [M] i32, w_word [*] u32, g [B, g_stride]
+// (bf16 if g_bf16, else f32; the level's C channels from column g_col;
+// for C >= 2 g_col and g_stride even and g 4- (bf16) or 8-byte (f32)
+// aligned) -> out [n_rows, 2C] f32, which the caller has zeroed (M > 0,
+// B > 0); edges is scratch of segments::edge_rows(n_edge) rows of 2C f32
+// with n_edge >= ceil(M / 128). Returns the first CUDA error, else
 // cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C or too
 // few edge rows.
 extern "C" int segment_totals_outer_fwd(const int32_t* keys,
                                         const int32_t* perm,
-                                        const uint32_t* w_word,
-                                        const uint32_t* g_words, float* out,
-                                        float* edges, int M, int B, int C,
-                                        int n_rows, int n_edge,
-                                        void* stream) {
-  return launch_outer<false>(keys, perm, w_word, g_words, out, edges, M, B,
-                             C, n_rows, n_edge, stream);
+                                        const uint32_t* w_word, const void* g,
+                                        int64_t g_stride, int g_col,
+                                        int g_bf16, float* out, float* edges,
+                                        int M, int B, int C, int n_rows,
+                                        int n_edge, void* stream) {
+  return launch_outer<false>(keys, perm, w_word, g, g_stride, g_col, g_bf16,
+                             out, edges, M, B, C, n_rows, n_edge, stream);
 }
 
 // The flat mode, on the same stream: out [n_rows * C] f32, which the
@@ -543,10 +591,11 @@ extern "C" int segment_totals_outer_fwd(const int32_t* keys,
 // Returns as segment_totals_outer_fwd.
 extern "C" int segment_grad_outer_fwd(const int32_t* keys,
                                       const int32_t* perm,
-                                      const uint32_t* w_word,
-                                      const uint32_t* g_words, float* out,
-                                      float* edges, int M, int B, int C,
-                                      int n_rows, int n_edge, void* stream) {
-  return launch_outer<true>(keys, perm, w_word, g_words, out, edges, M, B, C,
-                            n_rows, n_edge, stream);
+                                      const uint32_t* w_word, const void* g,
+                                      int64_t g_stride, int g_col, int g_bf16,
+                                      float* out, float* edges, int M, int B,
+                                      int C, int n_rows, int n_edge,
+                                      void* stream) {
+  return launch_outer<true>(keys, perm, w_word, g, g_stride, g_col, g_bf16,
+                            out, edges, M, B, C, n_rows, n_edge, stream);
 }

@@ -1,8 +1,8 @@
 """Hash-grid encode, forward, table gradient and input gradient: wrapper of
-the CUDA kernels in ``csrc/hash_encode.cu`` (encode, window records,
-input gradient), ``csrc/hash_grad.cu`` (the dense levels' table gradient
-and the packing of g for B2) and ``csrc/segsum.cu`` (kernel B2, through
-:mod:`raw_ngp_torch.kernels.segsum`).
+the CUDA kernels in ``csrc/hash_encode.cu`` (the encode, which also
+writes the window records, and its input gradient), ``csrc/hash_grad.cu``
+(the dense levels' table gradient) and ``csrc/segsum.cu`` (kernel B2,
+through :mod:`raw_ngp_torch.kernels.segsum`).
 
 Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
 (``:497``, forward ``_fused_fwd`` ``:513``, backward ``_fused_bwd``
@@ -12,10 +12,10 @@ wrapper ``hash_encode_fast`` (``:784``).
 Forward: the encode kernel; its plain version is
 :func:`hash_encode_fused_plain` (``ops/hashgrid.hash_encode_01`` in f32;
 JAX's bf16 rounding chain under bf16). When the table needs a gradient
-the forward also writes the backward's records, JAX's residuals ``base``
-[P, B] and the (w0, w1) pair of every window packed as two truncated
-bf16 halves (``window_records``; plain version
-:func:`window_indices_weights` + ``pack_bf16_pairs``).
+the same launch also writes the backward's records, JAX's residuals
+``base`` [P, B] and the (w0, w1) pair of every window packed as two
+truncated bf16 halves (:func:`hash_encode_records`; plain version
+:func:`window_records_plain`).
 
 Backward, the table gradient (:func:`table_grad`), into one flat f32
 gradient: the dense leading levels (``_matmul_split``) by
@@ -24,13 +24,14 @@ gradient: the dense leading levels (``_matmul_split``) by
 cell, per-cell corner sums and a per-row gather, in a fixed order without
 atomics (:func:`mm_grad_table_cells_plain` is that arithmetic in torch,
 for the tests); the window levels as
-``_window_bwd_table_chunked`` (``:633-689``): g's channel pairs packed
-into B2's payload words once (:func:`pack_g_words`), per level a
-``torch.sort`` of the record keys and kernel B2's flat mode, which sums
-the bf16-rounded products w0*g and w1*g per row and writes
-``grad[r] = G0[r] + G1[r-1]`` into the level's slice itself
-(:func:`raw_ngp_torch.kernels.segsum.segment_grad_outer`). The plain
-path keeps JAX's shape: the totals, then :func:`combine_totals_plain`.
+``_window_bwd_table_chunked`` (``:633-689``): per level a ``torch.sort``
+of the record keys and kernel B2's flat mode, which reads the level's g
+channels in place as bf16 pairs, sums the bf16-rounded products w0*g and
+w1*g per row and writes ``grad[r] = G0[r] + G1[r-1]`` into the level's
+slice itself (:func:`raw_ngp_torch.kernels.segsum.segment_grad_outer`).
+The plain path keeps JAX's shape: g's channel pairs packed
+(:func:`pack_g_words_plain`), the totals, then
+:func:`combine_totals_plain`.
 
 Backward, the input gradient (pose refinement, ``hash_fused.py:760-778``:
 the VJP of the interpolation weights with the table frozen): the kernel
@@ -53,8 +54,8 @@ import torch
 
 from raw_ngp_torch.kernels import _build
 from raw_ngp_torch.kernels.segsum import (combine_totals_plain, edge_buffer,
-                                          pack_bf16_pairs, round_bf16,
-                                          segment_grad_outer,
+                                          g_words_plain, pack_bf16_pairs,
+                                          round_bf16, segment_grad_outer,
                                           segment_totals_outer_plain)
 from raw_ngp_torch.ops.hashgrid import (HashGridSpec, _level_indices,
                                         _smoothstep, hash_encode_01,
@@ -208,8 +209,9 @@ def window_indices_weights(x01, spec: HashGridSpec):
 
 
 def window_records_plain(x01, spec: HashGridSpec):
-    """Plain version of the record kernel: (base [P, B] i32, w_word [P, B]
-    i32 with w0 in the high and w1 in the low truncated bf16 half)."""
+    """Plain version of the records the encode kernel writes under
+    :func:`hash_encode_records`: (base [P, B] i32, w_word [P, B] i32 with
+    w0 in the high and w1 in the low truncated bf16 half)."""
     base, w0, w1 = window_indices_weights(x01, spec)
     return base, pack_bf16_pairs([w0, w1])[0]
 
@@ -382,13 +384,15 @@ def mm_grad_table_cells_plain(x01, g, spec: HashGridSpec, compute_dtype=None):
 
 
 def pack_g_words_plain(g, spec: HashGridSpec):
-    """Plain version of :func:`pack_g_words`: [L - m, B, ceil(C/2)] i32,
-    ``pack_bf16_pairs`` of each window level's C g-channels."""
+    """B2's payload words of every window level: [L - m, B, ceil(C/2)]
+    i32, :func:`~raw_ngp_torch.kernels.segsum.g_words_plain` of each window
+    level's C g-channels (JAX's ``_pack_bf16_pairs``). The plain path's
+    payload, and the oracle's input on the card, where B2 reads g in
+    place."""
     C = spec.level_dim
-    g32 = g.float()
-    return torch.stack([torch.stack(pack_bf16_pairs(
-        [g32[:, lv * C + c] for c in range(C)]), dim=1)
-        for lv, _, _ in level_windows(spec, matmul_split(spec))])
+    return torch.stack([g_words_plain(g, lv * C, C)
+                        for lv, _, _ in level_windows(spec,
+                                                      matmul_split(spec))])
 
 
 def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
@@ -396,15 +400,15 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
     """Gradient of the flat table from the records of the forward and the
     encode's cotangent g [B, L*C] (``_window_bwd_table_chunked``), written
     into one flat [n_params * C] f32 tensor: the dense levels' slice by
-    :func:`mm_grad_table`; g's channel pairs packed once
-    (:func:`pack_g_words`); per window level the keys (rows relative to
+    :func:`mm_grad_table`; per window level the keys (rows relative to
     the level) sorted and the bf16-rounded outer products summed per row
     (kernel B2). On CUDA, B2's flat mode (:func:`segment_grad_outer`)
-    writes G0[r] + G1[r-1] into each level's slice itself; ``plain`` and
-    CPU tensors take JAX's shape with every kernel's plain version: the
-    levels' [rows, 2C] totals, then :func:`combine_totals_plain` over all
-    of them (the same bits for a finite g; a non-finite g can differ in
-    the first row of a window level after the first: see
+    reads the level's g channels in place and writes G0[r] + G1[r-1] into
+    the level's slice itself; ``plain`` and CPU tensors take JAX's shape
+    with every kernel's plain version: g packed (:func:`pack_g_words_plain`),
+    the levels' [rows, 2C] totals, then :func:`combine_totals_plain` over
+    all of them (the same bits for a finite g; a non-finite g can differ
+    in the first row of a window level after the first: see
     ``kernels/segsum.py``)."""
     C = spec.level_dim
     m = matmul_split(spec)
@@ -415,8 +419,10 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
     if m:
         (mm_grad_table if flat else mm_grad_table_plain)(
             x01, g, spec, compute_dtype, out=grad[:off_m * C])
-    words = (pack_g_words if flat else pack_g_words_plain)(g, spec)
-    if not flat:
+    if flat:
+        g = g.contiguous()
+    else:
+        words = pack_g_words_plain(g, spec)
         totals = torch.empty(spec.n_params - off_m, 2 * C,
                              dtype=torch.float32, device=g.device)
     for i, (lv, w0, nw) in enumerate(level_windows(spec, m)):
@@ -425,12 +431,14 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
         keys = base[w0:w0 + nw].reshape(-1) - off
         keys_s, perm = torch.sort(keys, stable=True)
         stream = (keys_s, perm.to(torch.int32),
-                  w_word[w0:w0 + nw].reshape(-1), words[i], rows, C)
+                  w_word[w0:w0 + nw].reshape(-1))
         if flat:
-            segment_grad_outer(*stream, out=grad[off * C:(off + rows) * C])
+            segment_grad_outer(*stream, g, rows, C, g_col=lv * C,
+                               out=grad[off * C:(off + rows) * C])
         else:
             segment_totals_outer_plain(
-                *stream, out=totals[off - off_m:off - off_m + rows])
+                *stream, words[i], rows, C,
+                out=totals[off - off_m:off - off_m + rows])
     if not flat:
         combine_totals_plain(totals, out=grad[off_m * C:])
     return grad
@@ -575,18 +583,14 @@ def encode_input_grad_plain(params, x01, g, spec: HashGridSpec,
 # ---------------------------------------------------------------------------
 
 _ARGTYPES = {
-    "hash_encode_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+    "hash_encode_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int64]
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "hash_encode_bwd_input": [ctypes.c_void_p] * 5 + [ctypes.c_int64]
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "hash_encode_records": [ctypes.c_void_p] * 4 + [ctypes.c_int64]
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "mm_grad_keys_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "mm_grad_table_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
     + [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "pack_g_words_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int64]
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 
@@ -617,10 +621,14 @@ def _check_x01(x01, spec: HashGridSpec, who: str):
         raise ValueError(f"{who}: x01 must be contiguous")
 
 
-def _encode_forward(params, x01, spec: HashGridSpec, compute_dtype=None):
-    """The forward: kernel for CUDA tensors, plain version on the CPU."""
+def _encode_forward(params, x01, spec: HashGridSpec, compute_dtype=None,
+                    records: bool = False):
+    """The forward: kernel for CUDA tensors, plain version on the CPU. With
+    ``records`` -> (out, base, w_word), the window records from the same
+    launch (:func:`hash_encode_records`)."""
     if params.device.type == "cpu":
-        return hash_encode_fused_plain(params, x01, spec, compute_dtype)
+        out = hash_encode_fused_plain(params, x01, spec, compute_dtype)
+        return (out, *window_records_plain(x01, spec)) if records else out
     out_dtype = compute_dtype or params.dtype
     B = x01.shape[0]
     L, C = spec.num_levels, spec.level_dim
@@ -640,48 +648,38 @@ def _encode_forward(params, x01, spec: HashGridSpec, compute_dtype=None):
     if not params.is_contiguous() or params.data_ptr() % 16:
         raise ValueError("hash_encode: table must be contiguous and 16-byte "
                          "aligned")
+    m = matmul_split(spec)
     out = torch.empty(B, L * C, dtype=out_dtype, device=x01.device)
-    if B == 0:
-        return out
-    m = matmul_split(spec)
-    levels = _level_table(spec, m, x01.device)
-    err = _lib("hash_encode_fwd")(
-        x01.data_ptr(), params.data_ptr(), levels.data_ptr(), out.data_ptr(),
-        B, L, C, m, spec.n_params - 2, int(spec.align_corners),
-        int(spec.interpolation == "smoothstep"),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x01.device).cuda_stream)
-    _raise_if(err, "hash_encode")
-    hash_encode.launches += 1
-    return out
+    base = w_word = None
+    if records:
+        P = sum(nw for _, _, nw in level_windows(spec, m))
+        base = torch.empty(P, B, dtype=torch.int32, device=x01.device)
+        w_word = torch.empty(P, B, dtype=torch.int32, device=x01.device)
+    if B:
+        levels = _level_table(spec, m, x01.device)
+        err = _lib("hash_encode_fwd")(
+            x01.data_ptr(), params.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), base.data_ptr() if records else None,
+            w_word.data_ptr() if records else None, B, L, C, m,
+            spec.n_params - 2, int(spec.align_corners),
+            int(spec.interpolation == "smoothstep"),
+            int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(x01.device).cuda_stream)
+        _raise_if(err, "hash_encode")
+        (hash_encode_records if records else hash_encode).launches += 1
+    return (out, base, w_word) if records else out
 
 
-def window_records(x01, spec: HashGridSpec):
-    """The backward's records of x01 [B, 3] in [0, 1]^3: (base [P, B] i32,
-    w_word [P, B] i32). CPU tensors take :func:`window_records_plain`;
-    CUDA tensors launch the record kernel."""
-    if x01.device.type == "cpu":
-        return window_records_plain(x01, spec)
-    _check_x01(x01, spec, "window_records")
-    m = matmul_split(spec)
-    P = sum(nw for _, _, nw in level_windows(spec, m))
-    B = x01.shape[0]
-    base = torch.empty(P, B, dtype=torch.int32, device=x01.device)
-    w_word = torch.empty(P, B, dtype=torch.int32, device=x01.device)
-    if B == 0:
-        return base, w_word
-    levels = _level_table(spec, m, x01.device)
-    err = _lib("hash_encode_records")(
-        x01.data_ptr(), levels.data_ptr(), base.data_ptr(),
-        w_word.data_ptr(), B, m, spec.num_levels, spec.n_params - 2,
-        int(spec.align_corners), int(spec.interpolation == "smoothstep"),
-        torch.cuda.current_stream(x01.device).cuda_stream)
-    _raise_if(err, "window_records")
-    window_records.launches += 1
-    return base, w_word
+def hash_encode_records(params, x01, spec: HashGridSpec, compute_dtype=None):
+    """The encode's forward together with its table gradient's records,
+    from one launch of the encode kernel (its records mode) -> (out [B,
+    L*C], base [P, B] i32, w_word [P, B] i32), as JAX's ``_fused_fwd``
+    returns its residuals with the output. CPU tensors take
+    :func:`hash_encode_fused_plain` and :func:`window_records_plain`."""
+    return _encode_forward(params, x01, spec, compute_dtype, records=True)
 
 
-window_records.launches = 0   # kernel launches, counted where they happen
+hash_encode_records.launches = 0   # kernel launches, counted where they happen
 
 
 def encode_input_grad(params, x01, g, spec: HashGridSpec,
@@ -817,34 +815,6 @@ def mm_grad_table(x01, g, spec: HashGridSpec, compute_dtype=None, out=None):
 mm_grad_table.launches = 0   # kernel launches, counted where they happen
 
 
-def pack_g_words(g, spec: HashGridSpec):
-    """B2's payload words of the encode's cotangent g [B, L*C] (f32 or
-    bf16): per window level the C channels as ceil(C/2) words of two
-    truncated bf16 halves -> [L - m, B, ceil(C/2)] i32. CPU tensors take
-    :func:`pack_g_words_plain`; CUDA tensors launch the kernel."""
-    if g.device.type == "cpu":
-        return pack_g_words_plain(g, spec)
-    B = g.shape[0]
-    g = g.contiguous()
-    _check_g(g, spec, B, "pack_g_words")
-    m = matmul_split(spec)
-    L, C = spec.num_levels, spec.level_dim
-    words = torch.empty(L - m, B, (C + 1) // 2, dtype=torch.int32,
-                        device=g.device)
-    if B == 0:
-        return words
-    err = _lib("pack_g_words_fwd")(
-        g.data_ptr(), words.data_ptr(), B, L, C, m,
-        int(g.dtype == torch.bfloat16),
-        torch.cuda.current_stream(g.device).cuda_stream)
-    _raise_if(err, "pack_g_words")
-    pack_g_words.launches += 1
-    return words
-
-
-pack_g_words.launches = 0   # kernel launches, counted where they happen
-
-
 class _EncodeFn(torch.autograd.Function):
     """The encode with its table and input gradients; ``plain`` runs the
     plain versions of every kernel on any device."""
@@ -855,8 +825,8 @@ class _EncodeFn(torch.autograd.Function):
             out = hash_encode_fused_plain(params, x01, spec, compute_dtype)
             base, w_word = window_records_plain(x01, spec)
         else:
-            out = _encode_forward(params, x01, spec, compute_dtype)
-            base, w_word = window_records(x01, spec)
+            out, base, w_word = hash_encode_records(params, x01, spec,
+                                                    compute_dtype)
         ctx.save_for_backward(params, x01, base, w_word)
         ctx.spec, ctx.compute_dtype, ctx.plain = spec, compute_dtype, plain
         return out

@@ -19,7 +19,13 @@ position of each sorted record in the level's window-major stream
 (record m = window * B + point). The kernel reads the payload through the
 permutation, as the JAX package's ``RAW_NGP_IOTA_SORT`` variant does
 (``hash_fused.py:621-664``): the (w0, w1) word per record and the g words
-per *point*, ``g_words[m % B]``.
+per *point*, point m % B. The plain version takes those words packed,
+``g_words`` [B, ceil(C/2)] (JAX's interface); the kernel reads the
+encode's cotangent g [B, L*C] (bf16 or f32) in place, the level's C
+channels from column ``g_col``, and forms each word as it stages it, the
+same bits as :func:`g_words_plain` (a truncation of each channel to
+bf16). The wrappers take g and ``g_col`` (or, on the CPU, the packed
+words).
 
 The plain version, :func:`segment_totals_outer_plain`, is an
 ``index_add_`` of the rounded products; the wrapper takes it only for
@@ -100,6 +106,15 @@ def segment_totals_plain(keys_sorted, packed, n_rows: int, n_chan: int):
     return out.index_add_(0, keys_sorted.to(torch.int64), vals)
 
 
+def g_words_plain(g, g_col: int, C: int):
+    """B2's payload words of one level: channels g_col .. g_col + C - 1 of
+    g [B, *] (f32 or bf16) as ceil(C/2) words of two truncated bf16 halves
+    per point (``pack_bf16_pairs``) -> [B, ceil(C/2)] i32. The plain
+    version of the kernel's in-place read of g."""
+    return torch.stack(pack_bf16_pairs(
+        [g[:, g_col + c] for c in range(C)]), dim=1)
+
+
 def _outer_products(perm, w_word, g_words, C: int):
     """[M, 2C] bf16-rounded products of each record: w0*g then w1*g."""
     p = perm.to(torch.int64)
@@ -156,8 +171,9 @@ def _lib(name="segment_totals_outer_fwd"):
     lib = _build.load("segsum")
     fn = getattr(lib, name)
     if name in ("segment_totals_outer_fwd", "segment_grad_outer_fwd"):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     else:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
@@ -227,41 +243,74 @@ def segment_totals(keys_sorted, packed, n_rows: int, n_chan: int):
 segment_totals.launches = 0   # kernel launches, counted where they happen
 
 
-def _check_outer(who, keys_sorted, perm, w_word, g_words, n_rows, C):
+def _cpu_words(who, g, g_col: int, C: int):
+    """The payload words the plain version takes: g's level packed by
+    :func:`g_words_plain`, or g itself when it is already the words."""
+    if g.dtype == torch.int32:
+        if g_col != 0:
+            raise ValueError(f"{who}: packed words start at column 0")
+        return g
+    return g_words_plain(g, g_col, C)
+
+
+def _check_outer(who, keys_sorted, perm, w_word, g, g_col, n_rows, C):
     """Raises unless the outer stream is one the kernel takes."""
     dev = keys_sorted.device
     M = keys_sorted.shape[0]
-    n_words = (C + 1) // 2
-    if dev.type != "cuda" or any(t.device != dev
-                                 for t in (perm, w_word, g_words)):
+    if dev.type != "cuda" or any(t.device != dev for t in (perm, w_word, g)):
         raise ValueError(f"{who}: all inputs must be on one CUDA device")
-    if any(t.dtype != torch.int32 for t in (keys_sorted, perm, w_word,
-                                             g_words)):
-        raise TypeError(f"{who}: keys, perm, w_word and g_words must be "
-                        "int32")
-    if keys_sorted.ndim != 1 or perm.shape != (M,) or g_words.ndim != 2 \
-            or g_words.shape[1] != n_words or w_word.ndim != 1:
-        raise ValueError(f"{who}: need keys and perm [M], w_word [M_all], "
-                         "g_words [B, ceil(C/2)]")
-    if not all(t.is_contiguous() for t in (keys_sorted, perm, w_word,
-                                           g_words)):
-        raise ValueError(f"{who}: inputs must be contiguous")
+    if any(t.dtype != torch.int32 for t in (keys_sorted, perm, w_word)):
+        raise TypeError(f"{who}: keys, perm and w_word must be int32")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{who}: the kernel reads g in place: f32 or bf16, "
+                        f"not {g.dtype}")
+    if keys_sorted.ndim != 1 or perm.shape != (M,) or w_word.ndim != 1 \
+            or g.ndim != 2 or not 0 <= g_col <= g.shape[1] - C:
+        raise ValueError(f"{who}: need keys and perm [M], w_word [M_all] "
+                         f"and g [B, >= g_col + C] (g_col={g_col})")
+    if not all(t.is_contiguous() for t in (keys_sorted, perm, w_word)) \
+            or g.stride(1) != 1:
+        raise ValueError(f"{who}: keys, perm and w_word must be contiguous "
+                         "and g's rows too")
+    # a channel pair is one aligned load (csrc/segsum.cu payload_word)
+    if C > 1 and (g_col % 2 or g.stride(0) % 2
+                  or g.data_ptr() % (2 * g.element_size())):
+        raise ValueError(f"{who}: g's row stride and g_col must be even and "
+                         "g aligned to a channel pair")
     if C not in _CHANNELS or not 0 <= M < 2 ** 31 or n_rows <= 0 \
-            or g_words.shape[0] <= 0:
+            or g.shape[0] <= 0:
         raise ValueError(f"{who}: need C in {_CHANNELS}, M < 2^31, rows "
                          f"and points > 0 (C={C}, M={M})")
 
 
-def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
-                         C: int, out=None):
-    """Per-row totals of the outer-product record stream (see
-    :func:`segment_totals_outer_plain` for the arguments). ``out``, if
-    given, is a contiguous [n_rows, 2C] f32 tensor that is overwritten.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+def _launch_outer(name, keys_sorted, perm, w_word, g, g_col, out, scratch,
+                  n_edge, n_rows, C):
+    dev = keys_sorted.device
+    err = _lib(name)(
+        keys_sorted.data_ptr(), perm.data_ptr(), w_word.data_ptr(),
+        g.data_ptr(), g.stride(0), g_col, int(g.dtype == torch.bfloat16),
+        out.data_ptr(), scratch.data_ptr(), keys_sorted.shape[0],
+        g.shape[0], C, n_rows, n_edge,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
+
+
+def segment_totals_outer(keys_sorted, perm, w_word, g, n_rows: int, C: int,
+                         *, g_col: int = 0, out=None):
+    """Per-row totals of the outer-product record stream of one level (the
+    arguments of :func:`segment_totals_outer_plain`, but g [B, *] f32 or
+    bf16, the level's C channels from column ``g_col``: the encode's
+    cotangent, read in place). ``out``, if given, is a contiguous
+    [n_rows, 2C] f32 tensor that is overwritten. CPU tensors take the
+    plain version on :func:`g_words_plain` (or on g itself when it is
+    already the int32 words); CUDA tensors launch the kernel."""
     if keys_sorted.device.type == "cpu":
-        return segment_totals_outer_plain(keys_sorted, perm, w_word,
-                                          g_words, n_rows, C, out=out)
-    _check_outer("segment_totals_outer", keys_sorted, perm, w_word, g_words,
+        return segment_totals_outer_plain(
+            keys_sorted, perm, w_word,
+            _cpu_words("segment_totals_outer", g, g_col, C), n_rows, C,
+            out=out)
+    _check_outer("segment_totals_outer", keys_sorted, perm, w_word, g, g_col,
                  n_rows, C)
     dev = keys_sorted.device
     M = keys_sorted.shape[0]
@@ -276,13 +325,8 @@ def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
     if M == 0:
         return out
     edges, n_edge = edge_buffer(M, 2 * C, dev)
-    err = _lib()(keys_sorted.data_ptr(), perm.data_ptr(), w_word.data_ptr(),
-                 g_words.data_ptr(), out.data_ptr(), edges.data_ptr(), M,
-                 g_words.shape[0], C, n_rows, n_edge,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"segment_totals_outer: CUDA launch failed "
-                           f"(error {err})")
+    _launch_outer("segment_totals_outer_fwd", keys_sorted, perm, w_word, g,
+                  g_col, out, edges, n_edge, n_rows, C)
     segment_totals_outer.launches += 1
     return out
 
@@ -290,20 +334,23 @@ def segment_totals_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
 segment_totals_outer.launches = 0   # kernel launches, counted where they happen
 
 
-def segment_grad_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
-                       C: int, out=None):
+def segment_grad_outer(keys_sorted, perm, w_word, g, n_rows: int, C: int,
+                       *, g_col: int = 0, out=None):
     """The window level's flat table gradient from its outer-product
-    record stream (the arguments of :func:`segment_totals_outer_plain`):
+    record stream (the arguments of :func:`segment_totals_outer`):
     ``out`` [n_rows * C] f32, a contiguous slice of the flat gradient (a
     new tensor if None), overwritten with ``G0[r] + G1[r - 1]`` (+0 into
     row 0; rows without records +0). CPU tensors take
-    :func:`segment_grad_outer_plain`; CUDA tensors launch the kernel's flat
-    mode: a zero fill of ``out``, then the main pass, the group sums, the
-    fix-up and the join."""
+    :func:`segment_grad_outer_plain` on :func:`g_words_plain` (or on g
+    itself when it is already the int32 words); CUDA tensors launch the
+    kernel's flat mode, which reads g in place: a zero fill of ``out``,
+    then the main pass, the group sums, the fix-up and the join."""
     if keys_sorted.device.type == "cpu":
-        return segment_grad_outer_plain(keys_sorted, perm, w_word, g_words,
-                                        n_rows, C, out=out)
-    _check_outer("segment_grad_outer", keys_sorted, perm, w_word, g_words,
+        return segment_grad_outer_plain(
+            keys_sorted, perm, w_word,
+            _cpu_words("segment_grad_outer", g, g_col, C), n_rows, C,
+            out=out)
+    _check_outer("segment_grad_outer", keys_sorted, perm, w_word, g, g_col,
                  n_rows, C)
     dev = keys_sorted.device
     M = keys_sorted.shape[0]
@@ -318,14 +365,8 @@ def segment_grad_outer(keys_sorted, perm, w_word, g_words, n_rows: int,
     if M == 0:
         return out
     scratch, n_edge = flat_edge_buffer(M, C, dev)
-    err = _lib("segment_grad_outer_fwd")(
-        keys_sorted.data_ptr(), perm.data_ptr(), w_word.data_ptr(),
-        g_words.data_ptr(), out.data_ptr(), scratch.data_ptr(), M,
-        g_words.shape[0], C, n_rows, n_edge,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"segment_grad_outer: CUDA launch failed "
-                           f"(error {err})")
+    _launch_outer("segment_grad_outer_fwd", keys_sorted, perm, w_word, g,
+                  g_col, out, scratch, n_edge, n_rows, C)
     segment_grad_outer.launches += 1
     return out
 

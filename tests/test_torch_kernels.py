@@ -186,12 +186,18 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(TypeError):
         tc.compact_attrs(torch.zeros(1, 16, device=cuda_device), keys,
                          keys.long(), 8)
-    g_words = torch.zeros(4, 8, dtype=torch.int32, device=cuda_device)
+    g = torch.zeros(4, 32, device=cuda_device)
     with pytest.raises(ValueError):      # out is [n_rows, 2C], not flat
-        ts.segment_grad_outer(keys, keys, keys, g_words, 8, 16,
+        ts.segment_grad_outer(keys, keys, keys, g, 8, 16,
                               out=torch.empty(8, 32, device=cuda_device))
     with pytest.raises(TypeError):
-        ts.segment_grad_outer(keys, keys.long(), keys, g_words, 8, 16)
+        ts.segment_grad_outer(keys, keys.long(), keys, g, 8, 16)
+    with pytest.raises(TypeError):       # B2 reads g in place, not words
+        ts.segment_grad_outer(keys, keys, keys, g.int(), 8, 16)
+    with pytest.raises(ValueError):      # a channel pair is one load
+        ts.segment_totals_outer(keys, keys, keys, g, 8, 8, g_col=3)
+    with pytest.raises(ValueError):      # the level's channels past g
+        ts.segment_grad_outer(keys, keys, keys, g, 8, 16, g_col=24)
 
 
 @pytest.mark.gpu
@@ -241,7 +247,10 @@ def _flagship_grid():
                            ).grid_spec
 
 
-def _outer_stream(device, M, B, n_rows, C, skew=False, seed=0):
+def _outer_stream(device, M, B, n_rows, C, skew=False, seed=0,
+                  dtype=torch.float32, width=None):
+    """A sorted outer stream and the cotangent g [B, width] (default C
+    columns) B2 reads in place: (keys, perm, w_word, g)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     keys = torch.randint(0, n_rows, (M,), generator=gen, device=device,
                          dtype=torch.int32)
@@ -251,9 +260,15 @@ def _outer_stream(device, M, B, n_rows, C, skew=False, seed=0):
     keys_s, perm = torch.sort(keys, stable=True)
     w = torch.rand(2, M, generator=gen, device=device)
     w_word = ts.pack_bf16_pairs([w[0], w[1]])[0]
-    g = torch.randn(B, C, generator=gen, device=device)
-    g_words = torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous()
-    return keys_s, perm.to(torch.int32), w_word, g_words
+    g = torch.randn(B, width or C, generator=gen, device=device).to(dtype)
+    return keys_s, perm.to(torch.int32), w_word, g
+
+
+def _packed(args, g_col=0):
+    """The plain version's arguments for a kernel call's: g's level
+    channels as B2's payload words (g_words_plain), JAX's interface."""
+    keys, perm, w_word, g, n_rows, C = args
+    return keys, perm, w_word, ts.g_words_plain(g, g_col, C), n_rows, C
 
 
 @pytest.mark.gpu
@@ -270,12 +285,13 @@ def test_segsum_kernel_matches_plain_at_flagship_shape(cuda_device, skew):
     exactly 0, and two calls give the same bits (the kernel's sum order is
     fixed: no float atomics)."""
     M, B, n_rows, C = 1 << 20, 1 << 18, 1 << 19, 16
-    keys_s, perm, w_word, g_words = _outer_stream(cuda_device, M, B, n_rows,
-                                                  C, skew=skew)
+    args = _outer_stream(cuda_device, M, B, n_rows, C, skew=skew) \
+        + (n_rows, C)
+    keys_s, perm, w_word, g_words = _packed(args)[:4]
     before = ts.segment_totals_outer.launches
-    out = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
+    out = ts.segment_totals_outer(*args)
     assert ts.segment_totals_outer.launches == before + 1
-    again = ts.segment_totals_outer(keys_s, perm, w_word, g_words, n_rows, C)
+    again = ts.segment_totals_outer(*args)
     ref = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words,
                                         n_rows, C)
     torch.cuda.synchronize()
@@ -306,13 +322,22 @@ def _within_sum_error(out, ref, mass, rtol):
 def test_segsum_kernel_channel_widths(cuda_device, C):
     """Every channel width the kernel takes (two channels a lane at C=32,
     idle lanes below C=16), on a small stream."""
-    keys_s, perm, w_word, g_words = _outer_stream(cuda_device, 50000, 9000,
-                                                  4000, C, seed=C)
-    out = ts.segment_totals_outer(keys_s, perm, w_word, g_words, 4000, C)
-    ref = ts.segment_totals_outer_plain(keys_s, perm, w_word, g_words, 4000,
-                                        C)
+    args = _outer_stream(cuda_device, 50000, 9000, 4000, C, seed=C) \
+        + (4000, C)
+    out = ts.segment_totals_outer(*args)
+    ref = ts.segment_totals_outer_plain(*_packed(args))
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def _record_points(B, seed):
+    """B uniform points, the first 64 outside [0, 1]^3 and the next 8 with
+    a NaN (as many as B holds)."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((B, 3)).astype(np.float32)
+    x[:64] = x[:64] * 3.0 - 1.0
+    x[64:72, 1] = np.nan
+    return x
 
 
 @pytest.mark.gpu
@@ -320,19 +345,46 @@ def test_segsum_kernel_channel_widths(cuda_device, C):
                                         ("additive", "0"), ("xor", "auto")])
 def test_window_records_kernel_bit_exact(cuda_device, monkeypatch, variant,
                                          mm):
-    """The backward's records (base, packed w0/w1) from the kernel equal
-    the plain version bit for bit, with out-of-bounds and NaN points."""
+    """The backward's records (base, packed w0/w1), written by the encode
+    forward's records mode (hash_encode_records, one counted launch),
+    equal window_records_plain bit for bit, and its output equals the
+    forward without records bit for bit: f32 and bf16, every channel
+    width, 64 points outside [0, 1]^3 and 8 NaN points, ragged B (one
+    point, a warp less one, a group less one) and B = 0, on grids with two
+    or more window levels (additive: pairable levels on every pair axis;
+    xor: hashed one-corner levels); two calls give the same bits."""
     monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
-    spec = HashGridSpec.create(num_levels=4, level_dim=8,
-                               log2_hashmap_size=14, desired_resolution=512,
-                               hash_variant=variant)
-    x = torch.from_numpy(_points(65536)).to(cuda_device)
-    before = th.window_records.launches
-    base, w_word = th.window_records(x, spec)
-    assert th.window_records.launches == before + 1
-    base_p, w_word_p = th.window_records_plain(x, spec)
-    torch.cuda.synchronize()
-    assert torch.equal(base, base_p) and torch.equal(w_word, w_word_p)
+    for C in (1, 2, 4, 8, 16, 32):
+        spec = HashGridSpec.create(num_levels=4, level_dim=C,
+                                   log2_hashmap_size=14,
+                                   desired_resolution=512,
+                                   hash_variant=variant)
+        assert len(th.level_windows(spec, th.matmul_split(spec))) >= 2
+        gen = torch.Generator(device=cuda_device).manual_seed(C)
+        table = torch.rand(spec.n_params * C, generator=gen,
+                           device=cuda_device) * 2 - 1
+        for B in (65536, 8191, 31, 1, 0):
+            x = torch.from_numpy(_record_points(B, B + C)).to(cuda_device)
+            base_p, w_word_p = th.window_records_plain(x, spec)
+            for dtype in (torch.float32, torch.bfloat16):
+                counts = (th.hash_encode_records.launches,
+                          th.hash_encode.launches)
+                out, base, w_word = th.hash_encode_records(table, x, spec,
+                                                           dtype)
+                again = th.hash_encode_records(table, x, spec, dtype)
+                assert (th.hash_encode_records.launches - counts[0],
+                        th.hash_encode.launches - counts[1]) == (
+                            (2, 0) if B else (0, 0))
+                plain_out = th.hash_encode(table, x, spec, dtype)
+                torch.cuda.synchronize()
+                assert base.shape == base_p.shape == w_word.shape
+                assert torch.equal(base, base_p), (C, B, dtype)
+                assert torch.equal(w_word, w_word_p), (C, B, dtype)
+                assert torch.equal(out.view(torch.uint8).reshape(-1),
+                                   plain_out.view(torch.uint8).reshape(-1))
+                for a, b in zip((out, base, w_word), again):
+                    assert torch.equal(a.view(torch.uint8).reshape(-1),
+                                       b.view(torch.uint8).reshape(-1))
 
 
 def _dense_totals(x, g, spec, bf16, lv=0):
@@ -383,17 +435,18 @@ def test_encode_backward_kernel_path_matches_plain(cuda_device, dtype):
     x = torch.rand(262144, 3, generator=gen, device=cuda_device)
     cot = torch.randn(262144, spec.output_dim, generator=gen,
                       device=cuda_device)
-    counters = (th.window_records, ts.segment_grad_outer, th.mm_grad_table,
-                th.pack_g_words, ts.segment_totals_outer)
+    counters = (th.hash_encode_records, ts.segment_grad_outer,
+                th.mm_grad_table, ts.segment_totals_outer, th.hash_encode)
     counts = [c.launches for c in counters]
     grads = []
     for fn in (th.hash_encode, th.hash_encode_plain):
         p = table.clone().requires_grad_()
         (fn(p, x, spec, compute_dtype=dtype).float() * cot).sum().backward()
         grads.append(p.grad)
-    # B2's flat mode writes the window rows: no 2C totals
+    # the forward writes the records in its one launch; B2's flat mode
+    # reads g in place and writes the window rows: no 2C totals
     assert [c.launches for c in counters] == [n + d for n, d in zip(
-        counts, (1, 1, 1, 1, 0))]
+        counts, (1, 1, 1, 0, 0))]
     torch.cuda.synchronize()
     n_dense = spec.offsets[th.matmul_split(spec)] * spec.level_dim
     assert n_dense > 0
@@ -545,10 +598,9 @@ def test_segsum_kernels_row_over_three_chunk_edges(cuda_device):
     w = torch.rand(2, M, generator=gen, device=cuda_device)
     w_word = ts.pack_bf16_pairs([w[0], w[1]])[0]
     g = torch.randn(B, C, generator=gen, device=cuda_device)
-    g_words = torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous()
-    args = (keys, perm.to(torch.int32), w_word, g_words, n_rows, C)
+    args = (keys, perm.to(torch.int32), w_word, g, n_rows, C)
     out, again = (ts.segment_totals_outer(*args) for _ in range(2))
-    ref = ts.segment_totals_outer_plain(*args)
+    ref = ts.segment_totals_outer_plain(*_packed(args))
     vals = torch.randn(32, M, generator=gen, device=cuda_device)
     packed = torch.stack(ts.pack_bf16_pairs(list(vals))).contiguous()
     ch, ch2 = (ts.segment_totals(keys, packed, n_rows, 32) for _ in range(2))
@@ -607,21 +659,21 @@ def _flat_case(device, keys, n_rows, C, B=300, seed=0):
     perm = torch.randperm(M, generator=gen, device=device).to(torch.int32)
     w = torch.rand(2, M, generator=gen, device=device)
     g = torch.randn(B, C, generator=gen, device=device)
-    return (keys.to(device), perm, ts.pack_bf16_pairs([w[0], w[1]])[0],
-            torch.stack(ts.pack_bf16_pairs(list(g.T)), dim=1).contiguous(),
+    return (keys.to(device), perm, ts.pack_bf16_pairs([w[0], w[1]])[0], g,
             n_rows, C)
 
 
-def _assert_flat_bits(args):
+def _assert_flat_bits(args, g_col=0):
     """segment_grad_outer (B2's flat mode) against the 2C totals then
-    combine_totals_plain (the same f32 sums, then one f32 add a row): the
-    same bits, two calls the same bits, one counted launch a call."""
+    combine_totals_plain (the same f32 sums, then one f32 add a row), both
+    reading g's channels from column g_col in place: the same bits, two
+    calls the same bits, one counted launch a call."""
     n_rows, C = args[4], args[5]
     before = ts.segment_grad_outer.launches
-    flat = ts.segment_grad_outer(*args)
-    again = ts.segment_grad_outer(*args)
+    flat = ts.segment_grad_outer(*args, g_col=g_col)
+    again = ts.segment_grad_outer(*args, g_col=g_col)
     assert ts.segment_grad_outer.launches == before + 2
-    ref = ts.combine_totals_plain(ts.segment_totals_outer(*args),
+    ref = ts.combine_totals_plain(ts.segment_totals_outer(*args, g_col=g_col),
                                   torch.empty(n_rows * C, device=flat.device))
     torch.cuda.synchronize()
     assert torch.equal(flat.view(torch.int32), ref.view(torch.int32))
@@ -667,34 +719,98 @@ def test_segsum_flat_mode_bit_exact_ragged(cuda_device, M, C):
 @pytest.mark.parametrize("skew", [False, True])
 def test_segsum_flat_mode_bit_exact_at_flagship_shape(cuda_device, skew):
     """B2's flat mode at the flagship's level-1 shape (1,048,576 records
-    of 262,144 points into 524,288 rows, C = 16), random keys and the skew
-    stream (a ~940k-record row over some 7,300 chunks): bit for bit the 2C
-    mode plus combine_totals_plain, two calls the same bits; the zero-length
-    stream leaves the zero fill only."""
+    of 262,144 points into 524,288 rows, C = 16), reading level 1's
+    channels of a bf16 cotangent [B, 32] in place as the table gradient
+    does, random keys and the skew stream (a ~940k-record row over some
+    7,300 chunks): bit for bit the 2C mode plus combine_totals_plain, two
+    calls the same bits, and within rtol 1e-5 of the plain version on the
+    packed words (within the f32 sum bound on the skew stream); the
+    zero-length stream leaves the zero fill only."""
     M, B, n_rows, C = 1 << 20, 1 << 18, 1 << 19, 16
-    _assert_flat_bits(_outer_stream(cuda_device, M, B, n_rows, C, skew=skew)
-                      + (n_rows, C))
+    args = _outer_stream(cuda_device, M, B, n_rows, C, skew=skew,
+                         dtype=torch.bfloat16, width=2 * C) + (n_rows, C)
+    _assert_flat_bits(args, g_col=C)
+    flat = ts.segment_grad_outer(*args, g_col=C)
+    plain = _packed(args, g_col=C)
+    ref = ts.segment_grad_outer_plain(*plain)
+    prods = ts._outer_products(plain[1], plain[2], plain[3], C).abs()
+    keys = plain[0].long()
+    mass = torch.zeros(n_rows, 2 * C, device=cuda_device).index_add_(
+        0, keys, prods)
+    mass = mass[:, :C] + torch.cat([mass.new_zeros(1, C), mass[:-1, C:]])
+    torch.cuda.synchronize()
+    if skew:
+        assert _within_sum_error(flat, ref, mass.reshape(-1), 1e-5)
+    else:
+        torch.testing.assert_close(flat, ref, rtol=1e-5, atol=1e-5)
     empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
-    _, _, w_word, g_words = _outer_stream(cuda_device, 64, 64, 64, C)
-    out = ts.segment_grad_outer(empty, empty, w_word, g_words, 64, C)
+    _, _, w_word, g = _outer_stream(cuda_device, 64, 64, 64, C)
+    out = ts.segment_grad_outer(empty, empty, w_word, g, 64, C)
     assert out.shape == (64 * C,) and not out.any()
 
 
+def _unique_stream(device, M, seed):
+    """M sorted keys whose rows hold one record each (3M rows), a random
+    permutation and (w0, w1) words: every total is one bf16 product, exact
+    in any sum order, so the kernel must give the plain version's bits ->
+    (keys, perm, w_word, n_rows)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_rows = 3 * M
+    keys = torch.sort(torch.randperm(n_rows, generator=gen, device=device)[:M]
+                      ).values.to(torch.int32)
+    perm = torch.randperm(M, generator=gen, device=device).to(torch.int32)
+    w = torch.rand(2, M, generator=gen, device=device)
+    return keys, perm, ts.pack_bf16_pairs([w[0], w[1]])[0], n_rows
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [1, 2, 8, 16])
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_table_grad_glue_kernels_bit_exact(cuda_device, C, dtype):
-    """The packing of g into B2's payload words, kernel against plain
-    version: bit for bit (truncations), one counted launch a call."""
+    """The packing of g into B2's payload words, which B2 now forms as it
+    reads g [B, L*C] in place, against pack_g_words_plain (the words JAX
+    packs: the truncation of f32 g, the swapped halves of bf16 g, a zero
+    low half at C = 1), in both of B2's forms, one counted launch a call.
+    At every window level's column (the columns table_grad passes; odd
+    ones at C = 1), on a stream whose rows hold one record each (every
+    total one bf16 product, exact in any sum order): bit for bit the
+    plain version on that level's packed words, two calls the same bits.
+    On random keys at the last level's column: the flat form bit for bit
+    the 2C totals plus combine_totals_plain, the totals within rtol 1e-5
+    of the plain version."""
     spec = HashGridSpec.create(num_levels=4, level_dim=C,
                                log2_hashmap_size=14, desired_resolution=512)
+    B = 5000
     gen = torch.Generator(device=cuda_device).manual_seed(C)
-    g = torch.randn(5000, spec.output_dim, generator=gen,
+    g = torch.randn(B, spec.output_dim, generator=gen,
                     device=cuda_device).to(dtype)
-    count = th.pack_g_words.launches
-    words = th.pack_g_words(g, spec)
-    assert torch.equal(words, th.pack_g_words_plain(g, spec))
-    assert th.pack_g_words.launches == count + 1
+    words = th.pack_g_words_plain(g, spec)
+    windows = th.level_windows(spec, th.matmul_split(spec))
+    assert len(windows) >= 2
+    for i, (lv, _, _) in enumerate(windows):
+        keys, perm, w_word, n_rows = _unique_stream(cuda_device, 4 * B,
+                                                    seed=C + lv)
+        args = (keys, perm, w_word, g, n_rows, C)
+        for fn, ref in ((ts.segment_totals_outer,
+                         ts.segment_totals_outer_plain),
+                        (ts.segment_grad_outer, ts.segment_grad_outer_plain)):
+            count = fn.launches
+            out = fn(*args, g_col=lv * C)
+            again = fn(*args, g_col=lv * C)
+            assert fn.launches == count + 2
+            want = ref(*args[:3], words[i], *args[4:])
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(out.view(torch.int32),
+                               again.view(torch.int32))
+    keys, perm, w_word, _ = _outer_stream(cuda_device, 20000, B, 3000, C,
+                                          seed=C)
+    args = (keys, perm, w_word, g, 3000, C)
+    _assert_flat_bits(args, g_col=lv * C)
+    out = ts.segment_totals_outer(*args, g_col=lv * C)
+    ref = ts.segment_totals_outer_plain(*args[:3], words[-1], 3000, C)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -203,6 +203,62 @@ def test_window_levels_flat_calls_equal_one_combine(monkeypatch, name, mm):
                        ref[off_m:].view(torch.int32))
 
 
+@pytest.mark.parametrize("gdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,mm", [("L2xC16", "0"), ("xor", "auto")])
+def test_segment_grad_outer_reads_g_in_place_like_jax(monkeypatch, name, mm,
+                                                      gdtype):
+    """B2's flat-form wrapper as the table gradient calls it on the card,
+    given the encode's cotangent g [B, L*C] and each window level's column
+    g_col (on CPU tensors: the plain version on g_words_plain of that
+    column), against JAX's window-level table gradient
+    (_window_bwd_table_chunked, the Pallas B2 interpreted, then G0 +
+    shift(G1)) on every window level of a spec with two or more of them
+    (16 channels, both levels pairable; 2 channels, hashed one-corner
+    levels), in f32 and bf16 g: rtol 1e-5 (the f32 totals sum in another
+    order), atol 1e-6 of the largest entry. The same call given the packed
+    words (pack_g_words_plain) gives the same bits."""
+    from raw_ngp_torch.kernels import segsum as ts
+    monkeypatch.setenv("RAW_NGP_MM_LEVELS", mm)
+    js, tspec = JSpec.create(**_SPECS[name]), TSpec.create(**_SPECS[name])
+    C, m = tspec.level_dim, th.matmul_split(tspec)
+    windows = th.level_windows(tspec, m)
+    assert len(windows) >= 2 and m == hf._matmul_split(js)
+    B = 600
+    x = _points(B)
+    rng = np.random.default_rng(11)
+    params = (rng.standard_normal(js.n_params * C) * 0.1).astype(np.float32)
+    g_t = torch.from_numpy(rng.standard_normal(
+        (B, js.output_dim)).astype(np.float32))
+    jdt = jnp.float32
+    if gdtype == "bf16":
+        g_t, jdt = g_t.to(torch.bfloat16), jnp.bfloat16
+    bj, w0j, w1j = hf._window_indices_weights(jnp.asarray(x), js)
+    res = (jnp.asarray(params), jnp.asarray(x), bj, w0j, w1j)
+    gj = np.asarray(_interpreted(lambda: hf._window_bwd_table_chunked(
+        js, res, jnp.asarray(_np(g_t.float())).astype(jdt), jdt)))
+    base, w_word = th.window_records_plain(torch.from_numpy(x), tspec)
+    words = th.pack_g_words_plain(g_t, tspec)
+    out = torch.full((tspec.n_params * C,), float("nan"))
+    for i, (lv, w0, nw) in enumerate(windows):
+        off = tspec.offsets[lv]
+        rows = tspec.offsets[lv + 1] - off
+        keys_s, perm = torch.sort(base[w0:w0 + nw].reshape(-1) - off,
+                                  stable=True)
+        stream = (keys_s, perm.to(torch.int32),
+                  w_word[w0:w0 + nw].reshape(-1))
+        part = out[off * C:(off + rows) * C]
+        assert ts.segment_grad_outer(*stream, g_t, rows, C, g_col=lv * C,
+                                     out=part) is part
+        packed = ts.segment_grad_outer(*stream, words[i], rows, C)
+        assert torch.equal(part.view(torch.int32), packed.view(torch.int32))
+    off_m = tspec.offsets[m] * C
+    want = gj.reshape(-1)[off_m:]
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(_np(out[off_m:]), want, rtol=1e-5,
+                               atol=1e-6 * scale)
+
+
 def _ray_points(B, seed=1, per_ray=32):
     """B points in ray order, as the compaction hands them to the train
     forward: rays from random points in [0.1, 0.9]^3 in random directions,
@@ -402,7 +458,8 @@ def test_encode_plain_and_default_paths_agree():
 @pytest.mark.parametrize("gdtype", ["f32", "bf16"])
 def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
     """The table gradient's glue on CPU tensors (the plain versions, no
-    launch): pack_g_words equals JAX's _pack_bf16_pairs of each window
+    launch): pack_g_words_plain (the payload words B2 forms from g in
+    place on the card) equals JAX's _pack_bf16_pairs of each window
     level's g-channels (truncations of the f32 values) and
     combine_totals_plain JAX's G0 + shift(G1) (hash_fused.py:686), bit for
     bit."""
@@ -414,8 +471,7 @@ def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
     g_t = torch.from_numpy(g).to(torch.bfloat16 if gdtype == "bf16"
                                  else torch.float32)
     g32 = g_t.float().numpy()
-    launches = th.pack_g_words.launches
-    words = th.pack_g_words(g_t, tspec)
+    words = th.pack_g_words_plain(g_t, tspec)
     assert words.shape == (tspec.num_levels - m, 300, C // 2)
     for i, lv in enumerate(range(m, tspec.num_levels)):
         want = hf._pack_bf16_pairs([jnp.asarray(g32[:, lv * C + c])
@@ -429,7 +485,6 @@ def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
     want = totals[:, :C] + np.concatenate([np.zeros((1, C), np.float32),
                                            totals[:-1, C:]])
     np.testing.assert_array_equal(_np(out).reshape(500, C), want)
-    assert th.pack_g_words.launches == launches
 
 
 def test_unported_gradients_raise():
