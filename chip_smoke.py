@@ -10,13 +10,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (four sources) with nvcc for sm_90a (one nvcc per source, in
               parallel), print each kernel's registers, stack frame and
               spills (ptxas), and fail if an instantiation of the encode
-              forward (with and without records) or input gradient, or of
-              B2's flat form (main pass, fix-up, join), spills or keeps a
-              stack frame;
-  2. compact — the compaction kernel against its plain version at the
-              render's shape (M = 1,048,576 records, m_pad = 262,144
-              slots), keep rates 0.03 / 0.25 / 0.9 plus a full mask and an
-              empty one: bit-exact;
+              forward (with and without records) or input gradient, of
+              B2's flat form (main pass, fix-up, join) or of the fold
+              (phase 2), spills or keeps a stack frame;
+  2. decimate — the render's budget decimation and compaction folded
+              (decimate_compact: three launches forward, one backward;
+              B1 and its backward redesigned) against its plain version
+              (decimate_compact_plain and its autograd), bit for bit,
+              forward and the gradients in ts, deltas and dt, two calls
+              bitwise equal, at the train shape (8,192 rays x 64, m_pad
+              262,144) at stride 1 and 2, full and empty, and a 16,384-ray
+              chunk at stride 1 and 3; timed at stride 1 (device time,
+              launches a call and time by kernel) beside the plain
+              version, nonzero (+ nonzero_static) + index_select and
+              zero_ + index_copy_, with the wrapper's host time a call by
+              parts;
   3. encode — the hash-encode kernel against its plain version on the
               flagship grid (2 levels x 16 channels, additive hash) at the
               inputs the path gives it: 262,144 uniform points (some
@@ -30,8 +38,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               .with_tpu_profile(), fp16, num_rays 8192) at full width with
               a seeded random field and a bitfield occupying the bench
               scene's spheres: render_image of the val view at 128x128
-              (one 16,384-ray chunk) and 512x512 (16 chunks), with both
-              launch counters reset just before and read just after; the
+              (one 16,384-ray chunk) and 512x512 (16 chunks), with every
+              launch counter reset just before and read just after; the
               images must be finite and one chunk must agree with the same
               render on the plain path on the card;
   5. segsum — kernel B2's outer mode at the flagship's level-1 shape
@@ -76,25 +84,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the repro check: the Trainer's state from before step 1
               restored and 32 steps (two grid refreshes) run again, params,
               EMA and Adam moments bitwise equal to the first run's;
-  8. compact_bwd — kernel B1's backward against its plain version (zeros +
-              index_copy_) at the train shape (M = 524,288, m_pad =
-              262,144), keep rates 0.03 / 0.25 / 0.9, full and empty (0.9
-              and full overflow the budget): bit-exact; timed beside the
-              device time of zero_ + index_copy_;
-  9. encode_input — the encode's input gradient against its plain version
+  8. encode_input — the encode's input gradient against its plain version
               at 262,144 uniform and ray-ordered points on the flagship
               grid, f32 and bf16, within rtol 1e-5 of the largest entry,
               0 outside [0, 1]^3, two calls bitwise equal; each timed;
- 10. segsum_channel — B2's channel mode against segment_totals_plain at
+  9. segsum_channel — B2's channel mode against segment_totals_plain at
               the level-1 shape (1,048,576 records into 524,288 rows, 32
               channels), random keys within rtol 1e-5 and a dense-skew
               stream within the bound of phase 5;
- 11. pose   — pose refinement: the flagship with with_pose_opt("barf", 36),
+ 10. pose   — pose refinement: the flagship with with_pose_opt("barf", 36),
               pose_opt.noise 0.05 and train.iters = 128 (so the annealing
               ramp and the pose freeze at int(0.33 * 128) fall inside)
               trained 128 steps by its Trainer, every launch counter reset
               just before and read just after: all seven kernels of the
-              path launched (compaction forward and backward, encode, the
+              path launched (the fold forward and backward, encode, the
               forward with records, B2's flat form and the dense-level
               gradient once a step, encode input gradient), finite losses
               that
@@ -104,7 +107,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pose gradient agree between the kernel and the plain path,
               and the repro check of phase 7 (pose params and moments
               included);
- 12. timing — each kernel, its plain version and a PyTorch yardstick where
+ 11. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -131,7 +134,7 @@ With --against, it only builds and compares: each TREE's
 raw_ngp_torch/csrc/hash_encode.cu (another version of this repository,
 e.g. a git archive of a parent commit; the same C entry points) is built
 beside this tree's, and the encode forward and input gradient of both run
-on the phase-3 and phase-9 inputs through this tree's wrappers, outputs
+on the phase-3 and phase-8 inputs through this tree's wrappers, outputs
 compared and device times taken in turns (other, this, this, other); one
 `ab` JSON line per TREE.
 
@@ -283,8 +286,9 @@ def phase_build():
 # kernel entry -> (source, instantiations, (template argument, value) they
 # must have or None) that must keep everything in registers: the encode's
 # two gathers (every channel quad, window and row; the forward without
-# and with records, its third argument) and B2's flat form (its running
-# totals and the previous segment's G1; the second argument)
+# and with records, its third argument), B2's flat form (its running
+# totals and the previous segment's G1; the second argument) and the
+# fold's four kernels
 REGISTER_CHECKED = {
     "hash_encode": ("hash_encode", ("hash_encode_kernel<",), (2, "false")),
     "hash_encode_records": ("hash_encode", ("hash_encode_kernel<",),
@@ -293,6 +297,10 @@ REGISTER_CHECKED = {
     "segment_grad_outer": ("segsum", ("segsum_outer_kernel<",
                                       "segsum_edge_fixup_kernel<",
                                       "segsum_flat_join_kernel"), (1, "true")),
+    "decimate_compact": ("compact", ("decimate_count_kernel",
+                                     "decimate_scan_kernel",
+                                     "decimate_place_kernel"), None),
+    "decimate_compact_bwd": ("compact", ("decimate_bwd_kernel",), None),
 }
 
 
@@ -319,67 +327,227 @@ def check_registers(ptxas):
                   f"build: {k['kernel']} spills or keeps a stack frame {k}")
 
 
-def phase_compact(dev, M=1 << 20, m_pad=262144):
+def host_us(fn, reps=200):
+    """Host time of one call of fn, microseconds (perf_counter over `reps`
+    calls, not synchronized inside: the enqueue)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def decimate_inputs(dev, N, K, rate, seed, miss_rate=0.1):
+    """Seeded inputs of the fold on the card: mask [N, K] at keep `rate`,
+    miss [N, 1], ts [N, K] (-1 where dead), dt [N, 1]."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand(N, K, generator=gen, device=dev) < rate
+    miss = torch.rand(N, 1, generator=gen, device=dev) < miss_rate
+    ts = torch.where(mask, torch.rand(N, K, generator=gen, device=dev) * 3
+                     + 0.5, -1.0)
+    dt = torch.rand(N, 1, generator=gen, device=dev) * 0.1 + 1e-3
+    return mask, miss, ts, dt
+
+
+def phase_decimate(dev, m_pad=262144, K=64, n_train=8192, n_chunk=16384):
+    """The fold (budget decimation + compaction, forward and backward)
+    against its plain version, bit for bit, at the train shape (8,192
+    rays) and a serving chunk (16,384 rays), stride 1 and above, full and
+    empty; then timed at stride 1: its launches, time by kernel, the
+    plain version, the library calls and the wrapper's host time by
+    parts."""
+    import re
+
     import torch
     from raw_ngp_torch.kernels import compact as ck
-    gen = torch.Generator(device=dev).manual_seed(1)
-    attrs = torch.randn(2, M, generator=gen, device=dev)
-
-    def inputs(mask):
-        c = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-        kept = mask & (c <= m_pad)
-        keys = torch.where(kept, c - 1, ck.SENTINEL).to(torch.int32)
-        return keys, c
-
-    def plain(keys):
-        _, _, pos = ck.compact_positions(keys < m_pad, m_pad)
-        return pos, torch.stack([ck.gather_flat_sorted(a, pos)
-                                 for a in attrs])
-
-    cases = {f"keep {r}": torch.rand(M, generator=gen, device=dev) < r
-             for r in (0.03, 0.25, 0.9)}
-    cases["full"] = torch.ones(M, dtype=torch.bool, device=dev)
-    cases["empty"] = torch.zeros(M, dtype=torch.bool, device=dev)
-    for name, mask in cases.items():
-        keys, c = inputs(mask)
-        pos_k, att_k = ck.compact_attrs(attrs, keys, c, m_pad)
-        pos_2, att_2 = ck.compact_attrs(attrs, keys, c, m_pad)
-        pos_p, att_p = plain(keys)
+    cases = {"train stride 1": (n_train, 0.25, 0.1),
+             "train stride 2": (n_train, 0.7, 0.1),
+             "train full": (n_train, 1.0, 0.0),
+             "train empty": (n_train, 0.0, 0.1),
+             "chunk stride 1": (n_chunk, 0.2, 0.1),
+             "chunk stride 3": (n_chunk, 0.6, 0.1)}
+    names = ("t_c", "dt_c", "rid", "filled", "counts", "valid_total",
+             "num_points")
+    inputs = {}
+    for i, (name, (N, rate, miss_rate)) in enumerate(cases.items()):
+        mask, miss, ts, dt = decimate_inputs(dev, N, K, rate, 20 + i,
+                                             miss_rate)
+        inputs[name] = (mask, miss, ts, dt)
+        g = torch.randn(2, m_pad, generator=torch.Generator(
+            device=dev).manual_seed(30 + i), device=dev)
+        outs, grads = [], []
+        for plain in (False, False, True):
+            ts_r = ts.clone().requires_grad_()
+            dt_r = dt.clone().requires_grad_()
+            deltas = dt_r.expand(N, K)
+            deltas.retain_grad()
+            out = ck.decimate_compact(mask, miss, ts_r, deltas, m_pad,
+                                      plain=plain)
+            (out[0] * g[0] + out[1] * g[1]).sum().backward()
+            outs.append([o.detach() for o in out])
+            grads.append((ts_r.grad, deltas.grad, dt_r.grad))
         torch.cuda.synchronize()
-        check(same_bits(pos_k, pos_2) and same_bits(att_k, att_2),
-              f"compact {name}: two calls differ")
-        check(torch.equal(pos_k, pos_p), f"compact {name}: pos differs")
-        check(torch.equal(att_k.view(torch.int32), att_p.view(torch.int32)),
-              f"compact {name}: attrs differ in their bits")
-        n_kept = int(min(int(c[-1]), m_pad))
-        print(f"[compact] {name}: kept {int(c[-1])}, filled {n_kept}/"
-              f"{m_pad}: bit-exact, two calls bitwise equal")
+        for a, b, what in zip(outs[0], outs[1], names):
+            check(same_bits(a, b), f"decimate {name}: two calls differ in "
+                                   f"{what}")
+        for a, b, what in zip(outs[0], outs[2], names):
+            check(same_bits(a, b), f"decimate {name}: {what} differs from "
+                                   f"the plain version")
+        for a, b, what in zip(grads[0], grads[1], ("ts", "deltas", "dt")):
+            check(same_bits(a, b), f"decimate {name}: two backward calls "
+                                   f"differ in d {what}")
+        for a, b, what in zip(grads[0], grads[2], ("ts", "deltas", "dt")):
+            check(same_bits(a, b), f"decimate {name}: d {what} differs from "
+                                   f"the plain version")
+        total, n_pts = int(outs[0][5]), int(outs[0][6])
+        print(f"[decimate] {name}: N={N} K={K} m_pad={m_pad}, valid "
+              f"{total}, stride {max(-(-total // m_pad), 1)}, filled "
+              f"{n_pts}: forward and backward bit for bit the plain "
+              f"version, two calls bitwise equal")
 
-    # timing at keep rate 0.25, the render's typical occupancy of the budget
-    keys, c = inputs(cases["keep 0.25"])
-    n_kept = int(min(int(c[-1]), m_pad))
-    kept = keys < m_pad
-    ms = time_ms(lambda: ck.compact_attrs(attrs, keys, c, m_pad), 50)
-    dev_ms = device_ms(lambda: ck.compact_attrs(attrs, keys, c, m_pad))
-    plain_ms = time_ms(lambda: plain(keys), 10)
+    def timing(name):
+        mask, miss, ts, dt = inputs[name]
+        N = mask.shape[0]
+        deltas = dt.expand(N, K)
+        fold = lambda: ck.decimate_compact(mask, miss, ts, deltas, m_pad)
+        plain = lambda: ck.decimate_compact_plain(mask, miss, ts, deltas,
+                                                  m_pad)
+        live = (mask & ~miss).reshape(-1)
+        ts_flat = ts.reshape(-1)
+        M = live.numel()
 
-    def library():
-        idx = torch.nonzero(kept).squeeze(1)
-        return idx, attrs.index_select(1, idx)
+        def nonzero_lib():
+            idx = torch.nonzero(live).squeeze(1)[:m_pad]
+            return ts_flat.index_select(0, idx)
 
-    library_ms = time_ms(library, 20)
-    n_bytes = 4 * M + 4 + 4 * 2 * n_kept + 4 * 3 * m_pad
-    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"[compact] M={M} m_pad={m_pad} keep 0.25: kernel {ms:.4f} ms "
-          f"(device {dev_ms} ms), "
-          f"plain {plain_ms:.4f} ms, nonzero+index_select {library_ms:.4f} "
-          f"ms, bound {bound_ms * 1e3:.2f} us ({n_bytes} bytes)")
-    return dict(name="compact_attrs", route="cuda",
+        def nonzero_static_lib():
+            idx = torch.nonzero_static(live, size=m_pad,
+                                       fill_value=M).squeeze(1)
+            return ts_flat.index_select(0, idx.clamp_max(M - 1))
+
+        n_pts = int(fold()[6])
+        prof_fold = profile_device(fold, 20, "call")
+        row = {"ms": time_ms(fold, 50),
+               "device_ms": prof_fold.get("device_busy_ms_per_call"),
+               "launches_per_call": prof_fold.get("kernel_launches_per_call"),
+               "kernels": {(re.findall(r"(\w+)\(", k["name"])
+                            or [k["name"]])[0]: k["ms_per_call"]
+                           for k in prof_fold.get("top_kernels", ())},
+               "plain_ms": time_ms(plain, 10),
+               "nonzero_index_select_ms": time_ms(nonzero_lib, 20),
+               "nonzero_index_select_device_ms": device_ms(nonzero_lib)}
+        try:
+            row["nonzero_static_index_select_ms"] = time_ms(
+                nonzero_static_lib, 20)
+            row["nonzero_static_index_select_device_ms"] = device_ms(
+                nonzero_static_lib)
+        except (RuntimeError, NotImplementedError) as e:
+            row["nonzero_static_index_select_ms"] = None
+            row["nonzero_static"] = f"not run on the card: {e}"[:200]
+        # least traffic: the mask, miss, the kept records' t, dt, and
+        # t_c, dt_c, rid, filled, the counts and the two totals
+        n_bytes = (N * K + N + 4 * n_pts + 4 * N + 13 * m_pad + 8 * N
+                   + 16)
+        row["bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        row["bound_bytes"] = n_bytes
+        row["filled"] = n_pts
+        # the wrapper's host time by parts
+        tdt, rid, filled, counts, scratch = ck._decimate_alloc(N, K, m_pad,
+                                                               dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn = ck._lib("decimate_compact_fwd")
+        args = (mask.data_ptr(), miss.data_ptr(), ts.data_ptr(),
+                deltas.data_ptr(), deltas.stride(0), deltas.stride(1),
+                tdt.data_ptr(), rid.data_ptr(), filled.data_ptr(),
+                counts.data_ptr(), scratch.data_ptr(), N, K, m_pad, stream)
+        row["host_us"] = {
+            "wrapper": host_us(fold),
+            "checks": host_us(lambda: ck._decimate_check(
+                mask, miss, ts, deltas, m_pad)),
+            "torch_empty_x5": host_us(lambda: ck._decimate_alloc(
+                N, K, m_pad, dev)),
+            "current_stream": host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "ctypes_call_3_launches": host_us(lambda: fn(*args)),
+            "output_views": host_us(lambda: (tdt.unbind(0), counts[:N],
+                                             counts[N], counts[N + 1]))}
+        print(f"[decimate] {name}: fold {row['ms']:.4f} ms (device "
+              f"{row['device_ms']} ms, {row['launches_per_call']} launches "
+              f"a call, by kernel {json.dumps(row['kernels'])}); plain "
+              f"{row['plain_ms']:.4f} ms; nonzero + index_select "
+              f"{row['nonzero_index_select_ms']:.4f} ms (device "
+              f"{row['nonzero_index_select_device_ms']} ms), nonzero_static "
+              f"+ index_select {row['nonzero_static_index_select_ms']} ms "
+              f"(device {row.get('nonzero_static_index_select_device_ms')} "
+              f"ms); bound {row['bound_ms'] * 1e3:.2f} us ({n_bytes} bytes, "
+              f"three launches set the floor); host us a call "
+              f"{json.dumps(row['host_us'])}")
+        return row, (mask, miss, ts, deltas, n_pts)
+
+    rows = {}
+    for name in ("chunk stride 1", "train stride 1"):
+        rows[name], train_inputs = timing(name)
+    mask, miss, ts, deltas, n_pts = train_inputs
+    N = mask.shape[0]
+    M = N * K
+    row = rows["train stride 1"]
+
+    # the backward at the train shape, stride 1
+    _, _, _, _, scratch = ck._decimate_forward(mask, miss, ts, deltas, m_pad)
+    g = torch.randn(2, m_pad, generator=torch.Generator(
+        device=dev).manual_seed(40), device=dev)
+    bwd = lambda: ck.decimate_compact_bwd(g, scratch, N, K, m_pad)
+    ts_r = ts.clone().requires_grad_()
+    dl = deltas.clone().requires_grad_()
+    out_p = ck.decimate_compact_plain(mask, miss, ts_r, dl, m_pad)
+    plain_bwd = lambda: torch.autograd.grad(out_p[:2], (ts_r, dl), g.unbind(0),
+                                            retain_graph=True)
+    live = (mask & ~miss).reshape(-1)
+    dest = torch.nonzero(live).squeeze(1)[:m_pad]
+    g_kept = g[:, :dest.numel()].contiguous()
+    buf = torch.empty(2, M, device=dev)
+    lib = lambda: buf.zero_().index_copy_(1, dest, g_kept)
+    nw = (K + 31) // 32
+    b_bytes = 2 * 4 * n_pts + 2 * 4 * M + 4 * (N * nw + N + 1)
+    brow = {"ms": time_ms(bwd, 50), "device_ms": device_ms(bwd),
+            "plain_ms": time_ms(plain_bwd, 10),
+            "library_ms": time_ms(lib, 20), "library_device_ms":
+                device_ms(lib),
+            "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_bytes": b_bytes,
+            "host_us": host_us(bwd)}
+    print(f"[decimate] backward, train stride 1: kernel {brow['ms']:.4f} ms "
+          f"(device {brow['device_ms']} ms, host {brow['host_us']:.1f} us a "
+          f"call), plain (autograd of the plain chain) "
+          f"{brow['plain_ms']:.4f} ms, zero_ + index_copy_ "
+          f"{brow['library_ms']:.4f} ms (device {brow['library_device_ms']} "
+          f"ms), bound {brow['bound_ms'] * 1e3:.2f} us ({b_bytes} bytes)")
+    fwd = dict(name="decimate_compact", route="cuda",
+               source="raw_ngp_torch/csrc/compact.cu",
+               replaces="raw_ngp_tpu/kernels/compact_pallas.py:118",
+               max_abs_err=0.0, ms=row["ms"], device_ms=row["device_ms"],
+               plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+               bound_by="bytes",
+               library_ms=row["nonzero_static_index_select_ms"]
+               or row["nonzero_index_select_ms"],
+               library="nonzero_static + index_select of t (the stride-1 "
+                       "positions), else nonzero + index_select",
+               deterministic=True, shapes=rows)
+    back = dict(name="decimate_compact_bwd", route="cuda",
                 source="raw_ngp_torch/csrc/compact.cu",
-                replaces="raw_ngp_tpu/kernels/compact_pallas.py:118",
-                max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
-                deterministic=True)
+                replaces="raw_ngp_tpu/kernels/compact_pallas.py:224",
+                max_abs_err=0.0, ms=brow["ms"], device_ms=brow["device_ms"],
+                plain_ms=brow["plain_ms"], bound_ms=brow["bound_ms"],
+                bound_by="bytes", library_ms=brow["library_ms"],
+                library_device_ms=brow["library_device_ms"],
+                library="zero_ + index_copy_ at the kept flat indices",
+                host_us=brow["host_us"], deterministic=True)
+    return fwd, back
 
 
 def refresh_chunk(cfg, gen, dev):
@@ -1022,67 +1190,6 @@ def aten_ops(fn):
                if e.key.startswith("aten::"))
 
 
-def phase_compact_bwd(dev, M=1 << 19, m_pad=262144):
-    """B1's backward at the train shape: kernel against plain version,
-    bit-exact, then timed at keep rate 0.25."""
-    import torch
-    from raw_ngp_torch.kernels import compact as ck
-    gen = torch.Generator(device=dev).manual_seed(6)
-    g = torch.randn(2, m_pad, generator=gen, device=dev)
-
-    def inputs(mask):
-        c = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-        keys = torch.where(mask & (c <= m_pad), c - 1,
-                           ck.SENTINEL).to(torch.int32)
-        pos, _ = ck.compact_attrs(torch.zeros(2, M, device=dev), keys, c,
-                                  m_pad)
-        return keys, pos, c
-
-    cases = {f"keep {r}": torch.rand(M, generator=gen, device=dev) < r
-             for r in (0.03, 0.25, 0.9)}
-    cases["full"] = torch.ones(M, dtype=torch.bool, device=dev)
-    cases["empty"] = torch.zeros(M, dtype=torch.bool, device=dev)
-    for name, mask in cases.items():
-        keys, pos, c = inputs(mask)
-        k = ck.compact_attrs_bwd(g, keys, pos, m_pad)
-        k2 = ck.compact_attrs_bwd(g, keys, pos, m_pad)
-        p = ck.compact_attrs_bwd_plain(g, pos, M)
-        torch.cuda.synchronize()
-        check(same_bits(k, k2), f"compact_bwd {name}: two calls differ")
-        check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
-              f"compact_bwd {name}: gradients differ in their bits")
-        print(f"[compact_bwd] {name}: kept {int(c[-1])} of {M}, slots "
-              f"{m_pad}: bit-exact")
-
-    keys, pos, c = inputs(cases["keep 0.25"])
-    n_kept = int(min(int(c[-1]), m_pad))
-    ms = time_ms(lambda: ck.compact_attrs_bwd(g, keys, pos, m_pad), 50)
-    dev_ms = device_ms(lambda: ck.compact_attrs_bwd(g, keys, pos, m_pad))
-    plain_ms = time_ms(lambda: ck.compact_attrs_bwd_plain(g, pos, M), 20)
-    filled = torch.nonzero(pos < M).squeeze(1)
-    dest, g_kept = pos[filled].long(), g[:, filled].contiguous()
-    out = torch.empty(2, M, device=dev)
-    library_ms = time_ms(lambda: out.zero_().index_copy_(1, dest, g_kept),
-                         20)
-    library_dev = device_ms(lambda: out.zero_().index_copy_(1, dest, g_kept))
-    n_bytes = 4 * M + 4 * 2 * M + 4 * 2 * n_kept
-    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"[compact_bwd] M={M} m_pad={m_pad} keep 0.25: kernel {ms:.4f} "
-          f"ms (device {dev_ms} ms), plain {plain_ms:.4f} ms, "
-          f"zero_ + index_copy_ "
-          f"{library_ms:.4f} ms (device {library_dev} ms), bound "
-          f"{bound_ms * 1e3:.2f} us ({n_bytes} "
-          f"bytes)")
-    return dict(name="compact_attrs_bwd", route="cuda",
-                source="raw_ngp_torch/csrc/compact.cu",
-                replaces="raw_ngp_tpu/kernels/compact_pallas.py:224",
-                max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
-                library_device_ms=library_dev,
-                library="zero_ + index_copy_ at the filled pos",
-                deterministic=True)
-
-
 def touched_rows(spec, x01):
     """Distinct table rows the in-bounds points of x01 read (8 corners a
     level), and the number of in-bounds points."""
@@ -1314,8 +1421,10 @@ def phase_slice(dev, cfg, small=128, large=512):
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
     print(f"[slice] launches on the serving path: {launches}")
-    for name in ("compact_attrs", "hash_encode"):
+    for name in ("decimate_compact", "hash_encode"):
         check(launches[name] > 0, f"slice: kernel {name} was never launched")
+    check(launches["decimate_compact_bwd"] == 0, f"slice: the fold's "
+          f"backward launched {launches['decimate_compact_bwd']} times")
     for name, t, shape in (("rgb small", rgb_s, (small, small, 3)),
                            ("depth small", d_s, (small, small)),
                            ("rgb large", rgb_l, (large, large, 3)),
@@ -1433,7 +1542,8 @@ def profile_device(fn, reps, unit, tries=3):
 
 
 def _counters():
-    from raw_ngp_torch.kernels.compact import compact_attrs, compact_attrs_bwd
+    from raw_ngp_torch.kernels.compact import (decimate_compact,
+                                               decimate_compact_bwd)
     from raw_ngp_torch.kernels.hash_encode import (encode_input_grad,
                                                    hash_encode,
                                                    hash_encode_records,
@@ -1441,11 +1551,12 @@ def _counters():
     from raw_ngp_torch.kernels.segsum import (segment_grad_outer,
                                               segment_totals,
                                               segment_totals_outer)
-    return {"compact_attrs": compact_attrs, "hash_encode": hash_encode,
+    return {"decimate_compact": decimate_compact,
+            "decimate_compact_bwd": decimate_compact_bwd,
+            "hash_encode": hash_encode,
             "hash_encode_records": hash_encode_records,
             "segment_grad_outer": segment_grad_outer,
             "segment_totals": segment_totals_outer,
-            "compact_attrs_bwd": compact_attrs_bwd,
             "encode_input_grad": encode_input_grad,
             "segment_totals_channel": segment_totals,
             "mm_grad_table": mm_grad_table}
@@ -1454,10 +1565,10 @@ def _counters():
 # the kernels each path must launch, and those it must not: the forward
 # writes the records, B2's flat form reads g in place and writes the
 # window rows, so its 2C totals are off the path
-TRAIN_KERNELS = ("compact_attrs", "hash_encode", "hash_encode_records",
+TRAIN_KERNELS = ("decimate_compact", "hash_encode", "hash_encode_records",
                  "segment_grad_outer", "mm_grad_table")
 OFF_PATH_KERNELS = ("segment_totals",)
-POSE_KERNELS = TRAIN_KERNELS + ("compact_attrs_bwd", "encode_input_grad")
+POSE_KERNELS = TRAIN_KERNELS + ("decimate_compact_bwd", "encode_input_grad")
 
 
 def step_breakdown(tr, reps=5):
@@ -2088,14 +2199,13 @@ def main() -> int:
     try:
         ptxas = phase_build()
         check_registers(ptxas)
-        k_compact = phase_compact(dev)
+        k_decimate, k_decimate_bwd = phase_decimate(dev)
         from raw_ngp_torch.models.ngp import make_field_spec
         cfg = flagship_config()
         spec = make_field_spec(cfg).grid_spec
         k_encode = phase_encode(dev, cfg)
         k_segsum, k_flat = phase_segsum(dev)
         k_records, k_mm, table_grad = phase_encode_bwd(dev, spec)
-        k_compact_bwd = phase_compact_bwd(dev)
         k_input = phase_encode_input(dev, cfg)
         k_channel = phase_segsum_channel(dev)
         render_launches, render = phase_slice(dev, cfg)
@@ -2106,7 +2216,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
-    for k in (k_compact, k_compact_bwd, k_encode, k_records, k_mm, k_input,
+    for k in (k_decimate, k_decimate_bwd, k_encode, k_records, k_mm, k_input,
               k_flat, k_segsum, k_channel):
         k = dict(k)
         # this slice's main path is the pose phase; the earlier paths'

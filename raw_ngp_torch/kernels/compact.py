@@ -1,17 +1,25 @@
-"""Streaming compaction and its backward: wrappers of the CUDA kernels in
-``csrc/compact.cu``.
+"""The render's budget decimation and streaming compaction, folded: the
+wrapper of the CUDA kernels in ``csrc/compact.cu``, and their plain
+versions.
 
 Replaces ``raw_ngp_tpu/kernels/compact_pallas.py``: the forward
 ``_compact_words_impl`` (``:118``, reached by ``compact_attrs_pallas``
-``:190``) and its VJP ``_compact_attrs_bwd`` (``:224``).
-:func:`compact_attrs` is differentiable in the attributes (pose refinement
-sends gradients back through the compacted t and dt). The plain versions
-are ``compact_positions`` + ``gather_flat_sorted`` (ports of
-``render/occupancy.py:576`` and ``:727``) forward and
-:func:`compact_attrs_bwd_plain` backward; the wrappers take them only for
-tensors on the CPU. On a CUDA tensor the kernels launch or the call
+``:190``) and its VJP ``_compact_attrs_bwd`` (``:224``), together with the
+work the JAX package runs around them: the budget decimation
+(``raw_ngp_tpu/render/occupancy.py:880-885``) and the count, keys and
+attribute stack of ``compact_positions_attrs`` (``:632-638``).
+:func:`decimate_compact` does all of it in one per-ray pipeline, forward
+and backward, with the same bits as that chain, whose plain version is
+:func:`decimate_compact_plain`; the wrapper takes the plain version only
+for tensors on the CPU. On a CUDA tensor the kernels launch or the call
 raises. Bound on the card: bytes (see the source notes in
 ``csrc/compact.cu``).
+
+:func:`compact_attrs` (with :func:`compact_attrs_bwd`) and
+:func:`compact_positions_attrs` are the plain torch counterparts of the
+JAX interface ``compact_attrs_pallas`` and of ``compact_positions_attrs``
+(ports of ``render/occupancy.py:576``, ``:618`` and ``:727``), on any
+device; the plain version of the fold is built on them.
 """
 
 from __future__ import annotations
@@ -62,10 +70,11 @@ def gather_flat_sorted(values, pos):
                                                device=v.device))
 
 
-def compact_attrs_bwd_plain(g_attrs, pos, M: int):
-    """Plain backward (JAX's scatter-set): the cotangent of each filled
-    slot [n_attr, m_pad] written to its source index ``pos``, 0 at every
-    other of the M flat records."""
+def compact_attrs_bwd(g_attrs, pos, M: int):
+    """Gradient of :func:`compact_attrs` in its attributes (JAX's
+    scatter-set): the cotangent of each filled slot [n_attr, m_pad]
+    written to its source index ``pos``, 0 at every other of the M flat
+    records."""
     filled = torch.nonzero(pos < M).squeeze(1)
     out = torch.zeros(g_attrs.shape[0], M, dtype=g_attrs.dtype,
                       device=g_attrs.device)
@@ -73,128 +82,249 @@ def compact_attrs_bwd_plain(g_attrs, pos, M: int):
                            g_attrs[:, filled])
 
 
-def _lib(name="compact_attrs_fwd"):
-    lib = _build.load("compact")
-    fn = getattr(lib, name)
-    if name == "compact_attrs_fwd":
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def compact_attrs_bwd(g_attrs, keys, pos, m_pad: int):
-    """Gradient of :func:`compact_attrs` in its attributes: g_attrs
-    [n_attr, m_pad] f32 slot cotangents, keys [M] i32 and pos [m_pad] i32
-    of the forward -> [n_attr, M] f32. CPU tensors take
-    :func:`compact_attrs_bwd_plain`; CUDA tensors launch the kernel, which
-    gathers by ``keys`` (bit-exact with the plain version)."""
-    M = keys.shape[0]
-    if g_attrs.device.type == "cpu":
-        return compact_attrs_bwd_plain(g_attrs, pos, M)
-    n_attr = g_attrs.shape[0]
-    dev = g_attrs.device
-    if dev.type != "cuda" or keys.device != dev:
-        raise ValueError("compact_attrs_bwd: all inputs must be on one CUDA "
-                         "device")
-    if g_attrs.dtype != torch.float32 or keys.dtype != torch.int32:
-        raise TypeError("compact_attrs_bwd: g_attrs f32, keys i32")
-    if g_attrs.shape != (n_attr, m_pad) or keys.ndim != 1:
-        raise ValueError("compact_attrs_bwd: need g_attrs [n_attr, m_pad] "
-                         "and keys [M]")
-    if not (g_attrs.is_contiguous() and keys.is_contiguous()):
-        raise ValueError("compact_attrs_bwd: inputs must be contiguous")
-    out = torch.empty(n_attr, M, dtype=torch.float32, device=dev)
-    if M == 0:
-        return out
-    err = _lib("compact_attrs_bwd")(
-        g_attrs.data_ptr(), keys.data_ptr(), out.data_ptr(), M, m_pad,
-        n_attr, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"compact_attrs_bwd: CUDA launch failed "
-                           f"(error {err})")
-    compact_attrs_bwd.launches += 1
-    return out
-
-
-compact_attrs_bwd.launches = 0   # kernel launches, counted where they happen
-
-
 class _CompactFn(torch.autograd.Function):
-    """:func:`compact_attrs` with its attribute gradient; ``plain`` runs
-    the plain versions in both directions on any device."""
+    """:func:`compact_attrs` with its attribute gradient."""
 
     @staticmethod
-    def forward(ctx, attrs, keys, count_incl, m_pad, plain):
-        pos, attrs_c = _compact_forward(attrs, keys, count_incl, m_pad,
-                                        plain)
-        ctx.save_for_backward(keys, pos)
-        ctx.m_pad, ctx.plain = m_pad, plain
+    def forward(ctx, attrs, keys, m_pad):
+        pos, attrs_c = _compact_forward(attrs, keys, m_pad)
+        ctx.save_for_backward(pos)
+        ctx.M = keys.shape[0]
         ctx.mark_non_differentiable(pos)
         return pos, attrs_c
 
     @staticmethod
     def backward(ctx, g_pos, g_attrs):
-        keys, pos = ctx.saved_tensors
-        g = g_attrs.contiguous()
-        if ctx.plain:
-            grad = compact_attrs_bwd_plain(g, pos, keys.shape[0])
-        else:
-            grad = compact_attrs_bwd(g, keys, pos, ctx.m_pad)
-        return grad, None, None, None, None
+        (pos,) = ctx.saved_tensors
+        grad = compact_attrs_bwd(g_attrs.contiguous(), pos, ctx.M)
+        return grad, None, None
 
 
-def compact_attrs(attrs, keys, count_incl, m_pad: int, plain: bool = False):
-    """Compact the kept records of a flat stream.
+def compact_attrs(attrs, keys, m_pad: int):
+    """Compact the kept records of a flat stream (plain torch, any device).
 
     attrs: [n_attr, M] f32 per-record attributes; keys: [M] i32 rank
-    (count_incl - 1) of each kept record with rank < m_pad, SENTINEL
-    otherwise; count_incl: [M] i32 inclusive count of the keep mask.
+    (inclusive count - 1) of each kept record with rank < m_pad, SENTINEL
+    otherwise (the JAX interface also takes the inclusive count; the keys
+    alone decide the result).
     Returns (pos [m_pad] i32, attrs_c [n_attr, m_pad] f32): the flat source
     index of the rank-r kept record, ascending, with sentinel M in unfilled
     slots, and the attributes at that index (0 in unfilled slots),
     bit-exact. Differentiable in ``attrs`` (:func:`compact_attrs_bwd`).
-    ``plain=True`` runs the plain versions on any device.
     """
     if torch.is_grad_enabled() and attrs.requires_grad:
-        return _CompactFn.apply(attrs, keys, count_incl, m_pad, plain)
-    return _compact_forward(attrs, keys, count_incl, m_pad, plain)
+        return _CompactFn.apply(attrs, keys, m_pad)
+    return _compact_forward(attrs, keys, m_pad)
 
 
-def _compact_forward(attrs, keys, count_incl, m_pad: int, plain=False):
-    """The forward: kernel for CUDA tensors, plain version on the CPU (or
-    for ``plain``)."""
-    if plain or attrs.device.type == "cpu":
-        _, _, pos = compact_positions(keys < m_pad, m_pad)
-        return pos, torch.stack([gather_flat_sorted(a, pos) for a in attrs])
-    n_attr, M = attrs.shape
-    dev = attrs.device
-    if dev.type != "cuda" or keys.device != dev or count_incl.device != dev:
-        raise ValueError("compact_attrs: all inputs must be on one CUDA "
+def _compact_forward(attrs, keys, m_pad: int):
+    _, _, pos = compact_positions(keys < m_pad, m_pad)
+    return pos, torch.stack([gather_flat_sorted(a, pos) for a in attrs])
+
+
+def compact_positions_attrs(mask, m_pad: int, attrs):
+    """Compaction of the kept samples fused with their attribute gathers,
+    differentiable in the attributes (``compact_positions_attrs``,
+    ``raw_ngp_tpu/render/occupancy.py:618``).
+
+    The inclusive count and the keys are computed here, as the JAX package
+    does outside its Pallas kernel, and handed to :func:`compact_attrs`.
+    Returns (kept [N, K], inv [M], pos [m_pad], attrs_c list of [m_pad]).
+    """
+    flat = mask.reshape(-1)
+    c = torch.cumsum(flat.to(torch.int32), 0, dtype=torch.int32)
+    kept = flat & (c <= m_pad)
+    inv = torch.where(kept, c - 1, m_pad).to(torch.int32)
+    keys = torch.where(kept, c - 1, SENTINEL).to(torch.int32)
+    pos, attrs_c = compact_attrs(
+        torch.stack([a.float() for a in attrs]).contiguous(), keys, m_pad)
+    return kept.reshape(mask.shape), inv, pos, list(attrs_c.unbind(0))
+
+
+def decimate_compact_plain(mask, miss, ts, deltas, m_pad: int):
+    """Plain version of :func:`decimate_compact`: the render's chain as the
+    JAX package runs it (``render/occupancy.py:880-885``, then
+    ``compact_positions_attrs``, ``:618``), in eager
+    torch ops, differentiable in ``ts`` and ``deltas``."""
+    N, K = mask.shape
+    mask = mask & ~miss.reshape(N, 1)
+    # over budget: decimate uniformly along each ray and scale dt by the
+    # stride (all on the device: no host sync)
+    valid_total = mask.sum()
+    stride = torch.clamp_min((valid_total + m_pad - 1) // m_pad, 1)
+    k_idx = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    mask = mask & ((k_idx % stride) == 0)
+    deltas = deltas * stride.float()
+    attrs = [ts.reshape(-1), deltas.expand(N, K).reshape(-1)]
+    mask, _, pos, (t_c, dt_c) = compact_positions_attrs(mask, m_pad, attrs)
+    M = N * K
+    # unfilled slots (pos == M) read the dummy ray row N; the sentinel also
+    # keeps rid ascending
+    filled = pos < M
+    rid = torch.where(filled, torch.clamp_max(pos, M - 1) // K, N)
+    return (t_c, dt_c, rid, filled, mask.sum(dim=-1), valid_total,
+            mask.sum())
+
+
+_ARGTYPES = {
+    "decimate_compact_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "decimate_compact_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+}
+_fns = {}
+
+
+def _lib(name):
+    """A C entry point of ``csrc/compact.cu``, bound once (argtypes and
+    restype set at first use, then served from a dict)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("compact"), name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _decimate_check(mask, miss, ts, deltas, m_pad: int):
+    """What the fold's kernels take; raises on anything else."""
+    dev = mask.device
+    if dev.type != "cuda" or miss.device != dev or ts.device != dev \
+            or deltas.device != dev:
+        raise ValueError("decimate_compact: all inputs must be on one CUDA "
                          "device")
-    if attrs.dtype != torch.float32 or keys.dtype != torch.int32 \
-            or count_incl.dtype != torch.int32:
-        raise TypeError("compact_attrs: attrs f32, keys and count_incl i32")
-    if keys.shape != (M,) or count_incl.shape != (M,):
-        raise ValueError("compact_attrs: keys and count_incl must be [M]")
-    if not (attrs.is_contiguous() and keys.is_contiguous()
-            and count_incl.is_contiguous()):
-        raise ValueError("compact_attrs: inputs must be contiguous")
-    if not 0 < M < 2 ** 31 or m_pad <= 0:
-        raise ValueError(f"compact_attrs: need 0 < M < 2^31 and m_pad > 0, "
-                         f"got M={M}, m_pad={m_pad}")
-    pos = torch.empty(m_pad, dtype=torch.int32, device=dev)
-    attrs_c = torch.empty(n_attr, m_pad, dtype=torch.float32, device=dev)
-    err = _lib()(attrs.data_ptr(), keys.data_ptr(), count_incl.data_ptr(),
-                 pos.data_ptr(), attrs_c.data_ptr(), M, m_pad, n_attr,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    if mask.dtype != torch.bool or miss.dtype != torch.bool \
+            or ts.dtype != torch.float32 or deltas.dtype != torch.float32:
+        raise TypeError("decimate_compact: mask and miss bool, ts and deltas "
+                        "f32")
+    if mask.ndim != 2 or ts.shape != mask.shape \
+            or deltas.shape != mask.shape or miss.numel() != mask.shape[0]:
+        raise ValueError("decimate_compact: need mask, ts and deltas [N, K] "
+                         "and miss [N] or [N, 1]")
+    N, K = mask.shape
+    if not 0 < N * K < 2 ** 31 or m_pad <= 0:
+        raise ValueError(f"decimate_compact: need 0 < N * K < 2^31 and "
+                         f"m_pad > 0, got N={N}, K={K}, m_pad={m_pad}")
+    if not (mask.is_contiguous() and ts.is_contiguous()
+            and miss.is_contiguous()):
+        raise ValueError("decimate_compact: mask, ts and miss must be "
+                         "contiguous")
+
+
+def _decimate_alloc(N: int, K: int, m_pad: int, dev):
+    """The fold's outputs and its scratch (the valid words, per-ray counts
+    and bases, the stride and the passes' partial counts: at most N *
+    ceil(K / 32) + 3N + 2 int32 words, csrc/compact.cu lays them out),
+    kept for the backward."""
+    return (torch.empty(2, m_pad, dtype=torch.float32, device=dev),
+            torch.empty(m_pad, dtype=torch.int32, device=dev),
+            torch.empty(m_pad, dtype=torch.bool, device=dev),
+            torch.empty(N + 2, dtype=torch.int64, device=dev),
+            torch.empty(N * ((K + 31) // 32) + 3 * N + 2, dtype=torch.int32,
+                        device=dev))
+
+
+def _decimate_forward(mask, miss, ts, deltas, m_pad: int):
+    """The three launches of the fold -> (tdt [2, m_pad], rid, filled,
+    counts [N + 2] (per ray, valid_total, num_points), scratch)."""
+    _decimate_check(mask, miss, ts, deltas, m_pad)
+    N, K = mask.shape
+    dev = mask.device
+    out = _decimate_alloc(N, K, m_pad, dev)
+    tdt, rid, filled, counts, scratch = out
+    err = _lib("decimate_compact_fwd")(
+        mask.data_ptr(), miss.data_ptr(), ts.data_ptr(), deltas.data_ptr(),
+        deltas.stride(0), deltas.stride(1), tdt.data_ptr(), rid.data_ptr(),
+        filled.data_ptr(), counts.data_ptr(), scratch.data_ptr(), N, K,
+        m_pad, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"compact_attrs: CUDA launch failed (error {err})")
-    compact_attrs.launches += 1
-    return pos, attrs_c
+        raise RuntimeError(f"decimate_compact: CUDA launch failed "
+                           f"(error {err})")
+    decimate_compact.launches += 1
+    return out
 
 
-compact_attrs.launches = 0   # kernel launches, counted where they happen
+def decimate_compact_bwd(g, scratch, N: int, K: int, m_pad: int):
+    """Gradient of :func:`decimate_compact` in ts and deltas: g [2, m_pad]
+    f32 (the cotangents of t_c and dt_c) and the forward's scratch ->
+    (g_ts, g_deltas) [N, K] f32: each kept sample's slot cotangent (dt's
+    times the stride), 0 elsewhere. CUDA tensors only."""
+    dev = g.device
+    if dev.type != "cuda" or scratch.device != dev:
+        raise ValueError("decimate_compact_bwd: all inputs must be on one "
+                         "CUDA device")
+    if g.dtype != torch.float32 or g.shape != (2, m_pad) \
+            or not g.is_contiguous():
+        raise ValueError("decimate_compact_bwd: need g [2, m_pad] f32, "
+                         "contiguous")
+    # two allocations, as the chain it replaces leaves them: the sum over
+    # K of g_deltas (the expand's backward) then reads the same layout
+    g_ts = torch.empty(N, K, dtype=torch.float32, device=dev)
+    g_deltas = torch.empty(N, K, dtype=torch.float32, device=dev)
+    err = _lib("decimate_compact_bwd")(
+        g.data_ptr(), scratch.data_ptr(), g_ts.data_ptr(),
+        g_deltas.data_ptr(), N, K, m_pad,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decimate_compact_bwd: CUDA launch failed "
+                           f"(error {err})")
+    decimate_compact_bwd.launches += 1
+    return g_ts, g_deltas
+
+
+decimate_compact_bwd.launches = 0   # launches, counted where they happen
+
+
+class _DecimateCompactFn(torch.autograd.Function):
+    """The fold with its gradient in ts and deltas (a full [N, K] gradient
+    for the march's stride-0 deltas view; autograd's expand backward sums
+    it over K)."""
+
+    @staticmethod
+    def forward(ctx, mask, miss, ts, deltas, m_pad):
+        tdt, rid, filled, counts, scratch = _decimate_forward(
+            mask, miss, ts, deltas, m_pad)
+        ctx.save_for_backward(scratch)
+        ctx.shape = (mask.shape[0], mask.shape[1], m_pad)
+        ctx.mark_non_differentiable(rid, filled, counts)
+        return tdt, rid, filled, counts
+
+    @staticmethod
+    def backward(ctx, g_tdt, g_rid, g_filled, g_counts):
+        (scratch,) = ctx.saved_tensors
+        g_ts, g_deltas = decimate_compact_bwd(g_tdt.contiguous(), scratch,
+                                              *ctx.shape)
+        return None, None, g_ts, g_deltas, None
+
+
+def decimate_compact(mask, miss, ts, deltas, m_pad: int, plain: bool = False):
+    """The render's budget decimation and compaction, folded.
+
+    mask [N, K] bool (the march's occupancy), miss [N] or [N, 1] bool (rays
+    that miss the box), ts [N, K] f32, deltas [N, K] f32 (the march's
+    ``dt.expand(N, K)``, read through its strides), m_pad the slot budget.
+    The valid samples (mask & ~miss) are decimated uniformly along each ray
+    by stride = max(ceil(valid_total / m_pad), 1) and the kept ones packed
+    ray-major into m_pad slots. Returns (t_c [m_pad], dt_c [m_pad] (dt *
+    stride), rid [m_pad] i32 (N in unfilled slots, so ascending), filled
+    [m_pad] bool, counts [N] i64 (samples kept a ray), valid_total (0-d
+    i64, before decimation), num_points (0-d i64, slots filled)); unfilled
+    slots hold t_c = dt_c = 0. Differentiable in ts and deltas. CPU tensors
+    or ``plain=True`` take :func:`decimate_compact_plain`; CUDA tensors
+    launch the kernels (three forward, one backward), bit-exact with it.
+    """
+    if plain or mask.device.type == "cpu":
+        return decimate_compact_plain(mask, miss, ts, deltas, m_pad)
+    if torch.is_grad_enabled() and (ts.requires_grad
+                                    or deltas.requires_grad):
+        tdt, rid, filled, counts = _DecimateCompactFn.apply(
+            mask, miss, ts, deltas, m_pad)
+    else:
+        tdt, rid, filled, counts, _ = _decimate_forward(mask, miss, ts,
+                                                        deltas, m_pad)
+    N = mask.shape[0]
+    t_c, dt_c = tdt.unbind(0)
+    return t_c, dt_c, rid, filled, counts[:N], counts[N], counts[N + 1]
+
+
+decimate_compact.launches = 0   # forward calls that launched the kernels

@@ -3,10 +3,11 @@
 
 The JAX design is kept: static shapes end to end. Candidates are placed
 by inverting each ray's CDF of coarse-probe hits, tested against the
-Morton bitfield, budget-decimated, compacted across rays into ``m_pad``
-slots (the compaction kernel, ``raw_ngp_torch/kernels/compact.py``), run
-through the field (whose encode is the hash kernel) and composited on the
-compacted stream. No step reads a device value back to the host.
+Morton bitfield, budget-decimated and compacted across rays into
+``m_pad`` slots in one fold (``decimate_compact``,
+``raw_ngp_torch/kernels/compact.py``), run through the field (whose
+encode is the hash kernel) and composited on the compacted stream. No
+step reads a device value back to the host.
 
 Only the branches of the flagship configuration are ported: uniform
 probes with the integer CDF branch of ``cdf_candidates``, the ``S == K``
@@ -15,7 +16,7 @@ return of ``march_rays`` and the compact-composite branch of
 training the gradient reaches the field's parameters through the field
 and the composite, and, under pose refinement, the rays: through the
 compacted t and dt (near/far and the CDF spacing depend on the rays; the
-compaction's backward is kernel B1's), the ray-row gather
+fold's backward is B1's), the ray-row gather
 (:func:`gather_ray_rows`) and the positions' encode input gradient.
 Clips that a gradient crosses use ``torch.minimum``/``torch.maximum``,
 which split the gradient at a tie as ``jnp.clip`` does.
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from raw_ngp_torch.kernels.compact import SENTINEL, compact_attrs
+from raw_ngp_torch.kernels.compact import decimate_compact
 from raw_ngp_torch.ops.compositing import (composite_rays_compacted,
                                            composite_with_background)
 from raw_ngp_torch.ops.morton import morton3d
@@ -245,28 +246,6 @@ def march_rays(rays_o, rays_d, bitfield, nears, fars, bound: float,
     return {"ts": ts, "deltas": dt.expand(N, K), "mask": occ}
 
 
-def compact_positions_attrs(mask, m_pad: int, attrs, plain: bool = False):
-    """Compaction of the kept samples fused with their attribute gathers,
-    differentiable in the attributes.
-
-    The inclusive count and the keys are computed here, as the JAX package
-    does outside its Pallas kernel, and handed to :func:`compact_attrs`
-    (kernel B1, forward and backward); ``plain=True`` runs its plain
-    versions (compact_positions + gather_flat_sorted; zeros + index_copy_)
-    on any device. Both give bit-identical results.
-    Returns (kept [N, K], inv [M], pos [m_pad], attrs_c list of [m_pad]).
-    """
-    flat = mask.reshape(-1)
-    c = torch.cumsum(flat.to(torch.int32), 0, dtype=torch.int32)
-    kept = flat & (c <= m_pad)
-    inv = torch.where(kept, c - 1, m_pad).to(torch.int32)
-    keys = torch.where(kept, c - 1, SENTINEL).to(torch.int32)
-    pos, attrs_c = compact_attrs(
-        torch.stack([a.float() for a in attrs]).contiguous(), keys, c, m_pad,
-        plain=plain)
-    return kept.reshape(mask.shape), inv, pos, list(attrs_c.unbind(0))
-
-
 def _truncate_bf16(x):
     """f32 -> f32 keeping the top 16 bits (bf16 by truncation, as
     ``hash_fused._pack_bf16_pairs`` packs)."""
@@ -356,7 +335,6 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                    r.grid_size, cfg.cascades, r.march_candidates, K,
                    r.coarse_probes, coarse_lin=coarse_lin, jitter=jitter)
     ts, deltas, mask = m["ts"], m["deltas"], m["mask"]
-    mask = mask & ~miss
 
     # evaluate the field on at most m_pad packed samples; the budget keys
     # off the base cfg.train.num_rays (not the chunk); in training an
@@ -368,23 +346,13 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     else:
         m_pad = max(int(min(N, cfg.train.num_rays) * K * r.compact_ratio)
                     // 128 * 128, 128)
-    # over budget: decimate uniformly along each ray and scale dt by the
-    # stride (all on the device: no host sync)
-    valid_total = mask.sum()
-    stride = torch.clamp_min((valid_total + m_pad - 1) // m_pad, 1)
-    k_idx = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
-    mask = mask & ((k_idx % stride) == 0)
-    deltas = deltas * stride.float()
-    attrs = [ts.reshape(-1), deltas.expand(N, K).reshape(-1)]
-    mask, _, pos, attrs_c = compact_positions_attrs(mask, m_pad, attrs,
-                                                    plain=plain)
-    t_c, dt_c = attrs_c
-    M = N * K
-    # unfilled slots (pos == M) read the dummy ray row N: origin 0, unit-z
-    # direction (a zero direction would NaN the SH normalization); the
-    # sentinel also keeps rid ascending
-    filled = pos < M
-    rid = torch.where(filled, torch.clamp_max(pos, M - 1) // K, N)
+    # the live samples (mask & ~miss), decimated uniformly along each ray
+    # when over budget (dt scaled by the stride), packed ray-major into
+    # m_pad slots: the fold's kernels, no host sync. Unfilled slots read the
+    # dummy ray row N (origin 0, unit-z direction: a zero direction would
+    # NaN the SH normalization); the dummy id also keeps rid ascending
+    t_c, dt_c, rid, filled, counts, valid_total, num_points = \
+        decimate_compact(mask, miss, ts, deltas, m_pad, plain=plain)
     ez = torch.tensor([0.0, 0.0, 1.0], dtype=rays_d.dtype,
                       device=rays_d.device)
     odl = torch.cat([torch.cat([rays_o, torch.zeros_like(ez)[None]]),
@@ -399,7 +367,7 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     sig_c, rgb_c = field(xyz_c, dirs_c, plain=plain, annealing=annealing)
 
     out = composite_rays_compacted(
-        sig_c, rgb_c, t_c, dt_c, rid, filled, mask.sum(dim=-1), N, K,
+        sig_c, rgb_c, t_c, dt_c, rid, filled, counts, N, K,
         t_thresh=r.t_thresh)
     results = {
         "image": composite_with_background(out["image"], out["weights_sum"],
@@ -408,6 +376,6 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
         "weights_sum": out["weights_sum"],
     }
     if training:
-        results["num_points"] = mask.sum()
+        results["num_points"] = num_points
         results["num_points_raw"] = valid_total
     return results

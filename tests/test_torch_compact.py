@@ -3,10 +3,11 @@ JAX Pallas streaming-compaction kernel, bit-exact.
 
 The JAX side runs ``compact_attrs_pallas`` in interpret mode on the CPU
 (``FORCE_INTERPRET``), as tests/test_compact_pallas.py runs it; the port
-side is the wrapper on CPU tensors, i.e. its plain version
-(compact_positions + gather_flat_sorted). The cases mirror
-tests/test_compact_pallas.py. The CUDA kernel itself is held against the
-plain version in tests/test_torch_kernels.py, on the card.
+side is ``compact_attrs``, plain torch (compact_positions +
+gather_flat_sorted), which the plain version of the render's fold
+(``decimate_compact_plain``) builds on. The cases mirror
+tests/test_compact_pallas.py. The fold's CUDA kernels are held against
+that plain version in tests/test_torch_kernels.py, on the card.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ import jax.numpy as jnp
 
 import raw_ngp_tpu.kernels.compact_pallas as cp
 from raw_ngp_torch.kernels import compact as tc
-from raw_ngp_torch.render.occupancy import compact_positions_attrs
+from raw_ngp_torch.kernels.compact import compact_positions_attrs
 from raw_ngp_tpu.render.occupancy import compact_positions as j_compact_pos
 
 
@@ -40,10 +41,9 @@ def _jax(mask, attrs, m_pad):
 
 
 def _port(mask, attrs, m_pad):
-    keys, c = _keys_np(mask, m_pad)
+    keys, _ = _keys_np(mask, m_pad)
     pos, attrs_c = tc.compact_attrs(torch.from_numpy(np.stack(attrs)),
-                                    torch.from_numpy(keys),
-                                    torch.from_numpy(c), m_pad)
+                                    torch.from_numpy(keys), m_pad)
     return pos.numpy(), attrs_c.numpy()
 
 
@@ -106,8 +106,8 @@ def test_large_flat_index_exact():
 
 
 def test_compact_positions_and_render_entry_match_jax():
-    """The plain compaction (kept, inv, pos) and the render's
-    compact_positions_attrs on both of its paths."""
+    """The plain compaction (kept, inv, pos) and
+    compact_positions_attrs (the fold's plain version calls it)."""
     rng = np.random.default_rng(11)
     mask = rng.random((96, 24)) < 0.4
     m_pad = 640
@@ -119,14 +119,12 @@ def test_compact_positions_and_render_entry_match_jax():
     np.testing.assert_array_equal(it, ij)
     np.testing.assert_array_equal(pt, pj)
     ts = rng.standard_normal(mask.size).astype(np.float32)
-    outs = [compact_positions_attrs(torch.from_numpy(mask), m_pad,
-                                    [torch.from_numpy(ts)], plain=plain)
-            for plain in (False, True)]
-    for kept, inv, pos, (t_c,) in outs:
-        np.testing.assert_array_equal(kept.numpy(), kj)
-        np.testing.assert_array_equal(inv.numpy(), ij)
-        np.testing.assert_array_equal(pos.numpy(), pj)
-        np.testing.assert_array_equal(
-            t_c.numpy(), np.where(pj < mask.size,
-                                  ts[np.minimum(pj, mask.size - 1)], 0.0))
+    kept, inv, pos, (t_c,) = compact_positions_attrs(
+        torch.from_numpy(mask), m_pad, [torch.from_numpy(ts)])
+    np.testing.assert_array_equal(kept.numpy(), kj)
+    np.testing.assert_array_equal(inv.numpy(), ij)
+    np.testing.assert_array_equal(pos.numpy(), pj)
+    np.testing.assert_array_equal(
+        t_c.numpy(), np.where(pj < mask.size,
+                              ts[np.minimum(pj, mask.size - 1)], 0.0))
 

@@ -18,6 +18,8 @@ from raw_ngp_torch.kernels import hash_encode as th
 from raw_ngp_torch.kernels import segsum as ts
 from raw_ngp_torch.ops.hashgrid import HashGridSpec, hash_encode_01
 
+from decimate_cases import DECIMATE_CASES, decimate_case
+
 
 @pytest.fixture
 def cuda_device():
@@ -26,25 +28,48 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("keep_rate", [0.0, 0.03, 0.25, 0.9, 1.0])
-def test_compact_kernel_matches_plain(cuda_device, keep_rate):
-    """Bit-exact at the render's shape (M = 1,048,576, m_pad = 262,144)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    M, m_pad = 1 << 20, 262144
-    mask = torch.rand(M, generator=gen, device=cuda_device) < keep_rate
-    attrs = torch.randn(2, M, generator=gen, device=cuda_device)
-    c = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-    keys = torch.where(mask & (c <= m_pad), c - 1,
-                       tc.SENTINEL).to(torch.int32)
-    before = tc.compact_attrs.launches
-    pos, att = tc.compact_attrs(attrs, keys, c, m_pad)
-    assert tc.compact_attrs.launches == before + 1
-    _, _, pos_p = tc.compact_positions(keys < m_pad, m_pad)
-    att_p = torch.stack([tc.gather_flat_sorted(a, pos_p) for a in attrs])
+@pytest.mark.parametrize("shape", [(96, 64), (96, 40), (8191, 64),
+                                   (32768, 64)])
+@pytest.mark.parametrize("name", DECIMATE_CASES)
+def test_decimate_kernels_bit_exact(cuda_device, name, shape):
+    """The fold's three forward kernels and its backward against the plain
+    chain (decimate_compact_plain and its autograd), bit for bit: every
+    output, and the gradients in ts, in the broadcast deltas and in dt;
+    two calls give the same bits."""
+    N, K = shape
+    mask, miss, ts, dt, m_pad = (
+        torch.from_numpy(a).to(cuda_device) if isinstance(a, np.ndarray)
+        else a for a in decimate_case(name, N, K))
+    miss = miss[:, None].contiguous()
+    g = torch.randn(2, m_pad, generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    outs, grads = [], []
+    before = (tc.decimate_compact.launches, tc.decimate_compact_bwd.launches)
+    for plain in (False, False, True):
+        ts_r = ts.clone().requires_grad_()
+        dt_r = dt.clone().requires_grad_()
+        deltas = dt_r.expand(N, K)
+        deltas.retain_grad()
+        out = tc.decimate_compact(mask, miss, ts_r, deltas, m_pad,
+                                  plain=plain)
+        (out[0] * g[0] + out[1] * g[1]).sum().backward()
+        outs.append([o.detach() for o in out])
+        grads.append((ts_r.grad, deltas.grad, dt_r.grad))
+    assert tc.decimate_compact.launches == before[0] + 2
+    assert tc.decimate_compact_bwd.launches == before[1] + 2
     torch.cuda.synchronize()
-    assert torch.equal(pos, pos_p)
-    assert torch.equal(att.view(torch.int32), att_p.view(torch.int32))
+    for i in (1, 2):
+        for a, b in zip(outs[0], outs[i]):
+            assert _same_bits(a, b), (name, shape, i)
+        for a, b in zip(grads[0], grads[i]):
+            assert _same_bits(a, b), (name, shape, i)
+    assert int(outs[0][6]) <= m_pad
 
 
 def _points(B):
@@ -182,10 +207,21 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
         th.hash_encode(table, x[:, :2].contiguous(), spec)
     with pytest.raises(ValueError):
         th.hash_encode(table, x.t().contiguous().t(), spec)
-    keys = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    mask = torch.ones(4, 64, dtype=torch.bool, device=cuda_device)
+    miss = torch.zeros(4, 1, dtype=torch.bool, device=cuda_device)
+    ts_ = torch.zeros(4, 64, device=cuda_device)
     with pytest.raises(TypeError):
-        tc.compact_attrs(torch.zeros(1, 16, device=cuda_device), keys,
-                         keys.long(), 8)
+        tc.decimate_compact(mask, miss, ts_.double(), ts_, 128)
+    with pytest.raises(ValueError):      # miss is one flag a ray
+        tc.decimate_compact(mask, miss[:2], ts_, ts_, 128)
+    with pytest.raises(ValueError):
+        tc.decimate_compact(mask, miss, ts_.t().contiguous().t(), ts_, 128)
+    with pytest.raises(ValueError, match="2\\^31"):   # N * K >= 2^31
+        big = (1 << 16, 1 << 15)
+        tc.decimate_compact(mask[:1, :1].expand(*big), miss[:1].expand(
+            big[0], 1), ts_[:1, :1].expand(*big), ts_[:1, :1].expand(*big),
+            128)
+    keys = torch.zeros(16, dtype=torch.int32, device=cuda_device)
     g = torch.zeros(4, 32, device=cuda_device)
     with pytest.raises(ValueError):      # out is [n_rows, 2C], not flat
         ts.segment_grad_outer(keys, keys, keys, g, 8, 16,
@@ -224,10 +260,10 @@ def test_render_kernel_path_matches_plain(cuda_device):
                                device=cuda_device), 0.8)
     _, val = make_synthetic_scene(n_train=2, n_val=1, H=32, W=32)
     aabb = scene_aabb(cfg, val.pts_aabb, device=cuda_device)
-    before = (tc.compact_attrs.launches, th.hash_encode.launches)
+    before = (tc.decimate_compact.launches, th.hash_encode.launches)
     rgb, depth = render_image(field, bits, val.poses[0], val.intrinsics, 48,
                               48, aabb, device=cuda_device)
-    assert tc.compact_attrs.launches - before[0] == 3
+    assert tc.decimate_compact.launches - before[0] == 3
     assert th.hash_encode.launches - before[1] == 3
     rgb_p, depth_p = render_image(field, bits, val.poses[0], val.intrinsics,
                                   48, 48, aabb, device=cuda_device,
@@ -811,32 +847,6 @@ def test_table_grad_glue_kernels_bit_exact(cuda_device, C, dtype):
     ref = ts.segment_totals_outer_plain(*args[:3], words[-1], 3000, C)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("keep_rate", [0.0, 0.03, 0.25, 0.9, 1.0])
-def test_compact_backward_kernel_bit_exact(cuda_device, keep_rate):
-    """B1's backward at the train shape (M = 524,288, m_pad = 262,144; keep
-    rates 0.9 and 1.0 overflow the budget) against the plain version
-    (zeros + index_copy_ at the filled pos), through compact_attrs'
-    autograd: bit-exact, a copy of bits."""
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    M, m_pad = 1 << 19, 262144
-    mask = torch.rand(M, generator=gen, device=cuda_device) < keep_rate
-    attrs = torch.randn(2, M, generator=gen, device=cuda_device)
-    g = torch.randn(2, m_pad, generator=gen, device=cuda_device)
-    c = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-    keys = torch.where(mask & (c <= m_pad), c - 1,
-                       tc.SENTINEL).to(torch.int32)
-    a = attrs.clone().requires_grad_()
-    before = tc.compact_attrs_bwd.launches
-    pos, att = tc.compact_attrs(a, keys, c, m_pad)
-    att.backward(g)
-    assert tc.compact_attrs_bwd.launches == before + 1
-    ref = tc.compact_attrs_bwd_plain(g, pos, M)
-    torch.cuda.synchronize()
-    assert torch.equal(a.grad.view(torch.int32), ref.view(torch.int32))
-    assert (a.grad[:, keys >= m_pad] == 0).all()
 
 
 @pytest.mark.gpu

@@ -199,8 +199,8 @@ def test_annealing_weights_and_blend_match_jax(profile):
 @pytest.mark.parametrize("case", ["keep 0.25", "overflow", "empty",
                                   "full"])
 def test_compact_backward_matches_jax_vjp_bit_exact(case):
-    """B1's backward (the plain version on the CPU, through compact_attrs'
-    autograd and through compact_positions_attrs on both paths) against
+    """B1's plain backward (compact_attrs_bwd, through compact_attrs'
+    autograd and through compact_positions_attrs) against
     jax.vjp of the interpreted compact_attrs_pallas: bit-exact, a copy of
     each kept slot's cotangent to its source index and 0 elsewhere."""
     rng = np.random.default_rng(11)
@@ -221,8 +221,7 @@ def test_compact_backward_matches_jax_vjp_bit_exact(case):
     gj = np.asarray(vjp(jnp.asarray(g))[0])
 
     at = torch.from_numpy(attrs).requires_grad_()
-    pos, ac_t = tc.compact_attrs(at, torch.from_numpy(keys),
-                                 torch.from_numpy(c), m_pad)
+    pos, ac_t = tc.compact_attrs(at, torch.from_numpy(keys), m_pad)
     ac_t.backward(torch.from_numpy(g))
     np.testing.assert_array_equal(_np(ac_t).view(np.int32),
                                   np.asarray(ac_j).view(np.int32))
@@ -230,18 +229,16 @@ def test_compact_backward_matches_jax_vjp_bit_exact(case):
                                   gj.view(np.int32))
     assert (_np(at.grad)[:, ~kept] == 0).all()
     np.testing.assert_array_equal(
-        _np(tc.compact_attrs_bwd(torch.from_numpy(g), torch.from_numpy(keys),
-                                 pos, m_pad)).view(np.int32),
+        _np(tc.compact_attrs_bwd(torch.from_numpy(g), pos, M)).view(np.int32),
         gj.view(np.int32))
-    for plain in (False, True):
-        a = [torch.from_numpy(attrs[i]).requires_grad_() for i in range(2)]
-        _, _, _, (t_c, dt_c) = tocc.compact_positions_attrs(
-            torch.from_numpy(mask), m_pad, a, plain=plain)
-        (t_c * torch.from_numpy(g[0]) + dt_c * torch.from_numpy(g[1])
-         ).sum().backward()
-        for i in range(2):
-            np.testing.assert_array_equal(_np(a[i].grad).view(np.int32),
-                                          gj[i].view(np.int32))
+    a = [torch.from_numpy(attrs[i]).requires_grad_() for i in range(2)]
+    _, _, _, (t_c, dt_c) = tc.compact_positions_attrs(torch.from_numpy(mask),
+                                                      m_pad, a)
+    (t_c * torch.from_numpy(g[0]) + dt_c * torch.from_numpy(g[1])
+     ).sum().backward()
+    for i in range(2):
+        np.testing.assert_array_equal(_np(a[i].grad).view(np.int32),
+                                      gj[i].view(np.int32))
 
 
 # ---------------------------------------------------------------- encode

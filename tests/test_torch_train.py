@@ -499,8 +499,7 @@ def test_unported_gradients_raise():
     assert x.grad is not None and x.grad.shape == (8, 3)
     attrs = torch.rand(2, 16, requires_grad=True)
     keys = torch.full((16,), SENTINEL, dtype=torch.int32)
-    compact_attrs(attrs, keys, torch.zeros(16, dtype=torch.int32),
-                  8)[1].sum().backward()
+    compact_attrs(attrs, keys, 8)[1].sum().backward()
     assert torch.equal(attrs.grad, torch.zeros(2, 16))
     cfg = tcfg.Config().with_preset_O()
     with pytest.raises(NotImplementedError):
