@@ -107,7 +107,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pose gradient agree between the kernel and the plain path,
               and the repro check of phase 7 (pose params and moments
               included);
- 11. timing — each kernel, its plain version and a PyTorch yardstick where
+ 11. lightstage — the light-stage path (HDR training with the RawNeRF
+              loss, exposures and the Bayer loss mask, HDR evaluation,
+              rfield light conditioning): the flagship with image_mode
+              HDR, color_activation clamped_exp and rfield on
+              make_synthetic_scene(36, 2, 128, 128, hdr=True,
+              rfield=True), 128 steps by its Trainer with every launch
+              counter reset just before and read just after: the fold
+              forward, the forward with records, B2's flat form and the
+              dense-level gradient once a step, the refresh and eval
+              encode forwards launched, B2's 2C totals, the fold's
+              backward and the input gradient never; finite losses that
+              fall, finite params and EMA, the HDR val PSNR (min(1, rgb *
+              exposure) against min(1, gt)), the exposure levels (finite,
+              monotone), one fixed batch with exposure, light direction
+              and Bayer lossmult on the kernel and the plain path, a val
+              view at 128x128 under its own and the mirrored light (the
+              images must differ), the 512x512 render with a light
+              direction, the step's stages and profile, and the repro
+              check of phase 7;
+ 12. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -119,11 +138,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               each (device busy and idle share, launches, top kernels,
               host-to-device copies and the runtime's copy, synchronize
               and launch calls).
-The train and pose phases also count the encode's launches by caller
-(train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `pose`, `table_grad` and `kernels` JSON lines
-and the card's
-name and power limit, and ends with one line
+The train, pose and lightstage phases also count the encode's launches by
+caller (train forwards, grid refresh chunks, evaluation).
+It prints `render`, `train`, `pose`, `lightstage` (with the card's name
+and power limit), `table_grad` and `kernels` JSON lines (each kernel's
+`launches` are the light-stage phase's, `lightstage_launched` says
+whether it ran there, the other phases' counts ride beside them) and the
+card's name and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The `kernels` line marks `deterministic: true` on each kernel whose two
 calls on the same inputs gave the same bits.
@@ -1577,7 +1598,8 @@ def step_breakdown(tr, reps=5):
     `reps` steps, ms), plus one grid refresh and coarse-volume rebuild
     (every update_extra_interval steps) on its own. Under pose refinement
     the sample stage composes the noise and refinements, and the pose
-    optimizer is a stage of its own."""
+    optimizer is a stage of its own. A light-stage scene's exposures and
+    light directions ride in the batch."""
     import torch
     from raw_ngp_torch.data.sampler import sample_ray_batch
     from raw_ngp_torch.render.eval import coarse_volume
@@ -1601,7 +1623,9 @@ def step_breakdown(tr, reps=5):
         batch = timed("sample", lambda: sample_ray_batch(
             tr.generator, sa["images"], sa["poses"], sa["intrinsics"],
             tr.num_rays, random_image_batch=tr.cfg.train.random_image_batch,
-            se3_refine=pose, pose_noise=st.pose_noise))
+            se3_refine=pose, pose_noise=st.pose_noise,
+            exposures=sa.get("exposures"), ldirs=sa.get("ldirs"),
+            mosaiced=tr.cfg.data.mosaiced))
         batch["coarse_lin"] = sa["coarse_lin"]
         for p in st.params.values():
             p.grad = None
@@ -1979,6 +2003,165 @@ def phase_pose(dev, steps=128, timed=32, repro=32):
     return launches, out
 
 
+def lightstage_config():
+    """The light-stage slice: the flagship with HDR images, the clamped_exp
+    colour head and rfield light conditioning (tools/quality_run.py --hdr
+    --rfield)."""
+    cfg = flagship_config()
+    cfg = replace(cfg, data=replace(cfg.data, image_mode="HDR"),
+                  model=replace(cfg.model, color_activation="clamped_exp",
+                                rfield=True))
+    return cfg.validate()
+
+
+def phase_lightstage(dev, steps=128, timed=32, repro=32, large=512,
+                     reps=7):
+    """The light-stage path through the Trainer's entry points: `steps`
+    HDR + rfield steps with every launch counter reset just before and
+    read just after, the checks (the five kernels of the train path, the
+    fold forward, the forward with records, B2's flat form and the dense
+    level once a step; B2's 2C totals, the fold's backward and the input
+    gradient never), the HDR val PSNR, the exposure levels, a fixed batch
+    (exposure, ldir, Bayer lossmult) on the kernel and the plain path, a
+    relit render, a profile of one step, the 512x512 render with a light
+    direction (timed, and one chunk profiled) and the repro check over
+    the first `repro` steps."""
+    import numpy as np
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.ops.rays import full_image_rays
+    from raw_ngp_torch.render.eval import (coarse_volume, make_eval_render,
+                                           render_image)
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = lightstage_config()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128,
+                                          W=128, hdr=True, rfield=True)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_s, val_s, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    view_in = tr.field.view_mlp[0].shape
+    print(f"[lightstage] Trainer ready in {init_s:.2f} s; view MLP "
+          f"{[tuple(w.shape) for w in tr.field.view_mlp]}")
+    check(tuple(view_in) == (15 + 16 + 16, 64 + 16),
+          f"lightstage: view MLP input layer {tuple(view_in)}")
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, TRAIN_KERNELS, "lightstage", capture_at=repro)
+    check(launches["decimate_compact"] == steps, f"lightstage: the fold "
+          f"launched {launches['decimate_compact']} times in {steps} steps")
+    for name in ("decimate_compact_bwd", "encode_input_grad",
+                 "segment_totals_channel"):
+        check(launches[name] == 0, f"lightstage: kernel {name} is off the "
+              f"path but launched {launches[name]} times")
+    by_caller = launches["hash_encode_by_caller"]
+    check(by_caller["refresh_chunks"] > 0,
+          "lightstage: no grid refresh chunk was encoded")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr, by_caller["eval"] = evaluate_counted(tr)
+    check(by_caller["eval"] > 0, "lightstage: evaluate encoded nothing")
+    check(bool(np.isfinite(psnr)), f"lightstage: val PSNR {psnr}")
+    # the val views' exposures are 4.0, so evaluate finds no exposure-1.0
+    # view there; the levels come from the train scene's first one
+    levels = tr.estimate_exposure_levels(train_s)
+    vals = [levels[p] for p in sorted(levels)]
+    check(set(levels) == set(cfg.exposure_percentiles)
+          and all(np.isfinite(v) for v in vals) and vals == sorted(vals),
+          f"lightstage: exposure levels {levels}")
+    print(f"[lightstage] last {timed} steps: median {med:.3f} ms/step, "
+          f"{tr.num_rays / med * 1e3:.0f} rays/s; HDR val PSNR (EMA, "
+          f"min(1, rgb * exposure) vs min(1, gt)) {psnr:.3f} dB; exposure "
+          f"levels {levels}")
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sa = tr.scene_arrays
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays,
+                             exposures=sa["exposures"], ldirs=sa["ldirs"],
+                             mosaiced=True)
+    batch["coarse_lin"] = sa["coarse_lin"]
+    fixed = fixed_batch_check(tr, lambda: batch, "lightstage")
+
+    # relighting: one val view under its own and the mirrored light
+    pose, ld = val_s.poses[0], val_s.ldirs[0]
+    ld_m = -ld * np.array([1.0, 1.0, -1.0], np.float32)
+    rgb_a, _ = tr.render_image(pose, ldir=ld)
+    rgb_b, _ = tr.render_image(pose, ldir=ld_m)
+    relit = float(np.abs(rgb_a - rgb_b).mean())
+    print(f"[lightstage] relighting at 128x128: mean |diff| {relit:.6f}")
+    check(np.isfinite(rgb_a).all() and np.isfinite(rgb_b).all(),
+          "lightstage: a relit render is not finite")
+    check(relit > 0, "lightstage: the light direction changes nothing")
+
+    # the 512x512 render with a light direction, each of `reps` timed
+    intr_l = val_s.intrinsics * (large / 128.0)
+
+    def render_large():
+        return render_image(tr.ema_field, tr.state.density_bitfield, pose,
+                            intr_l, large, large, tr.aabb, device=dev,
+                            ldir=ld)
+
+    rgb_l, _ = render_large()
+    check(bool(torch.isfinite(rgb_l).all()),
+          "lightstage: the 512x512 render is not finite")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_large()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    img_ms = sorted(times)[reps // 2]
+    n_chunks = -(-large * large // cfg.render.max_ray_batch)
+    # where one chunk's time goes: the large image's middle rows
+    rays_o, rays_d = full_image_rays(
+        torch.as_tensor(pose, device=dev), torch.as_tensor(intr_l,
+                                                           device=dev),
+        large, large)
+    n = cfg.render.max_ray_batch
+    s = (large * large - n) // 2
+    ro, rd = rays_o[s:s + n], rays_d[s:s + n]
+    ld_chunk = torch.as_tensor(ld, device=dev).expand(n, 3)
+    bitfield = tr.state.density_bitfield
+    coarse = coarse_volume(cfg, bitfield)
+    render_chunk = make_eval_render(cfg)
+    chunk_profile = profile_device(
+        lambda: render_chunk(tr.ema_field, bitfield, ro, rd, tr.aabb,
+                             coarse, 1.0, ld_chunk), 3, "chunk")
+
+    out = {"config": "flagship (with_preset_O + with_tpu_profile, fp16, "
+                     "num_rays 8192) + image_mode HDR, color_activation "
+                     "clamped_exp, rfield",
+           "scene": "make_synthetic_scene(36, 2, 128, 128, hdr=True, "
+                    "rfield=True)",
+           "steps": steps, "grid_refreshes": tr.host_grid_updates,
+           "num_rays": tr.num_rays,
+           "point_budget": tr._point_budget or tr.base_point_budget(),
+           "ms_per_step": med, "rays_per_s": tr.num_rays / med * 1e3,
+           "ms_per_step_runs": window, "hdr_val_psnr_ema": psnr,
+           "exposure_levels": {str(k): v for k, v in levels.items()},
+           "loss_first8": first, "loss_last8": last,
+           "trainer_init_s": init_s,
+           "fixed_batch_kernel_vs_plain": fixed,
+           "relight_mean_abs_diff": relit,
+           "render": {"image": f"{large}x{large}", "chunks": n_chunks,
+                      "ms_per_image": img_ms, "ms_per_image_runs": times,
+                      "ms_per_chunk": img_ms / n_chunks,
+                      "rays_per_s": large * large / (img_ms / 1e3),
+                      "profile": chunk_profile},
+           "stages_ms": step_breakdown(tr),
+           "profile": profile_device(tr.step, 1, "step"),
+           "gpu": gpu_line()}
+    out["repro"] = repro_check(tr, snap, ref, repro, "lightstage")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[lightstage] phase took {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def deterministic_ops(dev):
     """A diagnostic: two train steps and two pose steps of the flagship on
     4 cameras under torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2210,7 +2393,8 @@ def main() -> int:
         k_channel = phase_segsum_channel(dev)
         render_launches, render = phase_slice(dev, cfg)
         train_launches, train = phase_train(dev, cfg)
-        launches, pose = phase_pose(dev)
+        pose_launches, pose = phase_pose(dev)
+        launches, lightstage = phase_lightstage(dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2219,14 +2403,17 @@ def main() -> int:
     for k in (k_decimate, k_decimate_bwd, k_encode, k_records, k_mm, k_input,
               k_flat, k_segsum, k_channel):
         k = dict(k)
-        # this slice's main path is the pose phase; the earlier paths'
-        # counts ride beside it
+        # this slice's main path is the light-stage phase; the earlier
+        # paths' counts ride beside it
         k["launches"] = launches[k["name"]]
+        k["lightstage_launched"] = launches[k["name"]] > 0
+        k["launches_pose"] = pose_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
-                "pose": launches["hash_encode_by_caller"],
+                "lightstage": launches["hash_encode_by_caller"],
+                "pose": pose_launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
         if k["name"] in REGISTER_CHECKED:
             k["ptxas"] = checked_instantiations(ptxas, k["name"])
@@ -2235,6 +2422,7 @@ def main() -> int:
     print(json.dumps({"render": render}))
     print(json.dumps({"train": train}))
     print(json.dumps({"pose": pose}))
+    print(json.dumps({"lightstage": lightstage}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -1,13 +1,14 @@
-"""Per-step ray-batch sampling (port of ``raw_ngp_tpu/data/sampler.py``
-``sample_ray_batch`` ``:34``).
+"""Per-step ray-batch sampling (port of ``raw_ngp_tpu/data/sampler.py``:
+``bayer_lossmult`` ``:23`` and ``sample_ray_batch`` ``:34``).
 
 Two modes are ported: random pixels of random images
 (``random_image_batch``; one random image per batch otherwise) and the
 explicit ``coords`` / ``coord_image_indices`` hook; so are the synthetic
 pose noise and the learned se(3) refinements of pose refinement, composed
-onto each ray's pose in the differentiated step. Exposures, light
-directions, per-camera near/far, mosaiced (Bayer) images and patches
-raise ``NotImplementedError``.
+onto each ray's pose in the differentiated step, and the light-stage
+outputs: per-ray exposures, light directions and the Bayer loss mask of
+mosaiced images. Per-camera near/far and patches raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,17 @@ from raw_ngp_torch.ops.lie import apply_refinement, compose_pose
 from raw_ngp_torch.ops.rays import pixel_rays
 
 
+def bayer_lossmult(rows, cols):
+    """Binary RGB mask [..., 3] f32 of the RGGB Bayer pattern at integer
+    pixel coords (row, col): R at (even, even), G at (even, odd) and
+    (odd, even), B at (odd, odd)."""
+    r = (cols % 2 == 0) & (rows % 2 == 0)
+    g = (((cols % 2 == 1) & (rows % 2 == 0))
+         | ((cols % 2 == 0) & (rows % 2 == 1)))
+    b = (cols % 2 == 1) & (rows % 2 == 1)
+    return torch.stack([r, g, b], dim=-1).float()
+
+
 def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
                      random_image_batch: bool = True, se3_refine=None,
                      pose_noise=None, exposures=None, ldirs=None,
@@ -27,7 +39,10 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
                      patch_size: int = 1, coords=None,
                      coord_image_indices=None) -> Dict[str, torch.Tensor]:
     """A training ray bundle: rays_o, rays_d [num_rays, 3], the GT pixels
-    ``images`` [num_rays, C] and the image ``index`` of each ray.
+    ``images`` [num_rays, C] and the image ``index`` of each ray; with
+    ``exposures`` [n, 1] also ``exposure`` [num_rays, 1], with ``ldirs``
+    [n, 3] ``rays_ldir`` [num_rays, 3], and when ``mosaiced`` the Bayer
+    ``lossmult`` [num_rays, 3] of each ray's pixel.
 
     images [n, H, W, C], poses [n, 4, 4] and intrinsics [4] are tensors on
     one device; ``generator`` (a torch.Generator there) draws the images
@@ -36,11 +51,9 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
     ``pose_noise`` [n, 3, 4] is composed under each ray's pose, then
     ``se3_refine`` [n, 6] on top (camera space, ``apply_refinement``); the
     rays are differentiable in both."""
-    if (exposures is not None or ldirs is not None
-            or cam_near_far is not None or mosaiced or patch_size > 1):
+    if cam_near_far is not None or patch_size > 1:
         raise NotImplementedError(
-            "sample_ray_batch: exposures, light directions, camera near/far, "
-            "mosaiced images and patches are not ported")
+            "sample_ray_batch: camera near/far and patches are not ported")
     n, H, W, _ = images.shape
     dev = images.device
     if coord_image_indices is not None:
@@ -65,5 +78,12 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
     if se3_refine is not None:
         sel_poses = apply_refinement(se3_refine[img_idx], sel_poses)
     rays_o, rays_d = pixel_rays(sel_poses, intrinsics, flat, W)
-    return {"rays_o": rays_o, "rays_d": rays_d,
-            "images": images[img_idx, rows, cols], "index": img_idx}
+    out = {"rays_o": rays_o, "rays_d": rays_d,
+           "images": images[img_idx, rows, cols], "index": img_idx}
+    if exposures is not None:
+        out["exposure"] = exposures[img_idx]                # [N, 1]
+    if ldirs is not None:
+        out["rays_ldir"] = ldirs[img_idx]                   # [N, 3]
+    if mosaiced:
+        out["lossmult"] = bayer_lossmult(rows, cols)        # [N, 3]
+    return out

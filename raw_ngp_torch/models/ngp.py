@@ -12,8 +12,10 @@ table and input gradients are the fused backward of
 gradients where JAX's bf16 ``dot_general`` transposes do (an f32 product
 converted to bf16). JAX's static ``FieldSpec.needs_input_grads`` has no
 counterpart: autograd sees per call whether the positions need a gradient
-(the encode's ``ctx.needs_input_grad``). Only the occupancy-mode field
-without light conditioning (rfield) is ported; the other modes raise.
+(the encode's ``ctx.needs_input_grad``). The occupancy-mode field is
+ported, with or without light conditioning (``model.rfield``: SH(ld)
+after SH(d) at the view MLP's input, which is ``ldir_dim`` wider, as is
+its hidden width); the proposal networks raise.
 """
 
 from __future__ import annotations
@@ -59,9 +61,6 @@ def make_field_spec(cfg: Config) -> FieldSpec:
     if not cfg.render.occupancy:
         raise NotImplementedError("raw_ngp_torch ports the occupancy-grid "
                                   "field only (no proposal networks yet)")
-    if m.rfield:
-        raise NotImplementedError("rfield (light-direction conditioning) is "
-                                  "not ported yet")
     grid_spec = HashGridSpec.create(
         input_dim=3, num_levels=m.num_levels, level_dim=m.level_dim,
         log2_hashmap_size=m.log2_hashmap_size,
@@ -159,14 +158,21 @@ class NGPField(nn.Module):
         grid refresh queries it at the default annealing 1.0)."""
         return self._common(x, plain, annealing)[0]
 
-    def forward(self, x, d, plain: bool = False, annealing=1.0):
+    def forward(self, x, d, ld=None, plain: bool = False, annealing=1.0):
         """(sigma [N], color [N, 3]) at positions x [N, 3] seen along
-        unit directions d [N, 3] (``field_forward``). ``plain=True`` runs
-        the encode's plain version instead of its kernel; ``annealing``
-        (a number in [0, 1]) drives the BARF / BAA-NGP level mask."""
+        unit directions d [N, 3] (``field_forward``); an rfield field also
+        takes the light directions ld [N, 3] and raises ``ValueError``
+        without them. ``plain=True`` runs the encode's plain version
+        instead of its kernel; ``annealing`` (a number in [0, 1]) drives
+        the BARF / BAA-NGP level mask."""
         m = self.spec.cfg.model
         sigma, feat = self._common(x, plain, annealing)
-        h = torch.cat([feat, sh_encode(d, m.sh_degree)], dim=-1)
+        enc = [feat, sh_encode(d, m.sh_degree)]
+        if m.rfield:
+            if ld is None:
+                raise ValueError("rfield mode requires light directions")
+            enc.append(sh_encode(ld, m.sh_degree))
+        h = torch.cat(enc, dim=-1)
         c = apply_mlp(list(self.view_mlp), h, m.internal_activation, m.beta,
                       self.spec.compute_dtype)
         return sigma, color_activation(c, m.color_activation)
@@ -183,9 +189,11 @@ def init_field(spec: FieldSpec, seed: int = 0, device="cuda") -> NGPField:
     m = spec.cfg.model
     gen = torch.Generator().manual_seed(seed)
     sh_dim = m.sh_degree ** 2
+    ldir_dim = sh_dim if m.rfield else 0
     grid = init_hashgrid_params(spec.grid_spec, gen)
     grid_mlp = init_mlp(gen, spec.grid_spec.output_dim, m.grid_mlp_out,
                         m.grid_mlp_hidden, m.grid_mlp_layers)
-    view_mlp = init_mlp(gen, (m.grid_mlp_out - 1) + sh_dim, 3,
-                        m.view_mlp_hidden, m.view_mlp_layers)
+    # the view MLP widens by ldir_dim in rfield mode, input and hidden
+    view_mlp = init_mlp(gen, (m.grid_mlp_out - 1) + sh_dim + ldir_dim, 3,
+                        m.view_mlp_hidden + ldir_dim, m.view_mlp_layers)
     return NGPField(spec, grid, grid_mlp, view_mlp).to(dev)

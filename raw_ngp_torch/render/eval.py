@@ -37,23 +37,27 @@ def coarse_volume(cfg: Config, bitfield) -> torch.Tensor:
 
 def make_eval_render(cfg: Config, plain: bool = False):
     """Chunk renderer for full-image eval: (field, bitfield, rays_o,
-    rays_d, aabb, coarse_lin, annealing) -> (image [n, 3], depth [n],
-    weights_sum [n]). ``plain=True`` runs the kernels' plain versions."""
+    rays_d, aabb, coarse_lin, annealing, rays_ldir) -> (image [n, 3],
+    depth [n], weights_sum [n]); ``rays_ldir`` [n, 3] are an rfield
+    field's light directions. ``plain=True`` runs the kernels' plain
+    versions."""
     bg = 1.0 if cfg.render.background != "black" else 0.0
 
     def render_chunk(field, bitfield, rays_o, rays_d, aabb, coarse_lin=None,
-                     annealing=1.0):
+                     annealing=1.0, rays_ldir=None):
         with torch.inference_mode():
             out = render_occupancy(field, rays_o, rays_d, aabb, bitfield,
                                    bg_color=bg, coarse_lin=coarse_lin,
-                                   plain=plain, annealing=annealing)
+                                   plain=plain, annealing=annealing,
+                                   rays_ldir=rays_ldir)
         return out["image"], out["depth"], out["weights_sum"]
 
     return render_chunk
 
 
 def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
-                 device="cuda", plain: bool = False, annealing=1.0):
+                 device="cuda", plain: bool = False, annealing=1.0,
+                 ldir=None):
     """Full-image chunked render -> (rgb [H, W, 3], depth [H, W]) on
     ``device``.
 
@@ -64,6 +68,8 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     to full size with origin 0 / direction 1 rays, as the JAX trainer
     pads it, so every chunk has one shape. ``annealing`` is the BARF /
     BAA-NGP state to render at (the Trainer passes its current one).
+    ``ldir`` [3], an rfield field's light direction, is given to every
+    ray of every chunk, the padded rays of the last one included.
     """
     dev = resolve_device(device)
     cfg = field.spec.cfg
@@ -73,6 +79,10 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     N = H * W
     chunk = min(cfg.render.max_ray_batch, N)
     render_chunk = make_eval_render(cfg, plain=plain)
+    ld = None
+    if ldir is not None:
+        ld = torch.as_tensor(ldir, dtype=torch.float32,
+                             device=dev).reshape(1, 3).expand(chunk, 3)
     with torch.inference_mode():
         coarse_lin = coarse_volume(cfg, bitfield)
         imgs, depths = [], []
@@ -84,7 +94,7 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
                 ro = torch.cat([ro, torch.zeros(pad, 3, device=dev)])
                 rd = torch.cat([rd, torch.ones(pad, 3, device=dev)])
             img, depth, _ = render_chunk(field, bitfield, ro, rd, aabb,
-                                         coarse_lin, annealing)
+                                         coarse_lin, annealing, ld)
             imgs.append(img[: e - s])
             depths.append(depth[: e - s])
     return (torch.cat(imgs).reshape(H, W, 3),

@@ -12,7 +12,8 @@ step reads a device value back to the host.
 Only the branches of the flagship configuration are ported: uniform
 probes with the integer CDF branch of ``cdf_candidates``, the ``S == K``
 return of ``march_rays`` and the compact-composite branch of
-``render_occupancy``. The others raise ``NotImplementedError``. In
+``render_occupancy``, with or without per-ray light directions (the
+rfield field's). The others raise ``NotImplementedError``. In
 training the gradient reaches the field's parameters through the field
 and the composite, and, under pose refinement, the rays: through the
 compacted t and dt (near/far and the CDF spacing depend on the rays; the
@@ -299,10 +300,12 @@ def gather_ray_rows(buf, rid):
 def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                      coarse_lin=None, plain: bool = False,
                      training: bool = False, generator=None,
-                     point_budget=None,
-                     annealing=1.0) -> Dict[str, torch.Tensor]:
+                     point_budget=None, annealing=1.0,
+                     rays_ldir=None) -> Dict[str, torch.Tensor]:
     """Full occupancy-path render of rays [N, 3] (``render_occupancy``).
     ``field`` is an :class:`raw_ngp_torch.models.ngp.NGPField`;
+    ``rays_ldir`` [N, 3] are the light directions of an rfield field's
+    rays (zero-guarded, not normalized, as JAX's);
     ``plain=True`` runs the plain versions of the kernels. ``bg_color`` is
     a number or a tensor broadcasting to [N, 3]. ``generator`` draws the
     march jitter [N, 1] (None: the deterministic jitter 0.5 of
@@ -349,22 +352,31 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     # the live samples (mask & ~miss), decimated uniformly along each ray
     # when over budget (dt scaled by the stride), packed ray-major into
     # m_pad slots: the fold's kernels, no host sync. Unfilled slots read the
-    # dummy ray row N (origin 0, unit-z direction: a zero direction would
-    # NaN the SH normalization); the dummy id also keeps rid ascending
+    # dummy ray row N (origin 0, unit-z direction and light direction: a
+    # zero direction would NaN the SH normalization); the dummy id also
+    # keeps rid ascending
     t_c, dt_c, rid, filled, counts, valid_total, num_points = \
         decimate_compact(mask, miss, ts, deltas, m_pad, plain=plain)
     ez = torch.tensor([0.0, 0.0, 1.0], dtype=rays_d.dtype,
                       device=rays_d.device)
-    odl = torch.cat([torch.cat([rays_o, torch.zeros_like(ez)[None]]),
-                     torch.cat([rays_d, ez[None]])], dim=1)
-    odl = gather_ray_rows(odl, rid)
+    cols = [torch.cat([rays_o, torch.zeros_like(ez)[None]]),
+            torch.cat([rays_d, ez[None]])]
+    if rays_ldir is not None:
+        cols.append(torch.cat([rays_ldir, ez[None]]))
+    odl = gather_ray_rows(torch.cat(cols, dim=1), rid)
     o_c, d_c = odl[:, :3], odl[:, 3:6]
     bound = torch.tensor(r.bound, dtype=torch.float32, device=odl.device)
     xyz_c = torch.minimum(torch.maximum(o_c + d_c * t_c[:, None], -bound),
                           bound)
     dnorm = torch.linalg.norm(d_c, dim=-1, keepdim=True)
     dirs_c = torch.where(dnorm > 1e-8, d_c / dnorm, ez)
-    sig_c, rgb_c = field(xyz_c, dirs_c, plain=plain, annealing=annealing)
+    ld_c = None
+    if rays_ldir is not None:
+        l_c = odl[:, 6:9]
+        lnorm = torch.linalg.norm(l_c, dim=-1, keepdim=True)
+        ld_c = torch.where(lnorm > 1e-8, l_c, ez)     # zero guard only
+    sig_c, rgb_c = field(xyz_c, dirs_c, ld_c, plain=plain,
+                         annealing=annealing)
 
     out = composite_rays_compacted(
         sig_c, rgb_c, t_c, dt_c, rid, filled, counts, N, K,

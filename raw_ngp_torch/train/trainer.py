@@ -5,7 +5,8 @@ of ``raw_ngp_tpu/train/trainer.py``: ``network_lr_schedule`` ``:51``,
 ``:176``, ``init_train_state`` ``:186``, ``_bg_color`` ``:223``,
 ``make_batch_loss_fn`` ``:249``, ``make_loss_fn`` ``:304``,
 ``make_train_step`` ``:351``, ``dataclasses_replace_scene`` ``:451`` and
-``Trainer`` ``:459``).
+``Trainer`` ``:459``, with ``estimate_exposure_levels`` ``:930`` and the
+HDR branch of ``evaluate`` ``:1032-1058``).
 
 JAX jits the step and chains steps with ``lax.scan``; here a step is one
 eager Python call that updates the state in place. The random streams
@@ -19,12 +20,18 @@ the field's level mask, and a second optimizer (skip-nonfinite, then
 optax's Adam with the exponential pose LR) updates them until
 ``end_annealing * iters``.
 
-Not ported (each raises ``NotImplementedError``): the proposal path, HDR
-images and losses, the entropy / TV / weight-decay / orientation
-regularizers, the unfused encoder, multi-device meshes, rfield light
-directions; absent: checkpoints, artifacts and the logger (so
-``pose_opt.log_poses``), histograms, exposure levels and metrics other
-than PSNR.
+Light-stage training: HDR images (``data.image_mode="HDR"``) train with
+the RawNeRF loss under each image's exposure, the ``train.loss_weight``
+weighting and, for mosaiced images, the Bayer loss mask; an rfield field
+(``model.rfield``) takes each image's light direction. HDR evaluation
+estimates the exposure levels from the first exposure-1.0 view and
+scores min(1, rgb * exposure) against min(1, gt).
+
+Not ported (each raises ``NotImplementedError``): the proposal path, the
+entropy / TV / weight-decay / orientation regularizers, the unfused
+encoder, multi-device meshes, per-camera near/far; absent: checkpoints,
+artifacts and the logger (so ``pose_opt.log_poses``), the HDR artifact
+dumps, histograms and metrics other than PSNR.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
 from raw_ngp_torch.render.occupancy import render_occupancy
-from raw_ngp_torch.train.losses import blend_gt_background, ldr_loss
+from raw_ngp_torch.train.losses import (blend_gt_background, ldr_loss,
+                                       loss_weight_fn, rawnerf_loss)
 from raw_ngp_torch.train.metrics import PSNRMeter
 from raw_ngp_torch.train.state import AdamState, TrainState
 
@@ -223,8 +231,6 @@ def _bg_color(cfg: Config, generator, n: int, device):
 
 def _check_ported(cfg: Config):
     t = cfg.train
-    if cfg.data.image_mode == "HDR":
-        raise NotImplementedError("HDR images and losses are not ported")
     if (t.lambda_entropy > 0 or t.lambda_tv > 0 or t.lambda_wd > 0
             or t.lambda_orientation > 0):
         raise NotImplementedError("the entropy, TV, weight-decay and "
@@ -238,8 +244,11 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
     """Render + loss over an explicit ray batch:
     ``batch_loss_fn(field, state, batch, aabb, generator=None,
     plain=False, point_budget=None, annealing=1.0) -> (loss, aux)``. A
-    ``None`` generator is the deterministic mode (march jitter 0.5)."""
+    ``None`` generator is the deterministic mode (march jitter 0.5).
+    HDR batches carry ``exposure`` [N, 1] and, when mosaiced, ``lossmult``
+    [N, 3]; an rfield field's batch carries ``rays_ldir`` [N, 3]."""
     _check_ported(cfg)
+    hdr = cfg.data.image_mode == "HDR"
 
     def batch_loss_fn(field, state: TrainState, batch, aabb, generator=None,
                       plain: bool = False, point_budget=None,
@@ -251,8 +260,13 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
             field, rays_o, rays_d, aabb, state.density_bitfield,
             bg_color=bg, coarse_lin=batch.get("coarse_lin"), plain=plain,
             training=True, generator=generator, point_budget=point_budget,
-            annealing=annealing)
-        loss = ldr_loss(out["image"], gt_rgb)
+            annealing=annealing, rays_ldir=batch.get("rays_ldir"))
+        if hdr:
+            lw = loss_weight_fn(cfg.train.loss_weight, gt_rgb)
+            loss = rawnerf_loss(out["image"], gt_rgb, batch["exposure"],
+                                batch.get("lossmult", 1.0), lw)
+        else:
+            loss = ldr_loss(out["image"], gt_rgb)
         aux = {"num_points": out["num_points"],
                "num_points_raw": out["num_points_raw"],
                "weights_sum": out["weights_sum"].mean()}
@@ -265,7 +279,8 @@ def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
     """Batch sampling + :func:`make_batch_loss_fn`:
     ``loss_fn(field, state, scene, aabb, generator, plain=False,
     point_budget=None, annealing=1.0)``; ``scene`` holds images, poses,
-    intrinsics and, when the Trainer has cached it, coarse_lin. The rays
+    intrinsics, the light-stage scene's exposures and ldirs where it has
+    them and, when the Trainer has cached it, coarse_lin. The rays
     are made inside the differentiated function from the state's pose
     refinements and noise, so the loss's gradient reaches
     ``state.pose_params``."""
@@ -276,7 +291,9 @@ def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
         batch = sample_ray_batch(
             generator, scene["images"], scene["poses"], scene["intrinsics"],
             num_rays, random_image_batch=cfg.train.random_image_batch,
-            se3_refine=state.pose_params, pose_noise=state.pose_noise)
+            se3_refine=state.pose_params, pose_noise=state.pose_noise,
+            exposures=scene.get("exposures"), ldirs=scene.get("ldirs"),
+            mosaiced=cfg.data.mosaiced)
         if "coarse_lin" in scene:
             batch["coarse_lin"] = scene["coarse_lin"]
         return batch_loss_fn(field, state, batch, aabb, generator, plain,
@@ -349,10 +366,9 @@ class Trainer:
         if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
             raise NotImplementedError("multi-device training is not ported")
         _check_ported(cfg)
-        for name in ("exposures", "cam_near_far", "ldirs"):
-            if getattr(train_scene, name) is not None:
-                raise NotImplementedError(f"scenes with {name} are not "
-                                          f"ported")
+        if train_scene.cam_near_far is not None:
+            raise NotImplementedError("scenes with cam_near_far are not "
+                                      "ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec = make_field_spec(cfg)
@@ -371,6 +387,10 @@ class Trainer:
             "intrinsics": torch.as_tensor(train_scene.intrinsics,
                                           device=dev),
         }
+        for name in ("exposures", "ldirs"):
+            if getattr(train_scene, name) is not None:
+                self.scene_arrays[name] = torch.as_tensor(
+                    getattr(train_scene, name), device=dev)
         self.aabb = scene_aabb(cfg, train_scene.pts_aabb, device=dev)
         self.field, self.state = init_train_state(cfg, self.spec, dev,
                                                   train_scene.n_images)
@@ -393,6 +413,9 @@ class Trainer:
                 cam_near_far=train_scene.cam_near_far)
             self.state.density_grid = torch.from_numpy(grid).to(dev)
         self.stats: Dict[str, Any] = {"loss": [], "psnr": []}
+        # HDR eval exposure levels {percentile: value}, set by
+        # estimate_exposure_levels
+        self.exposure_levels: Dict[float, float] = {}
         self.host_step = 0
         self.host_grid_updates = 0
         self._pts_ema = None
@@ -514,10 +537,11 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def render_image(self, pose, intrinsics=None, H=None, W=None,
-                     use_ema: bool = True):
+                     use_ema: bool = True, ldir=None):
         """Full-image chunked render with the EMA parameters (raw ones
         with ``use_ema=False``) at the current annealing,
-        min(host_step / iters, 1) -> numpy (rgb [H, W, 3], depth [H, W])."""
+        min(host_step / iters, 1), under light direction ``ldir`` [3] (an
+        rfield field's) -> numpy (rgb [H, W, 3], depth [H, W])."""
         scene = self.train_scene
         intrinsics = intrinsics if intrinsics is not None \
             else scene.intrinsics
@@ -526,21 +550,54 @@ class Trainer:
         rgb, depth = render_image(field, self.state.density_bitfield, pose,
                                   intrinsics, H or scene.H, W or scene.W,
                                   self.aabb, device=self.device,
-                                  annealing=annealing)
+                                  annealing=annealing, ldir=ldir)
         return rgb.cpu().numpy(), depth.cpu().numpy()
+
+    def estimate_exposure_levels(self, scene: SceneData) -> Dict:
+        """The HDR exposure levels: ``cfg.exposure_percentiles`` of the
+        render of the scene's first exposure-1.0 view (with its light
+        direction), kept in ``self.exposure_levels`` and on
+        ``scene.meta``. A scene without exposures, or without an
+        exposure-1.0 view, leaves the levels as they were."""
+        if scene.exposures is None:
+            return self.exposure_levels
+        ones = np.where(np.asarray(scene.exposures).reshape(-1) == 1.0)[0]
+        if len(ones) == 0:
+            return self.exposure_levels
+        i = int(ones[0])
+        rgb, _ = self.render_image(
+            scene.poses[i], scene.intrinsics, scene.H, scene.W,
+            ldir=scene.ldirs[i] if scene.ldirs is not None else None)
+        self.exposure_levels = {
+            p: float(np.percentile(rgb, p))
+            for p in self.cfg.exposure_percentiles}
+        if scene.meta is not None:
+            scene.meta.exposure_levels = dict(self.exposure_levels)
+        return self.exposure_levels
 
     def evaluate(self, scene: Optional[SceneData] = None,
                  use_ema: bool = True) -> Dict[str, float]:
-        """Mean PSNR of the renders of ``scene`` (default the val scene)
-        against its images."""
+        """Mean PSNR of the renders of ``scene`` (default the val scene),
+        each under its image's light direction, against its images. HDR:
+        the exposure levels are estimated first, and the PSNR compares
+        min(1, rgb * exposure) with min(1, gt)."""
         scene = scene or self.val_scene
         if scene is None:
             raise ValueError("evaluate: no scene")
+        hdr = self.cfg.data.image_mode == "HDR"
+        if hdr:
+            self.estimate_exposure_levels(scene)
         meter = PSNRMeter()
         for i in range(scene.n_images):
-            rgb, _ = self.render_image(scene.poses[i], scene.intrinsics,
-                                       scene.H, scene.W, use_ema=use_ema)
-            meter.update(rgb, scene.images[i][..., :3])
+            rgb, _ = self.render_image(
+                scene.poses[i], scene.intrinsics, scene.H, scene.W,
+                use_ema=use_ema,
+                ldir=scene.ldirs[i] if scene.ldirs is not None else None)
+            gt = scene.images[i][..., :3]
+            if hdr and scene.exposures is not None:
+                rgb = np.minimum(1.0, rgb * scene.exposures[i])
+                gt = np.minimum(1.0, gt)
+            meter.update(rgb, gt)
         result = {"psnr": meter.measure()}
         self.stats["psnr"].append(result["psnr"])
         return result

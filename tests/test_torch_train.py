@@ -489,9 +489,10 @@ def test_table_grad_glue_matches_jax(monkeypatch, gdtype):
 
 def test_unported_gradients_raise():
     """The gradients the pose slice ported (the encode's input gradient,
-    B1's backward) now flow; what is still unported raises instead of
-    returning a wrong result: rfield fields and the sampler's exposures,
-    light directions and per-camera near/far."""
+    B1's backward) now flow, and so do the branches the light-stage slice
+    ported: rfield fields (a view MLP 16 wider) and the sampler's
+    exposures and light directions. What is still unported raises instead
+    of returning a wrong result: the sampler's per-camera near/far."""
     tspec = TSpec.create(**_SPECS["L2xC16"])
     table = torch.zeros(tspec.n_params * tspec.level_dim)
     x = torch.rand(8, 3, requires_grad=True)
@@ -502,15 +503,17 @@ def test_unported_gradients_raise():
     compact_attrs(attrs, keys, 8)[1].sum().backward()
     assert torch.equal(attrs.grad, torch.zeros(2, 16))
     cfg = tcfg.Config().with_preset_O()
-    with pytest.raises(NotImplementedError):
-        t_make_spec(replace(cfg, model=replace(cfg.model, rfield=True)))
+    spec = t_make_spec(replace(cfg, model=replace(cfg.model, rfield=True)))
+    assert spec.cfg.model.rfield
     train, _ = make_synthetic_scene(n_train=2, n_val=1, H=8, W=8, seed=0)
     arrays = [torch.from_numpy(a) for a in
               (train.images, train.poses, train.intrinsics)]
-    for kw in ({"exposures": torch.ones(2, 1)}, {"ldirs": torch.ones(2, 3)},
-               {"cam_near_far": torch.ones(2, 2)}):
-        with pytest.raises(NotImplementedError):
-            t_sample(torch.Generator().manual_seed(0), *arrays, 8, **kw)
+    gen = torch.Generator().manual_seed(0)
+    b = t_sample(gen, *arrays, 8, exposures=torch.ones(2, 1),
+                 ldirs=torch.ones(2, 3))
+    assert b["exposure"].shape == (8, 1) and b["rays_ldir"].shape == (8, 3)
+    with pytest.raises(NotImplementedError):
+        t_sample(gen, *arrays, 8, cam_near_far=torch.ones(2, 2))
 
 
 # ---------------------------------------------------------------- (d)
@@ -538,7 +541,8 @@ def test_sampler_explicit_coords_bit_identical():
 
 
 def test_sampler_random_modes():
-    """Random pixels of random images, or of one image per batch."""
+    """Random pixels of random images, or of one image per batch; the
+    Bayer loss mask of mosaiced batches; patches still raise."""
     train, _ = make_synthetic_scene(n_train=5, n_val=1, H=8, W=8, seed=0)
     arrays = [torch.from_numpy(a) for a in
               (train.images, train.poses, train.intrinsics)]
@@ -548,8 +552,11 @@ def test_sampler_random_modes():
     assert len(torch.unique(b["index"])) > 1
     b = t_sample(gen, *arrays, 64, random_image_batch=False)
     assert len(torch.unique(b["index"])) == 1
+    b = t_sample(gen, *arrays, 64, mosaiced=True)
+    assert b["lossmult"].shape == (64, 3)
+    assert torch.equal(b["lossmult"].sum(-1), torch.ones(64))
     with pytest.raises(NotImplementedError):
-        t_sample(gen, *arrays, 8, mosaiced=True)
+        t_sample(gen, *arrays, 8, patch_size=2)
 
 
 # ---------------------------------------------------------------- (e)
