@@ -126,7 +126,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               images must differ), the 512x512 render with a light
               direction, the step's stages and profile, and the repro
               check of phase 7;
- 12. timing — each kernel, its plain version and a PyTorch yardstick where
+ 12. proposal — the -O2 preset (Config().with_preset_O2(): contraction,
+              bf16, 4,096 rays, num_steps (256, 96, 48); the radiance
+              field's 16 x 2 xor grid and two proposal grids of 5 x 2) on
+              make_synthetic_scene(36, 2, 128, 128): the val PSNR (EMA) of
+              the untrained field; the forward with records and the table
+              gradient (torch.sort and B2's flat form; no dense level on
+              these grids) against their plain versions on each of the
+              three grids at the points a train step gives it (the
+              forward and records bit for bit, the gradient within rtol
+              1e-5), each timed beside its bound and zero_ + index_add_
+              of the window levels' rounded products; 128 Trainer steps
+              with every launch counter reset just before and read just
+              after: the forward with records 3 a step, B2's flat form 26
+              a step (16 + 5 + 5 window levels), the forward without
+              records, the dense level, the fold, its backward, the input
+              gradient and the 2C totals never; finite losses that fall,
+              finite params and EMA, the val PSNR (EMA) above the
+              untrained field's, 3 encodes an evaluation chunk, one fixed
+              batch on the kernel and the plain path, the 512x512 render
+              (timed; one chunk's encodes counted and profiled), the
+              step's stages and profile, and the repro check of phase 7;
+ 13. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -138,12 +159,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               each (device busy and idle share, launches, top kernels,
               host-to-device copies and the runtime's copy, synchronize
               and launch calls).
-The train, pose and lightstage phases also count the encode's launches by
-caller (train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `pose`, `lightstage` (with the card's name
-and power limit), `table_grad` and `kernels` JSON lines (each kernel's
-`launches` are the light-stage phase's, `lightstage_launched` says
-whether it ran there, the other phases' counts ride beside them) and the
+The train, pose, lightstage and proposal phases also count the encode's
+launches by caller (train forwards, grid refresh chunks, evaluation).
+It prints `render`, `train`, `pose`, `lightstage`, `proposal` (the last
+two with the card's name and power limit), `table_grad` and `kernels`
+JSON lines (each kernel's `launches` are the proposal phase's,
+`proposal_launched` says whether it ran there, the other phases' counts
+ride beside them; the numbers of the proposal path's three kernels are
+at its shapes, a step's or a serving chunk's calls summed, with the
+flagship's under `flagship`) and the
 card's name and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The `kernels` line marks `deterministic: true` on each kernel whose two
@@ -160,7 +184,7 @@ compared and device times taken in turns (other, this, this, other); one
 `ab` JSON line per TREE.
 
 With --deterministic-ops, a diagnostic only: two train steps and two pose
-steps of the flagship (4 cameras) under
+steps of the flagship and two steps of the -O2 preset (4 cameras) under
 torch.use_deterministic_algorithms(True, warn_only=True), printing each
 warning PyTorch gives for an op on the path that has no deterministic
 CUDA implementation; one `deterministic_ops` line.
@@ -1179,8 +1203,11 @@ def phase_encode_bwd(dev, spec, B=262144):
     window_bound = (B * 12 + B * (spec.num_levels - m) * C * 2
                     + (spec.n_params - spec.offsets[m]) * C * 4
                     ) / HBM_BYTES_PER_S * 1e3
+    window_lib = window_library(spec, base, w_word, g)
     print(f"[encode_bwd] window levels' part: device {window_dev} ms, bound "
-          f"{window_bound * 1e3:.2f} us (bytes)")
+          f"{window_bound * 1e3:.2f} us (bytes); zero_ + index_add_ of its "
+          f"rounded products {window_lib['ms']:.4f} ms (device "
+          f"{window_lib['device_ms']} ms)")
     whole = dict(what="the table gradient (table_grad) without the "
                       "records, which the forward writes",
                  replaces="raw_ngp_tpu/kernels/hash_fused.py:756",
@@ -1195,9 +1222,47 @@ def phase_encode_bwd(dev, spec, B=262144):
                  aten_ops_per_call=n_aten,
                  window_part_device_ms=window_dev,
                  window_part_bound_ms=window_bound,
+                 window_part_library_ms=window_lib["ms"],
+                 window_part_library_device_ms=window_lib["device_ms"],
+                 window_part_library=window_lib["library"],
                  top_kernels=prof.get("top_kernels"), deterministic=True)
 
     return k_records, mm_k, whole
+
+
+def window_library(spec, base, w_word, g):
+    """The library yardstick of the table gradient's window part: one
+    zero_ + index_add_ into the window levels' flat rows of the bf16-rounded
+    products w0 g (into row key) and w1 g (into row key + 1, dropped past
+    its level's last row) of every record, unsorted as the forward writes
+    them. The products and rows are made before the timing, as B2's own
+    yardstick's are. Returns its time (CUDA events) and device time."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.kernels.segsum import round_bf16, unpack_bf16_pairs
+    C = spec.level_dim
+    m = th.matmul_split(spec)
+    first = spec.offsets[m]
+    rows, prods = [], []
+    for lv, w0, nw in th.level_windows(spec, m):
+        keys = base[w0:w0 + nw].reshape(-1).long()
+        wa, wb = unpack_bf16_pairs([w_word[w0:w0 + nw].reshape(-1)], 2)
+        g_lv = g[:, lv * C:(lv + 1) * C].float().repeat(nw, 1)
+        keep = keys + 1 < spec.offsets[lv + 1]
+        rows += [keys - first, (keys + 1 - first)[keep]]
+        prods += [round_bf16(wa[:, None] * g_lv),
+                  round_bf16(wb[:, None] * g_lv)[keep]]
+    rows, prods = torch.cat(rows), torch.cat(prods)
+    flat = torch.empty(spec.n_params - first, C, device=g.device)
+
+    def call():
+        return flat.zero_().index_add_(0, rows, prods)
+
+    return {"ms": time_ms(call, 20), "device_ms": device_ms(call),
+            "products": int(rows.numel()),
+            "library": "zero_ + index_add_ of the window levels' bf16-rounded "
+                       "products from the unsorted records into rows key "
+                       "and key + 1"}
 
 
 def aten_ops(fn):
@@ -1596,10 +1661,11 @@ def step_breakdown(tr, reps=5):
     """Where a train step's time goes: the stages of Trainer.step run one
     by one, each ended by a synchronize, on the host clock (median of
     `reps` steps, ms), plus one grid refresh and coarse-volume rebuild
-    (every update_extra_interval steps) on its own. Under pose refinement
-    the sample stage composes the noise and refinements, and the pose
-    optimizer is a stage of its own. A light-stage scene's exposures and
-    light directions ride in the batch."""
+    (every update_extra_interval steps) on its own where there is a grid
+    (not on the proposal path). Under pose refinement the sample stage
+    composes the noise and refinements, and the pose optimizer is a stage
+    of its own. A light-stage scene's exposures and light directions ride
+    in the batch."""
     import torch
     from raw_ngp_torch.data.sampler import sample_ray_batch
     from raw_ngp_torch.render.eval import coarse_volume
@@ -1626,7 +1692,8 @@ def step_breakdown(tr, reps=5):
             se3_refine=pose, pose_noise=st.pose_noise,
             exposures=sa.get("exposures"), ldirs=sa.get("ldirs"),
             mosaiced=tr.cfg.data.mosaiced))
-        batch["coarse_lin"] = sa["coarse_lin"]
+        if "coarse_lin" in sa:
+            batch["coarse_lin"] = sa["coarse_lin"]
         for p in st.params.values():
             p.grad = None
         if pose is not None:
@@ -1643,6 +1710,8 @@ def step_breakdown(tr, reps=5):
             timed("pose_adam", lambda: tr.pose_tx.update_apply(
                 pose.grad, st.pose_opt_state, pose.data))
     out = {k: sorted(v)[reps // 2] for k, v in stages.items()}
+    if tr._grid_update is None:
+        return out
     t0 = time.perf_counter()
     tr._grid_update(tr.field, st.grid_state(), tr.host_grid_updates,
                     tr.generator)
@@ -1664,7 +1733,8 @@ def training_tensors(tr):
                           ("mu", st.opt_state.mu), ("nu", st.opt_state.nu)):
         for k, t in tensors.items():
             out[f"{name}.{k}"] = t.detach().clone()
-    out["density_grid"] = st.density_grid.clone()
+    if st.density_grid is not None:
+        out["density_grid"] = st.density_grid.clone()
     if st.pose_params is not None:
         out["pose"] = st.pose_params.detach().clone()
         out["pose.mu"] = st.pose_opt_state.mu["pose"].clone()
@@ -1678,7 +1748,8 @@ def trainer_snapshot(tr):
     and host counters, the coarse cache and the generator's state."""
     st = tr.state
     return {"tensors": training_tensors(tr),
-            "grid": {k: v.clone() for k, v in st.grid_state().items()},
+            "grid": {k: v.clone() for k, v in st.grid_state().items()
+                     if v is not None},
             "counts": (st.opt_state.count,
                        None if st.pose_opt_state is None
                        else st.pose_opt_state.count),
@@ -1741,9 +1812,18 @@ def repro_check(tr, snap, ref, steps, what):
             "tensors": sorted(ref), "bitwise_equal": not diff}
 
 
-def run_steps(tr, steps, kernels, what, capture_at=None):
+# launches a step of the kernels each train step must launch an exact
+# number of times: on the occupancy path one forward with records and one
+# backward, one dense and one window level on the flagship grid
+OCCUPANCY_PER_STEP = {"hash_encode_records": 1, "mm_grad_table": 1,
+                      "segment_grad_outer": 1}
+
+
+def run_steps(tr, steps, kernels, what, capture_at=None,
+              per_step=OCCUPANCY_PER_STEP):
     """`steps` Trainer steps with every launch counter reset just before
-    and read just after; checks that each of `kernels` launched, that
+    and read just after; checks that each of `kernels` launched, that each
+    kernel of `per_step` launched exactly that many times a step, that
     the losses are finite and fall (last 8 below the first 8) and that
     the params and EMA are finite. Returns (launches, losses, step ms,
     the training_tensors after `capture_at` steps)."""
@@ -1762,7 +1842,8 @@ def run_steps(tr, steps, kernels, what, capture_at=None):
         refresh["encode_launches"] += hash_encode.launches - before
         return out
 
-    tr._grid_update = counted_update
+    if update is not None:
+        tr._grid_update = counted_update
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -1782,12 +1863,15 @@ def run_steps(tr, steps, kernels, what, capture_at=None):
         tr._grid_update = update
     wall_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
-    budget = tr._point_budget or tr.base_point_budget()
+    if tr.cfg.render.occupancy:
+        points = tr._point_budget or tr.base_point_budget()
+    else:   # a forward with records a level, N * T points each
+        points = [tr.num_rays * t for t in tr.cfg.render.num_steps]
     by_caller = {
         "train_forwards": launches["hash_encode_records"],
         "other_forwards_without_records":
             launches["hash_encode"] - refresh["encode_launches"],
-        "train_forward_points": budget,
+        "train_forward_points": points,
         "refresh_chunks": refresh["encode_launches"],
         "refresh_chunk_points": _CHUNK, "refreshes": refresh["calls"]}
     print(f"[{what}] {steps} steps in {wall_s:.2f} s, "
@@ -1799,12 +1883,10 @@ def run_steps(tr, steps, kernels, what, capture_at=None):
     for name in OFF_PATH_KERNELS:
         check(launches[name] == 0, f"{what}: kernel {name} is off the path "
               f"but launched {launches[name]} times")
-    # one forward with records and one backward a step, one dense and one
-    # window level on the flagship grid
-    for name in ("hash_encode_records", "mm_grad_table",
-                 "segment_grad_outer"):
-        check(launches[name] == steps, f"{what}: kernel {name} launched "
-              f"{launches[name]} times in {steps} steps")
+    for name, n in per_step.items():
+        check(launches[name] == n * steps, f"{what}: kernel {name} "
+              f"launched {launches[name]} times in {steps} steps, not "
+              f"{n} a step")
     loss = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(loss).all()), f"{what}: a loss is not finite")
     first, last = float(loss[:8].mean()), float(loss[-8:].mean())
@@ -2162,10 +2244,423 @@ def phase_lightstage(dev, steps=128, timed=32, repro=32, large=512,
     return launches, out
 
 
+def proposal_config():
+    """The -O2 preset at its reference width, unchanged: contraction (grid
+    bound 2), fp16 (bf16 compute), 4,096 rays, num_steps (256, 96, 48),
+    16 levels x 2 channels xor hash log2 19 for the radiance field, two
+    proposal grids of 5 levels x 2 channels log2 17 at resolutions 128 and
+    256."""
+    from raw_ngp_torch import Config
+    return Config().with_preset_O2().validate()
+
+
+def captured_encodes(name, run):
+    """The (table, x01, spec) of every call of
+    ``raw_ngp_torch.kernels.hash_encode.<name>`` that run() makes: an
+    encode's inputs at the shapes and positions the path gives it."""
+    from raw_ngp_torch.kernels import hash_encode as th
+    calls = []
+    fn = getattr(th, name)
+
+    def capture(params, x01, spec, *args, **kwargs):
+        calls.append((params.detach(), x01.detach(), spec))
+        return fn(params, x01, spec, *args, **kwargs)
+
+    capture.launches = 0      # a wrapper counts on whatever it is bound to
+    setattr(th, name, capture)
+    try:
+        run()
+    finally:
+        setattr(th, name, fn)
+    return calls
+
+
+def proposal_grid_checks(tr, batch):
+    """The encode forward with records and the table gradient (torch.sort
+    and B2's flat form, no dense level) held against their plain versions
+    on the three -O2 grids at the points a train step gives them: the
+    bf16 output and the records bit for bit, two calls the same bits; the
+    table gradient for a seeded bf16 cotangent within rtol 1e-5 of the
+    plain path's rows (atol 1e-6 of the largest); then each timed (CUDA
+    events and device time) beside its bound, the plain versions and the
+    window part's library yardstick."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.train.trainer import make_batch_loss_fn
+    bf16 = torch.bfloat16
+    names = ["proposal 0", "proposal 1", "radiance field"]
+    out = {}
+    loss_fn = make_batch_loss_fn(tr.cfg, tr.spec)
+    calls = captured_encodes("hash_encode_records", lambda: loss_fn(
+        tr.field, tr.state, batch, tr.aabb, None))
+    for name, (table, x01, spec) in zip(names, calls):
+        B = x01.shape[0]
+        L, C = spec.num_levels, spec.level_dim
+        m = th.matmul_split(spec)
+        wins = th.level_windows(spec, m)
+        P = sum(nw for _, _, nw in wins)
+        check(m == 0, f"proposal {name}: {m} dense matmul levels, expected 0")
+        o, base, w_word = th.hash_encode_records(table, x01, spec, bf16)
+        again = th.hash_encode_records(table, x01, spec, bf16)
+        base_p, w_word_p = th.window_records_plain(x01, spec)
+        o_p = th.hash_encode_fused_plain(table, x01, spec, bf16)
+        torch.cuda.synchronize()
+        check(same_bits(o, o_p) and torch.equal(base, base_p)
+              and torch.equal(w_word, w_word_p),
+              f"proposal {name}: the forward with records differs from its "
+              "plain version")
+        check(all(same_bits(a, b) for a, b in zip((o, base, w_word), again)),
+              f"proposal {name}: two forwards differ")
+        gen = torch.Generator(device=x01.device).manual_seed(11)
+        g = torch.randn(B, L * C, generator=gen, device=x01.device).to(bf16)
+        grad = th.table_grad(spec, x01, base, w_word, g, bf16)
+        grad_2 = th.table_grad(spec, x01, base, w_word, g, bf16)
+        grad_p = th.table_grad(spec, x01, base_p, w_word_p, g, bf16,
+                               plain=True)
+        torch.cuda.synchronize()
+        scale = float(grad_p.abs().max())
+        err = float((grad - grad_p).abs().max())
+        check(same_bits(grad, grad_2), f"proposal {name}: two table "
+              "gradients differ")
+        check(scale > 0 and torch.allclose(grad, grad_p, rtol=1e-5,
+                                           atol=1e-6 * scale),
+              f"proposal {name}: table gradient max abs err {err} of "
+              f"largest {scale}")
+
+        def fwd():
+            return th.hash_encode_records(table, x01, spec, bf16)
+
+        def bwd():
+            return th.table_grad(spec, x01, base, w_word, g, bf16)
+
+        f_bound, f_by, f_bytes, rows = encode_bound(spec, x01, 2,
+                                                    extra_bytes=8 * P * B)
+        # the table gradient's inputs read once (the points, the records'
+        # rows and weight words, the bf16 cotangent) and its rows written
+        # once; its sorts move more (each record's key read, its sorted
+        # key and int64 index written), which sort_bound_ms counts apart,
+        # beside B2's own bound on the sorted streams
+        b_bytes = (B * 12 + 8 * P * B + B * L * C * 2
+                   + spec.n_params * C * 4)
+        sort_bytes = 16 * P * B
+        b_prof = profile_device(bwd, 5, "call")
+        lib = window_library(spec, base, w_word, g)
+        b2 = b2_alone(spec, base, w_word, g, grad_p)
+        b2.update(library_ms=lib["ms"], library_device_ms=lib["device_ms"])
+        row = dict(
+            points=B, levels=L, windows_per_point=P, window_levels=len(wins),
+            records=P * B, table_rows=spec.n_params, touched_rows=rows,
+            forward=dict(ms=time_ms(fwd, 20), device_ms=device_ms(fwd, 5),
+                         plain_ms=time_ms(lambda: (
+                             th.hash_encode_fused_plain(table, x01, spec,
+                                                        bf16),
+                             th.window_records_plain(x01, spec)), 2),
+                         bound_ms=f_bound, bound_by=f_by, bytes=f_bytes,
+                         max_abs_err=0.0),
+            table_grad=dict(
+                ms=time_ms(bwd, 10),
+                device_ms=b_prof.get("device_busy_ms_per_call"),
+                device_launches_per_call=b_prof.get(
+                    "kernel_launches_per_call"),
+                stages_device_ms=stage_split(b_prof, FLAT_STAGES, "sort"),
+                plain_ms=time_ms(lambda: th.table_grad(
+                    spec, x01, base_p, w_word_p, g, bf16, plain=True), 2),
+                bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=b_bytes,
+                sort_bound_ms=sort_bytes / HBM_BYTES_PER_S * 1e3,
+                sort_bytes=sort_bytes, max_abs_err=err, largest=scale,
+                library_ms=lib["ms"], library_device_ms=lib["device_ms"],
+                library=lib["library"]),
+            b2=b2)
+        out[name] = row
+        print(f"[proposal] {name}: {L} levels x {C} ch, {P} windows a point "
+              f"in {len(wins)} window levels, {B} points ({P * B} records): "
+              f"the forward with records bit for bit its plain version, the "
+              f"table gradient within rtol 1e-5 (max abs err {err:.3e} of "
+              f"{scale:.3e}), two calls bitwise equal; {json.dumps(row)}")
+    return out
+
+
+def b2_alone(spec, base, w_word, g, grad_plain):
+    """B2's flat form alone over every window level of a grid (the 26
+    calls of an -O2 step are 5 + 5 + 16 of these), on streams sorted
+    before the timing: its output against the plain path's table gradient
+    (rtol 1e-5, atol 1e-6 of the largest), its time (CUDA events and
+    device time), its plain version's and its bound (each record's key,
+    index and word read once, each point's level channels read once, the
+    level's rows written once; one bf16 multiply and one add a channel
+    and record)."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.kernels import segsum as ts
+    C = spec.level_dim
+    B = g.shape[0]
+    streams = []
+    n_bytes = n_ops = 0
+    for lv, w0, nw in th.level_windows(spec, th.matmul_split(spec)):
+        off = spec.offsets[lv]
+        rows = spec.offsets[lv + 1] - off
+        keys_s, perm = torch.sort(base[w0:w0 + nw].reshape(-1) - off,
+                                  stable=True)
+        streams.append((lv, off, rows, keys_s, perm.to(torch.int32),
+                        w_word[w0:w0 + nw].reshape(-1)))
+        M = keys_s.numel()
+        n_bytes += 12 * M + 4 * ((C + 1) // 2) * B + 4 * C * rows
+        n_ops += 4 * C * M
+    flat = torch.empty(spec.n_params * C, device=g.device)
+    words = {lv: ts.g_words_plain(g, lv * C, C) for lv, *_ in streams}
+
+    def kernel():
+        for lv, off, rows, ks, pm, ww in streams:
+            ts.segment_grad_outer(ks, pm, ww, g, rows, C, g_col=lv * C,
+                                  out=flat[off * C:(off + rows) * C])
+
+    def plain():
+        for lv, off, rows, ks, pm, ww in streams:
+            ts.segment_grad_outer_plain(ks, pm, ww, words[lv], rows, C,
+                                        out=flat[off * C:(off + rows) * C])
+
+    kernel()
+    torch.cuda.synchronize()
+    scale = float(grad_plain.abs().max())
+    err = float((flat - grad_plain).abs().max())
+    check(torch.allclose(flat, grad_plain, rtol=1e-5, atol=1e-6 * scale),
+          f"B2 on {spec.num_levels} window levels: max abs err {err}")
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+    out = dict(calls=len(streams), max_abs_err=err, ms=time_ms(kernel, 10),
+               device_ms=device_ms(kernel, 5), plain_ms=time_ms(plain, 2),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    kernel()
+    return out
+
+
+def serving_encode_checks(calls):
+    """The forward without records on a serving chunk's three encodes:
+    bf16 bit for bit its plain version, two calls the same bits; each
+    timed beside its bound and its plain version."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    bf16 = torch.bfloat16
+    out = []
+    for table, x01, spec in calls:
+        k = th.hash_encode(table, x01, spec, compute_dtype=bf16)
+        k2 = th.hash_encode(table, x01, spec, compute_dtype=bf16)
+        p = th.hash_encode_fused_plain(table, x01, spec, bf16)
+        torch.cuda.synchronize()
+        check(same_bits(k, p) and same_bits(k, k2), "proposal: a serving "
+              "encode differs from its plain version or between two calls")
+
+        def call(table=table, x01=x01, spec=spec):
+            return th.hash_encode(table, x01, spec, compute_dtype=bf16)
+
+        bound_ms, bound_by, n_bytes, rows = encode_bound(spec, x01, 2)
+        out.append(dict(points=x01.shape[0], levels=spec.num_levels,
+                        ms=time_ms(call, 10), device_ms=device_ms(call, 5),
+                        plain_ms=time_ms(lambda: th.hash_encode_fused_plain(
+                            table, x01, spec, bf16), 2),
+                        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                        max_abs_err=0.0))
+    print(f"[proposal] serving chunk encodes, bit for bit their plain "
+          f"versions: {json.dumps(out)}")
+    return out
+
+
+def proposal_kernel_rows(grids, serving):
+    """The `kernels` line's numbers at the proposal path's shapes, a step's
+    (or a serving chunk's) calls summed: the forward with records (3 a
+    step), B2's flat form (26 a step) and the forward without records (3
+    a chunk)."""
+    def total(rows, key):
+        vals = [r[key] for r in rows]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    def summed(rows, what):
+        return dict(ms=total(rows, "ms"), device_ms=total(rows, "device_ms"),
+                    plain_ms=total(rows, "plain_ms"),
+                    bound_ms=total(rows, "bound_ms"),
+                    bound_by=("bytes" if all(r["bound_by"] == "bytes"
+                                             for r in rows)
+                              else "operations"),
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    shapes=what)
+
+    fwd = [g["forward"] for g in grids.values()]
+    b2 = [g["b2"] for g in grids.values()]
+    rows = {"hash_encode_records": summed(
+                fwd, "the 3 forwards with records of an -O2 train step"),
+            "segment_grad_outer": summed(
+                b2, "the 26 calls of an -O2 train step (16 + 5 + 5 window "
+                    "levels), streams sorted"),
+            "hash_encode": summed(
+                serving, "the 3 forwards of an -O2 serving chunk of 16,384 "
+                         "rays")}
+    rows["segment_grad_outer"].update(
+        library_ms=total(b2, "library_ms"),
+        library_device_ms=total(b2, "library_device_ms"),
+        library="zero_ + index_add_ of the window levels' bf16-rounded "
+                "products, one call a grid")
+    for k in ("hash_encode_records", "hash_encode"):
+        rows[k]["library_ms"] = None
+    return rows
+
+
+def phase_proposal(dev, steps=128, timed=32, repro=32, large=512, reps=7):
+    """The -O2 proposal path through the Trainer's entry points: the val
+    PSNR (EMA) of the untrained field; the encode and the table gradient
+    held against their plain versions on the three grids at a train step's
+    points; `steps` steps with every launch counter reset just before and
+    read just after (the forward with records 3 a step, B2's flat form 26
+    a step, one per window level; no forward without records, no dense
+    level, no fold or its backward, no input gradient, no 2C totals);
+    finite falling losses, finite params and EMA; the val PSNR (EMA)
+    above the untrained field's; evaluation's encodes 3 a chunk (read from
+    the same counters after it, so the forward without records counts the
+    serving that follows the steps); one
+    fixed batch on the kernel and the plain path; the 512x512 render
+    (timed, one chunk profiled and its encodes counted); the step's stages
+    and profile; and the repro check over the first `repro` steps."""
+    import numpy as np
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.kernels.hash_encode import hash_encode
+    from raw_ngp_torch.ops.rays import full_image_rays
+    from raw_ngp_torch.render.eval import make_eval_render, render_image
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = proposal_config()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_s, val_s, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = (tr.spec.grid_spec,) + tr.spec.prop_specs
+    print(f"[proposal] Trainer ready in {init_s:.2f} s; grids "
+          f"{[(s.num_levels, s.level_dim, s.log2_hashmap_size, s.n_params) for s in specs]}")
+    check(tr.state.density_grid is None, "proposal: a density grid exists")
+    psnr_0, _ = evaluate_counted(tr)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sa = tr.scene_arrays
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays)
+    grids = proposal_grid_checks(tr, batch)
+    from raw_ngp_torch.kernels import hash_encode as th
+    n_windows = sum(len(th.level_windows(s, th.matmul_split(s)))
+                    for s in specs)
+
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, ("hash_encode_records", "segment_grad_outer"), "proposal",
+        capture_at=repro, per_step={"hash_encode_records": len(specs),
+                                    "segment_grad_outer": n_windows})
+    for name in ("hash_encode", "mm_grad_table", "decimate_compact",
+                 "decimate_compact_bwd", "encode_input_grad",
+                 "segment_totals_channel"):
+        check(launches[name] == 0, f"proposal: kernel {name} is off the "
+              f"path but launched {launches[name]} times")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr, eval_launches = evaluate_counted(tr)
+    by_caller = launches["hash_encode_by_caller"]
+    by_caller["eval"] = eval_launches
+    # the path serves what it trained: the forward without records counts
+    # the evaluation that follows the steps (which launch none of it)
+    launches["hash_encode"] = hash_encode.launches
+    chunk = cfg.render.max_ray_batch
+    eval_chunks = sum(-(-val_s.H * val_s.W // min(chunk, val_s.H * val_s.W))
+                      for _ in range(val_s.n_images))
+    check(eval_launches == len(specs) * eval_chunks, f"proposal: evaluate "
+          f"launched {eval_launches} encodes for {eval_chunks} chunks")
+    check(bool(np.isfinite(psnr)) and psnr > psnr_0,
+          f"proposal: val PSNR {psnr} after training, {psnr_0} before")
+    print(f"[proposal] last {timed} steps: median {med:.3f} ms/step, "
+          f"{tr.num_rays / med * 1e3:.0f} rays/s; val PSNR (EMA) "
+          f"{psnr:.3f} dB after {steps} steps, {psnr_0:.3f} dB untrained")
+
+    fixed = fixed_batch_check(tr, lambda: batch, "proposal")
+
+    # the 512x512 render, each of `reps` timed
+    pose = val_s.poses[0]
+    intr_l = val_s.intrinsics * (large / 128.0)
+
+    def render_large():
+        return render_image(tr.ema_field, None, pose, intr_l, large, large,
+                            tr.aabb, device=dev)
+
+    rgb_l, depth_l = render_large()
+    check(bool(torch.isfinite(rgb_l).all() and torch.isfinite(depth_l).all())
+          and rgb_l.shape == (large, large, 3),
+          "proposal: the 512x512 render is not finite")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_large()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    img_ms = sorted(times)[reps // 2]
+    n_chunks = -(-large * large // chunk)
+    # one chunk of the large image's middle rows: its encodes, its profile
+    rays_o, rays_d = full_image_rays(
+        torch.as_tensor(pose, device=dev),
+        torch.as_tensor(intr_l, device=dev), large, large)
+    s = (large * large - chunk) // 2
+    ro, rd = rays_o[s:s + chunk], rays_d[s:s + chunk]
+    render_chunk = make_eval_render(cfg)
+    before = hash_encode.launches
+    render_chunk(tr.ema_field, None, ro, rd, tr.aabb)
+    chunk_encodes = hash_encode.launches - before
+    serving = serving_encode_checks(captured_encodes(
+        "_encode_forward",
+        lambda: render_chunk(tr.ema_field, None, ro, rd, tr.aabb)))
+    check(chunk_encodes == len(specs), f"proposal: a chunk launched "
+          f"{chunk_encodes} encodes")
+    chunk_profile = profile_device(
+        lambda: render_chunk(tr.ema_field, None, ro, rd, tr.aabb), 3,
+        "chunk")
+    print(f"[proposal] 512x512: median {img_ms:.2f} ms an image, "
+          f"{img_ms / n_chunks:.3f} ms a {chunk}-ray chunk, "
+          f"{large * large / (img_ms / 1e3):.0f} rays/s; a chunk "
+          f"{chunk_encodes} encodes; {json.dumps(chunk_profile)}")
+
+    out = {"config": "Config().with_preset_O2() (contract, fp16, num_rays "
+                     "4096, num_steps (256, 96, 48), 16 x 2 xor log2 19; "
+                     "proposal grids 5 x 2 log2 17 at 128 and 256)",
+           "scene": "make_synthetic_scene(36, 2, 128, 128)",
+           "steps": steps, "num_rays": tr.num_rays,
+           "points_per_step": tr.num_rays * sum(cfg.render.num_steps),
+           "ms_per_step": med, "rays_per_s": tr.num_rays / med * 1e3,
+           "ms_per_step_runs": window, "val_psnr_ema": psnr,
+           "val_psnr_ema_untrained": psnr_0,
+           "loss_first8": first, "loss_last8": last,
+           "trainer_init_s": init_s, "grids": grids,
+           "serving_encodes": serving,
+           "kernel_rows": proposal_kernel_rows(grids, serving),
+           "fixed_batch_kernel_vs_plain": fixed,
+           "render": {"image": f"{large}x{large}", "chunks": n_chunks,
+                      "ms_per_image": img_ms, "ms_per_image_runs": times,
+                      "ms_per_chunk": img_ms / n_chunks,
+                      "rays_per_s": large * large / (img_ms / 1e3),
+                      "encodes_per_chunk": chunk_encodes,
+                      "profile": chunk_profile},
+           "stages_ms": step_breakdown(tr),
+           "profile": profile_device(tr.step, 1, "step"),
+           "gpu": gpu_line()}
+    out["repro"] = repro_check(tr, snap, ref, repro, "proposal")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[proposal] phase took {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def deterministic_ops(dev):
-    """A diagnostic: two train steps and two pose steps of the flagship on
-    4 cameras under torch.use_deterministic_algorithms(True, warn_only=True)
-    (the first step holds a grid refresh); the warnings PyTorch gives for
+    """A diagnostic: two train steps and two pose steps of the flagship and
+    two steps of the -O2 proposal path on 4 cameras under
+    torch.use_deterministic_algorithms(True, warn_only=True) (the first
+    occupancy step holds a grid refresh); the warnings PyTorch gives for
     ops on the path without a deterministic CUDA implementation, by path.
     Ops that have one (index_add_, scatter_add_, cumsum) take it in this
     mode silently: the repro check, not this list, shows that the normal
@@ -2203,7 +2698,8 @@ def deterministic_ops(dev):
     check(found["probe"]["histc_warns"],
           "deterministic_ops: the warnings are not captured")
     for what, cfg in (("train", flagship_config()),
-                      ("pose", pose_config(128, n_cameras=4))):
+                      ("pose", pose_config(128, n_cameras=4)),
+                      ("proposal", proposal_config())):
         tr = Trainer(cfg, train_s, val_s, device=dev)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
@@ -2394,7 +2890,8 @@ def main() -> int:
         render_launches, render = phase_slice(dev, cfg)
         train_launches, train = phase_train(dev, cfg)
         pose_launches, pose = phase_pose(dev)
-        launches, lightstage = phase_lightstage(dev)
+        light_launches, lightstage = phase_lightstage(dev)
+        launches, proposal = phase_proposal(dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2403,16 +2900,24 @@ def main() -> int:
     for k in (k_decimate, k_decimate_bwd, k_encode, k_records, k_mm, k_input,
               k_flat, k_segsum, k_channel):
         k = dict(k)
-        # this slice's main path is the light-stage phase; the earlier
-        # paths' counts ride beside it
+        # this slice's main path is the proposal phase: its kernels' numbers
+        # at its shapes, the earlier paths' beside them
+        rows = proposal["kernel_rows"]
+        if k["name"] in rows:
+            keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "max_abs_err")
+            k["flagship"] = {key: k.get(key) for key in keep}
+            k.update(rows[k["name"]])
         k["launches"] = launches[k["name"]]
-        k["lightstage_launched"] = launches[k["name"]] > 0
+        k["proposal_launched"] = launches[k["name"]] > 0
+        k["launches_lightstage"] = light_launches[k["name"]]
         k["launches_pose"] = pose_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
-                "lightstage": launches["hash_encode_by_caller"],
+                "proposal": launches["hash_encode_by_caller"],
+                "lightstage": light_launches["hash_encode_by_caller"],
                 "pose": pose_launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
         if k["name"] in REGISTER_CHECKED:
@@ -2423,6 +2928,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"pose": pose}))
     print(json.dumps({"lightstage": lightstage}))
+    print(json.dumps({"proposal": proposal}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -3,7 +3,9 @@
 The JAX param pytree (as numpy arrays) has a flat hash table ``grid``
 [n_params*C] (ops/hashgrid.py:113-125) and bias-free MLP layers
 ``{"w": [in, out]}`` (models/mlp.py:32, models/ngp.py:96-104); the port
-keeps both layouts, so conversion is a copy. Under pose refinement the
+keeps both layouts, so conversion is a copy; on the proposal path the
+pytree's ``prop_grids`` and ``prop_mlps`` lists carry across the same
+way. Under pose refinement the
 JAX state's ``pose_params`` [n, 6] and ``pose_noise`` [n, 3, 4] carry
 across the same way (:func:`pose_from_jax`).
 """
@@ -26,15 +28,19 @@ def _t(a) -> torch.Tensor:
 def field_from_jax(params: Dict[str, Any], spec: FieldSpec,
                    device="cuda") -> NGPField:
     """NGPField holding the JAX pytree's values (numpy leaves)."""
-    for name in ("grid_mlp", "view_mlp"):
-        if any("b" in layer for layer in params[name]):
-            raise ValueError(f"{name}: biased MLP layers are not ported")
-    grid = _t(params["grid"]).reshape(-1)
-    if grid.numel() != spec.grid_spec.n_params * spec.grid_spec.level_dim:
-        raise ValueError("grid size does not match the field spec")
-    field = NGPField(spec, grid,
-                     [_t(layer["w"]) for layer in params["grid_mlp"]],
-                     [_t(layer["w"]) for layer in params["view_mlp"]])
+    mlps = [params["grid_mlp"], params["view_mlp"],
+            *params.get("prop_mlps", ())]
+    if any("b" in layer for mlp in mlps for layer in mlp):
+        raise ValueError("biased MLP layers are not ported")
+    grids = [_t(g).reshape(-1) for g in (params["grid"],
+                                         *params.get("prop_grids", ()))]
+    specs = (spec.grid_spec, *spec.prop_specs)
+    if len(grids) != len(specs) or any(
+            g.numel() != gs.n_params * gs.level_dim
+            for g, gs in zip(grids, specs)):
+        raise ValueError("grid sizes do not match the field spec")
+    w = [[_t(layer["w"]) for layer in mlp] for mlp in mlps]
+    field = NGPField(spec, grids[0], w[0], w[1], grids[1:], w[2:])
     return field.to(resolve_device(device))
 
 

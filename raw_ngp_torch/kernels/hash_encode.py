@@ -594,13 +594,19 @@ _ARGTYPES = {
 }
 
 
+_fns = {}
+
+
 def _lib(name):
-    """A kernel's C entry point; the table gradient's live in
+    """A kernel's C entry point, bound once (argtypes and restype set at
+    first use, then served from a dict); the table gradient's live in
     ``csrc/hash_grad.cu``, the rest in ``csrc/hash_encode.cu``."""
-    src = "hash_encode" if name.startswith("hash_encode") else "hash_grad"
-    fn = getattr(_build.load(src), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    fn = _fns.get(name)
+    if fn is None:
+        src = "hash_encode" if name.startswith("hash_encode") else "hash_grad"
+        fn = getattr(_build.load(src), name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        _fns[name] = fn
     return fn
 
 

@@ -167,17 +167,26 @@ def segment_grad_outer_plain(keys_sorted, perm, w_word, g_words,
         keys_sorted, perm, w_word, g_words, n_rows, C), out)
 
 
+_OUTER_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_ARGTYPES = {
+    "segment_totals_outer_fwd": _OUTER_ARGTYPES,
+    "segment_grad_outer_fwd": _OUTER_ARGTYPES,
+    "segment_totals_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+}
+_fns = {}
+
+
 def _lib(name="segment_totals_outer_fwd"):
-    lib = _build.load("segsum")
-    fn = getattr(lib, name)
-    if name in ("segment_totals_outer_fwd", "segment_grad_outer_fwd"):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """A C entry point of ``csrc/segsum.cu``, bound once (argtypes and
+    restype set at first use, then served from a dict)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("segsum"), name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        _fns[name] = fn
     return fn
 
 

@@ -15,13 +15,17 @@ counterpart: autograd sees per call whether the positions need a gradient
 (the encode's ``ctx.needs_input_grad``). The occupancy-mode field is
 ported, with or without light conditioning (``model.rfield``: SH(ld)
 after SH(d) at the view MLP's input, which is ``ldir_dim`` wider, as is
-its hidden width); the proposal networks raise.
+its hidden width), and so are the proposal networks of the proposal path
+(``render.occupancy`` False): one small hash grid and bias-free density
+MLP per entry of ``model.prop_resolutions``, queried by
+``density(x, proposal=i)`` with ``trunc_exp`` on the MLP's output.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -31,7 +35,8 @@ from raw_ngp_torch.config import Config
 from raw_ngp_torch.device import resolve_device
 from raw_ngp_torch.kernels.hash_encode import hash_encode, hash_encode_plain
 from raw_ngp_torch.models.mlp import apply_mlp, init_mlp
-from raw_ngp_torch.ops.activation import color_activation, density_activation
+from raw_ngp_torch.ops.activation import (color_activation,
+                                          density_activation, trunc_exp)
 from raw_ngp_torch.ops.hashgrid import HashGridSpec, init_hashgrid_params
 from raw_ngp_torch.ops.sh import sh_encode
 
@@ -42,6 +47,8 @@ class FieldSpec:
 
     cfg: Config
     grid_spec: HashGridSpec
+    # the proposal networks' grids (none on the occupancy path)
+    prop_specs: Tuple[HashGridSpec, ...] = ()
 
     @property
     def compute_dtype(self):
@@ -58,16 +65,20 @@ class FieldSpec:
 
 def make_field_spec(cfg: Config) -> FieldSpec:
     m = cfg.model
-    if not cfg.render.occupancy:
-        raise NotImplementedError("raw_ngp_torch ports the occupancy-grid "
-                                  "field only (no proposal networks yet)")
     grid_spec = HashGridSpec.create(
         input_dim=3, num_levels=m.num_levels, level_dim=m.level_dim,
         log2_hashmap_size=m.log2_hashmap_size,
         desired_resolution=cfg.desired_resolution,
         gridtype=m.gridtype, interpolation=m.interpolation,
         align_corners=m.align_corners, hash_variant=m.hash_variant)
-    return FieldSpec(cfg=cfg, grid_spec=grid_spec)
+    prop_specs = tuple(
+        HashGridSpec.create(
+            input_dim=3, num_levels=m.prop_num_levels,
+            level_dim=m.prop_level_dim,
+            log2_hashmap_size=m.prop_log2_hashmap_size,
+            desired_resolution=res)
+        for res in m.prop_resolutions) if not cfg.render.occupancy else ()
+    return FieldSpec(cfg=cfg, grid_spec=grid_spec, prop_specs=prop_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -127,23 +138,33 @@ def baangp_blend(cfg: Config, annealing, feats):
 
 class NGPField(nn.Module):
     """Hash grid -> grid MLP -> (sigma, feature); feature + SH(dir) ->
-    view MLP -> color."""
+    view MLP -> color. On the proposal path also the proposal networks
+    (``prop_grids`` [i], ``prop_mlps`` [i]): hash grid -> MLP -> sigma."""
 
     def __init__(self, spec: FieldSpec, grid: torch.Tensor, grid_mlp,
-                 view_mlp):
+                 view_mlp, prop_grids=(), prop_mlps=()):
         super().__init__()
+        if len(prop_grids) != len(spec.prop_specs) or len(prop_mlps) != len(
+                spec.prop_specs):
+            raise ValueError("one proposal grid and MLP per proposal spec")
         self.spec = spec
         self.grid = nn.Parameter(grid)
         self.grid_mlp = nn.ParameterList(grid_mlp)
         self.view_mlp = nn.ParameterList(view_mlp)
+        self.prop_grids = nn.ParameterList(prop_grids)
+        self.prop_mlps = nn.ModuleList(nn.ParameterList(w) for w in prop_mlps)
+
+    def _encode(self, table, x, grid_spec, plain: bool):
+        cfg = self.spec.cfg
+        x01 = (x + cfg.grid_bound) / (2.0 * cfg.grid_bound)
+        encode = hash_encode_plain if plain else hash_encode
+        return encode(table, x01, grid_spec,
+                      compute_dtype=self.spec.encode_dtype)
 
     def _common(self, x, plain: bool, annealing):
         cfg = self.spec.cfg
         m = cfg.model
-        x01 = (x + cfg.grid_bound) / (2.0 * cfg.grid_bound)
-        encode = hash_encode_plain if plain else hash_encode
-        f = encode(self.grid, x01, self.spec.grid_spec,
-                   compute_dtype=self.spec.encode_dtype)
+        f = self._encode(self.grid, x, self.spec.grid_spec, plain)
         if cfg.pose_opt.mode == "baangp":
             f = baangp_blend(cfg, annealing, f)
         elif cfg.pose_opt.mode == "barf":
@@ -153,9 +174,20 @@ class NGPField(nn.Module):
         sigma = density_activation(h[..., 0], m.density_activation, m.beta)
         return sigma, h[..., 1:]
 
-    def density(self, x, plain: bool = False, annealing=1.0):
+    def density(self, x, plain: bool = False, annealing=1.0,
+                proposal: int = -1):
         """sigma [N] at world positions x [N, 3] (``field_density``; the
-        grid refresh queries it at the default annealing 1.0)."""
+        grid refresh queries it at the default annealing 1.0).
+        ``proposal`` i >= 0 queries proposal network i instead: its grid,
+        its MLP and ``trunc_exp`` of the output (no annealing)."""
+        if 0 <= proposal < len(self.spec.prop_specs):
+            m = self.spec.cfg.model
+            f = self._encode(self.prop_grids[proposal], x,
+                             self.spec.prop_specs[proposal], plain)
+            h = apply_mlp(list(self.prop_mlps[proposal]), f,
+                          m.internal_activation, m.beta,
+                          self.spec.compute_dtype)
+            return trunc_exp(h[..., 0])
         return self._common(x, plain, annealing)[0]
 
     def forward(self, x, d, ld=None, plain: bool = False, annealing=1.0):
@@ -196,4 +228,8 @@ def init_field(spec: FieldSpec, seed: int = 0, device="cuda") -> NGPField:
     # the view MLP widens by ldir_dim in rfield mode, input and hidden
     view_mlp = init_mlp(gen, (m.grid_mlp_out - 1) + sh_dim + ldir_dim, 3,
                         m.view_mlp_hidden + ldir_dim, m.view_mlp_layers)
-    return NGPField(spec, grid, grid_mlp, view_mlp).to(dev)
+    prop_grids = [init_hashgrid_params(ps, gen) for ps in spec.prop_specs]
+    prop_mlps = [init_mlp(gen, ps.output_dim, 1, m.prop_mlp_hidden,
+                          m.prop_mlp_layers) for ps in spec.prop_specs]
+    return NGPField(spec, grid, grid_mlp, view_mlp, prop_grids,
+                    prop_mlps).to(dev)

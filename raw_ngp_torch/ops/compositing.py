@@ -1,6 +1,7 @@
-"""Volume compositing on the compacted sample stream (port of
-``raw_ngp_tpu/ops/compositing.py``: ``composite_rays_compacted``,
-``composite_with_background``)."""
+"""Volume compositing (port of ``raw_ngp_tpu/ops/compositing.py``:
+``composite_rays_compacted`` on the occupancy path's compacted sample
+stream, ``composite_with_background``, and ``bins_to_weights`` ``:174``
+on the proposal path's dense [N, T] bins)."""
 
 from __future__ import annotations
 
@@ -75,3 +76,29 @@ def composite_rays_compacted(sigmas, rgbs, ts, deltas, rid, filled, counts,
 def composite_with_background(image, weights_sum, bg_color):
     """image + (1 - acc) * bg."""
     return image + (1.0 - weights_sum)[..., None] * bg_color
+
+
+def bins_to_weights(sigmas, real_bins, last_sample_opaque: bool = False):
+    """Compositing from bin edges (the proposal path): deltas between
+    consecutive edges, transmittance from the exclusive cumulative sum of
+    sigma * delta. sigmas [N, T], real_bins [N, T + 1] -> (weights [N, T],
+    ts_mid [N, T], deltas [N, T]). With ``last_sample_opaque`` the last
+    sample's optical depth is inf (the background is the last sample), so
+    its weight is the remaining transmittance. The sums run along the row
+    in ``torch.cumsum``'s order, not JAX's (its CPU scan is a parallel
+    prefix): each weight can differ by a few f32 ulps of the row's
+    optical depth."""
+    deltas = real_bins[..., 1:] - real_bins[..., :-1]
+    ds = deltas * sigmas
+    if last_sample_opaque:
+        ds = torch.cat([ds[..., :-1],
+                        torch.full_like(ds[..., -1:], float("inf"))], dim=-1)
+    alphas = 1.0 - torch.exp(-ds)
+    csum = torch.cumsum(ds, dim=-1)
+    # the exclusive sum as a shift, never csum - ds (inf - inf)
+    excl = torch.cat([torch.zeros_like(csum[..., :1]), csum[..., :-1]],
+                     dim=-1)
+    # NaN (an inf density times a zero delta) to 0, +inf to the largest f32
+    weights = torch.nan_to_num(alphas * torch.exp(-excl), nan=0.0)
+    ts_mid = (real_bins[..., 1:] + real_bins[..., :-1]) / 2.0
+    return weights, ts_mid, deltas

@@ -1,6 +1,8 @@
 """Full-image render at fixed parameters — the port's serving entry point
 (counterpart of ``raw_ngp_tpu/train/trainer.py`` ``make_eval_render``
-``:419`` and ``Trainer.render_image`` ``:877``)."""
+``:419`` and ``Trainer.render_image`` ``:877``), on the occupancy path
+(with the density bitfield) or on the proposal path (``render.occupancy``
+False: no bitfield, no coarse volume)."""
 
 from __future__ import annotations
 
@@ -10,9 +12,9 @@ import torch
 from raw_ngp_torch.config import Config
 from raw_ngp_torch.device import resolve_device
 from raw_ngp_torch.ops.rays import full_image_rays
+from raw_ngp_torch.render.dispatch import render_any
 from raw_ngp_torch.render.occupancy import (_coarse_dilate_radius,
-                                            coarse_occupancy,
-                                            render_occupancy)
+                                            coarse_occupancy)
 
 
 def scene_aabb(cfg: Config, pts_aabb=None, device="cuda") -> torch.Tensor:
@@ -39,17 +41,18 @@ def make_eval_render(cfg: Config, plain: bool = False):
     """Chunk renderer for full-image eval: (field, bitfield, rays_o,
     rays_d, aabb, coarse_lin, annealing, rays_ldir) -> (image [n, 3],
     depth [n], weights_sum [n]); ``rays_ldir`` [n, 3] are an rfield
-    field's light directions. ``plain=True`` runs the kernels' plain
-    versions."""
+    field's light directions. On the proposal path the bitfield and
+    coarse_lin are not read (pass None) and the sampling is the
+    deterministic one. ``plain=True`` runs the kernels' plain versions."""
     bg = 1.0 if cfg.render.background != "black" else 0.0
 
     def render_chunk(field, bitfield, rays_o, rays_d, aabb, coarse_lin=None,
                      annealing=1.0, rays_ldir=None):
         with torch.inference_mode():
-            out = render_occupancy(field, rays_o, rays_d, aabb, bitfield,
-                                   bg_color=bg, coarse_lin=coarse_lin,
-                                   plain=plain, annealing=annealing,
-                                   rays_ldir=rays_ldir)
+            out = render_any(field, rays_o, rays_d, aabb, bitfield,
+                             bg_color=bg, rays_ldir=rays_ldir,
+                             annealing=annealing, plain=plain,
+                             coarse_lin=coarse_lin)
         return out["image"], out["depth"], out["weights_sum"]
 
     return render_chunk
@@ -61,8 +64,9 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     """Full-image chunked render -> (rgb [H, W, 3], depth [H, W]) on
     ``device``.
 
-    ``field`` (an NGPField) and ``bitfield`` ([CAS*H^3/8] u8) must already
-    be on ``device``; ``pose`` is a [4, 4] or [3, 4] cam2world and
+    ``field`` (an NGPField) and ``bitfield`` ([CAS*H^3/8] u8; None on the
+    proposal path) must already be on ``device``; ``pose`` is a [4, 4] or
+    [3, 4] cam2world and
     ``intrinsics`` (fx, fy, cx, cy). Rays go in chunks of
     ``cfg.render.max_ray_batch``; the last chunk is padded
     to full size with origin 0 / direction 1 rays, as the JAX trainer
@@ -84,7 +88,8 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
         ld = torch.as_tensor(ldir, dtype=torch.float32,
                              device=dev).reshape(1, 3).expand(chunk, 3)
     with torch.inference_mode():
-        coarse_lin = coarse_volume(cfg, bitfield)
+        coarse_lin = (coarse_volume(cfg, bitfield) if cfg.render.occupancy
+                      else None)
         imgs, depths = [], []
         for s in range(0, N, chunk):
             e = min(s + chunk, N)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raw_ngp_torch.device import ordered_index_add
 from raw_ngp_torch.kernels.compact import decimate_compact
 from raw_ngp_torch.ops.compositing import (composite_rays_compacted,
                                            composite_with_background)
@@ -265,16 +266,9 @@ class _GatherRowsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (rid,) = ctx.saved_tensors
-        totals = torch.zeros(ctx.n_rows, g.shape[1], dtype=torch.float32,
-                             device=g.device)
-        rid64 = rid.to(torch.int64)
-        if g.device.type == "cuda":
-            # index_add_ adds with atomics on the card, in an order that
-            # changes from run to run; index_put_'s accumulate sorts the
-            # ids (stably) and sums each run of them in order
-            totals.index_put_((rid64,), g.float(), accumulate=True)
-        else:
-            totals.index_add_(0, rid64, g.float())
+        totals = ordered_index_add(
+            torch.zeros(ctx.n_rows, g.shape[1], dtype=torch.float32,
+                        device=g.device), rid.to(torch.int64), g.float())
         return _truncate_bf16(totals).to(g.dtype), None
 
 
@@ -287,9 +281,8 @@ def gather_ray_rows(buf, rid):
     ``_segment_sum_sorted_scatter`` packs its totals), rows without
     samples 0. JAX computes it in XLA, outside any Pallas kernel, so it
     has no TPU kernel to port and stays plain PyTorch here: f32 per-ray
-    sums in a fixed order (``index_add_`` on the CPU, the sorting
-    ``index_put_(accumulate=True)`` on the card, where ``index_add_``
-    uses atomics), then the truncation by bit operations. The f32 sums
+    sums in a fixed order (:func:`raw_ngp_torch.device.ordered_index_add`),
+    then the truncation by bit operations. The f32 sums
     run in another order than JAX's shift-mask scan, so a total near a
     truncation boundary can land one bf16 ulp apart."""
     if torch.is_grad_enabled() and buf.requires_grad:

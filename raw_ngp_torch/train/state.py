@@ -3,7 +3,9 @@ as a plain dataclass of tensors. The parameter dicts map the field's
 parameter names (``grid``, ``grid_mlp.0``, ...) to its tensors, so an
 update in place is an update of the field. Under pose refinement the
 state also holds the per-camera se(3) refinements, their Adam state and
-the synthetic pose noise of the self-test."""
+the synthetic pose noise of the self-test. On the proposal path
+(``render.occupancy`` False) there is no density grid: its four fields
+stay None."""
 
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ class TrainState:
     opt_state: AdamState
     ema_params: Dict[str, torch.Tensor]
     step: int                                # host integer
-    density_grid: torch.Tensor               # [CAS, H^3] f32
-    density_bitfield: torch.Tensor           # [CAS * H^3 // 8] u8
-    mean_density: torch.Tensor               # scalar f32
-    iter_density: torch.Tensor               # scalar i32
+    # the occupancy grid (None on the proposal path)
+    density_grid: Optional[torch.Tensor] = None      # [CAS, H^3] f32
+    density_bitfield: Optional[torch.Tensor] = None  # [CAS * H^3 // 8] u8
+    mean_density: Optional[torch.Tensor] = None      # scalar f32
+    iter_density: Optional[torch.Tensor] = None      # scalar i32
     # pose refinement (None when cfg.pose_opt.mode == "none")
     pose_params: Optional[torch.Tensor] = None       # [n_cameras, 6] f32
     pose_opt_state: Optional[AdamState] = None       # moments under "pose"

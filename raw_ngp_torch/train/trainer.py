@@ -1,9 +1,11 @@
-"""Occupancy training on one device, with or without pose refinement (port
-of ``raw_ngp_tpu/train/trainer.py``: ``network_lr_schedule`` ``:51``,
+"""Training on one device, on the occupancy path with or without pose
+refinement and on the proposal path of the ``-O2`` preset (port of
+``raw_ngp_tpu/train/trainer.py``: ``network_lr_schedule`` ``:51``,
 ``pose_lr_schedule`` ``:63``, ``skip_nonfinite`` ``:73``,
 ``fused_adam_ema`` ``:95-164``, the pose optimizer of ``make_optimizers``
 ``:176``, ``init_train_state`` ``:186``, ``_bg_color`` ``:223``,
-``make_batch_loss_fn`` ``:249``, ``make_loss_fn`` ``:304``,
+``make_batch_loss_fn`` ``:249`` with ``render_any`` ``:232``,
+``make_loss_fn`` ``:304``,
 ``make_train_step`` ``:351``, ``dataclasses_replace_scene`` ``:451`` and
 ``Trainer`` ``:459``, with ``estimate_exposure_levels`` ``:930`` and the
 HDR branch of ``evaluate`` ``:1032-1058``).
@@ -27,9 +29,19 @@ weighting and, for mosaiced images, the Bayer loss mask; an rfield field
 estimates the exposure levels from the first exposure-1.0 view and
 scores min(1, rgb * exposure) against min(1, gt).
 
-Not ported (each raises ``NotImplementedError``): the proposal path, the
-entropy / TV / weight-decay / orientation regularizers, the unfused
-encoder, multi-device meshes, per-camera near/far; absent: checkpoints,
+The proposal path (``render.occupancy`` False, the ``-O2`` preset): the
+render is :func:`raw_ngp_torch.render.proposal.render_proposal` (chosen
+by :func:`raw_ngp_torch.render.dispatch.render_any`), the loss
+adds ``lambda_proposal`` times the proposal loss and ``lambda_distort``
+times the distortion loss, and the proposal networks' gradients are
+multiplied by the gate (step <= 3000) | (step % 5 == 0) before the
+update (Adam's momentum still moves them on gated steps). There is no
+density grid, so no grid refresh, untrained-cell marking, coarse cache or
+adaptive batching.
+
+Not ported (each raises ``NotImplementedError``): the entropy / TV /
+weight-decay / orientation regularizers, the unfused encoder,
+multi-device meshes, per-camera near/far; absent: checkpoints,
 artifacts and the logger (so ``pose_opt.log_poses``), the HDR artifact
 dumps, histograms and metrics other than PSNR.
 """
@@ -53,7 +65,7 @@ from raw_ngp_torch.ops.lie import se3_to_SE3
 from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
-from raw_ngp_torch.render.occupancy import render_occupancy
+from raw_ngp_torch.render.dispatch import render_any
 from raw_ngp_torch.train.losses import (blend_gt_background, ldr_loss,
                                        loss_weight_fn, rawnerf_loss)
 from raw_ngp_torch.train.metrics import PSNRMeter
@@ -189,7 +201,8 @@ def pose_adam(cfg: Config) -> _Optimizer:
 def init_train_state(cfg: Config, spec: FieldSpec, device="cuda",
                      num_cameras: int = 0):
     """(field, TrainState): a field from ``cfg.train.seed``, its EMA as a
-    copy, zero moments and zero grid buffers; under pose refinement also
+    copy, zero moments and, on the occupancy path, zero grid buffers;
+    under pose refinement also
     zero refinements [num_cameras, 6] (a leaf that requires a gradient),
     their optimizer state and, when ``pose_opt.noise > 0``, the synthetic
     perturbation se3_to_SE3([r | t]) of seeded normal r and t scaled by
@@ -198,10 +211,10 @@ def init_train_state(cfg: Config, spec: FieldSpec, device="cuda",
     field = init_field(spec, seed=cfg.train.seed, device=dev)
     params = dict(field.named_parameters())
     ema = {k: p.detach().clone() for k, p in params.items()}
+    grid = init_grid_state(cfg, dev) if cfg.render.occupancy else {}
     state = TrainState(params=params,
                        opt_state=fused_adam_ema(cfg).init(params),
-                       ema_params=ema, step=0,
-                       **init_grid_state(cfg, dev))
+                       ema_params=ema, step=0, **grid)
     if cfg.pose_opt.mode != "none":
         pose = torch.zeros(num_cameras, 6, dtype=torch.float32, device=dev)
         state.pose_params = pose.requires_grad_()
@@ -243,10 +256,15 @@ def _check_ported(cfg: Config):
 def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
     """Render + loss over an explicit ray batch:
     ``batch_loss_fn(field, state, batch, aabb, generator=None,
-    plain=False, point_budget=None, annealing=1.0) -> (loss, aux)``. A
-    ``None`` generator is the deterministic mode (march jitter 0.5).
-    HDR batches carry ``exposure`` [N, 1] and, when mosaiced, ``lossmult``
-    [N, 3]; an rfield field's batch carries ``rays_ldir`` [N, 3]."""
+    plain=False, point_budget=None, annealing=1.0) -> (loss, aux)``,
+    rendering through :func:`raw_ngp_torch.render.dispatch.render_any`.
+    A ``None`` generator is the deterministic mode (march jitter 0.5;
+    unjittered proposal sampling). HDR batches carry
+    ``exposure`` [N, 1] and, when mosaiced, ``lossmult`` [N, 3]; an
+    rfield field's batch carries ``rays_ldir`` [N, 3]. On the proposal
+    path the loss adds ``lambda_proposal`` times the proposal loss and
+    ``lambda_distort`` times the distortion loss where the render returns
+    them."""
     _check_ported(cfg)
     hdr = cfg.data.image_mode == "HDR"
 
@@ -256,19 +274,25 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         bg = _bg_color(cfg, generator, rays_o.shape[0], rays_o.device)
         gt_rgb = blend_gt_background(batch["images"], bg)
-        out = render_occupancy(
+        out = render_any(
             field, rays_o, rays_d, aabb, state.density_bitfield,
-            bg_color=bg, coarse_lin=batch.get("coarse_lin"), plain=plain,
-            training=True, generator=generator, point_budget=point_budget,
-            annealing=annealing, rays_ldir=batch.get("rays_ldir"))
+            bg_color=bg, rays_ldir=batch.get("rays_ldir"),
+            annealing=annealing, training=True, generator=generator,
+            plain=plain, coarse_lin=batch.get("coarse_lin"),
+            point_budget=point_budget)
         if hdr:
             lw = loss_weight_fn(cfg.train.loss_weight, gt_rgb)
             loss = rawnerf_loss(out["image"], gt_rgb, batch["exposure"],
                                 batch.get("lossmult", 1.0), lw)
         else:
             loss = ldr_loss(out["image"], gt_rgb)
+        if "proposal_loss" in out:
+            loss = loss + cfg.train.lambda_proposal * out["proposal_loss"]
+        if "distort_loss" in out:
+            loss = loss + cfg.train.lambda_distort * out["distort_loss"]
         aux = {"num_points": out["num_points"],
-               "num_points_raw": out["num_points_raw"],
+               "num_points_raw": out.get("num_points_raw",
+                                         out["num_points"]),
                "weights_sum": out["weights_sum"].mean()}
         return loss, aux
 
@@ -309,6 +333,13 @@ def annealing_at(cfg: Config, step: int):
                _F32(1.0))
 
 
+def proposal_gate(step: int) -> float:
+    """The factor of the proposal networks' gradients at a step (counted
+    before its increment): 1 on the first 3001 steps and on every fifth
+    step after, else 0."""
+    return 1.0 if step <= 3000 or step % 5 == 0 else 0.0
+
+
 def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
                     num_rays: int, point_budget=None,
                     pose_tx: Optional[_Optimizer] = None):
@@ -317,7 +348,11 @@ def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
     Adam + EMA update, in place on ``state`` (whose params are the
     field's); under pose refinement also the pose update, its gradient
     multiplied by 0 from ``int(end_annealing * iters)`` on (Adam's
-    momentum still moves the poses). Metrics stay on the device."""
+    momentum still moves the poses). On the proposal path the proposal
+    networks' gradients are multiplied by :func:`proposal_gate` (a
+    multiply, not a skip: a non-finite gradient times 0 stays NaN and
+    makes the fused update skip the step, as in JAX). Metrics stay on the
+    device."""
     loss_fn = make_loss_fn(cfg, spec, num_rays)
     pose_freeze_step = int(cfg.pose_opt.end_annealing * cfg.train.iters)
 
@@ -333,6 +368,11 @@ def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
+        if spec.prop_specs:
+            gate = proposal_gate(state.step)
+            for k in grads:
+                if k.startswith("prop_"):
+                    grads[k] = grads[k] * gate
         net_tx.update_apply(grads, state.opt_state, state.params,
                             state.ema_params)
         if pose is not None:
@@ -354,15 +394,13 @@ def dataclasses_replace_scene(scene: SceneData, new_poses):
 
 
 class Trainer:
-    """Host-side orchestration of occupancy training on one device:
-    ``train(iters)``, ``render_image(pose)`` with the EMA parameters and
-    ``evaluate()`` (PSNR). Runs on the card unless ``device="cpu"``."""
+    """Host-side orchestration of training on one device, on the occupancy
+    or the proposal path: ``train(iters)``, ``render_image(pose)`` with the
+    EMA parameters and ``evaluate()`` (PSNR). Runs on the card unless
+    ``device="cpu"``."""
 
     def __init__(self, cfg: Config, train_scene: SceneData,
                  val_scene: Optional[SceneData] = None, device="cuda"):
-        if not cfg.render.occupancy:
-            raise NotImplementedError("only the occupancy path is ported "
-                                      "(no proposal networks)")
         if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
             raise NotImplementedError("multi-device training is not ported")
         _check_ported(cfg)
@@ -405,8 +443,9 @@ class Trainer:
         self.generator = torch.Generator(device=dev).manual_seed(
             cfg.train.seed)
         self.num_rays = cfg.train.num_rays
-        self._grid_update = make_grid_update(cfg)
-        if cfg.render.mark_untrained:
+        self._grid_update = (make_grid_update(cfg) if cfg.render.occupancy
+                             else None)
+        if cfg.render.mark_untrained and cfg.render.occupancy:
             grid = mark_untrained_grid(
                 cfg, np.asarray(train_scene.poses),
                 np.asarray(train_scene.intrinsics), self.aabb.cpu().numpy(),
@@ -478,7 +517,7 @@ class Trainer:
         """True when no adaptive-batch change is within ``margin`` of
         firing at the current live-sample EMA (``trainer.py:765``)."""
         cfg = self.cfg
-        if not (cfg.train.adaptive_num_rays and cfg.render.compact_ratio > 0):
+        if not self._adaptive():
             return True
         if self._pts_ema is None:
             return False
@@ -496,21 +535,29 @@ class Trainer:
             and 1.1 * self._pts_ema * margin > budget)
         return not (growth_pending or shrink_pending or regrow_pending)
 
-    def step(self):
-        """One training step, preceded at every ``update_extra_interval``
-        boundary by the grid refresh, the coarse cache and (after the 16
-        full sweeps) the batch adaptation from the previous interval's
-        metrics. Returns the step's metrics (device tensors)."""
+    def _adaptive(self) -> bool:
+        """Whether adaptive batching runs: it adapts the occupancy path's
+        point budget, so never on the proposal path."""
         cfg = self.cfg
-        if self.host_step % cfg.render.update_extra_interval == 0:
+        return (cfg.train.adaptive_num_rays and cfg.render.occupancy
+                and cfg.render.compact_ratio > 0)
+
+    def step(self):
+        """One training step, preceded on the occupancy path at every
+        ``update_extra_interval`` boundary by the grid refresh, the coarse
+        cache and (after the 16 full sweeps) the batch adaptation from the
+        previous interval's metrics. Returns the step's metrics (device
+        tensors)."""
+        cfg = self.cfg
+        if (cfg.render.occupancy
+                and self.host_step % cfg.render.update_extra_interval == 0):
             grid = self._grid_update(self.field, self.state.grid_state(),
                                      self.host_grid_updates, self.generator)
             for k, v in grid.items():
                 setattr(self.state, k, v)
             self.host_grid_updates += 1
             self._refresh_coarse_cache()
-            if (cfg.train.adaptive_num_rays and cfg.render.compact_ratio > 0
-                    and self.host_grid_updates > 16):
+            if self._adaptive() and self.host_grid_updates > 16:
                 if self._adapt_stash is not None:
                     self._adapt_batch(self._adapt_stash)
                 self._adapt_stash = self._metrics
