@@ -18,7 +18,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               B1 and its backward redesigned) against its plain version
               (decimate_compact_plain and its autograd), bit for bit,
               forward and the gradients in ts, deltas and dt, two calls
-              bitwise equal, at the train shape (8,192 rays x 64, m_pad
+              bitwise equal, and with positions=True (the expand path's
+              slot positions) pos bit for bit the plain version's and the
+              other outputs unchanged, at the train shape (8,192 rays x 64, m_pad
               262,144) at stride 1 and 2, full and empty, and a 16,384-ray
               chunk at stride 1 and 3; timed at stride 1 (device time,
               launches a call and time by kernel) beside the plain
@@ -147,7 +149,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
               batch on the kernel and the plain path, the 512x512 render
               (timed; one chunk's encodes counted and profiled), the
               step's stages and profile, and the repro check of phase 7;
- 13. timing — each kernel, its plain version and a PyTorch yardstick where
+ 13. O      — the reference -O configuration (Config().with_preset_O()
+              .validate(): the 16 x 2 xor grid, bf16, 4,096 rays with
+              adaptive batching, the span march of 512 candidates packed
+              into 64 slots, no probes, compact_ratio 0.5, mark_untrained)
+              on make_synthetic_scene(36, 2, 128, 128): the val PSNR (EMA)
+              untrained; 128 Trainer steps with every launch counter reset
+              just before and read just after: the fold and the forward
+              with records once a step, B2's flat form once a window level
+              (16 a step), the refresh encodes, the dense level, the fold's
+              backward, the input gradient and the 2C totals never; finite
+              falling losses; the PSNR (EMA) of two train views above the
+              untrained field's, the val PSNR (EMA) before and after
+              (reported: it stays near the untrained field's on this
+              scene, in the JAX package too); one fixed batch on the
+              kernel and the plain path;
+              the 512x512 render of the EMA field with compute_normals
+              (the expand path: the fold's pos, the input-gradient kernel)
+              against the same render with plain=True, the normal map
+              finite and in [0, 1], timed, one chunk's launches counted and
+              profiled; five 16,384-ray branch chunks with normals, kernels
+              against plain (span + uniform probes, span + log probes, the
+              CDF with dt_gamma 1/128 and cdf_floor 0.05, contraction,
+              compact_ratio 0); the step's stages and profile, and the
+              repro check of phase 7;
+ 14. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -161,13 +187,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and launch calls).
 The train, pose, lightstage and proposal phases also count the encode's
 launches by caller (train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `pose`, `lightstage`, `proposal` (the last
-two with the card's name and power limit), `table_grad` and `kernels`
-JSON lines (each kernel's `launches` are the proposal phase's,
-`proposal_launched` says whether it ran there, the other phases' counts
-ride beside them; the numbers of the proposal path's three kernels are
-at its shapes, a step's or a serving chunk's calls summed, with the
-flagship's under `flagship`) and the
+It prints `render`, `train`, `pose`, `lightstage`, `proposal`, `O` (the
+last three with the card's name and power limit), `table_grad` and
+`kernels` JSON lines (each kernel's `launches` are the -O phase's, also
+as `launches_O`, `O_launched` says whether it ran there, its launches in
+one chunk of the normal render ride as
+`launches_O_normal_render_chunk`, the other phases' counts beside them;
+the numbers of the proposal path's three kernels are at its shapes, a
+step's or a serving chunk's calls summed, with the flagship's under
+`flagship`) and the
 card's name and power limit, and ends with one line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The `kernels` line marks `deterministic: true` on each kernel whose two
@@ -184,7 +212,8 @@ compared and device times taken in turns (other, this, this, other); one
 `ab` JSON line per TREE.
 
 With --deterministic-ops, a diagnostic only: two train steps and two pose
-steps of the flagship and two steps of the -O2 preset (4 cameras) under
+steps of the flagship and two steps each of the -O2 and -O presets (4
+cameras) under
 torch.use_deterministic_algorithms(True, warn_only=True), printing each
 warning PyTorch gives for an op on the path that has no deterministic
 CUDA implementation; one `deterministic_ops` line.
@@ -449,11 +478,26 @@ def phase_decimate(dev, m_pad=262144, K=64, n_train=8192, n_chunk=16384):
         for a, b, what in zip(grads[0], grads[2], ("ts", "deltas", "dt")):
             check(same_bits(a, b), f"decimate {name}: d {what} differs from "
                                    f"the plain version")
+        # the expand path's slot positions: the place kernel's extra store
+        with torch.no_grad():
+            deltas = dt.expand(N, K)
+            with_pos = ck.decimate_compact(mask, miss, ts, deltas, m_pad,
+                                           positions=True)
+            plain_pos = ck.decimate_compact(mask, miss, ts, deltas, m_pad,
+                                            plain=True, positions=True)
+        torch.cuda.synchronize()
+        check(same_bits(with_pos[7], plain_pos[7]),
+              f"decimate {name}: pos differs from the plain version")
+        for a, b, what in zip(with_pos, outs[0], names):
+            check(same_bits(a, b), f"decimate {name}: {what} with pos "
+                                   f"differs from the fold without it")
         total, n_pts = int(outs[0][5]), int(outs[0][6])
         print(f"[decimate] {name}: N={N} K={K} m_pad={m_pad}, valid "
               f"{total}, stride {max(-(-total // m_pad), 1)}, filled "
               f"{n_pts}: forward and backward bit for bit the plain "
-              f"version, two calls bitwise equal")
+              f"version, two calls bitwise equal; with positions, pos bit "
+              f"for bit the plain version's and the other outputs "
+              f"unchanged")
 
     def timing(name):
         mask, miss, ts, dt = inputs[name]
@@ -509,7 +553,8 @@ def phase_decimate(dev, m_pad=262144, K=64, n_train=8192, n_chunk=16384):
         args = (mask.data_ptr(), miss.data_ptr(), ts.data_ptr(),
                 deltas.data_ptr(), deltas.stride(0), deltas.stride(1),
                 tdt.data_ptr(), rid.data_ptr(), filled.data_ptr(),
-                counts.data_ptr(), scratch.data_ptr(), N, K, m_pad, stream)
+                counts.data_ptr(), scratch.data_ptr(), None, N, K, m_pad,
+                stream)
         row["host_us"] = {
             "wrapper": host_us(fold),
             "checks": host_us(lambda: ck._decimate_check(
@@ -543,7 +588,7 @@ def phase_decimate(dev, m_pad=262144, K=64, n_train=8192, n_chunk=16384):
     row = rows["train stride 1"]
 
     # the backward at the train shape, stride 1
-    _, _, _, _, scratch = ck._decimate_forward(mask, miss, ts, deltas, m_pad)
+    scratch = ck._decimate_forward(mask, miss, ts, deltas, m_pad)[4]
     g = torch.randn(2, m_pad, generator=torch.Generator(
         device=dev).manual_seed(40), device=dev)
     bwd = lambda: ck.decimate_compact_bwd(g, scratch, N, K, m_pad)
@@ -1535,16 +1580,9 @@ def phase_slice(dev, cfg, small=128, large=512):
     out_k = make_eval_render(cfg)(field, bitfield, ro, rd, aabb, coarse)
     out_p = make_eval_render(cfg, plain=True)(field, bitfield, ro, rd, aabb,
                                               coarse)
-    torch.cuda.synchronize()
-    chunk_err = {}
-    for name, a, b in zip(("image", "depth", "weights_sum"), out_k, out_p):
-        chunk_err[name] = float((a - b).abs().max())
+    chunk_err = render_agrees(out_k, out_p, ("image", "depth", "weights_sum"),
+                              "slice")
     print(f"[slice] chunk kernel-vs-plain max abs err {chunk_err}")
-    # bf16 encode outputs may round one ulp apart (f32 sum order), which
-    # the bf16 MLPs carry to the colors and densities
-    check(chunk_err["image"] <= 2e-2 and chunk_err["weights_sum"] <= 2e-2
-          and chunk_err["depth"] <= 5e-2,
-          f"slice: kernel path disagrees with the plain path {chunk_err}")
 
     # render timing of the large image: host clock around each of `reps`
     # synchronized whole-image renders (the render is host-bound, so the
@@ -2656,11 +2694,280 @@ def phase_proposal(dev, steps=128, timed=32, repro=32, large=512, reps=7):
     return launches, out
 
 
+def o_config():
+    """The reference -O configuration unchanged, the README's quick start:
+    16 levels x 2 channels xor hash log2 19 (grid bound 2, finest
+    resolution 4096), bf16, 4,096 rays with adaptive batching, S = 512
+    march candidates packed into K = 64 slots with no coarse probes (the
+    span march), compact_ratio 0.5 (m_pad 131,072), mark_untrained, grid
+    128 x 2 cascades."""
+    from raw_ngp_torch import Config
+    return Config().with_preset_O().validate()
+
+
+def with_render(field, **render):
+    """A view of `field` (the same parameter tensors) whose configuration
+    differs in render options only: the render reads them from
+    field.spec.cfg."""
+    import copy
+    cfg = field.spec.cfg
+    out = copy.copy(field)
+    out.spec = replace(field.spec, cfg=replace(
+        cfg, render=replace(cfg.render, **render)).validate())
+    return out
+
+
+# the branch chunks of phase_o: each a 16,384-ray chunk with normals (the
+# expand path, so the fold's pos), kernels against the plain versions
+O_BRANCHES = {
+    "span_uniform_probes": dict(coarse_probes=16),
+    "span_log_probes": dict(coarse_probes=16, probe_log=True),
+    "cdf_dt_gamma_floor": dict(coarse_probes=16, march_cdf=True,
+                               dt_gamma=1 / 128, cdf_floor=0.05),
+    "contract": dict(contract=True, mark_untrained=False),
+    "compact_ratio_0": dict(compact_ratio=0.0),
+}
+
+
+def render_agrees(out_k, out_p, names, what):
+    """Max abs error of each output of a kernel-path render against the
+    plain path; bf16 encode outputs may round one ulp apart (f32 sum
+    order), which the bf16 MLPs carry to densities, colours and the
+    normals' directions: image, weights_sum and normals within 2e-2,
+    depth within 5e-2 (the slice phase's bounds)."""
+    import torch
+    torch.cuda.synchronize()
+    err = {n: float((a.float() - b.float()).abs().max())
+           for n, a, b in zip(names, out_k, out_p)}
+    for n, a in zip(names, out_k):
+        check(bool(torch.isfinite(a).all()), f"{what}: {n} not finite")
+    check(all(v <= (5e-2 if n == "depth" else 2e-2)
+              for n, v in err.items()),
+          f"{what}: kernel path disagrees with the plain path {err}")
+    return err
+
+
+def psnr_of(tr, scene, views, field=None):
+    """Mean PSNR of `field`'s renders (default the EMA field) of `views`
+    of `scene` against their images, through render_image."""
+    from raw_ngp_torch.render.eval import render_image
+    from raw_ngp_torch.train.metrics import PSNRMeter
+    meter = PSNRMeter()
+    for i in views:
+        rgb, _ = render_image(field or tr.ema_field, tr.state.density_bitfield,
+                              scene.poses[i], scene.intrinsics, scene.H,
+                              scene.W, tr.aabb, device=tr.device)
+        meter.update(rgb.cpu().numpy(), scene.images[i][..., :3])
+    return float(meter.measure())
+
+
+def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
+    """The reference -O path through the Trainer's entry points: the val
+    PSNR (EMA) of the untrained field; `steps` steps with every launch
+    counter reset just before and read just after (the fold forward and
+    the forward with records once a step, B2's flat form once a window
+    level; the refresh encodes; no dense level, no fold backward, no
+    input gradient, no 2C totals); finite falling losses, finite params
+    and EMA; the PSNR (EMA) of two train views above the untrained
+    field's on them, and the val PSNR (EMA) before and after, reported:
+    on this scene the -O preset's val PSNR stays near the untrained
+    field's (a black render of a black-background scene) for hundreds of
+    steps, in the JAX package too (port_tools/o_learning_curve.py); one
+    fixed batch on the kernel and the plain path; the 512x512 render of the EMA
+    field with compute_normals (finite, the normal map in [0, 1], against
+    the same render with plain=True; timed; one chunk's launches and
+    profile); five branch chunks (O_BRANCHES) with normals, each against
+    its plain run; the step's stages and profile; and the repro check
+    over the first `repro` steps. Returns (the steps' launches, the
+    normal render's launches a chunk, the JSON record)."""
+    import numpy as np
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.models.ngp import make_field_spec
+    from raw_ngp_torch.ops.rays import full_image_rays
+    from raw_ngp_torch.render.eval import (coarse_volume, make_eval_render,
+                                           render_image)
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = o_config()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_s, val_s, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec = tr.spec.grid_spec
+    n_windows = len(th.level_windows(spec, th.matmul_split(spec)))
+    r = cfg.render
+    print(f"[O] Trainer ready in {init_s:.2f} s; grid {spec.num_levels} x "
+          f"{spec.level_dim} {spec.hash_variant} log2 "
+          f"{spec.log2_hashmap_size} ({spec.n_params} rows, res "
+          f"{spec.resolutions[0]}..{spec.resolutions[-1]}), {n_windows} "
+          f"window levels; S {r.march_candidates} -> K "
+          f"{r.samples_per_ray}, probes {r.coarse_probes}, compact_ratio "
+          f"{r.compact_ratio}, point budget {tr.base_point_budget()}, "
+          f"{tr.num_rays} rays, adaptive {cfg.train.adaptive_num_rays}")
+    check("coarse_lin" not in tr.scene_arrays,
+          "O: a coarse volume without probes")
+    psnr_0, _ = evaluate_counted(tr)
+    train_views = (0, 1)
+    psnr_train_0 = psnr_of(tr, train_s, train_views)
+
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, ("decimate_compact", "hash_encode", "hash_encode_records",
+                    "segment_grad_outer"), "O", capture_at=repro,
+        per_step={"decimate_compact": 1, "hash_encode_records": 1,
+                  "segment_grad_outer": n_windows})
+    for name in ("mm_grad_table", "decimate_compact_bwd",
+                 "encode_input_grad", "segment_totals_channel"):
+        check(launches[name] == 0, f"O: kernel {name} is off the path but "
+                                   f"launched {launches[name]} times")
+    check(launches["hash_encode_by_caller"]["refresh_chunks"] > 0,
+          "O: no grid refresh chunk was encoded")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
+    psnr_train = psnr_of(tr, train_s, train_views)
+    check(bool(np.isfinite(psnr)) and psnr_train > psnr_train_0,
+          f"O: train views PSNR {psnr_train} after {steps} steps, "
+          f"{psnr_train_0} untrained")
+    print(f"[O] last {timed} steps: median {med:.3f} ms/step, "
+          f"{tr.num_rays / med * 1e3:.0f} rays/s; PSNR (EMA) of train views "
+          f"{train_views} {psnr_train:.3f} dB after {steps} steps, "
+          f"{psnr_train_0:.3f} dB untrained; val PSNR (EMA) {psnr:.3f} dB, "
+          f"{psnr_0:.3f} dB untrained")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sa = tr.scene_arrays
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays)
+    fixed = fixed_batch_check(tr, lambda: batch, "O")
+
+    # the serving render of the EMA field with normals, each of `reps` timed
+    field_n = with_render(tr.ema_field, compute_normals=True)
+    bitfield = tr.state.density_bitfield
+    pose = val_s.poses[0]
+    intr_l = val_s.intrinsics * (large / 128.0)
+
+    def render_large(plain=False):
+        return render_image(field_n, bitfield, pose, intr_l, large, large,
+                            tr.aabb, device=dev, plain=plain,
+                            return_normals=True)
+
+    out_k = render_large()
+    nm = out_k[2]
+    check(nm is not None and tuple(nm.shape) == (large, large, 3)
+          and bool((nm >= 0).all() and (nm <= 1).all()),
+          "O: the normal map is missing or outside [0, 1]")
+    image_err = render_agrees(out_k, render_large(plain=True),
+                              ("image", "depth", "normals"),
+                              "O 512x512 with normals")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_large()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    img_ms = sorted(times)[reps // 2]
+    chunk = r.max_ray_batch
+    n_chunks = -(-large * large // chunk)
+    # one chunk of the large image's middle rows: its launches, its profile
+    rays_o, rays_d = full_image_rays(
+        torch.as_tensor(pose, device=dev),
+        torch.as_tensor(intr_l, device=dev), large, large)
+    s0 = (large * large - chunk) // 2
+    ro, rd = rays_o[s0:s0 + chunk], rays_d[s0:s0 + chunk]
+    render_chunk = make_eval_render(field_n.spec.cfg)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    render_chunk(field_n, bitfield, ro, rd, tr.aabb)
+    torch.cuda.synchronize()
+    chunk_launches = {k: c.launches for k, c in counters.items()}
+    for name in ("decimate_compact", "hash_encode", "encode_input_grad"):
+        check(chunk_launches[name] > 0, f"O: a normal-render chunk did not "
+                                        f"launch {name}")
+    chunk_profile = profile_device(
+        lambda: render_chunk(field_n, bitfield, ro, rd, tr.aabb), 3,
+        "chunk")
+    print(f"[O] 512x512 with normals: median {img_ms:.2f} ms an image, "
+          f"{img_ms / n_chunks:.3f} ms a {chunk}-ray chunk, "
+          f"{large * large / (img_ms / 1e3):.0f} rays/s; kernel vs plain "
+          f"max abs err {image_err}; a chunk's launches {chunk_launches}; "
+          f"{json.dumps(chunk_profile)}")
+
+    # the other march branches and the expand / uncompacted paths, each a
+    # chunk with normals on the kernel path against the plain path
+    branches = {}
+    for name, opts in O_BRANCHES.items():
+        fb = with_render(tr.ema_field, compute_normals=True, **opts)
+        bcfg = fb.spec.cfg
+        # contraction keeps the grid at bound 2 (grid_bound 2 either way)
+        check(make_field_spec(bcfg).grid_spec == spec,
+              f"O branch {name}: the grid differs from the trained one")
+        coarse = coarse_volume(bcfg, bitfield)
+        for c in counters.values():
+            c.launches = 0
+        outs = [make_eval_render(bcfg, plain=plain)(
+            fb, bitfield, ro, rd, tr.aabb, coarse) for plain in (False,
+                                                                 True)]
+        b_launch = {k: c.launches for k, c in counters.items() if c.launches}
+        err = render_agrees(outs[0], outs[1], ("image", "depth",
+                                               "weights_sum", "normals"),
+                            f"O branch {name}")
+        check(b_launch.get("encode_input_grad", 0) > 0
+              and (bcfg.render.compact_ratio <= 0
+                   or b_launch.get("decimate_compact", 0) > 0),
+              f"O branch {name}: kernels not launched {b_launch}")
+        hit = float((outs[0][2] > 0).float().mean())
+        branches[name] = {"render": opts, "max_abs_err_vs_plain": err,
+                          "launches": b_launch, "rays_hit": hit}
+        print(f"[O] branch {name} {opts}: kernel vs plain {err}, launches "
+              f"{b_launch}, weights_sum > 0 on {hit:.4f} of the rays")
+
+    out = {"config": "Config().with_preset_O().validate() (16 x 2 xor log2 "
+                     "19, fp16, num_rays 4096, adaptive, S 512 -> K 64, no "
+                     "probes, compact_ratio 0.5, mark_untrained)",
+           "scene": "make_synthetic_scene(36, 2, 128, 128)",
+           "steps": steps, "grid_refreshes": tr.host_grid_updates,
+           "num_rays": tr.num_rays,
+           "point_budget": tr._point_budget or tr.base_point_budget(),
+           "ms_per_step": med, "rays_per_s": tr.num_rays / med * 1e3,
+           "ms_per_step_runs": window, "val_psnr_ema": psnr,
+           "val_psnr_ema_untrained": psnr_0,
+           "train_views_psnr_ema": psnr_train,
+           "train_views_psnr_ema_untrained": psnr_train_0,
+           "loss_first8": first, "loss_last8": last,
+           "trainer_init_s": init_s,
+           "fixed_batch_kernel_vs_plain": fixed,
+           "render": {"image": f"{large}x{large}", "normals": True,
+                      "chunks": n_chunks, "ms_per_image": img_ms,
+                      "ms_per_image_runs": times,
+                      "ms_per_chunk": img_ms / n_chunks,
+                      "rays_per_s": large * large / (img_ms / 1e3),
+                      "max_abs_err_vs_plain": image_err,
+                      "launches_per_chunk": chunk_launches,
+                      "profile": chunk_profile},
+           "branches": branches,
+           "stages_ms": step_breakdown(tr),
+           "profile": profile_device(tr.step, 1, "step"),
+           "gpu": gpu_line()}
+    out["repro"] = repro_check(tr, snap, ref, repro, "O")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[O] phase took {out['phase_s']:.1f} s")
+    return launches, chunk_launches, out
+
+
 def deterministic_ops(dev):
     """A diagnostic: two train steps and two pose steps of the flagship and
-    two steps of the -O2 proposal path on 4 cameras under
-    torch.use_deterministic_algorithms(True, warn_only=True) (the first
-    occupancy step holds a grid refresh); the warnings PyTorch gives for
+    two steps each of the -O2 proposal path and the -O path on 4 cameras
+    under torch.use_deterministic_algorithms(True, warn_only=True) (the
+    first occupancy step holds a grid refresh); the warnings PyTorch gives for
     ops on the path without a deterministic CUDA implementation, by path.
     Ops that have one (index_add_, scatter_add_, cumsum) take it in this
     mode silently: the repro check, not this list, shows that the normal
@@ -2699,7 +3006,7 @@ def deterministic_ops(dev):
           "deterministic_ops: the warnings are not captured")
     for what, cfg in (("train", flagship_config()),
                       ("pose", pose_config(128, n_cameras=4)),
-                      ("proposal", proposal_config())):
+                      ("proposal", proposal_config()), ("O", o_config())):
         tr = Trainer(cfg, train_s, val_s, device=dev)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
@@ -2891,7 +3198,8 @@ def main() -> int:
         train_launches, train = phase_train(dev, cfg)
         pose_launches, pose = phase_pose(dev)
         light_launches, lightstage = phase_lightstage(dev)
-        launches, proposal = phase_proposal(dev)
+        proposal_launches, proposal = phase_proposal(dev)
+        launches, o_render_launches, o_phase = phase_o(dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2900,8 +3208,9 @@ def main() -> int:
     for k in (k_decimate, k_decimate_bwd, k_encode, k_records, k_mm, k_input,
               k_flat, k_segsum, k_channel):
         k = dict(k)
-        # this slice's main path is the proposal phase: its kernels' numbers
-        # at its shapes, the earlier paths' beside them
+        # the -O2 proposal phase's kernels' numbers at its shapes (its
+        # radiance grid is the -O grid), the flagship's beside them;
+        # `launches` are the -O phase's, the main path of this slice
         rows = proposal["kernel_rows"]
         if k["name"] in rows:
             keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2909,14 +3218,19 @@ def main() -> int:
             k["flagship"] = {key: k.get(key) for key in keep}
             k.update(rows[k["name"]])
         k["launches"] = launches[k["name"]]
-        k["proposal_launched"] = launches[k["name"]] > 0
+        k["launches_O"] = launches[k["name"]]
+        k["O_launched"] = launches[k["name"]] > 0
+        k["launches_O_normal_render_chunk"] = o_render_launches[k["name"]]
+        k["launches_proposal"] = proposal_launches[k["name"]]
+        k["proposal_launched"] = proposal_launches[k["name"]] > 0
         k["launches_lightstage"] = light_launches[k["name"]]
         k["launches_pose"] = pose_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
-                "proposal": launches["hash_encode_by_caller"],
+                "O": launches["hash_encode_by_caller"],
+                "proposal": proposal_launches["hash_encode_by_caller"],
                 "lightstage": light_launches["hash_encode_by_caller"],
                 "pose": pose_launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
@@ -2929,6 +3243,7 @@ def main() -> int:
     print(json.dumps({"pose": pose}))
     print(json.dumps({"lightstage": lightstage}))
     print(json.dumps({"proposal": proposal}))
+    print(json.dumps({"O": o_phase}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -32,7 +32,10 @@
 //      before its own (b_r), places its kept samples (slots of a ray are
 //      consecutive, so a warp's stores are too) and writes b_r and the
 //      kept count min(b_r + d_r, m_pad) - b_r (>= 0); blocks past the
-//      rays fill [num_points, m_pad).
+//      rays fill [num_points, m_pad). When the caller asks, it also
+//      writes each slot's flat source index r * K + k (N * K where
+//      unfilled), the `pos` of compact_positions_attrs that the expand
+//      path scatters at; without it no store is added.
 //
 // No host sync, no float atomic, no atomic at all: every output is written
 // once, by integer math and plain copies. B is spread over blocks because
@@ -162,8 +165,9 @@ __global__ void decimate_place_kernel(
     int64_t* __restrict__ counts, const float* __restrict__ ts,
     const float* __restrict__ deltas, int64_t d_sn, int64_t d_sk,
     float* __restrict__ t_c, float* __restrict__ dt_c,
-    int32_t* __restrict__ rid, uint8_t* __restrict__ filled, int N, int K,
-    int nw, int m_pad, int ray_blocks, int n_groups) {
+    int32_t* __restrict__ rid, uint8_t* __restrict__ filled,
+    int32_t* __restrict__ pos, int N, int K, int nw, int m_pad,
+    int ray_blocks, int n_groups) {
   if ((int)blockIdx.x >= ray_blocks) {   // the unfilled tail
     const int64_t n_filled = min(warp_sum(group_d, n_groups), (int64_t)m_pad);
     const int j = (blockIdx.x - ray_blocks) * blockDim.x + threadIdx.x;
@@ -173,6 +177,7 @@ __global__ void decimate_place_kernel(
     dt_c[j] = 0.0f;
     rid[j] = N;
     filled[j] = 0;
+    if (pos != nullptr) pos[j] = N * K;              // the sentinel M
     return;
   }
   const int r = blockIdx.x * kRayWarps + (threadIdx.x >> 5);
@@ -195,6 +200,7 @@ __global__ void decimate_place_kernel(
         dt_c[s] = __fmul_rn(deltas[r * d_sn + k * d_sk], fstride);
         rid[s] = r;
         filled[s] = 1;
+        if (pos != nullptr) pos[s] = r * K + k;     // < N * K < 2^31
       }
     }
     rank += __popc(word);
@@ -275,13 +281,16 @@ Scratch scratch_of(int32_t* p, int N, int nw) {
 // N * K < 2^31 -> tdt [2, m_pad] f32 (t_c, dt_c), rid [m_pad] i32, filled
 // [m_pad] bool, counts [N + 2] i64 (per ray, then valid_total and
 // num_points), scratch [N * ceil(K / 32) + 3N + 2] i32 (kept for the
-// backward). Returns cudaGetLastError().
+// backward) and, when `pos` is not null, pos [m_pad] i32: each slot's flat
+// source index r * K + k, N * K in unfilled slots (the expand path's
+// scatter index). Returns cudaGetLastError().
 extern "C" int decimate_compact_fwd(const void* mask, const void* miss,
                                     const float* ts, const float* deltas,
                                     int64_t d_sn, int64_t d_sk, float* tdt,
                                     int32_t* rid, void* filled,
-                                    int64_t* counts, int32_t* scratch, int N,
-                                    int K, int m_pad, void* stream) {
+                                    int64_t* counts, int32_t* scratch,
+                                    int32_t* pos, int N, int K, int m_pad,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nw = (K + 31) / 32;
   const Scratch s = scratch_of(scratch, N, nw);
@@ -296,8 +305,8 @@ extern "C" int decimate_compact_fwd(const void* mask, const void* miss,
   const int fill_blocks = (m_pad + 32 * kRayWarps - 1) / (32 * kRayWarps);
   decimate_place_kernel<<<ray_blocks + fill_blocks, 32 * kRayWarps, 0, st>>>(
       s.words, s.base, s.group_d, s.stride, counts, ts, deltas, d_sn, d_sk,
-      tdt, tdt + m_pad, rid, static_cast<uint8_t*>(filled), N, K, nw, m_pad,
-      ray_blocks, groups);
+      tdt, tdt + m_pad, rid, static_cast<uint8_t*>(filled), pos, N, K, nw,
+      m_pad, ray_blocks, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -141,11 +141,13 @@ def compact_positions_attrs(mask, m_pad: int, attrs):
     return kept.reshape(mask.shape), inv, pos, list(attrs_c.unbind(0))
 
 
-def decimate_compact_plain(mask, miss, ts, deltas, m_pad: int):
+def decimate_compact_plain(mask, miss, ts, deltas, m_pad: int,
+                           positions: bool = False):
     """Plain version of :func:`decimate_compact`: the render's chain as the
     JAX package runs it (``render/occupancy.py:880-885``, then
     ``compact_positions_attrs``, ``:618``), in eager
-    torch ops, differentiable in ``ts`` and ``deltas``."""
+    torch ops, differentiable in ``ts`` and ``deltas``; with
+    ``positions`` also the ``pos`` of ``compact_positions_attrs``."""
     N, K = mask.shape
     mask = mask & ~miss.reshape(N, 1)
     # over budget: decimate uniformly along each ray and scale dt by the
@@ -162,13 +164,14 @@ def decimate_compact_plain(mask, miss, ts, deltas, m_pad: int):
     # keeps rid ascending
     filled = pos < M
     rid = torch.where(filled, torch.clamp_max(pos, M - 1) // K, N)
-    return (t_c, dt_c, rid, filled, mask.sum(dim=-1), valid_total,
-            mask.sum())
+    out = (t_c, dt_c, rid, filled, mask.sum(dim=-1), valid_total,
+           mask.sum())
+    return out + (pos.contiguous(),) if positions else out
 
 
 _ARGTYPES = {
     "decimate_compact_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
-    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "decimate_compact_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
 }
@@ -224,24 +227,28 @@ def _decimate_alloc(N: int, K: int, m_pad: int, dev):
                         device=dev))
 
 
-def _decimate_forward(mask, miss, ts, deltas, m_pad: int):
+def _decimate_forward(mask, miss, ts, deltas, m_pad: int,
+                      positions: bool = False):
     """The three launches of the fold -> (tdt [2, m_pad], rid, filled,
-    counts [N + 2] (per ray, valid_total, num_points), scratch)."""
+    counts [N + 2] (per ray, valid_total, num_points), scratch, pos [m_pad]
+    i32 with ``positions``, else None)."""
     _decimate_check(mask, miss, ts, deltas, m_pad)
     N, K = mask.shape
     dev = mask.device
-    out = _decimate_alloc(N, K, m_pad, dev)
-    tdt, rid, filled, counts, scratch = out
+    tdt, rid, filled, counts, scratch = _decimate_alloc(N, K, m_pad, dev)
+    pos = (torch.empty(m_pad, dtype=torch.int32, device=dev) if positions
+           else None)
     err = _lib("decimate_compact_fwd")(
         mask.data_ptr(), miss.data_ptr(), ts.data_ptr(), deltas.data_ptr(),
         deltas.stride(0), deltas.stride(1), tdt.data_ptr(), rid.data_ptr(),
-        filled.data_ptr(), counts.data_ptr(), scratch.data_ptr(), N, K,
-        m_pad, torch.cuda.current_stream(dev).cuda_stream)
+        filled.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+        None if pos is None else pos.data_ptr(), N, K, m_pad,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decimate_compact: CUDA launch failed "
                            f"(error {err})")
     decimate_compact.launches += 1
-    return out
+    return tdt, rid, filled, counts, scratch, pos
 
 
 def decimate_compact_bwd(g, scratch, N: int, K: int, m_pad: int):
@@ -281,23 +288,27 @@ class _DecimateCompactFn(torch.autograd.Function):
     it over K)."""
 
     @staticmethod
-    def forward(ctx, mask, miss, ts, deltas, m_pad):
-        tdt, rid, filled, counts, scratch = _decimate_forward(
-            mask, miss, ts, deltas, m_pad)
+    def forward(ctx, mask, miss, ts, deltas, m_pad, positions):
+        tdt, rid, filled, counts, scratch, pos = _decimate_forward(
+            mask, miss, ts, deltas, m_pad, positions)
         ctx.save_for_backward(scratch)
         ctx.shape = (mask.shape[0], mask.shape[1], m_pad)
         ctx.mark_non_differentiable(rid, filled, counts)
-        return tdt, rid, filled, counts
+        if pos is None:
+            return tdt, rid, filled, counts
+        ctx.mark_non_differentiable(pos)
+        return tdt, rid, filled, counts, pos
 
     @staticmethod
-    def backward(ctx, g_tdt, g_rid, g_filled, g_counts):
+    def backward(ctx, g_tdt, *_):
         (scratch,) = ctx.saved_tensors
         g_ts, g_deltas = decimate_compact_bwd(g_tdt.contiguous(), scratch,
                                               *ctx.shape)
-        return None, None, g_ts, g_deltas, None
+        return None, None, g_ts, g_deltas, None, None
 
 
-def decimate_compact(mask, miss, ts, deltas, m_pad: int, plain: bool = False):
+def decimate_compact(mask, miss, ts, deltas, m_pad: int, plain: bool = False,
+                     positions: bool = False):
     """The render's budget decimation and compaction, folded.
 
     mask [N, K] bool (the march's occupancy), miss [N] or [N, 1] bool (rays
@@ -309,22 +320,28 @@ def decimate_compact(mask, miss, ts, deltas, m_pad: int, plain: bool = False):
     stride), rid [m_pad] i32 (N in unfilled slots, so ascending), filled
     [m_pad] bool, counts [N] i64 (samples kept a ray), valid_total (0-d
     i64, before decimation), num_points (0-d i64, slots filled)); unfilled
-    slots hold t_c = dt_c = 0. Differentiable in ts and deltas. CPU tensors
-    or ``plain=True`` take :func:`decimate_compact_plain`; CUDA tensors
-    launch the kernels (three forward, one backward), bit-exact with it.
+    slots hold t_c = dt_c = 0. With ``positions`` an eighth output, pos
+    [m_pad] i32: each slot's flat source index r * K + k, N * K where
+    unfilled (the place kernel's one extra store). Differentiable in ts
+    and deltas. CPU tensors or ``plain=True`` take
+    :func:`decimate_compact_plain`; CUDA tensors launch the kernels
+    (three forward, one backward), bit-exact with it.
     """
     if plain or mask.device.type == "cpu":
-        return decimate_compact_plain(mask, miss, ts, deltas, m_pad)
+        return decimate_compact_plain(mask, miss, ts, deltas, m_pad,
+                                      positions)
     if torch.is_grad_enabled() and (ts.requires_grad
                                     or deltas.requires_grad):
-        tdt, rid, filled, counts = _DecimateCompactFn.apply(
-            mask, miss, ts, deltas, m_pad)
+        tdt, rid, filled, counts, *pos = _DecimateCompactFn.apply(
+            mask, miss, ts, deltas, m_pad, positions)
     else:
-        tdt, rid, filled, counts, _ = _decimate_forward(mask, miss, ts,
-                                                        deltas, m_pad)
+        tdt, rid, filled, counts, _, pos = _decimate_forward(
+            mask, miss, ts, deltas, m_pad, positions)
+        pos = [pos] if positions else []
     N = mask.shape[0]
     t_c, dt_c = tdt.unbind(0)
-    return t_c, dt_c, rid, filled, counts[:N], counts[N], counts[N + 1]
+    return (t_c, dt_c, rid, filled, counts[:N], counts[N],
+            counts[N + 1], *pos)
 
 
 decimate_compact.launches = 0   # forward calls that launched the kernels

@@ -827,7 +827,13 @@ class _EncodeFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, x01, spec, compute_dtype, plain):
-        if plain:
+        base = w_word = None
+        if not ctx.needs_input_grad[0]:
+            # the input gradient alone (normals of a fixed field) reads no
+            # records: the forward without them
+            out = (hash_encode_fused_plain if plain else _encode_forward)(
+                params, x01, spec, compute_dtype)
+        elif plain:
             out = hash_encode_fused_plain(params, x01, spec, compute_dtype)
             base, w_word = window_records_plain(x01, spec)
         else:

@@ -2,7 +2,7 @@
 (port of ``raw_ngp_tpu/models/ngp.py``: ``FieldSpec``, ``make_field_spec``,
 ``init_field``, the BARF / BAA-NGP annealing ``_anneal_alpha``,
 ``barf_level_weights`` and ``baangp_blend``, ``_common_forward``,
-``field_density``, ``field_forward``).
+``field_density``, ``field_forward``, ``field_normals``).
 
 ``NGPField`` is an ``nn.Module`` whose parameters keep the JAX pytree's
 layout: a flat hash table ``grid`` [n_params*C] and MLP weights [in, out].
@@ -189,6 +189,20 @@ class NGPField(nn.Module):
                           self.spec.compute_dtype)
             return trunc_exp(h[..., 0])
         return self._common(x, plain, annealing)[0]
+
+    def normals(self, x, plain: bool = False, annealing=1.0):
+        """Analytic normals at positions x [N, 3] (``field_normals``,
+        ``ngp.py:261``): -normalize(d sum(sigma) / dx) mapped to [0, 1].
+        The gradient is taken for the positions alone (the parameters
+        collect no ``.grad``), also where the caller runs under
+        ``no_grad`` or ``inference_mode``; on the card its backward is the
+        encode's input-gradient kernel."""
+        with torch.inference_mode(False), torch.enable_grad():
+            x = x.detach().clone().requires_grad_(True)
+            sigma = self.density(x, plain=plain, annealing=annealing)
+            (g,) = torch.autograd.grad(sigma.sum(), x)
+        n = -g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-9)
+        return (n + 1.0) / 2.0
 
     def forward(self, x, d, ld=None, plain: bool = False, annealing=1.0):
         """(sigma [N], color [N, 3]) at positions x [N, 3] seen along

@@ -1,11 +1,44 @@
 """Volume compositing (port of ``raw_ngp_tpu/ops/compositing.py``:
-``composite_rays_compacted`` on the occupancy path's compacted sample
+``composite_rays`` ``:28`` on the occupancy path's dense [N, K] samples
+(its expand path), ``composite_rays_compacted`` on the compacted sample
 stream, ``composite_with_background``, and ``bins_to_weights`` ``:174``
 on the proposal path's dense [N, T] bins)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def composite_rays(sigmas, rgbs, ts, deltas, mask=None,
+                   t_thresh: float = 0.0):
+    """Alpha-composite masked samples along each ray: sigmas [N, K], rgbs
+    [N, K, 3], ts [N, K], deltas [N, K] (or broadcasting to it), mask
+    [N, K] bool -> dict of weights [N, K], weights_sum [N], depth [N],
+    image [N, 3]. Transmittance from the exclusive cumulative sum of
+    sigma * delta along K (a shift, never csum - sdelta: inf - inf would
+    NaN), sample i kept while the transmittance entering it is at least
+    ``t_thresh``, NaN weights to 0. The sums run in ``torch.cumsum``'s
+    order, not JAX's parallel prefix on the CPU: a weight can differ by a
+    few f32 ulps of the row's optical depth."""
+    sigmas = sigmas.float()
+    deltas = deltas.float()
+    zero = torch.zeros((), dtype=torch.float32, device=sigmas.device)
+    if mask is not None:
+        sigmas = torch.where(mask, sigmas, zero)
+    sdelta = sigmas * deltas
+    alphas = 1.0 - torch.exp(-sdelta)
+    csum = torch.cumsum(sdelta, dim=-1)
+    excl = torch.cat([torch.zeros_like(csum[..., :1]), csum[..., :-1]],
+                     dim=-1)
+    trans_before = torch.exp(-excl)
+    weights = alphas * trans_before
+    if t_thresh > 0.0:
+        weights = torch.where(trans_before >= t_thresh, weights, zero)
+    weights = torch.nan_to_num(weights, nan=0.0)
+    return {"weights": weights,
+            "weights_sum": weights.sum(dim=-1),
+            "depth": (weights * ts.float()).sum(dim=-1),
+            "image": (weights[..., None] * rgbs.float()).sum(dim=-2)}
 
 
 def _segmented_inclusive_scan(rid, chans, max_len: int):

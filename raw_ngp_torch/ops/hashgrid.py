@@ -15,6 +15,7 @@ additive variant's ``% (hmap - res)`` is taken after that mask.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -64,13 +65,16 @@ class HashGridSpec:
             align_corners=align_corners, interpolation=interpolation,
             hash_variant=hash_variant)
 
-    @property
+    # computed once a spec (the frozen dataclass keeps an instance dict,
+    # where cached_property stores them): the encode reads them per level
+    # on every call
+    @functools.cached_property
     def resolutions(self) -> Tuple[int, ...]:
         s = math.log2(self.per_level_scale)
         return tuple(int(math.ceil(2.0 ** (lv * s) * self.base_resolution))
                      for lv in range(self.num_levels))
 
-    @property
+    @functools.cached_property
     def offsets(self) -> Tuple[int, ...]:
         """Cumulative per-level table offsets, each level's size
         min(2^log2_T, res^D) rounded up to a multiple of 8."""

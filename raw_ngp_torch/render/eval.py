@@ -27,10 +27,13 @@ def scene_aabb(cfg: Config, pts_aabb=None, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.clip(box, -b, b)).to(resolve_device(device))
 
 
-def coarse_volume(cfg: Config, bitfield) -> torch.Tensor:
+def coarse_volume(cfg: Config, bitfield):
     """The dilated coarse occupancy volume of a bitfield: it changes only
-    when the bitfield does, so an image computes it once for all chunks."""
+    when the bitfield does, so an image computes it once for all chunks.
+    None without coarse probes (the march reads none)."""
     r = cfg.render
+    if r.coarse_probes <= 0:
+        return None
     return coarse_occupancy(
         bitfield, r.grid_size, cfg.cascades,
         _coarse_dilate_radius(r.bound, r.grid_size, r.coarse_probes),
@@ -40,11 +43,15 @@ def coarse_volume(cfg: Config, bitfield) -> torch.Tensor:
 def make_eval_render(cfg: Config, plain: bool = False):
     """Chunk renderer for full-image eval: (field, bitfield, rays_o,
     rays_d, aabb, coarse_lin, annealing, rays_ldir) -> (image [n, 3],
-    depth [n], weights_sum [n]); ``rays_ldir`` [n, 3] are an rfield
-    field's light directions. On the proposal path the bitfield and
-    coarse_lin are not read (pass None) and the sampling is the
-    deterministic one. ``plain=True`` runs the kernels' plain versions."""
+    depth [n], weights_sum [n]), and the normal map [n, 3] fourth when
+    ``cfg.render.compute_normals`` on the occupancy path
+    (``make_eval_render``, ``trainer.py:419-436``); ``rays_ldir`` [n, 3]
+    are an rfield field's light directions. On the proposal path the
+    bitfield and coarse_lin are not read (pass None) and the sampling is
+    the deterministic one. ``plain=True`` runs the kernels' plain
+    versions."""
     bg = 1.0 if cfg.render.background != "black" else 0.0
+    normals = cfg.render.compute_normals and cfg.render.occupancy
 
     def render_chunk(field, bitfield, rays_o, rays_d, aabb, coarse_lin=None,
                      annealing=1.0, rays_ldir=None):
@@ -52,7 +59,11 @@ def make_eval_render(cfg: Config, plain: bool = False):
             out = render_any(field, rays_o, rays_d, aabb, bitfield,
                              bg_color=bg, rays_ldir=rays_ldir,
                              annealing=annealing, plain=plain,
-                             coarse_lin=coarse_lin)
+                             coarse_lin=coarse_lin,
+                             compute_normals=normals)
+        if normals:
+            return (out["image"], out["depth"], out["weights_sum"],
+                    out["normals"])
         return out["image"], out["depth"], out["weights_sum"]
 
     return render_chunk
@@ -60,9 +71,11 @@ def make_eval_render(cfg: Config, plain: bool = False):
 
 def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
                  device="cuda", plain: bool = False, annealing=1.0,
-                 ldir=None):
+                 ldir=None, return_normals: bool = False):
     """Full-image chunked render -> (rgb [H, W, 3], depth [H, W]) on
-    ``device``.
+    ``device``; with ``return_normals`` a third result, the normal map
+    [H, W, 3] where the configuration computes one
+    (``cfg.render.compute_normals`` on the occupancy path), else None.
 
     ``field`` (an NGPField) and ``bitfield`` ([CAS*H^3/8] u8; None on the
     proposal path) must already be on ``device``; ``pose`` is a [4, 4] or
@@ -90,7 +103,7 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     with torch.inference_mode():
         coarse_lin = (coarse_volume(cfg, bitfield) if cfg.render.occupancy
                       else None)
-        imgs, depths = [], []
+        imgs, depths, norms = [], [], []
         for s in range(0, N, chunk):
             e = min(s + chunk, N)
             ro, rd = rays_o[s:e], rays_d[s:e]
@@ -98,9 +111,15 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
                 pad = chunk - (e - s)
                 ro = torch.cat([ro, torch.zeros(pad, 3, device=dev)])
                 rd = torch.cat([rd, torch.ones(pad, 3, device=dev)])
-            img, depth, _ = render_chunk(field, bitfield, ro, rd, aabb,
-                                         coarse_lin, annealing, ld)
-            imgs.append(img[: e - s])
-            depths.append(depth[: e - s])
-    return (torch.cat(imgs).reshape(H, W, 3),
-            torch.cat(depths).reshape(H, W))
+            out = render_chunk(field, bitfield, ro, rd, aabb, coarse_lin,
+                               annealing, ld)
+            imgs.append(out[0][: e - s])
+            depths.append(out[1][: e - s])
+            if len(out) > 3:
+                norms.append(out[3][: e - s])
+    rgb = torch.cat(imgs).reshape(H, W, 3)
+    depth = torch.cat(depths).reshape(H, W)
+    if not return_normals:
+        return rgb, depth
+    return rgb, depth, (torch.cat(norms).reshape(H, W, 3) if norms
+                        else None)

@@ -39,6 +39,12 @@ update (Adam's momentum still moves them on gated steps). There is no
 density grid, so no grid refresh, untrained-cell marking, coarse cache or
 adaptive batching.
 
+On the occupancy path every march branch trains and renders (the
+reference ``-O`` preset: the span march of 512 candidates into 64 slots,
+no probes, so no coarse cache); ``render_image(...,
+return_normals=True)`` adds the normal map when
+``cfg.render.compute_normals``.
+
 Not ported (each raises ``NotImplementedError``): the entropy / TV /
 weight-decay / orientation regularizers, the unfused encoder,
 multi-device meshes, per-camera near/far; absent: checkpoints,
@@ -584,21 +590,25 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def render_image(self, pose, intrinsics=None, H=None, W=None,
-                     use_ema: bool = True, ldir=None):
+                     use_ema: bool = True, ldir=None,
+                     return_normals: bool = False):
         """Full-image chunked render with the EMA parameters (raw ones
         with ``use_ema=False``) at the current annealing,
         min(host_step / iters, 1), under light direction ``ldir`` [3] (an
-        rfield field's) -> numpy (rgb [H, W, 3], depth [H, W])."""
+        rfield field's) -> numpy (rgb [H, W, 3], depth [H, W]); with
+        ``return_normals`` a third, the normal map [H, W, 3] (None unless
+        ``cfg.render.compute_normals`` on the occupancy path)."""
         scene = self.train_scene
         intrinsics = intrinsics if intrinsics is not None \
             else scene.intrinsics
         field = self.ema_field if use_ema else self.field
         annealing = min(self.host_step / max(self.cfg.train.iters, 1), 1.0)
-        rgb, depth = render_image(field, self.state.density_bitfield, pose,
-                                  intrinsics, H or scene.H, W or scene.W,
-                                  self.aabb, device=self.device,
-                                  annealing=annealing, ldir=ldir)
-        return rgb.cpu().numpy(), depth.cpu().numpy()
+        out = render_image(field, self.state.density_bitfield, pose,
+                           intrinsics, H or scene.H, W or scene.W,
+                           self.aabb, device=self.device,
+                           annealing=annealing, ldir=ldir,
+                           return_normals=return_normals)
+        return tuple(None if t is None else t.cpu().numpy() for t in out)
 
     def estimate_exposure_levels(self, scene: SceneData) -> Dict:
         """The HDR exposure levels: ``cfg.exposure_percentiles`` of the

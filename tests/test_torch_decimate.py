@@ -179,7 +179,7 @@ def test_plain_flag_and_render_entry():
     m = march_rays(ro, rd, bits, torch.where(miss_r, 1.0, nears),
                    torch.where(miss_r, 1.001, fars), r.bound, r.grid_size,
                    cfg.cascades, r.march_candidates, r.samples_per_ray,
-                   r.coarse_probes)
+                   r.coarse_probes, march_cdf=r.march_cdf)
     ref = tc.decimate_compact_plain(m["mask"], miss_r, m["ts"],
                                     m["deltas"], 256)
     assert int(ref[5]) > 256        # over budget: the decimation runs

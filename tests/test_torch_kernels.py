@@ -72,6 +72,37 @@ def test_decimate_kernels_bit_exact(cuda_device, name, shape):
     assert int(outs[0][6]) <= m_pad
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(96, 64), (96, 40), (8191, 64),
+                                   (32768, 64)])
+@pytest.mark.parametrize("name", DECIMATE_CASES)
+def test_decimate_positions_bit_exact(cuda_device, name, shape):
+    """The fold with ``positions=True`` (the place kernel's extra store of
+    each slot's flat source index): pos bit for bit the plain version's
+    (compact_positions_attrs'), and t_c, dt_c, rid, filled and the counts
+    the same bits as the fold without it; one launch of three kernels
+    either way."""
+    N, K = shape
+    mask, miss, ts, dt, m_pad = (
+        torch.from_numpy(a).to(cuda_device) if isinstance(a, np.ndarray)
+        else a for a in decimate_case(name, N, K))
+    miss = miss[:, None].contiguous()
+    deltas = dt.expand(N, K)
+    before = tc.decimate_compact.launches
+    with_pos = tc.decimate_compact(mask, miss, ts, deltas, m_pad,
+                                   positions=True)
+    without = tc.decimate_compact(mask, miss, ts, deltas, m_pad)
+    plain = tc.decimate_compact(mask, miss, ts, deltas, m_pad, plain=True,
+                                positions=True)
+    assert tc.decimate_compact.launches == before + 2
+    torch.cuda.synchronize()
+    assert len(with_pos) == 8 and len(without) == 7
+    for a, b in zip(with_pos, plain):
+        assert _same_bits(a, b), (name, shape)
+    for a, b in zip(with_pos[:7], without):
+        assert _same_bits(a, b), (name, shape)
+
+
 def _points(B):
     rng = np.random.default_rng(0)
     x = rng.random((B, 3)).astype(np.float32)

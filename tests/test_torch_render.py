@@ -133,7 +133,7 @@ def test_march_masks_agree(setup):
                          torch.from_numpy(np.array(nj)),
                          torch.from_numpy(np.array(fj)), r.bound,
                          r.grid_size, s["tc"].cascades, r.march_candidates,
-                         r.samples_per_ray, r.coarse_probes)
+                         r.samples_per_ray, r.coarse_probes, march_cdf=True)
     mask_j, mask_t = np.asarray(mj["mask"]), mt["mask"].numpy()
     assert mask_j.mean() > 0.05          # the march sees the ball
     assert (mask_j == mask_t).mean() >= 0.999
