@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (four sources) with nvcc for sm_90a (one nvcc per source, in
               parallel), print each kernel's registers, stack frame and
               spills (ptxas), and fail if an instantiation of the encode
-              forward (with and without records) or input gradient, of
+              forward (with and without records), input gradient or its
+              JVP, of
               B2's flat form (main pass, fix-up, join) or of the fold
               (phase 2), spills or keeps a stack frame;
   2. decimate — the render's budget decimation and compaction folded
@@ -173,7 +174,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
               CDF with dt_gamma 1/128 and cdf_floor 0.05, contraction,
               compact_ratio 0); the step's stages and profile, and the
               repro check of phase 7;
- 14. timing — each kernel, its plain version and a PyTorch yardstick where
+ 14. encode_jvp — the encode's input gradient differentiated in its
+              cotangent g (encode_input_jvp, the orientation loss's
+              second-order term) on the -O grid at
+              262,144 uniform and ray-ordered points, f32 and bf16: bit
+              for bit its plain version, two calls bitwise equal, timed
+              beside its bound and its plain version;
+ 15. reg    — the -O configuration with the four regularizers
+              (reg_config: lambda_orientation 0.1, lambda_wd 0.1,
+              lambda_entropy 1e-4, lambda_tv 1e-6) on the O phase's scene
+              and seed, 128 Trainer steps with every launch counter reset
+              just before and read just after: the fold (with slot
+              positions, the expand path) once a step, the forward with
+              records twice (the compacted field and the N K orientation
+              points), the input gradient and its JVP once, B2's flat
+              form twice a window level (32 a step); the dense level, the
+              fold's backward and the 2C totals never; each term's value
+              at the first and the last step; finite falling losses; the
+              PSNR of two train views (reported); a fixed batch on the
+              kernel and the plain path, the whole loss and the
+              orientation term alone; the step's stages and profile; the
+              repro check of phase 7;
+ 16. unfused — reg_config on the unfused encoder (plain encodes, autograd
+              gradients, the full second order) for 32 steps: the fold
+              once a step and no other kernel, finite falling losses, a
+              fixed batch on the kernel and the plain path, its ms a step
+              beside the reg phase's, a profile and the repro check;
+ 17. pose_recovery — JAX's pose-recovery test (tests/test_pose_opt.py,
+              marked slow there): the proposal path on the unfused
+              encoder with BARF and pose noise 0.05 for 400 steps on
+              make_synthetic_scene(36, 2, 48, 48), at seeds 0-3; every
+              run's refinements move, and the rotation error falls below
+              0.92 of its start in the mean over the seeds (the
+              translation errors are reported: at 400 steps they fall in
+              about 2 of 3 of JAX's own runs). The O, reg and unfused
+              phases share one mark_untrained grid
+              (cached_mark_untrained);
+ 18. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -187,11 +224,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and launch calls).
 The train, pose, lightstage and proposal phases also count the encode's
 launches by caller (train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `pose`, `lightstage`, `proposal`, `O` (the
-last three with the card's name and power limit), `table_grad` and
-`kernels` JSON lines (each kernel's `launches` are the -O phase's, also
-as `launches_O`, `O_launched` says whether it ran there, its launches in
-one chunk of the normal render ride as
+It prints `render`, `train`, `pose`, `lightstage`, `proposal`, `O`, `reg`,
+`unfused` (the last five with the card's name and power limit),
+`pose_recovery`, `table_grad` and `kernels` JSON lines (each kernel's
+`launches` are the reg phase's, also as `launches_reg`, `reg_launched`
+says whether it ran there; `launches_O` and `O_launched` the -O
+phase's, its launches in one chunk of the normal render ride as
 `launches_O_normal_render_chunk`, the other phases' counts beside them;
 the numbers of the proposal path's three kernels are at its shapes, a
 step's or a serving chunk's calls summed, with the flagship's under
@@ -212,8 +250,9 @@ compared and device times taken in turns (other, this, this, other); one
 `ab` JSON line per TREE.
 
 With --deterministic-ops, a diagnostic only: two train steps and two pose
-steps of the flagship and two steps each of the -O2 and -O presets (4
-cameras) under
+steps of the flagship and two steps each of the -O2 and -O presets and
+of the regularised -O on the fused and the unfused encoder (4 cameras)
+under
 torch.use_deterministic_algorithms(True, warn_only=True), printing each
 warning PyTorch gives for an op on the path that has no deterministic
 CUDA implementation; one `deterministic_ops` line.
@@ -222,6 +261,7 @@ CUDA implementation; one `deterministic_ops` line.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -368,6 +408,7 @@ REGISTER_CHECKED = {
     "hash_encode_records": ("hash_encode", ("hash_encode_kernel<",),
                             (2, "true")),
     "encode_input_grad": ("hash_encode", ("encode_input_grad_kernel",), None),
+    "encode_input_jvp": ("hash_encode", ("encode_input_jvp_kernel",), None),
     "segment_grad_outer": ("segsum", ("segsum_outer_kernel<",
                                       "segsum_edge_fixup_kernel<",
                                       "segsum_flat_join_kernel"), (1, "true")),
@@ -1669,6 +1710,7 @@ def _counters():
     from raw_ngp_torch.kernels.compact import (decimate_compact,
                                                decimate_compact_bwd)
     from raw_ngp_torch.kernels.hash_encode import (encode_input_grad,
+                                                   encode_input_jvp,
                                                    hash_encode,
                                                    hash_encode_records,
                                                    mm_grad_table)
@@ -1682,6 +1724,7 @@ def _counters():
             "segment_grad_outer": segment_grad_outer,
             "segment_totals": segment_totals_outer,
             "encode_input_grad": encode_input_grad,
+            "encode_input_jvp": encode_input_jvp,
             "segment_totals_channel": segment_totals,
             "mm_grad_table": mm_grad_table}
 
@@ -1948,15 +1991,19 @@ def evaluate_counted(tr):
     return psnr, hash_encode.launches - before
 
 
-def fixed_batch_check(tr, batch_fn, what, annealing=1.0, grad_tol=5e-2):
-    """One step on a fixed batch (march jitter 0.5), kernel path against
-    plain path: the same points, loss within 1e-2 relative and every
-    gradient leaf (the pose refinements' too) within `grad_tol` of its
-    largest entry. bf16 encode outputs may round one ulp apart between
+def fixed_batch_check(tr, batch_fn, what, annealing=1.0, grad_tol=5e-2,
+                      generator_fn=lambda: None, loss_fn=None):
+    """One step on a fixed batch (march jitter 0.5, or the draws of the
+    generator `generator_fn` makes anew for each side), kernel path
+    against plain path: the same points, loss within 1e-2 relative and
+    every gradient leaf (the pose refinements' too) within `grad_tol` of
+    its largest entry. bf16 encode outputs may round one ulp apart between
     the kernel and the plain version (f32 sum order), which the bf16 MLPs
-    and their bf16-rounded gradients carry into every leaf."""
+    and their bf16-rounded gradients carry into every leaf. `loss_fn`
+    (default make_batch_loss_fn's) takes (field, state, batch, aabb,
+    generator, plain=, annealing=) and returns (loss, aux)."""
     from raw_ngp_torch.train.trainer import make_batch_loss_fn
-    loss_fn = make_batch_loss_fn(tr.cfg, tr.spec)
+    loss_fn = loss_fn or make_batch_loss_fn(tr.cfg, tr.spec)
     leaves = dict(tr.field.named_parameters())
     if tr.state.pose_params is not None:
         leaves["pose"] = tr.state.pose_params
@@ -1965,22 +2012,24 @@ def fixed_batch_check(tr, batch_fn, what, annealing=1.0, grad_tol=5e-2):
         for p in leaves.values():
             p.grad = None
         batch = batch_fn()
-        l, aux = loss_fn(tr.field, tr.state, batch, tr.aabb, None,
+        l, aux = loss_fn(tr.field, tr.state, batch, tr.aabb, generator_fn(),
                          plain=plain, annealing=annealing)
         l.backward()
         out[plain] = (float(l.detach()), int(aux["num_points"]),
-                      {k: p.grad.clone() for k, p in leaves.items()})
+                      {k: p.grad.clone() for k, p in leaves.items()
+                       if p.grad is not None})
     for p in leaves.values():
         p.grad = None
     loss_err = abs(out[False][0] - out[True][0]) / abs(out[True][0])
     grad_err = {k: float((g - out[True][2][k]).abs().max()
                          / out[True][2][k].abs().max().clamp_min(1e-30))
-                for k, g in out[False][2].items()}
+                for k, g in out[False][2].items() if k in out[True][2]}
     print(f"[{what}] fixed batch, kernel vs plain: loss {out[False][0]:.6f} "
           f"vs {out[True][0]:.6f} (rel {loss_err:.2e}), points "
           f"{out[False][1]} vs {out[True][1]}, grad max err / leaf max "
           f"{grad_err}")
     check(out[False][1] == out[True][1] and loss_err <= 1e-2
+          and set(out[False][2]) == set(out[True][2])
           and max(grad_err.values()) <= grad_tol,
           f"{what}: kernel path disagrees with the plain path")
     return {"loss_rel": loss_err, "grad_rel": grad_err}
@@ -2963,9 +3012,410 @@ def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
     return launches, chunk_launches, out
 
 
+def reg_config(fused=True):
+    """The reference -O configuration with the four regularizers on:
+    lambda_orientation 0.1 (Ref-NeRF's orientation_loss_mult), lambda_wd
+    0.1 (Zip-NeRF's hash-decay multiplier, which weight_decay_loss
+    follows), lambda_entropy 1e-4 and lambda_tv 1e-6 (large enough to see
+    their terms); with `fused` False on the unfused encoder."""
+    cfg = o_config()
+    cfg = replace(cfg, train=replace(
+        cfg.train, lambda_orientation=0.1, lambda_wd=0.1,
+        lambda_entropy=1e-4, lambda_tv=1e-6))
+    if not fused:
+        cfg = replace(cfg, model=replace(cfg.model, fused_encoder=False))
+    return cfg.validate()
+
+
+class cached_mark_untrained:
+    """While active, the Trainer's mark_untrained_grid (host numpy, about
+    37 s at the -O grid) is computed once for each grid and scene and then
+    served from a cache: the O, reg and unfused phases build their
+    Trainers on one scene and grid. The grid depends only on the keyed
+    inputs."""
+
+    def __enter__(self):
+        import hashlib
+
+        import numpy as np
+        from raw_ngp_torch.train import trainer
+        self.module, self.orig, cache = trainer, trainer.mark_untrained_grid, {}
+
+        def cached(cfg, poses, intrinsics, aabb, cam_near_far=None):
+            key = [cfg.render.grid_size, cfg.grid_bound, cfg.cascades,
+                   cfg.render.min_near]
+            for a in (poses, intrinsics, aabb, cam_near_far):
+                key.append(None if a is None else hashlib.sha1(
+                    np.ascontiguousarray(a).tobytes()).hexdigest())
+            key = tuple(key)
+            if key not in cache:
+                cache[key] = self.orig(cfg, poses, intrinsics, aabb,
+                                       cam_near_far)
+            return cache[key].copy()
+
+        trainer.mark_untrained_grid = cached
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mark_untrained_grid = self.orig
+
+
+def phase_encode_jvp(dev, cfg, B=262144):
+    """The input gradient's JVP in g (encode_input_jvp, the orientation
+    loss's second-order term) on the -O grid at the orientation's shape
+    (B = N K points): kernel against plain version at uniform and
+    ray-ordered points, f32 and bf16, bit for bit and two calls bitwise
+    equal, each timed beside its bound; the plain version timed."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.models.ngp import make_field_spec
+    spec = make_field_spec(cfg).grid_spec
+    C = spec.level_dim
+    gen = torch.Generator(device=dev).manual_seed(13)
+    table = (torch.rand(spec.n_params * C, generator=gen, device=dev) * 2
+             - 1) * 1e-2
+    inputs = encode_inputs(cfg, gen, dev, B, kinds=("uniform", "ray"))
+    ct = torch.randn(B, 3, generator=gen, device=dev)
+    per_input = {}
+    for kind, x01 in inputs.items():
+        per_input[kind] = {}
+        outside = ~((x01 >= 0) & (x01 <= 1)).all(-1)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            k = th.encode_input_jvp(table, x01, ct, spec, dtype)
+            k2 = th.encode_input_jvp(table, x01, ct, spec, dtype)
+            p = th.encode_input_jvp_plain(table, x01, ct, spec, dtype)
+            torch.cuda.synchronize()
+            err = float((k.float() - p.float()).abs().max())
+            scale = float(p.float().abs().max())
+            check(scale > 0 and bool((k[outside] == 0).all())
+                  and same_bits(k, p) and same_bits(k, k2),
+                  f"encode_jvp {kind} {name}: max abs err {err} (scale "
+                  f"{scale}), not bit for bit, or two calls differ")
+
+            def call(x01=x01, dtype=dtype):
+                return th.encode_input_jvp(table, x01, ct, spec, dtype)
+
+            ms, dev_ms = time_ms(call, 50), device_ms(call)
+            # ct_x in, ct_g [B, L*C] out; per corner and channel a weight
+            # tangent product and the accumulate
+            bound_ms, bound_by, n_bytes, rows = encode_bound(
+                spec, x01, 2 if dtype == torch.bfloat16 else 4,
+                extra_bytes=B * 12, ops_per_term=4)
+            per_input[kind][name] = dict(
+                max_abs_err=err, scale=scale, ms=ms, device_ms=dev_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                touched_rows=rows)
+            print(f"[encode_jvp] {kind} B={B} {name}: bit for bit the plain "
+                  f"version (largest {scale:.3e}), two calls bitwise equal; "
+                  f"kernel {ms:.4f} ms (device {dev_ms} ms), bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}: touched rows "
+                  f"{rows}, {n_bytes} bytes)")
+    bf16 = torch.bfloat16
+    x01 = inputs["ray"]
+    plain_ms = time_ms(
+        lambda: th.encode_input_jvp_plain(table, x01, ct, spec, bf16), 3)
+    top = per_input["ray"]["bfloat16"]
+    print(f"[encode_jvp] ray B={B} bf16 plain {plain_ms:.4f} ms")
+    return dict(name="encode_input_jvp", route="cuda",
+                source="raw_ngp_torch/csrc/hash_encode.cu",
+                replaces="raw_ngp_tpu/kernels/hash_fused.py:772 (the input "
+                         "gradient differentiated again under jax.grad, "
+                         "render/occupancy.py:999)",
+                max_abs_err=top["max_abs_err"],
+                max_abs_err_f32=per_input["ray"]["float32"]["max_abs_err"],
+                ms=top["ms"], device_ms=top["device_ms"], plain_ms=plain_ms,
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=None, inputs=per_input, deterministic=True)
+
+
+class recorded_terms:
+    """While active, the regularised loss's terms (the orientation loss
+    from the render, the entropy, TV and weight-decay values) are kept,
+    one device scalar a step each, by wrapping the names the train step
+    calls."""
+
+    NAMES = ("entropy_loss", "total_variation_loss", "weight_decay_loss")
+
+    def __enter__(self):
+        from raw_ngp_torch.train import trainer
+        self.module = trainer
+        self.orig = {n: getattr(trainer, n) for n in self.NAMES + (
+            "render_any",)}
+        self.values = {"orientation": [], "entropy": [], "tv": [], "wd": []}
+
+        def keep(key, fn):
+            def wrapped(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.values[key].append(out.detach())
+                return out
+            return wrapped
+
+        def render_any(*args, **kwargs):
+            out = self.orig["render_any"](*args, **kwargs)
+            if "orientation_loss" in out:
+                self.values["orientation"].append(
+                    out["orientation_loss"].detach())
+            return out
+
+        for key, name in zip(("entropy", "tv", "wd"), self.NAMES):
+            setattr(trainer, name, keep(key, self.orig[name]))
+        trainer.render_any = render_any
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.module, name, fn)
+
+    def first_last(self):
+        return {k: (float(v[0]), float(v[-1])) for k, v in self.values.items()
+                if v}
+
+
+def reg_batch(tr, seed):
+    """A fixed batch of the Trainer's scene and a maker of generators that
+    draw the same march jitter and TV points on both sides."""
+    import torch
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    gen = torch.Generator(device=tr.device).manual_seed(seed)
+    sa = tr.scene_arrays
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays)
+    return batch, (lambda: torch.Generator(device=tr.device).manual_seed(
+        seed + 1))
+
+
+def orientation_only(field, state, batch, aabb, generator, plain=False,
+                     annealing=1.0):
+    """The orientation term of a training render alone, as a loss."""
+    from raw_ngp_torch.render.dispatch import render_any
+    out = render_any(field, batch["rays_o"], batch["rays_d"], aabb,
+                     state.density_bitfield, bg_color=0.0, training=True,
+                     generator=generator, plain=plain, annealing=annealing)
+    return out["orientation_loss"], {"num_points": out["num_points"]}
+
+
+def phase_reg(dev, steps=128, timed=32, repro=32):
+    """The reference -O path with the four regularizers (reg_config) through
+    the Trainer's entry points, on the O phase's scene and seed: `steps`
+    steps with every launch counter reset just before and read just
+    after (the fold with slot positions once a step, the forward with
+    records twice: the compacted field and the N K orientation points,
+    the input gradient and its JVP once, B2's flat form twice a window
+    level; no dense level, fold backward or 2C totals); each term's value
+    at the first and the last step; finite falling losses; the PSNR of
+    two train views (reported); a fixed batch on the kernel and the plain
+    path, the whole loss and the orientation term alone (every gradient);
+    the step's stages and profile; and the repro check over the first
+    `repro` steps. Returns (the steps' launches, the JSON record, the
+    Trainer's ms a step)."""
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = reg_config()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_s, val_s, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec = tr.spec.grid_spec
+    n_windows = len(th.level_windows(spec, th.matmul_split(spec)))
+    print(f"[reg] Trainer ready in {init_s:.2f} s; lambdas orientation "
+          f"{cfg.train.lambda_orientation}, wd {cfg.train.lambda_wd}, "
+          f"entropy {cfg.train.lambda_entropy}, tv {cfg.train.lambda_tv}; "
+          f"{tr.num_rays} rays x K {cfg.render.samples_per_ray} = "
+          f"{tr.num_rays * cfg.render.samples_per_ray} orientation points")
+    train_views = (0, 1)
+    psnr_train_0 = psnr_of(tr, train_s, train_views)
+    snap = trainer_snapshot(tr)
+    with recorded_terms() as terms:
+        launches, (first, last), step_ms, ref = run_steps(
+            tr, steps, ("decimate_compact", "hash_encode",
+                        "hash_encode_records", "segment_grad_outer",
+                        "encode_input_grad", "encode_input_jvp"), "reg",
+            capture_at=repro,
+            per_step={"decimate_compact": 1, "hash_encode_records": 2,
+                      "encode_input_grad": 1, "encode_input_jvp": 1,
+                      "segment_grad_outer": 2 * n_windows})
+    for name in ("mm_grad_table", "decimate_compact_bwd",
+                 "segment_totals_channel"):
+        check(launches[name] == 0, f"reg: kernel {name} is off the path but "
+                                   f"launched {launches[name]} times")
+    values = terms.first_last()
+    check(set(values) == {"orientation", "entropy", "tv", "wd"}
+          and all(all(map(math.isfinite, v)) for v in values.values()),
+          f"reg: a term is missing or not finite {values}")
+    print(f"[reg] terms (first step, last step): {values}")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr_train = psnr_of(tr, train_s, train_views)
+    print(f"[reg] last {timed} steps: median {med:.3f} ms/step, "
+          f"{tr.num_rays / med * 1e3:.0f} rays/s; PSNR (EMA) of train views "
+          f"{train_views} {psnr_train:.3f} dB after {steps} steps, "
+          f"{psnr_train_0:.3f} dB untrained")
+    batch, gen_fn = reg_batch(tr, 17)
+    fixed = fixed_batch_check(tr, lambda: batch, "reg", generator_fn=gen_fn)
+    fixed_orient = fixed_batch_check(tr, lambda: batch, "reg orientation",
+                                     generator_fn=gen_fn,
+                                     loss_fn=orientation_only)
+    out = {"config": "reg_config(): Config().with_preset_O() with "
+                     "lambda_orientation 0.1, lambda_wd 0.1, lambda_entropy "
+                     "1e-4, lambda_tv 1e-6",
+           "scene": "make_synthetic_scene(36, 2, 128, 128)",
+           "steps": steps, "grid_refreshes": tr.host_grid_updates,
+           "num_rays": tr.num_rays,
+           "point_budget": tr._point_budget or tr.base_point_budget(),
+           "orientation_points": tr.num_rays * cfg.render.samples_per_ray,
+           "ms_per_step": med, "rays_per_s": tr.num_rays / med * 1e3,
+           "ms_per_step_runs": window, "terms_first_last": values,
+           "train_views_psnr_ema": psnr_train,
+           "train_views_psnr_ema_untrained": psnr_train_0,
+           "loss_first8": first, "loss_last8": last,
+           "trainer_init_s": init_s,
+           "fixed_batch_kernel_vs_plain": fixed,
+           "fixed_batch_orientation_kernel_vs_plain": fixed_orient,
+           "stages_ms": step_breakdown(tr),
+           "profile": profile_device(tr.step, 1, "step"),
+           "gpu": gpu_line()}
+    out["repro"] = repro_check(tr, snap, ref, repro, "reg")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[reg] phase took {out['phase_s']:.1f} s")
+    return launches, out, med
+
+
+def phase_unfused(dev, fused_ms, steps=32, repro=32):
+    """reg_config on the unfused encoder (the plain encode of every grid,
+    its gradients autograd's, the orientation's full second order): a
+    Trainer on the reg phase's scene, `steps` steps with every launch
+    counter reset just before and read just after (the fold once a step;
+    no encode kernel, no B2); finite falling losses; a fixed batch on the
+    kernel and the plain path (the fold is the only kernel that
+    differs); its ms a step beside the fused run's (`fused_ms`); the
+    repro check over its `repro` steps."""
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = reg_config(fused=False)
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_s, val_s, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, ("decimate_compact",), "unfused", capture_at=repro,
+        per_step={"decimate_compact": 1})
+    for name, n in launches.items():
+        if name not in ("decimate_compact", "hash_encode_by_caller"):
+            check(n == 0, f"unfused: kernel {name} launched {n} times")
+    med = sorted(step_ms[-(steps // 2):])[steps // 4]
+    print(f"[unfused] Trainer ready in {init_s:.2f} s; median of the last "
+          f"{steps // 2} steps {med:.3f} ms/step against {fused_ms:.3f} "
+          f"fused")
+    batch, gen_fn = reg_batch(tr, 19)
+    fixed = fixed_batch_check(tr, lambda: batch, "unfused",
+                              generator_fn=gen_fn)
+    out = {"config": "reg_config(fused=False)",
+           "steps": steps, "ms_per_step": med,
+           "ms_per_step_fused": fused_ms,
+           "ms_per_step_runs": step_ms[-(steps // 2):],
+           "loss_first8": first, "loss_last8": last,
+           "trainer_init_s": init_s,
+           "fixed_batch_kernel_vs_plain": fixed,
+           "profile": profile_device(tr.step, 1, "step"),
+           "gpu": gpu_line()}
+    out["repro"] = repro_check(tr, snap, ref, repro, "unfused")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[unfused] phase took {out['phase_s']:.1f} s")
+    return launches, out
+
+
+def pose_recovery_config():
+    """tests/test_pose_opt.py's pose_cfg: the proposal path on the unfused
+    encoder (8 levels x 2 log2 14, finest 256; proposal grids 3 x 2 log2
+    10 at 32 and 64; num_steps (32, 16, 12)), f32, 1,024 rays, lr 1e-2,
+    400 iterations, BARF on 36 cameras with noise 0.05, c_lr 3e-3,
+    end_annealing 0.8."""
+    from raw_ngp_torch import Config
+    cfg = Config()
+    cfg = replace(cfg, model=replace(
+        cfg.model, num_levels=8, log2_hashmap_size=14,
+        hashgrid_resolution=128, grid_mlp_hidden=32, view_mlp_hidden=32,
+        prop_num_levels=3, prop_log2_hashmap_size=10,
+        prop_resolutions=(32, 64), fused_encoder=False))
+    cfg = replace(cfg, render=replace(
+        cfg.render, num_steps=(32, 16, 12), occupancy=False, bound=2.0))
+    cfg = replace(cfg, train=replace(
+        cfg.train, iters=400, num_rays=1024, lr=1e-2, fp16=False))
+    cfg = cfg.with_pose_opt("barf", 36)
+    cfg = replace(cfg, pose_opt=replace(
+        cfg.pose_opt, noise=0.05, c_lr=3e-3, end_annealing=0.8))
+    return cfg.validate()
+
+
+def phase_pose_recovery(dev, steps=400, seeds=(0, 1, 2, 3)):
+    """JAX's pose-recovery test (tests/test_pose_opt.py:85-106, marked slow
+    there) on the card: pose_recovery_config on make_synthetic_scene(36,
+    2, 48, 48) for `steps` steps at each of `seeds` (train.seed: the
+    field, the pose noise and the batches). Each run's refinements must
+    move (largest above 1e-4), and the rotation error must fall below
+    0.92 of its start in the mean over the seeds. One run is not enough
+    to gate on: JAX's own test passes both of its bars (rotation below
+    0.92, translation falling) at 5 of 14 seeds on the CPU (PERF.md
+    §6); the translation errors are reported, not gated."""
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.train.pose_analysis import analyze_pose_optimization
+    from raw_ngp_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=48, W=48)
+    runs = []
+    for seed in seeds:
+        cfg = pose_recovery_config()
+        cfg = replace(cfg, train=replace(cfg.train, seed=seed)).validate()
+        tr = Trainer(cfg, train_s, val_s, device=dev)
+        err0 = analyze_pose_optimization(tr)
+        run = tr.train(iters=steps, log_every=100)
+        torch.cuda.synchronize()
+        err1 = analyze_pose_optimization(tr)
+        largest = float(tr.state.pose_params.detach().abs().max())
+        runs.append({
+            "seed": seed, "errors_before": err0, "errors_after": err1,
+            "rotation_ratio": err1["rotation_deg"] / err0["rotation_deg"],
+            "translation_ratio": err1["translation"] / err0["translation"],
+            "largest_refinement": largest, "losses": tr.stats["loss"],
+            "ms_per_step": run["wall_time"] / steps * 1e3})
+        print(f"[pose_recovery] seed {seed}: {steps} steps in "
+              f"{run['wall_time']:.1f} s: rotation {err0['rotation_deg']:.4f}"
+              f" -> {err1['rotation_deg']:.4f} deg (ratio "
+              f"{runs[-1]['rotation_ratio']:.4f}), translation "
+              f"{err0['translation']:.5f} -> {err1['translation']:.5f} "
+              f"(ratio {runs[-1]['translation_ratio']:.4f}), largest "
+              f"refinement {largest:.3e}")
+    rot = sum(r["rotation_ratio"] for r in runs) / len(runs)
+    trans = sum(r["translation_ratio"] for r in runs) / len(runs)
+    print(f"[pose_recovery] mean over seeds {list(seeds)}: rotation ratio "
+          f"{rot:.4f}, translation ratio {trans:.4f}")
+    check(all(r["largest_refinement"] > 1e-4 for r in runs),
+          "pose_recovery: a run's refinements never moved")
+    check(rot < 0.92, f"pose_recovery: the mean rotation error ratio {rot} "
+                      f"is not below 0.92")
+    return {"config": "pose_recovery_config() (tests/test_pose_opt.py:25-40)",
+            "scene": "make_synthetic_scene(36, 2, 48, 48)", "steps": steps,
+            "seeds": list(seeds), "runs": runs,
+            "mean_rotation_ratio": rot, "mean_translation_ratio": trans,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def deterministic_ops(dev):
     """A diagnostic: two train steps and two pose steps of the flagship and
-    two steps each of the -O2 proposal path and the -O path on 4 cameras
+    two steps each of the -O2 proposal path, the -O path and the
+    regularised -O path on the fused and the unfused encoder, on 4 cameras
     under torch.use_deterministic_algorithms(True, warn_only=True) (the
     first occupancy step holds a grid refresh); the warnings PyTorch gives for
     ops on the path without a deterministic CUDA implementation, by path.
@@ -3006,7 +3456,9 @@ def deterministic_ops(dev):
           "deterministic_ops: the warnings are not captured")
     for what, cfg in (("train", flagship_config()),
                       ("pose", pose_config(128, n_cameras=4)),
-                      ("proposal", proposal_config()), ("O", o_config())):
+                      ("proposal", proposal_config()), ("O", o_config()),
+                      ("reg", reg_config()),
+                      ("unfused", reg_config(fused=False))):
         tr = Trainer(cfg, train_s, val_s, device=dev)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
@@ -3182,35 +3634,53 @@ def main() -> int:
             return 1
         print(gpu_line())
         return 0
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its seconds kept under `name`."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     try:
-        ptxas = phase_build()
+        ptxas = timed("build", phase_build)
         check_registers(ptxas)
-        k_decimate, k_decimate_bwd = phase_decimate(dev)
+        k_decimate, k_decimate_bwd = timed("decimate", phase_decimate, dev)
         from raw_ngp_torch.models.ngp import make_field_spec
         cfg = flagship_config()
         spec = make_field_spec(cfg).grid_spec
-        k_encode = phase_encode(dev, cfg)
-        k_segsum, k_flat = phase_segsum(dev)
-        k_records, k_mm, table_grad = phase_encode_bwd(dev, spec)
-        k_input = phase_encode_input(dev, cfg)
-        k_channel = phase_segsum_channel(dev)
-        render_launches, render = phase_slice(dev, cfg)
-        train_launches, train = phase_train(dev, cfg)
-        pose_launches, pose = phase_pose(dev)
-        light_launches, lightstage = phase_lightstage(dev)
-        proposal_launches, proposal = phase_proposal(dev)
-        launches, o_render_launches, o_phase = phase_o(dev)
+        k_encode = timed("encode", phase_encode, dev, cfg)
+        k_segsum, k_flat = timed("segsum", phase_segsum, dev)
+        k_records, k_mm, table_grad = timed("encode_bwd", phase_encode_bwd,
+                                            dev, spec)
+        k_input = timed("encode_input", phase_encode_input, dev, cfg)
+        k_channel = timed("segsum_channel", phase_segsum_channel, dev)
+        render_launches, render = timed("slice", phase_slice, dev, cfg)
+        train_launches, train = timed("train", phase_train, dev, cfg)
+        pose_launches, pose = timed("pose", phase_pose, dev)
+        light_launches, lightstage = timed("lightstage", phase_lightstage,
+                                           dev)
+        proposal_launches, proposal = timed("proposal", phase_proposal, dev)
+        with cached_mark_untrained():
+            o_launches, o_render_launches, o_phase = timed("O", phase_o, dev)
+            k_jvp = timed("encode_jvp", phase_encode_jvp, dev, o_config())
+            launches, reg, reg_ms = timed("reg", phase_reg, dev)
+            unfused_launches, unfused = timed("unfused", phase_unfused, dev,
+                                              reg_ms)
+        pose_recovery = timed("pose_recovery", phase_pose_recovery, dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     kernels = []
     for k in (k_decimate, k_decimate_bwd, k_encode, k_records, k_mm, k_input,
-              k_flat, k_segsum, k_channel):
+              k_jvp, k_flat, k_segsum, k_channel):
         k = dict(k)
         # the -O2 proposal phase's kernels' numbers at its shapes (its
         # radiance grid is the -O grid), the flagship's beside them;
-        # `launches` are the -O phase's, the main path of this slice
+        # `launches` are the reg phase's: the path that runs the most
+        # of them
         rows = proposal["kernel_rows"]
         if k["name"] in rows:
             keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3218,8 +3688,11 @@ def main() -> int:
             k["flagship"] = {key: k.get(key) for key in keep}
             k.update(rows[k["name"]])
         k["launches"] = launches[k["name"]]
-        k["launches_O"] = launches[k["name"]]
-        k["O_launched"] = launches[k["name"]] > 0
+        k["launches_reg"] = launches[k["name"]]
+        k["reg_launched"] = launches[k["name"]] > 0
+        k["launches_unfused"] = unfused_launches[k["name"]]
+        k["launches_O"] = o_launches[k["name"]]
+        k["O_launched"] = o_launches[k["name"]] > 0
         k["launches_O_normal_render_chunk"] = o_render_launches[k["name"]]
         k["launches_proposal"] = proposal_launches[k["name"]]
         k["proposal_launched"] = proposal_launches[k["name"]] > 0
@@ -3229,7 +3702,8 @@ def main() -> int:
         k["launches_render"] = render_launches.get(k["name"], 0)
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
-                "O": launches["hash_encode_by_caller"],
+                "reg": launches["hash_encode_by_caller"],
+                "O": o_launches["hash_encode_by_caller"],
                 "proposal": proposal_launches["hash_encode_by_caller"],
                 "lightstage": light_launches["hash_encode_by_caller"],
                 "pose": pose_launches["hash_encode_by_caller"],
@@ -3237,13 +3711,17 @@ def main() -> int:
         if k["name"] in REGISTER_CHECKED:
             k["ptxas"] = checked_instantiations(ptxas, k["name"])
         kernels.append(k)
-    print(f"[done] {time.time() - t_start:.1f} s")
+    print(f"[done] {time.time() - t_start:.1f} s; seconds by phase "
+          f"{json.dumps(seconds)}")
     print(json.dumps({"render": render}))
     print(json.dumps({"train": train}))
     print(json.dumps({"pose": pose}))
     print(json.dumps({"lightstage": lightstage}))
     print(json.dumps({"proposal": proposal}))
     print(json.dumps({"O": o_phase}))
+    print(json.dumps({"reg": reg}))
+    print(json.dumps({"unfused": unfused}))
+    print(json.dumps({"pose_recovery": pose_recovery}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -1,5 +1,6 @@
 // Multiresolution hash-grid encode for Hopper (sm_90a): the forward (which
-// also writes the records of its table gradient) and its input gradient.
+// also writes the records of its table gradient), its input gradient and
+// that gradient's JVP in g (the orientation loss's second-order term).
 //
 // Replaces the encode that the JAX package runs through XLA in
 // raw_ngp_tpu/kernels/hash_fused.py: hash_encode_fused / _fused_fwd (the
@@ -9,7 +10,8 @@
 // (need_input_grads, :760-778). They stand in for the reference's
 // hand-written CUDA gridencoder. Plain versions:
 // raw_ngp_torch/kernels/hash_encode.py hash_encode_fused_plain,
-// window_records_plain and encode_input_grad_plain.
+// window_records_plain, encode_input_grad_plain and
+// encode_input_jvp_plain.
 //
 // What bounds them. The forward and the input gradient are gathers: per
 // (point, level) 8 table rows of C f32 at hashed addresses. The flagship's
@@ -317,11 +319,42 @@ __device__ __forceinline__ void load_quad(const float* __restrict__ p,
   }
 }
 
-// One window level of the bf16 forward, _window_forward's chain: each lane
-// product rnd(rnd(T) * rnd(w)), the window's two rows added and rounded,
-// the windows summed in f32 in window order (XLA's CPU reduce accumulates
-// its bf16 sum in f32 and rounds once, tested bit for bit against JAX).
-// rec(k, first row, w0, w1) sees every window (the records).
+// One window of the bf16 forward, _window_forward's chain: each lane
+// product rnd(rnd(T) * rnd(w)) of the rows bb and bb + 1, the two added
+// and rounded, then added in f32 to the level's sum. The input gradient's
+// JVP runs the same chain on the weights' directional derivatives.
+template <int C>
+__device__ __forceinline__ void window_bf16(const float* __restrict__ tq,
+                                            int bb, float w0, float w1,
+                                            float acc[kQuad<C>]) {
+  constexpr int Q = kQuad<C>;
+  const float wa = round_bf16(w0);
+  const float wb = round_bf16(w1);
+  float ta[Q], tb[Q];
+  load_quad<C>(tq + (int64_t)bb * C, ta);
+  load_quad<C>(tq + (int64_t)bb * C + C, tb);
+  if constexpr (Q == 1) {
+    const float pa = round_bf16(__fmul_rn(round_bf16(ta[0]), wa));
+    const float pb = round_bf16(__fmul_rn(round_bf16(tb[0]), wb));
+    acc[0] = __fadd_rn(acc[0], round_bf16(__fadd_rn(pa, pb)));
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; q += 2) {
+      const float2 ra = round_bf16x2(ta[q], ta[q + 1]);
+      const float2 rb = round_bf16x2(tb[q], tb[q + 1]);
+      const float2 pa = round_bf16x2(__fmul_rn(ra.x, wa), __fmul_rn(ra.y, wa));
+      const float2 pb = round_bf16x2(__fmul_rn(rb.x, wb), __fmul_rn(rb.y, wb));
+      const float2 s = round_bf16x2(__fadd_rn(pa.x, pb.x), __fadd_rn(pa.y, pb.y));
+      acc[q] = __fadd_rn(acc[q], s.x);
+      acc[q + 1] = __fadd_rn(acc[q + 1], s.y);
+    }
+  }
+}
+
+// One window level of the bf16 forward: window_bf16 over the level's
+// windows in window order, the windows summed in f32 (XLA's CPU reduce
+// accumulates its bf16 sum in f32 and rounds once, tested bit for bit
+// against JAX). rec(k, first row, w0, w1) sees every window (the records).
 template <int C, typename Rec>
 __device__ __forceinline__ void window_level_bf16(const float* __restrict__ tq,
                                                   const Level& l,
@@ -329,31 +362,10 @@ __device__ __forceinline__ void window_level_bf16(const float* __restrict__ tq,
                                                   const float f[3], int top,
                                                   float acc[kQuad<C>],
                                                   Rec&& rec) {
-  constexpr int Q = kQuad<C>;
   for_each_window(l, rows, f, 1.0f, top,
                   [&](int k, int bb, float w0, float w1) {
     rec(k, bb, w0, w1);
-    const float wa = round_bf16(w0);
-    const float wb = round_bf16(w1);
-    float ta[Q], tb[Q];
-    load_quad<C>(tq + (int64_t)bb * C, ta);
-    load_quad<C>(tq + (int64_t)bb * C + C, tb);
-    if constexpr (Q == 1) {
-      const float pa = round_bf16(__fmul_rn(round_bf16(ta[0]), wa));
-      const float pb = round_bf16(__fmul_rn(round_bf16(tb[0]), wb));
-      acc[0] = __fadd_rn(acc[0], round_bf16(__fadd_rn(pa, pb)));
-    } else {
-#pragma unroll
-      for (int q = 0; q < Q; q += 2) {
-        const float2 ra = round_bf16x2(ta[q], ta[q + 1]);
-        const float2 rb = round_bf16x2(tb[q], tb[q + 1]);
-        const float2 pa = round_bf16x2(__fmul_rn(ra.x, wa), __fmul_rn(ra.y, wa));
-        const float2 pb = round_bf16x2(__fmul_rn(rb.x, wb), __fmul_rn(rb.y, wb));
-        const float2 s = round_bf16x2(__fadd_rn(pa.x, pb.x), __fadd_rn(pa.y, pb.y));
-        acc[q] = __fadd_rn(acc[q], s.x);
-        acc[q + 1] = __fadd_rn(acc[q + 1], s.y);
-      }
-    }
+    window_bf16<C>(tq, bb, w0, w1, acc);
   });
 }
 
@@ -757,6 +769,43 @@ __device__ __forceinline__ void mm_level_ct(const float* __restrict__ tq,
       : 0.0f;
 }
 
+// Lower corner g0, fraction f and df/dx of x in one level
+// (encode_input_grad_plain _axis_terms): df/dx = res (res - 1 with
+// align_corners), half of it where the clip bound is met exactly
+// (jnp.clip's tie), none beyond it, times the smoothstep derivative.
+__device__ __forceinline__ void level_cell_grad(const Level& l,
+                                                const float x[3],
+                                                int align_corners,
+                                                int smoothstep, uint32_t g0[3],
+                                                float f[3], float dfdx[3]) {
+  const float top = (float)(l.res - 1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float pos, gf, dpos;
+    if (align_corners) {
+      pos = __fmul_rn(x[d], top);
+      gf = fminf(floorf(pos), (float)(l.res - 2));
+      dpos = top;
+    } else {
+      const float raw = __fsub_rn(__fmul_rn(x[d], (float)l.res), 0.5f);
+      pos = fminf(fmaxf(raw, 0.0f), top);
+      gf = floorf(pos);
+      const float share = (raw > 0.0f && raw < top) ? 1.0f
+          : ((raw == 0.0f || raw == top) ? 0.5f : 0.0f);
+      dpos = __fmul_rn(share, (float)l.res);
+    }
+    const float tt = __fsub_rn(pos, gf);
+    if (smoothstep) {
+      f[d] = __fmul_rn(__fmul_rn(tt, tt), __fsub_rn(3.0f, __fmul_rn(2.0f, tt)));
+      dfdx[d] = __fmul_rn(dpos, __fmul_rn(__fmul_rn(6.0f, tt), __fsub_rn(1.0f, tt)));
+    } else {
+      f[d] = tt;
+      dfdx[d] = dpos;
+    }
+    g0[d] = (uint32_t)(int)gf;
+  }
+}
+
 // No launch bounds: with __launch_bounds__(256) ptxas caps the C >= 4
 // instantiations at 64 registers and spills; (256, 1) lets them take
 // 92-96 and keeps 2 blocks an SM; without, they take 64-79, spill nothing
@@ -787,34 +836,9 @@ encode_input_grad_kernel(const float* __restrict__ x01,
   if (inb) {  // uniform within the group
     for (int lv = 0; lv < L; ++lv) {
       const Level l = load_level(levels + lv * kLevelRow);
-      const float top = (float)(l.res - 1);
       uint32_t g0[3];
       float f[3], dfdx[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        float pos, gf, dpos;
-        if (align_corners) {
-          pos = __fmul_rn(x[d], top);
-          gf = fminf(floorf(pos), (float)(l.res - 2));
-          dpos = top;
-        } else {
-          const float raw = __fsub_rn(__fmul_rn(x[d], (float)l.res), 0.5f);
-          pos = fminf(fmaxf(raw, 0.0f), top);
-          gf = floorf(pos);
-          const float share = (raw > 0.0f && raw < top) ? 1.0f
-              : ((raw == 0.0f || raw == top) ? 0.5f : 0.0f);
-          dpos = __fmul_rn(share, (float)l.res);
-        }
-        const float tt = __fsub_rn(pos, gf);
-        if (smoothstep) {
-          f[d] = __fmul_rn(__fmul_rn(tt, tt), __fsub_rn(3.0f, __fmul_rn(2.0f, tt)));
-          dfdx[d] = __fmul_rn(dpos, __fmul_rn(__fmul_rn(6.0f, tt), __fsub_rn(1.0f, tt)));
-        } else {
-          f[d] = tt;
-          dfdx[d] = dpos;
-        }
-        g0[d] = (uint32_t)(int)gf;
-      }
+      level_cell_grad(l, x, align_corners, smoothstep, g0, f, dfdx);
       float gv[Q];
       load_g_quad<C, BF16>(g, (b * L + lv) * C + 4 * j, gv);
       int rows[8];
@@ -852,7 +876,226 @@ void launch_input_grad(bool bf16, const float* x01, const float* table,
   }
 }
 
+
+// The input gradient differentiated in its cotangent g (the orientation
+// loss's second-order term, hash_fused.py:760-778 under jax.grad): for a
+// cotangent ct of grad_x01 [B, 3], ct_g = sum_d ct_d df/dx_d d(grad_x01_d)
+// / dg, the encode's JVP along the positions with the table frozen. It is
+// the forward with each interpolation weight replaced by its directional
+// derivative along u = ct * df/dx: on a window level the tangents (dw0,
+// dw1) of each window's weights (the product rule in for_each_window's
+// order) through the forward's chain (window_bf16 under bf16, where XLA's
+// transpose of the bf16 casts rounds them), on a dense level the transpose
+// of _mm_level_ct's chain: per x lane rnd(rnd(dwx) rnd(Z) + rnd(Y) rnd(wx))
+// with Z = rnd(sum_yz rnd(wyz) rnd(T)) and Y = rnd(sum_yz rnd(dwyz) rnd(T)),
+// the two lanes added in f32. The same groups of ceil(C/4) threads, each
+// writing its channel quad of every level once: no atomics. 0 outside
+// [0, 1]^3 and on NaN.
+template <typename Fn>
+__device__ __forceinline__ void for_each_window_tangent(const Level& l,
+                                                        const int rows[8],
+                                                        const float f[3],
+                                                        const float u[3],
+                                                        int top, Fn&& fn) {
+  const int a = l.axis;
+  const int o0 = a == 0 ? 1 : 0, o1 = a == 2 ? 1 : 2;
+  const float fa = sel3(f, a), ua = sel3(u, a);
+  const float f0 = sel3(f, o0), u0 = sel3(u, o0);
+  const float f1 = sel3(f, o1), u1 = sel3(u, o1);
+  const float fa1 = __fsub_rn(1.0f, fa);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const float p0 = (h & 1) ? f0 : __fsub_rn(1.0f, f0);
+    const float d0 = (h & 1) ? u0 : -u0;
+    const float p1 = (h & 2) ? f1 : __fsub_rn(1.0f, f1);
+    const float d1 = (h & 2) ? u1 : -u1;
+    const float w_rest = __fmul_rn(p0, p1);
+    const float dw_rest = __fadd_rn(__fmul_rn(d0, p1), __fmul_rn(p0, d1));
+    const float dw_u = __fadd_rn(__fmul_rn(-ua, w_rest), __fmul_rn(fa1, dw_rest));
+    const float dw_v = __fadd_rn(__fmul_rn(ua, w_rest), __fmul_rn(fa, dw_rest));
+    const int ru = rows[2 * h], rv = rows[2 * h + 1];
+    if (l.pairable) {
+      const int bb = min(min(ru, rv), top);
+      fn(bb, __fadd_rn(ru == bb ? dw_u : 0.0f, rv == bb ? dw_v : 0.0f),
+         __fadd_rn(ru == bb + 1 ? dw_u : 0.0f, rv == bb + 1 ? dw_v : 0.0f));
+    } else {
+      const int bu = min(ru, top), bv = min(rv, top);
+      fn(bu, ru == bu ? dw_u : 0.0f, ru == bu + 1 ? dw_u : 0.0f);
+      fn(bv, rv == bv ? dw_v : 0.0f, rv == bv + 1 ? dw_v : 0.0f);
+    }
+  }
+}
+
+// One window of the f32 JVP: the window's two rows times its weight
+// tangents, added, then added to the level's sum.
+template <int C>
+__device__ __forceinline__ void window_f32(const float* __restrict__ tq,
+                                           int bb, float w0, float w1,
+                                           float acc[kQuad<C>]) {
+  constexpr int Q = kQuad<C>;
+  float ta[Q], tb[Q];
+  load_quad<C>(tq + (int64_t)bb * C, ta);
+  load_quad<C>(tq + (int64_t)bb * C + C, tb);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    acc[q] = __fadd_rn(acc[q], __fadd_rn(__fmul_rn(w0, ta[q]),
+                                         __fmul_rn(w1, tb[q])));
+  }
+}
+
+// One dense (matmul) level of the JVP, rows in BitCorners order.
+template <int C, bool BF16>
+__device__ __forceinline__ void mm_level_jvp(const float* __restrict__ tq,
+                                             const int rows[8],
+                                             const uint32_t g0[3],
+                                             const float f[3],
+                                             const float u[3], uint32_t res,
+                                             float acc[kQuad<C>]) {
+  constexpr int Q = kQuad<C>;
+  float A[3][2], dA[3][2];
+  bool present[3];
+  mm_weights(g0, f, res, A, present);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    // the clamped lane's (1 - f) + f has no derivative
+    dA[d][0] = present[d] ? -u[d] : 0.0f;
+    dA[d][1] = present[d] ? u[d] : 0.0f;
+  }
+#pragma unroll
+  for (int xi = 0; xi < 2; ++xi) {
+    const float wx = rnd_if(BF16, A[0][xi]);
+    const float dwx = rnd_if(BF16, dA[0][xi]);
+    float z[Q], y[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) z[q] = y[q] = 0.0f;
+#pragma unroll
+    for (int yz = 0; yz < 4; ++yz) {
+      const int zi = yz >> 1, yi = yz & 1;
+      const float w = rnd_if(BF16, __fmul_rn(A[2][zi], A[1][yi]));
+      const float dw = rnd_if(BF16, __fadd_rn(__fmul_rn(dA[2][zi], A[1][yi]),
+                                              __fmul_rn(A[2][zi], dA[1][yi])));
+      float t[Q];
+      load_quad<C>(tq + (int64_t)rows[xi | yi << 1 | zi << 2] * C, t);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float tr = rnd_if(BF16, t[q]);
+        z[q] = __fadd_rn(z[q], __fmul_rn(w, tr));
+        y[q] = __fadd_rn(y[q], __fmul_rn(dw, tr));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float a = rnd_if(BF16, __fmul_rn(dwx, rnd_if(BF16, z[q])));
+      const float b = rnd_if(BF16, __fmul_rn(rnd_if(BF16, y[q]), wx));
+      acc[q] = __fadd_rn(acc[q], rnd_if(BF16, __fadd_rn(a, b)));
+    }
+  }
+}
+
+// No launch bounds, as the input gradient's kernel.
+template <int C, bool BF16>
+__global__ void
+encode_input_jvp_kernel(const float* __restrict__ x01,
+                        const float* __restrict__ table,
+                        const float* __restrict__ ct_x,
+                        const int64_t* __restrict__ levels,
+                        void* __restrict__ out, int64_t B, int L, int m,
+                        int top, int align_corners, int smoothstep) {
+  constexpr int G = kGroup<C>, Q = kQuad<C>;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t b = t / G;
+  if (b >= B) return;  // whole groups: G divides the warp
+  const int j = (int)(t % G);
+  const unsigned gmask = group_mask<G>();
+  const float* tq = table + 4 * j;  // this thread's channels of row 0
+  float x[3], ct[3];
+  bool inb = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    x[d] = x01[b * 3 + d];
+    ct[d] = ct_x[b * 3 + d];
+    inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
+  }
+  for (int lv = 0; lv < L; ++lv) {
+    float acc[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
+    if (inb) {  // uniform within the group
+      const Level l = load_level(levels + lv * kLevelRow);
+      uint32_t g0[3];
+      float f[3], dfdx[3], u[3];
+      level_cell_grad(l, x, align_corners, smoothstep, g0, f, dfdx);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) u[d] = __fmul_rn(ct[d], dfdx[d]);
+      int rows[8];
+      if (lv < m) {
+        level_rows<G>(l, j, gmask,
+                      BitCorners{{g0[0], g0[1], g0[2]}, l.res - 1}, rows);
+        mm_level_jvp<C, BF16>(tq, rows, g0, f, u, l.res, acc);
+      } else {
+        level_rows<G>(l, j, gmask,
+                      WindowCorners{{g0[0], g0[1], g0[2]}, l.res - 1, l.axis},
+                      rows);
+        for_each_window_tangent(l, rows, f, u, top,
+                                [&](int bb, float w0, float w1) {
+          if (BF16) {
+            window_bf16<C>(tq, bb, w0, w1, acc);
+          } else {
+            window_f32<C>(tq, bb, w0, w1, acc);
+          }
+        });
+      }
+    }
+    store_quad<C, BF16>(out, (b * L + lv) * C + 4 * j, acc);
+  }
+}
+
+template <int C>
+void launch_input_jvp(bool bf16, const float* x01, const float* table,
+                      const float* ct_x, const int64_t* levels, void* out,
+                      int64_t B, int L, int m, int top, int align_corners,
+                      int smoothstep, cudaStream_t s) {
+  const int64_t n = B * kGroup<C>;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if (bf16) {
+    encode_input_jvp_kernel<C, true><<<blocks, kThreads, 0, s>>>(
+        x01, table, ct_x, levels, out, B, L, m, top, align_corners,
+        smoothstep);
+  } else {
+    encode_input_jvp_kernel<C, false><<<blocks, kThreads, 0, s>>>(
+        x01, table, ct_x, levels, out, B, L, m, top, align_corners,
+        smoothstep);
+  }
+}
+
 }  // namespace
+
+// x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned), ct_x [B, 3]
+// f32 (the cotangent of the input gradient), levels [L, kLevelRow] i64 (m
+// dense matmul levels first, top = n_params - 2) -> out [B, L * C] f32 or
+// bf16 (16-byte aligned), the cotangent of the input gradient's g. B > 0.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C.
+extern "C" int hash_encode_input_jvp(const float* x01, const float* table,
+                                     const float* ct_x,
+                                     const int64_t* levels, void* out,
+                                     int64_t B, int L, int C, int m, int top,
+                                     int align_corners, int smoothstep,
+                                     int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool h = bf16 != 0;
+  switch (C) {
+#define RAW_NGP_CASE(c)                                                      \
+    case c:                                                                  \
+      launch_input_jvp<c>(h, x01, table, ct_x, levels, out, B, L, m, top,    \
+                          align_corners, smoothstep, s);                     \
+      break;
+    RAW_NGP_CASE(1) RAW_NGP_CASE(2) RAW_NGP_CASE(4) RAW_NGP_CASE(8)
+    RAW_NGP_CASE(16) RAW_NGP_CASE(32)
+#undef RAW_NGP_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned), g [B, L * C]
 // (bf16 if bf16, else f32), levels [L, kLevelRow] i64, m matmul levels ->

@@ -40,6 +40,16 @@ the forward's (lanes over channel quads, cross-channel sums in channel
 order); its plain version is :func:`encode_input_grad_plain`. Both take
 JAX's rounding points under bf16 (see that function).
 
+The input gradient differentiated in g (the orientation loss's
+second-order term, JAX's ``jax.grad`` through ``_fused_bwd``'s input
+gradient with the table frozen): :func:`frozen_input_grad`, whose
+forward is the input gradient and whose backward is the kernel
+``hash_encode_input_jvp`` (:func:`encode_input_jvp`): the encode's JVP
+along the positions, the forward with each weight replaced by its
+directional derivative, in the same groups of threads; its plain version
+is :func:`encode_input_jvp_plain`, which takes the rounding of XLA's
+transpose of the bf16 chain.
+
 CPU tensors take the plain versions in both directions; CUDA tensors
 launch the kernels or the call raises.
 """
@@ -578,6 +588,131 @@ def encode_input_grad_plain(params, x01, g, spec: HashGridSpec,
     return torch.where(inb[:, None], torch.stack(grad, -1), 0.0)
 
 
+def _window_level_jvp(tab, g0s, fs, us, res, spec, lv, rnd, bf16):
+    """One window level of :func:`encode_input_jvp_plain`: each window's
+    weight tangents (dw0, dw1), the product rule in the order of
+    :func:`window_indices_weights`' products, through the forward's
+    chain (``_window_forward``; under bf16 the lane products rounded, the
+    window's two rows added and rounded), the windows summed in f32."""
+    D = len(g0s)
+    a = pair_axis(spec, lv)
+    o0, o1 = [d for d in range(D) if d != a]
+    top = spec.n_params - 2
+    fa, ua = fs[a], us[a]
+    a_lo = g0s[a]
+    a_hi = torch.clamp_max(a_lo + 1, res - 1)
+    out = torch.zeros(fa.shape[0], tab.shape[1], dtype=torch.float32,
+                      device=fa.device)
+
+    def window(b, w0, w1):
+        rows0, rows1 = tab[b], tab[b + 1]
+        if bf16:
+            pa = rnd(rows0 * rnd(w0)[:, None])
+            pb = rnd(rows1 * rnd(w1)[:, None])
+            return out + rnd(pa + pb)
+        return out + (w0[:, None] * rows0 + w1[:, None] * rows1)
+
+    for h in range(1 << (D - 1)):
+        lo, hi = [None] * D, [None] * D
+        lo[a], hi[a] = a_lo, a_hi
+        p, dp = [], []
+        for j, d in enumerate((o0, o1)):
+            bit = (h >> j) & 1
+            lo[d] = hi[d] = torch.clamp_max(g0s[d] + bit, res - 1)
+            p.append(fs[d] if bit else 1.0 - fs[d])
+            dp.append(us[d] if bit else -us[d])
+        w_rest = p[0] * p[1]
+        dw_rest = dp[0] * p[1] + p[0] * dp[1]
+        dw_u = (-ua) * w_rest + (1.0 - fa) * dw_rest
+        dw_v = ua * w_rest + fa * dw_rest
+        u = _level_indices(spec, lv, torch.stack(lo, -1))
+        v = _level_indices(spec, lv, torch.stack(hi, -1))
+        zero = torch.zeros_like(dw_u)
+        if level_pairable(spec, lv):
+            b = torch.clamp_max(torch.minimum(u, v), top)
+            out = window(b, torch.where(u == b, dw_u, zero)
+                         + torch.where(v == b, dw_v, zero),
+                         torch.where(u == b + 1, dw_u, zero)
+                         + torch.where(v == b + 1, dw_v, zero))
+        else:
+            for idx, dw in ((u, dw_u), (v, dw_v)):
+                b = torch.clamp_max(idx, top)
+                out = window(b, torch.where(idx == b, dw, zero),
+                             torch.where(idx == b + 1, dw, zero))
+    return out
+
+
+def _mm_level_jvp(tab, g0s, fs, us, res, spec, lv, rnd):
+    """One dense matmul level of :func:`encode_input_jvp_plain`: the
+    transpose in g of :func:`_mm_level_ct`'s chain, per x lane
+    rnd(rnd(dwx) rnd(Z) + rnd(Y) rnd(wx)) with Z = rnd(sum_yz rnd(wyz)
+    rnd(T)) and Y = rnd(sum_yz rnd(dwyz) rnd(T)) (yz lanes z-major), the
+    two x lanes added in f32."""
+    lanes = [_mm_lanes(g0s[d], fs[d], res) for d in range(3)]
+    (cx, ax, px), (cy, ay, py), (cz, az, pz) = lanes
+    zero = torch.zeros_like(fs[0])
+    dax, day, daz = ((torch.where(p, -us[d], zero), torch.where(p, us[d], zero))
+                     for d, (_, _, p) in enumerate(lanes))
+    out = torch.zeros(fs[0].shape[0], tab.shape[1], dtype=torch.float32,
+                      device=fs[0].device)
+    for xi in range(2):
+        wx, dwx = rnd(ax[xi]), rnd(dax[xi])
+        z = torch.zeros_like(out)
+        y = torch.zeros_like(out)
+        for zi in range(2):
+            for yi in range(2):
+                w = rnd(az[zi] * ay[yi])
+                dw = rnd(daz[zi] * ay[yi] + az[zi] * day[yi])
+                rows = rnd(tab[_level_indices(spec, lv, torch.stack(
+                    [cx[xi], cy[yi], cz[zi]], -1))])
+                z = z + w[:, None] * rows
+                y = y + dw[:, None] * rows
+        a = rnd(dwx[:, None] * rnd(z))
+        b = rnd(rnd(y) * wx[:, None])
+        out = out + rnd(a + b)
+    return out
+
+
+def encode_input_jvp_plain(params, x01, ct_x, spec: HashGridSpec,
+                           compute_dtype=None):
+    """The encode's input gradient (:func:`encode_input_grad_plain`)
+    differentiated in its cotangent g, for a cotangent ``ct_x`` [B, D] of
+    the gradient: ct_g [B, L*C] in the compute dtype (f32 or bf16), with
+    ct_g[b, l C + c] = sum_d ct_x[b, d] df_{l,c}/dx01_d, the encode's JVP
+    along ct_x with the table frozen. 0 outside [0, 1]^D and on NaN.
+
+    It is the forward with each interpolation weight replaced by its
+    directional derivative along u = ct_x df/dx (:func:`_axis_terms`).
+    Under bf16 it rounds where XLA's transpose of JAX's bf16 input
+    gradient rounds: the tangents and the table to bf16 at the forward's
+    points, the forward's chain on them (see :func:`_window_level_jvp`,
+    :func:`_mm_level_jvp`), the level's f32 sum rounded once. The kernel
+    :func:`encode_input_jvp` computes the same expressions in the same
+    order."""
+    B, D = x01.shape
+    C = spec.level_dim
+    bf16 = compute_dtype == torch.bfloat16
+    rnd = round_bf16 if bf16 else (lambda t: t)
+    tab = params.detach().reshape(spec.n_params, C).float()
+    ct = ct_x.detach().float()
+    inb, xs = _in_bounds(x01.detach())
+    m = matmul_split(spec)
+    outs = []
+    for lv in range(spec.num_levels):
+        res = spec.resolutions[lv]
+        g0s, fs, dfs = (list(t) for t in
+                        zip(*(_axis_terms(x, res, spec) for x in xs)))
+        us = [ct[:, d] * dfs[d] for d in range(D)]
+        if lv < m:
+            outs.append(_mm_level_jvp(tab, g0s, fs, us, res, spec, lv, rnd))
+        else:
+            tab_lv = rnd(tab) if bf16 else tab
+            outs.append(_window_level_jvp(tab_lv, g0s, fs, us, res, spec, lv,
+                                          rnd, bf16))
+    out = torch.where(inb[:, None], torch.cat(outs, dim=1), 0.0)
+    return out.to(torch.bfloat16 if bf16 else torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -587,6 +722,8 @@ _ARGTYPES = {
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "hash_encode_bwd_input": [ctypes.c_void_p] * 5 + [ctypes.c_int64]
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "hash_encode_input_jvp": [ctypes.c_void_p] * 5 + [ctypes.c_int64]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "mm_grad_keys_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "mm_grad_table_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
@@ -730,6 +867,85 @@ def encode_input_grad(params, x01, g, spec: HashGridSpec,
 
 
 encode_input_grad.launches = 0   # kernel launches, counted where they happen
+
+
+def encode_input_jvp(params, x01, ct_x, spec: HashGridSpec,
+                     compute_dtype=None):
+    """:func:`encode_input_grad` differentiated in g: for the cotangent
+    ``ct_x`` [B, 3] f32 of the input gradient, the cotangent of g [B,
+    L*C] in the compute dtype (bf16 or f32), the table frozen. CPU tensors
+    take :func:`encode_input_jvp_plain`; CUDA tensors launch the kernel
+    (the forward's groups of ceil(C/4) threads a point, each writing its
+    channels once: no atomics)."""
+    if x01.device.type == "cpu":
+        return encode_input_jvp_plain(params, x01, ct_x, spec, compute_dtype)
+    _check_x01(x01, spec, "encode_input_jvp")
+    bf16 = compute_dtype == torch.bfloat16
+    B = x01.shape[0]
+    L, C = spec.num_levels, spec.level_dim
+    if params.device != x01.device or ct_x.device != x01.device:
+        raise ValueError("encode_input_jvp: all inputs must be on one CUDA "
+                         "device")
+    if params.dtype != torch.float32 or ct_x.dtype != torch.float32:
+        raise TypeError("encode_input_jvp: params and ct_x must be float32")
+    if C not in _CHANNELS or params.numel() != spec.n_params * C \
+            or ct_x.shape != (B, 3):
+        raise ValueError("encode_input_jvp: need level_dim in "
+                         f"{_CHANNELS}, the spec's table and ct_x [B, 3]")
+    if not (params.is_contiguous() and ct_x.is_contiguous()) \
+            or params.data_ptr() % 16:
+        raise ValueError("encode_input_jvp: params (16-byte aligned) and "
+                         "ct_x must be contiguous")
+    out = torch.empty(B, L * C, dtype=torch.bfloat16 if bf16
+                      else torch.float32, device=x01.device)
+    if B == 0:
+        return out
+    m = matmul_split(spec)
+    levels = _level_table(spec, m, x01.device)
+    err = _lib("hash_encode_input_jvp")(
+        x01.data_ptr(), params.data_ptr(), ct_x.data_ptr(), levels.data_ptr(),
+        out.data_ptr(), B, L, C, m, spec.n_params - 2,
+        int(spec.align_corners), int(spec.interpolation == "smoothstep"),
+        int(bf16), torch.cuda.current_stream(x01.device).cuda_stream)
+    _raise_if(err, "encode_input_jvp")
+    encode_input_jvp.launches += 1
+    return out
+
+
+encode_input_jvp.launches = 0   # kernel launches, counted where they happen
+
+
+class _FrozenInputGradFn(torch.autograd.Function):
+    """:func:`frozen_input_grad`: the input gradient forward, its JVP in g
+    backward."""
+
+    @staticmethod
+    def forward(ctx, g, params, x01, spec, compute_dtype, plain):
+        ctx.save_for_backward(params, x01)
+        ctx.spec, ctx.compute_dtype, ctx.plain = spec, compute_dtype, plain
+        fn = encode_input_grad_plain if plain else encode_input_grad
+        return fn(params, x01, g.contiguous(), spec, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        params, x01 = ctx.saved_tensors
+        fn = encode_input_jvp_plain if ctx.plain else encode_input_jvp
+        return (fn(params, x01, ct.float().contiguous(), ctx.spec,
+                   ctx.compute_dtype), None, None, None, None, None)
+
+
+def frozen_input_grad(params, x01, g, spec: HashGridSpec, compute_dtype=None,
+                      plain: bool = False):
+    """The encode's gradient in x01 [B, 3] for the cotangent g [B, L*C] (in
+    the encode's output dtype) with the table frozen -> [B, 3] f32,
+    differentiable in g: its backward is :func:`encode_input_jvp`. This is
+    JAX's input gradient as ``jax.grad`` differentiates it a second time
+    (``_fused_bwd`` takes it through ``stop_gradient(params)``): the
+    cotangent reaches g, never the table or x01, whose gradients stay
+    None. ``plain=True`` runs the plain versions on any device."""
+    return _FrozenInputGradFn.apply(g, params.detach(), x01.detach(), spec,
+                                    compute_dtype, plain)
 
 
 def _check_g(g, spec: HashGridSpec, B: int, who: str):

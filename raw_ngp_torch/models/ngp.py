@@ -19,6 +19,14 @@ its hidden width), and so are the proposal networks of the proposal path
 (``render.occupancy`` False): one small hash grid and bias-free density
 MLP per entry of ``model.prop_resolutions``, queried by
 ``density(x, proposal=i)`` with ``trunc_exp`` on the MLP's output.
+
+``model.fused_encoder`` False runs every grid through the plain encoder
+:func:`raw_ngp_torch.ops.hashgrid.hash_encode` (JAX's ``hash_encode``, in
+the table's f32) on every device, its gradients autograd's of plain ops.
+:meth:`NGPField.density_grad` is the orientation loss's inner gradient,
+kept in the graph of the parameters: through the fused encoder JAX's
+frozen-table input gradient (:func:`raw_ngp_torch.kernels.hash_encode.
+frozen_input_grad`), through the unfused one the full second order.
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ from torch import nn
 
 from raw_ngp_torch.config import Config
 from raw_ngp_torch.device import resolve_device
-from raw_ngp_torch.kernels.hash_encode import hash_encode, hash_encode_plain
+from raw_ngp_torch.kernels.hash_encode import (frozen_input_grad,
+                                              hash_encode, hash_encode_plain)
 from raw_ngp_torch.models.mlp import apply_mlp, init_mlp
 from raw_ngp_torch.ops.activation import (color_activation,
                                           density_activation, trunc_exp)
+from raw_ngp_torch.ops import hashgrid
 from raw_ngp_torch.ops.hashgrid import HashGridSpec, init_hashgrid_params
 from raw_ngp_torch.ops.sh import sh_encode
 
@@ -52,15 +62,8 @@ class FieldSpec:
 
     @property
     def compute_dtype(self):
-        """bf16 MLP and encode arithmetic under ``train.fp16``."""
+        """bf16 MLP and fused-encode arithmetic under ``train.fp16``."""
         return torch.bfloat16 if self.cfg.train.fp16 else torch.float32
-
-    @property
-    def encode_dtype(self):
-        """The fused encoder computes in the compute dtype; the plain
-        encoder of ``fused_encoder=False`` in the table's f32."""
-        return (self.compute_dtype if self.cfg.model.fused_encoder
-                else torch.float32)
 
 
 def make_field_spec(cfg: Config) -> FieldSpec:
@@ -154,17 +157,28 @@ class NGPField(nn.Module):
         self.prop_grids = nn.ParameterList(prop_grids)
         self.prop_mlps = nn.ModuleList(nn.ParameterList(w) for w in prop_mlps)
 
-    def _encode(self, table, x, grid_spec, plain: bool):
-        cfg = self.spec.cfg
-        x01 = (x + cfg.grid_bound) / (2.0 * cfg.grid_bound)
-        encode = hash_encode_plain if plain else hash_encode
-        return encode(table, x01, grid_spec,
-                      compute_dtype=self.spec.encode_dtype)
+    def _x01(self, x):
+        b = self.spec.cfg.grid_bound
+        return (x + b) / (2.0 * b)
 
-    def _common(self, x, plain: bool, annealing):
+    def _encode(self, table, x, grid_spec, plain: bool):
+        """Grid features of world positions x (``_encode``): the fused
+        encoder (its kernel, or with ``plain`` its plain version) in the
+        compute dtype, or under ``fused_encoder=False`` the plain encoder
+        in f32 on every device."""
+        cfg = self.spec.cfg
+        if not cfg.model.fused_encoder:
+            return hashgrid.hash_encode(table, x, grid_spec,
+                                        bound=cfg.grid_bound)
+        encode = hash_encode_plain if plain else hash_encode
+        return encode(table, self._x01(x), grid_spec,
+                      compute_dtype=self.spec.compute_dtype)
+
+    def _head(self, f, annealing):
+        """(sigma, feature) from the grid features f: the BARF / BAA-NGP
+        level blend, the grid MLP and the density activation."""
         cfg = self.spec.cfg
         m = cfg.model
-        f = self._encode(self.grid, x, self.spec.grid_spec, plain)
         if cfg.pose_opt.mode == "baangp":
             f = baangp_blend(cfg, annealing, f)
         elif cfg.pose_opt.mode == "barf":
@@ -173,6 +187,10 @@ class NGPField(nn.Module):
                       self.spec.compute_dtype)
         sigma = density_activation(h[..., 0], m.density_activation, m.beta)
         return sigma, h[..., 1:]
+
+    def _common(self, x, plain: bool, annealing):
+        return self._head(self._encode(self.grid, x, self.spec.grid_spec,
+                                       plain), annealing)
 
     def density(self, x, plain: bool = False, annealing=1.0,
                 proposal: int = -1):
@@ -203,6 +221,35 @@ class NGPField(nn.Module):
             (g,) = torch.autograd.grad(sigma.sum(), x)
         n = -g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-9)
         return (n + 1.0) / 2.0
+
+    def density_grad(self, x, plain: bool = False, annealing=1.0):
+        """d sum(sigma) / dx [N, 3] at positions x [N, 3] taken as constants
+        (JAX's ``jax.grad`` of the density inside the orientation loss,
+        ``occupancy.py:999-1003``), in the graph of the parameters so that
+        a loss of it differentiates a second time. Through the fused
+        encoder as JAX's ``_fused_bwd`` composes it: g = d sum(sigma) /
+        d(features) with its graph (the MLP, the activation, the level
+        blend), then the encode's input gradient for g with the table
+        frozen (:func:`frozen_input_grad`; its backward the JVP kernel), so
+        the step computes no table gradient here. Through the unfused
+        encoder autograd's full second order of plain ops."""
+        cfg = self.spec.cfg
+        x = x.detach()
+        if not cfg.model.fused_encoder:
+            x.requires_grad_(True)
+            sigma = self.density(x, plain=plain, annealing=annealing)
+            return torch.autograd.grad(sigma.sum(), x, create_graph=True)[0]
+        x01 = self._x01(x)
+        dtype = self.spec.compute_dtype
+        f = (hash_encode_plain if plain else hash_encode)(
+            self.grid, x01, self.spec.grid_spec, compute_dtype=dtype)
+        if not f.requires_grad:   # a field whose table takes no gradient
+            f.requires_grad_(True)
+        sigma, _ = self._head(f, annealing)
+        (g,) = torch.autograd.grad(sigma.sum(), f, create_graph=True)
+        g01 = frozen_input_grad(self.grid, x01, g, self.spec.grid_spec,
+                                dtype, plain=plain)
+        return g01 / (2.0 * cfg.grid_bound)
 
     def forward(self, x, d, ld=None, plain: bool = False, annealing=1.0):
         """(sigma [N], color [N, 3]) at positions x [N, 3] seen along

@@ -1,11 +1,17 @@
 """Multiresolution hash-grid encoding — the plain PyTorch version (port of
-``raw_ngp_tpu/ops/hashgrid.py``).
+``raw_ngp_tpu/ops/hashgrid.py``), and the grid regularizers
+``weight_decay_loss`` and ``total_variation_loss``.
 
 ``hash_encode_01`` here is the f32 plain version of the hand-written
 encode kernel (``raw_ngp_torch/kernels/hash_encode.py``
 ``hash_encode_fused_plain``, which adds the fused encoder's bf16 chain):
 the CPU tests hold it against the JAX function, and ``chip_smoke.py``
-holds the kernel against it on the card.
+holds the kernel against it on the card. It is also the unfused encoder
+(``model.fused_encoder`` False) on every device, differentiable in the
+table and the positions by autograd: the gather's backward is
+``index_put_(accumulate=True)``, which sums in a fixed order on the card.
+Its clip is ``torch.minimum`` / ``torch.maximum``, whose gradient splits
+at a tie as ``jnp.clip``'s does.
 
 Torch has little uint32 arithmetic, so the table index is computed in
 int64 and every product is masked with ``& 0xFFFFFFFF``: the same values
@@ -173,6 +179,13 @@ def _smoothstep(t):
     return t * t * (3.0 - 2.0 * t)
 
 
+def _clip(x, lo: float, hi: float):
+    """clip(x, lo, hi) whose gradient splits at a tie as ``jnp.clip``'s
+    (the bounds filled on x's device: no host copy)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None):
     """Encode positions already mapped to [0, 1]^D (plain version).
 
@@ -201,7 +214,7 @@ def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None):
             pos = x01 * (res - 1)
             grid = torch.clamp_max(torch.floor(pos), res - 2)
         else:
-            pos = torch.clamp(x01 * res - 0.5, 0.0, res - 1)
+            pos = _clip(x01 * res - 0.5, 0.0, res - 1)
             grid = torch.floor(pos)
         frac = pos - grid
         if spec.interpolation == "smoothstep":
@@ -232,3 +245,57 @@ def hash_encode(params, x, spec: HashGridSpec, bound: float = 1.0,
     """Encode world positions in [-bound, bound]^D."""
     x01 = (x + bound) / (2.0 * bound)
     return hash_encode_01(params, x01, spec, max_level=max_level)
+
+
+# ---------------------------------------------------------------------------
+# regularizers: the reference's in-place gradient kernels as loss terms
+# (gridencoder.cu:525-631 TV, :670-703 weight decay)
+# ---------------------------------------------------------------------------
+
+def weight_decay_loss(params, spec: HashGridSpec):
+    """Level-meaned weight decay (``weight_decay_loss``): each level adds
+    ||emb_l||^2 / (2 n_params_l), so its gradient is emb / n_params_l."""
+    table = params.reshape(spec.n_params, spec.level_dim)
+    total = 0.0
+    for lv in range(spec.num_levels):
+        lo, hi = spec.offsets[lv], spec.offsets[lv + 1]
+        emb = table[lo:hi]
+        total = total + 0.5 * torch.sum(emb * emb) / (hi - lo)
+    return total
+
+
+def total_variation_at(params, spec: HashGridSpec, x01):
+    """The total-variation penalty at the points x01 [n, D] in [0, 1)^D:
+    per level the squared feature differences between each point's cell
+    corner and its neighbour along each axis, summed, over n. The
+    gathers' backward is ``index_put_(accumulate=True)`` (a fixed order on
+    the card)."""
+    table = params.reshape(spec.n_params, spec.level_dim)
+    D = spec.input_dim
+    total = 0.0
+    for lv in range(spec.num_levels):
+        res = spec.resolutions[lv]
+        grid = torch.floor(torch.clamp(x01 * res - 0.5, 0.0, res - 1)).to(
+            torch.int64)
+        base = table[_level_indices(spec, lv, grid[:, None, :])[:, 0]]
+        for d in range(D):
+            nb = grid.clone()
+            nb[:, d] = torch.clamp_max(nb[:, d] + 1, res - 1)
+            diff = table[_level_indices(spec, lv, nb[:, None, :])[:, 0]] - base
+            total = total + torch.sum(diff * diff)
+    return total / x01.shape[0]
+
+
+def total_variation_loss(params, spec: HashGridSpec, generator,
+                         n_samples: int = 65536):
+    """Stochastic total variation (``total_variation_loss``): the penalty
+    at ``n_samples`` uniform points drawn from ``generator`` on the table's
+    device (JAX draws them from the step's key; the streams differ). A
+    ``None`` generator raises ``ValueError``: JAX's deterministic mode
+    (``key=None``) has no points to draw either."""
+    if generator is None:
+        raise ValueError("total_variation_loss needs a generator: the "
+                         "deterministic mode draws no points")
+    x01 = torch.rand(n_samples, spec.input_dim, generator=generator,
+                     device=params.device)
+    return total_variation_at(params, spec, x01)

@@ -14,8 +14,11 @@ encode is the hash kernel) and composited on the compacted stream; the
 expand path (normals) scatters the slots back to the [N, K] grid by the
 fold's ``pos`` for the dense composite, and ``compact_ratio <= 0`` runs
 the field on all N K samples. No step reads a device value back to the
-host. Every branch of the JAX render is ported except the orientation
-loss (``lambda_orientation > 0`` raises ``NotImplementedError``).
+host. Every branch of the JAX render is ported. In training with
+``lambda_orientation > 0`` the render also takes the expand path and
+returns the Ref-NeRF orientation loss (:func:`orientation_loss`) at all
+N K march positions, whose inner gradient is the field's
+:meth:`~raw_ngp_torch.models.ngp.NGPField.density_grad`.
 
 In training the gradient reaches the field's parameters through the field
 and the composite, and, under pose refinement, the rays: through the
@@ -504,6 +507,39 @@ def _clip_bound(x, bound: float):
     return torch.minimum(torch.maximum(x, -b), b)
 
 
+def _safe_norm(g):
+    """|g| over the last axis, sqrt(sum(g^2)) as ``jnp.linalg.norm``
+    computes it, whose gradient at g = 0 is 0 (torch.linalg.norm's) where
+    sqrt's would be 0 * inf = NaN."""
+    n2 = (g * g).sum(-1, keepdim=True)
+    pos = n2 > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+
+
+def orientation_loss(field, xyzs, dirs, weights, plain: bool = False,
+                     annealing=1.0):
+    """Ref-NeRF's orientation loss (``occupancy.py:994-1009``):
+    mean over rays of sum_K(weights * min(0, n . -d)^2), with the normals
+    n = -grad / (|grad| + 1e-9) mapped to [0, 1] (as the reference does)
+    and grad = d sum(sigma) / dx at the [N K, 3] positions ``xyzs``
+    (:meth:`NGPField.density_grad`, which keeps the second-order term).
+
+    One departure from JAX: |grad|'s gradient is 0 where grad is exactly
+    0 (:func:`_safe_norm`). JAX's ``jnp.linalg.norm`` differentiates
+    sqrt there, and 0 * inf gives NaN: dead march slots clipped to a
+    corner of the bound box (beyond every level's last half cell on all
+    three axes) have a zero density gradient, so JAX's step gradient is
+    NaN wherever the batch holds one, and the step is skipped. Such slots
+    carry zero weight, so 0 is their contribution."""
+    N, K = weights.shape
+    g = field.density_grad(xyzs, plain=plain, annealing=annealing)
+    n = -g / (_safe_norm(g) + 1e-9)
+    n = (n + 1.0) / 2.0
+    n_dot_v = (n.reshape(N, K, 3) * -dirs[:, None, :]).sum(-1)
+    facing = torch.minimum(n_dot_v, n_dot_v.new_zeros(()))
+    return torch.mean((weights * facing ** 2).sum(-1))
+
+
 def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                      coarse_lin=None, plain: bool = False,
                      training: bool = False, generator=None,
@@ -523,14 +559,17 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     field's BARF / BAA-NGP level mask. Returns image [N, 3], depth [N] and
     weights_sum [N]; on the expand and uncompacted paths in training also
     the per-sample weights [N, K]; with ``compute_normals`` the normal map
-    [N, 3] (the composite of -normalize(grad sigma) mapped to [0, 1])."""
+    [N, 3] (the composite of -normalize(grad sigma) mapped to [0, 1]); in
+    training with ``train.lambda_orientation > 0`` the orientation loss
+    (:func:`orientation_loss`)."""
     cfg = field.spec.cfg
     r = cfg.render
     N = rays_o.shape[0]
     K = r.samples_per_ray
     M = N * K
-    if training and cfg.train.lambda_orientation > 0:
-        raise NotImplementedError("the orientation loss is not ported")
+    # the orientation loss reads per-sample weights: the expand path
+    orient = training and cfg.train.lambda_orientation > 0
+    expand = compute_normals or orient
 
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, r.min_near)
     miss = fars >= 1e8
@@ -571,7 +610,7 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
         # also takes each slot's source index pos
         t_c, dt_c, rid, filled, counts, valid_total, num_points, *pos = \
             decimate_compact(mask, miss, ts.contiguous(), deltas, m_pad,
-                             plain=plain, positions=compute_normals)
+                             plain=plain, positions=expand)
         cols = [torch.cat([rays_o, torch.zeros_like(ez)[None]]),
                 torch.cat([rays_d, ez[None]])]
         if rays_ldir is not None:
@@ -593,7 +632,7 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
         if training:
             results["num_points"] = num_points
             results["num_points_raw"] = valid_total
-        if not compute_normals:
+        if not expand:
             out = composite_rays_compacted(
                 sig_c, rgb_c, t_c, dt_c, rid, filled, counts, N, K,
                 t_thresh=r.t_thresh)
@@ -632,6 +671,17 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     out = composite_rays(sigmas, rgbs, ts, deltas, mask, t_thresh=r.t_thresh)
     if training:
         results["weights"] = out["weights"]
+    if orient:
+        # every [N, K] march position, clipped (and contracted), as
+        # constants (JAX's stop_gradient)
+        xyzs = _clip_bound(rays_o[:, None, :] + rays_d[:, None, :]
+                           * ts[..., None], r.bound).reshape(M, 3)
+        if r.contract:
+            xyzs = contract(xyzs)
+        dirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        results["orientation_loss"] = orientation_loss(
+            field, xyzs.detach(), dirs, out["weights"], plain=plain,
+            annealing=annealing)
     if compute_normals:
         n = field.normals(xyz, plain=plain, annealing=annealing)
         if r.compact_ratio > 0:

@@ -1,8 +1,8 @@
 """Training losses (port of ``raw_ngp_tpu/train/losses.py``: the loss
 weightings ``gaussian_weighting`` ``:16``, ``hanning_weighting`` ``:24``,
 ``planck_taper_weighting`` ``:35``, ``loss_weight_fn`` ``:44``, the RawNeRF
-HDR loss ``rawnerf_loss`` ``:54``, ``ldr_loss`` ``:69`` and
-``blend_gt_background`` ``:81``).
+HDR loss ``rawnerf_loss`` ``:54``, ``ldr_loss`` ``:69``, ``entropy_loss``
+``:74`` and ``blend_gt_background`` ``:81``).
 
 JAX's ``stop_gradient`` is ``.detach()`` here. The weightings keep the
 reference's quirks, as the JAX package does: gaussian's ``peak_value ** 2``
@@ -84,6 +84,16 @@ def rawnerf_loss(pred_rgb, gt_rgb, exposure, lossmult=1.0, loss_weight=1.0):
 def ldr_loss(pred_rgb, gt_rgb):
     """Plain MSE."""
     return ((pred_rgb - gt_rgb) ** 2).mean()
+
+
+def entropy_loss(weights_sum):
+    """Mean binary entropy (bits) of the rays' opacities, clipped to
+    [1e-5, 1 - 1e-5] (``torch.minimum`` / ``torch.maximum``: the gradient
+    splits at a tie as ``jnp.clip``'s)."""
+    w = torch.minimum(torch.maximum(weights_sum, weights_sum.new_full(
+        (), 1e-5)), weights_sum.new_full((), 1.0 - 1e-5))
+    ent = -w * torch.log2(w) - (1.0 - w) * torch.log2(1.0 - w)
+    return ent.mean()
 
 
 def blend_gt_background(images, bg_color):

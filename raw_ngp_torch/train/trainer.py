@@ -45,11 +45,18 @@ no probes, so no coarse cache); ``render_image(...,
 return_normals=True)`` adds the normal map when
 ``cfg.render.compute_normals``.
 
-Not ported (each raises ``NotImplementedError``): the entropy / TV /
-weight-decay / orientation regularizers, the unfused encoder,
-multi-device meshes, per-camera near/far; absent: checkpoints,
-artifacts and the logger (so ``pose_opt.log_poses``), the HDR artifact
-dumps, histograms and metrics other than PSNR.
+The regularizers train on both paths: ``train.lambda_orientation``
+(occupancy path: Ref-NeRF's orientation loss through a second-order
+gradient of the density), ``lambda_entropy`` (the rays' opacity),
+``lambda_tv`` (total variation of the radiance grid at 65,536 points
+drawn from the step's generator) and ``lambda_wd`` (its level-meaned
+weight decay). ``model.fused_encoder`` False trains every grid through
+the plain encoder.
+
+Not ported (each raises ``NotImplementedError``): multi-device meshes,
+per-camera near/far; absent: checkpoints, artifacts and the logger (so
+``pose_opt.log_poses``), the HDR artifact dumps, histograms and metrics
+other than PSNR.
 """
 
 from __future__ import annotations
@@ -67,13 +74,16 @@ from raw_ngp_torch.data.sampler import sample_ray_batch
 from raw_ngp_torch.data.scene import SceneData
 from raw_ngp_torch.device import resolve_device
 from raw_ngp_torch.models.ngp import FieldSpec, init_field, make_field_spec
+from raw_ngp_torch.ops.hashgrid import (total_variation_loss,
+                                        weight_decay_loss)
 from raw_ngp_torch.ops.lie import se3_to_SE3
 from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
 from raw_ngp_torch.render.dispatch import render_any
-from raw_ngp_torch.train.losses import (blend_gt_background, ldr_loss,
-                                       loss_weight_fn, rawnerf_loss)
+from raw_ngp_torch.train.losses import (blend_gt_background, entropy_loss,
+                                       ldr_loss, loss_weight_fn,
+                                       rawnerf_loss)
 from raw_ngp_torch.train.metrics import PSNRMeter
 from raw_ngp_torch.train.state import AdamState, TrainState
 
@@ -248,31 +258,23 @@ def _bg_color(cfg: Config, generator, n: int, device):
     return 0.0
 
 
-def _check_ported(cfg: Config):
-    t = cfg.train
-    if (t.lambda_entropy > 0 or t.lambda_tv > 0 or t.lambda_wd > 0
-            or t.lambda_orientation > 0):
-        raise NotImplementedError("the entropy, TV, weight-decay and "
-                                  "orientation regularizers are not ported")
-    if not cfg.model.fused_encoder:
-        raise NotImplementedError("training with the unfused encoder is "
-                                  "not ported")
-
-
 def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
     """Render + loss over an explicit ray batch:
     ``batch_loss_fn(field, state, batch, aabb, generator=None,
     plain=False, point_budget=None, annealing=1.0) -> (loss, aux)``,
     rendering through :func:`raw_ngp_torch.render.dispatch.render_any`.
     A ``None`` generator is the deterministic mode (march jitter 0.5;
-    unjittered proposal sampling). HDR batches carry
+    unjittered proposal sampling), in which ``lambda_tv > 0`` raises
+    ``ValueError`` (no points to draw). HDR batches carry
     ``exposure`` [N, 1] and, when mosaiced, ``lossmult`` [N, 3]; an
-    rfield field's batch carries ``rays_ldir`` [N, 3]. On the proposal
-    path the loss adds ``lambda_proposal`` times the proposal loss and
+    rfield field's batch carries ``rays_ldir`` [N, 3]. The loss adds, in
+    JAX's order, ``lambda_proposal`` times the proposal loss and
     ``lambda_distort`` times the distortion loss where the render returns
-    them."""
-    _check_ported(cfg)
+    them, ``lambda_orientation`` times the orientation loss, and where
+    their weights are > 0 the entropy of ``weights_sum`` and the TV and
+    weight decay of the radiance grid."""
     hdr = cfg.data.image_mode == "HDR"
+    t = cfg.train
 
     def batch_loss_fn(field, state: TrainState, batch, aabb, generator=None,
                       plain: bool = False, point_budget=None,
@@ -293,9 +295,20 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
         else:
             loss = ldr_loss(out["image"], gt_rgb)
         if "proposal_loss" in out:
-            loss = loss + cfg.train.lambda_proposal * out["proposal_loss"]
+            loss = loss + t.lambda_proposal * out["proposal_loss"]
         if "distort_loss" in out:
-            loss = loss + cfg.train.lambda_distort * out["distort_loss"]
+            loss = loss + t.lambda_distort * out["distort_loss"]
+        if "orientation_loss" in out:
+            loss = loss + t.lambda_orientation * out["orientation_loss"]
+        if t.lambda_entropy > 0:
+            loss = loss + t.lambda_entropy * entropy_loss(out["weights_sum"])
+        # the reference's in-place gradient regularizers as loss terms
+        if t.lambda_tv > 0:
+            loss = loss + t.lambda_tv * total_variation_loss(
+                field.grid, spec.grid_spec, generator)
+        if t.lambda_wd > 0:
+            loss = loss + t.lambda_wd * weight_decay_loss(field.grid,
+                                                          spec.grid_spec)
         aux = {"num_points": out["num_points"],
                "num_points_raw": out.get("num_points_raw",
                                          out["num_points"]),
@@ -409,7 +422,6 @@ class Trainer:
                  val_scene: Optional[SceneData] = None, device="cuda"):
         if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
             raise NotImplementedError("multi-device training is not ported")
-        _check_ported(cfg)
         if train_scene.cam_near_far is not None:
             raise NotImplementedError("scenes with cam_near_far are not "
                                       "ported")

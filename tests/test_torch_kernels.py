@@ -939,6 +939,73 @@ def test_encode_input_grad_kernel_at_flagship_shape(cuda_device, dtype):
     torch.testing.assert_close(xs.grad, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
+def _jvp_points(B, spec, device):
+    """B points for the JVP: the edge cases of _encode_points (outside [0,
+    1]^3, NaN, 0.0 and 1.0, clip ties) where B allows, uniform points
+    otherwise (B = 1 takes one inside)."""
+    x = _encode_points("uniform", max(B, 11), spec, device)
+    return (x[10:11] if B == 1 else x[:B]).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 7, 262144])
+@pytest.mark.parametrize("spec_name", ["additive", "mixed"])
+@pytest.mark.parametrize("C", [2, 4, 8, 16])
+def test_encode_input_jvp_kernel_matches_plain(cuda_device, C, spec_name, B):
+    """The input gradient's JVP in g (encode_input_jvp) against its plain
+    version, f32 and bf16, on window levels (additive) and a grid with
+    dense matmul levels at C >= 8 (mixed), at 1, 7 (points outside [0,
+    1]^3 and NaN) and 262,144 points: the same expressions in the same
+    order (every product and sum an _rn intrinsic), so bit for bit; 0
+    outside [0, 1]^3 and on NaN; two calls bitwise equal."""
+    spec = HashGridSpec.create(level_dim=C, **_ENCODE_SPECS[spec_name])
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    table = (torch.rand(spec.n_params * C, generator=gen,
+                        device=cuda_device) * 2 - 1) * 0.1
+    x = _jvp_points(B, spec, cuda_device)
+    ct = torch.randn(B, 3, generator=gen, device=cuda_device)
+    outside = ~((x >= 0) & (x <= 1)).all(-1)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = th.encode_input_jvp.launches
+        out = th.encode_input_jvp(table, x, ct, spec, dtype)
+        again = th.encode_input_jvp(table, x, ct, spec, dtype)
+        assert th.encode_input_jvp.launches == before + 2
+        ref = th.encode_input_jvp_plain(table, x, ct, spec, dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (B, spec.output_dim)
+        assert (out[outside] == 0).all()
+        assert _same_bits(out, ref) and _same_bits(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_frozen_input_grad_launches_both_kernels(cuda_device, dtype):
+    """frozen_input_grad at the -O grid's shape (16 levels x 2 channels xor
+    log2 19, 262,144 points): its forward launches the input gradient
+    once and its backward the JVP once, each bit for bit its plain
+    version; the table and the points take no gradient."""
+    from raw_ngp_torch import Config
+    from raw_ngp_torch.models.ngp import make_field_spec
+    spec = make_field_spec(Config().with_preset_O()).grid_spec
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    table = (torch.rand(spec.n_params * spec.level_dim, generator=gen,
+                        device=cuda_device) * 2 - 1) * 0.1
+    x = torch.rand(262144, 3, generator=gen, device=cuda_device)
+    g = torch.randn(262144, spec.output_dim, generator=gen,
+                    device=cuda_device).to(dtype).requires_grad_()
+    ct = torch.randn(262144, 3, generator=gen, device=cuda_device)
+    before = (th.encode_input_grad.launches, th.encode_input_jvp.launches)
+    out = th.frozen_input_grad(table, x, g, spec, dtype)
+    (gg,) = torch.autograd.grad(out, g, ct)
+    assert (th.encode_input_grad.launches,
+            th.encode_input_jvp.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert _same_bits(out, th.encode_input_grad_plain(table, x, g.detach(),
+                                                      spec, dtype))
+    assert _same_bits(gg, th.encode_input_jvp_plain(table, x, ct, spec,
+                                                    dtype))
+
+
 def _channel_stream(device, M, n_rows, n_chan, skew=False, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     keys = torch.randint(0, n_rows, (M,), generator=gen, device=device,

@@ -744,23 +744,43 @@ def test_o_trainer_trains_and_renders_normals_on_cpu():
 
 
 def test_o_unported_branches_raise():
-    """What this slice leaves raises NotImplementedError: the entropy, TV,
-    weight-decay and orientation regularizers and the unfused encoder in
-    the Trainer; the orientation loss in a training render."""
+    """The regularizers and the unfused encoder are ported: a Trainer takes
+    each of the entropy, TV, weight-decay and orientation weights and
+    fused_encoder=False, and a training render with the orientation loss
+    returns it. What is still unported raises NotImplementedError:
+    multi-device training and scenes with per-camera near/far; TV in the
+    deterministic mode (no generator) raises ValueError, as JAX's fails
+    there."""
     cfg = o_cfg(tcfg)
     train, val = make_synthetic_scene(n_train=2, n_val=1, H=8, W=8, seed=0)
-    bad = [replace(cfg, train=replace(cfg.train, **{name: 0.1}))
-           for name in ("lambda_entropy", "lambda_tv", "lambda_wd",
-                        "lambda_orientation")]
-    bad.append(replace(cfg, model=replace(cfg.model, fused_encoder=False)))
-    for c in bad:
+    ported = [replace(cfg, train=replace(cfg.train, **{name: 0.1}))
+              for name in ("lambda_entropy", "lambda_tv", "lambda_wd",
+                           "lambda_orientation")]
+    ported.append(replace(cfg, model=replace(cfg.model, fused_encoder=False)))
+    for c in ported:
+        ttr.Trainer(c, train, val, device="cpu")
+    for c in (replace(cfg, parallel=replace(cfg.parallel, num_devices=2)),):
         with pytest.raises(NotImplementedError):
             ttr.Trainer(c, train, val, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ttr.Trainer(cfg, replace(train, cam_near_far=np.ones((2, 2),
+                                                             np.float32)),
+                    val, device="cpu")
     orient = replace(cfg, train=replace(cfg.train, lambda_orientation=0.1))
     field = field_from_jax(_params(o_cfg(jcfg)), t_make_spec(orient),
                            device="cpu")
     o, d = _rays(8)
-    with pytest.raises(NotImplementedError):
-        tocc.render_occupancy(field, torch.from_numpy(o), torch.from_numpy(d),
-                              torch.tensor([-2.0] * 3 + [2.0] * 3),
-                              torch.from_numpy(_bitfield()), training=True)
+    out = tocc.render_occupancy(field, torch.from_numpy(o),
+                                torch.from_numpy(d),
+                                torch.tensor([-2.0] * 3 + [2.0] * 3),
+                                torch.from_numpy(_bitfield()), training=True)
+    assert out["orientation_loss"].ndim == 0
+    assert bool(torch.isfinite(out["orientation_loss"]))
+    tv = replace(cfg, train=replace(cfg.train, lambda_tv=0.1))
+    state = TrainState(params={}, opt_state=None, ema_params={}, step=0,
+                       density_bitfield=torch.from_numpy(_bitfield()))
+    batch = {"rays_o": torch.from_numpy(o), "rays_d": torch.from_numpy(d),
+             "images": torch.zeros(8, 3)}
+    with pytest.raises(ValueError):
+        ttr.make_batch_loss_fn(tv, t_make_spec(tv))(
+            field, state, batch, torch.tensor([-2.0] * 3 + [2.0] * 3))
