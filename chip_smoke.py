@@ -87,6 +87,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the repro check: the Trainer's state from before step 1
               restored and 32 steps (two grid refreshes) run again, params,
               EMA and Adam moments bitwise equal to the first run's;
+  7b. disk — the flagship trained from a COLMAP scene on disk: the train
+              phase's scene (its 38 views) written with the port's writers
+              (cameras.bin, images.bin, points3D.bin with each view's
+              sparse surface points, 8-bit PNGs; write_colmap_scene),
+              loaded by raw_ngp_torch.data.load_scene ("train" 33 views,
+              "val" 5) with enable_cam_near_far and data.scale 1.0, the
+              load timed by stage (COLMAP parse, PNG decode, near/far), the
+              images bit for bit round(255 img) / 255; the untrained val
+              PSNR (EMA); 128 steps with every launch counter reset just
+              before and read just after: the fold, the encode with and
+              without records, B2's flat form and the dense level
+              launched as many times as in phase 7; finite falling
+              losses, the val PSNR above the untrained field's; on a fixed
+              batch every live sample's t within its camera's [near, far]
+              (march jitter 0.5 and drawn); the fixed batch on the kernel
+              and the plain path; one 512x512 render of a val view; the
+              step's stages and profile; the repro check of phase 7;
   8. encode_input — the encode's input gradient against its plain version
               at 262,144 uniform and ray-ordered points on the flagship
               grid, f32 and bf16, within rtol 1e-5 of the largest entry,
@@ -224,13 +241,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and launch calls).
 The train, pose, lightstage and proposal phases also count the encode's
 launches by caller (train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `pose`, `lightstage`, `proposal`, `O`, `reg`,
-`unfused` (the last five with the card's name and power limit),
+It prints `render`, `train`, `disk`, `pose`, `lightstage`, `proposal`, `O`,
+`reg`, `unfused` (the disk line and the last five with the card's name and
+power limit),
 `pose_recovery`, `table_grad` and `kernels` JSON lines (each kernel's
 `launches` are the reg phase's, also as `launches_reg`, `reg_launched`
 says whether it ran there; `launches_O` and `O_launched` the -O
 phase's, its launches in one chunk of the normal render ride as
-`launches_O_normal_render_chunk`, the other phases' counts beside them;
+`launches_O_normal_render_chunk`, the other phases' counts beside them,
+`launches_disk` the disk phase's;
 the numbers of the proposal path's three kernels are at its shapes, a
 step's or a serving chunk's calls summed, with the flagship's under
 `flagship`) and the
@@ -1772,6 +1791,7 @@ def step_breakdown(tr, reps=5):
             tr.num_rays, random_image_batch=tr.cfg.train.random_image_batch,
             se3_refine=pose, pose_noise=st.pose_noise,
             exposures=sa.get("exposures"), ldirs=sa.get("ldirs"),
+            cam_near_far=sa.get("cam_near_far"),
             mosaiced=tr.cfg.data.mosaiced))
         if "coarse_lin" in sa:
             batch["coarse_lin"] = sa["coarse_lin"]
@@ -2082,6 +2102,325 @@ def phase_train(dev, cfg, steps=128, timed=32, repro=32):
              "profile": profile_device(tr.step, 1, "step")}
     train["repro"] = repro_check(tr, snap, ref, repro, "train")
     return launches, train
+
+
+def write_colmap_scene(root, images, poses, intrinsics, step=2):
+    """Writes a scene (images [n, H, W, 3] in [0, 1], OpenGL cam2world
+    poses [n, 4, 4], intrinsics [4]) as a COLMAP dataset with the port's
+    writers: sparse/0/cameras.bin (one PINHOLE camera), images.bin (the
+    OpenCV-convention world-to-camera poses, tests/test_providers.py's
+    construction), points3D.bin (the first surface point of the synthetic
+    spheres on the ray of every `step`-th pixel of each image, observed by
+    that image alone at that pixel) and images/img_XXX.png (8 bits,
+    round(255 img)). Returns the number of points."""
+    import os
+    import numpy as np
+    from raw_ngp_torch.data.colmap_io import (ColmapCamera, ColmapImage,
+                                              ColmapPoint3D, rotmat_to_qvec,
+                                              write_cameras_binary,
+                                              write_images_binary,
+                                              write_points3d_binary)
+    from raw_ngp_torch.data.image_io import write_png
+    from raw_ngp_torch.data.synthetic import _trace
+    n, H, W, _ = images.shape
+    os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    fx, fy, cx, cy = (float(v) for v in intrinsics)
+    write_cameras_binary({1: ColmapCamera(1, "PINHOLE", W, H,
+                                          np.array([fx, fy, cx, cy]))},
+                         os.path.join(root, "sparse", "0", "cameras.bin"))
+    rows, cols = np.meshgrid(np.arange(0, H, step), np.arange(0, W, step),
+                             indexing="ij")
+    rows, cols = rows.reshape(-1), cols.reshape(-1)
+    cam_dirs = np.stack([(cols + 0.5 - cx) / fx, -(rows + 0.5 - cy) / fy,
+                         -np.ones(rows.size)], -1)
+    ims, pts = {}, {}
+    for i in range(n):
+        c2w = np.asarray(poses[i], np.float64)
+        d = cam_dirs @ c2w[:3, :3].T
+        o = np.broadcast_to(c2w[:3, 3], d.shape)
+        _, t = _trace(o, d / np.linalg.norm(d, axis=-1, keepdims=True))
+        hit = np.isfinite(t)
+        # the hit along the unnormalized direction (z = -1 in the camera)
+        xyz = o[hit] + d[hit] * (t[hit] / np.linalg.norm(d[hit], axis=-1)
+                                 )[:, None]
+        ids = np.arange(len(pts) + 1, len(pts) + 1 + hit.sum())
+        for k, p in zip(ids, xyz):
+            pts[int(k)] = ColmapPoint3D(int(k), p, np.zeros(3), 0.5)
+        w2c = np.linalg.inv(c2w @ np.diag([1.0, -1.0, -1.0, 1.0]))
+        xys = np.stack([cols[hit] + 0.5, rows[hit] + 0.5], -1)
+        ims[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(w2c[:3, :3]),
+                                 w2c[:3, 3], 1, f"img_{i:03d}.png", xys,
+                                 ids.astype(np.int64))
+        write_png(os.path.join(root, "images", f"img_{i:03d}.png"),
+                  np.round(images[i] * 255.0).astype(np.uint8))
+    write_images_binary(ims, os.path.join(root, "sparse", "0", "images.bin"))
+    write_points3d_binary(pts, os.path.join(root, "sparse", "0",
+                                            "points3D.bin"))
+    return len(pts)
+
+
+class timed_load_stages:
+    """While active, the COLMAP loader's stages are timed: the binary
+    parses (colmap_io readers), the image decodes (image_io.load_ldr_image:
+    PNG decode, and resize where the size differs) and the sparse-depth
+    near/far, in seconds summed over the calls."""
+
+    STAGES = {"colmap_parse": ("providers", ("read_cameras_binary",
+                                             "read_images_binary",
+                                             "read_points3d_binary")),
+              "png_decode": ("image_io", ("load_ldr_image",)),
+              "near_far": ("providers", ("sparse_depth_near_far",))}
+
+    def __enter__(self):
+        import importlib
+        self.seconds = {k: 0.0 for k in self.STAGES}
+        self.saved = []
+        for stage, (module, names) in self.STAGES.items():
+            mod = importlib.import_module(f"raw_ngp_torch.data.{module}")
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, self._timed(stage, fn))
+        return self
+
+    def _timed(self, stage, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds[stage] += time.perf_counter() - t0
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def march_recorder():
+    """Wraps the occupancy render's march_rays (the module attribute that
+    render_occupancy calls) to keep each call's nears, fars, ts and mask;
+    returns (the records, a function that puts march_rays back)."""
+    from raw_ngp_torch.render import occupancy
+    march = occupancy.march_rays
+    calls = []
+
+    def recorded(rays_o, rays_d, bitfield, nears, fars, *args, **kwargs):
+        out = march(rays_o, rays_d, bitfield, nears, fars, *args, **kwargs)
+        calls.append({"nears": nears.detach(), "fars": fars.detach(),
+                      "ts": out["ts"].detach(), "mask": out["mask"]})
+        return out
+
+    occupancy.march_rays = recorded
+
+    def restore():
+        occupancy.march_rays = march
+
+    return calls, restore
+
+
+def clamp_check(tr, batch, generator_fn):
+    """Every live sample (march mask, ray not missing the box) of one
+    training render of `batch` lies within its ray's camera's [near, far]
+    (batch["cam_near_far"]), its t within [near, far] of the camera and
+    the render's span; returns the counts."""
+    import torch
+    from raw_ngp_torch.ops.rays import near_far_from_aabb
+    from raw_ngp_torch.train.trainer import make_batch_loss_fn
+    calls, restore = march_recorder()
+    try:
+        with torch.no_grad():
+            make_batch_loss_fn(tr.cfg, tr.spec)(
+                tr.field, tr.state, batch, tr.aabb, generator_fn())
+    finally:
+        restore()
+    check(len(calls) == 1, f"disk: {len(calls)} marches in one render")
+    c = calls[0]
+    cnf = batch["cam_near_far"]
+    # the render's own miss test, after the clamp
+    _, fars = near_far_from_aabb(batch["rays_o"], batch["rays_d"], tr.aabb,
+                                 tr.cfg.render.min_near)
+    live = c["mask"] & ~(torch.minimum(fars, cnf[:, 1:]) >= 1e8)
+    near = cnf[:, :1].expand_as(c["ts"])[live]
+    far = cnf[:, 1:].expand_as(c["ts"])[live]
+    t = c["ts"][live]
+    inside = (t >= near) & (t <= far)
+    spans = bool(((c["nears"] >= cnf[:, :1]) & (c["fars"] <= cnf[:, 1:])
+                  ).all())
+    out = {"rays": int(cnf.shape[0]), "live_samples": int(live.sum()),
+           "rays_with_empty_span": int((c["nears"] > c["fars"]).sum()),
+           "outside": int((~inside).sum()),
+           "spans_within_camera_range": spans,
+           "min_t_minus_near": float((t - near).min()) if t.numel() else None,
+           "min_far_minus_t": float((far - t).min()) if t.numel() else None}
+    print(f"[disk] clamp: {out}")
+    check(out["live_samples"] > 0 and out["outside"] == 0 and spans,
+          "disk: a live sample lies outside its camera's [near, far]")
+    return out
+
+
+def disk_config(root):
+    """The flagship on the COLMAP scene at `root`, with per-camera
+    near/far; data.scale 1.0 keeps the synthetic scene's units (cameras on
+    a ring of radius 2.2, the spheres within 1 of the points' mean, so
+    inside the bound 2), where the default -1 would shrink the mean camera
+    distance to 1."""
+    cfg = flagship_config()
+    return replace(cfg, data=replace(
+        cfg.data, path=str(root), data_format="colmap",
+        enable_cam_near_far=True, scale=1.0)).validate()
+
+
+def phase_disk(dev, train_launches, steps=128, timed=32, repro=32,
+               large=512):
+    """The flagship trained from a COLMAP scene on disk: the scene of the
+    train phase (make_synthetic_scene(36, 2, 128, 128), its 38 views in
+    order) written with the port's writers (write_colmap_scene), loaded by
+    raw_ngp_torch.data.load_scene for "train" and "val" (every 8th view)
+    with enable_cam_near_far, each stage timed, the images checked bit for
+    bit against round(255 img) / 255 of the written scene; the val PSNR
+    (EMA) untrained; `steps` steps with every launch counter reset just
+    before and read just after: the fold, the encode with and without
+    records, B2's flat form and the dense level launched as many times as
+    in the train phase (`train_launches`); finite falling losses; the val
+    PSNR (EMA) above the untrained field's; the clamp check on a fixed
+    batch (march jitter 0.5 and drawn); the fixed batch on the kernel and
+    the plain path; one 512x512 render of a val view; the step's stages
+    and profile; and the repro check over the first `repro` steps."""
+    import shutil
+    import numpy as np
+    import torch
+    from raw_ngp_torch.data import load_scene, make_synthetic_scene
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.kernels import _build
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    images = np.concatenate([train_s.images, val_s.images])
+    poses = np.concatenate([train_s.poses, val_s.poses])
+    root = _build.BUILD_DIR.parent / "disk_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        n_points = write_colmap_scene(str(root), images, poses,
+                                      train_s.intrinsics)
+        write_s = time.perf_counter() - t0
+        cfg = disk_config(root)
+        load = {}
+        scenes = {}
+        for split in ("train", "val"):
+            # center_poses takes a random perturbation where the cameras'
+            # mean up vector is opposite to +z: seed numpy's global stream
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            with timed_load_stages() as stages:
+                scenes[split] = load_scene(cfg, split)
+            total = time.perf_counter() - t0
+            load[split] = dict(stages.seconds, total=total,
+                               other=total - sum(stages.seconds.values()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train_d, val_d = scenes["train"], scenes["val"]
+    ids = np.arange(len(images))
+    want = {"train": np.setdiff1d(ids, ids[::8]), "val": ids[::8]}
+    for split, scene in scenes.items():
+        ref = (np.round(images[want[split]] * 255.0).astype(np.uint8)
+               .astype(np.float32) / 255.0)
+        check(scene.images.shape == ref.shape
+              and scene.images.dtype == np.float32
+              and same_bits(torch.from_numpy(scene.images),
+                            torch.from_numpy(ref)),
+              f"disk: the loaded {split} images are not the written ones")
+    cnf = train_d.cam_near_far
+    check(cnf is not None and cnf.shape == (train_d.n_images, 2)
+          and bool(np.isfinite(cnf).all()) and bool((cnf[:, 0] > 0).all())
+          and bool((cnf[:, 1] > cnf[:, 0]).all()),
+          "disk: no per-camera near/far")
+    pixels = len(images) * images.shape[1] * images.shape[2]
+    decode_s = load["train"]["png_decode"] + load["val"]["png_decode"]
+    print(f"[disk] wrote {len(images)} views and {n_points} points in "
+          f"{write_s:.2f} s; loaded (s) {json.dumps(load)}; PNG decode "
+          f"{decode_s / pixels * 1e6:.4f} s a megapixel; cam_near_far near "
+          f"{cnf[:, 0].min():.4f}..{cnf[:, 0].max():.4f}, far "
+          f"{cnf[:, 1].min():.4f}..{cnf[:, 1].max():.4f}; images bitwise "
+          f"round(255 img) / 255; pts_aabb {train_d.pts_aabb.tolist()}")
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_d, val_d, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check("cam_near_far" in tr.scene_arrays,
+          "disk: the Trainer left out cam_near_far")
+    psnr_0, _ = evaluate_counted(tr)
+    print(f"[disk] Trainer ready in {init_s:.2f} s; val PSNR (EMA) "
+          f"untrained {psnr_0:.3f} dB over {val_d.n_images} views")
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, TRAIN_KERNELS, "disk", capture_at=repro)
+    same = {k: (launches[k], train_launches[k]) for k in TRAIN_KERNELS}
+    check(all(a == b for a, b in same.values()),
+          f"disk: launches differ from the train phase's {same}")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
+    print(f"[disk] last {timed} steps: median {med:.3f} ms/step; val PSNR "
+          f"(EMA) {psnr_0:.3f} -> {psnr:.3f} dB")
+    check(psnr > psnr_0, "disk: val PSNR did not rise above the untrained "
+          "field's")
+
+    sa = tr.scene_arrays
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays,
+                             cam_near_far=sa["cam_near_far"])
+    check(torch.equal(batch["cam_near_far"],
+                      sa["cam_near_far"][batch["index"]]),
+          "disk: the batch's near/far are not its cameras'")
+    clamp = {"jitter_0.5": clamp_check(tr, batch, lambda: None),
+             "jitter_drawn": clamp_check(
+                 tr, batch,
+                 lambda: torch.Generator(device=dev).manual_seed(6))}
+    fixed = fixed_batch_check(tr, lambda: batch, "disk")
+
+    intr = np.asarray(val_d.intrinsics) * (large / val_d.W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth = tr.render_image(val_d.poses[0], intr, large, large)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    check(rgb.shape == (large, large, 3) and bool(np.isfinite(rgb).all())
+          and bool(np.isfinite(depth).all()),
+          "disk: the 512x512 render is not finite")
+    print(f"[disk] {large}x{large} render of val view 0 in "
+          f"{render_ms:.2f} ms")
+    disk = {"config": "flagship (with_preset_O + with_tpu_profile, fp16, "
+                      "num_rays 8192), data_format colmap, "
+                      "enable_cam_near_far, scale 1.0",
+            "scene": "make_synthetic_scene(36, 2, 128, 128) written as a "
+                     "COLMAP dataset (38 views, 8-bit PNG), loaded by "
+                     "load_scene (train 33, val 5)",
+            "gpu": gpu_line(), "points": n_points,
+            "write_s": write_s, "load_s": load,
+            "png_decode_s_per_megapixel": decode_s / pixels * 1e6,
+            "cam_near_far": {"near_min": float(cnf[:, 0].min()),
+                             "near_max": float(cnf[:, 0].max()),
+                             "far_min": float(cnf[:, 1].min()),
+                             "far_max": float(cnf[:, 1].max())},
+            "images_bitwise": True, "trainer_init_s": init_s,
+            "steps": steps, "grid_refreshes": tr.host_grid_updates,
+            "num_rays": tr.num_rays,
+            "ms_per_step": med, "ms_per_step_runs": window,
+            "val_psnr_ema_untrained": psnr_0, "val_psnr_ema": psnr,
+            "loss_first8": first, "loss_last8": last,
+            "launches_as_train_phase": same, "clamp": clamp,
+            "fixed_batch_kernel_vs_plain": fixed,
+            "render_512_ms": render_ms,
+            "stages_ms": step_breakdown(tr),
+            "profile": profile_device(tr.step, 1, "step")}
+    disk["repro"] = repro_check(tr, snap, ref, repro, "disk")
+    disk["seconds"] = time.perf_counter() - t_phase
+    return launches, disk
 
 
 def pose_config(steps, n_cameras=36):
@@ -3658,6 +3997,7 @@ def main() -> int:
         k_channel = timed("segsum_channel", phase_segsum_channel, dev)
         render_launches, render = timed("slice", phase_slice, dev, cfg)
         train_launches, train = timed("train", phase_train, dev, cfg)
+        disk_launches, disk = timed("disk", phase_disk, dev, train_launches)
         pose_launches, pose = timed("pose", phase_pose, dev)
         light_launches, lightstage = timed("lightstage", phase_lightstage,
                                            dev)
@@ -3699,6 +4039,7 @@ def main() -> int:
         k["launches_lightstage"] = light_launches[k["name"]]
         k["launches_pose"] = pose_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
+        k["launches_disk"] = disk_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
@@ -3707,6 +4048,7 @@ def main() -> int:
                 "proposal": proposal_launches["hash_encode_by_caller"],
                 "lightstage": light_launches["hash_encode_by_caller"],
                 "pose": pose_launches["hash_encode_by_caller"],
+                "disk": disk_launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
         if k["name"] in REGISTER_CHECKED:
             k["ptxas"] = checked_instantiations(ptxas, k["name"])
@@ -3715,6 +4057,7 @@ def main() -> int:
           f"{json.dumps(seconds)}")
     print(json.dumps({"render": render}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"disk": disk}))
     print(json.dumps({"pose": pose}))
     print(json.dumps({"lightstage": lightstage}))
     print(json.dumps({"proposal": proposal}))

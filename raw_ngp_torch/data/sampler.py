@@ -1,14 +1,14 @@
 """Per-step ray-batch sampling (port of ``raw_ngp_tpu/data/sampler.py``:
 ``bayer_lossmult`` ``:23`` and ``sample_ray_batch`` ``:34``).
 
-Two modes are ported: random pixels of random images
-(``random_image_batch``; one random image per batch otherwise) and the
-explicit ``coords`` / ``coord_image_indices`` hook; so are the synthetic
-pose noise and the learned se(3) refinements of pose refinement, composed
-onto each ray's pose in the differentiated step, and the light-stage
-outputs: per-ray exposures, light directions and the Bayer loss mask of
-mosaiced images. Per-camera near/far and patches raise
-``NotImplementedError``.
+Every mode is ported: random pixels of random images
+(``random_image_batch``; one random image per batch otherwise), square
+patches that share one image each (``patch_size``), and the explicit
+``coords`` / ``coord_image_indices`` hook; so are the synthetic pose noise
+and the learned se(3) refinements of pose refinement, composed onto each
+ray's pose in the differentiated step, and the per-ray outputs: exposures,
+light directions, each camera's near/far and the Bayer loss mask of
+mosaiced images.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict
 import torch
 
 from raw_ngp_torch.ops.lie import apply_refinement, compose_pose
-from raw_ngp_torch.ops.rays import pixel_rays
+from raw_ngp_torch.ops.rays import pixel_rays, sample_pixel_indices
 
 
 def bayer_lossmult(rows, cols):
@@ -41,8 +41,9 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
     """A training ray bundle: rays_o, rays_d [num_rays, 3], the GT pixels
     ``images`` [num_rays, C] and the image ``index`` of each ray; with
     ``exposures`` [n, 1] also ``exposure`` [num_rays, 1], with ``ldirs``
-    [n, 3] ``rays_ldir`` [num_rays, 3], and when ``mosaiced`` the Bayer
-    ``lossmult`` [num_rays, 3] of each ray's pixel.
+    [n, 3] ``rays_ldir`` [num_rays, 3], with ``cam_near_far`` [n, 2]
+    ``cam_near_far`` [num_rays, 2] (each ray's camera's), and when
+    ``mosaiced`` the Bayer ``lossmult`` [num_rays, 3] of each ray's pixel.
 
     images [n, H, W, C], poses [n, 4, 4] and intrinsics [4] are tensors on
     one device; ``generator`` (a torch.Generator there) draws the images
@@ -50,13 +51,18 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
     from ``coord_image_indices`` [num_rays] or one random image.
     ``pose_noise`` [n, 3, 4] is composed under each ray's pose, then
     ``se3_refine`` [n, 6] on top (camera space, ``apply_refinement``); the
-    rays are differentiable in both."""
-    if cam_near_far is not None or patch_size > 1:
-        raise NotImplementedError(
-            "sample_ray_batch: camera near/far and patches are not ported")
+    rays are differentiable in both. With ``patch_size`` p > 1 (and no
+    coords) the rays come in num_rays // p^2 patches of p x p contiguous
+    pixels, each patch from one random image
+    (:func:`raw_ngp_torch.ops.rays.sample_pixel_indices`)."""
     n, H, W, _ = images.shape
     dev = images.device
-    if coord_image_indices is not None:
+    patches = patch_size > 1 and coords is None
+    if patches:
+        img_idx = torch.randint(
+            0, n, (num_rays // patch_size ** 2,), generator=generator,
+            device=dev).repeat_interleave(patch_size ** 2)
+    elif coord_image_indices is not None:
         img_idx = torch.as_tensor(coord_image_indices, device=dev).long()
     elif random_image_batch and coords is None:
         img_idx = torch.randint(0, n, (num_rays,), generator=generator,
@@ -68,8 +74,8 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
         coords = torch.as_tensor(coords, device=dev).long()
         flat = coords[:, 0] * W + coords[:, 1]
     else:
-        flat = torch.randint(0, H * W, (num_rays,), generator=generator,
-                             device=dev)
+        flat = sample_pixel_indices(generator, num_rays, H, W, patch_size,
+                                    device=dev)
     rows = torch.div(flat, W, rounding_mode="floor")
     cols = flat % W
     sel_poses = poses[img_idx]                              # [N, 4, 4]
@@ -84,6 +90,8 @@ def sample_ray_batch(generator, images, poses, intrinsics, num_rays: int,
         out["exposure"] = exposures[img_idx]                # [N, 1]
     if ldirs is not None:
         out["rays_ldir"] = ldirs[img_idx]                   # [N, 3]
+    if cam_near_far is not None:
+        out["cam_near_far"] = cam_near_far[img_idx]         # [N, 2]
     if mosaiced:
         out["lossmult"] = bayer_lossmult(rows, cols)        # [N, 3]
     return out

@@ -7,8 +7,10 @@ the same camera convention the data providers use, producing a SceneData
 that trains in seconds. Also doubles as the benchmark workload so perf
 numbers are reproducible without shipping captures.
 
-A numpy copy of the JAX package's ``data/synthetic.py`` scene (the port
-imports nothing of that package), so both render the same cameras.
+A numpy copy of the JAX package's ``data/synthetic.py`` (the port
+imports nothing of that package): the scene, so both render the same
+cameras, and the view x light grid scene ``make_rfield_grid_scene``
+(``:191``, with ``_light_spiral`` ``:176``).
 """
 
 from __future__ import annotations
@@ -175,3 +177,109 @@ def make_synthetic_scene(
     train_idx = np.setdiff1d(np.arange(n_total), val_idx)[:n_train]
     return split(train_idx), split(val_idx)
 
+
+def _light_spiral(n: int, theta_lo=0.2, theta_hi=1.2) -> np.ndarray:
+    """n unit light directions on a Fibonacci spiral over the polar band
+    [theta_lo, theta_hi] — the synthetic stand-in for a light-stage LED
+    dome (reference LED trajectories, colmap_provider.py:459-519)."""
+    golden = math.pi * (3.0 - math.sqrt(5.0))
+    k = np.arange(n, dtype=np.float64)
+    # uniform in cos(theta) over the band for even area coverage
+    cz = np.cos(theta_lo) + (np.cos(theta_hi) - np.cos(theta_lo)) \
+        * (k + 0.5) / n
+    sz = np.sqrt(np.maximum(0.0, 1.0 - cz * cz))
+    phi = golden * k
+    return np.stack([sz * np.cos(phi), sz * np.sin(phi), cz],
+                    axis=-1).astype(np.float32)
+
+
+def make_rfield_grid_scene(
+    n_views: int = 16,
+    n_lights: int = 16,
+    n_heldout_lights: int = 4,
+    n_val_views: int = 2,
+    H: int = 128,
+    W: int = 128,
+    radius: float = 2.2,
+    fov_deg: float = 50.0,
+    textured: bool = True,
+) -> Tuple[SceneData, SceneData]:
+    """Dense view x light grid for relighting generalization studies.
+
+    Train: every (view, light) pair over ``n_views`` ring cameras and
+    ``n_lights`` spiral LEDs. Val: ``n_val_views`` TRAIN views lit by
+    ``n_heldout_lights`` directions NEVER seen at train — held-out PSNR
+    then isolates light-direction generalization of the SH(ldir)
+    conditioning (network.py:55-56) from view generalization. The
+    held-out lights interleave the train spiral (every k-th point of a
+    denser spiral), so they interpolate the trained light span rather
+    than extrapolate past it — matching the reference light-stage rig,
+    where any render-time LED direction lies inside the dome
+    (colmap_provider.py:459-519 light-sweep trajectories)."""
+    fx = fy = 0.5 * W / math.tan(0.5 * math.radians(fov_deg))
+    intr = np.array([fx, fy, W / 2.0, H / 2.0], dtype=np.float32)
+
+    poses = []
+    for i in range(n_views):
+        theta = 2 * np.pi * i / n_views
+        elev = 0.35 if i % 2 == 0 else -0.15
+        eye = np.array([radius * np.cos(theta) * np.cos(elev),
+                        radius * np.sin(theta) * np.cos(elev),
+                        radius * np.sin(elev)])
+        poses.append(look_at_pose(eye, np.zeros(3)))
+    poses = np.stack(poses).astype(np.float32)
+
+    # one denser spiral; every k-th point is held out for val
+    n_all = n_lights + n_heldout_lights
+    all_lights = _light_spiral(n_all)
+    hold = np.zeros(n_all, bool)
+    hold[np.linspace(1, n_all - 2, n_heldout_lights).astype(int)] = True
+    train_lights, val_lights = all_lights[~hold], all_lights[hold]
+
+    ii, jj = np.meshgrid(np.arange(W), np.arange(H))
+    xs = (ii.reshape(-1) + 0.5 - intr[2]) / intr[0]
+    ys = -(jj.reshape(-1) + 0.5 - intr[3]) / intr[1]
+    cam_dirs = np.stack([xs, ys, -np.ones_like(xs)], axis=-1)
+
+    def render(view: int, light: np.ndarray) -> np.ndarray:
+        R, t = poses[view, :3, :3], poses[view, :3, 3]
+        d = cam_dirs @ R.T
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        o = np.broadcast_to(t, d.shape)
+        col, _ = _trace(o.astype(np.float64), d.astype(np.float64),
+                        light=light, textured=textured)
+        return col.reshape(H, W, 3).astype(np.float32)
+
+    meta_names, imgs, pvs, lds = [], [], [], []
+    for v in range(n_views):
+        for li, l in enumerate(train_lights):
+            imgs.append(render(v, l))
+            pvs.append(poses[v])
+            lds.append(l)
+            meta_names.append(f"grid_v{v:02d}_l{li:02d}")
+    tr_images = np.stack(imgs)
+    tr_poses = np.stack(pvs)
+    tr_ldirs = np.stack(lds)
+
+    vimgs, vpvs, vlds, vnames = [], [], [], []
+    val_views = np.linspace(0, n_views - 1,
+                            max(n_val_views, 1)).astype(int)[:n_val_views]
+    for v in val_views:
+        for li, l in enumerate(val_lights):
+            vimgs.append(render(int(v), l))
+            vpvs.append(poses[int(v)])
+            vlds.append(l)
+            vnames.append(f"grid_v{v:02d}_hl{li:02d}")
+
+    aabb = np.array([-1.2, -1.2, -1.2, 1.2, 1.2, 1.2], dtype=np.float32)
+
+    def pack(images, ps, ls, names):
+        m = SceneMeta(filenames=names, cam2rgb=np.eye(3, dtype=np.float32))
+        ps = np.stack(ps).astype(np.float32)
+        return SceneData(images=np.stack(images), poses=ps,
+                         intrinsics=intr, H=H, W=W, exposures=None,
+                         ldirs=np.stack(ls).astype(np.float32),
+                         pts_aabb=aabb, poses_gt=ps.copy(), meta=m)
+
+    return (pack(imgs, pvs, lds, meta_names),
+            pack(vimgs, vpvs, vlds, vnames))

@@ -1,5 +1,6 @@
 """Ray generation and AABB intersection (port of ``raw_ngp_tpu/ops/rays.py``:
-``near_far_from_aabb``, ``pixel_rays``, ``full_image_rays``)."""
+``near_far_from_aabb``, ``sample_pixel_indices``, ``pixel_rays``,
+``full_image_rays``)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,27 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.05):
     # maximum, not clamp_min: a tie splits the gradient as jnp.maximum does
     near = torch.maximum(near, near.new_tensor(min_near))
     return near, far
+
+
+def sample_pixel_indices(generator, num_rays: int, H: int, W: int,
+                         patch_size: int = 1, device=None):
+    """Random flat pixel indices ``row * W + col`` [num_rays], drawn from
+    ``generator`` (a torch.Generator on ``device``). With ``patch_size`` p >
+    1: num_rays // p^2 square patches, each p x p contiguous pixels in
+    row-major order from a corner drawn in [0, H - p) x [0, W - p)."""
+    if patch_size > 1:
+        n_patch = num_rays // (patch_size ** 2)
+        rows = torch.randint(0, H - patch_size, (n_patch,),
+                             generator=generator, device=device)
+        cols = torch.randint(0, W - patch_size, (n_patch,),
+                             generator=generator, device=device)
+        off = torch.arange(patch_size, device=device)
+        pi, pj = torch.meshgrid(off, off, indexing="ij")
+        rows = rows[:, None] + pi.reshape(1, -1)
+        cols = cols[:, None] + pj.reshape(1, -1)
+        return (rows * W + cols).reshape(-1)
+    return torch.randint(0, H * W, (num_rays,), generator=generator,
+                         device=device)
 
 
 def pixel_rays(pose, intrinsics, flat_inds, W: int):

@@ -10,21 +10,23 @@ from raw_ngp_torch.render.proposal import render_proposal
 
 
 def render_any(field, rays_o, rays_d, aabb, bitfield, *, bg_color,
-               rays_ldir=None, annealing=1.0, training: bool = False,
+               rays_ldir=None, cam_near_far=None, annealing=1.0,
+               training: bool = False,
                generator=None, plain: bool = False, coarse_lin=None,
                point_budget=None, compute_normals: bool = False):
     """Render rays [N, 3] with ``field`` on its configuration's path. The
     occupancy path reads ``bitfield``, ``coarse_lin``, ``point_budget``
     and ``compute_normals``; the proposal path reads none of them (pass
-    None)."""
+    None). Both clamp each ray to its camera's ``cam_near_far`` [N, 2]
+    where it is given."""
     if field.spec.cfg.render.occupancy:
         return render_occupancy(
             field, rays_o, rays_d, aabb, bitfield, bg_color=bg_color,
             coarse_lin=coarse_lin, plain=plain, training=training,
             generator=generator, point_budget=point_budget,
             annealing=annealing, rays_ldir=rays_ldir,
-            compute_normals=compute_normals)
+            cam_near_far=cam_near_far, compute_normals=compute_normals)
     return render_proposal(
         field, rays_o, rays_d, aabb, bg_color=bg_color, rays_ldir=rays_ldir,
-        annealing=annealing, training=training, generator=generator,
-        plain=plain)
+        cam_near_far=cam_near_far, annealing=annealing, training=training,
+        generator=generator, plain=plain)

@@ -544,7 +544,7 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                      coarse_lin=None, plain: bool = False,
                      training: bool = False, generator=None,
                      point_budget=None, annealing=1.0,
-                     rays_ldir=None,
+                     rays_ldir=None, cam_near_far=None,
                      compute_normals: bool = False) -> Dict[str, torch.Tensor]:
     """Full occupancy-path render of rays [N, 3] (``render_occupancy``).
     ``field`` is an :class:`raw_ngp_torch.models.ngp.NGPField`;
@@ -556,7 +556,9 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     ``key=None``). In training, ``point_budget`` (default
     ``cfg.render.point_budget``) overrides the compacted point budget and
     the result adds num_points and num_points_raw. ``annealing`` drives the
-    field's BARF / BAA-NGP level mask. Returns image [N, 3], depth [N] and
+    field's BARF / BAA-NGP level mask. ``cam_near_far`` [N, 2] clamps each
+    ray's AABB span to its camera's [near, far] (before the miss test, as
+    JAX's). Returns image [N, 3], depth [N] and
     weights_sum [N]; on the expand and uncompacted paths in training also
     the per-sample weights [N, K]; with ``compute_normals`` the normal map
     [N, 3] (the composite of -normalize(grad sigma) mapped to [0, 1]); in
@@ -572,6 +574,9 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
     expand = compute_normals or orient
 
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, r.min_near)
+    if cam_near_far is not None:
+        nears = torch.maximum(nears, cam_near_far[:, :1])
+        fars = torch.minimum(fars, cam_near_far[:, 1:])
     miss = fars >= 1e8
     nears = torch.where(miss, 1.0, nears)
     fars = torch.where(miss, 1.001, fars)

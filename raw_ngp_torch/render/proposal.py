@@ -36,7 +36,8 @@ def spacing_fn_inv(s):
 
 
 def render_proposal(field, rays_o, rays_d, aabb, bg_color=1.0,
-                    rays_ldir=None, annealing=1.0, training: bool = False,
+                    rays_ldir=None, cam_near_far=None, annealing=1.0,
+                    training: bool = False,
                     update_proposal: bool = True, generator=None,
                     plain: bool = False) -> Dict[str, Any]:
     """Render one ray batch rays_o, rays_d [N, 3] inside ``aabb`` [6] with
@@ -54,6 +55,8 @@ def render_proposal(field, rays_o, rays_d, aabb, bg_color=1.0,
     ``update_proposal`` False the proposal networks are queried without
     a gradient. ``rays_ldir`` [N, 3] are an rfield field's light
     directions; ``plain`` runs the kernels' plain versions.
+    ``cam_near_far`` [N, 2] clamps each ray's AABB span to its camera's
+    [near, far].
     """
     cfg = field.spec.cfg
     N = rays_o.shape[0]
@@ -61,6 +64,9 @@ def render_proposal(field, rays_o, rays_d, aabb, bg_color=1.0,
     num_steps = cfg.render.num_steps
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb,
                                      cfg.render.min_near)
+    if cam_near_far is not None:
+        nears = torch.maximum(nears, cam_near_far[:, :1])
+        fars = torch.minimum(fars, cam_near_far[:, 1:])
     miss = fars >= 1e8
     nears = torch.where(miss, 1.0, nears)
     fars = torch.where(miss, 2.0, fars)

@@ -53,10 +53,14 @@ drawn from the step's generator) and ``lambda_wd`` (its level-meaned
 weight decay). ``model.fused_encoder`` False trains every grid through
 the plain encoder.
 
-Not ported (each raises ``NotImplementedError``): multi-device meshes,
-per-camera near/far; absent: checkpoints, artifacts and the logger (so
-``pose_opt.log_poses``), the HDR artifact dumps, histograms and metrics
-other than PSNR.
+A scene with per-camera near/far (``SceneData.cam_near_far``, the
+COLMAP loader's sparse-depth ranges under ``data.enable_cam_near_far``)
+clamps each training ray to its camera's [near, far] on both paths and in
+the untrained-cell marking; the eval renders take no near/far, as JAX's.
+
+Not ported (raises ``NotImplementedError``): multi-device meshes; absent:
+checkpoints, artifacts and the logger (so ``pose_opt.log_poses``), the
+HDR artifact dumps, histograms and metrics other than PSNR.
 """
 
 from __future__ import annotations
@@ -267,7 +271,8 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
     unjittered proposal sampling), in which ``lambda_tv > 0`` raises
     ``ValueError`` (no points to draw). HDR batches carry
     ``exposure`` [N, 1] and, when mosaiced, ``lossmult`` [N, 3]; an
-    rfield field's batch carries ``rays_ldir`` [N, 3]. The loss adds, in
+    rfield field's batch carries ``rays_ldir`` [N, 3], and a batch with
+    ``cam_near_far`` [N, 2] clamps each ray to it. The loss adds, in
     JAX's order, ``lambda_proposal`` times the proposal loss and
     ``lambda_distort`` times the distortion loss where the render returns
     them, ``lambda_orientation`` times the orientation loss, and where
@@ -285,8 +290,9 @@ def make_batch_loss_fn(cfg: Config, spec: FieldSpec):
         out = render_any(
             field, rays_o, rays_d, aabb, state.density_bitfield,
             bg_color=bg, rays_ldir=batch.get("rays_ldir"),
-            annealing=annealing, training=True, generator=generator,
-            plain=plain, coarse_lin=batch.get("coarse_lin"),
+            cam_near_far=batch.get("cam_near_far"), annealing=annealing,
+            training=True, generator=generator, plain=plain,
+            coarse_lin=batch.get("coarse_lin"),
             point_budget=point_budget)
         if hdr:
             lw = loss_weight_fn(cfg.train.loss_weight, gt_rgb)
@@ -322,8 +328,9 @@ def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
     """Batch sampling + :func:`make_batch_loss_fn`:
     ``loss_fn(field, state, scene, aabb, generator, plain=False,
     point_budget=None, annealing=1.0)``; ``scene`` holds images, poses,
-    intrinsics, the light-stage scene's exposures and ldirs where it has
-    them and, when the Trainer has cached it, coarse_lin. The rays
+    intrinsics, the light-stage scene's exposures and ldirs and the
+    cameras' cam_near_far where it has them and, when the Trainer has
+    cached it, coarse_lin. The rays
     are made inside the differentiated function from the state's pose
     refinements and noise, so the loss's gradient reaches
     ``state.pose_params``."""
@@ -336,6 +343,7 @@ def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
             num_rays, random_image_batch=cfg.train.random_image_batch,
             se3_refine=state.pose_params, pose_noise=state.pose_noise,
             exposures=scene.get("exposures"), ldirs=scene.get("ldirs"),
+            cam_near_far=scene.get("cam_near_far"),
             mosaiced=cfg.data.mosaiced)
         if "coarse_lin" in scene:
             batch["coarse_lin"] = scene["coarse_lin"]
@@ -422,9 +430,6 @@ class Trainer:
                  val_scene: Optional[SceneData] = None, device="cuda"):
         if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
             raise NotImplementedError("multi-device training is not ported")
-        if train_scene.cam_near_far is not None:
-            raise NotImplementedError("scenes with cam_near_far are not "
-                                      "ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec = make_field_spec(cfg)
@@ -443,7 +448,7 @@ class Trainer:
             "intrinsics": torch.as_tensor(train_scene.intrinsics,
                                           device=dev),
         }
-        for name in ("exposures", "ldirs"):
+        for name in ("exposures", "ldirs", "cam_near_far"):
             if getattr(train_scene, name) is not None:
                 self.scene_arrays[name] = torch.as_tensor(
                     getattr(train_scene, name), device=dev)

@@ -53,6 +53,17 @@ from raw_ngp_tpu.train import losses as jl
 from raw_ngp_tpu.train import trainer as jtr
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work, set back after
+    it (under pytest-xdist torch's default of a thread a core
+    oversubscribes the cores: tests/test_torch_proposal.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def light_cfg(mod, fp16=False, loss_weight="none"):
     """The golden miniature of the flagship with the light-stage switches
     (HDR images, clamped_exp colours, rfield), from either package's

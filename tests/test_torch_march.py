@@ -747,10 +747,10 @@ def test_o_unported_branches_raise():
     """The regularizers and the unfused encoder are ported: a Trainer takes
     each of the entropy, TV, weight-decay and orientation weights and
     fused_encoder=False, and a training render with the orientation loss
-    returns it. What is still unported raises NotImplementedError:
-    multi-device training and scenes with per-camera near/far; TV in the
-    deterministic mode (no generator) raises ValueError, as JAX's fails
-    there."""
+    returns it, and a scene with per-camera near/far trains (its ranges
+    ride in the Trainer's scene arrays). What is still unported raises
+    NotImplementedError: multi-device training; TV in the deterministic
+    mode (no generator) raises ValueError, as JAX's fails there."""
     cfg = o_cfg(tcfg)
     train, val = make_synthetic_scene(n_train=2, n_val=1, H=8, W=8, seed=0)
     ported = [replace(cfg, train=replace(cfg.train, **{name: 0.1}))
@@ -762,10 +762,11 @@ def test_o_unported_branches_raise():
     for c in (replace(cfg, parallel=replace(cfg.parallel, num_devices=2)),):
         with pytest.raises(NotImplementedError):
             ttr.Trainer(c, train, val, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttr.Trainer(cfg, replace(train, cam_near_far=np.ones((2, 2),
-                                                             np.float32)),
-                    val, device="cpu")
+    near_far = np.array([[0.5, 3.0], [1.0, 4.0]], np.float32)
+    tr = ttr.Trainer(cfg, replace(train, cam_near_far=near_far), val,
+                     device="cpu")
+    assert torch.equal(tr.scene_arrays["cam_near_far"],
+                       torch.from_numpy(near_far))
     orient = replace(cfg, train=replace(cfg.train, lambda_orientation=0.1))
     field = field_from_jax(_params(o_cfg(jcfg)), t_make_spec(orient),
                            device="cpu")

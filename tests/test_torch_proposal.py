@@ -646,7 +646,8 @@ def test_o2_unported_branches_raise():
     encoder (a Trainer takes each; the orientation loss is the occupancy
     render's, so on this path it adds nothing, as in JAX). What this
     slice leaves raises NotImplementedError instead of training wrongly:
-    scenes with per-camera near/far and multi-device training."""
+    multi-device training. A scene with per-camera near/far trains (its
+    ranges ride in the Trainer's scene arrays)."""
     cfg = o2_cfg(tcfg)
     field = t_init_field(t_make_spec(cfg), device="cpu")
     assert len(field.prop_grids) == 2 and len(field.prop_mlps) == 2
@@ -661,6 +662,8 @@ def test_o2_unported_branches_raise():
         ttr.Trainer(replace(cfg, parallel=replace(cfg.parallel,
                                                   num_devices=2)),
                     train, val, device="cpu")
-    near_far = replace(train, cam_near_far=np.ones((2, 2), np.float32))
-    with pytest.raises(NotImplementedError):
-        ttr.Trainer(cfg, near_far, val, device="cpu")
+    near_far = np.array([[0.5, 3.0], [1.0, 4.0]], np.float32)
+    tr = ttr.Trainer(cfg, replace(train, cam_near_far=near_far), val,
+                     device="cpu")
+    assert torch.equal(tr.scene_arrays["cam_near_far"],
+                       torch.from_numpy(near_far))

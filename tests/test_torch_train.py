@@ -47,6 +47,17 @@ from raw_ngp_tpu.ops.morton import morton3d_invert as j_morton_invert
 from raw_ngp_tpu.train import trainer as jtr
 from raw_ngp_tpu.train.state import TrainState as JState
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work, set back after
+    it (under pytest-xdist torch's default of a thread a core
+    oversubscribes the cores: tests/test_torch_proposal.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "occupancy_render_v2.npy")
 
@@ -491,8 +502,9 @@ def test_unported_gradients_raise():
     """The gradients the pose slice ported (the encode's input gradient,
     B1's backward) now flow, and so do the branches the light-stage slice
     ported: rfield fields (a view MLP 16 wider) and the sampler's
-    exposures and light directions. What is still unported raises instead
-    of returning a wrong result: the sampler's per-camera near/far."""
+    exposures and light directions, and so does the sampler's per-camera
+    near/far (each ray gets its camera's row), which the disk slice
+    ported."""
     tspec = TSpec.create(**_SPECS["L2xC16"])
     table = torch.zeros(tspec.n_params * tspec.level_dim)
     x = torch.rand(8, 3, requires_grad=True)
@@ -512,8 +524,9 @@ def test_unported_gradients_raise():
     b = t_sample(gen, *arrays, 8, exposures=torch.ones(2, 1),
                  ldirs=torch.ones(2, 3))
     assert b["exposure"].shape == (8, 1) and b["rays_ldir"].shape == (8, 3)
-    with pytest.raises(NotImplementedError):
-        t_sample(gen, *arrays, 8, cam_near_far=torch.ones(2, 2))
+    near_far = torch.tensor([[0.5, 3.0], [1.5, 2.5]])
+    b = t_sample(gen, *arrays, 8, cam_near_far=near_far)
+    assert torch.equal(b["cam_near_far"], near_far[b["index"]])
 
 
 # ---------------------------------------------------------------- (d)
@@ -542,7 +555,9 @@ def test_sampler_explicit_coords_bit_identical():
 
 def test_sampler_random_modes():
     """Random pixels of random images, or of one image per batch; the
-    Bayer loss mask of mosaiced batches; patches still raise."""
+    Bayer loss mask of mosaiced batches; 2 x 2 patches, each four
+    contiguous pixels of one image (tests/test_torch_near_far.py holds
+    their structure at more sizes)."""
     train, _ = make_synthetic_scene(n_train=5, n_val=1, H=8, W=8, seed=0)
     arrays = [torch.from_numpy(a) for a in
               (train.images, train.poses, train.intrinsics)]
@@ -555,8 +570,16 @@ def test_sampler_random_modes():
     b = t_sample(gen, *arrays, 64, mosaiced=True)
     assert b["lossmult"].shape == (64, 3)
     assert torch.equal(b["lossmult"].sum(-1), torch.ones(64))
-    with pytest.raises(NotImplementedError):
-        t_sample(gen, *arrays, 8, patch_size=2)
+    # pixels that name themselves: (image, row, col)
+    code = torch.stack(torch.meshgrid(torch.arange(5.0), torch.arange(8.0),
+                                      torch.arange(8.0), indexing="ij"), -1)
+    b = t_sample(gen, code, *arrays[1:], 8, patch_size=2)
+    assert b["rays_o"].shape == (8, 3)
+    img, row, col = b["images"].reshape(2, 4, 3).long().unbind(-1)
+    assert torch.equal(img, b["index"].reshape(2, 4))
+    assert (img == img[:, :1]).all()
+    assert torch.equal(row - row[:, :1], torch.tensor([[0, 0, 1, 1]] * 2))
+    assert torch.equal(col - col[:, :1], torch.tensor([[0, 1, 0, 1]] * 2))
 
 
 # ---------------------------------------------------------------- (e)
