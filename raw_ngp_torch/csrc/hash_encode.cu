@@ -98,10 +98,12 @@ namespace {
 
 constexpr int kThreads = 256;
 // per-level row of the level table built by the Python wrapper
-// (raw_ngp_torch/kernels/hash_encode.py _level_table):
+// (raw_ngp_torch/kernels/hash_encode.py _level_table, LEVEL_COLUMNS):
 // res, hmap, offset, n_strides, stride0, stride1, stride2, mode, axis,
-// pairable, first window (the records; -1 on the matmul levels)
-constexpr int kLevelRow = 11;
+// pairable, first window (the records; -1 on the matmul levels), then the
+// (mask, magic) pairs that reduce modulo hmap and, on the additive hash's
+// levels, modulo hmap - res (mod_u32)
+constexpr int kLevelRow = 15;
 constexpr int kModeStride = 0, kModeXor = 1, kModeAdditive = 2;
 
 // threads per point (one per channel quad) and channels per thread
@@ -111,7 +113,8 @@ template <int C>
 constexpr int kQuad = C < 4 ? C : 4;
 
 struct Level {
-  uint32_t res, hmap, offset, stride[3];
+  uint64_t hmap_magic, add_magic;
+  uint32_t res, hmap, offset, stride[3], hmap_mask, add_mask;
   int n_strides, mode, axis;
   bool pairable;
 };
@@ -127,7 +130,24 @@ __device__ __forceinline__ Level load_level(const int64_t* __restrict__ lp) {
   l.mode = (int)lp[7];
   l.axis = (int)lp[8];
   l.pairable = lp[9] != 0;
+  l.hmap_mask = (uint32_t)lp[11];
+  l.hmap_magic = (uint64_t)lp[12];
+  l.add_mask = (uint32_t)lp[13];
+  l.add_magic = (uint64_t)lp[14];
   return l;
+}
+
+// x % d for every uint32 x without a division, from the level table's
+// constants (kernels/hash_encode.py mod_constants): x & mask where d is a
+// power of two (mask = d - 1; all ones marks the others), else Lemire's
+// fastmod, hi64(lo64(magic * x) * d) with magic = floor((2^64 - 1) / d) +
+// 1. A runtime % is a sequence of some twenty instructions; this is an
+// AND, or a 64-bit multiply and a high half (tests/test_torch_level_table.py
+// holds the emulated reduction to % on every level of the port's grids).
+__device__ __forceinline__ uint32_t mod_u32(uint32_t x, uint32_t d,
+                                            uint32_t mask, uint64_t magic) {
+  return mask != 0xffffffffu ? x & mask
+                             : (uint32_t)__umul64hi(magic * x, (uint64_t)d);
 }
 
 // v[i] for a runtime i, as selects (an array index would go to local memory)
@@ -152,7 +172,8 @@ __device__ __forceinline__ uint32_t level_row(const Level& l,
     for (int d = 0; d < 3; ++d) {
       if (d != l.axis) g ^= c[d] * mix_prime(d);
     }
-    index = sel3(c, l.axis) + g % (l.hmap - l.res);
+    index = sel3(c, l.axis) + mod_u32(g, l.hmap - l.res, l.add_mask,
+                                      l.add_magic);
   } else if (l.mode == kModeXor) {
     index = c[0] ^ (c[1] * 2654435761u) ^ (c[2] * 805459861u);
   } else {
@@ -161,7 +182,7 @@ __device__ __forceinline__ uint32_t level_row(const Level& l,
       if (d < l.n_strides) index += c[d] * l.stride[d];
     }
   }
-  return index % l.hmap + l.offset;
+  return mod_u32(index, l.hmap, l.hmap_mask, l.hmap_magic) + l.offset;
 }
 
 __device__ __forceinline__ float round_bf16(float v) {

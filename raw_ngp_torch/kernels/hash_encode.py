@@ -130,18 +130,42 @@ def level_windows(spec: HashGridSpec, m: int):
     return out
 
 
+def mod_constants(d: int):
+    """(mask, magic) that reduce a uint32 x modulo d (1 <= d < 2^32) on the
+    card without a division (``mod_u32`` in ``csrc/hash_encode.cu``): x &
+    mask where d is a power of two (mask = d - 1); else mask = -1 (all
+    ones as u32, no power of two's mask) and Lemire's fastmod, x % d =
+    hi64(lo64(magic * x) * d) with magic = floor((2^64 - 1) / d) + 1 mod
+    2^64, exact for every uint32 x. magic is given for every d, as the
+    i64 of its 64 bits."""
+    mask = d - 1 if d & (d - 1) == 0 else -1
+    magic = ((2 ** 64 - 1) // d + 1) % 2 ** 64
+    return mask, magic - 2 ** 64 if magic >= 2 ** 63 else magic
+
+
+# the level table's columns: level_layout's, then the moduli's constants
+LEVEL_COLUMNS = ("res", "hmap", "offset", "n_strides", "stride0", "stride1",
+                 "stride2", "mode", "axis", "pairable", "first_window",
+                 "hmap_mask", "hmap_magic", "add_mask", "add_magic")
+
+
 @functools.lru_cache(maxsize=16)
 def _level_table(spec: HashGridSpec, m: int, device: torch.device):
-    """[L, 11] i64 rows the kernels read per level: res, hmap, offset,
-    n_strides, stride0..2, mode, pair axis, pairable, first window (-1 on
-    the matmul levels below ``m``)."""
+    """[L, 15] i64 rows the kernels read per level (``LEVEL_COLUMNS``):
+    res, hmap, offset, n_strides, stride0..2, mode, pair axis, pairable,
+    first window (-1 on the matmul levels below ``m``), then
+    :func:`mod_constants` of hmap (every mode's final ``% hmap``) and of
+    hmap - res (the additive hash's ``g % (hmap - res)``; those of 1 on
+    the other modes)."""
     first = {lv: w0 for lv, w0, _ in level_windows(spec, m)}
     rows = []
     for lv in range(spec.num_levels):
         res, hmap, offset, strides, mode, axis = level_layout(spec, lv)
         s = list(strides) + [0] * (3 - len(strides))
+        add = hmap - res if mode == "additive" else 1
         rows.append([res, hmap, offset, len(strides), *s, _MODES[mode], axis,
-                     int(level_pairable(spec, lv)), first.get(lv, -1)])
+                     int(level_pairable(spec, lv)), first.get(lv, -1),
+                     *mod_constants(hmap), *mod_constants(add)])
     return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
