@@ -1013,7 +1013,95 @@ __device__ __forceinline__ void mm_level_jvp(const float* __restrict__ tq,
   }
 }
 
-// No launch bounds, as the input gradient's kernel.
+// The JVP's layout (tentpole of its redesign; each part against one cost
+// of the earlier one-group-a-point layout, which walked the L levels of a
+// point in series and wrote each (point, level)'s C outputs where the
+// thread stood, lanes L C elements apart):
+// - level-major warps: a block owns `tiles` tiles of P = 32 / G
+//   consecutive points; each warp takes (tile, level) tasks, so a warp
+//   runs one level for 32 / G ray-ordered neighbours at a time: no warp
+//   mixes the dense and the window paths, neighbours hit the same or
+//   adjacent rows within one load instruction, and a point's levels run
+//   in L warps at once. Each (point, level) is still one group's chain in
+//   the order above, so the bits do not change (no sum across levels);
+// - the level table (with the moduli's constants, mod_u32) and the
+//   block's points (x and ct) are staged in shared memory once a block;
+// - the outputs are staged in shared memory level-major ([tile][level]
+//   [P][C]: a task's lanes write one contiguous run, no bank conflict)
+//   and the block writes its rows [n, L C], one contiguous range of
+//   global memory, in 16-byte stores.
+template <bool BF16>
+struct OutType { using T = float; };
+template <>
+struct OutType<true> { using T = __nv_bfloat16; };
+
+template <int C>
+constexpr int kTilePoints = 32 / kGroup<C>;   // P, the points of a task
+constexpr int kJvpWarps = kThreads / 32;
+
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// Byte offsets of the block's shared regions: the level table, the points
+// ([6][capacity]: x then ct, axis-major) and the output tile.
+__host__ __device__ constexpr int jvp_points_at(int L) {
+  return align16(L * (int)sizeof(Level));
+}
+__host__ __device__ constexpr int jvp_tile_at(int L, int capacity) {
+  return jvp_points_at(L) + align16(6 * capacity * (int)sizeof(float));
+}
+
+// The block's tile, level-major in shared memory, to its rows of out: 16
+// bytes a thread and store, each read from shared memory in runs of one
+// (point, level)'s channels (U elements, fewer than 16 bytes where C is
+// small); the last bytes of a block whose rows end off a 16-byte boundary
+// one element a thread.
+template <int C, bool BF16>
+__device__ __forceinline__ void jvp_store_tile(
+    const typename OutType<BF16>::T* __restrict__ tile,
+    typename OutType<BF16>::T* __restrict__ dst, int n, int L) {
+  using T = typename OutType<BF16>::T;
+  constexpr int P = kTilePoints<C>;
+  constexpr int E = 16 / (int)sizeof(T);     // elements a 16-byte chunk
+  constexpr int U = C < E ? C : E;           // elements a shared read
+  constexpr int UB = U * (int)sizeof(T);     // 2, 4, 8 or 16 bytes
+  const int n_el = n * L * C;
+  // element e of the block's rows -> its place in the tile
+  auto at = [&](int e) {
+    const int q = e / C;                     // point * L + level
+    const int pt = q / L, lv = q - pt * L;
+    const int t = pt / P, p = pt - t * P;
+    return ((t * L + lv) * P + p) * C + (e - q * C);
+  };
+  for (int k = threadIdx.x; k < n_el / E; k += blockDim.x) {
+    uint32_t w[4];
+#pragma unroll
+    for (int u = 0; u < E / U; ++u) {
+      const T* src = tile + at(k * E + u * U);
+      if constexpr (UB == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+      } else if constexpr (UB == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        w[2 * u] = v.x; w[2 * u + 1] = v.y;
+      } else if constexpr (UB == 4) {
+        w[u] = *reinterpret_cast<const uint32_t*>(src);
+      } else {
+        const uint32_t h = *reinterpret_cast<const uint16_t*>(src);
+        w[u >> 1] = (u & 1) ? (w[u >> 1] | h << 16) : h;
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + (int64_t)k * E) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  for (int e = n_el / E * E + threadIdx.x; e < n_el; e += blockDim.x) {
+    dst[e] = tile[at(e)];
+  }
+}
+
+// No launch bounds, as the input gradient's kernel; launched with
+// kThreads threads (kJvpWarps warps) a block.
 template <int C, bool BF16>
 __global__ void
 encode_input_jvp_kernel(const float* __restrict__ x01,
@@ -1021,28 +1109,47 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
                         const float* __restrict__ ct_x,
                         const int64_t* __restrict__ levels,
                         void* __restrict__ out, int64_t B, int L, int m,
-                        int top, int align_corners, int smoothstep) {
-  constexpr int G = kGroup<C>, Q = kQuad<C>;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t b = t / G;
-  if (b >= B) return;  // whole groups: G divides the warp
-  const int j = (int)(t % G);
+                        int top, int align_corners, int smoothstep,
+                        int tiles) {
+  using T = typename OutType<BF16>::T;
+  constexpr int G = kGroup<C>, Q = kQuad<C>, P = kTilePoints<C>;
+  extern __shared__ __align__(16) unsigned char jvp_smem[];
+  const int capacity = tiles * P;
+  Level* lvl = reinterpret_cast<Level*>(jvp_smem);
+  float* pts = reinterpret_cast<float*>(jvp_smem + jvp_points_at(L));
+  T* tile = reinterpret_cast<T*>(jvp_smem + jvp_tile_at(L, capacity));
+  const int64_t b0 = (int64_t)blockIdx.x * capacity;
+  const int n = (int)min((int64_t)capacity, B - b0);  // the block's points
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    lvl[i] = load_level(levels + i * kLevelRow);
+  }
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+    const int pt = i / 3, d = i - 3 * pt;
+    pts[d * capacity + pt] = x01[b0 * 3 + i];
+    pts[(3 + d) * capacity + pt] = ct_x[b0 * 3 + i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int p = lane / G, j = lane % G;   // the group's point, its lane
   const unsigned gmask = group_mask<G>();
   const float* tq = table + 4 * j;  // this thread's channels of row 0
-  float x[3], ct[3];
-  bool inb = true;
+  for (int task = threadIdx.x >> 5; task < tiles * L; task += kJvpWarps) {
+    const int t = task / L, lv = task - t * L;
+    const int i = t * P + p;               // the point within the block
+    if (i >= n) continue;                  // whole groups
+    float x[3], ct[3];
+    bool inb = true;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    x[d] = x01[b * 3 + d];
-    ct[d] = ct_x[b * 3 + d];
-    inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
-  }
-  for (int lv = 0; lv < L; ++lv) {
+    for (int d = 0; d < 3; ++d) {
+      x[d] = pts[d * capacity + i];
+      ct[d] = pts[(3 + d) * capacity + i];
+      inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
+    }
     float acc[Q];
 #pragma unroll
     for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
     if (inb) {  // uniform within the group
-      const Level l = load_level(levels + lv * kLevelRow);
+      const Level l = lvl[lv];
       uint32_t g0[3];
       float f[3], dfdx[3], u[3];
       level_cell_grad(l, x, align_corners, smoothstep, g0, f, dfdx);
@@ -1067,26 +1174,31 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
         });
       }
     }
-    store_quad<C, BF16>(out, (b * L + lv) * C + 4 * j, acc);
+    store_quad<C, BF16>(out, ((b0 + i) * L + lv) * C + 4 * j, acc);
   }
 }
 
 template <int C>
-void launch_input_jvp(bool bf16, const float* x01, const float* table,
-                      const float* ct_x, const int64_t* levels, void* out,
-                      int64_t B, int L, int m, int top, int align_corners,
-                      int smoothstep, cudaStream_t s) {
-  const int64_t n = B * kGroup<C>;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+int launch_input_jvp(bool bf16, const float* x01, const float* table,
+                     const float* ct_x, const int64_t* levels, void* out,
+                     int64_t B, int L, int m, int top, int align_corners,
+                     int smoothstep, cudaStream_t s) {
+  const int tiles = (kJvpWarps + L - 1) / L;  // at least a task a warp
+  const int capacity = tiles * kTilePoints<C>;
+  const int smem = jvp_tile_at(L, capacity)
+                   + capacity * L * C * (bf16 ? 2 : 4);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = (unsigned)((B + capacity - 1) / capacity);
   if (bf16) {
-    encode_input_jvp_kernel<C, true><<<blocks, kThreads, 0, s>>>(
+    encode_input_jvp_kernel<C, true><<<blocks, kThreads, smem, s>>>(
         x01, table, ct_x, levels, out, B, L, m, top, align_corners,
-        smoothstep);
+        smoothstep, tiles);
   } else {
-    encode_input_jvp_kernel<C, false><<<blocks, kThreads, 0, s>>>(
+    encode_input_jvp_kernel<C, false><<<blocks, kThreads, smem, s>>>(
         x01, table, ct_x, levels, out, B, L, m, top, align_corners,
-        smoothstep);
+        smoothstep, tiles);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1107,15 +1219,13 @@ extern "C" int hash_encode_input_jvp(const float* x01, const float* table,
   switch (C) {
 #define RAW_NGP_CASE(c)                                                      \
     case c:                                                                  \
-      launch_input_jvp<c>(h, x01, table, ct_x, levels, out, B, L, m, top,    \
-                          align_corners, smoothstep, s);                     \
-      break;
+      return launch_input_jvp<c>(h, x01, table, ct_x, levels, out, B, L, m,  \
+                                 top, align_corners, smoothstep, s);
     RAW_NGP_CASE(1) RAW_NGP_CASE(2) RAW_NGP_CASE(4) RAW_NGP_CASE(8)
     RAW_NGP_CASE(16) RAW_NGP_CASE(32)
 #undef RAW_NGP_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // x01 [B, 3] f32, table [n_params * C] f32 (16-byte aligned), g [B, L * C]
