@@ -193,10 +193,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               repro check of phase 7;
  14. encode_jvp — the encode's input gradient differentiated in its
               cotangent g (encode_input_jvp, the orientation loss's
-              second-order term) on the -O grid at
-              262,144 uniform and ray-ordered points, f32 and bf16: bit
-              for bit its plain version, two calls bitwise equal, timed
-              beside its bound and its plain version;
+              second-order term) on the -O grid (16 x 2, xor) and the
+              flagship's (2 x 16, one dense matmul level) at 262,144
+              uniform and ray-ordered points, f32 and bf16: bit for bit
+              its plain version, two calls bitwise equal, timed beside
+              its bound (with the ratio) and its plain version;
  15. reg    — the -O configuration with the four regularizers
               (reg_config: lambda_orientation 0.1, lambda_wd 0.1,
               lambda_entropy 1e-4, lambda_tv 1e-6) on the O phase's scene
@@ -263,10 +264,12 @@ when the raw_ngp_torch package is not beside it.
 With --against, it only builds and compares: each TREE's
 raw_ngp_torch/csrc/hash_encode.cu (another version of this repository,
 e.g. a git archive of a parent commit; the same C entry points) is built
-beside this tree's, and the encode forward and input gradient of both run
-on the phase-3 and phase-8 inputs through this tree's wrappers, outputs
-compared and device times taken in turns (other, this, this, other); one
-`ab` JSON line per TREE.
+beside this tree's (all at once), and the encode forward and input
+gradient of both run on the phase-3 and phase-8 inputs, the forward also
+on the -O grid's, and the JVP on the phase-14 inputs of both grids,
+through this tree's wrappers (a TREE whose kernels read the level table's
+first 11 columns gets those), outputs compared and times taken in turns
+(other, this, this, other); one `ab` JSON line per TREE.
 
 With --deterministic-ops, a diagnostic only: two train steps and two pose
 steps of the flagship and two steps each of the -O2 and -O presets and
@@ -3399,73 +3402,92 @@ class cached_mark_untrained:
         self.module.mark_untrained_grid = self.orig
 
 
-def phase_encode_jvp(dev, cfg, B=262144):
+def phase_encode_jvp(dev, cfg, B=262144, flagship=None):
     """The input gradient's JVP in g (encode_input_jvp, the orientation
-    loss's second-order term) on the -O grid at the orientation's shape
-    (B = N K points): kernel against plain version at uniform and
+    loss's second-order term) at the orientation's shape (B = N K points)
+    on the -O grid (`cfg`'s) and the flagship's (`flagship`'s, C = 16 with
+    one dense matmul level): kernel against plain version at uniform and
     ray-ordered points, f32 and bf16, bit for bit and two calls bitwise
-    equal, each timed beside its bound; the plain version timed."""
+    equal, each timed beside its bound (and the ratio); the plain version
+    timed. The kernels line's numbers are the -O grid's at ray-ordered
+    points in bf16; the flagship's ride under `flagship_grid`."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     from raw_ngp_torch.models.ngp import make_field_spec
-    spec = make_field_spec(cfg).grid_spec
-    C = spec.level_dim
-    gen = torch.Generator(device=dev).manual_seed(13)
-    table = (torch.rand(spec.n_params * C, generator=gen, device=dev) * 2
-             - 1) * 1e-2
-    inputs = encode_inputs(cfg, gen, dev, B, kinds=("uniform", "ray"))
-    ct = torch.randn(B, 3, generator=gen, device=dev)
-    per_input = {}
-    for kind, x01 in inputs.items():
-        per_input[kind] = {}
-        outside = ~((x01 >= 0) & (x01 <= 1)).all(-1)
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype)[6:]
-            k = th.encode_input_jvp(table, x01, ct, spec, dtype)
-            k2 = th.encode_input_jvp(table, x01, ct, spec, dtype)
-            p = th.encode_input_jvp_plain(table, x01, ct, spec, dtype)
-            torch.cuda.synchronize()
-            err = float((k.float() - p.float()).abs().max())
-            scale = float(p.float().abs().max())
-            check(scale > 0 and bool((k[outside] == 0).all())
-                  and same_bits(k, p) and same_bits(k, k2),
-                  f"encode_jvp {kind} {name}: max abs err {err} (scale "
-                  f"{scale}), not bit for bit, or two calls differ")
+    grids = {"O": cfg} if flagship is None else {"O": cfg,
+                                                 "flagship": flagship}
+    per_grid = {}
+    for grid, grid_cfg in grids.items():
+        spec = make_field_spec(grid_cfg).grid_spec
+        C = spec.level_dim
+        gen = torch.Generator(device=dev).manual_seed(13)
+        table = (torch.rand(spec.n_params * C, generator=gen, device=dev)
+                 * 2 - 1) * 1e-2
+        inputs = encode_inputs(grid_cfg, gen, dev, B, kinds=("uniform",
+                                                             "ray"))
+        ct = torch.randn(B, 3, generator=gen, device=dev)
+        per_input = {}
+        for kind, x01 in inputs.items():
+            per_input[kind] = {}
+            outside = ~((x01 >= 0) & (x01 <= 1)).all(-1)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype)[6:]
+                k = th.encode_input_jvp(table, x01, ct, spec, dtype)
+                k2 = th.encode_input_jvp(table, x01, ct, spec, dtype)
+                p = th.encode_input_jvp_plain(table, x01, ct, spec, dtype)
+                torch.cuda.synchronize()
+                err = float((k.float() - p.float()).abs().max())
+                scale = float(p.float().abs().max())
+                check(scale > 0 and bool((k[outside] == 0).all())
+                      and same_bits(k, p) and same_bits(k, k2),
+                      f"encode_jvp {grid} {kind} {name}: max abs err {err} "
+                      f"(scale {scale}), not bit for bit, or two calls "
+                      f"differ")
 
-            def call(x01=x01, dtype=dtype):
-                return th.encode_input_jvp(table, x01, ct, spec, dtype)
+                def call(x01=x01, dtype=dtype, table=table, ct=ct,
+                         spec=spec):
+                    return th.encode_input_jvp(table, x01, ct, spec, dtype)
 
-            ms, dev_ms = time_ms(call, 50), device_ms(call)
-            # ct_x in, ct_g [B, L*C] out; per corner and channel a weight
-            # tangent product and the accumulate
-            bound_ms, bound_by, n_bytes, rows = encode_bound(
-                spec, x01, 2 if dtype == torch.bfloat16 else 4,
-                extra_bytes=B * 12, ops_per_term=4)
-            per_input[kind][name] = dict(
-                max_abs_err=err, scale=scale, ms=ms, device_ms=dev_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
-                touched_rows=rows)
-            print(f"[encode_jvp] {kind} B={B} {name}: bit for bit the plain "
-                  f"version (largest {scale:.3e}), two calls bitwise equal; "
-                  f"kernel {ms:.4f} ms (device {dev_ms} ms), bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by}: touched rows "
-                  f"{rows}, {n_bytes} bytes)")
-    bf16 = torch.bfloat16
-    x01 = inputs["ray"]
-    plain_ms = time_ms(
-        lambda: th.encode_input_jvp_plain(table, x01, ct, spec, bf16), 3)
-    top = per_input["ray"]["bfloat16"]
-    print(f"[encode_jvp] ray B={B} bf16 plain {plain_ms:.4f} ms")
-    return dict(name="encode_input_jvp", route="cuda",
-                source="raw_ngp_torch/csrc/hash_encode.cu",
-                replaces="raw_ngp_tpu/kernels/hash_fused.py:772 (the input "
-                         "gradient differentiated again under jax.grad, "
-                         "render/occupancy.py:999)",
-                max_abs_err=top["max_abs_err"],
-                max_abs_err_f32=per_input["ray"]["float32"]["max_abs_err"],
-                ms=top["ms"], device_ms=top["device_ms"], plain_ms=plain_ms,
-                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                library_ms=None, inputs=per_input, deterministic=True)
+                ms, dev_ms = time_ms(call, 50), device_ms(call)
+                # ct_x in, ct_g [B, L*C] out; per corner and channel a
+                # weight tangent product and the accumulate
+                bound_ms, bound_by, n_bytes, rows = encode_bound(
+                    spec, x01, 2 if dtype == torch.bfloat16 else 4,
+                    extra_bytes=B * 12, ops_per_term=4)
+                per_input[kind][name] = dict(
+                    max_abs_err=err, scale=scale, ms=ms, device_ms=dev_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                    touched_rows=rows, ms_over_bound=ms / bound_ms)
+                print(f"[encode_jvp] {grid} {kind} B={B} {name}: bit for "
+                      f"bit the plain version (largest {scale:.3e}), two "
+                      f"calls bitwise equal; kernel {ms:.4f} ms (device "
+                      f"{dev_ms} ms), bound {bound_ms * 1e3:.2f} us "
+                      f"({bound_by}: touched rows {rows}, {n_bytes} "
+                      f"bytes), {ms / bound_ms:.2f}x the bound")
+        bf16 = torch.bfloat16
+        x01 = inputs["ray"]
+        plain_ms = time_ms(
+            lambda: th.encode_input_jvp_plain(table, x01, ct, spec, bf16), 3)
+        print(f"[encode_jvp] {grid} ray B={B} bf16 plain {plain_ms:.4f} ms")
+        per_grid[grid] = dict(inputs=per_input, plain_ms=plain_ms,
+                              levels=spec.num_levels, channels=C)
+    top = per_grid["O"]["inputs"]["ray"]["bfloat16"]
+    row = dict(name="encode_input_jvp", route="cuda",
+               source="raw_ngp_torch/csrc/hash_encode.cu",
+               replaces="raw_ngp_tpu/kernels/hash_fused.py:772 (the input "
+                        "gradient differentiated again under jax.grad, "
+                        "render/occupancy.py:999)",
+               max_abs_err=top["max_abs_err"],
+               max_abs_err_f32=per_grid["O"]["inputs"]["ray"]["float32"][
+                   "max_abs_err"],
+               ms=top["ms"], device_ms=top["device_ms"],
+               plain_ms=per_grid["O"]["plain_ms"],
+               bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+               ms_over_bound=top["ms_over_bound"], library_ms=None,
+               inputs=per_grid["O"]["inputs"], deterministic=True)
+    if "flagship" in per_grid:
+        row["flagship_grid"] = per_grid["flagship"]
+    return row
 
 
 class recorded_terms:
@@ -3829,90 +3851,134 @@ def gpu_line():
         return f"nvidia-smi unavailable ({e})"
 
 
-def build_other(tree):
-    """Build `tree`'s raw_ngp_torch/csrc/hash_encode.cu with this tree's
-    nvcc flags into build/raw_ngp_torch/against/ and bind its forward and
-    input-gradient entry points (the same C signatures as this tree's)."""
+def build_others(trees):
+    """Build each tree's raw_ngp_torch/csrc/hash_encode.cu with this
+    tree's nvcc flags into build/raw_ngp_torch/against/ (one nvcc each,
+    all started together) and bind its forward, input-gradient and JVP
+    entry points (the same C signatures as this tree's) -> {tree: (fns,
+    the width of the level-table rows it reads)}."""
     import ctypes
     import hashlib
+    import re
     from pathlib import Path
     from raw_ngp_torch.kernels import _build
     from raw_ngp_torch.kernels.hash_encode import _ARGTYPES
-    src = Path(tree) / "raw_ngp_torch" / "csrc" / "hash_encode.cu"
     out_dir = _build.BUILD_DIR / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / (f"libhash_encode-"
-                          f"{hashlib.sha256(src.read_bytes()).hexdigest()[:12]}"
-                          f".so")
-    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                          str(lib_path), str(src)], capture_output=True,
-                         text=True)
-    check(run.returncode == 0, f"against: {src} does not build\n"
-                               f"{run.stdout}{run.stderr}")
-    for k in ptxas_report(run.stdout + run.stderr):
-        print(f"[against] {tree}: {k}")
-    lib = ctypes.CDLL(str(lib_path))
-    fns = {}
-    for name in ("hash_encode_fwd", "hash_encode_bwd_input"):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-        fns[name] = fn
-    return fns
+    procs = {}
+    for tree in trees:
+        src = Path(tree) / "raw_ngp_torch" / "csrc" / "hash_encode.cu"
+        text = src.read_text()
+        lib_path = out_dir / (f"libhash_encode-"
+                              f"{hashlib.sha256(text.encode()).hexdigest()[:12]}"
+                              f".so")
+        width = int(re.search(r"constexpr int kLevelRow = (\d+);",
+                              text).group(1))
+        procs[tree] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib_path, width)
+    built = {}
+    for tree, (proc, lib_path, width) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"against: {tree} does not build\n{log}")
+        for k in ptxas_report(log):
+            print(f"[against] {tree}: {k}")
+        lib = ctypes.CDLL(str(lib_path))
+        fns = {}
+        for name in ("hash_encode_fwd", "hash_encode_bwd_input",
+                     "hash_encode_input_jvp"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+            fns[name] = fn
+        built[tree] = (fns, width)
+    return built
 
 
-def compare_encode(dev, cfg, tree, B=262144, reps=20):
-    """Same-call A/B of the encode forward and input gradient: `tree`'s
-    kernels (through this tree's wrappers) against this tree's on the same
-    inputs as phase_encode / phase_encode_input, device time in turns
-    other, this, this, other; outputs compared on the way."""
+def compare_encode(dev, cfg, o_cfg, tree, other, reps=20, B=262144):
+    """Same-call A/B of the encode forward, input gradient and JVP: `tree`'s
+    kernels (`other` from build_others, through this tree's wrappers)
+    against this tree's on the inputs of phase_encode / phase_encode_input
+    on the flagship grid (`cfg`'s), the forward also at ray-ordered and
+    uniform points on the -O grid (`o_cfg`'s) and the JVP on
+    phase_encode_jvp's inputs on both, device time (profiler) and CUDA
+    events in turns other, this, this, other; outputs compared on the
+    way."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     from raw_ngp_torch.models.ngp import make_field_spec
-    spec = make_field_spec(cfg).grid_spec
-    L, C = spec.num_levels, spec.level_dim
-    other = build_other(tree)
-    mine = th._lib
+    fns, width = other
+    mine, table_of = th._lib, th._level_table
+    narrow = {}
 
-    def lib_of(which):
-        return mine if which == "this" else (
-            lambda name: other[name] if name in other else mine(name))
+    def narrow_table(spec, m, device):
+        key = (spec, m, device)
+        if key not in narrow:
+            narrow[key] = table_of(spec, m, device)[:, :width].contiguous()
+        return narrow[key]
 
-    gen = torch.Generator(device=dev).manual_seed(2)
-    table = torch.rand(spec.n_params * C, generator=gen, device=dev) * 2 - 1
-    inputs = encode_inputs(cfg, gen, dev, B)
-    cot = torch.randn(B, L * C, generator=gen, device=dev)
+    def use(which):
+        if which == "this":
+            th._lib, th._level_table = mine, table_of
+        else:
+            th._lib = lambda name: fns[name] if name in fns else mine(name)
+            th._level_table = narrow_table
+
     cases = []
-    for kind, x01 in inputs.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            cases.append((f"forward {kind} {str(dtype)[6:]}",
-                          lambda x01=x01, dtype=dtype: th.hash_encode(
-                              table, x01, spec, compute_dtype=dtype)))
-    for kind in ("uniform", "ray"):
-        for dtype in (torch.bfloat16, torch.float32):
-            x01, g = inputs[kind], cot.to(dtype)
-            cases.append((f"input_grad {kind} {str(dtype)[6:]}",
-                          lambda x01=x01, g=g, dtype=dtype: (
-                              th.encode_input_grad(table, x01, g, spec,
-                                                   dtype))))
-    result = {"against": str(tree)}
+    for grid, grid_cfg in (("flagship", cfg), ("O", o_cfg)):
+        spec = make_field_spec(grid_cfg).grid_spec
+        L, C = spec.num_levels, spec.level_dim
+        gen = torch.Generator(device=dev).manual_seed(2)
+        table = torch.rand(spec.n_params * C, generator=gen, device=dev) \
+            * 2 - 1
+        inputs = encode_inputs(grid_cfg, gen, dev, B, kinds=(
+            ("uniform", "ray", "refresh") if grid == "flagship"
+            else ("uniform", "ray")))
+        cot = torch.randn(B, L * C, generator=gen, device=dev)
+        ct = torch.randn(B, 3, generator=gen, device=dev)
+        for kind, x01 in inputs.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                if grid == "O" and dtype == torch.float32:
+                    continue
+                cases.append((f"forward {grid} {kind} {str(dtype)[6:]}",
+                              lambda x01=x01, dtype=dtype, table=table,
+                              spec=spec: th.hash_encode(
+                                  table, x01, spec, compute_dtype=dtype)))
+        for kind in ("uniform", "ray"):
+            for dtype in (torch.bfloat16, torch.float32):
+                x01, g = inputs[kind], cot.to(dtype)
+                if grid == "flagship":
+                    cases.append((f"input_grad {grid} {kind} "
+                                  f"{str(dtype)[6:]}",
+                                  lambda x01=x01, g=g, dtype=dtype,
+                                  table=table, spec=spec: (
+                                      th.encode_input_grad(
+                                          table, x01, g, spec, dtype))))
+                cases.append((f"jvp {grid} {kind} {str(dtype)[6:]}",
+                              lambda x01=x01, dtype=dtype, table=table,
+                              spec=spec, ct=ct: th.encode_input_jvp(
+                                  table, x01, ct, spec, dtype)))
+    result = {"against": str(tree), "level_row_width": width}
     try:
         for name, fn in cases:
             row = {}
             outs = {}
             for which in ("other", "this"):
-                th._lib = lib_of(which)
-                outs[which] = fn().float()
+                use(which)
+                outs[which] = fn()
             torch.cuda.synchronize()
-            row["max_abs_diff"] = float((outs["this"] - outs["other"]).abs()
+            row["same_bits"] = same_bits(outs["this"], outs["other"])
+            row["max_abs_diff"] = float((outs["this"].float()
+                                         - outs["other"].float()).abs()
                                         .max())
             for i, which in enumerate(("other", "this", "this", "other")):
-                th._lib = lib_of(which)
+                use(which)
                 row[f"{which}_device_ms_{i}"] = device_ms(fn, reps)
                 row[f"{which}_ms_{i}"] = time_ms(fn, 50)
             result[name] = row
             print(f"[against] {name}: {row}")
     finally:
-        th._lib = mine
+        use("this")
     return result
 
 
@@ -3921,9 +3987,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--against", metavar="TREE", nargs="+", default=(),
-        help="only build and compare the encode forward and input gradient "
-             "of each TREE's raw_ngp_torch/csrc/hash_encode.cu with this "
-             "tree's, in one process (prints one `ab` line per TREE)")
+        help="only build and compare the encode forward, input gradient "
+             "and JVP of each TREE's raw_ngp_torch/csrc/hash_encode.cu with "
+             "this tree's, in one process (prints one `ab` line per TREE)")
     parser.add_argument(
         "--deterministic-ops", action="store_true",
         help="only build and run the deterministic-algorithms diagnostic: "
@@ -3954,9 +4020,11 @@ def main() -> int:
     if args.against:
         try:
             phase_build()
+            others = build_others(args.against)
             for tree in args.against:
                 print(json.dumps({"ab": compare_encode(
-                    dev, flagship_config(), tree)}))
+                    dev, flagship_config(), o_config(), tree,
+                    others[tree])}))
         except Exception:
             traceback.print_exc()
             print("chip_smoke: FAILED", file=sys.stderr)
@@ -4004,7 +4072,8 @@ def main() -> int:
         proposal_launches, proposal = timed("proposal", phase_proposal, dev)
         with cached_mark_untrained():
             o_launches, o_render_launches, o_phase = timed("O", phase_o, dev)
-            k_jvp = timed("encode_jvp", phase_encode_jvp, dev, o_config())
+            k_jvp = timed("encode_jvp", phase_encode_jvp, dev, o_config(),
+                          flagship=cfg)
             launches, reg, reg_ms = timed("reg", phase_reg, dev)
             unfused_launches, unfused = timed("unfused", phase_unfused, dev,
                                               reg_ms)

@@ -89,6 +89,12 @@
 // still gets its records, at the cell of x = 0.5 with weight 0, while its
 // outputs stay 0. The records add 8.4 MB written to the forward's bytes
 // at the flagship's 262,144 points and 4 windows.
+//
+// The JVP (the orientation loss's second order) keeps each (point,
+// level)'s chain in one group as above, but lays its warps out
+// level-major and stages its outputs to store whole rows: see
+// encode_input_jvp_kernel. Every kernel reduces its hashes with the
+// level table's constants (mod_u32), no runtime modulo.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -909,9 +915,15 @@ void launch_input_grad(bool bf16, const float* x01, const float* table,
 // transpose of the bf16 casts rounds them), on a dense level the transpose
 // of _mm_level_ct's chain: per x lane rnd(rnd(dwx) rnd(Z) + rnd(Y) rnd(wx))
 // with Z = rnd(sum_yz rnd(wyz) rnd(T)) and Y = rnd(sum_yz rnd(dwyz) rnd(T)),
-// the two lanes added in f32. The same groups of ceil(C/4) threads, each
-// writing its channel quad of every level once: no atomics. 0 outside
-// [0, 1]^3 and on NaN.
+// the two lanes added in f32. Each (point, level) is one group of
+// ceil(C/4) threads, writing its channel quad once: no atomics (the
+// layout: encode_input_jvp_kernel). 0 outside [0, 1]^3 and on NaN.
+//
+// A one-corner window (a level that is not pairable) still loads its
+// second row, whose weight tangent is 0 except at the top clamp: JAX
+// forms rnd(T * 0) there, NaN where T is inf or NaN, so skipping the load
+// would change the bits on a non-finite table. The row is adjacent to the
+// first, mostly in the same 32-byte sector.
 template <typename Fn>
 __device__ __forceinline__ void for_each_window_tangent(const Level& l,
                                                         const int rows[8],
@@ -1119,7 +1131,8 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
   float* pts = reinterpret_cast<float*>(jvp_smem + jvp_points_at(L));
   T* tile = reinterpret_cast<T*>(jvp_smem + jvp_tile_at(L, capacity));
   const int64_t b0 = (int64_t)blockIdx.x * capacity;
-  const int n = (int)min((int64_t)capacity, B - b0);  // the block's points
+  const int64_t rest = B - b0;
+  const int n = rest < capacity ? (int)rest : capacity;  // the block's points
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
     lvl[i] = load_level(levels + i * kLevelRow);
   }
@@ -1174,8 +1187,10 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
         });
       }
     }
-    store_quad<C, BF16>(out, ((b0 + i) * L + lv) * C + 4 * j, acc);
+    store_quad<C, BF16>(tile, ((t * L + lv) * P + p) * C + 4 * j, acc);
   }
+  __syncthreads();
+  jvp_store_tile<C, BF16>(tile, static_cast<T*>(out) + b0 * L * C, n, L);
 }
 
 template <int C>
@@ -1207,7 +1222,9 @@ int launch_input_jvp(bool bf16, const float* x01, const float* table,
 // f32 (the cotangent of the input gradient), levels [L, kLevelRow] i64 (m
 // dense matmul levels first, top = n_params - 2) -> out [B, L * C] f32 or
 // bf16 (16-byte aligned), the cotangent of the input gradient's g. B > 0.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C
+// or a block's tile beyond 48 KB of shared memory (past 85 levels at C
+// = 32 in f32).
 extern "C" int hash_encode_input_jvp(const float* x01, const float* table,
                                      const float* ct_x,
                                      const int64_t* levels, void* out,

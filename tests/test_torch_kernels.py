@@ -939,30 +939,34 @@ def test_encode_input_grad_kernel_at_flagship_shape(cuda_device, dtype):
     torch.testing.assert_close(xs.grad, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
-def _jvp_points(B, spec, device):
-    """B points for the JVP: the edge cases of _encode_points (outside [0,
-    1]^3, NaN, 0.0 and 1.0, clip ties) where B allows, uniform points
-    otherwise (B = 1 takes one inside)."""
-    x = _encode_points("uniform", max(B, 11), spec, device)
+def _jvp_points(kind, B, spec, device):
+    """B points of one kind (uniform or ray-ordered) for the JVP: the edge
+    cases of _encode_points (outside [0, 1]^3, NaN, 0.0 and 1.0, clip
+    ties) where B allows (B = 1 takes one point inside)."""
+    x = _encode_points(kind, max(B, 11), spec, device)
     return (x[10:11] if B == 1 else x[:B]).contiguous()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 7, 262144])
-@pytest.mark.parametrize("spec_name", ["additive", "mixed"])
-@pytest.mark.parametrize("C", [2, 4, 8, 16])
-def test_encode_input_jvp_kernel_matches_plain(cuda_device, C, spec_name, B):
+@pytest.mark.parametrize("kind", ["uniform", "ray"])
+@pytest.mark.parametrize("B", [1, 7, 33, 1000, 262144])
+@pytest.mark.parametrize("spec_name", sorted(_ENCODE_SPECS))
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16, 32])
+def test_encode_input_jvp_kernel_matches_plain(cuda_device, C, spec_name, B,
+                                               kind):
     """The input gradient's JVP in g (encode_input_jvp) against its plain
-    version, f32 and bf16, on window levels (additive) and a grid with
-    dense matmul levels at C >= 8 (mixed), at 1, 7 (points outside [0,
-    1]^3 and NaN) and 262,144 points: the same expressions in the same
-    order (every product and sum an _rn intrinsic), so bit for bit; 0
-    outside [0, 1]^3 and on NaN; two calls bitwise equal."""
+    version, f32 and bf16, on every grid of _ENCODE_SPECS (the xor, the
+    aligned smoothstep, tiled, additive and mixed; dense matmul levels at
+    C >= 8) at every channel count, at 1, 7 (points outside [0, 1]^3 and
+    NaN), 33 and 1000 (a block's tile left part full) and 262,144
+    uniform or ray-ordered points: the same expressions in the same order
+    (every product and sum an _rn intrinsic), so bit for bit; 0 outside
+    [0, 1]^3 and on NaN; two calls bitwise equal."""
     spec = HashGridSpec.create(level_dim=C, **_ENCODE_SPECS[spec_name])
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     table = (torch.rand(spec.n_params * C, generator=gen,
                         device=cuda_device) * 2 - 1) * 0.1
-    x = _jvp_points(B, spec, cuda_device)
+    x = _jvp_points(kind, B, spec, cuda_device)
     ct = torch.randn(B, 3, generator=gen, device=cuda_device)
     outside = ~((x >= 0) & (x <= 1)).all(-1)
     for dtype in (torch.float32, torch.bfloat16):
