@@ -1025,46 +1025,39 @@ __device__ __forceinline__ void mm_level_jvp(const float* __restrict__ tq,
   }
 }
 
-// The JVP's layout (tentpole of its redesign; each part against one cost
-// of the earlier one-group-a-point layout, which walked the L levels of a
-// point in series and wrote each (point, level)'s C outputs where the
-// thread stood, lanes L C elements apart):
-// - level-major warps: a block owns `tiles` tiles of P = 32 / G
-//   consecutive points; each warp takes (tile, level) tasks, so a warp
-//   runs one level for 32 / G ray-ordered neighbours at a time: no warp
-//   mixes the dense and the window paths, neighbours hit the same or
-//   adjacent rows within one load instruction, and a point's levels run
-//   in L warps at once. Each (point, level) is still one group's chain in
-//   the order above, so the bits do not change (no sum across levels);
-// - the level table (with the moduli's constants, mod_u32) and the
-//   block's points (x and ct) are staged in shared memory once a block;
-// - the outputs are staged in shared memory level-major ([tile][level]
-//   [P][C]: a task's lanes write one contiguous run, no bank conflict)
-//   and the block writes its rows [n, L C], one contiguous range of
-//   global memory, in 16-byte stores.
+// The JVP's layout. Each group of G = ceil(C/4) threads owns a point and
+// walks its levels in order, as the forward does (a layout with each warp
+// on one level of 32 / G points, the level-major one, measured no faster
+// at C = 2 and slower at C = 16: PERF.md, PR 17). What it adds:
+// - the level table (with the moduli's constants, mod_u32) is staged in
+//   shared memory once a block;
+// - the outputs are staged in shared memory level-major ([level][point]
+//   [C]: a warp's lanes write one contiguous run, no bank conflict), and
+//   the block writes its rows [n, L C], one contiguous range of global
+//   memory, in 16-byte stores, where each thread used to store its 4 or
+//   8 bytes L C elements away from its neighbour's.
+// Each (point, level) is one group's chain in the order above, so the
+// bits are the plain version's.
 template <bool BF16>
 struct OutType { using T = float; };
 template <>
 struct OutType<true> { using T = __nv_bfloat16; };
 
-template <int C>
-constexpr int kTilePoints = 32 / kGroup<C>;   // P, the points of a task
-constexpr int kJvpWarps = kThreads / 32;
-
 __host__ __device__ constexpr int align16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
-// Byte offsets of the block's shared regions: the level table, the points
-// ([6][capacity]: x then ct, axis-major) and the output tile.
-__host__ __device__ constexpr int jvp_points_at(int L) {
+// Bytes of a block's shared memory: the level table, then the tile of
+// `points` points.
+__host__ __device__ constexpr int jvp_tile_at(int L) {
   return align16(L * (int)sizeof(Level));
 }
-__host__ __device__ constexpr int jvp_tile_at(int L, int capacity) {
-  return jvp_points_at(L) + align16(6 * capacity * (int)sizeof(float));
+__host__ __device__ constexpr int jvp_smem_bytes(int L, int C, int points,
+                                                 int out_bytes) {
+  return jvp_tile_at(L) + points * L * C * out_bytes;
 }
 
-// The block's tile, level-major in shared memory, to its rows of out: 16
+// The block's tile ([L][np][C] in shared memory) to its n rows of out: 16
 // bytes a thread and store, each read from shared memory in runs of one
 // (point, level)'s channels (U elements, fewer than 16 bytes where C is
 // small); the last bytes of a block whose rows end off a 16-byte boundary
@@ -1072,9 +1065,8 @@ __host__ __device__ constexpr int jvp_tile_at(int L, int capacity) {
 template <int C, bool BF16>
 __device__ __forceinline__ void jvp_store_tile(
     const typename OutType<BF16>::T* __restrict__ tile,
-    typename OutType<BF16>::T* __restrict__ dst, int n, int L) {
+    typename OutType<BF16>::T* __restrict__ dst, int n, int np, int L) {
   using T = typename OutType<BF16>::T;
-  constexpr int P = kTilePoints<C>;
   constexpr int E = 16 / (int)sizeof(T);     // elements a 16-byte chunk
   constexpr int U = C < E ? C : E;           // elements a shared read
   constexpr int UB = U * (int)sizeof(T);     // 2, 4, 8 or 16 bytes
@@ -1083,8 +1075,7 @@ __device__ __forceinline__ void jvp_store_tile(
   auto at = [&](int e) {
     const int q = e / C;                     // point * L + level
     const int pt = q / L, lv = q - pt * L;
-    const int t = pt / P, p = pt - t * P;
-    return ((t * L + lv) * P + p) * C + (e - q * C);
+    return (lv * np + pt) * C + (e - q * C);
   };
   for (int k = threadIdx.x; k < n_el / E; k += blockDim.x) {
     uint32_t w[4];
@@ -1112,8 +1103,8 @@ __device__ __forceinline__ void jvp_store_tile(
   }
 }
 
-// No launch bounds, as the input gradient's kernel; launched with
-// kThreads threads (kJvpWarps warps) a block.
+// No launch bounds, as the input gradient's kernel; the block size comes
+// from launch_input_jvp (a multiple of 32 from 32 to kThreads).
 template <int C, bool BF16>
 __global__ void
 encode_input_jvp_kernel(const float* __restrict__ x01,
@@ -1121,76 +1112,69 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
                         const float* __restrict__ ct_x,
                         const int64_t* __restrict__ levels,
                         void* __restrict__ out, int64_t B, int L, int m,
-                        int top, int align_corners, int smoothstep,
-                        int tiles) {
+                        int top, int align_corners, int smoothstep) {
   using T = typename OutType<BF16>::T;
-  constexpr int G = kGroup<C>, Q = kQuad<C>, P = kTilePoints<C>;
+  constexpr int G = kGroup<C>, Q = kQuad<C>;
   extern __shared__ __align__(16) unsigned char jvp_smem[];
-  const int capacity = tiles * P;
+  const int np = blockDim.x / G;            // the block's tile of points
   Level* lvl = reinterpret_cast<Level*>(jvp_smem);
-  float* pts = reinterpret_cast<float*>(jvp_smem + jvp_points_at(L));
-  T* tile = reinterpret_cast<T*>(jvp_smem + jvp_tile_at(L, capacity));
-  const int64_t b0 = (int64_t)blockIdx.x * capacity;
+  T* tile = reinterpret_cast<T*>(jvp_smem + jvp_tile_at(L));
+  const int64_t b0 = (int64_t)blockIdx.x * np;
   const int64_t rest = B - b0;
-  const int n = rest < capacity ? (int)rest : capacity;  // the block's points
+  const int n = rest < np ? (int)rest : np;  // the block's points
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
     lvl[i] = load_level(levels + i * kLevelRow);
   }
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
-    const int pt = i / 3, d = i - 3 * pt;
-    pts[d * capacity + pt] = x01[b0 * 3 + i];
-    pts[(3 + d) * capacity + pt] = ct_x[b0 * 3 + i];
-  }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int p = lane / G, j = lane % G;   // the group's point, its lane
-  const unsigned gmask = group_mask<G>();
-  const float* tq = table + 4 * j;  // this thread's channels of row 0
-  for (int task = threadIdx.x >> 5; task < tiles * L; task += kJvpWarps) {
-    const int t = task / L, lv = task - t * L;
-    const int i = t * P + p;               // the point within the block
-    if (i >= n) continue;                  // whole groups
+  const int p = threadIdx.x / G, j = threadIdx.x % G;
+  if (p < n) {  // whole groups: G divides the warp
+    const int64_t b = b0 + p;
+    const unsigned gmask = group_mask<G>();
+    const float* tq = table + 4 * j;  // this thread's channels of row 0
     float x[3], ct[3];
     bool inb = true;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      x[d] = pts[d * capacity + i];
-      ct[d] = pts[(3 + d) * capacity + i];
+      x[d] = x01[b * 3 + d];
+      ct[d] = ct_x[b * 3 + d];
       inb = inb && (x[d] >= 0.0f) && (x[d] <= 1.0f);  // false for NaN
     }
-    float acc[Q];
+    for (int lv = 0; lv < L; ++lv) {
+      float acc[Q];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
-    if (inb) {  // uniform within the group
-      const Level l = lvl[lv];
-      uint32_t g0[3];
-      float f[3], dfdx[3], u[3];
-      level_cell_grad(l, x, align_corners, smoothstep, g0, f, dfdx);
+      for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
+      if (inb) {  // uniform within the group
+        const Level l = lvl[lv];
+        uint32_t g0[3];
+        float f[3], dfdx[3], u[3];
+        level_cell_grad(l, x, align_corners, smoothstep, g0, f, dfdx);
 #pragma unroll
-      for (int d = 0; d < 3; ++d) u[d] = __fmul_rn(ct[d], dfdx[d]);
-      int rows[8];
-      if (lv < m) {
-        level_rows<G>(l, j, gmask,
-                      BitCorners{{g0[0], g0[1], g0[2]}, l.res - 1}, rows);
-        mm_level_jvp<C, BF16>(tq, rows, g0, f, u, l.res, acc);
-      } else {
-        level_rows<G>(l, j, gmask,
-                      WindowCorners{{g0[0], g0[1], g0[2]}, l.res - 1, l.axis},
-                      rows);
-        for_each_window_tangent(l, rows, f, u, top,
-                                [&](int bb, float w0, float w1) {
-          if (BF16) {
-            window_bf16<C>(tq, bb, w0, w1, acc);
-          } else {
-            window_f32<C>(tq, bb, w0, w1, acc);
-          }
-        });
+        for (int d = 0; d < 3; ++d) u[d] = __fmul_rn(ct[d], dfdx[d]);
+        int rows[8];
+        if (lv < m) {
+          level_rows<G>(l, j, gmask,
+                        BitCorners{{g0[0], g0[1], g0[2]}, l.res - 1}, rows);
+          mm_level_jvp<C, BF16>(tq, rows, g0, f, u, l.res, acc);
+        } else {
+          level_rows<G>(l, j, gmask,
+                        WindowCorners{{g0[0], g0[1], g0[2]}, l.res - 1,
+                                      l.axis},
+                        rows);
+          for_each_window_tangent(l, rows, f, u, top,
+                                  [&](int bb, float w0, float w1) {
+            if (BF16) {
+              window_bf16<C>(tq, bb, w0, w1, acc);
+            } else {
+              window_f32<C>(tq, bb, w0, w1, acc);
+            }
+          });
+        }
       }
+      store_quad<C, BF16>(tile, (lv * np + p) * C + 4 * j, acc);
     }
-    store_quad<C, BF16>(tile, ((t * L + lv) * P + p) * C + 4 * j, acc);
   }
   __syncthreads();
-  jvp_store_tile<C, BF16>(tile, static_cast<T*>(out) + b0 * L * C, n, L);
+  jvp_store_tile<C, BF16>(tile, static_cast<T*>(out) + b0 * L * C, n, np, L);
 }
 
 template <int C>
@@ -1198,20 +1182,26 @@ int launch_input_jvp(bool bf16, const float* x01, const float* table,
                      const float* ct_x, const int64_t* levels, void* out,
                      int64_t B, int L, int m, int top, int align_corners,
                      int smoothstep, cudaStream_t s) {
-  const int tiles = (kJvpWarps + L - 1) / L;  // at least a task a warp
-  const int capacity = tiles * kTilePoints<C>;
-  const int smem = jvp_tile_at(L, capacity)
-                   + capacity * L * C * (bf16 ? 2 : 4);
+  // the largest block (kThreads down to one warp) whose tile fits in the
+  // 48 KB of shared memory a block takes without opting in
+  const int out_bytes = bf16 ? 2 : 4;
+  int threads = kThreads;
+  while (threads > 32 && jvp_smem_bytes(L, C, threads / kGroup<C>,
+                                        out_bytes) > 48 * 1024) {
+    threads /= 2;
+  }
+  const int np = threads / kGroup<C>;
+  const int smem = jvp_smem_bytes(L, C, np, out_bytes);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = (unsigned)((B + capacity - 1) / capacity);
+  const unsigned blocks = (unsigned)((B + np - 1) / np);
   if (bf16) {
-    encode_input_jvp_kernel<C, true><<<blocks, kThreads, smem, s>>>(
+    encode_input_jvp_kernel<C, true><<<blocks, threads, smem, s>>>(
         x01, table, ct_x, levels, out, B, L, m, top, align_corners,
-        smoothstep, tiles);
+        smoothstep);
   } else {
-    encode_input_jvp_kernel<C, false><<<blocks, kThreads, smem, s>>>(
+    encode_input_jvp_kernel<C, false><<<blocks, threads, smem, s>>>(
         x01, table, ct_x, levels, out, B, L, m, top, align_corners,
-        smoothstep, tiles);
+        smoothstep);
   }
   return static_cast<int>(cudaGetLastError());
 }
