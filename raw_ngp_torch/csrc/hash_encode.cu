@@ -108,9 +108,8 @@ constexpr int kThreads = 256;
 // res, hmap, offset, n_strides, stride0, stride1, stride2, mode, axis,
 // pairable, first window (the records; -1 on the matmul levels), then the
 // (mask, magic) pairs that reduce modulo hmap and, on the additive hash's
-// levels, modulo hmap - res (mod_u32), and a 0 that pads the row to 128
-// bytes, so load_level reads it in 16-byte loads
-constexpr int kLevelRow = 16;
+// levels, modulo hmap - res (mod_u32)
+constexpr int kLevelRow = 15;
 constexpr int kModeStride = 0, kModeXor = 1, kModeAdditive = 2;
 
 // threads per point (one per channel quad) and channels per thread
@@ -126,32 +125,21 @@ struct Level {
   bool pairable;
 };
 
-// One row of the level table (128-byte aligned: the table is a fresh
-// tensor, its rows kLevelRow int64 long) in 7 loads of 16 bytes.
 __device__ __forceinline__ Level load_level(const int64_t* __restrict__ lp) {
-  const longlong2* v = reinterpret_cast<const longlong2*>(lp);
-  int64_t r[14];
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    const longlong2 t = __ldg(v + i);
-    r[2 * i] = t.x;
-    r[2 * i + 1] = t.y;
-  }
-  const longlong2 t = __ldg(v + 7);  // (add_magic, pad)
   Level l;
-  l.res = (uint32_t)r[0];
-  l.hmap = (uint32_t)r[1];
-  l.offset = (uint32_t)r[2];
-  l.n_strides = (int)r[3];
+  l.res = (uint32_t)lp[0];
+  l.hmap = (uint32_t)lp[1];
+  l.offset = (uint32_t)lp[2];
+  l.n_strides = (int)lp[3];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) l.stride[d] = (uint32_t)r[4 + d];
-  l.mode = (int)r[7];
-  l.axis = (int)r[8];
-  l.pairable = r[9] != 0;
-  l.hmap_mask = (uint32_t)r[11];
-  l.hmap_magic = (uint64_t)r[12];
-  l.add_mask = (uint32_t)r[13];
-  l.add_magic = (uint64_t)t.x;
+  for (int d = 0; d < 3; ++d) l.stride[d] = (uint32_t)lp[4 + d];
+  l.mode = (int)lp[7];
+  l.axis = (int)lp[8];
+  l.pairable = lp[9] != 0;
+  l.hmap_mask = (uint32_t)lp[11];
+  l.hmap_magic = (uint64_t)lp[12];
+  l.add_mask = (uint32_t)lp[13];
+  l.add_magic = (uint64_t)lp[14];
   return l;
 }
 

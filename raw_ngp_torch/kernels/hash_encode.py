@@ -149,21 +149,19 @@ def mod_constants(d: int):
 
 
 # the level table's columns: level_layout's, then the moduli's constants
-# and a 0 that pads each row to 128 bytes (the kernels read it in 16-byte
-# loads)
 LEVEL_COLUMNS = ("res", "hmap", "offset", "n_strides", "stride0", "stride1",
                  "stride2", "mode", "axis", "pairable", "first_window",
-                 "hmap_mask", "hmap_magic", "add_mask", "add_magic", "pad")
+                 "hmap_mask", "hmap_magic", "add_mask", "add_magic")
 
 
 @functools.lru_cache(maxsize=16)
 def _level_table(spec: HashGridSpec, m: int, device: torch.device):
-    """[L, 16] i64 rows the kernels read per level (``LEVEL_COLUMNS``):
+    """[L, 15] i64 rows the kernels read per level (``LEVEL_COLUMNS``):
     res, hmap, offset, n_strides, stride0..2, mode, pair axis, pairable,
     first window (-1 on the matmul levels below ``m``), then
     :func:`mod_constants` of hmap (every mode's final ``% hmap``) and of
     hmap - res (the additive hash's ``g % (hmap - res)``; those of 1 on
-    the other modes), and 0 (each row 128 bytes)."""
+    the other modes)."""
     first = {lv: w0 for lv, w0, _ in level_windows(spec, m)}
     rows = []
     for lv in range(spec.num_levels):
@@ -172,7 +170,7 @@ def _level_table(spec: HashGridSpec, m: int, device: torch.device):
         add = hmap - res if mode == "additive" else 1
         rows.append([res, hmap, offset, len(strides), *s, _MODES[mode], axis,
                      int(level_pairable(spec, lv)), first.get(lv, -1),
-                     *mod_constants(hmap), *mod_constants(add), 0])
+                     *mod_constants(hmap), *mod_constants(add)])
     return torch.tensor(rows, dtype=torch.int64, device=device)
 
 

@@ -120,7 +120,6 @@ def test_level_table_layout_columns(name):
                 int(level_pairable(spec, lv)), first.get(lv, -1)]
         assert [col[k] for k in LEVEL_COLUMNS[:11]] == want, (name, lv)
         assert (col["hmap_mask"], col["hmap_magic"]) == mod_constants(hmap)
-        assert col["pad"] == 0
 
 
 def _device_rows(col, corners):
