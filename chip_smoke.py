@@ -3975,6 +3975,13 @@ def compare_encode(dev, cfg, o_cfg, tree, other, reps=20, B=262144):
                 use(which)
                 row[f"{which}_device_ms_{i}"] = device_ms(fn, reps)
                 row[f"{which}_ms_{i}"] = time_ms(fn, 50)
+            # the means of each tree's two turns, and this tree's over the
+            # other's (CUDA events)
+            for which, turns in (("other", (0, 3)), ("this", (1, 2))):
+                for unit in ("ms", "device_ms"):
+                    row[f"{which}_{unit}"] = sum(
+                        row[f"{which}_{unit}_{i}"] for i in turns) / 2
+            row["this_over_other"] = row["this_ms"] / row["other_ms"]
             result[name] = row
             print(f"[against] {name}: {row}")
     finally:

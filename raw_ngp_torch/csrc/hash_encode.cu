@@ -90,11 +90,11 @@
 // outputs stay 0. The records add 8.4 MB written to the forward's bytes
 // at the flagship's 262,144 points and 4 windows.
 //
-// The JVP (the orientation loss's second order) keeps each (point,
-// level)'s chain in one group as above, but lays its warps out
-// level-major and stages its outputs to store whole rows: see
-// encode_input_jvp_kernel. Every kernel reduces its hashes with the
-// level table's constants (mod_u32), no runtime modulo.
+// The JVP (the orientation loss's second order) takes the same groups;
+// below C = 8 it stages the level table and its outputs in shared memory
+// and stores whole rows (encode_input_jvp_kernel). Every kernel reduces
+// its hashes with the level table's constants (mod_u32), no runtime
+// modulo.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1026,18 +1026,25 @@ __device__ __forceinline__ void mm_level_jvp(const float* __restrict__ tq,
 }
 
 // The JVP's layout. Each group of G = ceil(C/4) threads owns a point and
-// walks its levels in order, as the forward does (a layout with each warp
-// on one level of 32 / G points, the level-major one, measured no faster
-// at C = 2 and slower at C = 16: PERF.md, PR 17). What it adds:
-// - the level table (with the moduli's constants, mod_u32) is staged in
+// walks its levels in order, as the forward does: a layout with each warp
+// on one level of 32 / G points (level-major) measured no faster at C = 2
+// and 37% slower at C = 16 (PERF.md, PR 17). Below C = 8 (kJvpStaged, G
+// = 1: each lane a point, its 4 or 8 output bytes a level L C elements
+// from its neighbour's) it adds:
+// - the level table (with the moduli's constants, mod_u32) staged in
 //   shared memory once a block;
-// - the outputs are staged in shared memory level-major ([level][point]
-//   [C]: a warp's lanes write one contiguous run, no bank conflict), and
-//   the block writes its rows [n, L C], one contiguous range of global
-//   memory, in 16-byte stores, where each thread used to store its 4 or
-//   8 bytes L C elements away from its neighbour's.
+// - the outputs staged in shared memory level-major ([level][point][C]: a
+//   warp's lanes write one contiguous run, no bank conflict), the block
+//   then writing its rows [n, L C], one contiguous range of global
+//   memory, in 16-byte stores.
+// From C = 8 a group's quads of a level are 16 to 128 contiguous bytes
+// and the staging measured 3-6% slower at C = 16: each group stores them
+// where it stands and reads its levels from the table, as before.
 // Each (point, level) is one group's chain in the order above, so the
 // bits are the plain version's.
+template <int C>
+constexpr bool kJvpStaged = C < 8;
+
 template <bool BF16>
 struct OutType { using T = float; };
 template <>
@@ -1115,6 +1122,7 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
                         int top, int align_corners, int smoothstep) {
   using T = typename OutType<BF16>::T;
   constexpr int G = kGroup<C>, Q = kQuad<C>;
+  constexpr bool kStaged = kJvpStaged<C>;
   extern __shared__ __align__(16) unsigned char jvp_smem[];
   const int np = blockDim.x / G;            // the block's tile of points
   Level* lvl = reinterpret_cast<Level*>(jvp_smem);
@@ -1122,10 +1130,12 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
   const int64_t b0 = (int64_t)blockIdx.x * np;
   const int64_t rest = B - b0;
   const int n = rest < np ? (int)rest : np;  // the block's points
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    lvl[i] = load_level(levels + i * kLevelRow);
+  if constexpr (kStaged) {
+    for (int i = threadIdx.x; i < L; i += blockDim.x) {
+      lvl[i] = load_level(levels + i * kLevelRow);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const int p = threadIdx.x / G, j = threadIdx.x % G;
   if (p < n) {  // whole groups: G divides the warp
     const int64_t b = b0 + p;
@@ -1144,7 +1154,8 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
 #pragma unroll
       for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
       if (inb) {  // uniform within the group
-        const Level l = lvl[lv];
+        const Level l = kStaged ? lvl[lv]
+                                : load_level(levels + lv * kLevelRow);
         uint32_t g0[3];
         float f[3], dfdx[3], u[3];
         level_cell_grad(l, x, align_corners, smoothstep, g0, f, dfdx);
@@ -1170,11 +1181,18 @@ encode_input_jvp_kernel(const float* __restrict__ x01,
           });
         }
       }
-      store_quad<C, BF16>(tile, (lv * np + p) * C + 4 * j, acc);
+      if constexpr (kStaged) {
+        store_quad<C, BF16>(tile, (lv * np + p) * C + 4 * j, acc);
+      } else {
+        store_quad<C, BF16>(out, (b * L + lv) * C + 4 * j, acc);
+      }
     }
   }
-  __syncthreads();
-  jvp_store_tile<C, BF16>(tile, static_cast<T*>(out) + b0 * L * C, n, np, L);
+  if constexpr (kStaged) {
+    __syncthreads();
+    jvp_store_tile<C, BF16>(tile, static_cast<T*>(out) + b0 * L * C, n, np,
+                            L);
+  }
 }
 
 template <int C>
@@ -1182,16 +1200,16 @@ int launch_input_jvp(bool bf16, const float* x01, const float* table,
                      const float* ct_x, const int64_t* levels, void* out,
                      int64_t B, int L, int m, int top, int align_corners,
                      int smoothstep, cudaStream_t s) {
-  // the largest block (kThreads down to one warp) whose tile fits in the
-  // 48 KB of shared memory a block takes without opting in
+  // staged: the largest block (kThreads down to one warp) whose tile fits
+  // in the 48 KB of shared memory a block takes without opting in
   const int out_bytes = bf16 ? 2 : 4;
   int threads = kThreads;
-  while (threads > 32 && jvp_smem_bytes(L, C, threads / kGroup<C>,
-                                        out_bytes) > 48 * 1024) {
+  while (kJvpStaged<C> && threads > 32
+         && jvp_smem_bytes(L, C, threads / kGroup<C>, out_bytes) > 48 * 1024) {
     threads /= 2;
   }
   const int np = threads / kGroup<C>;
-  const int smem = jvp_smem_bytes(L, C, np, out_bytes);
+  const int smem = kJvpStaged<C> ? jvp_smem_bytes(L, C, np, out_bytes) : 0;
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = (unsigned)((B + np - 1) / np);
   if (bf16) {
@@ -1213,8 +1231,8 @@ int launch_input_jvp(bool bf16, const float* x01, const float* table,
 // dense matmul levels first, top = n_params - 2) -> out [B, L * C] f32 or
 // bf16 (16-byte aligned), the cotangent of the input gradient's g. B > 0.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported C
-// or a block's tile beyond 48 KB of shared memory (past 85 levels at C
-// = 32 in f32).
+// or, below C = 8, a one-warp block's tile beyond 48 KB of shared memory
+// (past 85 levels at C = 4 in f32).
 extern "C" int hash_encode_input_jvp(const float* x01, const float* table,
                                      const float* ct_x,
                                      const int64_t* levels, void* out,

@@ -46,10 +46,10 @@ gradient with the table frozen): :func:`frozen_input_grad`, whose
 forward is the input gradient and whose backward is the kernel
 ``hash_encode_input_jvp`` (:func:`encode_input_jvp`): the encode's JVP
 along the positions, the forward with each weight replaced by its
-directional derivative, each (point, level) in one group of threads,
-warps laid out level-major and the rows stored whole from shared memory;
-its plain version is :func:`encode_input_jvp_plain`, which takes the
-rounding of XLA's transpose of the bf16 chain.
+directional derivative, in the forward's groups of threads (below C = 8
+with the outputs staged in shared memory and the rows stored whole); its
+plain version is :func:`encode_input_jvp_plain`, which takes the rounding
+of XLA's transpose of the bf16 chain.
 
 Every kernel reads the level table (:func:`_level_table`), whose last
 columns reduce the hashes modulo each level's size without a division
@@ -904,8 +904,8 @@ def encode_input_jvp(params, x01, ct_x, spec: HashGridSpec,
     ``ct_x`` [B, 3] f32 of the input gradient, the cotangent of g [B,
     L*C] in the compute dtype (bf16 or f32), the table frozen. CPU tensors
     take :func:`encode_input_jvp_plain`; CUDA tensors launch the kernel
-    (a block a tile of points, each warp one level of 32 / ceil(C/4) of
-    them, every (point, level) written once from shared memory: no
+    (the forward's groups of ceil(C/4) threads a point, each writing its
+    channels once, below C = 8 through shared memory as whole rows: no
     atomics)."""
     if x01.device.type == "cpu":
         return encode_input_jvp_plain(params, x01, ct_x, spec, compute_dtype)
