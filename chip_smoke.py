@@ -4050,10 +4050,10 @@ def main() -> int:
         return 0
     seconds = {}
 
-    def timed(name, fn, *args):
-        """fn(*args), its seconds kept under `name`."""
+    def timed(name, fn, *args, **kwargs):
+        """fn(*args, **kwargs), its seconds kept under `name`."""
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 

@@ -150,6 +150,9 @@ __device__ __forceinline__ Level load_level(const int64_t* __restrict__ lp) {
 // 1. A runtime % is a sequence of some twenty instructions; this is an
 // AND, or a 64-bit multiply and a high half (tests/test_torch_level_table.py
 // holds the emulated reduction to % on every level of the port's grids).
+// With the hardware % in its place the input gradient measured 7-11%
+// less time, the forward 3-11% more and the JVP 11-102% more (PERF.md);
+// one reduction serves them all.
 __device__ __forceinline__ uint32_t mod_u32(uint32_t x, uint32_t d,
                                             uint32_t mask, uint64_t magic) {
   return mask != 0xffffffffu ? x & mask
@@ -923,7 +926,8 @@ void launch_input_grad(bool bf16, const float* x01, const float* table,
 // second row, whose weight tangent is 0 except at the top clamp: JAX
 // forms rnd(T * 0) there, NaN where T is inf or NaN, so skipping the load
 // would change the bits on a non-finite table. The row is adjacent to the
-// first, mostly in the same 32-byte sector.
+// first, mostly in the same 32-byte sector; skipping it on a finite table
+// measured 14-20% off the JVP on the -O grid (PERF.md).
 template <typename Fn>
 __device__ __forceinline__ void for_each_window_tangent(const Level& l,
                                                         const int rows[8],
@@ -1028,7 +1032,7 @@ __device__ __forceinline__ void mm_level_jvp(const float* __restrict__ tq,
 // The JVP's layout. Each group of G = ceil(C/4) threads owns a point and
 // walks its levels in order, as the forward does: a layout with each warp
 // on one level of 32 / G points (level-major) measured no faster at C = 2
-// and 37% slower at C = 16 (PERF.md, PR 17). Below C = 8 (kJvpStaged, G
+// and 29% slower at C = 16 (PERF.md). Below C = 8 (kJvpStaged, G
 // = 1: each lane a point, its 4 or 8 output bytes a level L C elements
 // from its neighbour's) it adds:
 // - the level table (with the moduli's constants, mod_u32) staged in
@@ -1038,8 +1042,9 @@ __device__ __forceinline__ void mm_level_jvp(const float* __restrict__ tq,
 //   then writing its rows [n, L C], one contiguous range of global
 //   memory, in 16-byte stores.
 // From C = 8 a group's quads of a level are 16 to 128 contiguous bytes
-// and the staging measured 3-6% slower at C = 16: each group stores them
-// where it stands and reads its levels from the table, as before.
+// and the staging measured 4-6% slower at C = 16: each group stores them
+// where it stands and reads its levels from the table, as the input
+// gradient does.
 // Each (point, level) is one group's chain in the order above, so the
 // bits are the plain version's.
 template <int C>
