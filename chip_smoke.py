@@ -225,10 +225,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               run's refinements move, and the rotation error falls below
               0.92 of its start in the mean over the seeds (the
               translation errors are reported: at 400 steps they fall in
-              about 2 of 3 of JAX's own runs). The O, reg and unfused
-              phases share one mark_untrained grid
-              (cached_mark_untrained);
- 18. timing — each kernel, its plain version and a PyTorch yardstick where
+              about 2 of 3 of JAX's own runs). The train, pose,
+              lightstage, O, reg and unfused phases share one
+              mark_untrained grid (cached_mark_untrained; the same
+              cameras and grid), the cli phase's two Trainers another;
+ 18. cli    — the port's entry point end to end (phase_cli):
+              raw_ngp_torch.cli.main in process on the flagship's argv
+              (-O --tpu_profile --fp16 --num_rays 8192, --iters 128,
+              --save_cnt 2, --eval_cnt 2) and the CLI's own synthetic
+              scene (24 train and 4 val views of 64x64), in a temporary
+              workspace, with every launch counter reset just before and
+              read just after: the fold, B2's flat form, the dense level
+              and the encode with and without records launched; the
+              seconds of its stages (Trainer build, fit, final eval, test
+              frames, the density sweeps, marching tetrahedra); the final
+              eval's PSNR and SSIM; the checkpoints (two ngp_step and
+              ngp_best), validation PNGs, result frames and mesh_0.ply
+              with faces; the step-128 checkpoint bit for bit the state of
+              an in-process Trainer that took train(128) unbroken; then
+              `python -m raw_ngp_torch.cli ... --test --ckpt latest` as a
+              subprocess: exit 0, restored at step 128, the frames and the
+              inner mesh written again;
+ 19. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -245,12 +263,12 @@ launches by caller (train forwards, grid refresh chunks, evaluation).
 It prints `render`, `train`, `disk`, `pose`, `lightstage`, `proposal`, `O`,
 `reg`, `unfused` (the disk line and the last five with the card's name and
 power limit),
-`pose_recovery`, `table_grad` and `kernels` JSON lines (each kernel's
+`pose_recovery`, `cli`, `table_grad` and `kernels` JSON lines (each kernel's
 `launches` are the reg phase's, also as `launches_reg`, `reg_launched`
 says whether it ran there; `launches_O` and `O_launched` the -O
 phase's, its launches in one chunk of the normal render ride as
 `launches_O_normal_render_chunk`, the other phases' counts beside them,
-`launches_disk` the disk phase's;
+`launches_disk` the disk phase's, `launches_cli` the cli phase's;
 the numbers of the proposal path's three kernels are at its shapes, a
 step's or a serving chunk's calls summed, with the flagship's under
 `flagship`) and the
@@ -282,10 +300,14 @@ CUDA implementation; one `deterministic_ops` line.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from dataclasses import replace
@@ -297,6 +319,15 @@ F32_FLOP_PER_S = 67e12
 
 class PhaseError(RuntimeError):
     pass
+
+
+def scratch_workspace():
+    """A fresh temporary workspace for a Trainer (removed when the script
+    exits): with the default ckpt "latest" a Trainer resumes from the
+    checkpoints of its workspace, so each one gets an empty one."""
+    path = tempfile.mkdtemp(prefix="chip_smoke_ws_")
+    atexit.register(shutil.rmtree, path, True)
+    return path
 
 
 def check(cond, msg):
@@ -2070,7 +2101,8 @@ def phase_train(dev, cfg, steps=128, timed=32, repro=32):
 
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     print(f"[train] Trainer ready in {init_s:.2f} s")
@@ -2163,41 +2195,61 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2):
     return len(pts)
 
 
-class timed_load_stages:
-    """While active, the COLMAP loader's stages are timed: the binary
-    parses (colmap_io readers), the image decodes (image_io.load_ldr_image:
-    PNG decode, and resize where the size differs) and the sparse-depth
-    near/far, in seconds summed over the calls."""
+class timed_calls:
+    """While active, each call of the targeted functions (module or class
+    attributes, given as (stage, owner, attribute name)) is timed on the
+    host clock and kept in order as (stage, seconds, result) in `calls`."""
 
-    STAGES = {"colmap_parse": ("providers", ("read_cameras_binary",
-                                             "read_images_binary",
-                                             "read_points3d_binary")),
-              "png_decode": ("image_io", ("load_ldr_image",)),
-              "near_far": ("providers", ("sparse_depth_near_far",))}
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls = []
 
     def __enter__(self):
-        import importlib
-        self.seconds = {k: 0.0 for k in self.STAGES}
         self.saved = []
-        for stage, (module, names) in self.STAGES.items():
-            mod = importlib.import_module(f"raw_ngp_torch.data.{module}")
-            for name in names:
-                fn = getattr(mod, name)
-                self.saved.append((mod, name, fn))
-                setattr(mod, name, self._timed(stage, fn))
+        for stage, owner, name in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(stage, fn))
         return self
 
     def _timed(self, stage, fn):
         def call(*args, **kwargs):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            self.seconds[stage] += time.perf_counter() - t0
+            self.calls.append((stage, time.perf_counter() - t0, out))
             return out
         return call
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def totals(self):
+        """{stage: seconds summed over its calls}, every stage named."""
+        out = {stage: 0.0 for stage, _, _ in self.targets}
+        for stage, seconds, _ in self.calls:
+            out[stage] += seconds
+        return out
+
+
+LOAD_STAGES = {"colmap_parse": ("providers", ("read_cameras_binary",
+                                              "read_images_binary",
+                                              "read_points3d_binary")),
+               "png_decode": ("image_io", ("load_ldr_image",)),
+               "near_far": ("providers", ("sparse_depth_near_far",))}
+
+
+def timed_load_stages():
+    """While active, the COLMAP loader's stages are timed: the binary
+    parses (colmap_io readers), the image decodes (image_io.load_ldr_image:
+    PNG decode, and resize where the size differs) and the sparse-depth
+    near/far (timed_calls: `totals()` sums each stage's calls)."""
+    import importlib
+    targets = []
+    for stage, (module, names) in LOAD_STAGES.items():
+        mod = importlib.import_module(f"raw_ngp_torch.data.{module}")
+        targets += [(stage, mod, name) for name in names]
+    return timed_calls(targets)
 
 
 def march_recorder():
@@ -2320,8 +2372,9 @@ def phase_disk(dev, train_launches, steps=128, timed=32, repro=32,
             with timed_load_stages() as stages:
                 scenes[split] = load_scene(cfg, split)
             total = time.perf_counter() - t0
-            load[split] = dict(stages.seconds, total=total,
-                               other=total - sum(stages.seconds.values()))
+            seconds = stages.totals()
+            load[split] = dict(seconds, total=total,
+                               other=total - sum(seconds.values()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     train_d, val_d = scenes["train"], scenes["val"]
@@ -2350,7 +2403,8 @@ def phase_disk(dev, train_launches, steps=128, timed=32, repro=32,
           f"round(255 img) / 255; pts_aabb {train_d.pts_aabb.tolist()}")
 
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_d, val_d, device=dev)
+    tr = Trainer(cfg, train_d, val_d, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     check("cam_near_far" in tr.scene_arrays,
@@ -2451,7 +2505,8 @@ def phase_pose(dev, steps=128, timed=32, repro=32):
     cfg = pose_config(steps)
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     err0 = analyze_pose_optimization(tr)
@@ -2551,7 +2606,8 @@ def phase_lightstage(dev, steps=128, timed=32, repro=32, large=512,
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128,
                                           W=128, hdr=True, rfield=True)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     view_in = tr.field.view_mlp[0].shape
@@ -2963,7 +3019,8 @@ def phase_proposal(dev, steps=128, timed=32, repro=32, large=512, reps=7):
     cfg = proposal_config()
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     specs = (tr.spec.grid_spec,) + tr.spec.prop_specs
@@ -3186,7 +3243,8 @@ def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
     cfg = o_config()
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     spec = tr.spec.grid_spec
@@ -3371,10 +3429,11 @@ def reg_config(fused=True):
 
 class cached_mark_untrained:
     """While active, the Trainer's mark_untrained_grid (host numpy, about
-    37 s at the -O grid) is computed once for each grid and scene and then
-    served from a cache: the O, reg and unfused phases build their
-    Trainers on one scene and grid. The grid depends only on the keyed
-    inputs."""
+    37 s at the 128^3 grids) is computed once for each grid and scene and
+    then served from a cache: the train, pose, lightstage, O, reg and
+    unfused phases build their Trainers on one camera rig and grid, and
+    the cli phase its two in-process Trainers on another. The grid depends
+    only on the keyed inputs."""
 
     def __enter__(self):
         import hashlib
@@ -3579,7 +3638,8 @@ def phase_reg(dev, steps=128, timed=32, repro=32):
     cfg = reg_config()
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     spec = tr.spec.grid_spec
@@ -3664,7 +3724,8 @@ def phase_unfused(dev, fused_ms, steps=32, repro=32):
     cfg = reg_config(fused=False)
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     t0 = time.perf_counter()
-    tr = Trainer(cfg, train_s, val_s, device=dev)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     snap = trainer_snapshot(tr)
@@ -3739,7 +3800,8 @@ def phase_pose_recovery(dev, steps=400, seeds=(0, 1, 2, 3)):
     for seed in seeds:
         cfg = pose_recovery_config()
         cfg = replace(cfg, train=replace(cfg.train, seed=seed)).validate()
-        tr = Trainer(cfg, train_s, val_s, device=dev)
+        tr = Trainer(cfg, train_s, val_s, device=dev,
+                     workspace=scratch_workspace())
         err0 = analyze_pose_optimization(tr)
         run = tr.train(iters=steps, log_every=100)
         torch.cuda.synchronize()
@@ -3771,6 +3833,213 @@ def phase_pose_recovery(dev, steps=400, seeds=(0, 1, 2, 3)):
             "seeds": list(seeds), "runs": runs,
             "mean_rotation_ratio": rot, "mean_translation_ratio": trans,
             "phase_s": time.perf_counter() - t_phase}
+
+
+# the flagship through the port's command line on its own synthetic scene
+# (load_scene -> make_synthetic_scene(): 24 train and 4 val views of 64^2),
+# the configuration of bench.py:184-186
+CLI_ARGV = ["unused", "--data_format", "synthetic", "-O", "--tpu_profile",
+            "--fp16", "--num_rays", "8192"]
+# what the CLI phase's training must launch (its evaluations, test frames
+# and density sweeps launch the encode forward without records too)
+CLI_KERNELS = ("decimate_compact", "segment_grad_outer", "hash_encode",
+               "hash_encode_records", "mm_grad_table")
+
+
+def phase_cli(dev, steps=128):
+    """The port's entry point end to end: raw_ngp_torch.cli.main in
+    process on CLI_ARGV with --iters `steps`, --save_cnt 2, --eval_cnt 2
+    in a temporary workspace, every launch counter reset just before and
+    read just after (the kernels of CLI_KERNELS must have launched); the
+    Trainer's logger given a recording writer in place of tensorboardX's
+    (which the card's machine lacks), so that fit's gradient histograms
+    run at each of its evaluations, finite and under JAX's tags; the
+    seconds of its stages (Trainer build, fit, histograms, final eval,
+    test frames, density sweeps, marching tetrahedra); the final eval's
+    PSNR and SSIM;
+    the checkpoints, validation PNGs, result frames and the inner mesh
+    (faces > 0) in place. Then the step-`steps` checkpoint's tensors
+    (params, EMA, moments, grid) and counters held bit for bit against an
+    in-process Trainer of the same configuration and scene that took
+    train(`steps`) unbroken (the CLI's evaluations, histograms and saves
+    do not disturb training), and `python -m raw_ngp_torch.cli --test
+    --ckpt latest` run as a subprocess in the same workspace: exit 0,
+    restored at step `steps`, the result frames and the inner mesh
+    written again, and the seconds of its stages as its log lines give
+    them."""
+    import collections
+    import re
+
+    import numpy as np
+    import torch
+    from raw_ngp_torch import cli
+    from raw_ngp_torch.data import load_scene
+    from raw_ngp_torch.mesh import extract
+    from raw_ngp_torch.train import checkpoint
+    from raw_ngp_torch.train import trainer as trainer_mod
+    from raw_ngp_torch.train.trainer import Trainer
+
+    class Recorder:
+        """Stands in for tensorboardX's SummaryWriter: the tags written
+        and how often, each histogram checked finite."""
+
+        def __init__(self):
+            self.histograms, self.scalars = collections.Counter(), set()
+
+        def add_scalar(self, tag, value, step):
+            self.scalars.add(tag)
+
+        def add_histogram(self, tag, values, step):
+            check(np.isfinite(values).all(), f"cli: histogram {tag} is "
+                  "not finite")
+            self.histograms[tag] += 1
+
+        def close(self):
+            pass
+
+    recorder = Recorder()
+    plain_logger = trainer_mod.RunLogger
+
+    class RecordingLogger(plain_logger):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.writer = recorder
+
+    t_phase = time.perf_counter()
+    ws = scratch_workspace()
+    argv = CLI_ARGV + ["--iters", str(steps), "--save_cnt", "2",
+                       "--eval_cnt", "2", "--workspace", ws]
+    counters = _counters()
+    stages = timed_calls([
+        ("trainer_build", Trainer, "__init__"), ("fit", Trainer, "fit"),
+        ("histograms", Trainer, "log_histograms"),
+        ("evaluate", Trainer, "evaluate"), ("test", Trainer, "test"),
+        ("mesh_query", extract, "query_density_grid"),
+        ("marching_tetrahedra", extract, "marching_tetrahedra"),
+        ("mesh_export", extract, "export_meshes")])
+    with stages:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer_mod.RunLogger = RecordingLogger
+        try:
+            rc = cli.main(argv)
+        finally:
+            trainer_mod.RunLogger = plain_logger
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        check(rc == 0, f"cli: main returned {rc}")
+        final = [out for name, _, out in stages.calls
+                 if name == "evaluate"][-1]
+        evals = [s for name, s, _ in stages.calls if name == "evaluate"]
+        seconds = stages.totals()
+        del seconds["evaluate"]
+        seconds.update(cli_main=cli_s, fit_evaluations=sum(evals[:-1]),
+                       final_eval=evals[-1])
+        print(f"[cli] main: {cli_s:.1f} s; seconds by stage "
+              f"{json.dumps(seconds)}; final eval {final}; launches "
+              f"{launches}")
+        for name in CLI_KERNELS:
+            check(launches[name] > 0,
+                  f"cli: kernel {name} was never launched")
+        check(np.isfinite(final["psnr"]) and np.isfinite(final["ssim"]),
+              f"cli: the final eval is not finite: {final}")
+        grad_tags = sorted(t for t in recorder.histograms
+                           if t.startswith("grad/"))
+        print(f"[cli] histograms at {len(evals) - 1} fit evaluations: "
+              f"{dict(recorder.histograms)}")
+        check(len(evals) > 1 and "grad/grid/w" in grad_tags
+              and all(recorder.histograms[t] == len(evals) - 1
+                      for t in grad_tags + ["train/density_grid"]),
+              "cli: fit's gradient histograms did not run at each "
+              f"evaluation: {dict(recorder.histograms)}")
+
+        ckpt_dir = os.path.join(ws, "checkpoints")
+        files = sorted(os.listdir(ckpt_dir))
+        last = os.path.join(ckpt_dir, f"ngp_step{steps:06d}.npz")
+        check(os.path.exists(last) and "ngp_best.npz" in files
+              and sum(f.startswith("ngp_step") and f.endswith(".npz")
+                      for f in files) == 2,
+              f"cli: checkpoints {files}")
+        val = os.listdir(os.path.join(ws, "validation"))
+        results = sorted(os.listdir(os.path.join(ws, "results")))
+        check(any(f.startswith(f"rgb_{steps}_") for f in val)
+              and "rgb_000.png" in results, f"cli: validation {val}, "
+              f"results {results}")
+        faces = len(extract.load_ply(os.path.join(ws, "mesh",
+                                                  "mesh_0.ply"))[1])
+        meshes = sorted(os.listdir(os.path.join(ws, "mesh")))
+        print(f"[cli] checkpoints {files}; {len(val)} validation PNGs; "
+              f"results {results}; meshes {meshes}, mesh_0 {faces} faces")
+        check(faces > 0, "cli: mesh_0.ply has no faces")
+
+        # the same run unbroken, in process
+        cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+        tr = Trainer(cfg, load_scene(cfg, "train"), load_scene(cfg, "val"),
+                     device=dev, workspace=scratch_workspace())
+        tr.train(steps, log_every=steps)
+        torch.cuda.synchronize()
+    mine = checkpoint.state_tensors(tr.state)
+    with np.load(last, allow_pickle=False) as data:
+        differ = [k for k, t in mine.items()
+                  if k not in data.files or not np.array_equal(
+                      t.detach().cpu().numpy(), data[k])]
+        counts = (int(data["step"]), int(data["opt_state.count"]))
+    print(f"[cli] step-{steps} checkpoint against train({steps}) unbroken: "
+          f"{len(mine) - len(differ)} of {len(mine)} tensors bitwise "
+          f"equal{'; differ: ' + str(differ) if differ else ''}; step and "
+          f"Adam count {counts}")
+    check(not differ and counts == (steps, steps),
+          "cli: the CLI's checkpoint differs from an unbroken train()")
+
+    # the real entry point, resumed in --test mode
+    for d in ("results", "mesh"):
+        shutil.rmtree(os.path.join(ws, d))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("RAW_NGP_PLATFORM", None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "raw_ngp_torch.cli",
+                        *CLI_ARGV, "--test", "--ckpt", "latest",
+                        "--workspace", ws], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    test_s = time.perf_counter() - t0
+    tail = "\n".join(r.stdout.splitlines()[-6:])
+    # its lines "[cli] <stage>: <t> s" and "[mesh] <what>: <x> <t> s, ..."
+    test_stages = {}
+    for line in r.stdout.splitlines():
+        m = re.match(r"\[(?:cli|mesh)\] ([^:]+): (.*)$", line)
+        for part in m[2].split(", ") if m else ():
+            t = re.fullmatch(r"(.*?) ?([0-9.]+) s", part)
+            if t:
+                test_stages[f"{m[1]} {t[1]}".strip()] = float(t[2])
+    print(f"[cli] --test --ckpt latest: exit {r.returncode} in "
+          f"{test_s:.1f} s; its stages {json.dumps(test_stages)}; its last "
+          f"lines:\n{tail}")
+    check(r.returncode == 0, f"cli --test failed: {r.stderr[-3000:]}")
+    check(f"ngp_step{steps:06d}.npz at step {steps}" in r.stdout,
+          "cli --test: not restored at the saved step")
+    resumed = sorted(os.listdir(os.path.join(ws, "results")))
+    faces_test = len(extract.load_ply(os.path.join(ws, "mesh",
+                                                   "mesh_0.ply"))[1])
+    check(resumed == results and faces_test > 0,
+          f"cli --test: results {resumed}, mesh_0 {faces_test} faces")
+    return launches, {
+        "argv": argv[:-1] + ["<temporary workspace>"],
+        "scene": "load_scene (make_synthetic_scene(): 24 train and 4 val "
+                 "views of 64x64)",
+        "steps": steps, "seconds": seconds, "final_eval": final,
+        "eval_seconds": evals, "checkpoints": files,
+        "validation_pngs": len(val), "results": results, "meshes": meshes,
+        "mesh_0_faces": faces, "histograms": dict(recorder.histograms),
+        "checkpoint_vs_unbroken_train": {
+            "tensors": len(mine), "bitwise_equal": not differ},
+        "test_mode": {"seconds": test_s, "stages": test_stages,
+                      "mesh_0_faces": faces_test,
+                      "results": resumed},
+        "phase_s": time.perf_counter() - t_phase}
 
 
 def deterministic_ops(dev):
@@ -3820,7 +4089,8 @@ def deterministic_ops(dev):
                       ("proposal", proposal_config()), ("O", o_config()),
                       ("reg", reg_config()),
                       ("unfused", reg_config(fused=False))):
-        tr = Trainer(cfg, train_s, val_s, device=dev)
+        tr = Trainer(cfg, train_s, val_s, device=dev,
+                     workspace=scratch_workspace())
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             with warnings.catch_warnings(record=True) as caught:
@@ -4071,20 +4341,23 @@ def main() -> int:
         k_input = timed("encode_input", phase_encode_input, dev, cfg)
         k_channel = timed("segsum_channel", phase_segsum_channel, dev)
         render_launches, render = timed("slice", phase_slice, dev, cfg)
-        train_launches, train = timed("train", phase_train, dev, cfg)
-        disk_launches, disk = timed("disk", phase_disk, dev, train_launches)
-        pose_launches, pose = timed("pose", phase_pose, dev)
-        light_launches, lightstage = timed("lightstage", phase_lightstage,
-                                           dev)
-        proposal_launches, proposal = timed("proposal", phase_proposal, dev)
         with cached_mark_untrained():
+            train_launches, train = timed("train", phase_train, dev, cfg)
+            disk_launches, disk = timed("disk", phase_disk, dev,
+                                        train_launches)
+            pose_launches, pose = timed("pose", phase_pose, dev)
+            light_launches, lightstage = timed("lightstage",
+                                               phase_lightstage, dev)
+            proposal_launches, proposal = timed("proposal", phase_proposal,
+                                                dev)
             o_launches, o_render_launches, o_phase = timed("O", phase_o, dev)
             k_jvp = timed("encode_jvp", phase_encode_jvp, dev, o_config(),
                           flagship=cfg)
             launches, reg, reg_ms = timed("reg", phase_reg, dev)
             unfused_launches, unfused = timed("unfused", phase_unfused, dev,
                                               reg_ms)
-        pose_recovery = timed("pose_recovery", phase_pose_recovery, dev)
+            pose_recovery = timed("pose_recovery", phase_pose_recovery, dev)
+            cli_launches, cli = timed("cli", phase_cli, dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4116,6 +4389,7 @@ def main() -> int:
         k["launches_pose"] = pose_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_disk"] = disk_launches[k["name"]]
+        k["launches_cli"] = cli_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
@@ -4141,6 +4415,7 @@ def main() -> int:
     print(json.dumps({"reg": reg}))
     print(json.dumps({"unfused": unfused}))
     print(json.dumps({"pose_recovery": pose_recovery}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -30,19 +30,20 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=500)
     args = parser.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import tempfile
+    # a workspace of its own, so that neither package resumes a checkpoint
+    kwargs = {"workspace": tempfile.mkdtemp()}
     if args.package == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
         from raw_ngp_tpu import Config
         from raw_ngp_tpu.data import make_synthetic_scene
         from raw_ngp_tpu.train.trainer import Trainer
-        import tempfile
-        kwargs = {"workspace": tempfile.mkdtemp()}
     else:
         from raw_ngp_torch import Config
         from raw_ngp_torch.data import make_synthetic_scene
         from raw_ngp_torch.train.trainer import Trainer
-        kwargs = {"device": "cpu"}
+        kwargs["device"] = "cpu"
     cfg = Config().with_preset_O()
     cfg = replace(cfg, model=replace(
         cfg.model, num_levels=8, log2_hashmap_size=15,

@@ -7,8 +7,10 @@ postprocessing; the training-path pieces (Bayer loss mask) live in
 raw_ngp_torch.data.sampler as torch.
 
 A copy of the numpy functions of ``raw_ngp_tpu/postprocess/raw.py``
-(``:17-94``). Its ``postprocess_raw_hdr`` and ``depth_to_normal`` need cv2,
-which the card's machine lacks; they wait for ROADMAP item A13.
+(``:17-94``), and its ``depth_to_normal`` (``:142``) with cv2's 3x3 Sobel
+written in numpy (the card's machine has no cv2). Its
+``postprocess_raw_hdr`` (cv2's HDR calibration, merge and tonemaps) waits
+for ROADMAP item A13b.
 """
 
 from __future__ import annotations
@@ -95,3 +97,27 @@ def postprocess_raw(raw: np.ndarray, cam2rgb: np.ndarray,
         exposure = np.percentile(rgb_linear, 97.0)
     scaled = np.clip(rgb_linear / exposure, 0.0, 1.0)
     return linear_to_srgb(scaled)
+
+
+def _sobel3(img: np.ndarray, axis: int) -> np.ndarray:
+    """cv2.Sobel(img, CV_32F, dx, dy, ksize=3) with its default border
+    (BORDER_REFLECT_101, numpy's "reflect"), in f32 and in cv2's order (the
+    row filter, then the column filter): the derivative [-1, 0, 1] along
+    ``axis`` (1 = x, 0 = y), the smoothing [1, 2, 1] across it. Within a
+    few f32 ulps of cv2's (its vector code groups the adds its own way)."""
+    p = np.pad(np.asarray(img, np.float32), 1, mode="reflect")
+    if axis == 1:
+        r = p[:, 2:] - p[:, :-2]
+        return (r[:-2] + r[2:]) + 2 * r[1:-1]
+    r = (p[:, :-2] + p[:, 2:]) + 2 * p[:, 1:-1]
+    return r[2:] - r[:-2]
+
+
+def depth_to_normal(depth: np.ndarray) -> np.ndarray:
+    """Sobel-gradient normal map from a depth image
+    (img/image_utils.py:243-261 equivalent)."""
+    dzdx = _sobel3(depth, 1)
+    dzdy = _sobel3(depth, 0)
+    n = np.stack([-dzdx, -dzdy, np.ones_like(dzdx)], axis=-1)
+    n /= (np.linalg.norm(n, axis=-1, keepdims=True) + 1e-8)
+    return (n + 1.0) / 2.0

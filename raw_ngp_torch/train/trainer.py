@@ -7,8 +7,10 @@ refinement and on the proposal path of the ``-O2`` preset (port of
 ``make_batch_loss_fn`` ``:249`` with ``render_any`` ``:232``,
 ``make_loss_fn`` ``:304``,
 ``make_train_step`` ``:351``, ``dataclasses_replace_scene`` ``:451`` and
-``Trainer`` ``:459``, with ``estimate_exposure_levels`` ``:930`` and the
-HDR branch of ``evaluate`` ``:1032-1058``).
+``Trainer`` ``:459``, with ``estimate_exposure_levels`` ``:930``,
+``log_histograms`` ``:953``, ``log_optimized_poses`` ``:995``,
+``evaluate`` ``:1021``, ``save_checkpoint`` / ``load_checkpoint``
+``:1102-1140``, ``fit`` ``:1141`` and ``test`` ``:1169``).
 
 JAX jits the step and chains steps with ``lax.scan``; here a step is one
 eager Python call that updates the state in place. The random streams
@@ -58,15 +60,28 @@ COLMAP loader's sparse-depth ranges under ``data.enable_cam_near_far``)
 clamps each training ray to its camera's [near, far] on both paths and in
 the untrained-cell marking; the eval renders take no near/far, as JAX's.
 
-Not ported (raises ``NotImplementedError``): multi-device meshes; absent:
-checkpoints, artifacts and the logger (so ``pose_opt.log_poses``), the
-HDR artifact dumps, histograms and metrics other than PSNR.
+Persistence and the run's outputs: the Trainer works in a workspace
+(``cfg.workspace`` unless given), logs to the console, its
+``log_ngp.txt`` and tensorboardX where that imports, and resumes from
+the checkpoint ``cfg.ckpt`` names (``"latest"`` by default: a workspace
+that holds ``checkpoints/ngp_step*.npz`` is resumed; ``"scratch"``
+never). A checkpoint carries the state, the generator's state, the grid
+refresh count and the adaptive-batch key, so a resumed run takes the
+steps the unbroken run would have taken. ``evaluate`` writes the
+validation PNGs (the port's own PNG writer, ``data.image_io.write_png``)
+and ``test`` writes PNG frames where the JAX package writes a video when
+it has a backend for one.
+
+Not ported (raises ``NotImplementedError``): multi-device meshes, and the
+HDR-merged test frames (``postprocess_raw_hdr``, ROADMAP A13b) of a
+configuration whose ``hdr_merge_algo`` is not "none".
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -74,6 +89,7 @@ import numpy as np
 import torch
 
 from raw_ngp_torch.config import Config
+from raw_ngp_torch.data.image_io import write_png
 from raw_ngp_torch.data.sampler import sample_ray_batch
 from raw_ngp_torch.data.scene import SceneData
 from raw_ngp_torch.device import resolve_device
@@ -83,13 +99,16 @@ from raw_ngp_torch.ops.hashgrid import (total_variation_loss,
 from raw_ngp_torch.ops.lie import se3_to_SE3
 from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
+from raw_ngp_torch.postprocess.raw import postprocess_raw
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
 from raw_ngp_torch.render.dispatch import render_any
 from raw_ngp_torch.train.losses import (blend_gt_background, entropy_loss,
                                        ldr_loss, loss_weight_fn,
                                        rawnerf_loss)
+from raw_ngp_torch.train import checkpoint
 from raw_ngp_torch.train.metrics import PSNRMeter
 from raw_ngp_torch.train.state import AdamState, TrainState
+from raw_ngp_torch.utils.logging import RunLogger, ThroughputMeter
 
 _F32 = np.float32
 
@@ -422,16 +441,23 @@ def dataclasses_replace_scene(scene: SceneData, new_poses):
 
 class Trainer:
     """Host-side orchestration of training on one device, on the occupancy
-    or the proposal path: ``train(iters)``, ``render_image(pose)`` with the
-    EMA parameters and ``evaluate()`` (PSNR). Runs on the card unless
-    ``device="cpu"``."""
+    or the proposal path: ``train(iters)``, ``fit()`` (training with the
+    eval and checkpoint schedule), ``render_image(pose)`` with the EMA
+    parameters, ``evaluate()`` (PSNR, or the meters given, with optional
+    artifacts), ``test(scene)`` and ``save_checkpoint`` /
+    ``load_checkpoint``, in ``workspace`` (default ``cfg.workspace``). Runs
+    on the card unless ``device="cpu"``."""
 
     def __init__(self, cfg: Config, train_scene: SceneData,
-                 val_scene: Optional[SceneData] = None, device="cuda"):
+                 val_scene: Optional[SceneData] = None, device="cuda",
+                 workspace: Optional[str] = None):
         if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
             raise NotImplementedError("multi-device training is not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.workspace = workspace or cfg.workspace
+        os.makedirs(os.path.join(self.workspace, "checkpoints"),
+                    exist_ok=True)
         self.spec = make_field_spec(cfg)
         if cfg.pose_opt.identity:
             # BARF from scratch: every camera starts at the identity pose;
@@ -468,12 +494,6 @@ class Trainer:
         self.num_rays = cfg.train.num_rays
         self._grid_update = (make_grid_update(cfg) if cfg.render.occupancy
                              else None)
-        if cfg.render.mark_untrained and cfg.render.occupancy:
-            grid = mark_untrained_grid(
-                cfg, np.asarray(train_scene.poses),
-                np.asarray(train_scene.intrinsics), self.aabb.cpu().numpy(),
-                cam_near_far=train_scene.cam_near_far)
-            self.state.density_grid = torch.from_numpy(grid).to(dev)
         self.stats: Dict[str, Any] = {"loss": [], "psnr": []}
         # HDR eval exposure levels {percentile: value}, set by
         # estimate_exposure_levels
@@ -485,6 +505,21 @@ class Trainer:
         self._adapt_stash = None
         self._metrics = None
         self._train_step = self._make_step()
+        # observability (train_utils.py:428-432 console+file, :919-937
+        # tensorboard) and the auto-resume policy (train_utils.py:444-463)
+        self.logger = RunLogger(self.workspace)
+        self.throughput = ThroughputMeter()
+        self._restored = ()
+        if cfg.ckpt != "scratch":
+            self.load_checkpoint()
+        # a checkpoint that restored the density grid makes the marking moot
+        if (cfg.render.mark_untrained and cfg.render.occupancy
+                and "density_grid" not in self._restored):
+            grid = mark_untrained_grid(
+                cfg, np.asarray(train_scene.poses),
+                np.asarray(train_scene.intrinsics), self.aabb.cpu().numpy(),
+                cam_near_far=train_scene.cam_near_far)
+            self.state.density_grid = torch.from_numpy(grid).to(dev)
 
     # ------------------------------------------------------------------
     def base_point_budget(self) -> int:
@@ -591,7 +626,8 @@ class Trainer:
         return self._metrics
 
     def train(self, iters: Optional[int] = None, log_every: int = 100):
-        """``iters`` steps; returns wall time and rays/s (the clock stops
+        """``iters`` steps, the loss logged after the first and every
+        ``log_every``-th; returns wall time and rays/s (the clock stops
         after the last step's loss has reached the host)."""
         iters = iters or self.cfg.train.iters
         t0 = time.time()
@@ -599,11 +635,26 @@ class Trainer:
         for i in range(iters):
             metrics = self.step()
             total_rays += self.num_rays
+            self.throughput.update(self.num_rays)
             if i == 0 or i // log_every != (i + 1) // log_every:
-                self.stats["loss"].append(float(metrics["loss"]))
+                loss = float(metrics["loss"])
+                self.stats["loss"].append(loss)
+                self.logger.log(
+                    f"[train] step {self.host_step:6d} loss {loss:.6f} "
+                    f"({(i + 1) / (time.time() - t0):.1f} it/s)")
+                self.logger.scalar("train/loss", loss, self.host_step)
+                if self.logger.active:   # a read for tensorboard
+                    self.logger.scalar("train/num_points",
+                                       float(metrics["num_points"]),
+                                       self.host_step)
+                self.logger.scalars(self.throughput.rates(), self.host_step,
+                                    prefix="throughput")
         self.stats["loss"].append(float(metrics["loss"]))
         dt = time.time() - t0
-        return {"wall_time": dt, "rays_per_sec": total_rays / dt}
+        rays_per_sec = total_rays / dt
+        print(f"[train] {iters} steps in {dt:.1f}s = "
+              f"{rays_per_sec:,.0f} rays/s")
+        return {"wall_time": dt, "rays_per_sec": rays_per_sec}
 
     # ------------------------------------------------------------------
     def render_image(self, pose, intrinsics=None, H=None, W=None,
@@ -647,31 +698,304 @@ class Trainer:
             for p in self.cfg.exposure_percentiles}
         if scene.meta is not None:
             scene.meta.exposure_levels = dict(self.exposure_levels)
+        self.logger.log("[eval] exposure levels for consistent LDR "
+                        f"output: {self.exposure_levels}")
         return self.exposure_levels
 
+    def log_histograms(self):
+        """Tensorboard histograms at eval cadence: the gradients of the
+        hash grid and the grid / view MLPs on a fresh ray batch
+        (train_utils.py:919-930), tagged as the JAX package tags its tree
+        paths (``grad/grid/w``, ``grad/grid_mlp/[0]w``, ...), plus the
+        density grid and mean density (train_utils.py:1155-1164). The batch
+        comes from a generator of its own, seeded from the step, and the
+        gradient is taken with ``torch.autograd.grad``: training's
+        generator and the parameters' ``.grad`` are left as they were."""
+        if not self.logger.active:
+            return
+        cfg, step = self.cfg, self.host_step
+        gen = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed + step)
+        loss_fn = make_loss_fn(cfg, self.spec, self.num_rays)
+        loss, _ = loss_fn(self.field, self.state, self.scene_arrays,
+                          self.aabb, gen,
+                          annealing=annealing_at(cfg, self.state.step))
+        names = list(self.state.params)
+        grads = torch.autograd.grad(
+            loss, [self.state.params[k] for k in names], allow_unused=True)
+        for k, g in zip(names, grads):
+            top, _, idx = k.partition(".")
+            if top not in ("grid", "grid_mlp", "view_mlp") or g is None:
+                continue
+            name = f"[{idx}]w" if idx else "w"
+            self.logger.histogram(f"grad/{top}/{name}",
+                                  g.float().cpu().numpy(), step)
+        if self.state.density_grid is not None:
+            self.logger.histogram("train/density_grid",
+                                  self.state.density_grid.cpu().numpy(), step)
+            self.logger.scalar("train/mean_density",
+                               float(self.state.mean_density), step)
+
+    def log_optimized_poses(self):
+        """--log_poses: dump the current optimized poses to
+        workspace/poses/ and log the Procrustes-aligned errors (reference
+        main.py:112, train_utils.py:737-738)."""
+        if self.state.pose_params is None:
+            return None
+        from raw_ngp_torch.train.pose_analysis import (
+            analyze_pose_optimization,
+            refined_poses,
+        )
+        poses = refined_poses(self)
+        pose_dir = os.path.join(self.workspace, "poses")
+        os.makedirs(pose_dir, exist_ok=True)
+        np.save(os.path.join(pose_dir,
+                             f"poses_step{self.host_step:06d}.npy"),
+                poses[:, :3, :4])
+        errs = analyze_pose_optimization(self)
+        for k, v in errs.items():
+            self.logger.scalar(f"pose/{k}", v, self.host_step)
+        self.logger.log(
+            f"[pose] step {self.host_step}: "
+            f"rot {errs['rotation_deg']:.4f} deg, "
+            f"trans {errs['translation']:.5f}")
+        return errs
+
     def evaluate(self, scene: Optional[SceneData] = None,
-                 use_ema: bool = True) -> Dict[str, float]:
-        """Mean PSNR of the renders of ``scene`` (default the val scene),
-        each under its image's light direction, against its images. HDR:
-        the exposure levels are estimated first, and the PSNR compares
-        min(1, rgb * exposure) with min(1, gt)."""
+                 use_ema: bool = True, save_artifacts: bool = False,
+                 metrics: Optional[list] = None,
+                 export_npy: bool = False) -> Dict[str, float]:
+        """The meters (default PSNR) over the renders of ``scene`` (default
+        the val scene), each under its image's light direction, against
+        its images; returns {meter name in lower case: value}. HDR: the
+        exposure levels are estimated first, and the meters compare
+        min(1, rgb * exposure) with min(1, gt). ``save_artifacts`` writes
+        the rgb, depth, error and (where the configuration computes them)
+        normal PNGs to ``<workspace>/validation``, an HDR scene's rgb and
+        truth postprocessed at one exposure level; ``export_npy`` the raw
+        prediction and truth to ``<workspace>/eval``
+        (train_utils.py:977-1139)."""
         scene = scene or self.val_scene
         if scene is None:
             raise ValueError("evaluate: no scene")
         hdr = self.cfg.data.image_mode == "HDR"
         if hdr:
             self.estimate_exposure_levels(scene)
-        meter = PSNRMeter()
+        meters = metrics if metrics is not None else [PSNRMeter()]
+        val_dir = os.path.join(self.workspace, "validation")
+        eval_dir = os.path.join(self.workspace, "eval")
+        if save_artifacts:
+            os.makedirs(val_dir, exist_ok=True)
+        if export_npy:
+            os.makedirs(eval_dir, exist_ok=True)
+        cam2rgb = _cam2rgb(scene) if hdr else None
+        step = self.host_step
         for i in range(scene.n_images):
-            rgb, _ = self.render_image(
+            rgb, depth, normal = self.render_image(
                 scene.poses[i], scene.intrinsics, scene.H, scene.W,
                 use_ema=use_ema,
-                ldir=scene.ldirs[i] if scene.ldirs is not None else None)
+                ldir=scene.ldirs[i] if scene.ldirs is not None else None,
+                return_normals=True)
             gt = scene.images[i][..., :3]
+            rgb_m, gt_m = rgb, gt
             if hdr and scene.exposures is not None:
-                rgb = np.minimum(1.0, rgb * scene.exposures[i])
-                gt = np.minimum(1.0, gt)
-            meter.update(rgb, gt)
-        result = {"psnr": meter.measure()}
-        self.stats["psnr"].append(result["psnr"])
+                rgb_m = np.minimum(1.0, rgb * scene.exposures[i])
+                gt_m = np.minimum(1.0, gt)
+            for m in meters:
+                m.update(rgb_m, gt_m)
+            if export_npy:       # offline-eval protocol (:1023-1031)
+                np.save(os.path.join(eval_dir, f"pred_{i:03d}.npy"), rgb)
+                np.save(os.path.join(eval_dir, f"gt_{i:03d}.npy"), gt)
+            if save_artifacts:   # validation dumps (:1062-1111)
+                rgb_a, gt_a = rgb_m, gt_m
+                if hdr and cam2rgb is not None and self.exposure_levels:
+                    # predictions and truth at the SAME exposure level
+                    # (train_utils.py:1075-1096)
+                    level = self.exposure_levels.get(
+                        self.cfg.data.exposure_percentile)
+                    rgb_a = postprocess_raw(rgb, cam2rgb, level)
+                    gt_a = postprocess_raw(gt, cam2rgb, level)
+                d = depth / (depth.max() + 1e-8)
+                err = np.abs(np.clip(rgb_a, 0, 1)
+                             - np.clip(gt_a, 0, 1)).mean(-1)
+                images = {"rgb": rgb_a, "depth": d, "error": err}
+                if normal is not None:
+                    images["normal"] = normal
+                for kind, img in images.items():
+                    write_png(os.path.join(val_dir,
+                                           f"{kind}_{step}_{i:03d}.png"),
+                              _to_u8(img))
+        result = {m.name.lower(): m.measure() for m in meters}
+        if "psnr" in result:
+            self.stats["psnr"].append(result["psnr"])
         return result
+
+    # ------------------------------------------------------------------
+    # checkpointing (train_utils.py:1141-1299)
+    def save_checkpoint(self, name: Optional[str] = None,
+                        best: bool = False) -> str:
+        """``ngp_step<step>`` (or ``name``) under ``<workspace>/checkpoints``
+        with the rolling ``train.max_keep_ckpt`` retention; ``best`` writes
+        ``ngp_best`` with the EMA weights as its params
+        (train_utils.py:1192-1215). Beside the state: the generator's
+        state, the grid refresh count and the adaptive-batch key."""
+        ckpt_dir = os.path.join(self.workspace, "checkpoints")
+        extra = {"generator": self.generator.get_state().numpy()}
+        meta = {"host_grid_updates": self.host_grid_updates,
+                "adapt": {"num_rays": self.num_rays,
+                          "point_budget": self._point_budget,
+                          "pts_ema": self._pts_ema,
+                          "stash": _host_points(self._adapt_stash),
+                          "metrics": _host_points(self._metrics)}}
+        if best:
+            state = dataclasses.replace(self.state,
+                                        params=self.state.ema_params)
+            return checkpoint.save_checkpoint(
+                state, ckpt_dir, "ngp_best",
+                stats={"psnr": self.stats["psnr"][-1:]},
+                max_keep=self.cfg.train.max_keep_ckpt, extra=extra,
+                meta=meta)
+        name = name or f"ngp_step{self.host_step:06d}"
+        return checkpoint.save_checkpoint(
+            self.state, ckpt_dir, name,
+            stats={"loss": self.stats["loss"][-1:]},
+            max_keep=self.cfg.train.max_keep_ckpt, extra=extra, meta=meta)
+
+    def load_checkpoint(self, mode: Optional[str] = None) -> bool:
+        """Restore the checkpoint ``mode`` resolves to (default
+        ``cfg.ckpt``; :func:`raw_ngp_torch.train.checkpoint.
+        resolve_checkpoint`), in place; False when there is none. The
+        step counters, the generator and the adaptive-batch key come back
+        where the checkpoint has them, and the coarse cache is rebuilt
+        from the restored bitfield."""
+        mode = mode or self.cfg.ckpt
+        path = checkpoint.resolve_checkpoint(
+            os.path.join(self.workspace, "checkpoints"), mode)
+        if path is None:
+            return False
+        _, meta = checkpoint.load_checkpoint(self.state, path)
+        self._restored = meta["loaded"]
+        self.host_step = int(meta.get("step", self.state.step))
+        interval = max(self.cfg.render.update_extra_interval, 1)
+        self.host_grid_updates = int(meta.get(
+            "host_grid_updates", self.host_step // interval))
+        gen = meta["extra"].get("generator")
+        if gen is not None and gen.shape == tuple(
+                self.generator.get_state().shape):
+            self.generator.set_state(torch.from_numpy(gen))
+        adapt = meta.get("adapt")
+        if adapt:
+            self.num_rays = adapt["num_rays"]
+            self._point_budget = adapt["point_budget"]
+            self._pts_ema = adapt["pts_ema"]
+            self._adapt_stash = adapt["stash"]
+            self._metrics = adapt["metrics"]
+            self._train_step = self._make_step()
+        # the restored bitfield invalidates the cached coarse volume
+        if self.cfg.render.occupancy:
+            self._refresh_coarse_cache()
+        self.logger.log(f"[ckpt] restored {path} at step {self.host_step} "
+                        f"({meta['n_loaded']} arrays)")
+        return True
+
+    # ------------------------------------------------------------------
+    # training with eval/save cadence (train_utils.py:724-766 semantics)
+    def fit(self, iters: Optional[int] = None):
+        """Train with the reference's periodic eval + checkpoint schedule
+        (save ~save_cnt times, eval ~eval_cnt times per run; the best val
+        PSNR's EMA weights kept as ``ngp_best``)."""
+        iters = iters or self.cfg.train.iters
+        save_every = max(1, iters // max(1, self.cfg.train.save_cnt))
+        eval_every = max(1, iters // max(1, self.cfg.train.eval_cnt))
+        best_psnr = -1.0
+        done = 0
+        while done < iters:
+            chunk = min(min(save_every, eval_every), iters - done)
+            self.train(iters=chunk, log_every=max(chunk, 1))
+            done += chunk
+            if done % save_every < chunk:
+                self.save_checkpoint()
+            if self.cfg.pose_opt.log_poses:
+                self.log_optimized_poses()
+            if done % eval_every < chunk and self.val_scene is not None:
+                self.log_histograms()
+                r = self.evaluate()
+                self.logger.log(f"[eval] step {self.host_step}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in r.items()))
+                if r.get("psnr", -1) > best_psnr:
+                    best_psnr = r["psnr"]
+                    self.save_checkpoint(best=True)
+        return {"best_psnr": best_psnr}
+
+    # ------------------------------------------------------------------
+    # test-trajectory frames (train_utils.py:774-861)
+    def test(self, scene: SceneData, save_dir: Optional[str] = None,
+             write_video: bool = True):
+        """Render every view of ``scene`` with the EMA parameters into
+        ``save_dir`` (default ``<workspace>/results``) as PNG frames:
+        ``rgb_<i>.png`` and, with ``write_video`` and more than one view,
+        ``depth_<i>.png`` and (where the configuration computes them)
+        ``normals_<i>.png`` too; the JAX package writes these as videos
+        where it has a backend for them and as these frames where it does
+        not. An HDR scene's frames are postprocessed at one exposure level.
+        Returns the rgb frames (uint8)."""
+        hdr = self.cfg.data.image_mode == "HDR"
+        cam2rgb = _cam2rgb(scene) if hdr else None
+        if cam2rgb is not None and self.cfg.hdr_merge_algo != "none":
+            raise NotImplementedError(
+                "HDR-merged test frames (postprocess_raw_hdr, "
+                f"hdr_merge_algo {self.cfg.hdr_merge_algo!r}) are not "
+                "ported (ROADMAP A13b)")
+        save_dir = save_dir or os.path.join(self.workspace, "results")
+        os.makedirs(save_dir, exist_ok=True)
+        if hdr and not self.exposure_levels:
+            # consistent-LDR exposure levels (train_utils.py:1008-1017);
+            # normally populated by the eval loop, estimated here when
+            # test runs standalone
+            self.estimate_exposure_levels(scene)
+        frames: Dict[str, list] = {"rgb": [], "depth": [], "normals": []}
+        for i in range(scene.n_images):
+            rgb, depth, normal = self.render_image(
+                scene.poses[i], scene.intrinsics, scene.H, scene.W,
+                ldir=scene.ldirs[i] if scene.ldirs is not None else None,
+                return_normals=True)
+            if cam2rgb is not None:
+                level = self.exposure_levels.get(
+                    self.cfg.data.exposure_percentile)
+                rgb = postprocess_raw(rgb, cam2rgb, level)
+            frames["rgb"].append(_to_u8(rgb))
+            frames["depth"].append(_to_u8(depth / (depth.max() + 1e-8)))
+            if normal is not None:
+                frames["normals"].append(_to_u8(normal))
+        if not (write_video and len(frames["rgb"]) > 1):
+            frames = {"rgb": frames["rgb"]}
+        for name, imgs in frames.items():
+            for i, f in enumerate(imgs):
+                write_png(os.path.join(save_dir, f"{name}_{i:03d}.png"), f)
+        return frames["rgb"]
+
+
+def _cam2rgb(scene: SceneData) -> Optional[np.ndarray]:
+    """The colour matrix [3, 3] of an HDR scene's outputs, or None: the
+    first image's where the meta holds one an image (the loaders), the
+    scene's where it holds one (the synthetic scenes; the JAX package
+    takes that one's first row there, and its postprocess raises)."""
+    meta = scene.meta
+    if meta is None or meta.cam2rgb is None or len(meta.cam2rgb) == 0:
+        return None
+    m = np.asarray(meta.cam2rgb)
+    return m[0] if m.ndim == 3 else m
+
+
+def _to_u8(img: np.ndarray) -> np.ndarray:
+    """[0, 1] floats -> uint8, as the JAX package writes its images."""
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def _host_points(metrics) -> Optional[Dict[str, float]]:
+    """The point counts of a step's metrics (what the adaptive batching
+    reads) as host floats, for a checkpoint's sidecar."""
+    if metrics is None:
+        return None
+    return {k: float(metrics[k]) for k in ("num_points", "num_points_raw")
+            if k in metrics}

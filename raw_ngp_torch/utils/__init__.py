@@ -1,4 +1,4 @@
 """Host utilities of the port (counterpart of raw_ngp_tpu/utils): camera
-rigs. The run logger stays with ROADMAP item A13."""
+rigs, and the run logger in ``utils.logging``."""
 
 from raw_ngp_torch.utils.cameras import create_dodecahedron_cameras, rand_poses

@@ -461,7 +461,7 @@ def test_one_hdr_rfield_step_matches_jax(light, fp16, loss_weight):
 
 # -------------------------------------------------- trainer, HDR eval
 
-def test_hdr_evaluate_sets_exposure_levels_and_clipped_psnr():
+def test_hdr_evaluate_sets_exposure_levels_and_clipped_psnr(tmp_path):
     """Mirror of tests/test_trainer_features.py::
     test_exposure_levels_estimated_on_hdr_eval on the port's Trainer
     (HDR + rfield, CPU): no levels before the first HDR evaluate; after
@@ -476,7 +476,7 @@ def test_hdr_evaluate_sets_exposure_levels_and_clipped_psnr():
                                   hdr=True, rfield=True)
     vs.exposures[0] = 1.0
     vs.exposures[1] = 0.25
-    tr = ttr.Trainer(cfg, ts, vs, device="cpu")
+    tr = ttr.Trainer(cfg, ts, vs, device="cpu", workspace=str(tmp_path))
     assert set(tr.scene_arrays) >= {"exposures", "ldirs"}
     tr.train(iters=2, log_every=2)
     assert np.isfinite(tr.stats["loss"]).all()

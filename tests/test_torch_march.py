@@ -717,7 +717,7 @@ def test_validate_falls_back_to_span_march_under_contraction():
             assert floored.validate().render.march_cdf is True
 
 
-def test_o_trainer_trains_and_renders_normals_on_cpu():
+def test_o_trainer_trains_and_renders_normals_on_cpu(tmp_path):
     """A CPU Trainer on the -O miniature with compute_normals (bf16, as
     the preset computes; mark_untrained; 256 rays a step): no coarse
     cache (no probes), 8 finite steps, render_image(return_normals=True)
@@ -728,7 +728,7 @@ def test_o_trainer_trains_and_renders_normals_on_cpu():
     cfg = replace(cfg, train=replace(cfg.train, fp16=True, iters=8))
     train, val = make_synthetic_scene(n_train=4, n_val=1, H=16, W=16,
                                       seed=0)
-    tr = ttr.Trainer(cfg, train, val, device="cpu")
+    tr = ttr.Trainer(cfg, train, val, device="cpu", workspace=str(tmp_path))
     losses = [float(tr.step()["loss"]) for _ in range(8)]
     assert np.isfinite(losses).all()
     assert "coarse_lin" not in tr.scene_arrays
@@ -743,7 +743,7 @@ def test_o_trainer_trains_and_renders_normals_on_cpu():
     assert np.isfinite(tr.evaluate()["psnr"])
 
 
-def test_o_unported_branches_raise():
+def test_o_unported_branches_raise(tmp_path):
     """The regularizers and the unfused encoder are ported: a Trainer takes
     each of the entropy, TV, weight-decay and orientation weights and
     fused_encoder=False, and a training render with the orientation loss
@@ -758,13 +758,13 @@ def test_o_unported_branches_raise():
                            "lambda_orientation")]
     ported.append(replace(cfg, model=replace(cfg.model, fused_encoder=False)))
     for c in ported:
-        ttr.Trainer(c, train, val, device="cpu")
+        ttr.Trainer(c, train, val, device="cpu", workspace=str(tmp_path))
     for c in (replace(cfg, parallel=replace(cfg.parallel, num_devices=2)),):
         with pytest.raises(NotImplementedError):
-            ttr.Trainer(c, train, val, device="cpu")
+            ttr.Trainer(c, train, val, device="cpu", workspace=str(tmp_path))
     near_far = np.array([[0.5, 3.0], [1.0, 4.0]], np.float32)
     tr = ttr.Trainer(cfg, replace(train, cam_near_far=near_far), val,
-                     device="cpu")
+                     device="cpu", workspace=str(tmp_path))
     assert torch.equal(tr.scene_arrays["cam_near_far"],
                        torch.from_numpy(near_far))
     orient = replace(cfg, train=replace(cfg.train, lambda_orientation=0.1))

@@ -542,7 +542,7 @@ def test_pose_adam_matches_optax_chain():
 
 
 @pytest.mark.parametrize("variant", ["noise", "identity"])
-def test_pose_trainer_runs_on_cpu(variant):
+def test_pose_trainer_runs_on_cpu(variant, tmp_path):
     """The Trainer with BARF refinement for a few steps on the CPU: with
     the noise self-test the refinements leave zero and stay finite, and
     the pose freezes' schedule holds (frozen steps keep only Adam's
@@ -555,7 +555,7 @@ def test_pose_trainer_runs_on_cpu(variant):
                                    identity=variant == "identity"))
     train, val = make_synthetic_scene(n_train=6, n_val=1, H=16, W=16,
                                       seed=0)
-    tr = ttr.Trainer(cfg, train, val, device="cpu")
+    tr = ttr.Trainer(cfg, train, val, device="cpu", workspace=str(tmp_path))
     st = tr.state
     assert st.pose_params.shape == (6, 6) and st.pose_params.requires_grad
     if variant == "identity":

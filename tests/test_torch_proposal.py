@@ -594,7 +594,7 @@ def test_render_proposal_without_proposal_update():
 
 
 @pytest.mark.parametrize("hdr", [False, True])
-def test_trainer_trains_evaluates_and_renders_on_cpu(hdr):
+def test_trainer_trains_evaluates_and_renders_on_cpu(hdr, tmp_path):
     """A CPU Trainer on the -O2 miniature (bf16, as the preset computes;
     HDR images with the RawNeRF loss in one case) at 256 rays a step: no
     grid state; 16 steps with finite losses, and the loss of one fixed
@@ -612,7 +612,7 @@ def test_trainer_trains_evaluates_and_renders_on_cpu(hdr):
                                     color_activation="clamped_exp"))
     train, val = make_synthetic_scene(n_train=6, n_val=1, H=16, W=16,
                                       seed=0, hdr=hdr)
-    tr = ttr.Trainer(cfg, train, val, device="cpu")
+    tr = ttr.Trainer(cfg, train, val, device="cpu", workspace=str(tmp_path))
     assert tr.state.density_grid is None and tr._grid_update is None
     sa = tr.scene_arrays
     batch = t_sample(torch.Generator().manual_seed(1), sa["images"],
@@ -640,7 +640,7 @@ def test_trainer_trains_evaluates_and_renders_on_cpu(hdr):
         assert all(np.isfinite(v) for v in levels.values())
 
 
-def test_o2_unported_branches_raise():
+def test_o2_unported_branches_raise(tmp_path):
     """The -O2 field, its render and its Trainer are ported, and so are the
     entropy, TV, weight-decay and orientation weights and the unfused
     encoder (a Trainer takes each; the orientation loss is the occupancy
@@ -657,13 +657,13 @@ def test_o2_unported_branches_raise():
                            "lambda_orientation")]
     ported.append(replace(cfg, model=replace(cfg.model, fused_encoder=False)))
     for c in ported:
-        ttr.Trainer(c, train, val, device="cpu")
+        ttr.Trainer(c, train, val, device="cpu", workspace=str(tmp_path))
     with pytest.raises(NotImplementedError):
         ttr.Trainer(replace(cfg, parallel=replace(cfg.parallel,
                                                   num_devices=2)),
-                    train, val, device="cpu")
+                    train, val, device="cpu", workspace=str(tmp_path))
     near_far = np.array([[0.5, 3.0], [1.0, 4.0]], np.float32)
     tr = ttr.Trainer(cfg, replace(train, cam_near_far=near_far), val,
-                     device="cpu")
+                     device="cpu", workspace=str(tmp_path))
     assert torch.equal(tr.scene_arrays["cam_near_far"],
                        torch.from_numpy(near_far))

@@ -914,7 +914,8 @@ def test_trainer_trains_from_a_colmap_scene_on_disk(tmp_path):
     cnf = tr_scene.cam_near_far
     assert cnf.shape == (tr_scene.n_images, 2)
     assert (cnf[:, 0] > 0.5).all() and (cnf[:, 1] > cnf[:, 0]).all()
-    tr = Trainer(cfg, tr_scene, va_scene, device="cpu")
+    tr = Trainer(cfg, tr_scene, va_scene, device="cpu",
+                 workspace=str(tmp_path))
     np.testing.assert_array_equal(
         tr.scene_arrays["cam_near_far"].numpy(), cnf)
     losses = [float(tr.step()["loss"]) for _ in range(24)]

@@ -649,7 +649,7 @@ def test_unfused_proposal_train_step_matches_jax():
 
 
 @pytest.mark.parametrize("fused", [True, False])
-def test_regularised_o_trainer_trains_on_cpu(fused):
+def test_regularised_o_trainer_trains_on_cpu(fused, tmp_path):
     """A CPU Trainer on the -O miniature in bf16 (as the preset computes)
     with all four regularizers, on the fused and the unfused encoder: 6
     finite steps with a falling loss, the orientation term through the
@@ -660,7 +660,7 @@ def test_regularised_o_trainer_trains_on_cpu(fused):
                   train=replace(cfg.train, fp16=True, iters=6)).validate()
     train, val = make_synthetic_scene(n_train=4, n_val=1, H=16, W=16,
                                       seed=0)
-    tr = ttr.Trainer(cfg, train, val, device="cpu")
+    tr = ttr.Trainer(cfg, train, val, device="cpu", workspace=str(tmp_path))
     losses = [float(tr.step()["loss"]) for _ in range(6)]
     assert np.isfinite(losses).all() and min(losses[3:]) < losses[0]
     assert all(bool(torch.isfinite(p).all()) for p in tr.field.parameters())

@@ -861,7 +861,7 @@ def test_network_lr_schedule_matches_jax(anneal):
                                    rtol=1e-6, err_msg=str(step))
 
 
-def test_adaptive_batching_follows_jax():
+def test_adaptive_batching_follows_jax(tmp_path):
     """_adapt_batch and adaptation_quiescent take the JAX Trainer's
     decisions (ray growth, budget shrink, re-growth) on the same sequence
     of live-sample counts; the JAX methods run on a stand-in that holds
@@ -869,7 +869,7 @@ def test_adaptive_batching_follows_jax():
     jc, tc = (replace(c, train=replace(c.train, adaptive_num_rays=True))
               for c in (mini_cfg(jcfg), mini_cfg(tcfg)))
     train, _ = make_synthetic_scene(n_train=4, n_val=1, H=16, W=16, seed=0)
-    tr = ttr.Trainer(tc, train, device="cpu")
+    tr = ttr.Trainer(tc, train, device="cpu", workspace=str(tmp_path))
     fake = SimpleNamespace(cfg=jc, _pts_ema=None, num_rays=jc.train.num_rays,
                            _point_budget=None,
                            logger=SimpleNamespace(log=lambda *a: None),
@@ -894,7 +894,7 @@ def test_adaptive_batching_follows_jax():
 
 # ---------------------------------------------------------------- (h)
 
-def test_trainer_reaches_golden_quality():
+def test_trainer_reaches_golden_quality(tmp_path):
     """The port's Trainer on the golden miniature (150 steps, fp32, CPU):
     its val-view PSNR against ground truth is at least the JAX golden
     render's own PSNR against ground truth minus 1.5 dB. The RNG streams
@@ -904,7 +904,7 @@ def test_trainer_reaches_golden_quality():
     cfg = mini_cfg(tcfg)
     train, val = make_synthetic_scene(n_train=12, n_val=1, H=32, W=32,
                                       seed=0)
-    tr = ttr.Trainer(cfg, train, val, device="cpu")
+    tr = ttr.Trainer(cfg, train, val, device="cpu", workspace=str(tmp_path))
     out = tr.train(150, log_every=150)
     assert out["rays_per_sec"] > 0
     assert np.isfinite(tr.stats["loss"]).all()
