@@ -246,7 +246,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
               `python -m raw_ngp_torch.cli ... --test --ckpt latest` as a
               subprocess: exit 0, restored at step 128, the frames and the
               inner mesh written again;
- 19. timing — each kernel, its plain version and a PyTorch yardstick where
+ 19. multi  — multi-GPU training (raw_ngp_torch.parallel) on the one card:
+              the flagship on two gloo ranks sharing cuda:0 (two processes,
+              the train phase's mark_untrained grid handed to them). (a)
+              dp = 2: the field after training run in f32 with
+              compact_ratio 0, each rank's gradient of its half of a fixed
+              8,192-ray batch averaged (the step's reduction) against
+              rank 0's gradient of the whole batch, rtol 2e-5, atol 2e-6
+              of each leaf's largest entry plus 1e-6; 64 Trainer steps
+              with every launch counter reset just before and read just
+              after on each rank (run_steps' checks), every training
+              tensor bitwise equal across the ranks, and the 64 steps run
+              again from the state before step 1, bitwise (repro). (b)
+              (dp = 1, tp = 2): the C = 8 shards' gathered features (f32,
+              bf16) and the bf16 table gradient of each rank's channels
+              bit for bit the C = 16 kernel's on the whole table; 64
+              steps as in (a), the replicated tensors bitwise equal
+              across the ranks, repro; rank 0's checkpoint loaded into a
+              single-device Trainer renders the first val view against
+              the tp eval render (bitwise or its difference). (c) a
+              one-rank NCCL world in this process: 8 flagship steps
+              through make_parallel_train_step bitwise the single-device
+              steps. Then the encode's kernels at the shard's width (C =
+              8: forward with and without records, input gradient, dense
+              level, B2's flat form) against their plain versions, timed
+              beside their bounds. Each rank's step time is printed as
+              that of 2 ranks sharing one H100 (gloo): not a scaling
+              figure;
+ 20. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -263,12 +290,15 @@ launches by caller (train forwards, grid refresh chunks, evaluation).
 It prints `render`, `train`, `disk`, `pose`, `lightstage`, `proposal`, `O`,
 `reg`, `unfused` (the disk line and the last five with the card's name and
 power limit),
-`pose_recovery`, `cli`, `table_grad` and `kernels` JSON lines (each kernel's
+`pose_recovery`, `cli`, `multi` (with the card's name and power limit),
+`table_grad` and `kernels` JSON lines (each kernel's
 `launches` are the reg phase's, also as `launches_reg`, `reg_launched`
 says whether it ran there; `launches_O` and `O_launched` the -O
 phase's, its launches in one chunk of the normal render ride as
 `launches_O_normal_render_chunk`, the other phases' counts beside them,
-`launches_disk` the disk phase's, `launches_cli` the cli phase's;
+`launches_disk` the disk phase's, `launches_cli` the cli phase's,
+`launches_multi` each rank's in the multi phase's dp and tp runs, and
+`shard_C8` the encode's kernels' numbers at the tp shard's width;
 the numbers of the proposal path's three kernels are at its shapes, a
 step's or a serving chunk's calls summed, with the flagship's under
 `flagship`) and the
@@ -1880,7 +1910,8 @@ def training_tensors(tr):
 def trainer_snapshot(tr):
     """Everything Trainer.step reads and changes, taken before a step: the
     training tensors and the grid state, the optimizers' counts, the step
-    and host counters, the coarse cache and the generator's state."""
+    and host counters, the coarse cache and the generators' states (on a
+    mesh the batch stream is the dp row's own)."""
     st = tr.state
     return {"tensors": training_tensors(tr),
             "grid": {k: v.clone() for k, v in st.grid_state().items()
@@ -1893,7 +1924,8 @@ def trainer_snapshot(tr):
                      tr._point_budget, tr.num_rays, tr._adapt_stash,
                      tr._metrics, tr._train_step),
             "coarse": tr.scene_arrays.get("coarse_lin"),
-            "generator": tr.generator.get_state()}
+            "generator": tr.generator.get_state(),
+            "batch_generator": tr.batch_generator.get_state()}
 
 
 def trainer_restore(tr, snap):
@@ -1923,6 +1955,7 @@ def trainer_restore(tr, snap):
     else:
         tr.scene_arrays["coarse_lin"] = snap["coarse"]
     tr.generator.set_state(snap["generator"])
+    tr.batch_generator.set_state(snap["batch_generator"])
 
 
 def repro_check(tr, snap, ref, steps, what):
@@ -4042,6 +4075,478 @@ def phase_cli(dev, steps=128):
         "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# multi: the flagship on two ranks of one card (raw_ngp_torch.parallel)
+# ---------------------------------------------------------------------------
+
+MULTI_STEPS = 64
+MULTI_LABEL = "2 ranks sharing one H100 (gloo)"
+
+
+def multi_config(n_tp=1):
+    """The flagship on two ranks: dp = 2, or (dp = 1, tp = 2)."""
+    from raw_ngp_torch.config import ParallelConfig
+    return replace(flagship_config(),
+                   parallel=ParallelConfig(num_devices=2, tp_devices=n_tp)
+                   ).validate()
+
+
+def digests(tensors):
+    """{name: sha256 of the tensor's bytes}: bitwise equality across
+    processes without moving the tensors."""
+    import hashlib
+
+    import torch
+    return {k: hashlib.sha256(t.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for k, t in tensors.items()}
+
+
+def replicated(tensors):
+    """The tensors every rank of a (dp, tp) layout holds alike: all but
+    the radiance table's channel shards."""
+    return {k: v for k, v in tensors.items() if not k.endswith(".grid")}
+
+
+def rows_of(batch, s, n):
+    """The batch's per-ray tensors sliced to `s` (the coarse volume is
+    the scene's, kept whole)."""
+    return {k: (v[s] if k != "coarse_lin" and v.shape[:1] == (n,) else v)
+            for k, v in batch.items()}
+
+
+def dp_grad_check(tr, dev):
+    """(a) The flagship field after training, run in f32 with compact_ratio
+    0 (rays independent of each other, as tests/test_parallel.py:101-162
+    runs it): each rank the deterministic render's gradient of its half of
+    one fixed 8,192-ray batch, averaged by the step's reduction, against
+    rank 0's gradient of the whole batch; rtol 2e-5, atol 2e-6 of each
+    leaf's largest entry plus 1e-6 (records pre-rounded to bf16). -> the
+    max error / largest entry of each leaf (rank 0), or None."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from raw_ngp_torch.data.sampler import sample_ray_batch
+    from raw_ngp_torch.models.ngp import make_field_spec
+    from raw_ngp_torch.parallel.mesh import make_reduce
+    from raw_ngp_torch.train.trainer import make_batch_loss_fn
+    cfg = replace(tr.cfg, train=replace(tr.cfg.train, fp16=False),
+                  render=replace(tr.cfg.render, compact_ratio=0.0))
+    spec = make_field_spec(cfg)
+    field = copy.deepcopy(tr.field)
+    field.spec = spec
+    sa = tr.scene_arrays
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = sample_ray_batch(gen, sa["images"], sa["poses"],
+                             sa["intrinsics"], tr.num_rays)
+    if "coarse_lin" in sa:
+        batch["coarse_lin"] = sa["coarse_lin"]
+    loss_fn = make_batch_loss_fn(cfg, spec)
+    n, r = tr.num_rays, tr.mesh.dp_rank
+    params = dict(field.named_parameters())
+
+    def grads_of(part):
+        for p in params.values():
+            p.grad = None
+        loss, aux = loss_fn(field, tr.state, part, tr.aabb, None)
+        loss.backward()
+        return {k: p.grad.clone() for k, p in params.items()}, loss, aux
+
+    g, loss, aux = grads_of(rows_of(batch, slice(r * n // 2,
+                                                 (r + 1) * n // 2), n))
+    g, _, loss, aux, _ = make_reduce(tr.mesh)(g, None, loss, aux)
+    torch.cuda.synchronize()
+    if dist.get_rank() != 0:
+        return None
+    whole, _, _ = grads_of(batch)
+    err = {}
+    for k, ref in whole.items():
+        scale = float(ref.abs().max())
+        err[k] = float((g[k] - ref).abs().max()) / max(scale, 1e-30)
+        check(scale > 0 and torch.allclose(g[k], ref, rtol=2e-5,
+                                           atol=2e-6 * scale + 1e-6),
+              f"multi dp: the all-reduced gradient of {k} is off the whole "
+              f"batch's (max err / largest {err[k]:.3e})")
+    print(f"[multi dp] the fixed 8,192-ray batch (f32, compact_ratio 0): "
+          f"the 2 ranks' averaged gradient against the whole batch's, max "
+          f"err / largest entry {json.dumps(err)}; loss {float(loss):.6f}")
+    return err
+
+
+def tp_encode_checks(tr, dev, B=262144):
+    """(b) The tp encode at C = 8 a shard against the C = 16 kernel on the
+    whole table (gathered from the row), at ray-ordered points: the
+    gathered features bit for bit in f32 and bf16; the bf16 table
+    gradient of a fixed cotangent (the all-gather's backward, the shard's
+    gradient divided by n_tp) bit for bit the whole table's on this rank's
+    channels."""
+    import torch
+    from raw_ngp_torch.kernels.hash_encode import hash_encode
+    from raw_ngp_torch.parallel.tp import (gather_channels, gather_table,
+                                           local_grid_spec, shard_of)
+    mesh, gs = tr.mesh, tr.spec.grid_spec
+    local = local_grid_spec(gs, mesh.n_tp)
+    shard = tr.field.grid.detach()
+    full = gather_table(shard, gs, mesh)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = ray_points(B, gen, dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        ref = hash_encode(full, x, gs, compute_dtype=dtype)
+        got = gather_channels(hash_encode(shard, x, local,
+                                          compute_dtype=dtype),
+                              gs.num_levels, mesh.tp_group, mesh.n_tp)
+        torch.cuda.synchronize()
+        out[f"features_{name}_bitwise"] = same_bits(got, ref)
+        check(out[f"features_{name}_bitwise"], f"multi tp: the C = "
+              f"{local.level_dim} features ({name}) differ from the C = "
+              f"{gs.level_dim} encode")
+    g = torch.randn(B, gs.output_dim, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pf = full.clone().requires_grad_(True)
+    hash_encode(pf, x, gs, compute_dtype=torch.bfloat16).backward(g)
+    ps = shard.clone().requires_grad_(True)
+    gather_channels(hash_encode(ps, x, local, compute_dtype=torch.bfloat16),
+                    gs.num_levels, mesh.tp_group, mesh.n_tp).backward(g)
+    want = shard_of(pf.grad, gs, mesh.n_tp, mesh.tp_rank)
+    got = ps.grad / mesh.n_tp
+    torch.cuda.synchronize()
+    out["table_grad_bitwise"] = same_bits(got, want)
+    check(out["table_grad_bitwise"], "multi tp: the shard's table gradient "
+          "differs from the whole table's on its channels (max abs diff "
+          f"{float((got - want).abs().max())})")
+    print(f"[multi tp] rank {mesh.rank}: features at C = {local.level_dim} "
+          f"(f32 and bf16) bit for bit the C = {gs.level_dim} encode at "
+          f"{B} ray-ordered points; the bf16 table gradient of its "
+          f"channels bit for bit the whole table's")
+    return out
+
+
+def multi_train(tr, what, steps):
+    """`steps` Trainer steps with every launch counter reset just before
+    and read just after (run_steps' checks), then the repro check: the
+    state before step 1 restored, the steps run again, bitwise. -> the
+    launches, the losses, the median step ms and the digests of what the
+    run leaves."""
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, TRAIN_KERNELS, what, capture_at=steps)
+    launches.pop("hash_encode_by_caller")
+    after = digests(training_tensors(tr))
+    repro = repro_check(tr, snap, ref, steps, what)
+    return {"launches": launches, "loss_first8": first, "loss_last8": last,
+            "ms_per_step": sorted(step_ms)[steps // 2],
+            "ms_per_step_runs": step_ms, "digests": after,
+            "repro_bitwise": repro["bitwise_equal"]}
+
+
+def _multi_rank(rank, world, tmp, grid_path, dev_name):
+    """One of the two ranks of the multi phase (a process of its own on
+    `dev_name`, cuda:0 for both): the dp = 2 world, then the (dp = 1,
+    tp = 2) one."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.train import trainer as trainer_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_name)
+    grid = np.load(grid_path)      # the train phase's mark_untrained grid
+    trainer_mod.mark_untrained_grid = lambda *a, **k: grid.copy()
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    out = {}
+    for kind, n_tp in (("dp", 1), ("tp", 2)):
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp}/store_{kind}", rank=rank,
+            world_size=world)
+        try:
+            t0 = time.perf_counter()
+            tr = trainer_mod.Trainer(multi_config(n_tp), train_s, val_s,
+                                     device=dev,
+                                     workspace=os.path.join(tmp, kind))
+            torch.cuda.synchronize()
+            res = {"trainer_s": time.perf_counter() - t0,
+                   "layout": [tr.n_dp, tr.n_tp],
+                   "point_budget": tr.local_point_budget(),
+                   "grid_numel": tr.field.grid.numel()}
+            if kind == "tp":
+                res["encode"] = tp_encode_checks(tr, dev)
+            res.update(multi_train(tr, f"multi {kind} rank {rank}",
+                                   MULTI_STEPS))
+            res["replicated"] = sorted(replicated(training_tensors(tr)))
+            if kind == "dp":
+                res["grad_err"] = dp_grad_check(tr, dev)
+            else:
+                res["render"] = tp_render_check(tr, val_s, tmp)
+            out[kind] = res
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def tp_render_check(tr, val_s, tmp):
+    """(b) The tp eval render of the first val view; rank 0's checkpoint
+    (the whole table) loaded into a single-device Trainer, which renders
+    the same view: rgb and depth compared (max abs difference)."""
+    import numpy as np
+    import torch.distributed as dist
+    from raw_ngp_torch.train.trainer import Trainer
+    rgb, depth = tr.render_image(val_s.poses[0])
+    path = tr.save_checkpoint()
+    if dist.get_rank() != 0:
+        return None
+    cfg = replace(tr.cfg, parallel=replace(tr.cfg.parallel, num_devices=1,
+                                           tp_devices=1), ckpt=path)
+    single = Trainer(cfg, tr.train_scene, val_s, device=tr.device,
+                     workspace=os.path.join(tmp, "single"))
+    check(single.mesh is None and single.host_step == tr.host_step,
+          "multi tp: the checkpoint did not load into one device")
+    rgb1, depth1 = single.render_image(val_s.poses[0])
+    diff = {"rgb": float(np.abs(rgb1 - rgb).max()),
+            "depth": float(np.abs(depth1 - depth).max())}
+    bitwise = bool(np.array_equal(rgb1, rgb) and np.array_equal(depth1,
+                                                                depth))
+    print(f"[multi tp] rank 0's checkpoint in a single-device Trainer: the "
+          f"val view {'bitwise equal to' if bitwise else 'differs from'} "
+          f"the tp eval render (max abs diff {json.dumps(diff)})")
+    check(diff["rgb"] <= 1e-2, "multi tp: the single-device render of the "
+          "checkpoint is off the tp eval render")
+    return {"bitwise": bitwise, "max_abs_diff": diff,
+            "ckpt_bytes": os.path.getsize(path)}
+
+
+def shard_kernel_times(dev, spec, n_tp=2, B=262144):
+    """The encode's kernels at the shard's width (the flagship's C / n_tp
+    channels a rank), at B ray-ordered points in bf16, each against its
+    plain version and timed (CUDA events) beside its bound: the forward
+    without and with records, the input gradient, the dense level's
+    table gradient and B2's flat form on level 1. -> {kernel: numbers}."""
+    import torch
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.kernels.segsum import segment_grad_outer
+    from raw_ngp_torch.parallel.tp import local_grid_spec
+    spec = local_grid_spec(spec, n_tp)
+    L, C = spec.num_levels, spec.level_dim
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+    table = (torch.rand(spec.n_params * C, generator=gen, device=dev) * 2
+             - 1) * 1e-2
+    x = ray_points(B, gen, dev)
+    g = torch.randn(B, L * C, generator=gen, device=dev).to(bf16)
+    m = th.matmul_split(spec)
+    P = sum(nw for _, _, nw in th.level_windows(spec, m))
+    rows = {}
+
+    def row(name, call, plain, err, bound):
+        ms = time_ms(call, 50)
+        plain_ms = time_ms(plain, 3)
+        rows[name] = dict(channels=C, points=B, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound[0], bound_by=bound[1],
+                          max_abs_err=err)
+        print(f"[multi] {name} at C = {C}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}), bound {bound[0] * 1e3:.2f} us "
+              f"({bound[1]}), max abs err to plain {err:.3e}")
+
+    f = th.hash_encode(table, x, spec, compute_dtype=bf16)
+    err = float((f.float() - th.hash_encode_fused_plain(
+        table, x, spec, bf16).float()).abs().max())
+    check(err == 0.0, "multi: the C = 8 forward is off its plain version")
+    row("hash_encode", lambda: th.hash_encode(table, x, spec,
+                                              compute_dtype=bf16),
+        lambda: th.hash_encode_fused_plain(table, x, spec, bf16), err,
+        encode_bound(spec, x, 2)[:2])
+    _, base, w_word = th.hash_encode_records(table, x, spec, bf16)
+    base_p, w_word_p = th.window_records_plain(x, spec)
+    check(torch.equal(base, base_p) and torch.equal(w_word, w_word_p),
+          "multi: the C = 8 records differ from window_records_plain")
+    row("hash_encode_records",
+        lambda: th.hash_encode_records(table, x, spec, bf16),
+        lambda: (th.hash_encode_fused_plain(table, x, spec, bf16),
+                 th.window_records_plain(x, spec)), 0.0,
+        encode_bound(spec, x, 2, extra_bytes=8 * P * B)[:2])
+    k = th.encode_input_grad(table, x, g, spec, bf16)
+    p = th.encode_input_grad_plain(table, x, g, spec, bf16)
+    scale = float(p.abs().max())
+    err = float((k - p).abs().max())
+    check(torch.allclose(k, p, rtol=1e-5, atol=1e-5 * scale),
+          f"multi: the C = 8 input gradient is off its plain version "
+          f"({err})")
+    row("encode_input_grad",
+        lambda: th.encode_input_grad(table, x, g, spec, bf16),
+        lambda: th.encode_input_grad_plain(table, x, g, spec, bf16), err,
+        encode_bound(spec, x, 2, extra_bytes=B * 12, ops_per_term=4)[:2])
+    n_dense = spec.offsets[m] * C
+    out = torch.empty(n_dense, device=dev)
+    k = th.mm_grad_table(x, g, spec, bf16)
+    p = th.mm_grad_table_plain(x, g, spec, bf16)
+    rows_d, prods, mass, n_terms = dense_products(x, g, spec, True)
+    total = torch.zeros_like(mass).index_add_(0, rows_d, prods)
+    res = spec.resolutions[0]
+    check(dense_rows_agree(k[:res ** 3 * C], total.reshape(-1),
+                           mass.reshape(-1), True),
+          "multi: the C = 8 dense level's gradient is off its exact sums")
+    nb = B * 3 * 4 + B * C * 2 + n_dense * 4
+    b_ms, o_ms = (nb / HBM_BYTES_PER_S * 1e3,
+                  2 * n_terms / F32_FLOP_PER_S * 1e3)
+    row("mm_grad_table",
+        lambda: th.mm_grad_table(x, g, spec, bf16, out=out),
+        lambda: th.mm_grad_table_plain(x, g, spec, bf16),
+        float((k - p).abs().max()),
+        (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"))
+    lv, w0, nw = th.level_windows(spec, m)[-1]
+    off = spec.offsets[lv]
+    n_rows = spec.offsets[lv + 1] - off
+    keys_s, perm = torch.sort(base[w0:w0 + nw].reshape(-1) - off,
+                              stable=True)
+    stream = (keys_s, perm.to(torch.int32), w_word[w0:w0 + nw].reshape(-1))
+    flat = torch.empty(n_rows * C, device=dev)
+    full = th.table_grad(spec, x, base, w_word, g, bf16)
+    ref = th.table_grad(spec, x, base_p, w_word_p, g, bf16, plain=True)
+    sl = slice(off * C, (off + n_rows) * C)
+    scale = float(ref[sl].abs().max())
+    err = float((full[sl] - ref[sl]).abs().max())
+    check(torch.allclose(full[sl], ref[sl], rtol=1e-5, atol=1e-6 * scale),
+          f"multi: B2's flat form at C = 8 is off its plain version ({err})")
+    nb = B * 12 + B * C * 2 + n_rows * C * 4
+    row("segment_grad_outer",
+        lambda: segment_grad_outer(*stream, g, n_rows, C, g_col=lv * C,
+                                   out=flat),
+        lambda: th.table_grad(spec, x, base_p, w_word_p, g, bf16,
+                              plain=True), err,
+        (nb / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return rows
+
+
+def nccl_one_rank(dev, cfg, steps=8):
+    """(c) A one-rank NCCL world in this process: the flagship Trainer's
+    first `steps` steps on one device, then the same steps again from the
+    same state through make_parallel_train_step on the one-rank mesh
+    (its all-reduces run through NCCL): params, EMA, moments and the grid
+    bitwise equal."""
+    import tempfile as _tf
+
+    import torch
+    import torch.distributed as dist
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.parallel.mesh import make_mesh, make_parallel_train_step
+    from raw_ngp_torch.train.trainer import Trainer
+    store = os.path.join(_tf.mkdtemp(prefix="chip_smoke_nccl_"), "store")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128,
+                                              W=128)
+        tr = Trainer(cfg, train_s, val_s, device=dev,
+                     workspace=scratch_workspace())
+        check(tr.mesh is None, "multi nccl: one rank made a mesh")
+        snap = trainer_snapshot(tr)
+        for _ in range(steps):
+            tr.step()
+        ref = training_tensors(tr)
+        trainer_restore(tr, snap)
+        tr._train_step = make_parallel_train_step(
+            cfg, tr.spec, tr.net_tx, tr.num_rays, make_mesh(1),
+            point_budget=tr._point_budget, pose_tx=tr.pose_tx)
+        for _ in range(steps):
+            tr.step()
+        torch.cuda.synchronize()
+        now = training_tensors(tr)
+        diff = sorted(k for k, v in ref.items() if not same_bits(now[k], v))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    print(f"[multi nccl] one-rank {backend} world: {steps} steps through "
+          f"make_parallel_train_step, {len(ref) - len(diff)} of {len(ref)} "
+          f"tensors bitwise equal to the single-device steps'")
+    check(not diff, f"multi nccl: the parallel step differs from the "
+          f"single-device one in {diff}")
+    return {"backend": backend, "steps": steps, "tensors": len(ref),
+            "bitwise_equal": not diff}
+
+
+def phase_multi(dev):
+    """The flagship on two gloo ranks sharing cuda:0 (two processes, which
+    reuse the train phase's mark_untrained grid): (a) dp = 2: the
+    averaged gradient of a fixed batch against the whole batch's, 64
+    steps with every launch counter reset just before and read just after
+    on each rank, params, EMA, moments and the grid bitwise equal across
+    the ranks, and the run repeated bitwise (the repro check); (b) tp = 2:
+    the C = 8 features and table gradient bit for bit the C = 16 ones, 64
+    steps, the replicated tensors bitwise equal across the ranks, rank 0's
+    checkpoint rendered by a single-device Trainer against the tp eval
+    render; (c) a one-rank NCCL world through the parallel step, bitwise
+    the single-device step; then the encode's kernels at the shard's
+    width (C = 8) timed. Per-rank step times are those of 2 ranks sharing
+    one H100 (gloo), not a scaling figure."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+    from raw_ngp_torch.models.ngp import make_field_spec
+    from raw_ngp_torch.render.eval import scene_aabb
+    from raw_ngp_torch.train import trainer as trainer_mod
+    from raw_ngp_torch.data import make_synthetic_scene
+    cfg = flagship_config()
+    train_s, _ = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    atexit.register(shutil.rmtree, tmp, True)
+    grid_path = os.path.join(tmp, "grid.npy")
+    np.save(grid_path, trainer_mod.mark_untrained_grid(
+        cfg, np.asarray(train_s.poses), np.asarray(train_s.intrinsics),
+        scene_aabb(cfg, train_s.pts_aabb, device="cpu").numpy(),
+        cam_near_far=train_s.cam_near_far))
+    t0 = time.perf_counter()
+    mp.spawn(_multi_rank, args=(2, tmp, grid_path, str(dev)), nprocs=2,
+             join=True)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    result = {"label": MULTI_LABEL, "steps": MULTI_STEPS,
+              "ranks_s": ranks_s}
+    for kind in ("dp", "tp"):
+        a, b = ranks[0][kind], ranks[1][kind]
+        keys = a["replicated"] if kind == "tp" else sorted(a["digests"])
+        differ = [k for k in keys if a["digests"][k] != b["digests"][k]]
+        same = len(keys) - len(differ)
+        print(f"[multi {kind}] after {MULTI_STEPS} steps: {same} of "
+              f"{len(keys)} "
+              f"{'replicated ' if kind == 'tp' else ''}tensors bitwise "
+              f"equal across the ranks; ms/step ({MULTI_LABEL}) "
+              f"{a['ms_per_step']:.3f} / {b['ms_per_step']:.3f}; launches "
+              f"rank 0 {a['launches']}")
+        check(not differ, f"multi {kind}: the ranks differ in {differ}")
+        check(a["repro_bitwise"] and b["repro_bitwise"],
+              f"multi {kind}: the 2-rank run did not reproduce")
+        result[kind] = {
+            "layout": a["layout"], "point_budget_per_rank": a["point_budget"],
+            "grid_numel_per_rank": a["grid_numel"],
+            "tensors_bitwise_across_ranks": len(keys),
+            "repro_bitwise": True,
+            "ms_per_step_by_rank": [a["ms_per_step"], b["ms_per_step"]],
+            "ms_per_step_runs_rank0": a["ms_per_step_runs"],
+            "trainer_s_by_rank": [a["trainer_s"], b["trainer_s"]],
+            "loss_first8_last8": [a["loss_first8"], a["loss_last8"]],
+            "launches_by_rank": [a["launches"], b["launches"]]}
+    result["dp"]["grad_err_over_largest"] = ranks[0]["dp"]["grad_err"]
+    result["tp"]["encode"] = [ranks[0]["tp"]["encode"],
+                              ranks[1]["tp"]["encode"]]
+    result["tp"]["render"] = ranks[0]["tp"]["render"]
+    result["nccl"] = nccl_one_rank(dev, cfg)
+    result["shard_kernels"] = shard_kernel_times(
+        dev, make_field_spec(cfg).grid_spec)
+    result["gpu"] = gpu_line()
+    return result
+
+
 def deterministic_ops(dev):
     """A diagnostic: two train steps and two pose steps of the flagship and
     two steps each of the -O2 proposal path, the -O path and the
@@ -4358,6 +4863,7 @@ def main() -> int:
                                               reg_ms)
             pose_recovery = timed("pose_recovery", phase_pose_recovery, dev)
             cli_launches, cli = timed("cli", phase_cli, dev)
+            multi = timed("multi", phase_multi, dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4391,6 +4897,14 @@ def main() -> int:
         k["launches_disk"] = disk_launches[k["name"]]
         k["launches_cli"] = cli_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
+        # each rank's launches in the multi phase's 64 steps (dp = 2, and
+        # tp = 2 at C = 8 channels a rank), and the kernel's numbers at
+        # the shard's width where it is one of the encode's
+        k["launches_multi"] = {kind: [r[k["name"]] for r in
+                                      multi[kind]["launches_by_rank"]]
+                               for kind in ("dp", "tp")}
+        if k["name"] in multi["shard_kernels"]:
+            k["shard_C8"] = multi["shard_kernels"][k["name"]]
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
                 "reg": launches["hash_encode_by_caller"],
@@ -4416,6 +4930,8 @@ def main() -> int:
     print(json.dumps({"unfused": unfused}))
     print(json.dumps({"pose_recovery": pose_recovery}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"multi": {k: v for k, v in multi.items()
+                                if k != "shard_kernels"}}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -10,6 +10,13 @@ is not read: a setting meant for JAX does not move the port off the
 card). The test frames are PNGs (``results/rgb_000.png``, ...), not a
 video.
 
+Several GPUs: ``--n_devices N`` (0, the default, means every GPU present;
+N is clamped to the GPUs present, JAX's rule) starts one rank a GPU
+itself, each a process with NCCL, meeting through a file in the
+workspace; with ``RAW_NGP_PLATFORM=cpu`` it starts N gloo ranks on the
+CPU. ``--tp_devices`` shards the hash table's channels over that many of
+them (:mod:`raw_ngp_torch.parallel`). Rank 0 logs and writes every file.
+
 Usage:
   python -m raw_ngp_torch.cli <data_path> -O --iters 20000 --workspace ws
   python -m raw_ngp_torch.cli <data_path> --test --ckpt latest
@@ -128,8 +135,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     # parallelism: data-parallel ray sharding over the device mesh
     p.add_argument("--n_devices", type=int, default=0,
-                   help="device-mesh size for data-parallel training; "
-                        "0 = all accelerator devices, 1 = single device")
+                   help="number of ranks for data-parallel training: one "
+                        "rank a GPU (NCCL), clamped to the GPUs present; "
+                        "0 = every GPU, 1 = a single device; with "
+                        "RAW_NGP_PLATFORM=cpu that many gloo ranks on the "
+                        "CPU (0 = one)")
     p.add_argument("--tp_devices", type=int, default=1,
                    help="tensor-parallel factor: shard the hash table's "
                         "channel axis over this many devices (must divide "
@@ -326,11 +336,80 @@ def cli_device() -> torch.device:
     raise ValueError(f"RAW_NGP_PLATFORM={plat!r}: expected cpu or cuda")
 
 
+def rank_count(cfg, device: torch.device) -> int:
+    """The number of ranks to start (``trainer.py:519-524``'s rule): on
+    the card ``num_devices`` clamped to the GPUs present, every GPU for
+    0; on the CPU ``num_devices`` gloo ranks, one for 0."""
+    n_req = cfg.parallel.num_devices
+    if device.type == "cuda":
+        avail = torch.cuda.device_count()
+        return avail if n_req == 0 else min(n_req, avail)
+    return max(n_req, 1)
+
+
 def main(argv: Optional[list] = None):
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
     device = cli_device()
+    n = rank_count(cfg, device)
+    if n > 1:
+        return launch(argv, cfg, device, n)
+    if cfg.parallel.num_devices > 1:   # clamped to one device
+        cfg = replace(cfg, parallel=replace(cfg.parallel, num_devices=1))
+    return run(args, cfg, device)
 
+
+def launch(argv, cfg, device: torch.device, n: int) -> int:
+    """Start n ranks of :func:`run` (one process each: NCCL and one GPU
+    a rank on the card, gloo on the CPU) that meet through a file in the
+    workspace, and wait for them; a rank that fails raises here."""
+    import sys
+
+    import torch.multiprocessing as mp
+    os.makedirs(cfg.workspace, exist_ok=True)
+    store = os.path.abspath(os.path.join(cfg.workspace,
+                                         f".rendezvous_{os.getpid()}"))
+    if os.path.exists(store):
+        os.remove(store)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    # CPU ranks share the launcher's threads (torch's default of one a
+    # core in each rank oversubscribes the cores many times over)
+    threads = max(torch.get_num_threads() // n, 1)
+    try:
+        mp.spawn(_rank, args=(n, list(sys.argv[1:] if argv is None
+                                      else argv), backend, store, threads),
+                 nprocs=n, join=True)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    return 0
+
+
+def _rank(rank: int, n: int, argv, backend: str, store: str, threads: int):
+    """One rank of :func:`launch`: join the process group, take GPU
+    ``rank`` on the card (``threads`` CPU threads on the CPU), run the
+    CLI's flow."""
+    import torch.distributed as dist
+    args = build_parser().parse_args(argv)
+    cfg = args_to_config(args)
+    cfg = replace(cfg, parallel=replace(cfg.parallel, num_devices=n))
+    device = cli_device()
+    if device.type == "cuda":
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(threads)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=n)
+    try:
+        run(args, cfg, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, cfg, device: torch.device) -> int:
+    """The CLI's flow on ``device``, as one rank of several where a
+    process group is initialized (rank 0 writes)."""
     from raw_ngp_torch.data.providers import load_scene
     from raw_ngp_torch.mesh.extract import export_meshes
     from raw_ngp_torch.train.metrics import PSNRMeter, SSIMMeter
@@ -339,7 +418,9 @@ def main(argv: Optional[list] = None):
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    logger = RunLogger(cfg.workspace)
+    import torch.distributed as dist
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    logger = RunLogger(cfg.workspace, enabled=main_rank)
     logger.log(f"[cli] device {device} ({name}), workspace {cfg.workspace}")
     t0 = time.perf_counter()
 
@@ -372,9 +453,12 @@ def main(argv: Optional[list] = None):
         trainer.test(test_scene, write_video=not args.test_no_video)
         stage("test frames")
     if not args.test_no_mesh:
-        export_meshes(trainer, os.path.join(cfg.workspace, "mesh"),
-                      dataset=train_scene
-                      if cfg.mesh.visibility_culling else None)
+        field = trainer.gathered_field()   # every rank, for tp's gather
+        if main_rank:
+            export_meshes(trainer, os.path.join(cfg.workspace, "mesh"),
+                          dataset=train_scene
+                          if cfg.mesh.visibility_culling else None,
+                          field=field)
         stage("meshes")
     trainer.logger.close()
     return 0

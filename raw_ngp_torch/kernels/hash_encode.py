@@ -87,10 +87,12 @@ _CHANNELS = (1, 2, 4, 8, 16, 32)
 def _matmul_level(spec: HashGridSpec, lv: int) -> bool:
     """Whether level ``lv`` takes the dense matmul path
     (``hash_fused._matmul_level``): dense, 3-D, res*C >= 128,
-    res^2 >= 128 and res^2*C <= 8192."""
+    res^2 >= 128 and res^2*C <= 8192, C the table's channels
+    (``split_level_dim`` where the spec sets it: a tensor-parallel shard
+    takes its whole table's levels)."""
     res = spec.resolutions[lv]
     hmap = spec.offsets[lv + 1] - spec.offsets[lv]
-    C = spec.level_dim
+    C = spec.split_level_dim or spec.level_dim
     return (spec.input_dim == 3 and res ** 3 <= hmap and res * C >= 128
             and res * res >= 128 and res * res * C <= 8192)
 

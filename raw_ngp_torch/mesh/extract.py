@@ -384,12 +384,14 @@ def load_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 def query_density_grid(trainer, resolution: int, bound: float = 1.0,
-                       chunk: int = 2 ** 16) -> np.ndarray:
+                       chunk: int = 2 ** 16, field=None) -> np.ndarray:
     """Chunked sigma sweep over [-bound, bound]^3 (renderer.py:237-248)
-    with the trainer's field (its raw parameters) on its device; the last
-    chunk is padded with the origin to the full chunk, so every call has
-    one shape."""
+    with ``field`` (default the trainer's, its raw parameters) on the
+    trainer's device; the last chunk is padded with the origin to the full
+    chunk, so every call has one shape."""
     import torch
+
+    field = trainer.field if field is None else field
 
     xs = np.linspace(-bound, bound, resolution, dtype=np.float32)
     out = np.zeros(resolution ** 3, np.float32)
@@ -402,14 +404,16 @@ def query_density_grid(trainer, resolution: int, bound: float = 1.0,
             if e - s < chunk:
                 pts = np.pad(pts, ((0, chunk - (e - s)), (0, 0)))
             x = torch.from_numpy(pts).to(trainer.device)
-            sig = trainer.field.density(x).float().cpu().numpy()
+            sig = field.density(x).float().cpu().numpy()
             out[s:e] = sig[: e - s]
     return np.nan_to_num(out.reshape(resolution, resolution, resolution))
 
 
 def export_meshes(trainer, save_dir: str, dataset=None,
-                  resolution: Optional[int] = None):
-    """Inner mesh + per-cascade outer meshes (renderer.py:219-372)."""
+                  resolution: Optional[int] = None, field=None):
+    """Inner mesh + per-cascade outer meshes (renderer.py:219-372) of
+    ``field``'s density (default the trainer's field; a channel-sharded
+    Trainer's :meth:`gathered_field` on one rank)."""
     import torch
 
     from raw_ngp_torch.ops.contraction import uncontract
@@ -425,7 +429,7 @@ def export_meshes(trainer, save_dir: str, dataset=None,
         thresh = cfg.render.density_thresh
 
     t0 = time.perf_counter()
-    sig = query_density_grid(trainer, resolution, bound=1.0)
+    sig = query_density_grid(trainer, resolution, bound=1.0, field=field)
     t1 = time.perf_counter()
     verts, faces = marching_tetrahedra(sig, thresh)
     print(f"[mesh] inner: density sweep {t1 - t0:.3f} s, marching "
@@ -450,7 +454,8 @@ def export_meshes(trainer, save_dir: str, dataset=None,
         for cas in range(1, cfg.cascades):
             bound = min(2 ** cas, cfg.grid_bound)
             t0 = time.perf_counter()
-            sig = query_density_grid(trainer, target, bound=bound)
+            sig = query_density_grid(trainer, target, bound=bound,
+                                     field=field)
             t1 = time.perf_counter()
             v, f = marching_tetrahedra(sig, thresh)
             print(f"[mesh] cascade {cas}: density sweep {t1 - t0:.3f} s, "

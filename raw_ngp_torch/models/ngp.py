@@ -27,13 +27,24 @@ the table's f32) on every device, its gradients autograd's of plain ops.
 kept in the graph of the parameters: through the fused encoder JAX's
 frozen-table input gradient (:func:`raw_ngp_torch.kernels.hash_encode.
 frozen_input_grad`), through the unfused one the full second order.
+
+Under tensor parallelism (a spec with ``tp_devices`` > 1, made by
+:func:`raw_ngp_torch.parallel.tp.tp_spec`) ``grid`` holds this rank's
+channel shard, the flat table of the same grid at C / tp channels: the
+radiance grid encodes the shard with the shard's spec and gathers the
+channels over the tp group (JAX ``_encode``'s tp branch, ``ngp.py:176-
+194``), so every rank of the group gets the unsharded encode's features.
+The normals' position gradient is summed over the group and divided by
+tp (each rank's covers its shard, tp times over); the orientation loss's
+inner gradient is not taken under tensor parallelism.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -59,11 +70,20 @@ class FieldSpec:
     grid_spec: HashGridSpec
     # the proposal networks' grids (none on the occupancy path)
     prop_specs: Tuple[HashGridSpec, ...] = ()
+    # tensor parallelism: the radiance grid's channels sharded over the
+    # process group tp_group of tp_devices ranks (parallel/tp.tp_spec)
+    tp_group: Any = dataclasses.field(default=None, compare=False)
+    tp_devices: int = 1
 
     @property
     def compute_dtype(self):
         """bf16 MLP and fused-encode arithmetic under ``train.fp16``."""
         return torch.bfloat16 if self.cfg.train.fp16 else torch.float32
+
+    def __deepcopy__(self, memo):
+        # immutable, and a process group does not copy: a copied field
+        # shares its spec
+        return self
 
 
 def make_field_spec(cfg: Config) -> FieldSpec:
@@ -165,8 +185,18 @@ class NGPField(nn.Module):
         """Grid features of world positions x (``_encode``): the fused
         encoder (its kernel, or with ``plain`` its plain version) in the
         compute dtype, or under ``fused_encoder=False`` the plain encoder
-        in f32 on every device."""
-        cfg = self.spec.cfg
+        in f32 on every device; the radiance grid under tensor parallelism
+        as the shard's encode gathered over the tp group."""
+        spec = self.spec
+        if spec.tp_devices > 1 and grid_spec is spec.grid_spec:
+            from raw_ngp_torch.parallel.tp import (gather_channels,
+                                                   local_grid_spec)
+            f = self._encode(table, x, local_grid_spec(grid_spec,
+                                                       spec.tp_devices),
+                             plain)
+            return gather_channels(f, grid_spec.num_levels, spec.tp_group,
+                                   spec.tp_devices)
+        cfg = spec.cfg
         if not cfg.model.fused_encoder:
             return hashgrid.hash_encode(table, x, grid_spec,
                                         bound=cfg.grid_bound)
@@ -219,6 +249,10 @@ class NGPField(nn.Module):
             x = x.detach().clone().requires_grad_(True)
             sigma = self.density(x, plain=plain, annealing=annealing)
             (g,) = torch.autograd.grad(sigma.sum(), x)
+        if self.spec.tp_devices > 1:
+            import torch.distributed as dist
+            dist.all_reduce(g, group=self.spec.tp_group)
+            g = g / self.spec.tp_devices
         n = -g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-9)
         return (n + 1.0) / 2.0
 
@@ -234,6 +268,9 @@ class NGPField(nn.Module):
         the step computes no table gradient here. Through the unfused
         encoder autograd's full second order of plain ops."""
         cfg = self.spec.cfg
+        if self.spec.tp_devices > 1:
+            raise NotImplementedError("the orientation loss's inner gradient "
+                                      "under tensor parallelism")
         x = x.detach()
         if not cfg.model.fused_encoder:
             x.requires_grad_(True)

@@ -52,6 +52,11 @@ class HashGridSpec:
     # "xor": prime-XOR hash; "additive": row = c[a] + mix(others), which
     # keeps the two a-corners of every cell on adjacent table rows
     hash_variant: str = "xor"
+    # the channel count the fused encoder picks its dense (matmul) levels
+    # at (kernels/hash_encode.matmul_split); 0 = level_dim. A tensor-
+    # parallel shard keeps its whole table's, so that it takes the
+    # unsharded encode's path, and its bits, level by level
+    split_level_dim: int = 0
 
     @staticmethod
     def create(input_dim=3, num_levels=16, level_dim=2,

@@ -2,7 +2,9 @@
 (counterpart of ``raw_ngp_tpu/train/trainer.py`` ``make_eval_render``
 ``:419`` and ``Trainer.render_image`` ``:877``), on the occupancy path
 (with the density bitfield) or on the proposal path (``render.occupancy``
-False: no bitfield, no coarse volume)."""
+False: no bitfield, no coarse volume); on a mesh of ranks each chunk's
+rays split over the dp ranks (``parallel/mesh.py``'s
+``make_parallel_eval_render``)."""
 
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ def coarse_volume(cfg: Config, bitfield):
         bound=r.bound)
 
 
-def make_eval_render(cfg: Config, plain: bool = False):
+def make_eval_render(cfg: Config, plain: bool = False, mesh=None):
     """Chunk renderer for full-image eval: (field, bitfield, rays_o,
     rays_d, aabb, coarse_lin, annealing, rays_ldir) -> (image [n, 3],
     depth [n], weights_sum [n]), and the normal map [n, 3] fourth when
@@ -49,7 +51,13 @@ def make_eval_render(cfg: Config, plain: bool = False):
     are an rfield field's light directions. On the proposal path the
     bitfield and coarse_lin are not read (pass None) and the sampling is
     the deterministic one. ``plain=True`` runs the kernels' plain
-    versions."""
+    versions. On a ``mesh`` with more than one dp rank, the sharded
+    variant (:func:`raw_ngp_torch.parallel.mesh.
+    make_parallel_eval_render`): every rank renders its share of the
+    chunk and returns the whole chunk's outputs."""
+    if mesh is not None and mesh.n_dp > 1:
+        from raw_ngp_torch.parallel.mesh import make_parallel_eval_render
+        return make_parallel_eval_render(cfg, mesh, plain=plain)
     bg = 1.0 if cfg.render.background != "black" else 0.0
     normals = cfg.render.compute_normals and cfg.render.occupancy
 
@@ -71,7 +79,7 @@ def make_eval_render(cfg: Config, plain: bool = False):
 
 def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
                  device="cuda", plain: bool = False, annealing=1.0,
-                 ldir=None, return_normals: bool = False):
+                 ldir=None, return_normals: bool = False, mesh=None):
     """Full-image chunked render -> (rgb [H, W, 3], depth [H, W]) on
     ``device``; with ``return_normals`` a third result, the normal map
     [H, W, 3] where the configuration computes one
@@ -87,6 +95,10 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     BAA-NGP state to render at (the Trainer passes its current one).
     ``ldir`` [3], an rfield field's light direction, is given to every
     ray of every chunk, the padded rays of the last one included.
+    On a ``mesh`` (one rank of several) every rank calls this alike; the
+    chunk is rounded down to a multiple of the dp size (at least one ray a
+    rank, JAX's rule) and split over the dp ranks (:func:`make_eval_render`),
+    and every rank returns the whole image.
     """
     dev = resolve_device(device)
     cfg = field.spec.cfg
@@ -94,8 +106,9 @@ def render_image(field, bitfield, pose, intrinsics, H: int, W: int, aabb,
     intr = torch.as_tensor(intrinsics, dtype=torch.float32, device=dev)
     rays_o, rays_d = full_image_rays(pose, intr, H, W)
     N = H * W
-    chunk = min(cfg.render.max_ray_batch, N)
-    render_chunk = make_eval_render(cfg, plain=plain)
+    n_dp = mesh.n_dp if mesh is not None else 1
+    chunk = (min(cfg.render.max_ray_batch, N) // n_dp * n_dp) or n_dp
+    render_chunk = make_eval_render(cfg, plain=plain, mesh=mesh)
     ld = None
     if ldir is not None:
         ld = torch.as_tensor(ldir, dtype=torch.float32,

@@ -29,7 +29,7 @@ import glob
 import json
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,13 +76,16 @@ def save_checkpoint(state: TrainState, ckpt_dir: str, name: str,
                     stats: Optional[Dict[str, Any]] = None,
                     max_keep: int = 2,
                     extra: Optional[Dict[str, np.ndarray]] = None,
-                    meta: Optional[Dict[str, Any]] = None) -> str:
+                    meta: Optional[Dict[str, Any]] = None,
+                    tensors: Optional[Dict[str, torch.Tensor]] = None) -> str:
     """Write ``<ckpt_dir>/<name>.npz`` (+ .json) and prune old rolling
     checkpoints (train_utils.py:1182-1188). ``extra`` arrays are stored
-    under ``extra.<name>``; ``meta`` entries join the sidecar."""
+    under ``extra.<name>``; ``meta`` entries join the sidecar. ``tensors``
+    (by checkpoint key) are written in place of the state's own
+    (:func:`state_tensors`): a channel-sharded run's whole tables."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    arrays = {k: t.detach().cpu().numpy()
-              for k, t in state_tensors(state).items()}
+    tensors = state_tensors(state) if tensors is None else tensors
+    arrays = {k: t.detach().cpu().numpy() for k, t in tensors.items()}
     arrays.update({k: np.asarray(getattr(obj, attr), np.int64)
                    for k, (obj, attr) in _counts(state).items()})
     for k, v in (extra or {}).items():
@@ -107,11 +110,15 @@ def save_checkpoint(state: TrainState, ckpt_dir: str, name: str,
 
 
 @torch.no_grad()
-def load_checkpoint(state: TrainState, path: str) -> Tuple[TrainState, Dict]:
+def load_checkpoint(state: TrainState, path: str,
+                    transform: Optional[Callable] = None
+                    ) -> Tuple[TrainState, Dict]:
     """Restore into an initialized state, in place (the tensors keep their
     device and dtype, so the field's parameters stay its own). Missing or
     mismatched entries keep their initialized values (tolerant resume,
-    train_utils.py:1245-1299). Returns (state, meta): the sidecar's
+    train_utils.py:1245-1299). ``transform(key, array)`` gives the array
+    to restore from each one read (a channel-sharded run's slice of a
+    table). Returns (state, meta): the sidecar's
     entries, ``loaded`` (the keys of the arrays restored), ``n_loaded``
     (their count) and ``extra`` (the
     ``extra.<name>`` arrays)."""
@@ -119,8 +126,12 @@ def load_checkpoint(state: TrainState, path: str) -> Tuple[TrainState, Dict]:
     with np.load(path, allow_pickle=False) as data:
         files = set(data.files)
         for key, t in state_tensors(state).items():
-            if key in files and data[key].shape == tuple(t.shape):
-                t.copy_(torch.from_numpy(data[key]))
+            if key not in files:
+                continue
+            arr = data[key] if transform is None else transform(key,
+                                                                data[key])
+            if arr.shape == tuple(t.shape):
+                t.copy_(torch.from_numpy(arr))
                 loaded.append(key)
         for key, (obj, attr) in _counts(state).items():
             if key in files and data[key].shape == ():

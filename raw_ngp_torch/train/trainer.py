@@ -72,9 +72,22 @@ validation PNGs (the port's own PNG writer, ``data.image_io.write_png``)
 and ``test`` writes PNG frames where the JAX package writes a video when
 it has a backend for one.
 
-Not ported (raises ``NotImplementedError``): multi-device meshes, and the
-HDR-merged test frames (``postprocess_raw_hdr``, ROADMAP A13b) of a
-configuration whose ``hdr_merge_algo`` is not "none".
+Several GPUs (``trainer.py:515-556``, ``:607-620``, ``:644-678``): with
+``parallel.num_devices`` > 1 or ``tp_devices`` > 1 the Trainer is one rank
+of a (dp, tp) layout (:mod:`raw_ngp_torch.parallel`) of the process group
+the caller initialized, one Trainer a rank, every rank calling the same
+methods in the same order. Each dp row draws its own rays
+(``num_rays / n_dp`` of them, from a stream of its own) under a point
+budget of ``max(budget // n_dp // 128 * 128, 128)``; the gradients are
+averaged over the rows; under tp each rank holds its channel shard of the
+table. The grid refresh draws from a stream every rank shares, so the
+density grids stay equal; the eval render splits each chunk's rays over
+the rows and gathers the results. Rank 0 alone logs and writes files;
+checkpoints hold the whole flat table on every layout.
+
+Not ported (raises ``NotImplementedError``): the HDR-merged test frames
+(``postprocess_raw_hdr``, ROADMAP A13b) of a configuration whose
+``hdr_merge_algo`` is not "none".
 """
 
 from __future__ import annotations
@@ -87,6 +100,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raw_ngp_torch.config import Config
 from raw_ngp_torch.data.image_io import write_png
@@ -99,6 +113,8 @@ from raw_ngp_torch.ops.hashgrid import (total_variation_loss,
 from raw_ngp_torch.ops.lie import se3_to_SE3
 from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
+from raw_ngp_torch.parallel import mesh as pmesh
+from raw_ngp_torch.parallel import tp as ptp
 from raw_ngp_torch.postprocess.raw import postprocess_raw
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
 from raw_ngp_torch.render.dispatch import render_any
@@ -161,8 +177,10 @@ def fused_adam_ema(cfg: Config) -> _Optimizer:
     moments as they were (the EMA still moves toward the params). The
     decision is taken on the device: no host sync.
 
-    ``update_apply(grads, state, params, ema)`` updates params, ema and
-    the moments in place and returns (params, ema, state).
+    ``update_apply(grads, state, params, ema, ok=None)`` updates params,
+    ema and the moments in place and returns (params, ema, state); ``ok``
+    (a bool tensor), where given, takes the place of the gradients' own
+    finite check (a mesh's global gate).
     """
     lr_fn = network_lr_schedule(cfg)
     b1, b2 = 0.9, 0.999
@@ -175,9 +193,10 @@ def fused_adam_ema(cfg: Config) -> _Optimizer:
             nu={k: torch.zeros_like(p) for k, p in params.items()})
 
     @torch.no_grad()
-    def update_apply(grads, state: AdamState, params, ema):
-        ok = torch.stack([torch.isfinite(g).all()
-                          for g in grads.values()]).all()
+    def update_apply(grads, state: AdamState, params, ema, ok=None):
+        if ok is None:
+            ok = torch.stack([torch.isfinite(g).all()
+                              for g in grads.values()]).all()
         okf = ok.float()
         cf = _F32(state.count + 1)
         scale = float(lr_fn(state.count) / (_F32(1.0) - _F32(b1) ** cf))
@@ -388,7 +407,7 @@ def proposal_gate(step: int) -> float:
 
 def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
                     num_rays: int, point_budget=None,
-                    pose_tx: Optional[_Optimizer] = None):
+                    pose_tx: Optional[_Optimizer] = None, reduce=None):
     """One training step, ``train_step(field, state, scene, aabb,
     generator) -> metrics``: sample, render, loss, backward and the fused
     Adam + EMA update, in place on ``state`` (whose params are the
@@ -398,7 +417,10 @@ def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
     networks' gradients are multiplied by :func:`proposal_gate` (a
     multiply, not a skip: a non-finite gradient times 0 stays NaN and
     makes the fused update skip the step, as in JAX). Metrics stay on the
-    device."""
+    device. ``reduce`` (a mesh's, :func:`raw_ngp_torch.parallel.mesh.
+    make_reduce`) takes (grads, pose gradient, loss, aux) after the
+    backward and returns them reduced over the ranks with the update's
+    finite gate."""
     loss_fn = make_loss_fn(cfg, spec, num_rays)
     pose_freeze_step = int(cfg.pose_opt.end_annealing * cfg.train.iters)
 
@@ -414,18 +436,25 @@ def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
+        g_pose = ok = None
+        if pose is not None:
+            g_pose = (pose.grad if pose.grad is not None
+                      else torch.zeros_like(pose))
+        if reduce is not None:
+            grads, g_pose, loss, aux, ok = reduce(grads, g_pose, loss, aux)
         if spec.prop_specs:
             gate = proposal_gate(state.step)
             for k in grads:
                 if k.startswith("prop_"):
                     grads[k] = grads[k] * gate
+        # a mesh's global finite gate, where it has one
+        gate_kw = {} if ok is None else {"ok": ok}
         net_tx.update_apply(grads, state.opt_state, state.params,
-                            state.ema_params)
+                            state.ema_params, **gate_kw)
         if pose is not None:
-            g = pose.grad if pose.grad is not None else torch.zeros_like(pose)
             freeze = 1.0 if state.step >= pose_freeze_step else 0.0
-            pose_tx.update_apply(g * (1.0 - freeze), state.pose_opt_state,
-                                 pose.data)
+            pose_tx.update_apply(g_pose * (1.0 - freeze),
+                                 state.pose_opt_state, pose.data)
         state.step += 1
         return {"loss": loss.detach(), **aux}
 
@@ -440,25 +469,35 @@ def dataclasses_replace_scene(scene: SceneData, new_poses):
 
 
 class Trainer:
-    """Host-side orchestration of training on one device, on the occupancy
-    or the proposal path: ``train(iters)``, ``fit()`` (training with the
-    eval and checkpoint schedule), ``render_image(pose)`` with the EMA
-    parameters, ``evaluate()`` (PSNR, or the meters given, with optional
-    artifacts), ``test(scene)`` and ``save_checkpoint`` /
-    ``load_checkpoint``, in ``workspace`` (default ``cfg.workspace``). Runs
-    on the card unless ``device="cpu"``."""
+    """Host-side orchestration of training on one device or as one rank of
+    several, on the occupancy or the proposal path: ``train(iters)``,
+    ``fit()`` (training with the eval and checkpoint schedule),
+    ``render_image(pose)`` with the EMA parameters, ``evaluate()`` (PSNR,
+    or the meters given, with optional artifacts), ``test(scene)`` and
+    ``save_checkpoint`` / ``load_checkpoint``, in ``workspace`` (default
+    ``cfg.workspace``). Runs on the card unless ``device="cpu"``.
+
+    The device count follows JAX's rule: ``parallel.num_devices`` 0 takes
+    every rank of the initialized process group (one device without
+    one), N takes min(N, ranks), which must then be all of them; with
+    more than one the Trainer is this rank's part of a (dp, tp) layout,
+    ``tp_devices`` innermost (``mesh``, ``n_dp``, ``n_tp``)."""
 
     def __init__(self, cfg: Config, train_scene: SceneData,
                  val_scene: Optional[SceneData] = None, device="cuda",
                  workspace: Optional[str] = None):
-        if cfg.parallel.num_devices > 1 or cfg.parallel.tp_devices > 1:
-            raise NotImplementedError("multi-device training is not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.workspace = workspace or cfg.workspace
         os.makedirs(os.path.join(self.workspace, "checkpoints"),
                     exist_ok=True)
+        self.mesh = self._make_mesh(cfg)
+        self.is_main = self.mesh is None or self.mesh.is_main
+        self.n_dp = self.mesh.n_dp if self.mesh else 1
+        self.n_tp = self.mesh.n_tp if self.mesh else 1
         self.spec = make_field_spec(cfg)
+        if self.n_tp > 1:
+            self.spec = ptp.tp_spec(self.spec, self.mesh)
         if cfg.pose_opt.identity:
             # BARF from scratch: every camera starts at the identity pose;
             # the ground truth stays in poses_gt
@@ -481,6 +520,11 @@ class Trainer:
         self.aabb = scene_aabb(cfg, train_scene.pts_aabb, device=dev)
         self.field, self.state = init_train_state(cfg, self.spec, dev,
                                                   train_scene.n_images)
+        if self.mesh is not None:
+            with torch.no_grad():   # rank 0's initial state on every rank
+                pmesh.replicate(checkpoint.state_tensors(self.state).values())
+            if self.n_tp > 1:
+                ptp.place_state_tp(self.field, self.state, self.mesh)
         # the EMA field renders from the state's EMA tensors (shared)
         self.ema_field = copy.deepcopy(self.field)
         for k, p in self.ema_field.named_parameters():
@@ -489,9 +533,19 @@ class Trainer:
         self.net_tx = fused_adam_ema(cfg)
         self.pose_tx = pose_adam(cfg) if cfg.pose_opt.mode != "none" \
             else None
+        # one stream on one device; on a mesh the grid refresh draws from a
+        # stream every rank shares (``generator``) and the batches from
+        # the dp row's own (``batch_generator``)
         self.generator = torch.Generator(device=dev).manual_seed(
             cfg.train.seed)
+        self.batch_generator = self.generator
+        if self.mesh is not None:
+            self.batch_generator = torch.Generator(device=dev).manual_seed(
+                pmesh.batch_seed(cfg.train.seed, self.mesh.dp_rank))
         self.num_rays = cfg.train.num_rays
+        if self.num_rays % self.n_dp:
+            raise ValueError(f"num_rays {self.num_rays} must divide by the "
+                             f"dp size {self.n_dp}")
         self._grid_update = (make_grid_update(cfg) if cfg.render.occupancy
                              else None)
         self.stats: Dict[str, Any] = {"loss": [], "psnr": []}
@@ -507,7 +561,7 @@ class Trainer:
         self._train_step = self._make_step()
         # observability (train_utils.py:428-432 console+file, :919-937
         # tensorboard) and the auto-resume policy (train_utils.py:444-463)
-        self.logger = RunLogger(self.workspace)
+        self.logger = RunLogger(self.workspace, enabled=self.is_main)
         self.throughput = ThroughputMeter()
         self._restored = ()
         if cfg.ckpt != "scratch":
@@ -515,11 +569,37 @@ class Trainer:
         # a checkpoint that restored the density grid makes the marking moot
         if (cfg.render.mark_untrained and cfg.render.occupancy
                 and "density_grid" not in self._restored):
-            grid = mark_untrained_grid(
-                cfg, np.asarray(train_scene.poses),
-                np.asarray(train_scene.intrinsics), self.aabb.cpu().numpy(),
-                cam_near_far=train_scene.cam_near_far)
-            self.state.density_grid = torch.from_numpy(grid).to(dev)
+            if self.is_main:   # on a mesh rank 0's, then replicated
+                grid = mark_untrained_grid(
+                    cfg, np.asarray(train_scene.poses),
+                    np.asarray(train_scene.intrinsics),
+                    self.aabb.cpu().numpy(),
+                    cam_near_far=train_scene.cam_near_far)
+                self.state.density_grid = torch.from_numpy(grid).to(dev)
+            if self.mesh is not None:
+                pmesh.replicate([self.state.density_grid])
+
+    @staticmethod
+    def _make_mesh(cfg: Config):
+        """The rank layout, None on one device (``trainer.py:519-524``)."""
+        n_req, n_tp = cfg.parallel.num_devices, cfg.parallel.tp_devices
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        n = world if n_req == 0 else min(n_req, world)
+        if n_tp > 1 and n <= 1:
+            raise RuntimeError(
+                f"tp_devices {n_tp} needs a torch.distributed process group "
+                f"of {n_tp} ranks or more (ranks: {world})")
+        if n <= 1:
+            return None
+        if n != world:
+            raise ValueError(f"num_devices {n_req}: the process group has "
+                             f"{world} ranks, and a mesh takes all of them")
+        if n % n_tp:
+            raise ValueError(f"tp_devices {n_tp} must divide the device "
+                             f"count {n}")
+        if n_tp > 1:
+            return ptp.make_tp_mesh(n // n_tp, n_tp)
+        return pmesh.make_mesh(n)
 
     # ------------------------------------------------------------------
     def base_point_budget(self) -> int:
@@ -530,10 +610,32 @@ class Trainer:
 
     def _make_step(self):
         """The train step for the current adaptive-batch key (num_rays,
-        point budget; budget None = the config-derived base)."""
-        return make_train_step(self.cfg, self.spec, self.net_tx,
-                               self.num_rays, point_budget=self._point_budget,
-                               pose_tx=self.pose_tx)
+        point budget; budget None = the config-derived base). On a mesh
+        the budget a rank renders under is always explicit, the global one
+        split over the dp rows (``trainer.py:644-678``)."""
+        if self.mesh is None:
+            return make_train_step(self.cfg, self.spec, self.net_tx,
+                                   self.num_rays,
+                                   point_budget=self._point_budget,
+                                   pose_tx=self.pose_tx)
+        make = (ptp.make_tp_train_step if self.n_tp > 1
+                else pmesh.make_parallel_train_step)
+        return make(self.cfg, self.spec, self.net_tx, self.num_rays,
+                    self.mesh, point_budget=self.local_point_budget(),
+                    pose_tx=self.pose_tx)
+
+    def local_point_budget(self):
+        """The point budget one rank's render runs under: on one device
+        the adaptive-batch key's (None at the config-derived base: the
+        render's own), on a mesh the global one split over the dp rows."""
+        cfg, budget = self.cfg, self._point_budget
+        if self.mesh is None:
+            return budget
+        if (budget is None and cfg.render.occupancy
+                and cfg.render.compact_ratio > 0):
+            budget = self.base_point_budget()
+        return (None if budget is None
+                else pmesh.local_point_budget(budget, self.n_dp))
 
     def _adapt_batch(self, metrics):
         """Adaptive batching (``trainer.py:694``): grow num_rays by powers
@@ -621,7 +723,7 @@ class Trainer:
                 self._adapt_stash = self._metrics
         self._metrics = self._train_step(self.field, self.state,
                                          self.scene_arrays, self.aabb,
-                                         self.generator)
+                                         self.batch_generator)
         self.host_step += 1
         return self._metrics
 
@@ -652,8 +754,9 @@ class Trainer:
         self.stats["loss"].append(float(metrics["loss"]))
         dt = time.time() - t0
         rays_per_sec = total_rays / dt
-        print(f"[train] {iters} steps in {dt:.1f}s = "
-              f"{rays_per_sec:,.0f} rays/s")
+        if self.is_main:
+            print(f"[train] {iters} steps in {dt:.1f}s = "
+                  f"{rays_per_sec:,.0f} rays/s")
         return {"wall_time": dt, "rays_per_sec": rays_per_sec}
 
     # ------------------------------------------------------------------
@@ -675,8 +778,24 @@ class Trainer:
                            intrinsics, H or scene.H, W or scene.W,
                            self.aabb, device=self.device,
                            annealing=annealing, ldir=ldir,
-                           return_normals=return_normals)
+                           return_normals=return_normals, mesh=self.mesh)
         return tuple(None if t is None else t.cpu().numpy() for t in out)
+
+    def gathered_field(self):
+        """The radiance field (raw parameters) whole on this rank: under
+        tensor parallelism a copy with the table gathered from the row's
+        shards and an unsharded spec (every rank of the row calls it),
+        else the field itself."""
+        if self.n_tp == 1:
+            return self.field
+        field = copy.deepcopy(self.field)
+        field.spec = dataclasses.replace(self.spec, tp_group=None,
+                                         tp_devices=1)
+        with torch.no_grad():
+            field.grid = torch.nn.Parameter(
+                ptp.gather_table(self.field.grid, self.spec.grid_spec,
+                                 self.mesh), requires_grad=False)
+        return field
 
     def estimate_exposure_levels(self, scene: SceneData) -> Dict:
         """The HDR exposure levels: ``cfg.exposure_percentiles`` of the
@@ -710,13 +829,17 @@ class Trainer:
         density grid and mean density (train_utils.py:1155-1164). The batch
         comes from a generator of its own, seeded from the step, and the
         gradient is taken with ``torch.autograd.grad``: training's
-        generator and the parameters' ``.grad`` are left as they were."""
+        generator and the parameters' ``.grad`` are left as they were. On a
+        mesh every rank takes the gradient of its share of the rays (the
+        same draws on every rank: the tp all-gather's backward needs the
+        whole row) and rank 0 writes its own, the whole table's under
+        tp."""
         if not self.logger.active:
             return
         cfg, step = self.cfg, self.host_step
         gen = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + step)
-        loss_fn = make_loss_fn(cfg, self.spec, self.num_rays)
+        loss_fn = make_loss_fn(cfg, self.spec, self.num_rays // self.n_dp)
         loss, _ = loss_fn(self.field, self.state, self.scene_arrays,
                           self.aabb, gen,
                           annealing=annealing_at(cfg, self.state.step))
@@ -727,6 +850,9 @@ class Trainer:
             top, _, idx = k.partition(".")
             if top not in ("grid", "grid_mlp", "view_mlp") or g is None:
                 continue
+            if k == "grid" and self.n_tp > 1:
+                g = ptp.gather_table(g / self.n_tp, self.spec.grid_spec,
+                                     self.mesh)
             name = f"[{idx}]w" if idx else "w"
             self.logger.histogram(f"grad/{top}/{name}",
                                   g.float().cpu().numpy(), step)
@@ -747,11 +873,12 @@ class Trainer:
             refined_poses,
         )
         poses = refined_poses(self)
-        pose_dir = os.path.join(self.workspace, "poses")
-        os.makedirs(pose_dir, exist_ok=True)
-        np.save(os.path.join(pose_dir,
-                             f"poses_step{self.host_step:06d}.npy"),
-                poses[:, :3, :4])
+        if self.is_main:
+            pose_dir = os.path.join(self.workspace, "poses")
+            os.makedirs(pose_dir, exist_ok=True)
+            np.save(os.path.join(pose_dir,
+                                 f"poses_step{self.host_step:06d}.npy"),
+                    poses[:, :3, :4])
         errs = analyze_pose_optimization(self)
         for k, v in errs.items():
             self.logger.scalar(f"pose/{k}", v, self.host_step)
@@ -774,7 +901,8 @@ class Trainer:
         normal PNGs to ``<workspace>/validation``, an HDR scene's rgb and
         truth postprocessed at one exposure level; ``export_npy`` the raw
         prediction and truth to ``<workspace>/eval``
-        (train_utils.py:977-1139)."""
+        (train_utils.py:977-1139). On a mesh every rank renders and
+        measures; rank 0 writes."""
         scene = scene or self.val_scene
         if scene is None:
             raise ValueError("evaluate: no scene")
@@ -784,6 +912,8 @@ class Trainer:
         meters = metrics if metrics is not None else [PSNRMeter()]
         val_dir = os.path.join(self.workspace, "validation")
         eval_dir = os.path.join(self.workspace, "eval")
+        save_artifacts = save_artifacts and self.is_main
+        export_npy = export_npy and self.is_main
         if save_artifacts:
             os.makedirs(val_dir, exist_ok=True)
         if export_npy:
@@ -838,28 +968,43 @@ class Trainer:
         with the rolling ``train.max_keep_ckpt`` retention; ``best`` writes
         ``ngp_best`` with the EMA weights as its params
         (train_utils.py:1192-1215). Beside the state: the generator's
-        state, the grid refresh count and the adaptive-batch key."""
+        state, the grid refresh count and the adaptive-batch key. On a mesh
+        every rank calls it and rank 0 writes the file a single device
+        would: the whole flat table (gathered under tp), and beside the
+        shared generator the dp rows' batch streams (``batch_generators``,
+        [n_dp, ...]); the other ranks wait for it and get the path."""
         ckpt_dir = os.path.join(self.workspace, "checkpoints")
         extra = {"generator": self.generator.get_state().numpy()}
+        if self.mesh is not None:
+            gen = self.batch_generator.get_state().to(self.device)
+            extra["batch_generators"] = pmesh.gather_rows(
+                gen[None], self.mesh.dp_group, self.n_dp).cpu().numpy()
         meta = {"host_grid_updates": self.host_grid_updates,
                 "adapt": {"num_rays": self.num_rays,
                           "point_budget": self._point_budget,
                           "pts_ema": self._pts_ema,
                           "stash": _host_points(self._adapt_stash),
                           "metrics": _host_points(self._metrics)}}
+        state, stats = self.state, {"loss": self.stats["loss"][-1:]}
         if best:
             state = dataclasses.replace(self.state,
                                         params=self.state.ema_params)
-            return checkpoint.save_checkpoint(
-                state, ckpt_dir, "ngp_best",
-                stats={"psnr": self.stats["psnr"][-1:]},
-                max_keep=self.cfg.train.max_keep_ckpt, extra=extra,
-                meta=meta)
+            name, stats = "ngp_best", {"psnr": self.stats["psnr"][-1:]}
         name = name or f"ngp_step{self.host_step:06d}"
-        return checkpoint.save_checkpoint(
-            self.state, ckpt_dir, name,
-            stats={"loss": self.stats["loss"][-1:]},
-            max_keep=self.cfg.train.max_keep_ckpt, extra=extra, meta=meta)
+        tensors = checkpoint.state_tensors(state)
+        if self.n_tp > 1:
+            for k in ptp.SHARDED:
+                tensors[k] = ptp.gather_table(tensors[k],
+                                              self.spec.grid_spec, self.mesh)
+        path = os.path.join(ckpt_dir, f"{name}.npz")
+        if self.is_main:
+            path = checkpoint.save_checkpoint(
+                state, ckpt_dir, name, stats=stats,
+                max_keep=self.cfg.train.max_keep_ckpt, extra=extra,
+                meta=meta, tensors=tensors)
+        if self.mesh is not None:
+            dist.barrier()
+        return path
 
     def load_checkpoint(self, mode: Optional[str] = None) -> bool:
         """Restore the checkpoint ``mode`` resolves to (default
@@ -867,13 +1012,25 @@ class Trainer:
         resolve_checkpoint`), in place; False when there is none. The
         step counters, the generator and the adaptive-batch key come back
         where the checkpoint has them, and the coarse cache is rebuilt
-        from the restored bitfield."""
+        from the restored bitfield. On a mesh every rank reads the file and
+        takes its channel shard of the tables (any layout's file loads on
+        any layout) and its dp row's batch stream where the file has one
+        for this layout."""
         mode = mode or self.cfg.ckpt
         path = checkpoint.resolve_checkpoint(
             os.path.join(self.workspace, "checkpoints"), mode)
         if path is None:
             return False
-        _, meta = checkpoint.load_checkpoint(self.state, path)
+        shard = None
+        if self.n_tp > 1:
+            def shard(key, arr):
+                if key not in ptp.SHARDED:
+                    return arr
+                return ptp.shard_of(torch.from_numpy(arr),
+                                    self.spec.grid_spec, self.n_tp,
+                                    self.mesh.tp_rank).numpy()
+        _, meta = checkpoint.load_checkpoint(self.state, path,
+                                             transform=shard)
         self._restored = meta["loaded"]
         self.host_step = int(meta.get("step", self.state.step))
         interval = max(self.cfg.render.update_extra_interval, 1)
@@ -883,6 +1040,12 @@ class Trainer:
         if gen is not None and gen.shape == tuple(
                 self.generator.get_state().shape):
             self.generator.set_state(torch.from_numpy(gen))
+        rows = meta["extra"].get("batch_generators")
+        if (self.mesh is not None and rows is not None
+                and rows.shape == (self.n_dp,) + tuple(
+                    self.batch_generator.get_state().shape)):
+            self.batch_generator.set_state(
+                torch.from_numpy(rows[self.mesh.dp_rank].copy()))
         adapt = meta.get("adapt")
         if adapt:
             self.num_rays = adapt["num_rays"]
@@ -938,7 +1101,8 @@ class Trainer:
         ``normals_<i>.png`` too; the JAX package writes these as videos
         where it has a backend for them and as these frames where it does
         not. An HDR scene's frames are postprocessed at one exposure level.
-        Returns the rgb frames (uint8)."""
+        Returns the rgb frames (uint8); on a mesh every rank renders them
+        and rank 0 writes."""
         hdr = self.cfg.data.image_mode == "HDR"
         cam2rgb = _cam2rgb(scene) if hdr else None
         if cam2rgb is not None and self.cfg.hdr_merge_algo != "none":
@@ -947,7 +1111,8 @@ class Trainer:
                 f"hdr_merge_algo {self.cfg.hdr_merge_algo!r}) are not "
                 "ported (ROADMAP A13b)")
         save_dir = save_dir or os.path.join(self.workspace, "results")
-        os.makedirs(save_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(save_dir, exist_ok=True)
         if hdr and not self.exposure_levels:
             # consistent-LDR exposure levels (train_utils.py:1008-1017);
             # normally populated by the eval loop, estimated here when
@@ -969,7 +1134,7 @@ class Trainer:
                 frames["normals"].append(_to_u8(normal))
         if not (write_video and len(frames["rgb"]) > 1):
             frames = {"rgb": frames["rgb"]}
-        for name, imgs in frames.items():
+        for name, imgs in frames.items() if self.is_main else ():
             for i, f in enumerate(imgs):
                 write_png(os.path.join(save_dir, f"{name}_{i:03d}.png"), f)
         return frames["rgb"]

@@ -28,8 +28,12 @@ class RunLogger:
     ``close()`` or when the logger is collected. ``active`` says whether
     scalars and histograms go anywhere: a writer is open or can be."""
 
-    def __init__(self, workspace: str):
+    def __init__(self, workspace: str, enabled: bool = True):
         self.workspace = workspace
+        # a disabled logger (a rank other than 0) writes nothing, and says
+        # as the others whether tensorboard is there, so that work done
+        # for it (collective on a mesh) runs on every rank alike
+        self.enabled = enabled
         self.log_path = os.path.join(workspace, "log_ngp.txt")
         os.makedirs(workspace, exist_ok=True)
         self.writer = None
@@ -52,13 +56,15 @@ class RunLogger:
         return self.writer
 
     def log(self, *args):
+        if not self.enabled:
+            return
         msg = " ".join(str(a) for a in args)
         print(msg)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
 
     def scalar(self, tag: str, value: float, step: int):
-        if self.active:
+        if self.active and self.enabled:
             self._tb().add_scalar(tag, float(value), step)
 
     def scalars(self, values: Dict[str, float], step: int,
@@ -70,7 +76,7 @@ class RunLogger:
                 pass
 
     def histogram(self, tag: str, values, step: int):
-        if self.active:
+        if self.active and self.enabled:
             self._tb().add_histogram(tag, np.asarray(values), step)
 
     def close(self):

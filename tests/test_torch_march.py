@@ -748,9 +748,11 @@ def test_o_unported_branches_raise(tmp_path):
     each of the entropy, TV, weight-decay and orientation weights and
     fused_encoder=False, and a training render with the orientation loss
     returns it, and a scene with per-camera near/far trains (its ranges
-    ride in the Trainer's scene arrays). What is still unported raises
-    NotImplementedError: multi-device training; TV in the deterministic
-    mode (no generator) raises ValueError, as JAX's fails there."""
+    ride in the Trainer's scene arrays). Multi-device training is ported
+    (raw_ngp_torch.parallel): with no process group, num_devices=2 takes
+    the one device there is (JAX's min(n, devices)) and tp_devices=2 has
+    no ranks to shard over (RuntimeError). TV in the deterministic mode
+    (no generator) raises ValueError, as JAX's fails there."""
     cfg = o_cfg(tcfg)
     train, val = make_synthetic_scene(n_train=2, n_val=1, H=8, W=8, seed=0)
     ported = [replace(cfg, train=replace(cfg.train, **{name: 0.1}))
@@ -759,9 +761,15 @@ def test_o_unported_branches_raise(tmp_path):
     ported.append(replace(cfg, model=replace(cfg.model, fused_encoder=False)))
     for c in ported:
         ttr.Trainer(c, train, val, device="cpu", workspace=str(tmp_path))
-    for c in (replace(cfg, parallel=replace(cfg.parallel, num_devices=2)),):
-        with pytest.raises(NotImplementedError):
-            ttr.Trainer(c, train, val, device="cpu", workspace=str(tmp_path))
+    tr = ttr.Trainer(replace(cfg, parallel=replace(cfg.parallel,
+                                                   num_devices=2)),
+                     train, val, device="cpu", workspace=str(tmp_path))
+    assert tr.mesh is None and tr.n_dp == tr.n_tp == 1
+    with pytest.raises(RuntimeError):
+        ttr.Trainer(replace(cfg, parallel=replace(cfg.parallel,
+                                                  num_devices=2,
+                                                  tp_devices=2)),
+                    train, val, device="cpu", workspace=str(tmp_path))
     near_far = np.array([[0.5, 3.0], [1.0, 4.0]], np.float32)
     tr = ttr.Trainer(cfg, replace(train, cam_near_far=near_far), val,
                      device="cpu", workspace=str(tmp_path))

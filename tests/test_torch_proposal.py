@@ -644,10 +644,11 @@ def test_o2_unported_branches_raise(tmp_path):
     """The -O2 field, its render and its Trainer are ported, and so are the
     entropy, TV, weight-decay and orientation weights and the unfused
     encoder (a Trainer takes each; the orientation loss is the occupancy
-    render's, so on this path it adds nothing, as in JAX). What this
-    slice leaves raises NotImplementedError instead of training wrongly:
-    multi-device training. A scene with per-camera near/far trains (its
-    ranges ride in the Trainer's scene arrays)."""
+    render's, so on this path it adds nothing, as in JAX). Multi-device
+    training is ported (raw_ngp_torch.parallel): with no process group,
+    num_devices=2 takes the one device there is (JAX's min(n, devices)).
+    A scene with per-camera near/far trains (its ranges ride in the
+    Trainer's scene arrays)."""
     cfg = o2_cfg(tcfg)
     field = t_init_field(t_make_spec(cfg), device="cpu")
     assert len(field.prop_grids) == 2 and len(field.prop_mlps) == 2
@@ -658,10 +659,10 @@ def test_o2_unported_branches_raise(tmp_path):
     ported.append(replace(cfg, model=replace(cfg.model, fused_encoder=False)))
     for c in ported:
         ttr.Trainer(c, train, val, device="cpu", workspace=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        ttr.Trainer(replace(cfg, parallel=replace(cfg.parallel,
-                                                  num_devices=2)),
-                    train, val, device="cpu", workspace=str(tmp_path))
+    tr = ttr.Trainer(replace(cfg, parallel=replace(cfg.parallel,
+                                                   num_devices=2)),
+                     train, val, device="cpu", workspace=str(tmp_path))
+    assert tr.mesh is None and tr.n_dp == 1
     near_far = np.array([[0.5, 3.0], [1.0, 4.0]], np.float32)
     tr = ttr.Trainer(cfg, replace(train, cam_near_far=near_far), val,
                      device="cpu", workspace=str(tmp_path))
