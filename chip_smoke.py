@@ -273,7 +273,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
               beside their bounds. Each rank's step time is printed as
               that of 2 ranks sharing one H100 (gloo): not a scaling
               figure;
- 20. timing — each kernel, its plain version and a PyTorch yardstick where
+ 20. hdr    — HDR-merged test frames: the light-stage configuration with
+              exposure_range "wide" (hdr_config: 7 percentiles, Robertson
+              by default) on the light-stage scene, 128 Trainer steps with
+              every launch counter reset just before and read just after
+              (the train path's kernels), then Trainer.test of the val
+              views under each merge (robertson, debevec) x tonemap
+              (reinhard, mantiuk, drago): hdr_000.png and hdr_001.png
+              written, each bit for bit the uint8 postprocess_raw_hdr
+              (raw_ngp_torch/postprocess/hdr.py, cv2's algorithms in
+              numpy) of the same render on the host, 7 exposures or fewer,
+              Debevec's response non-decreasing; the NaN count of each
+              pair and the host seconds of each calibration, merge and
+              tonemap for one 128x128 frame and one 512x512 render;
+ 21. host   — the native host library (raw_ngp_torch.native, csrc/
+              host_native.cpp built with g++): available() true, each of
+              its six functions against its numpy form on a 2048x2048
+              mosaic or 2^21 codes (Morton codes and packbits bit for bit,
+              the demosaic, normalize_levels and the sRGB curve within
+              tests/test_torch_native.py's tolerances), both routes timed;
+ 22. tools  — the port's offline tools on this machine: offline_eval on
+              the hdr phase's evaluation dumps (plain, --raw, --raw
+              --hdr_merge robertson; finite PSNR and SSIM), colmap2nerf
+              and downscale --factor 2 on a COLMAP folder written by
+              write_colmap_scene, quality_run --iters 256 --eval_every 128
+              on the card with every launch counter reset just before and
+              read just after, summarize_quality on its JSON;
+ 23. timing — each kernel, its plain version and a PyTorch yardstick where
               one exists (torch.nonzero + index_select for the
               compaction, index_copy_ for its backward, index_add_ for the
               dense-level gradient and for B2's two modes) with CUDA
@@ -291,12 +317,15 @@ It prints `render`, `train`, `disk`, `pose`, `lightstage`, `proposal`, `O`,
 `reg`, `unfused` (the disk line and the last five with the card's name and
 power limit),
 `pose_recovery`, `cli`, `multi` (with the card's name and power limit),
+`hdr` (with the card's name and power limit), `host`, `tools`,
 `table_grad` and `kernels` JSON lines (each kernel's
 `launches` are the reg phase's, also as `launches_reg`, `reg_launched`
 says whether it ran there; `launches_O` and `O_launched` the -O
 phase's, its launches in one chunk of the normal render ride as
 `launches_O_normal_render_chunk`, the other phases' counts beside them,
 `launches_disk` the disk phase's, `launches_cli` the cli phase's,
+`launches_hdr` the hdr phase's 128 steps, `launches_tools_quality_run`
+the tools phase's quality_run,
 `launches_multi` each rank's in the multi phase's dp and tp runs, and
 `shard_C8` the encode's kernels' numbers at the tp shard's width;
 the numbers of the proposal path's three kernels are at its shapes, a
@@ -4614,6 +4643,306 @@ def deterministic_ops(dev):
     return found
 
 
+HDR_PAIRS = tuple((m, t) for m in ("robertson", "debevec")
+                  for t in ("reinhard", "mantiuk", "drago"))
+
+
+def hdr_config():
+    """The light-stage configuration with the wide exposure range: 7
+    percentiles, and the Robertson merge unless a merge is named."""
+    cfg = lightstage_config()
+    return replace(cfg, data=replace(cfg.data, exposure_range="wide")
+                   ).validate()
+
+
+def hdr_stages(rgb, cam2rgb, percentiles):
+    """postprocess_raw_hdr's stages on one render, each run once in the
+    order the function runs them: (host seconds of each calibration,
+    merge and tonemap, the exposure count, {merge: response})."""
+    from raw_ngp_torch.postprocess import hdr
+    from raw_ngp_torch.postprocess.raw import exposure_stack
+    exposed, times = exposure_stack(rgb @ cam2rgb.T, percentiles)
+    seconds, responses, radiance = {}, {}, {}
+    for merge in ("robertson", "debevec"):
+        t0 = time.perf_counter()
+        responses[merge] = getattr(hdr, f"calibrate_{merge}")(exposed, times)
+        seconds[f"calibrate_{merge}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        radiance[merge] = getattr(hdr, f"merge_{merge}")(exposed, times,
+                                                         responses[merge])
+        seconds[f"merge_{merge}_s"] = time.perf_counter() - t0
+    for tonemap in ("reinhard", "mantiuk", "drago"):
+        t0 = time.perf_counter()
+        try:
+            getattr(hdr, f"tonemap_{tonemap}")(radiance["robertson"])
+        except ValueError:      # cv2's assertion: reported, not timed
+            seconds[f"tonemap_{tonemap}_s"] = None
+            continue
+        seconds[f"tonemap_{tonemap}_s"] = time.perf_counter() - t0
+    return seconds, len(exposed), responses
+
+
+def phase_hdr(dev, steps=128, large=512):
+    """HDR-merged test frames on the card: hdr_config() (the light-stage
+    configuration, exposure_range "wide") on the light-stage scene,
+    `steps` Trainer steps with every launch counter reset just before and
+    read just after (run_steps' checks: the train path's kernels), then
+    Trainer.test of the val views under each merge x tonemap pair: each
+    writes hdr_000.png and hdr_001.png, each frame bit for bit the uint8
+    form of postprocess_raw_hdr of the same render on the host, 7
+    exposures or fewer; the count of NaN values of each pair; Debevec's
+    response non-decreasing in each channel (cv2's is on the CPU test's
+    7-exposure input; Robertson's, NaN at levels no pixel takes as in
+    cv2, is reported only); the host seconds of each calibration, merge
+    and tonemap for one 128x128 frame and one 512x512 render of the val
+    view. Returns (launches, the trainer, the phase's numbers)."""
+    import numpy as np
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.data.image_io import read_png
+    from raw_ngp_torch.postprocess.raw import postprocess_raw_hdr
+    from raw_ngp_torch.train.trainer import Trainer, _cam2rgb, _to_u8
+    from raw_ngp_torch.render.eval import render_image
+
+    t_phase = time.perf_counter()
+    cfg = hdr_config()
+    check(cfg.hdr_merge_algo == "robertson" and
+          len(cfg.exposure_percentiles) == 7,
+          f"hdr: merge {cfg.hdr_merge_algo}, percentiles "
+          f"{cfg.exposure_percentiles}")
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128,
+                                          W=128, hdr=True, rfield=True)
+    tr = Trainer(cfg, train_s, val_s, device=dev,
+                 workspace=scratch_workspace())
+    launches, (first, last), _, _ = run_steps(tr, steps, TRAIN_KERNELS,
+                                              "hdr")
+    cam2rgb = _cam2rgb(val_s)
+    renders = [tr.render_image(val_s.poses[i], val_s.intrinsics, val_s.H,
+                               val_s.W, ldir=val_s.ldirs[i])[0]
+               for i in range(val_s.n_images)]
+    pairs = {}
+    for merge, tonemap in HDR_PAIRS:
+        tr.cfg = replace(cfg, data=replace(cfg.data, hdr_merge=merge,
+                                           hdr_tonemap=tonemap))
+        out = tempfile.mkdtemp(prefix="chip_smoke_hdr_")
+        atexit.register(shutil.rmtree, out, True)
+        t0 = time.perf_counter()
+        frames = tr.test(val_s, save_dir=out)
+        test_s = time.perf_counter() - t0
+        names = sorted(os.listdir(out))
+        check(names == ["depth_000.png", "depth_001.png", "hdr_000.png",
+                        "hdr_001.png", "rgb_000.png", "rgb_001.png"],
+              f"hdr {merge}/{tonemap}: frames written {names}")
+        check(len(frames) == 2, f"hdr {merge}/{tonemap}: {len(frames)} rgb")
+        nan = []
+        for i, rgb in enumerate(renders):
+            merged = postprocess_raw_hdr(rgb, cam2rgb,
+                                         cfg.exposure_percentiles, merge,
+                                         tonemap)
+            nan.append(int(np.isnan(merged).sum()))
+            check(np.array_equal(read_png(os.path.join(
+                out, f"hdr_{i:03d}.png")), _to_u8(merged)),
+                  f"hdr {merge}/{tonemap}: hdr_{i:03d}.png is not the "
+                  "host's postprocess_raw_hdr of the same render")
+        pairs[f"{merge}/{tonemap}"] = {"nan_values": nan,
+                                       "test_s": test_s}
+        print(f"[hdr] {merge}/{tonemap}: frames bit for bit the host's "
+              f"merge; NaN values {nan}; Trainer.test {test_s:.2f} s")
+    tr.cfg = cfg
+    # the stages of the first val render's merge and of a 512x512 render
+    intr_l = val_s.intrinsics * (large / val_s.H)
+    rgb_l, _ = render_image(tr.ema_field, tr.state.density_bitfield,
+                            val_s.poses[0], intr_l, large, large, tr.aabb,
+                            device=dev, ldir=val_s.ldirs[0])
+    rgb_l = rgb_l.float().cpu().numpy()
+    check(bool(np.isfinite(rgb_l).all()), "hdr: the 512x512 render")
+    seconds, n_exposed, responses = hdr_stages(renders[0], cam2rgb,
+                                               cfg.exposure_percentiles)
+    check(0 < n_exposed <= 7, f"hdr: {n_exposed} exposures")
+    seconds = {"128x128": seconds, f"{large}x{large}": hdr_stages(
+        rgb_l, cam2rgb, cfg.exposure_percentiles)[0]}
+    monotone = {}
+    for merge, crf in responses.items():
+        crf = crf[:, 0]
+        monotone[merge] = [bool((np.diff(crf[:, c]) >= 0).all())
+                           for c in range(3)]
+        monotone[f"{merge}_nan_levels"] = [int(np.isnan(crf[:, c]).sum())
+                                           for c in range(3)]
+    check(all(monotone["debevec"]), f"hdr: Debevec's response is not "
+          f"non-decreasing in every channel: {monotone}")
+    print(f"[hdr] exposures {n_exposed}; responses non-decreasing "
+          f"{monotone}; host seconds {json.dumps(seconds)}")
+    return launches, tr, {
+        "config": "hdr_config(): lightstage_config() + exposure_range "
+                  "wide (7 percentiles, robertson by default)",
+        "scene": "make_synthetic_scene(36, 2, 128, 128, hdr=True, "
+                 "rfield=True)", "steps": steps,
+        "loss_first8": first, "loss_last8": last, "pairs": pairs,
+        "exposures": n_exposed, "response_non_decreasing": monotone,
+        "host_s": seconds, "launches": {k: v for k, v in launches.items()
+                                        if k != "hash_encode_by_caller"},
+        "gpu": gpu_line(), "phase_s": time.perf_counter() - t_phase}
+
+
+def phase_host(size=2048, n_codes=1 << 21, reps=5):
+    """The native host library (raw_ngp_torch.native over
+    csrc/host_native.cpp, built with g++ at first use): available() on
+    this machine, and each of its six functions against its numpy form
+    on a size x size mosaic or n_codes codes / cells: Morton codes both
+    ways and packbits bit for bit, the demosaic's interior within 1e-5,
+    normalize_levels within 1e-6 and the sRGB curve within 1e-5 (the
+    tolerances of tests/test_torch_native.py); both routes timed on the
+    host (median of `reps`, ms)."""
+    import numpy as np
+    from raw_ngp_torch import native
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    check(native.available(), "host: the native library did not build")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    bayer = rng.uniform(0, 1.2, (size, size)).astype(np.float32)
+    coords = rng.integers(0, 1024, (n_codes, 3)).astype(np.int32)
+    codes = rng.integers(0, 1 << 30, n_codes).astype(np.uint32)
+    grid = rng.uniform(0, 20, n_codes).astype(np.float32)
+    calls = {
+        "demosaic_rggb": lambda: native.demosaic_rggb(bayer),
+        "normalize_levels": lambda: native.normalize_levels(
+            bayer, 0.00024420026, 1.0, True),
+        "morton3d_encode": lambda: native.morton3d_encode(coords),
+        "morton3d_decode": lambda: native.morton3d_decode(codes),
+        "packbits": lambda: native.packbits(grid, 10.0),
+        "linear_to_srgb": lambda: native.linear_to_srgb(bayer)}
+
+    def timed_ms(fn):
+        out, ts = None, []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return out, sorted(ts)[reps // 2]
+
+    routes = {}
+    for route in ("cpp", "numpy"):
+        saved = native._LIB, native._TRIED
+        if route == "numpy":
+            native._LIB, native._TRIED = None, True
+        try:
+            routes[route] = {k: timed_ms(fn) for k, fn in calls.items()}
+        finally:
+            native._LIB, native._TRIED = saved
+    result = {}
+    for name in calls:
+        got, want = routes["cpp"][name][0], routes["numpy"][name][0]
+        if name == "demosaic_rggb":
+            err = float(np.abs(got[2:-2, 2:-2] - want[2:-2, 2:-2]).max())
+            ok = err <= 1e-5
+        elif name in ("normalize_levels", "linear_to_srgb"):
+            err = float(np.abs(got - want).max())
+            ok = err <= (1e-6 if name == "normalize_levels" else 1e-5)
+        else:
+            ok = got.dtype == want.dtype and np.array_equal(got, want)
+            err = 0.0 if ok else None
+        check(ok, f"host: {name} C++ against numpy: {err}")
+        result[name] = {"cpp_ms": routes["cpp"][name][1],
+                        "numpy_ms": routes["numpy"][name][1],
+                        "max_abs_err": err}
+        print(f"[host] {name}: C++ {result[name]['cpp_ms']:.2f} ms, numpy "
+              f"{result[name]['numpy_ms']:.2f} ms, max |diff| {err}")
+    return {"library": str(native.library_path().name),
+            "first_use_s": build_s, "inputs": f"{size}x{size} mosaic, "
+            f"{n_codes} codes / cells", "functions": result,
+            "cpu_count": os.cpu_count(),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def phase_tools(dev, tr, iters=256, eval_every=128):
+    """The port's offline tools on this machine (no cv2, imageio or PIL):
+    offline_eval on the hdr phase Trainer's evaluate(save_artifacts=True,
+    export_npy=True) dumps, plain, --raw and --raw --hdr_merge robertson
+    (with the configuration's 7 percentiles), finite PSNR and SSIM;
+    colmap2nerf and downscale --factor 2 on a COLMAP folder that
+    write_colmap_scene writes (removed after); quality_run --iters
+    `iters` --eval_every `eval_every` on the card with every launch
+    counter reset just before and read just after (the train path's
+    kernels launched), then summarize_quality on its JSON. Returns
+    (launches, numbers)."""
+    import numpy as np
+    import torch
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.data.image_io import read_png
+    from raw_ngp_torch.kernels import _build
+    from raw_ngp_torch.tools import (colmap2nerf, downscale, offline_eval,
+                                     quality_run, summarize_quality)
+    t_phase = time.perf_counter()
+    tr.evaluate(save_artifacts=True, export_npy=True)
+    eval_dir = os.path.join(tr.workspace, "eval")
+    pct = [str(p) for p in tr.cfg.exposure_percentiles]
+    evals = {}
+    for name, flags in (("plain", []), ("raw", ["--raw"]),
+                        ("raw_hdr_robertson", ["--raw", "--hdr_merge",
+                                               "robertson", "--percentiles",
+                                               *pct])):
+        r = offline_eval.main([eval_dir, *flags])
+        check(r["n_images"] == 2 and np.isfinite(r["psnr"])
+              and np.isfinite(r["ssim"]),
+              f"tools: offline_eval {name} gave {r}")
+        evals[name] = r
+    root = _build.BUILD_DIR.parent / "tools_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        scene, _ = make_synthetic_scene(n_train=6, n_val=1, H=64, W=64)
+        write_colmap_scene(str(root), scene.images, scene.poses,
+                           scene.intrinsics, step=4)
+        with open(colmap2nerf.main([str(root)])) as f:
+            transforms = json.load(f)
+        check(len(transforms["frames"]) == 6
+              and (transforms["h"], transforms["w"]) == (scene.H, scene.W),
+              "tools: colmap2nerf's transforms.json")
+        downscale.main([str(root), "--factor", "2"])
+        small = sorted(os.listdir(root / "images_2"))
+        check(len(small) == 6 and all(
+            read_png(str(root / "images_2" / n)).shape
+            == (scene.H // 2, scene.W // 2, 3)
+            for n in small), f"tools: downscale wrote {small}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    atexit.register(shutil.rmtree, out, True)
+    path = os.path.join(out, "quality_run.json")
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    run = quality_run.main(["--iters", str(iters), "--eval_every",
+                            str(eval_every), "--out", path,
+                            "--device", str(dev)])
+    torch.cuda.synchronize()
+    quality_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for name in TRAIN_KERNELS:
+        check(launches[name] > 0, f"tools: quality_run never launched "
+              f"{name}")
+    held = [c["psnr_heldout"] for c in run["curve"]]
+    check(len(held) == iters // eval_every and all(np.isfinite(held)),
+          f"tools: quality_run's held-out PSNRs {held}")
+    table = summarize_quality.main([path])
+    check(len(table) == 3 and "error" not in table[2],
+          f"tools: summarize_quality gave {table}")
+    print(f"[tools] quality_run {iters} steps in {quality_s:.1f} s: "
+          f"held-out PSNR {held}; launches {launches}")
+    for w in list(os.listdir(tempfile.gettempdir())):
+        if w.startswith("raw_ngp_torch_quality_"):
+            shutil.rmtree(os.path.join(tempfile.gettempdir(), w), True)
+    return launches, {
+        "offline_eval": evals, "colmap2nerf_frames": len(
+            transforms["frames"]), "downscaled": len(small),
+        "quality_run": {"argv": f"--iters {iters} --eval_every "
+                                f"{eval_every}", "curve": run["curve"],
+                        "heldout_psnr": held, "seconds": quality_s},
+        "summarize_quality": table[2],
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def gpu_line():
     try:
         out = subprocess.run(
@@ -4864,6 +5193,11 @@ def main() -> int:
             pose_recovery = timed("pose_recovery", phase_pose_recovery, dev)
             cli_launches, cli = timed("cli", phase_cli, dev)
             multi = timed("multi", phase_multi, dev)
+            hdr_launches, hdr_tr, hdr_phase = timed("hdr", phase_hdr, dev)
+            host = timed("host", phase_host)
+            tools_launches, tools = timed("tools", phase_tools, dev,
+                                          hdr_tr)
+            del hdr_tr
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4896,6 +5230,8 @@ def main() -> int:
         k["launches_train"] = train_launches[k["name"]]
         k["launches_disk"] = disk_launches[k["name"]]
         k["launches_cli"] = cli_launches[k["name"]]
+        k["launches_hdr"] = hdr_launches[k["name"]]
+        k["launches_tools_quality_run"] = tools_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
         # each rank's launches in the multi phase's 64 steps (dp = 2, and
         # tp = 2 at C = 8 channels a rank), and the kernel's numbers at
@@ -4932,6 +5268,9 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"multi": {k: v for k, v in multi.items()
                                 if k != "shard_kernels"}}))
+    print(json.dumps({"hdr": hdr_phase}))
+    print(json.dumps({"host": host}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"table_grad": table_grad}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -1,5 +1,5 @@
 """RAW / HDR image math: sRGB curves, Bayer demosaicking, exposure
-postprocessing.
+postprocessing, HDR merge + tonemap.
 
 Re-implementation of the multinerf-derived raw utilities the reference
 vendors (raw/raw_utils.py:55-237). Host-side numpy for data prep and output
@@ -7,17 +7,19 @@ postprocessing; the training-path pieces (Bayer loss mask) live in
 raw_ngp_torch.data.sampler as torch.
 
 A copy of the numpy functions of ``raw_ngp_tpu/postprocess/raw.py``
-(``:17-94``), and its ``depth_to_normal`` (``:142``) with cv2's 3x3 Sobel
-written in numpy (the card's machine has no cv2). Its
-``postprocess_raw_hdr`` (cv2's HDR calibration, merge and tonemaps) waits
-for ROADMAP item A13b.
+(``:17-94``), its ``postprocess_raw_hdr`` (``:96-139``) over the numpy
+copies of cv2's HDR calibration, merges and tonemaps in ``hdr.py``, and its
+``depth_to_normal`` (``:142``) with cv2's 3x3 Sobel written in numpy (the
+card's machine has no cv2).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
+
+from raw_ngp_torch.postprocess import hdr as _hdr
 
 
 def linear_to_srgb(linear: np.ndarray, eps: Optional[float] = None):
@@ -97,6 +99,51 @@ def postprocess_raw(raw: np.ndarray, cam2rgb: np.ndarray,
         exposure = np.percentile(rgb_linear, 97.0)
     scaled = np.clip(rgb_linear / exposure, 0.0, 1.0)
     return linear_to_srgb(scaled)
+
+
+def exposure_stack(rgb_linear: np.ndarray, percentiles: Sequence[float]):
+    """The uint8 exposures of a linear image at each percentile whose value
+    is above 0 (255 at that value, truncated), and their float32 times
+    1 / value: postprocess_raw_hdr's input to the merge."""
+    exposed, times = [], []
+    for p in percentiles:
+        exp = np.percentile(rgb_linear, p)
+        if exp > 0:
+            exposed.append((255.0 * np.clip(rgb_linear / exp, 0, 1))
+                           .astype(np.uint8))
+            times.append(exp)
+    return exposed, np.array([1.0 / t for t in times], dtype=np.float32)
+
+
+def postprocess_raw_hdr(raw: np.ndarray, cam2rgb: np.ndarray,
+                        percentiles: Sequence[float],
+                        merge_algo: str = "robertson",
+                        tonemap_algo: str = "reinhard") -> np.ndarray:
+    """Multi-exposure HDR merge + tonemap of a linear prediction
+    (raw_utils.py:194-237): re-expose at several percentiles (those whose
+    exposure is above 0), merge with Debevec/Robertson, tonemap
+    Reinhard/Mantiuk/Drago (``hdr.py``, OpenCV's algorithms in numpy).
+    Returns float32 [H, W, 3], NaN where cv2's tonemaps give NaN."""
+    if raw.shape[-1] != 3:
+        raise ValueError("expected demosaiced 3-channel input")
+    exposed, times = exposure_stack(raw @ cam2rgb.T, percentiles)
+
+    if merge_algo == "debevec":
+        calibrate, merge = _hdr.calibrate_debevec, _hdr.merge_debevec
+    elif merge_algo == "robertson":
+        calibrate, merge = _hdr.calibrate_robertson, _hdr.merge_robertson
+    else:
+        raise ValueError(f"unknown merge algo {merge_algo!r}")
+    if tonemap_algo == "reinhard":
+        tonemap = _hdr.tonemap_reinhard
+    elif tonemap_algo == "mantiuk":
+        tonemap = _hdr.tonemap_mantiuk
+    elif tonemap_algo == "drago":
+        tonemap = _hdr.tonemap_drago
+    else:
+        raise ValueError(f"unknown tonemap {tonemap_algo!r}")
+    crf = calibrate(exposed, times)
+    return tonemap(merge(exposed, times, crf))
 
 
 def _sobel3(img: np.ndarray, axis: int) -> np.ndarray:

@@ -85,9 +85,9 @@ density grids stay equal; the eval render splits each chunk's rays over
 the rows and gathers the results. Rank 0 alone logs and writes files;
 checkpoints hold the whole flat table on every layout.
 
-Not ported (raises ``NotImplementedError``): the HDR-merged test frames
-(``postprocess_raw_hdr``, ROADMAP A13b) of a configuration whose
-``hdr_merge_algo`` is not "none".
+``test`` writes an HDR scene's merged frames (``hdr_<i>.png``,
+``postprocess_raw_hdr``: numpy copies of cv2's HDR calibration, merge and
+tonemaps) where the configuration's ``hdr_merge_algo`` is not "none".
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ from raw_ngp_torch.ops.grid import (init_grid_state, make_grid_update,
                                     mark_untrained_grid)
 from raw_ngp_torch.parallel import mesh as pmesh
 from raw_ngp_torch.parallel import tp as ptp
-from raw_ngp_torch.postprocess.raw import postprocess_raw
+from raw_ngp_torch.postprocess.raw import postprocess_raw, postprocess_raw_hdr
 from raw_ngp_torch.render.eval import coarse_volume, render_image, scene_aabb
 from raw_ngp_torch.render.dispatch import render_any
 from raw_ngp_torch.train.losses import (blend_gt_background, entropy_loss,
@@ -1100,16 +1100,15 @@ class Trainer:
         ``depth_<i>.png`` and (where the configuration computes them)
         ``normals_<i>.png`` too; the JAX package writes these as videos
         where it has a backend for them and as these frames where it does
-        not. An HDR scene's frames are postprocessed at one exposure level.
-        Returns the rgb frames (uint8); on a mesh every rank renders them
-        and rank 0 writes."""
+        not. An HDR scene's frames are postprocessed at one exposure level;
+        where ``cfg.hdr_merge_algo`` is not "none" each view's render is
+        also merged across ``cfg.exposure_percentiles`` and tonemapped
+        (``postprocess_raw_hdr``) into ``hdr_<i>.png`` beside them, under
+        the same condition as the depth frames. Returns the rgb frames
+        (uint8); on a mesh every rank renders them and rank 0 writes."""
         hdr = self.cfg.data.image_mode == "HDR"
         cam2rgb = _cam2rgb(scene) if hdr else None
-        if cam2rgb is not None and self.cfg.hdr_merge_algo != "none":
-            raise NotImplementedError(
-                "HDR-merged test frames (postprocess_raw_hdr, "
-                f"hdr_merge_algo {self.cfg.hdr_merge_algo!r}) are not "
-                "ported (ROADMAP A13b)")
+        merge = cam2rgb is not None and self.cfg.hdr_merge_algo != "none"
         save_dir = save_dir or os.path.join(self.workspace, "results")
         if self.is_main:
             os.makedirs(save_dir, exist_ok=True)
@@ -1118,12 +1117,19 @@ class Trainer:
             # normally populated by the eval loop, estimated here when
             # test runs standalone
             self.estimate_exposure_levels(scene)
-        frames: Dict[str, list] = {"rgb": [], "depth": [], "normals": []}
+        frames: Dict[str, list] = {"rgb": [], "depth": [], "normals": [],
+                                   "hdr": []}
         for i in range(scene.n_images):
             rgb, depth, normal = self.render_image(
                 scene.poses[i], scene.intrinsics, scene.H, scene.W,
                 ldir=scene.ldirs[i] if scene.ldirs is not None else None,
                 return_normals=True)
+            if merge:
+                # HDR-merged frames feed their OWN frames next to the
+                # consistently exposed LDR ones (train_utils.py:851-857)
+                frames["hdr"].append(_to_u8(postprocess_raw_hdr(
+                    rgb, cam2rgb, self.cfg.exposure_percentiles,
+                    self.cfg.hdr_merge_algo, self.cfg.data.hdr_tonemap)))
             if cam2rgb is not None:
                 level = self.exposure_levels.get(
                     self.cfg.data.exposure_percentile)

@@ -21,6 +21,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import warnings
 from dataclasses import replace
 
 import numpy as np
@@ -32,7 +33,7 @@ from raw_ngp_torch import cli as tcli
 from raw_ngp_torch.data import make_synthetic_scene
 from raw_ngp_torch.data.image_io import read_png
 from raw_ngp_torch.mesh.extract import load_ply
-from raw_ngp_torch.postprocess.raw import postprocess_raw
+from raw_ngp_torch.postprocess.raw import postprocess_raw, postprocess_raw_hdr
 from raw_ngp_torch.train import metrics as tmet
 from raw_ngp_torch.train import trainer as ttr
 from raw_ngp_torch.utils.logging import RunLogger, profiler_trace
@@ -45,10 +46,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _one_torch_thread():
     """One intra-op thread for this module's torch work, set back after
     it (under pytest-xdist torch's default of a thread a core
-    oversubscribes the cores: tests/test_torch_proposal.py)."""
+    oversubscribes the cores: tests/test_torch_proposal.py), and one BLAS
+    thread where threadpoolctl is present (the HDR merge's least-squares
+    solve: with a thread a core under -n 6 the HDR frames test took 95 s
+    of a worker against 8 s alone)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        yield
+    else:
+        with threadpool_limits(limits=1):
+            yield
     torch.set_num_threads(n)
 
 
@@ -197,36 +207,62 @@ def test_evaluate_writes_artifacts_with_normals(tmp_path):
         "gt_000.npy", "gt_001.npy", "pred_000.npy", "pred_001.npy"]
 
 
-def test_hdr_artifacts_frames_and_unported_merge(tmp_path):
+def test_hdr_artifacts_frames_and_merged_frames(tmp_path):
     """An HDR scene: evaluate estimates the exposure levels and writes the
     rgb and truth PNGs postprocessed at one level; test writes the rgb,
     depth frames at that level; a configuration that merges HDR frames
-    (a wide exposure range: hdr_merge_algo robertson) raises
-    NotImplementedError naming ROADMAP A13b before it renders."""
+    (a wide exposure range: hdr_merge_algo robertson by default, then
+    each merge x tonemap pair) also writes hdr_<i>.png, each bit for bit
+    the uint8 form of postprocess_raw_hdr of the same render. The views
+    are 32x32 after 24 steps: at 16x16 some channel of an exposure stack
+    never takes level 128, Robertson's response is NaN there, and
+    Mantiuk and Drago raise (as cv2 does on the same render)."""
     cfg = tiny_cfg()
     cfg = replace(cfg, data=replace(cfg.data, image_mode="HDR"))
-    ts, vs = make_synthetic_scene(n_train=4, n_val=2, H=16, W=16, hdr=True)
+    ts, vs = make_synthetic_scene(n_train=4, n_val=2, H=32, W=32, hdr=True)
     vs.exposures[0] = 1.0
     tr = ttr.Trainer(cfg, ts, vs, device="cpu", workspace=str(tmp_path))
-    tr.train(iters=2, log_every=2)
+    tr.train(iters=24, log_every=24)
     tr.evaluate(save_artifacts=True)
     assert set(tr.exposure_levels) == set(cfg.exposure_percentiles)
-    rgb, _ = tr.render_image(vs.poses[1], vs.intrinsics, 16, 16)
+    rgb, _ = tr.render_image(vs.poses[1], vs.intrinsics, 32, 32)
     level = tr.exposure_levels[cfg.data.exposure_percentile]
     np.testing.assert_array_equal(
-        read_png(str(tmp_path / "validation" / "rgb_2_001.png")),
+        read_png(str(tmp_path / "validation" / "rgb_24_001.png")),
         (np.clip(postprocess_raw(rgb, np.eye(3, dtype=np.float32), level),
                  0, 1) * 255).astype(np.uint8))
     frames = tr.test(vs)
     assert len(frames) == 2 and frames[0].dtype == np.uint8
     assert sorted(os.listdir(tmp_path / "results")) == [
         "depth_000.png", "depth_001.png", "rgb_000.png", "rgb_001.png"]
+    renders = [tr.render_image(vs.poses[i], vs.intrinsics, 32, 32)[0]
+               for i in range(2)]
     wide = replace(cfg, data=replace(cfg.data, exposure_range="wide"))
     assert wide.hdr_merge_algo == "robertson"
-    tr.cfg = wide
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tr.test(vs, save_dir=str(tmp_path / "merged"))
-    assert not os.path.exists(tmp_path / "merged")
+    pairs = [(None, None)] + [(m, t) for m in ("robertson", "debevec")
+                              for t in ("reinhard", "mantiuk", "drago")]
+    for merge, tonemap in pairs:
+        tr.cfg = wide if merge is None else replace(wide, data=replace(
+            wide.data, hdr_merge=merge, hdr_tonemap=tonemap))
+        out = tmp_path / f"merged_{merge}_{tonemap}"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)   # NaN -> 0
+            frames = tr.test(vs, save_dir=str(out))
+            want = [ttr._to_u8(postprocess_raw_hdr(
+                r, np.eye(3, dtype=np.float32), wide.exposure_percentiles,
+                tr.cfg.hdr_merge_algo, tr.cfg.data.hdr_tonemap))
+                for r in renders]
+        assert sorted(os.listdir(out)) == [
+            "depth_000.png", "depth_001.png", "hdr_000.png", "hdr_001.png",
+            "rgb_000.png", "rgb_001.png"]
+        for i in range(2):
+            np.testing.assert_array_equal(
+                read_png(str(out / f"hdr_{i:03d}.png")), want[i])
+        np.testing.assert_array_equal(frames[1], read_png(
+            str(tmp_path / "results" / "rgb_001.png")))
+    tr.test(vs, save_dir=str(tmp_path / "one"), write_video=False)
+    assert sorted(os.listdir(tmp_path / "one")) == ["rgb_000.png",
+                                                    "rgb_001.png"]
 
 
 def test_log_poses_dumps_and_errors(tmp_path):

@@ -2,8 +2,11 @@
 JAX nor the JAX package raw_ngp_tpu (not even its jax-free modules).
 
 Checked two ways: a fresh interpreter imports every module of the port
-plus chip_smoke and must end with neither in ``sys.modules``; and the
-sources are scanned for import statements naming either.
+(its tools included) plus chip_smoke and must end with neither in
+``sys.modules``; and the sources are scanned for import statements naming
+either. The HDR merge, the colour checker, the native library and the
+tools also run in an interpreter where cv2, imageio, PIL and rawpy cannot
+be imported (the card's machine has none of them).
 """
 
 import os
@@ -52,3 +55,65 @@ def test_sources_name_no_jax_import():
         offenders += [f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}"
                       for m in _IMPORT.finditer(src)]
     assert not offenders, offenders
+
+
+_NO_IMAGE_LIBS = r"""
+import sys, tempfile, os
+for name in ("cv2", "imageio", "imageio.v2", "PIL", "rawpy"):
+    sys.modules[name] = None
+import importlib, pkgutil
+import numpy as np
+import raw_ngp_torch
+names = [m.name for m in pkgutil.walk_packages(raw_ngp_torch.__path__,
+                                               "raw_ngp_torch.")]
+assert "raw_ngp_torch.tools.offline_eval" in names, names
+for name in names:
+    importlib.import_module(name)
+from raw_ngp_torch import native
+from raw_ngp_torch.data.image_io import write_png
+from raw_ngp_torch.postprocess import determine_wb, postprocess_raw_hdr
+from raw_ngp_torch.tools import downscale, offline_eval
+rng = np.random.default_rng(0)
+lin = rng.lognormal(-2, 1, (48, 64, 3)).astype(np.float32)
+for merge in ("robertson", "debevec"):
+    for tonemap in ("reinhard", "mantiuk", "drago"):
+        out = postprocess_raw_hdr(lin, np.eye(3), (70, 80, 90, 97, 99,
+                                  99.9, 100), merge, tonemap)
+        assert out.shape == lin.shape
+assert determine_wb(rng.random((700, 950, 3))).shape == (3, 3)
+assert native.available()
+root = tempfile.mkdtemp()
+os.makedirs(os.path.join(root, "images"))
+write_png(os.path.join(root, "images", "a.png"),
+          rng.integers(0, 256, (8, 12, 3)).astype(np.uint8))
+downscale.main([root, "--factor", "2"])
+ev = os.path.join(root, "eval")
+os.makedirs(ev)
+np.save(os.path.join(ev, "pred_000.npy"), lin)
+np.save(os.path.join(ev, "gt_000.npy"), lin * 1.01)
+r = offline_eval.main([ev, "--raw", "--hdr_merge", "robertson",
+                       "--percentiles", "70", "80", "90", "97", "99",
+                       "99.9", "100"])
+assert np.isfinite(r["psnr"])
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("cv2", "imageio", "PIL", "rawpy",
+                                     "jax", "raw_ngp_tpu"))
+print("LEAKED:" + ",".join(bad))
+"""
+
+
+def test_hdr_colorchecker_native_tools_without_image_libraries():
+    """With cv2, imageio, PIL and rawpy unimportable: every module of the
+    port (tools included) imports, postprocess_raw_hdr runs all six merge
+    x tonemap pairs, determine_wb, the native library, downscale and
+    offline_eval --raw --hdr_merge run."""
+    # one BLAS / OpenMP thread: under pytest-xdist a thread a core
+    # oversubscribes the cores (the Debevec solves, the native library)
+    env = dict(os.environ, PYTHONPATH=ROOT, OPENBLAS_NUM_THREADS="1",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _NO_IMAGE_LIBS], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [l for l in out.stdout.splitlines() if l.startswith("LEAKED:")]
+    assert line == ["LEAKED:"], out.stdout[-3000:]

@@ -315,28 +315,27 @@ def test_postprocess_raw_bit_identical():
 
 
 def test_native_numpy_forms(monkeypatch):
-    """normalize_levels and demosaic_rggb: bit for bit JAX's numpy route
-    (its native library switched off); against JAX's C++ route (the
-    shared object it builds from native/) normalize_levels multiplies by
-    the f32 reciprocal where numpy divides (within 2 f32 ulps: rtol
-    2.4e-7 and 1e-9 absolute near 0) and the demosaic sums in another
-    order (rtol 1e-6, atol 1e-7)."""
+    """normalize_levels and demosaic_rggb, route against route: the
+    port's C++ library bit for bit the JAX package's (the same source and
+    flags), and with both libraries switched off the port's numpy bit for
+    bit JAX's numpy (the two routes differ from each other by an ulp: the
+    C++ multiplies by the f32 reciprocal and sums the demosaic in another
+    order)."""
     rng = np.random.default_rng(2)
     img = rng.uniform(-0.2, 1.3, (12, 18)).astype(np.float32)
-    native_route = {
-        "levels": [jnative.normalize_levels(img, 0.00024420026, 1.0, c)
-                   for c in (True, False)],
-        "demosaic": jnative.demosaic_rggb(img)}
-    monkeypatch.setattr(jnative, "_load", lambda: None)
-    for c in (True, False):
-        got = tnative.normalize_levels(img, 0.00024420026, 1.0, c)
-        _same(got, jnative.normalize_levels(img, 0.00024420026, 1.0, c))
-        np.testing.assert_allclose(got, native_route["levels"][int(not c)],
-                                   rtol=2.4e-7, atol=1e-9)
-    got = tnative.demosaic_rggb(img)
-    _same(got, jnative.demosaic_rggb(img))
-    np.testing.assert_allclose(got, native_route["demosaic"], rtol=1e-6,
-                               atol=1e-7)
+
+    def outputs(mod):
+        return ([mod.normalize_levels(img, 0.00024420026, 1.0, c)
+                 for c in (True, False)] + [mod.demosaic_rggb(img)])
+
+    assert tnative.available() and jnative.available()
+    for got, want in zip(outputs(tnative), outputs(jnative)):
+        _same(got, want)
+    for mod in (tnative, jnative):
+        monkeypatch.setattr(mod, "_LIB", None)
+        monkeypatch.setattr(mod, "_TRIED", True)
+    for got, want in zip(outputs(tnative), outputs(jnative)):
+        _same(got, want)
 
 
 def test_rfield_grid_scene_bit_identical():
@@ -718,13 +717,15 @@ def test_load_colmap_hdr_branches_match_jax(tmp_path, monkeypatch, case):
     the size (the float area resize), and rfield (light directions from
     the calibration, one image per LED or every LED, the LEDs from the
     capture names), for train, val and test: every SceneData field bit
-    for bit JAX's, with JAX's native library switched off (its numpy
-    route; test_native_numpy_forms holds the C++ route)."""
+    for bit JAX's, with both packages' native libraries switched off
+    (their numpy routes; test_native_numpy_forms holds the C++ routes
+    against each other)."""
     spec = _HDR_CASES[case]
     H = spec.get("H", 32)
     root = _hdr_dataset(str(tmp_path), H=H, W=H * 5 // 4,
                         leds=(0, 2, 3) if spec.get("rfield") else None)
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
     monkeypatch.setattr(jio, "load_exr_image", _mosaic)
     monkeypatch.setattr(tio, "load_exr_image", _mosaic)
     jc, tc = _cfgs(path=root, data_format="colmap", image_mode="HDR",
