@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (raw_ngp_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --against TREE [TREE ...]
     python3 chip_smoke.py --deterministic-ops
 
@@ -104,6 +104,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (march jitter 0.5 and drawn); the fixed batch on the kernel
               and the plain path; one 512x512 render of a val view; the
               step's stages and profile; the repro check of phase 7;
+  7c. jpeg — the flagship trained from a COLMAP scene of JPEGs: phase
+              7b's 38 views written as `.jpg` files at quality 95
+              (write_colmap_scene, image_format "jpg"; cv2.imwrite's bytes
+              from the port's encoder), every file decoded by the C++ and
+              the Python entropy decode bit for bit alike, the views' PSNR
+              against the 8-bit views, the load timed by stage (COLMAP
+              parse, JPEG decode, near/far) and its images bit for bit the
+              decodes / 255, the JPEG library built here (no quiet
+              fallback); 128 steps with every launch counter reset just
+              before and read just after, the train phase's launches, the
+              val PSNR above the untrained field's and the repro check;
+              downscale --factor 2 and 3 on the folder (JPEG out) and
+              loads at downscale 2 and 3 (the tool's 42 x 42 files
+              enlarged to 43 x 43 by the area resize); the encode and the
+              baseline and progressive decodes of one 4032 x 3024 image
+              drawn from --seed, by route, in seconds a megapixel;
   8. encode_input — the encode's input gradient against its plain version
               at 262,144 uniform and ray-ordered points on the flagship
               grid, f32 and bf16, within rtol 1e-5 of the largest entry,
@@ -313,9 +329,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and launch calls).
 The train, pose, lightstage and proposal phases also count the encode's
 launches by caller (train forwards, grid refresh chunks, evaluation).
-It prints `render`, `train`, `disk`, `pose`, `lightstage`, `proposal`, `O`,
-`reg`, `unfused` (the disk line and the last five with the card's name and
-power limit),
+It prints `render`, `train`, `disk`, `jpeg`, `pose`, `lightstage`,
+`proposal`, `O`, `reg`, `unfused` (the disk and jpeg lines and the last
+five with the card's name and power limit),
 `pose_recovery`, `cli`, `multi` (with the card's name and power limit),
 `hdr` (with the card's name and power limit), `host`, `tools`,
 `table_grad` and `kernels` JSON lines (each kernel's
@@ -323,7 +339,8 @@ power limit),
 says whether it ran there; `launches_O` and `O_launched` the -O
 phase's, its launches in one chunk of the normal render ride as
 `launches_O_normal_render_chunk`, the other phases' counts beside them,
-`launches_disk` the disk phase's, `launches_cli` the cli phase's,
+`launches_disk` the disk phase's, `launches_jpeg` the jpeg phase's,
+`launches_cli` the cli phase's,
 `launches_hdr` the hdr phase's 128 steps, `launches_tools_quality_run`
 the tools phase's quality_run,
 `launches_multi` each rank's in the multi phase's dp and tp runs, and
@@ -2201,15 +2218,17 @@ def phase_train(dev, cfg, steps=128, timed=32, repro=32):
     return launches, train
 
 
-def write_colmap_scene(root, images, poses, intrinsics, step=2):
+def write_colmap_scene(root, images, poses, intrinsics, step=2,
+                       image_format="png", quality=95):
     """Writes a scene (images [n, H, W, 3] in [0, 1], OpenGL cam2world
     poses [n, 4, 4], intrinsics [4]) as a COLMAP dataset with the port's
     writers: sparse/0/cameras.bin (one PINHOLE camera), images.bin (the
     OpenCV-convention world-to-camera poses, tests/test_providers.py's
     construction), points3D.bin (the first surface point of the synthetic
     spheres on the ray of every `step`-th pixel of each image, observed by
-    that image alone at that pixel) and images/img_XXX.png (8 bits,
-    round(255 img)). Returns the number of points."""
+    that image alone at that pixel) and images/img_XXX.<image_format> (8
+    bits, round(255 img); "png", or "jpg" at `quality` as cv2.imwrite
+    writes it). Returns the number of points."""
     import os
     import numpy as np
     from raw_ngp_torch.data.colmap_io import (ColmapCamera, ColmapImage,
@@ -2218,7 +2237,10 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2):
                                               write_images_binary,
                                               write_points3d_binary)
     from raw_ngp_torch.data.image_io import write_png
+    from raw_ngp_torch.data.jpeg import write_jpeg
     from raw_ngp_torch.data.synthetic import _trace
+    if image_format not in ("png", "jpg"):
+        raise ValueError(f"image_format {image_format!r}: png or jpg")
     n, H, W, _ = images.shape
     os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
@@ -2246,11 +2268,15 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2):
             pts[int(k)] = ColmapPoint3D(int(k), p, np.zeros(3), 0.5)
         w2c = np.linalg.inv(c2w @ np.diag([1.0, -1.0, -1.0, 1.0]))
         xys = np.stack([cols[hit] + 0.5, rows[hit] + 0.5], -1)
+        name = f"img_{i:03d}.{image_format}"
         ims[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(w2c[:3, :3]),
-                                 w2c[:3, 3], 1, f"img_{i:03d}.png", xys,
+                                 w2c[:3, 3], 1, name, xys,
                                  ids.astype(np.int64))
-        write_png(os.path.join(root, "images", f"img_{i:03d}.png"),
-                  np.round(images[i] * 255.0).astype(np.uint8))
+        pixels = np.round(images[i] * 255.0).astype(np.uint8)
+        if image_format == "png":
+            write_png(os.path.join(root, "images", name), pixels)
+        else:
+            write_jpeg(os.path.join(root, "images", name), pixels, quality)
     write_images_binary(ims, os.path.join(root, "sparse", "0", "images.bin"))
     write_points3d_binary(pts, os.path.join(root, "sparse", "0",
                                             "points3D.bin"))
@@ -2540,6 +2566,222 @@ def phase_disk(dev, train_launches, steps=128, timed=32, repro=32,
     disk["repro"] = repro_check(tr, snap, ref, repro, "disk")
     disk["seconds"] = time.perf_counter() - t_phase
     return launches, disk
+
+
+def same_bits_np(a, b):
+    """Two numpy arrays of the same dtype, shape and values."""
+    import numpy as np
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        bool(np.array_equal(a, b))
+
+
+def host_image(seed, H=3024, W=4032):
+    """A photo-like H x W RGB uint8 image drawn from `seed`: a random
+    field at 1/32 of the size enlarged by resize_area (cv2's INTER_AREA
+    upscale: smooth shading) plus N(0, 6) grain, so the JPEG carries
+    every DCT frequency as a camera frame does."""
+    import numpy as np
+    from raw_ngp_torch.data.image_io import resize_area
+    rng = np.random.default_rng(seed)
+    field = rng.random((H // 32, W // 32, 3)).astype(np.float32)
+    img = resize_area(field, H, W) * 255 + rng.normal(0, 6, (H, W, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def jpeg_host_timings(seed, quality=95):
+    """The JPEG work on one 4032 x 3024 image (host_image(seed)) by route,
+    the C++ entropy coder (native) and the pure-Python one, in seconds a
+    megapixel on the host clock: the encode at `quality` (4:2:0 baseline,
+    cv2.imwrite's bytes), and the decode of that file and of the same
+    coefficients written progressively (spectral selection, the port's
+    writer); both routes give the same bytes and pixels, and the two
+    files the same pixels."""
+    from raw_ngp_torch.data import jpeg
+    img = host_image(seed)
+    mp = img.shape[0] * img.shape[1] / 1e6
+    files, out, pixels = {}, {}, {}
+    t0 = time.perf_counter()
+    files["progressive"] = jpeg.encode_jpeg(img, quality, "native",
+                                            progressive=True)
+    prog_s = time.perf_counter() - t0
+    for route in ("native", "python"):
+        row = {}
+        t0 = time.perf_counter()
+        data = jpeg.encode_jpeg(img, quality, route)
+        row["encode_s_per_megapixel"] = (time.perf_counter() - t0) / mp
+        check(files.setdefault("baseline", data) == data,
+              f"jpeg: the {route} encode's bytes differ")
+        for kind in ("baseline", "progressive"):
+            t0 = time.perf_counter()
+            got = jpeg.decode_jpeg(files[kind], kind, route)
+            row[f"decode_{kind}_s_per_megapixel"] = \
+                (time.perf_counter() - t0) / mp
+            ref = pixels.setdefault("any", got)
+            check(got.shape == img.shape and same_bits_np(got, ref),
+                  f"jpeg: the {route} decode of the {kind} file differs")
+        out[route] = row
+        print(f"[jpeg] host {img.shape[1]}x{img.shape[0]} by route "
+              f"{route}: {json.dumps(row)}")
+    return {"image": f"host_image(seed={seed}): {img.shape[1]}x"
+                     f"{img.shape[0]} RGB, quality {quality}, 4:2:0",
+            "megapixels": mp, "baseline_bytes": len(files["baseline"]),
+            "progressive_bytes": len(files["progressive"]),
+            "progressive_encode_native_s": prog_s, "routes": out,
+            "routes_same_bytes_and_pixels": True}
+
+
+def phase_jpeg(dev, train_launches, seed=0, steps=128, timed=32,
+               repro=32, quality=95):
+    """The flagship trained from a COLMAP scene of JPEGs, read without
+    cv2: the disk phase's 38 views written as a COLMAP folder of
+    `.jpg` files at `quality` (write_colmap_scene, image_format "jpg":
+    cv2.imwrite's bytes), every file decoded by both routes (the C++ and
+    the Python entropy decode) bit for bit alike, the decoded views' PSNR
+    against the scene's 8-bit views, the load (load_scene, train and val)
+    timed by stage and its images bit for bit the decodes / 255; the
+    untrained val PSNR (EMA); `steps` steps with every launch counter
+    reset just before and read just after: the fold, the encode with and
+    without records, B2's flat form and the dense level launched as many
+    times as in the train phase (`train_launches`), finite falling
+    losses, the val PSNR (EMA) above the untrained field's, the repro
+    check over the first `repro` steps; then `downscale --factor 2` and
+    `--factor 3` on the folder (JPEG in, JPEG out) and loads at
+    downscale 2 (64 x 64, the files' size) and 3 (43 x 43 from the tool's
+    42 x 42 files: the area resize's upscale); and the host timings of
+    jpeg_host_timings(seed). The JPEG library must build here: no quiet
+    fallback. Returns (launches, numbers)."""
+    import shutil
+    import numpy as np
+    import torch
+    from raw_ngp_torch import native
+    from raw_ngp_torch.data import jpeg, load_scene, make_synthetic_scene
+    from raw_ngp_torch.data.image_io import resize_area
+    from raw_ngp_torch.kernels import _build
+    from raw_ngp_torch.tools import downscale
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    check(native.jpeg_library() is not None and native.available(),
+          "jpeg: the JPEG library or the host library did not build")
+    build_s = time.perf_counter() - t0
+    train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
+    images = np.concatenate([train_s.images, val_s.images])
+    poses = np.concatenate([train_s.poses, val_s.poses])
+    eight_bit = np.round(images * 255.0).astype(np.uint8)
+    root = _build.BUILD_DIR.parent / "jpeg_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        n_points = write_colmap_scene(str(root), images, poses,
+                                      train_s.intrinsics,
+                                      image_format="jpg", quality=quality)
+        write_s = time.perf_counter() - t0
+        paths = [str(root / "images" / f"img_{i:03d}.jpg")
+                 for i in range(len(images))]
+        decoded, route_s = {}, {}
+        for route in ("native", "python"):
+            t0 = time.perf_counter()
+            decoded[route] = np.stack([jpeg.read_jpeg(p, route)
+                                       for p in paths])
+            route_s[route] = time.perf_counter() - t0
+        check(same_bits_np(decoded["native"], decoded["python"]),
+              "jpeg: the C++ and Python routes decode the views differently")
+        views = decoded["native"]
+        mse = float(np.mean((views.astype(np.float64)
+                             - eight_bit.astype(np.float64)) ** 2))
+        view_psnr = 10 * math.log10(255.0 ** 2 / mse)
+        cfg = disk_config(root)
+        load, scenes = {}, {}
+        for split in ("train", "val"):
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            with timed_load_stages() as stages:
+                scenes[split] = load_scene(cfg, split)
+            total = time.perf_counter() - t0
+            seconds = stages.totals()
+            seconds["jpeg_decode"] = seconds.pop("png_decode")
+            load[split] = dict(seconds, total=total,
+                               other=total - sum(seconds.values()))
+        ids = np.arange(len(images))
+        want = {"train": np.setdiff1d(ids, ids[::8]), "val": ids[::8]}
+        for split, scene in scenes.items():
+            ref = views[want[split]].astype(np.float32) / 255.0
+            check(scene.images.dtype == np.float32
+                  and same_bits_np(scene.images, ref),
+                  f"jpeg: the loaded {split} images are not the decodes")
+        smaller = {}
+        for factor in (2, 3):
+            size = int(round(images.shape[1] / factor))
+            downscale.main([str(root), "--factor", str(factor)])
+            files = sorted(os.listdir(root / f"images_{factor}"))
+            check(files == sorted(os.listdir(root / "images")),
+                  f"jpeg: downscale --factor {factor} wrote {files[:3]}...")
+            small = jpeg.read_jpeg(str(root / f"images_{factor}" / files[0]))
+            np.random.seed(0)
+            scene = load_scene(replace(cfg, data=replace(
+                cfg.data, downscale=factor)), "val")
+            ref = resize_area(small, size, size).astype(np.float32) / 255.0
+            check(scene.images.shape == (len(want["val"]), size, size, 3)
+                  and same_bits_np(scene.images[0], ref),
+                  f"jpeg: the load at downscale {factor}")
+            smaller[factor] = {"file_size": list(small.shape[:2]),
+                               "loaded_size": [size, size],
+                               "upscaled": small.shape[0] < size}
+        check(smaller[3]["upscaled"], "jpeg: no load needed the upscale")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train_d, val_d = scenes["train"], scenes["val"]
+    pixels = len(images) * images.shape[1] * images.shape[2]
+    print(f"[jpeg] wrote {len(images)} views (quality {quality}) and "
+          f"{n_points} points in {write_s:.2f} s; decode s a megapixel by "
+          f"route {json.dumps({k: v / pixels * 1e6 for k, v in route_s.items()})}"
+          f" (bitwise alike); views' PSNR against the 8-bit views "
+          f"{view_psnr:.3f} dB; loaded (s) {json.dumps(load)}; downscaled "
+          f"{json.dumps(smaller)}")
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_d, val_d, device=dev,
+                 workspace=scratch_workspace())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    psnr_0, _ = evaluate_counted(tr)
+    print(f"[jpeg] Trainer ready in {init_s:.2f} s; val PSNR (EMA) "
+          f"untrained {psnr_0:.3f} dB over {val_d.n_images} views")
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, TRAIN_KERNELS, "jpeg", capture_at=repro)
+    same = {k: (launches[k], train_launches[k]) for k in TRAIN_KERNELS}
+    check(all(a == b for a, b in same.values()),
+          f"jpeg: launches differ from the train phase's {same}")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
+    print(f"[jpeg] last {timed} steps: median {med:.3f} ms/step; val PSNR "
+          f"(EMA) {psnr_0:.3f} -> {psnr:.3f} dB")
+    check(psnr > psnr_0, "jpeg: val PSNR did not rise above the untrained "
+          "field's")
+    out = {"config": "the disk phase's: flagship, data_format colmap, "
+                     "enable_cam_near_far, scale 1.0",
+           "scene": f"make_synthetic_scene(36, 2, 128, 128) written as a "
+                    f"COLMAP dataset of JPEGs (quality {quality}, 4:2:0; "
+                    f"38 views), loaded by load_scene (train 33, val 5)",
+           "gpu": gpu_line(), "library_first_use_s": build_s,
+           "points": n_points, "write_s": write_s,
+           "decode_s_per_megapixel_by_route": {
+               k: v / pixels * 1e6 for k, v in route_s.items()},
+           "routes_bitwise": True, "views_psnr_vs_8bit_db": view_psnr,
+           "load_s": load, "images_bitwise_decodes": True,
+           "downscaled": smaller, "trainer_init_s": init_s,
+           "steps": steps, "num_rays": tr.num_rays, "ms_per_step": med,
+           "ms_per_step_runs": window, "val_psnr_ema_untrained": psnr_0,
+           "val_psnr_ema": psnr, "loss_first8": first, "loss_last8": last,
+           "launches_as_train_phase": same}
+    out["repro"] = repro_check(tr, snap, ref, repro, "jpeg")
+    del tr
+    out["host"] = jpeg_host_timings(seed, quality)
+    out["seconds"] = time.perf_counter() - t_phase
+    return launches, out
 
 
 def pose_config(steps, n_cameras=36):
@@ -5102,6 +5344,9 @@ def main() -> int:
              "and JVP of each TREE's raw_ngp_torch/csrc/hash_encode.cu with "
              "this tree's, in one process (prints one `ab` line per TREE)")
     parser.add_argument(
+        "--seed", type=int, default=0,
+        help="seed of the jpeg phase's 4032x3024 host-timing image")
+    parser.add_argument(
         "--deterministic-ops", action="store_true",
         help="only build and run the deterministic-algorithms diagnostic: "
              "one train and one pose step under torch."
@@ -5179,6 +5424,8 @@ def main() -> int:
             train_launches, train = timed("train", phase_train, dev, cfg)
             disk_launches, disk = timed("disk", phase_disk, dev,
                                         train_launches)
+            jpeg_launches, jpeg_phase = timed("jpeg", phase_jpeg, dev,
+                                              train_launches, args.seed)
             pose_launches, pose = timed("pose", phase_pose, dev)
             light_launches, lightstage = timed("lightstage",
                                                phase_lightstage, dev)
@@ -5229,6 +5476,7 @@ def main() -> int:
         k["launches_pose"] = pose_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
         k["launches_disk"] = disk_launches[k["name"]]
+        k["launches_jpeg"] = jpeg_launches[k["name"]]
         k["launches_cli"] = cli_launches[k["name"]]
         k["launches_hdr"] = hdr_launches[k["name"]]
         k["launches_tools_quality_run"] = tools_launches[k["name"]]
@@ -5249,6 +5497,7 @@ def main() -> int:
                 "lightstage": light_launches["hash_encode_by_caller"],
                 "pose": pose_launches["hash_encode_by_caller"],
                 "disk": disk_launches["hash_encode_by_caller"],
+                "jpeg": jpeg_launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
         if k["name"] in REGISTER_CHECKED:
             k["ptxas"] = checked_instantiations(ptxas, k["name"])
@@ -5258,6 +5507,7 @@ def main() -> int:
     print(json.dumps({"render": render}))
     print(json.dumps({"train": train}))
     print(json.dumps({"disk": disk}))
+    print(json.dumps({"jpeg": jpeg_phase}))
     print(json.dumps({"pose": pose}))
     print(json.dumps({"lightstage": lightstage}))
     print(json.dumps({"proposal": proposal}))

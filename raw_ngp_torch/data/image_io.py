@@ -15,12 +15,16 @@ Key constants preserved for parity:
     (image_utils.py:92-94), relative exposure = shutter / max shutter
     (image_utils.py:107-121)
 
-The JAX package decodes every image through cv2. The port reads PNG itself
-(:func:`read_png`, numpy + ``zlib``; the same code on every machine) and
-resizes with :func:`resize_area`, a numpy copy of cv2's ``INTER_AREA``
-downscale; both give cv2's values and dtypes. JPEG (cv2), EXR (imageio,
-then cv2) and DNG (rawpy) keep JAX's lazy imports and raise ``ImportError``
-where the library is absent; nothing imports them with this module.
+The JAX package decodes every image through cv2. The port reads PNG
+(:func:`read_png`, numpy + ``zlib``) and JPEG (``data/jpeg.py``
+:func:`read_jpeg`, libjpeg-turbo's decoder in numpy with a C++ entropy
+decode) itself, choosing by the file's signature as cv2 does, and resizes
+with :func:`resize_area`, a numpy copy of cv2's ``INTER_AREA`` (its area
+downscale and, where an axis enlarges, its linear branch with area-mode
+coefficients); all give cv2's values and dtypes on every machine. Other
+formats go to cv2, EXR to imageio, then cv2, and DNG to rawpy, by JAX's
+lazy imports, and raise ``ImportError`` where the library is absent;
+nothing imports them with this module.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from raw_ngp_torch import native
+from raw_ngp_torch.data.jpeg import jpeg_size, read_jpeg
 from raw_ngp_torch.postprocess.raw import linear_to_srgb
 
 # lightstage measured black/white levels (image_utils.py:142-143)
@@ -306,26 +311,81 @@ def _area_tab(ssize: int, dsize: int, scale: float):
     return src, wgt
 
 
+def _linear_tab(ssize: int, dsize: int, clamp: bool):
+    """cv2 resize's area-mode coefficients of its linear branch: each
+    destination index's source index and f32 weight of the next source,
+    fx = (d + 1) - (s + 1) / scale with s = floor(d * scale), clamped into
+    [0, 1); on the x axis the last source takes weight 0 (the scalar
+    tail cv2 runs there)."""
+    inv = dsize / ssize
+    scale = 1.0 / inv
+    src = np.empty(dsize, np.int64)
+    frac = np.empty(dsize, np.float32)
+    for d in range(dsize):
+        s = int(np.floor(d * scale))
+        f = np.float32((d + 1) - (s + 1) * inv)
+        f = np.float32(0) if f <= 0 else f - np.float32(np.floor(f))
+        if clamp and s >= ssize - 1:
+            s, f = ssize - 1, np.float32(0)
+        src[d], frac[d] = s, f
+    return src, frac
+
+
+def _resize_linear_area(x: np.ndarray, H: int, W: int) -> np.ndarray:
+    """cv2.resize's INTER_AREA where an axis enlarges (resize.cpp's linear
+    branch, area mode) on [h, w, C]: a 2-tap row pass, then a 2-tap
+    column pass over the rows s and s + 1 (clipped to the image). 8 bits
+    in cv2's fixed point (weights round(2048 w) as int16, the column pass
+    ((b0 (S0 >> 4)) >> 16) + ((b1 (S1 >> 4)) >> 16) + 2 >> 2); 16 bits and
+    f32 in f32, products summed in pairs, 16 bits rounded half to even."""
+    h, w = x.shape[:2]
+    sx, fx = _linear_tab(w, W, clamp=True)
+    sy, fy = _linear_tab(h, H, clamp=False)
+    x1 = np.minimum(sx + 1, w - 1)
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    one = np.float32(1)
+    if x.dtype == np.uint8:
+        scale = np.float32(2048)
+        a0 = np.rint((one - fx) * scale).astype(np.int64)[:, None]
+        a1 = np.rint(fx * scale).astype(np.int64)[:, None]
+        b0 = np.rint((one - fy) * scale).astype(np.int64)[:, None, None]
+        b1 = np.rint(fy * scale).astype(np.int64)[:, None, None]
+        xi = x.astype(np.int64)
+        rows = xi[:, sx] * a0 + xi[:, x1] * a1
+        out = (((b0 * (rows[y0] >> 4)) >> 16)
+               + ((b1 * (rows[y1] >> 4)) >> 16) + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    xf = x.astype(np.float32)
+    a0, a1 = (one - fx)[:, None], fx[:, None]
+    rows = xf[:, sx] * a0 + xf[:, x1] * a1
+    last = sx >= w - 1
+    rows[:, last] = xf[:, sx[last]]
+    b0, b1 = (one - fy)[:, None, None], fy[:, None, None]
+    out = rows[y0] * b0 + rows[y1] * b1
+    return _round_saturate(out, x.dtype)
+
+
 def resize_area(img: np.ndarray, H: int, W: int) -> np.ndarray:
-    """``cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)`` for a
-    downscale of a [h, w] or [h, w, C] uint8, uint16 or float32 image, in
-    cv2's arithmetic: an integer factor averages whole blocks (2 x 2 in
-    integers, (sum + 2) >> 2, for 8 and 16 bits; otherwise the f32 sum
-    times the f32 reciprocal of the block's area, rounded half to even);
-    any other factor weighs the source cells that each destination cell
-    covers, a row, then the rows, in f32. Upscaling raises
-    ``ValueError``."""
+    """``cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)`` of a
+    [h, w] or [h, w, C] uint8, uint16 or float32 image, in cv2's
+    arithmetic. A downscale on both axes: an integer factor averages whole
+    blocks (2 x 2 in integers, (sum + 2) >> 2, for 8 and 16 bits;
+    otherwise the f32 sum times the f32 reciprocal of the block's area,
+    rounded half to even); any other factor weighs the source cells that
+    each destination cell covers, a row, then the rows, in f32. Where
+    either axis enlarges (one may shrink), cv2's linear branch with
+    area-mode coefficients (:func:`_resize_linear_area`)."""
     h, w = img.shape[:2]
     if (h, w) == (H, W):
         return img
-    if H > h or W > w:
-        raise ValueError(f"resize_area: {h}x{w} -> {H}x{W} upscales; only "
-                         "cv2.INTER_AREA's downscale is ported")
     dtype = img.dtype
     if dtype not in (np.uint8, np.uint16, np.float32):
         raise ValueError(f"resize_area: dtype {dtype} is not ported")
     x = img[..., None] if img.ndim == 2 else img
     cn = x.shape[-1]
+    if H > h or W > w:
+        out = _resize_linear_area(x, H, W)
+        return out[..., 0] if img.ndim == 2 else out
     # cv2's factors: the reciprocals of dsize / ssize, in f64
     sx, sy = 1.0 / (W / w), 1.0 / (H / h)
     ix, iy = int(np.rint(sx)), int(np.rint(sy))
@@ -389,13 +449,44 @@ def _resize(img, H, W):
 # loaders
 # ---------------------------------------------------------------------------
 
+_SIGNATURES = ((_PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"),
+               (b"v/1\x01", "OpenEXR"), (b"II*\x00", "TIFF"),
+               (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
+               (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
+               (b"\xffO\xffQ", "JPEG 2000"), (b"#?RADIANCE", "Radiance HDR"),
+               (b"#?RGBE", "Radiance HDR"), (b"PF", "PFM"), (b"Pf", "PFM"))
+
+
+def image_format(path: str) -> str:
+    """The image format of a file by its signature, as cv2 chooses its
+    decoder: "PNG", "JPEG", another format's name, or "unknown"."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    for sig, name in _SIGNATURES:
+        if head.startswith(sig):
+            return name
+    if len(head) >= 2 and head[:1] == b"P" and head[1:2] in b"123456":
+        return "PNM"
+    return "unknown"
+
+
 def _read_rgb(path: str) -> np.ndarray:
     """An image file as cv2.imread(IMREAD_UNCHANGED) gives it, colour
-    channels in RGB(A) order: PNG through read_png, anything else through
-    cv2 (ImportError without it)."""
-    if path.lower().endswith(".png"):
+    channels in RGB(A) order: PNG through read_png and JPEG through
+    read_jpeg (chosen by the signature), any other format through cv2
+    (ImportError naming the format without it)."""
+    fmt = image_format(path)
+    if fmt == "PNG":
         return read_png(path)
-    import cv2
+    if fmt == "JPEG":
+        return read_jpeg(path)
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{path}: a {fmt} image needs cv2; the port reads "
+                          "PNG and JPEG only") from e
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise FileNotFoundError(path)
@@ -405,10 +496,13 @@ def _read_rgb(path: str) -> np.ndarray:
 
 
 def image_size(path: str) -> Tuple[int, int]:
-    """(height, width) of an image file: a PNG's from its header, any other
-    through cv2 (ImportError without it)."""
-    if path.lower().endswith(".png"):
+    """(height, width) of an image file: a PNG's and a JPEG's from their
+    headers, any other through cv2 (ImportError without it)."""
+    fmt = image_format(path)
+    if fmt == "PNG":
         return png_size(path)
+    if fmt == "JPEG":
+        return jpeg_size(path)
     return _read_rgb(path).shape[:2]
 
 
@@ -501,7 +595,8 @@ def load_hdr_image(
     exif: Optional[dict] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One HDR capture -> (linear image [H, W, 3], cam2rgb [3, 3])
-    (image_utils.py:125-238). The mask is a PNG read by :func:`read_png`."""
+    (image_utils.py:125-238). The mask file (``<name>.png``) is read by
+    its signature, as cv2 reads it."""
     ext = path.rsplit(".", 1)[-1].lower()
     if ext == "exr":
         image = load_exr_image(path)
@@ -531,7 +626,7 @@ def load_hdr_image(
         base = os.path.splitext(os.path.basename(path))[0]
         base = base.split("_e")[0].split("_l")[0]
         mask_path = os.path.join(mask_dir, base + ".png")
-        mask = _resize(read_png(mask_path), H, W)
+        mask = _resize(_read_rgb(mask_path), H, W)
         image = apply_mask(image, mask, background)
 
     if expose:

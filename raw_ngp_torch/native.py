@@ -1,8 +1,11 @@
 """ctypes bindings for the port's native host runtime
 (``raw_ngp_torch/csrc/host_native.cpp``; counterpart of
-``raw_ngp_tpu/native.py``).
+``raw_ngp_tpu/native.py``) and for the JPEG entropy coder
+(``raw_ngp_torch/csrc/jpeg_host.cpp``, :func:`jpeg_library`, used by
+``data/jpeg.py``, which keeps a pure-Python route for a machine without
+``g++``).
 
-The library is built at first use with ``g++ -O3 -march=native -shared
+Each library is built at first use with ``g++ -O3 -march=native -shared
 -fPIC -fopenmp`` (and without ``-fopenmp`` where that fails), the flags of
 the JAX package's build, into ``build/raw_ngp_torch/`` under a name keyed
 by the source's hash; the build writes a temporary file and renames it, so
@@ -34,24 +37,32 @@ from raw_ngp_torch.postprocess.raw import bilinear_demosaic
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_JPEG_LIB: Optional[ctypes.CDLL] = None
+_JPEG_TRIED = False
 
 SOURCE = CSRC / "host_native.cpp"
+JPEG_SOURCE = CSRC / "jpeg_host.cpp"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 
-def library_path() -> Path:
-    """Where the library of this source is built."""
-    h = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libhost_native-{h}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library of a source (the host library by default) is
+    built."""
+    h = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    stem = "host_native" if source == SOURCE else source.stem
+    return BUILD_DIR / f"lib{stem}-{h}.so"
 
 
-def _build() -> Optional[str]:
-    so = library_path()
+def _build(target: Optional[Path] = None,
+           source: Path = SOURCE) -> Optional[str]:
+    so = library_path() if target is None else target
     if so.exists():
         return str(so)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -59,7 +70,7 @@ def _build() -> Optional[str]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run(["g++", *FLAGS, *extra, str(SOURCE), "-o", tmp],
+            subprocess.run(["g++", *FLAGS, *extra, str(source), "-o", tmp],
                            check=True, capture_output=True, timeout=120)
             os.replace(tmp, so)
             return str(so)
@@ -95,6 +106,31 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.version.restype = ctypes.c_int
         _LIB = lib
         return _LIB
+
+
+def jpeg_library() -> Optional[ctypes.CDLL]:
+    """The JPEG entropy coder (``csrc/jpeg_host.cpp``), built at first
+    use; None where it does not build."""
+    global _JPEG_LIB, _JPEG_TRIED
+    with _LOCK:
+        if _JPEG_LIB is not None or _JPEG_TRIED:
+            return _JPEG_LIB
+        _JPEG_TRIED = True
+        so = _build(library_path(JPEG_SOURCE), JPEG_SOURCE)
+        if so is None:
+            return None
+        lib = ctypes.CDLL(so)
+        i64, i32 = ctypes.c_int64, ctypes.c_int
+        lib.jpeg_decode_scan.argtypes = [
+            ctypes.c_char_p, i64, i64, i32, _i32p, _u8p, i32, i32, i32, i32,
+            i32, i32, i32, _i16p, _i64p]
+        lib.jpeg_decode_scan.restype = i32
+        lib.jpeg_encode_blocks.argtypes = [_i16p, _i32p, i64, _u32p, i32,
+                                           i32, i32, _u8p, i64]
+        lib.jpeg_encode_blocks.restype = i64
+        lib.jpeg_host_version.restype = i32
+        _JPEG_LIB = lib
+        return _JPEG_LIB
 
 
 def available() -> bool:

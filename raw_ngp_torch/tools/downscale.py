@@ -2,12 +2,15 @@
 of the JAX package's ``tools/downscale.py``, which reads, resizes and
 writes through cv2).
 
-PNG is read by the port's reader, shrunk by ``resize_area`` (cv2's
-``INTER_AREA`` in numpy, the same pixels) and written by its writer. Any
-other image format raises ``ImportError``: the port decodes and encodes
-PNG only (JPEG and EXR need cv2 or imageio, which the card's machine does
-not have). Files that are not images are skipped, as cv2.imread skips
-them.
+Each file is read as cv2.imread reads it, by its signature: PNG by the
+port's reader, JPEG by ``data/jpeg.py``. It is shrunk by ``resize_area``
+(cv2's ``INTER_AREA`` in numpy, the same pixels) and written under the
+same name in the format of its extension, as cv2.imwrite writes: ``.png``
+by the port's PNG writer (the same pixels), ``.jpg`` / ``.jpeg`` /
+``.jpe`` by ``write_jpeg`` at cv2's default quality 95 (the same bytes).
+Any other image format, read or written, raises ``ImportError`` naming
+it: those need cv2, which the card's machine does not have. Files that
+are not images are skipped, as cv2.imread skips them.
 
 Usage: python -m raw_ngp_torch.tools.downscale <root> --factor 4
            [--folder images]
@@ -19,10 +22,13 @@ import argparse
 import glob
 import os
 
-from raw_ngp_torch.data.image_io import read_png, resize_area, write_png
+from raw_ngp_torch.data.image_io import (image_format, read_png,
+                                         resize_area, write_png)
+from raw_ngp_torch.data.jpeg import read_jpeg, write_jpeg
 
-IMAGE_SUFFIXES = (".jpg", ".jpeg", ".jpe", ".exr", ".tif", ".tiff", ".bmp",
-                  ".webp", ".dng", ".hdr", ".pfm", ".ppm", ".pgm", ".jp2")
+READERS = {"PNG": read_png, "JPEG": read_jpeg}
+WRITERS = {".png": write_png, ".jpg": write_jpeg, ".jpeg": write_jpeg,
+           ".jpe": write_jpeg}
 
 
 def main(argv=None):
@@ -37,17 +43,21 @@ def main(argv=None):
     os.makedirs(dst, exist_ok=True)
     n = 0
     for path in sorted(glob.glob(os.path.join(src, "*"))):
-        name = path.lower()
-        if name.endswith(IMAGE_SUFFIXES):
-            raise ImportError(
-                f"downscale: {path} is not a PNG; the port reads and writes "
-                "PNG only (other formats need cv2)")
-        if not name.endswith(".png"):
+        if not os.path.isfile(path):
             continue
-        img = read_png(path)
+        fmt = image_format(path)
+        if fmt == "unknown":
+            continue
+        ext = os.path.splitext(path)[1].lower()
+        if fmt not in READERS or ext not in WRITERS:
+            raise ImportError(
+                f"downscale: {path} is a {fmt} image written as '{ext}'; "
+                "the port reads and writes PNG and JPEG only (other formats "
+                "need cv2)")
+        img = READERS[fmt](path)
         H, W = img.shape[:2]
         small = resize_area(img, H // args.factor, W // args.factor)
-        write_png(os.path.join(dst, os.path.basename(path)), small)
+        WRITERS[ext](os.path.join(dst, os.path.basename(path)), small)
         n += 1
     print(f"downscaled {n} images {args.factor}x into {dst}")
     return dst

@@ -5,8 +5,9 @@ Checked two ways: a fresh interpreter imports every module of the port
 (its tools included) plus chip_smoke and must end with neither in
 ``sys.modules``; and the sources are scanned for import statements naming
 either. The HDR merge, the colour checker, the native library and the
-tools also run in an interpreter where cv2, imageio, PIL and rawpy cannot
-be imported (the card's machine has none of them).
+tools, the JPEG reader and writer and a JPEG COLMAP scene's load also run
+in an interpreter where cv2, imageio, PIL and rawpy cannot be imported (the
+card's machine has none of them).
 """
 
 import os
@@ -87,6 +88,30 @@ os.makedirs(os.path.join(root, "images"))
 write_png(os.path.join(root, "images", "a.png"),
           rng.integers(0, 256, (8, 12, 3)).astype(np.uint8))
 downscale.main([root, "--factor", "2"])
+from dataclasses import replace
+import chip_smoke
+from raw_ngp_torch import Config
+from raw_ngp_torch.data import jpeg, load_scene, make_synthetic_scene
+from raw_ngp_torch.tools import exr_tools
+assert native.jpeg_library() is not None
+train, val = make_synthetic_scene(n_train=5, n_val=1, H=24, W=24)
+scene = os.path.join(root, "jpeg_scene")
+chip_smoke.write_colmap_scene(scene, np.concatenate([train.images,
+                                                     val.images]),
+                              np.concatenate([train.poses, val.poses]),
+                              train.intrinsics, image_format="jpg")
+downscale.main([scene, "--factor", "2"])
+for d, size in ((1, 24), (2, 12)):
+    cfg = Config()
+    cfg = replace(cfg, data=replace(cfg.data, path=scene, scale=1.0,
+                                    data_format="colmap", downscale=d))
+    np.random.seed(0)
+    loaded = load_scene(cfg, "train")
+    assert loaded.images.shape == (5, size, size, 3), loaded.images.shape
+one = os.path.join(scene, "images", "img_000.jpg")
+assert np.array_equal(jpeg.read_jpeg(one, route="native"),
+                      jpeg.read_jpeg(one, route="python"))
+exr_tools.main(["mask", one, one, os.path.join(root, "masked.png")])
 ev = os.path.join(root, "eval")
 os.makedirs(ev)
 np.save(os.path.join(ev, "pred_000.npy"), lin)
@@ -106,7 +131,10 @@ def test_hdr_colorchecker_native_tools_without_image_libraries():
     """With cv2, imageio, PIL and rawpy unimportable: every module of the
     port (tools included) imports, postprocess_raw_hdr runs all six merge
     x tonemap pairs, determine_wb, the native library, downscale and
-    offline_eval --raw --hdr_merge run."""
+    offline_eval --raw --hdr_merge run, and a COLMAP scene of JPEGs
+    written by chip_smoke.write_colmap_scene loads at downscale 1 and 2
+    (downscale's JPEG output), both JPEG routes decode alike and
+    exr_tools mask runs on a JPEG."""
     # one BLAS / OpenMP thread: under pytest-xdist a thread a core
     # oversubscribes the cores (the Debevec solves, the native library)
     env = dict(os.environ, PYTHONPATH=ROOT, OPENBLAS_NUM_THREADS="1",

@@ -13,8 +13,10 @@ JAX's. DTU's camera decomposition uses scipy's RQ where JAX uses cv2.
 The loaders' centring draws from numpy's global stream where the
 cameras' mean up vector is opposite to +z, so each package's load is
 preceded by the same ``np.random.seed``. A last test imports every module
-of the port and loads a COLMAP PNG scene in an interpreter where cv2,
-imageio, rawpy and PIL cannot be imported, as on the card's machine.
+of the port and loads a COLMAP PNG scene and a COLMAP JPEG scene in an
+interpreter where cv2, imageio, rawpy and PIL cannot be imported, as on
+the card's machine. The area resize's upscale (cv2's linear branch) is
+held against cv2 as the downscale is.
 Each test states its tolerance.
 """
 
@@ -520,7 +522,9 @@ def test_resize_area_matches_cv2(dtype, size):
     4, 2 with an odd output width and a non-integer size, 1, 3 and 4
     channels. uint8 and uint16 bit for bit; float32 within one f32 ulp
     (rtol 1.2e-7: the 2 x 2 float path's sum order follows cv2's 4-lane
-    vectors, measured bit for bit with this cv2). Upscaling raises."""
+    vectors, measured bit for bit with this cv2). An upscale of one axis
+    is cv2's too (its linear branch: test_resize_area_upscale_matches_cv2
+    holds the rest)."""
     h, w, H, W = _SIZES[size]
     rng = np.random.default_rng(7)
     for C in (1, 3, 4):
@@ -537,8 +541,46 @@ def test_resize_area_matches_cv2(dtype, size):
             np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=0)
         else:
             _same(got, want, f"C{C}")
-    with pytest.raises(ValueError):
-        tio.resize_area(np.zeros((8, 8), np.uint8), 16, 8)
+    grid = np.arange(64, dtype=np.uint8).reshape(8, 8) * 3
+    _same(tio.resize_area(grid, 16, 8),
+          cv2.resize(grid, (8, 16), interpolation=cv2.INTER_AREA))
+
+
+# (h, w) -> (H, W): both axes up (x2, non-integer, one pixel more, far),
+# one up and one down, widths below and past cv2's vector lengths
+_UPSCALES = {"x2": (24, 32, 48, 64), "non_integer": (30, 41, 47, 97),
+             "one_more": (63, 95, 64, 96), "x8": (4, 5, 32, 40),
+             "rows_up_cols_down": (20, 30, 41, 15),
+             "rows_down_cols_up": (30, 20, 10, 45),
+             "rows_only": (16, 16, 17, 16), "narrow": (5, 2, 9, 3),
+             "wide": (5, 100, 9, 400)}
+
+
+@pytest.mark.parametrize("size", sorted(_UPSCALES))
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_resize_area_upscale_matches_cv2(dtype, size):
+    """resize_area where an axis enlarges against cv2.resize(...,
+    INTER_AREA), which takes its linear branch with area-mode coefficients
+    there: 1, 2, 3 and 4 channels (cv2's row pass has a vector path for
+    each count), uint8 and uint16 bit for bit, float32 within one f32 ulp
+    (rtol 1.2e-7, as the downscale; measured bit for bit with this
+    cv2)."""
+    h, w, H, W = _UPSCALES[size]
+    rng = np.random.default_rng(11)
+    for C in (1, 2, 3, 4):
+        if dtype == np.float32:
+            img = rng.random((h, w, C)).astype(dtype)
+        else:
+            img = rng.integers(0, np.iinfo(dtype).max + 1,
+                               (h, w, C)).astype(dtype)
+        img = img[..., 0] if C == 1 else img
+        got = tio.resize_area(img, H, W)
+        want = cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)
+        if dtype == np.float32:
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=0)
+        else:
+            _same(got, want, f"C{C}")
 
 
 # ---------------------------------------------------------------- DTU
@@ -940,21 +982,19 @@ for m in pkgutil.walk_packages(raw_ngp_torch.__path__, "raw_ngp_torch."):
 import chip_smoke
 from raw_ngp_torch import Config
 from raw_ngp_torch.data import image_io, load_scene
-root = sys.argv[1]
-for d in (1, 2):
-    cfg = Config()
-    cfg = replace(cfg, data=replace(cfg.data, path=root, scale=1.0,
-                                    data_format="colmap", downscale=d,
-                                    enable_cam_near_far=True))
-    np.random.seed(0)
-    s = load_scene(cfg, "train")
-    print("LOADED", d, s.images.shape, s.cam_near_far.shape,
-          float(s.images.max()))
-    np.save(f"{root}/train_{d}.npy", s.images)
-try:
-    image_io.load_ldr_image(f"{root}/x.jpg", 4, 4)
-except ImportError:
-    print("JPEG-NEEDS-CV2")
+from raw_ngp_torch.data import jpeg
+for root in sys.argv[1:]:
+    for d in (1, 2):
+        cfg = Config()
+        cfg = replace(cfg, data=replace(cfg.data, path=root, scale=1.0,
+                                        data_format="colmap", downscale=d,
+                                        enable_cam_near_far=True))
+        np.random.seed(0)
+        s = load_scene(cfg, "train")
+        print("LOADED", root[-3:], d, s.images.shape, s.cam_near_far.shape,
+              float(s.images.max()))
+        np.save(f"{root}/train_{d}.npy", s.images)
+print("JPEG-ROUTE", "native" if jpeg._native_lib() is not None else "python")
 bad = sorted(m for m in ("cv2", "imageio", "rawpy", "PIL")
              if sys.modules.get(m) is not None)
 print("IMPORTED:" + ",".join(bad))
@@ -964,34 +1004,42 @@ print("IMPORTED:" + ",".join(bad))
 def test_card_installation_loads_a_colmap_png_scene(tmp_path):
     """In a fresh interpreter where cv2, imageio, rawpy and PIL cannot be
     imported (the card's machine has none of them), every module of the
-    port and chip_smoke import, and a COLMAP PNG scene written beforehand
-    with the port's writers (chip_smoke.write_colmap_scene) loads at
-    downscale 1 and 2 (the area resize) with its per-camera ranges,
-    its images bit for bit this interpreter's load; a JPEG raises
-    ImportError there."""
+    port and chip_smoke import, and two COLMAP scenes written beforehand
+    with the port's writers (chip_smoke.write_colmap_scene), one of PNGs
+    and one of JPEGs (quality 95, cv2.imwrite's bytes), load at downscale
+    1 and 2 (the area resize) with their per-camera ranges through the
+    C++ JPEG route, their images bit for bit this interpreter's load."""
     from chip_smoke import write_colmap_scene
     train, val = tsyn.make_synthetic_scene(n_train=6, n_val=2, H=16, W=16,
                                            seed=0)
-    write_colmap_scene(str(tmp_path), np.concatenate([train.images,
+    roots = {fmt: tmp_path / fmt for fmt in ("png", "jpg")}
+    for fmt, root in roots.items():
+        write_colmap_scene(str(root), np.concatenate([train.images,
                                                       val.images]),
-                       np.concatenate([train.poses, val.poses]),
-                       train.intrinsics)
-    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff")
+                           np.concatenate([train.poses, val.poses]),
+                           train.intrinsics, image_format=fmt)
+    assert sorted(os.listdir(roots["jpg"] / "images"))[0] == "img_000.jpg"
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _NO_IMAGE_LIBS,
-                          str(tmp_path)], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+                          str(roots["png"]), str(roots["jpg"])], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    assert "LOADED 1 (7, 16, 16, 3) (7, 2)" in " ".join(lines), lines
-    assert any(l.startswith("LOADED 2 (7, 8, 8, 3)") for l in lines), lines
-    assert "JPEG-NEEDS-CV2" in lines and "IMPORTED:" in lines, lines
+    for fmt in roots:
+        assert f"LOADED {fmt} 1 (7, 16, 16, 3) (7, 2)" in " ".join(lines), \
+            lines
+        assert any(l.startswith(f"LOADED {fmt} 2 (7, 8, 8, 3)")
+                   for l in lines), lines
+    assert "JPEG-ROUTE native" in lines and "IMPORTED:" in lines, lines
     cfg = tcfg.Config()
-    for d in (1, 2):
-        cfg = replace(cfg, data=replace(cfg.data, path=str(tmp_path),
-                                        scale=1.0, data_format="colmap",
-                                        downscale=d,
-                                        enable_cam_near_far=True))
-        np.random.seed(0)
-        _same(np.load(tmp_path / f"train_{d}.npy"),
-              tprov.load_scene(cfg, "train").images)
+    for fmt, root in roots.items():
+        for d in (1, 2):
+            cfg = replace(cfg, data=replace(cfg.data, path=str(root),
+                                            scale=1.0, data_format="colmap",
+                                            downscale=d,
+                                            enable_cam_near_far=True))
+            np.random.seed(0)
+            _same(np.load(root / f"train_{d}.npy"),
+                  tprov.load_scene(cfg, "train").images, f"{fmt} {d}")
+

@@ -5,7 +5,9 @@ package's (tools/) on the same inputs, on the CPU.
   ``--raw`` and with ``--raw --hdr_merge robertson``;
 - colmap2nerf: the same transforms.json;
 - downscale: the pixels of cv2's INTER_AREA (8 and 16 bits, grey, RGB and
-  RGBA PNGs, factors 2 and 3), and of the JAX tool's files;
+  RGBA PNGs, factors 2 and 3), and of the JAX tool's files; on JPEG
+  folders the JAX tool's files byte for byte;
+- exr_tools mask: the pixels of the JAX tool's PNG;
 - determine_wb: the same matrix from a ``.npy`` and a PNG capture;
 - quality_run: the same configuration and scenes for each flag, the
   Trainer stubbed out on both sides (the flagship's Trainer takes ~30 s
@@ -145,13 +147,129 @@ def test_downscale_matches_cv2(tmp_path, factor):
             == want.shape
 
 
-def test_downscale_other_formats_raise(tmp_path):
+@pytest.mark.parametrize("name,head", [
+    ("a.tif", b"II*\x00" + bytes(60)), ("a.exr", b"v/1\x01" + bytes(60)),
+    ("a.jpg.tif", b"\xff\xd8\xff\xe0" + bytes(60))],
+    ids=["tiff", "exr", "jpeg_written_as_tiff"])
+def test_downscale_other_formats_raise(tmp_path, name, head):
+    """A TIFF or EXR image, or a JPEG whose name asks for a TIFF, raises
+    ImportError naming what the port reads and writes (PNG and JPEG)."""
     from raw_ngp_torch.tools import downscale
 
     os.makedirs(tmp_path / "images")
-    (tmp_path / "images" / "a.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(ImportError, match="PNG"):
+    (tmp_path / "images" / name).write_bytes(head)
+    with pytest.raises(ImportError, match="PNG and JPEG"):
         downscale.main([str(tmp_path), "--factor", "2"])
+
+
+def _jpeg_folder(root):
+    """JPEGs as captures come: cv2's 4:2:0 at 95 and a progressive 4:2:2
+    at 90, Pillow's 4:4:4, a grey one; odd sizes; a text file."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+
+    def image(h, w, c=3):
+        yy, xx = np.mgrid[:h, :w]
+        base = np.stack([120 + 90 * np.sin(xx / 6.0 + k) * np.cos(yy / 4.0)
+                         for k in range(c)], -1)
+        return np.clip(base + rng.normal(0, 12, base.shape), 0,
+                       255).astype(np.uint8)
+
+    os.makedirs(os.path.join(root, "images"))
+    out = os.path.join(root, "images")
+    cv2.imwrite(os.path.join(out, "a.jpg"), image(61, 90))
+    cv2.imwrite(os.path.join(out, "b.jpeg"), image(45, 33),
+                [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x211111])
+    f = io.BytesIO()
+    Image.fromarray(image(40, 52)).save(f, "JPEG", quality=85, subsampling=0)
+    with open(os.path.join(out, "c.jpg"), "wb") as g:
+        g.write(f.getvalue())
+    cv2.imwrite(os.path.join(out, "d.jpg"), image(29, 47, 1)[..., 0])
+    with open(os.path.join(out, "notes.txt"), "w") as g:
+        g.write("not an image\n")
+
+
+@pytest.mark.parametrize("factor", [2, 3])
+def test_downscale_jpeg_matches_jax(tmp_path, factor):
+    """A folder of JPEGs shrunk by the port's tool and by the JAX tool
+    (cv2.imread, INTER_AREA, cv2.imwrite): the same files byte for byte,
+    whose pixels are cv2's INTER_AREA of cv2's reading re-encoded at
+    quality 95; the text file skipped by both."""
+    cv2 = pytest.importorskip("cv2")
+    from raw_ngp_torch.data.jpeg import read_jpeg
+    from raw_ngp_torch.tools import downscale
+
+    port, jax = tmp_path / "port", tmp_path / "jax"
+    _jpeg_folder(str(port))
+    shutil.copytree(port, jax)
+    downscale.main([str(port), "--factor", str(factor)])
+    jax_tool("downscale").main([str(jax), "--factor", str(factor)])
+    names = sorted(os.listdir(port / f"images_{factor}"))
+    assert names == sorted(os.listdir(jax / f"images_{factor}")) == [
+        "a.jpg", "b.jpeg", "c.jpg", "d.jpg"]
+    for name in names:
+        got = (port / f"images_{factor}" / name).read_bytes()
+        assert got == (jax / f"images_{factor}" / name).read_bytes(), name
+        src = cv2.imread(str(port / "images" / name), cv2.IMREAD_UNCHANGED)
+        H, W = src.shape[:2]
+        small = cv2.resize(src, (W // factor, H // factor),
+                           interpolation=cv2.INTER_AREA)
+        ok, want = cv2.imencode(".jpg", small)
+        assert ok and got == want.tobytes(), name
+        pixels = read_jpeg(str(port / f"images_{factor}" / name))
+        ref = cv2.imread(str(port / f"images_{factor}" / name),
+                         cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(
+            pixels, ref if ref.ndim == 2 else ref[..., ::-1])
+
+
+@pytest.mark.parametrize("bg", ["black", "white"])
+@pytest.mark.parametrize("image_kind,mask_kind", [
+    ("png", "png"), ("jpg", "png"), ("png", "jpg"), ("jpg", "jpg"),
+    ("rgba_png", "grey_png")])
+def test_exr_tools_mask_matches_jax(tmp_path, image_kind, mask_kind, bg):
+    """The port's `exr_tools mask` against the JAX tool's (imageio reads,
+    imageio writes the PNG): the written pixels bit for bit, for PNG and
+    JPEG images and mattes."""
+    pytest.importorskip("imageio")
+    cv2 = pytest.importorskip("cv2")
+    from raw_ngp_torch.data.image_io import read_png, write_png
+    from raw_ngp_torch.tools import exr_tools
+
+    rng = np.random.default_rng(6)
+    yy, xx = np.mgrid[:33, :47]
+    img = np.clip(np.stack([100 + 80 * np.sin(xx / 5.0 + k) for k in
+                            range(4)], -1) + rng.normal(0, 10, (33, 47, 4)),
+                  0, 255).astype(np.uint8)
+    matte = (((xx - 20) ** 2 + (yy - 15) ** 2) < 150).astype(np.uint8) * 255
+
+    def save(name, kind, pixels):
+        path = str(tmp_path / f"{name}.{kind.split('_')[-1]}")
+        if kind.endswith("jpg"):
+            cv2.imwrite(path, pixels[..., 2::-1] if pixels.ndim == 3
+                        else pixels)
+        else:
+            write_png(path, pixels)
+        return path
+
+    image = save("image", image_kind,
+                 img if image_kind == "rgba_png" else img[..., :3])
+    mask = save("mask", mask_kind, matte if mask_kind == "grey_png"
+                else np.repeat(matte[..., None], 3, -1))
+    got = exr_tools.main(["mask", image, mask, str(tmp_path / "port.png"),
+                          "--bg", bg])
+    jax_tool("exr_tools").main(["mask", image, mask,
+                                str(tmp_path / "jax.png"), "--bg", bg])
+    want = read_png(str(tmp_path / "jax.png"))
+    assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "port.png")), want)
+    assert (want == (0 if bg == "black" else 255)).any()
 
 
 def test_determine_wb_matches_jax(tmp_path, monkeypatch):
