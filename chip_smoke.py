@@ -209,8 +209,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               repro check of phase 7;
  14. encode_jvp — the encode's input gradient differentiated in its
               cotangent g (encode_input_jvp, the orientation loss's
-              second-order term) on the -O grid (16 x 2, xor) and the
-              flagship's (2 x 16, one dense matmul level) at 262,144
+              second-order term) on the -O grid (16 x 2, xor), its C = 1
+              shard under tp = 2 and the flagship's (2 x 16, one dense
+              matmul level) at 262,144
               uniform and ray-ordered points, f32 and bf16: bit for bit
               its plain version, two calls bitwise equal, timed beside
               its bound (with the ratio) and its plain version;
@@ -283,12 +284,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the tp eval render (bitwise or its difference). (c) a
               one-rank NCCL world in this process: 8 flagship steps
               through make_parallel_train_step bitwise the single-device
-              steps. Then the encode's kernels at the shard's width (C =
-              8: forward with and without records, input gradient, dense
-              level, B2's flat form) against their plain versions, timed
-              beside their bounds. Each rank's step time is printed as
-              that of 2 ranks sharing one H100 (gloo): not a scaling
-              figure;
+              steps. (d) the orientation loss under (dp = 1, tp = 2) at
+              the reference -O width (orient_config: reg_config() with
+              JAX's tp guard, lambda_tv and lambda_wd 0; 16 levels x 2
+              channels, so C = 1 a shard): 32 steps with the regularised
+              step's launches a step (the fold, two forwards with
+              records, the input gradient and its JVP at C = 1, B2 twice
+              a window level), the orientation term finite and nonzero at
+              the first and last step and the same on both ranks, the
+              replicated tensors bitwise across the ranks, repro; then a
+              fixed 4,096-ray batch's gradient against the single
+              device's (a field with the gathered table), the loss within
+              rtol 1e-3 and each leaf within 2e-2 of its largest entry.
+              Then the encode's kernels at the shards' widths (the
+              flagship's C = 8 and the -O grid's C = 1: forward with and
+              without records, input gradient, its JVP, the dense level
+              where the grid has one, B2's flat form) against their plain
+              versions, timed beside their bounds. Each rank's step time
+              is printed as that of 2 ranks sharing one H100 (gloo): not a
+              scaling figure;
  20. hdr    — HDR-merged test frames: the light-stage configuration with
               exposure_range "wide" (hdr_config: 7 percentiles, Robertson
               by default) on the light-stage scene, 128 Trainer steps with
@@ -3768,20 +3782,25 @@ class cached_mark_untrained:
 def phase_encode_jvp(dev, cfg, B=262144, flagship=None):
     """The input gradient's JVP in g (encode_input_jvp, the orientation
     loss's second-order term) at the orientation's shape (B = N K points)
-    on the -O grid (`cfg`'s) and the flagship's (`flagship`'s, C = 16 with
-    one dense matmul level): kernel against plain version at uniform and
-    ray-ordered points, f32 and bf16, bit for bit and two calls bitwise
-    equal, each timed beside its bound (and the ratio); the plain version
-    timed. The kernels line's numbers are the -O grid's at ray-ordered
-    points in bf16; the flagship's ride under `flagship_grid`."""
+    on the -O grid (`cfg`'s), its C = 1 shard under tp = 2 (the tp
+    orientation's width, parallel.tp.local_grid_spec) and the flagship's
+    (`flagship`'s, C = 16 with one dense matmul level): kernel against
+    plain version at uniform and ray-ordered points, f32 and bf16, bit
+    for bit and two calls bitwise equal, each timed beside its bound (and
+    the ratio); the plain version timed. The kernels line's numbers are
+    the -O grid's at ray-ordered points in bf16; the shard's ride under
+    `O_shard_C1`, the flagship's under `flagship_grid`."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     from raw_ngp_torch.models.ngp import make_field_spec
-    grids = {"O": cfg} if flagship is None else {"O": cfg,
-                                                 "flagship": flagship}
+    from raw_ngp_torch.parallel.tp import local_grid_spec
+    o_spec = make_field_spec(cfg).grid_spec
+    grids = {"O": (cfg, o_spec),
+             "O_shard_C1": (cfg, local_grid_spec(o_spec, 2))}
+    if flagship is not None:
+        grids["flagship"] = (flagship, make_field_spec(flagship).grid_spec)
     per_grid = {}
-    for grid, grid_cfg in grids.items():
-        spec = make_field_spec(grid_cfg).grid_spec
+    for grid, (grid_cfg, spec) in grids.items():
         C = spec.level_dim
         gen = torch.Generator(device=dev).manual_seed(13)
         table = (torch.rand(spec.n_params * C, generator=gen, device=dev)
@@ -3848,6 +3867,7 @@ def phase_encode_jvp(dev, cfg, B=262144, flagship=None):
                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                ms_over_bound=top["ms_over_bound"], library_ms=None,
                inputs=per_grid["O"]["inputs"], deterministic=True)
+    row["O_shard_C1"] = per_grid["O_shard_C1"]
     if "flagship" in per_grid:
         row["flagship_grid"] = per_grid["flagship"]
     return row
@@ -3919,6 +3939,27 @@ def orientation_only(field, state, batch, aabb, generator, plain=False,
     return out["orientation_loss"], {"num_points": out["num_points"]}
 
 
+# the kernels of a regularised -O step (no dense level on the -O grid)
+REG_KERNELS = ("decimate_compact", "hash_encode", "hash_encode_records",
+               "segment_grad_outer", "encode_input_grad", "encode_input_jvp")
+
+
+def reg_per_step(tr):
+    """Launches a step of the regularised -O step's kernels: the fold once,
+    the forward with records twice (the compacted field, the N K
+    orientation points), the input gradient and its JVP once, B2 twice a
+    window level (of the tp shard's spec under tp)."""
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.parallel.tp import local_grid_spec
+    spec = tr.spec.grid_spec
+    if tr.n_tp > 1:
+        spec = local_grid_spec(spec, tr.n_tp)
+    n_windows = len(th.level_windows(spec, th.matmul_split(spec)))
+    return {"decimate_compact": 1, "hash_encode_records": 2,
+            "encode_input_grad": 1, "encode_input_jvp": 1,
+            "segment_grad_outer": 2 * n_windows}
+
+
 def phase_reg(dev, steps=128, timed=32, repro=32):
     """The reference -O path with the four regularizers (reg_config) through
     the Trainer's entry points, on the O phase's scene and seed: `steps`
@@ -3935,7 +3976,6 @@ def phase_reg(dev, steps=128, timed=32, repro=32):
     Trainer's ms a step)."""
     import torch
     from raw_ngp_torch.data import make_synthetic_scene
-    from raw_ngp_torch.kernels import hash_encode as th
     from raw_ngp_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
@@ -3946,8 +3986,6 @@ def phase_reg(dev, steps=128, timed=32, repro=32):
                  workspace=scratch_workspace())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    spec = tr.spec.grid_spec
-    n_windows = len(th.level_windows(spec, th.matmul_split(spec)))
     print(f"[reg] Trainer ready in {init_s:.2f} s; lambdas orientation "
           f"{cfg.train.lambda_orientation}, wd {cfg.train.lambda_wd}, "
           f"entropy {cfg.train.lambda_entropy}, tv {cfg.train.lambda_tv}; "
@@ -3958,13 +3996,8 @@ def phase_reg(dev, steps=128, timed=32, repro=32):
     snap = trainer_snapshot(tr)
     with recorded_terms() as terms:
         launches, (first, last), step_ms, ref = run_steps(
-            tr, steps, ("decimate_compact", "hash_encode",
-                        "hash_encode_records", "segment_grad_outer",
-                        "encode_input_grad", "encode_input_jvp"), "reg",
-            capture_at=repro,
-            per_step={"decimate_compact": 1, "hash_encode_records": 2,
-                      "encode_input_grad": 1, "encode_input_jvp": 1,
-                      "segment_grad_outer": 2 * n_windows})
+            tr, steps, REG_KERNELS, "reg", capture_at=repro,
+            per_step=reg_per_step(tr))
     for name in ("mm_grad_table", "decimate_compact_bwd",
                  "segment_totals_channel"):
         check(launches[name] == 0, f"reg: kernel {name} is off the path but "
@@ -4495,15 +4528,16 @@ def tp_encode_checks(tr, dev, B=262144):
     return out
 
 
-def multi_train(tr, what, steps):
+def multi_train(tr, what, steps, kernels=TRAIN_KERNELS,
+                per_step=OCCUPANCY_PER_STEP):
     """`steps` Trainer steps with every launch counter reset just before
-    and read just after (run_steps' checks), then the repro check: the
-    state before step 1 restored, the steps run again, bitwise. -> the
-    launches, the losses, the median step ms and the digests of what the
-    run leaves."""
+    and read just after (run_steps' checks of `kernels` and `per_step`),
+    then the repro check: the state before step 1 restored, the steps run
+    again, bitwise. -> the launches, the losses, the median step ms and
+    the digests of what the run leaves."""
     snap = trainer_snapshot(tr)
     launches, (first, last), step_ms, ref = run_steps(
-        tr, steps, TRAIN_KERNELS, what, capture_at=steps)
+        tr, steps, kernels, what, capture_at=steps, per_step=per_step)
     launches.pop("hash_encode_by_caller")
     after = digests(training_tensors(tr))
     repro = repro_check(tr, snap, ref, steps, what)
@@ -4513,10 +4547,89 @@ def multi_train(tr, what, steps):
             "repro_bitwise": repro["bitwise_equal"]}
 
 
-def _multi_rank(rank, world, tmp, grid_path, dev_name):
+ORIENT_STEPS = 32
+
+
+def orient_config():
+    """(d) The regularised -O configuration under JAX's tp guard
+    (reg_config() with lambda_tv and lambda_wd 0: the orientation and
+    entropy terms) on (dp = 1, tp = 2): the reference -O width, 16 levels
+    x 2 channels, so a C = 1 shard a rank."""
+    from raw_ngp_torch.config import ParallelConfig
+    cfg = reg_config()
+    return replace(cfg, train=replace(cfg.train, lambda_tv=0.0,
+                                      lambda_wd=0.0),
+                   parallel=ParallelConfig(num_devices=2, tp_devices=2)
+                   ).validate()
+
+
+def tp_orient_grad_check(tr, dev):
+    """(d i) One fixed 4,096-ray batch's gradient on (dp = 1, tp = 2) with
+    the orientation loss (the same march jitter on both sides), through
+    the step's reduction, the table gathered whole, against the single
+    device's on rank 0 (a field with the whole table and the same MLPs):
+    the loss within rtol 1e-3 and every leaf within 2e-2 of its largest
+    entry (bf16: tests/test_torch_regularizers.py's bf16 orientation
+    tolerances). -> (loss rel err, {leaf: max err / largest}), or None
+    on rank 1."""
+    import torch
+    import torch.distributed as dist
+    from raw_ngp_torch.models.ngp import init_field, make_field_spec
+    from raw_ngp_torch.parallel.mesh import make_reduce
+    from raw_ngp_torch.parallel.tp import gather_table
+    from raw_ngp_torch.train.trainer import make_batch_loss_fn
+    batch, gen_fn = reg_batch(tr, 23)
+    gs = tr.spec.grid_spec
+
+    def grads_of(field, cfg, spec):
+        params = dict(field.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss, aux = make_batch_loss_fn(cfg, spec)(field, tr.state, batch,
+                                                  tr.aabb, gen_fn())
+        loss.backward()
+        out = {k: p.grad.clone() for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return out, loss, aux
+
+    g, loss, aux = grads_of(tr.field, tr.cfg, tr.spec)
+    g, _, loss, aux, _ = make_reduce(tr.mesh)(g, None, loss, aux)
+    g["grid"] = gather_table(g["grid"], gs, tr.mesh)
+    whole = gather_table(tr.field.grid.detach(), gs, tr.mesh)
+    torch.cuda.synchronize()
+    if dist.get_rank() != 0:
+        return None
+    cfg1 = replace(tr.cfg, parallel=replace(tr.cfg.parallel, num_devices=1,
+                                            tp_devices=1))
+    spec1 = make_field_spec(cfg1)
+    field = init_field(spec1, device=dev)
+    field.load_state_dict({**tr.field.state_dict(), "grid": whole})
+    ref, loss1, _ = grads_of(field, cfg1, spec1)
+    loss, loss1 = float(loss), float(loss1.detach())
+    loss_err = abs(loss - loss1) / abs(loss1)
+    err = {}
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        err[k] = float((g[k] - r).abs().max()) / max(scale, 1e-30)
+        check(scale > 0 and err[k] <= 2e-2,
+              f"multi orient: the tp gradient of {k} is off the single "
+              f"device's (max err / largest {err[k]:.3e})")
+    check(loss_err <= 1e-3, f"multi orient: the tp loss {loss} is off the "
+          f"single device's {loss1}")
+    print(f"[multi orient] the fixed {tr.num_rays:,}-ray batch with the "
+          f"orientation loss on (dp 1, tp 2), C = {gs.level_dim // tr.n_tp} "
+          f"a shard: loss {loss:.6f} vs the single device's {loss1:.6f} "
+          f"(rel {loss_err:.2e}); gradient max err / largest entry "
+          f"{json.dumps(err)}")
+    return {"loss_rel": loss_err, "grad_err_over_largest": err}
+
+
+def _multi_rank(rank, world, tmp, grid_paths, dev_name):
     """One of the two ranks of the multi phase (a process of its own on
-    `dev_name`, cuda:0 for both): the dp = 2 world, then the (dp = 1,
-    tp = 2) one."""
+    `dev_name`, cuda:0 for both): the dp = 2 world, the (dp = 1, tp = 2)
+    one, then (dp = 1, tp = 2) with the orientation loss at the -O width
+    (orient_config)."""
     import pickle
 
     import numpy as np
@@ -4527,18 +4640,20 @@ def _multi_rank(rank, world, tmp, grid_path, dev_name):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(dev_name)
-    grid = np.load(grid_path)      # the train phase's mark_untrained grid
-    trainer_mod.mark_untrained_grid = lambda *a, **k: grid.copy()
+    # the train and O phases' mark_untrained grids
+    grids = {k: np.load(p) for k, p in grid_paths.items()}
     train_s, val_s = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     out = {}
-    for kind, n_tp in (("dp", 1), ("tp", 2)):
+    for kind, cfg in (("dp", multi_config(1)), ("tp", multi_config(2)),
+                      ("orient", orient_config())):
+        grid = grids["O" if kind == "orient" else "flagship"]
+        trainer_mod.mark_untrained_grid = lambda *a, g=grid, **k: g.copy()
         dist.init_process_group(
             "gloo", init_method=f"file://{tmp}/store_{kind}", rank=rank,
             world_size=world)
         try:
             t0 = time.perf_counter()
-            tr = trainer_mod.Trainer(multi_config(n_tp), train_s, val_s,
-                                     device=dev,
+            tr = trainer_mod.Trainer(cfg, train_s, val_s, device=dev,
                                      workspace=os.path.join(tmp, kind))
             torch.cuda.synchronize()
             res = {"trainer_s": time.perf_counter() - t0,
@@ -4547,13 +4662,31 @@ def _multi_rank(rank, world, tmp, grid_path, dev_name):
                    "grid_numel": tr.field.grid.numel()}
             if kind == "tp":
                 res["encode"] = tp_encode_checks(tr, dev)
-            res.update(multi_train(tr, f"multi {kind} rank {rank}",
-                                   MULTI_STEPS))
+            if kind == "orient":
+                with recorded_terms() as terms:
+                    res.update(multi_train(
+                        tr, f"multi {kind} rank {rank}", ORIENT_STEPS,
+                        REG_KERNELS, reg_per_step(tr)))
+                o = [float(v) for v in terms.values["orientation"]]
+                check(len(o) == 2 * ORIENT_STEPS, f"multi orient: "
+                      f"{len(o)} orientation terms in 2 x {ORIENT_STEPS} "
+                      f"steps")
+                res["orientation_first_last"] = [o[0], o[ORIENT_STEPS - 1]]
+                check(all(math.isfinite(v) and v > 0
+                          for v in res["orientation_first_last"]),
+                      f"multi orient: the orientation term is not finite "
+                      f"and nonzero at the first and last step "
+                      f"{res['orientation_first_last']}")
+            else:
+                res.update(multi_train(tr, f"multi {kind} rank {rank}",
+                                       MULTI_STEPS))
             res["replicated"] = sorted(replicated(training_tensors(tr)))
             if kind == "dp":
                 res["grad_err"] = dp_grad_check(tr, dev)
-            else:
+            elif kind == "tp":
                 res["render"] = tp_render_check(tr, val_s, tmp)
+            else:
+                res["grad_check"] = tp_orient_grad_check(tr, dev)
             out[kind] = res
             dist.barrier()
         finally:
@@ -4594,11 +4727,13 @@ def tp_render_check(tr, val_s, tmp):
 
 
 def shard_kernel_times(dev, spec, n_tp=2, B=262144):
-    """The encode's kernels at the shard's width (the flagship's C / n_tp
-    channels a rank), at B ray-ordered points in bf16, each against its
-    plain version and timed (CUDA events) beside its bound: the forward
-    without and with records, the input gradient, the dense level's
-    table gradient and B2's flat form on level 1. -> {kernel: numbers}."""
+    """The encode's kernels at the shard's width (`spec`'s C / n_tp
+    channels a rank: the flagship's 8, the -O grid's 1), at B ray-ordered
+    points in bf16, each against its plain version and timed (CUDA
+    events) beside its bound: the forward without and with records, the
+    input gradient, its JVP, the dense level's table gradient (where the
+    grid has one) and B2's flat form on the last window level. ->
+    {kernel: numbers}."""
     import torch
     from raw_ngp_torch.kernels import hash_encode as th
     from raw_ngp_torch.kernels.segsum import segment_grad_outer
@@ -4628,7 +4763,7 @@ def shard_kernel_times(dev, spec, n_tp=2, B=262144):
     f = th.hash_encode(table, x, spec, compute_dtype=bf16)
     err = float((f.float() - th.hash_encode_fused_plain(
         table, x, spec, bf16).float()).abs().max())
-    check(err == 0.0, "multi: the C = 8 forward is off its plain version")
+    check(err == 0.0, f"multi: the C = {C} forward is off its plain version")
     row("hash_encode", lambda: th.hash_encode(table, x, spec,
                                               compute_dtype=bf16),
         lambda: th.hash_encode_fused_plain(table, x, spec, bf16), err,
@@ -4636,7 +4771,7 @@ def shard_kernel_times(dev, spec, n_tp=2, B=262144):
     _, base, w_word = th.hash_encode_records(table, x, spec, bf16)
     base_p, w_word_p = th.window_records_plain(x, spec)
     check(torch.equal(base, base_p) and torch.equal(w_word, w_word_p),
-          "multi: the C = 8 records differ from window_records_plain")
+          f"multi: the C = {C} records differ from window_records_plain")
     row("hash_encode_records",
         lambda: th.hash_encode_records(table, x, spec, bf16),
         lambda: (th.hash_encode_fused_plain(table, x, spec, bf16),
@@ -4647,30 +4782,42 @@ def shard_kernel_times(dev, spec, n_tp=2, B=262144):
     scale = float(p.abs().max())
     err = float((k - p).abs().max())
     check(torch.allclose(k, p, rtol=1e-5, atol=1e-5 * scale),
-          f"multi: the C = 8 input gradient is off its plain version "
+          f"multi: the C = {C} input gradient is off its plain version "
           f"({err})")
     row("encode_input_grad",
         lambda: th.encode_input_grad(table, x, g, spec, bf16),
         lambda: th.encode_input_grad_plain(table, x, g, spec, bf16), err,
         encode_bound(spec, x, 2, extra_bytes=B * 12, ops_per_term=4)[:2])
-    n_dense = spec.offsets[m] * C
-    out = torch.empty(n_dense, device=dev)
-    k = th.mm_grad_table(x, g, spec, bf16)
-    p = th.mm_grad_table_plain(x, g, spec, bf16)
-    rows_d, prods, mass, n_terms = dense_products(x, g, spec, True)
-    total = torch.zeros_like(mass).index_add_(0, rows_d, prods)
-    res = spec.resolutions[0]
-    check(dense_rows_agree(k[:res ** 3 * C], total.reshape(-1),
-                           mass.reshape(-1), True),
-          "multi: the C = 8 dense level's gradient is off its exact sums")
-    nb = B * 3 * 4 + B * C * 2 + n_dense * 4
-    b_ms, o_ms = (nb / HBM_BYTES_PER_S * 1e3,
-                  2 * n_terms / F32_FLOP_PER_S * 1e3)
-    row("mm_grad_table",
-        lambda: th.mm_grad_table(x, g, spec, bf16, out=out),
-        lambda: th.mm_grad_table_plain(x, g, spec, bf16),
-        float((k - p).abs().max()),
-        (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"))
+    ct = torch.randn(B, 3, generator=gen, device=dev)
+    k = th.encode_input_jvp(table, x, ct, spec, bf16)
+    p = th.encode_input_jvp_plain(table, x, ct, spec, bf16)
+    check(same_bits(k, p) and same_bits(k, th.encode_input_jvp(
+        table, x, ct, spec, bf16)), f"multi: the C = {C} JVP is not bit for "
+          f"bit its plain version, or two calls differ")
+    row("encode_input_jvp",
+        lambda: th.encode_input_jvp(table, x, ct, spec, bf16),
+        lambda: th.encode_input_jvp_plain(table, x, ct, spec, bf16), 0.0,
+        encode_bound(spec, x, 2, extra_bytes=B * 12, ops_per_term=4)[:2])
+    if m > 0:   # the dense (matmul) levels: the flagship's level 0
+        n_dense = spec.offsets[m] * C
+        out = torch.empty(n_dense, device=dev)
+        k = th.mm_grad_table(x, g, spec, bf16)
+        p = th.mm_grad_table_plain(x, g, spec, bf16)
+        rows_d, prods, mass, n_terms = dense_products(x, g, spec, True)
+        total = torch.zeros_like(mass).index_add_(0, rows_d, prods)
+        res = spec.resolutions[0]
+        check(dense_rows_agree(k[:res ** 3 * C], total.reshape(-1),
+                               mass.reshape(-1), True),
+              f"multi: the C = {C} dense level's gradient is off its exact "
+              f"sums")
+        nb = B * 3 * 4 + B * C * 2 + n_dense * 4
+        b_ms, o_ms = (nb / HBM_BYTES_PER_S * 1e3,
+                      2 * n_terms / F32_FLOP_PER_S * 1e3)
+        row("mm_grad_table",
+            lambda: th.mm_grad_table(x, g, spec, bf16, out=out),
+            lambda: th.mm_grad_table_plain(x, g, spec, bf16),
+            float((k - p).abs().max()),
+            (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"))
     lv, w0, nw = th.level_windows(spec, m)[-1]
     off = spec.offsets[lv]
     n_rows = spec.offsets[lv + 1] - off
@@ -4684,7 +4831,8 @@ def shard_kernel_times(dev, spec, n_tp=2, B=262144):
     scale = float(ref[sl].abs().max())
     err = float((full[sl] - ref[sl]).abs().max())
     check(torch.allclose(full[sl], ref[sl], rtol=1e-5, atol=1e-6 * scale),
-          f"multi: B2's flat form at C = 8 is off its plain version ({err})")
+          f"multi: B2's flat form at C = {C} is off its plain version "
+          f"({err})")
     nb = B * 12 + B * C * 2 + n_rows * C * 4
     row("segment_grad_outer",
         lambda: segment_grad_outer(*stream, g, n_rows, C, g_col=lv * C,
@@ -4752,10 +4900,17 @@ def phase_multi(dev):
     the C = 8 features and table gradient bit for bit the C = 16 ones, 64
     steps, the replicated tensors bitwise equal across the ranks, rank 0's
     checkpoint rendered by a single-device Trainer against the tp eval
-    render; (c) a one-rank NCCL world through the parallel step, bitwise
-    the single-device step; then the encode's kernels at the shard's
-    width (C = 8) timed. Per-rank step times are those of 2 ranks sharing
-    one H100 (gloo), not a scaling figure."""
+    render; (d) the orientation loss under tp = 2 at the reference -O
+    width (orient_config: C = 1 a shard, the O phase's grid): 32 steps
+    with the regularised step's launches a step, the orientation term
+    finite and nonzero at the first and last step and the same on both
+    ranks, the replicated tensors bitwise across the ranks, the repro
+    check, then a fixed batch's gradient against the single device's;
+    (c) a one-rank NCCL world through the parallel step, bitwise the
+    single-device step; then the encode's kernels at the shards' widths
+    (the flagship's C = 8, the -O grid's C = 1) timed. Per-rank step
+    times are those of 2 ranks sharing one H100 (gloo), not a scaling
+    figure."""
     import pickle
 
     import numpy as np
@@ -4768,13 +4923,16 @@ def phase_multi(dev):
     train_s, _ = make_synthetic_scene(n_train=36, n_val=2, H=128, W=128)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
     atexit.register(shutil.rmtree, tmp, True)
-    grid_path = os.path.join(tmp, "grid.npy")
-    np.save(grid_path, trainer_mod.mark_untrained_grid(
-        cfg, np.asarray(train_s.poses), np.asarray(train_s.intrinsics),
-        scene_aabb(cfg, train_s.pts_aabb, device="cpu").numpy(),
-        cam_near_far=train_s.cam_near_far))
+    grid_paths = {}
+    for name, grid_cfg in (("flagship", cfg), ("O", orient_config())):
+        grid_paths[name] = os.path.join(tmp, f"grid_{name}.npy")
+        np.save(grid_paths[name], trainer_mod.mark_untrained_grid(
+            grid_cfg, np.asarray(train_s.poses),
+            np.asarray(train_s.intrinsics),
+            scene_aabb(grid_cfg, train_s.pts_aabb, device="cpu").numpy(),
+            cam_near_far=train_s.cam_near_far))
     t0 = time.perf_counter()
-    mp.spawn(_multi_rank, args=(2, tmp, grid_path, str(dev)), nprocs=2,
+    mp.spawn(_multi_rank, args=(2, tmp, grid_paths, str(dev)), nprocs=2,
              join=True)
     ranks_s = time.perf_counter() - t0
     ranks = []
@@ -4783,14 +4941,15 @@ def phase_multi(dev):
             ranks.append(pickle.load(f))
     result = {"label": MULTI_LABEL, "steps": MULTI_STEPS,
               "ranks_s": ranks_s}
-    for kind in ("dp", "tp"):
+    for kind in ("dp", "tp", "orient"):
         a, b = ranks[0][kind], ranks[1][kind]
-        keys = a["replicated"] if kind == "tp" else sorted(a["digests"])
+        steps = ORIENT_STEPS if kind == "orient" else MULTI_STEPS
+        keys = a["replicated"] if kind != "dp" else sorted(a["digests"])
         differ = [k for k in keys if a["digests"][k] != b["digests"][k]]
         same = len(keys) - len(differ)
-        print(f"[multi {kind}] after {MULTI_STEPS} steps: {same} of "
+        print(f"[multi {kind}] after {steps} steps: {same} of "
               f"{len(keys)} "
-              f"{'replicated ' if kind == 'tp' else ''}tensors bitwise "
+              f"{'replicated ' if kind != 'dp' else ''}tensors bitwise "
               f"equal across the ranks; ms/step ({MULTI_LABEL}) "
               f"{a['ms_per_step']:.3f} / {b['ms_per_step']:.3f}; launches "
               f"rank 0 {a['launches']}")
@@ -4798,7 +4957,8 @@ def phase_multi(dev):
         check(a["repro_bitwise"] and b["repro_bitwise"],
               f"multi {kind}: the 2-rank run did not reproduce")
         result[kind] = {
-            "layout": a["layout"], "point_budget_per_rank": a["point_budget"],
+            "layout": a["layout"], "steps": steps,
+            "point_budget_per_rank": a["point_budget"],
             "grid_numel_per_rank": a["grid_numel"],
             "tensors_bitwise_across_ranks": len(keys),
             "repro_bitwise": True,
@@ -4811,9 +4971,22 @@ def phase_multi(dev):
     result["tp"]["encode"] = [ranks[0]["tp"]["encode"],
                               ranks[1]["tp"]["encode"]]
     result["tp"]["render"] = ranks[0]["tp"]["render"]
+    o0, o1 = (r["orient"]["orientation_first_last"] for r in ranks)
+    print(f"[multi orient] the orientation term at the first and last step "
+          f"{o0} (rank 1: {o1}); lambda_orientation "
+          f"{orient_config().train.lambda_orientation}")
+    check(o0 == o1, "multi orient: the ranks' orientation terms differ")
+    result["orient"]["config"] = (
+        "orient_config(): reg_config() with lambda_tv 0 and lambda_wd 0 on "
+        "(dp 1, tp 2): lambda_orientation 0.1, lambda_entropy 1e-4")
+    result["orient"]["orientation_first_last"] = o0
+    result["orient"]["fixed_batch_vs_single_device"] = ranks[0]["orient"][
+        "grad_check"]
     result["nccl"] = nccl_one_rank(dev, cfg)
     result["shard_kernels"] = shard_kernel_times(
         dev, make_field_spec(cfg).grid_spec)
+    result["shard_kernels_C1"] = shard_kernel_times(
+        dev, make_field_spec(orient_config()).grid_spec)
     result["gpu"] = gpu_line()
     return result
 
@@ -5481,14 +5654,17 @@ def main() -> int:
         k["launches_hdr"] = hdr_launches[k["name"]]
         k["launches_tools_quality_run"] = tools_launches[k["name"]]
         k["launches_render"] = render_launches.get(k["name"], 0)
-        # each rank's launches in the multi phase's 64 steps (dp = 2, and
-        # tp = 2 at C = 8 channels a rank), and the kernel's numbers at
-        # the shard's width where it is one of the encode's
+        # each rank's launches in the multi phase's runs (dp = 2 and tp =
+        # 2 at C = 8 channels a rank, 64 steps each; the orientation loss
+        # under tp = 2 at C = 1, 32 steps), and the kernel's numbers at
+        # the shards' widths where it is one of the encode's
         k["launches_multi"] = {kind: [r[k["name"]] for r in
                                       multi[kind]["launches_by_rank"]]
-                               for kind in ("dp", "tp")}
-        if k["name"] in multi["shard_kernels"]:
-            k["shard_C8"] = multi["shard_kernels"][k["name"]]
+                               for kind in ("dp", "tp", "orient")}
+        for key, rows in (("shard_C8", multi["shard_kernels"]),
+                          ("shard_C1", multi["shard_kernels_C1"])):
+            if k["name"] in rows:
+                k[key] = rows[k["name"]]
         if k["name"] in ("hash_encode", "hash_encode_records"):
             k["launches_by_caller"] = {
                 "reg": launches["hash_encode_by_caller"],
@@ -5517,7 +5693,7 @@ def main() -> int:
     print(json.dumps({"pose_recovery": pose_recovery}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"multi": {k: v for k, v in multi.items()
-                                if k != "shard_kernels"}}))
+                                if not k.startswith("shard_kernels")}}))
     print(json.dumps({"hdr": hdr_phase}))
     print(json.dumps({"host": host}))
     print(json.dumps({"tools": tools}))

@@ -35,8 +35,12 @@ radiance grid encodes the shard with the shard's spec and gathers the
 channels over the tp group (JAX ``_encode``'s tp branch, ``ngp.py:176-
 194``), so every rank of the group gets the unsharded encode's features.
 The normals' position gradient is summed over the group and divided by
-tp (each rank's covers its shard, tp times over); the orientation loss's
-inner gradient is not taken under tensor parallelism.
+tp (each rank's covers its shard, tp times over). The orientation loss's
+inner gradient is the single device's too (:meth:`NGPField.
+density_grad`): each rank takes its shard's share and the shares are
+summed over the group with their graph (:func:`raw_ngp_torch.parallel.
+tp.sum_over_tp`), so every rank computes the same loss. JAX's tp step
+sums nothing there, and its gradient departs from its single device's.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from raw_ngp_torch.models.mlp import apply_mlp, init_mlp
 from raw_ngp_torch.ops.activation import (color_activation,
                                           density_activation, trunc_exp)
 from raw_ngp_torch.ops import hashgrid
+from raw_ngp_torch.parallel import tp as ptp
 from raw_ngp_torch.ops.hashgrid import HashGridSpec, init_hashgrid_params
 from raw_ngp_torch.ops.sh import sh_encode
 
@@ -189,13 +194,10 @@ class NGPField(nn.Module):
         as the shard's encode gathered over the tp group."""
         spec = self.spec
         if spec.tp_devices > 1 and grid_spec is spec.grid_spec:
-            from raw_ngp_torch.parallel.tp import (gather_channels,
-                                                   local_grid_spec)
-            f = self._encode(table, x, local_grid_spec(grid_spec,
-                                                       spec.tp_devices),
-                             plain)
-            return gather_channels(f, grid_spec.num_levels, spec.tp_group,
-                                   spec.tp_devices)
+            f = self._encode(table, x, ptp.local_grid_spec(
+                grid_spec, spec.tp_devices), plain)
+            return ptp.gather_channels(f, grid_spec.num_levels,
+                                       spec.tp_group, spec.tp_devices)
         cfg = spec.cfg
         if not cfg.model.fused_encoder:
             return hashgrid.hash_encode(table, x, grid_spec,
@@ -266,26 +268,48 @@ class NGPField(nn.Module):
         blend), then the encode's input gradient for g with the table
         frozen (:func:`frozen_input_grad`; its backward the JVP kernel), so
         the step computes no table gradient here. Through the unfused
-        encoder autograd's full second order of plain ops."""
-        cfg = self.spec.cfg
-        if self.spec.tp_devices > 1:
-            raise NotImplementedError("the orientation loss's inner gradient "
-                                      "under tensor parallelism")
+        encoder autograd's full second order of plain ops.
+
+        Under tensor parallelism the single device's gradient on every
+        rank of the group. Fused: the shard encoded at its own spec and
+        gathered, g taken on the gathered features, this rank's channels
+        of g (:func:`~raw_ngp_torch.parallel.tp.split_channels`) through
+        the shard's frozen input gradient (the kernels at C / tp), the
+        shares summed over the group. Unfused: autograd's second order
+        through the gather (whose backward is differentiable), each
+        rank's share n_tp times its own (the gather's backward sums n_tp
+        equal cotangents), averaged over the group. The step's
+        reduction then holds (:func:`~raw_ngp_torch.parallel.mesh.
+        make_reduce`): the replicated leaves get the single device's
+        gradient, the shard n_tp times its own."""
+        spec = self.spec
+        cfg, n_tp, group = spec.cfg, spec.tp_devices, spec.tp_group
         x = x.detach()
         if not cfg.model.fused_encoder:
             x.requires_grad_(True)
             sigma = self.density(x, plain=plain, annealing=annealing)
-            return torch.autograd.grad(sigma.sum(), x, create_graph=True)[0]
+            g = torch.autograd.grad(sigma.sum(), x, create_graph=True)[0]
+            if n_tp > 1:
+                g = ptp.sum_over_tp(g, group, n_tp, scale=1.0 / n_tp)
+            return g
         x01 = self._x01(x)
-        dtype = self.spec.compute_dtype
+        dtype = spec.compute_dtype
+        gs = spec.grid_spec
+        if n_tp > 1:
+            gs = ptp.local_grid_spec(gs, n_tp)
         f = (hash_encode_plain if plain else hash_encode)(
-            self.grid, x01, self.spec.grid_spec, compute_dtype=dtype)
+            self.grid, x01, gs, compute_dtype=dtype)
         if not f.requires_grad:   # a field whose table takes no gradient
             f.requires_grad_(True)
+        if n_tp > 1:
+            f = ptp.gather_channels(f, gs.num_levels, group, n_tp)
         sigma, _ = self._head(f, annealing)
         (g,) = torch.autograd.grad(sigma.sum(), f, create_graph=True)
-        g01 = frozen_input_grad(self.grid, x01, g, self.spec.grid_spec,
-                                dtype, plain=plain)
+        if n_tp > 1:
+            g = ptp.split_channels(g, gs.num_levels, group, n_tp)
+        g01 = frozen_input_grad(self.grid, x01, g, gs, dtype, plain=plain)
+        if n_tp > 1:
+            g01 = ptp.sum_over_tp(g01, group, n_tp)
         return g01 / (2.0 * cfg.grid_bound)
 
     def forward(self, x, d, ld=None, plain: bool = False, annealing=1.0):

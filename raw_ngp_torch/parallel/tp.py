@@ -19,6 +19,16 @@ The MLPs are small and replicated, their work done again on every rank of
 a row. Only the dp index picks a rank's rays (its batch stream), so the
 ranks of a row render the same rays.
 
+The orientation loss differentiates the density's position gradient a
+second time, so the gather's backward is itself differentiable
+(:class:`_ReduceScatterChannels`, whose backward is the all-gather), and
+two more collectives carry its inner gradient: :func:`split_channels`
+(this rank's channels of a replicated [B, L*C]) and :func:`sum_over_tp`
+(the ranks' shares of d sum(sigma) / dx added in rank order). With
+them every rank computes the single device's loss and the step's
+reduction gives the single device's gradient
+(:meth:`raw_ngp_torch.models.ngp.NGPField.density_grad`).
+
 Only the table, its EMA and its two Adam moments shard (``SHARDED``);
 everything else is replicated. Checkpoints hold the whole flat table
 (:func:`gather_table` on the way out, :func:`shard_of` on the way in), so a
@@ -126,8 +136,8 @@ def place_state_tp(field, state, mesh: Mesh):
 class _GatherChannels(torch.autograd.Function):
     """[B, L*c] shard features -> [B, L*c*n] whole ones over the tp group,
     rank j's block at channels [j*c, (j+1)*c) of every level; backward:
-    the j-th block of the cotangent summed over the group (in f32, exact
-    for a bf16 cotangent at any n below 2^16)."""
+    :class:`_ReduceScatterChannels` of the cotangent, itself differentiable
+    (the orientation loss differentiates this backward again)."""
 
     @staticmethod
     def forward(ctx, f, levels, group, n):
@@ -140,17 +150,90 @@ class _GatherChannels(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        B, L, n = g.shape[0], ctx.levels, ctx.n
-        gv = g.reshape(B, L, n, -1).float()
+        return (_ReduceScatterChannels.apply(g, ctx.levels, ctx.group, ctx.n),
+                None, None, None)
+
+
+class _ReduceScatterChannels(torch.autograd.Function):
+    """[B, L*c*n] -> [B, L*c]: the j-th channel block of every level summed
+    over the tp group (in f32, exact for a bf16 cotangent at any n below
+    2^16; JAX's ``psum_scatter``); backward: the all-gather."""
+
+    @staticmethod
+    def forward(ctx, g, levels, group, n):
+        B = g.shape[0]
+        gv = g.reshape(B, levels, n, -1).float()
         blocks = [gv[:, :, j].reshape(B, -1).contiguous() for j in range(n)]
         out = torch.empty_like(blocks[0])
-        dist.reduce_scatter(out, blocks, group=ctx.group)
-        return out.to(g.dtype), None, None, None
+        dist.reduce_scatter(out, blocks, group=group)
+        ctx.levels, ctx.group, ctx.n = levels, group, n
+        return out.to(g.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_GatherChannels.apply(ct, ctx.levels, ctx.group, ctx.n),
+                None, None, None)
+
+
+class _SplitChannels(torch.autograd.Function):
+    """[B, L*c*n] replicated over the tp group -> this rank's block of every
+    level, a contiguous [B, L*c]; backward: the all-gather of the ranks'
+    cotangents (each rank's block is its own rank's)."""
+
+    @staticmethod
+    def forward(ctx, t, levels, group, n):
+        B = t.shape[0]
+        ctx.levels, ctx.group, ctx.n = levels, group, n
+        j = dist.get_rank(group)
+        return t.reshape(B, levels, n, -1)[:, :, j].reshape(B, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_GatherChannels.apply(ct, ctx.levels, ctx.group, ctx.n),
+                None, None, None)
+
+
+class _SumOverTp(torch.autograd.Function):
+    """The ranks' partial tensors added in rank order (an all-gather, then
+    the sum: every rank holds the same bits), times ``scale``; backward:
+    the identity."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, scale):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out * scale if scale != 1.0 else out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None, None
 
 
 def gather_channels(f: torch.Tensor, levels: int, group, n: int):
-    """The all-gather of :class:`_GatherChannels` (differentiable)."""
+    """The all-gather of :class:`_GatherChannels` (differentiable, twice)."""
     return _GatherChannels.apply(f, levels, group, n)
+
+
+def split_channels(t: torch.Tensor, levels: int, group, n: int):
+    """This rank's channel block of every level of a replicated [B, L*C]
+    (the inverse of :func:`gather_channels`; :class:`_SplitChannels`)."""
+    return _SplitChannels.apply(t, levels, group, n)
+
+
+def sum_over_tp(t: torch.Tensor, group, n: int, scale: float = 1.0):
+    """The sum over the tp group of each rank's partial ``t``, added in rank
+    order so every rank holds the same bits, times ``scale``
+    (:class:`_SumOverTp`). Its backward is the identity: every rank
+    computes the same loss from the sum and the step's reduction takes
+    each replicated leaf's gradient as the single device's
+    (:func:`raw_ngp_torch.parallel.mesh.make_reduce`), so each partial
+    takes the sum's cotangent once. ``scale`` is 1 / n where each partial
+    is n times its share (the unfused second order: the gather's backward
+    summed n equal cotangents)."""
+    return _SumOverTp.apply(t, group, n, scale)
 
 
 def make_tp_train_step(cfg, spec, net_tx, num_rays: int, mesh: Mesh,

@@ -78,7 +78,8 @@ def batch_grads(cfg, blob, n_dp, n_tp):
     """The gradient of the fixed batch ``blob["batch"]`` (deterministic
     render, key None) on an (n_dp, n_tp) layout: each dp row takes its
     slice of the rays, the step's reduction (parallel.mesh.make_reduce)
-    averages; the table's gradient gathered whole. -> {name: array}."""
+    averages; the table's gradient gathered whole. -> {name: array}, and
+    under the orientation loss its term ("orientation_loss")."""
     from raw_ngp_torch.parallel.mesh import make_mesh, make_reduce
     from raw_ngp_torch.parallel.tp import gather_table, make_tp_mesh
     from raw_ngp_torch.train.trainer import make_batch_loss_fn
@@ -88,15 +89,66 @@ def batch_grads(cfg, blob, n_dp, n_tp):
     s = slice(mesh.dp_rank * n // n_dp, (mesh.dp_rank + 1) * n // n_dp)
     batch = {k: v[s] for k, v in blob["batch"].items()}
     state = SimpleNamespace(density_bitfield=blob["bits"])
-    loss, aux = make_batch_loss_fn(cfg, spec)(field, state, batch,
-                                              blob["aabb"], None)
+    orient = []
+    with _recorded_orientation(orient), given_march(blob.get("march"), s):
+        loss, aux = make_batch_loss_fn(cfg, spec)(field, state, batch,
+                                                  blob["aabb"], None)
     loss.backward()
     grads = {k: p.grad for k, p in field.named_parameters()
              if p.grad is not None}
     grads, _, loss, aux, ok = make_reduce(mesh)(grads, None, loss, aux)
     if n_tp > 1:
         grads["grid"] = gather_table(grads["grid"], spec.grid_spec, mesh)
-    return {k: _np(g) for k, g in grads.items()}
+    out = {k: _np(g) for k, g in grads.items()}
+    if orient:
+        out["orientation_loss"] = float(orient[0])
+    return out
+
+
+class given_march:
+    """While active, the occupancy march returns the rows ``rows`` of the
+    captured march ``march`` (a dict of [N, K] tensors) in place of its
+    own; inactive where ``march`` is None."""
+
+    def __init__(self, march, rows):
+        self.march, self.rows = march, rows
+
+    def __enter__(self):
+        from raw_ngp_torch.render import occupancy
+        self.orig = occupancy.march_rays
+        if self.march is not None:
+            part = {k: v[self.rows] for k, v in self.march.items()}
+            occupancy.march_rays = lambda *args, **kwargs: dict(part)
+        return self
+
+    def __exit__(self, *exc):
+        from raw_ngp_torch.render import occupancy
+        occupancy.march_rays = self.orig
+
+
+class _recorded_orientation:
+    """While active, the orientation loss of each training render is
+    appended to ``values`` (train.trainer.render_any wrapped)."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        from raw_ngp_torch.train import trainer
+        self.orig = render_any = trainer.render_any
+
+        def wrapped(*args, **kwargs):
+            out = render_any(*args, **kwargs)
+            if "orientation_loss" in out:
+                self.values.append(out["orientation_loss"].detach())
+            return out
+
+        trainer.render_any = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from raw_ngp_torch.train import trainer
+        trainer.render_any = self.orig
 
 
 def pose_grads(cfg, blob, n_tp):
@@ -182,20 +234,24 @@ def state_arrays(tr):
 def trainer_run(cfg, scene_args, workspace, steps):
     """A Trainer on the layout cfg.parallel names: ``steps`` steps, a
     render of the first val view, a checkpoint; -> (state arrays, the
-    point budget a rank renders under, the global base budget, the loss,
-    the render, the checkpoint's path)."""
+    point budget a rank renders under, the global base budget, the last
+    loss and every step's, each step's orientation term (none without
+    it), the render, the checkpoint's path)."""
     from raw_ngp_torch.data import make_synthetic_scene
     from raw_ngp_torch.train.trainer import Trainer
     train_s, val_s = make_synthetic_scene(**scene_args)
     tr = Trainer(cfg, train_s, val_s, device="cpu", workspace=workspace)
     assert tr.n_dp * tr.n_tp == dist.get_world_size()
-    for _ in range(steps):
-        metrics = tr.step()
+    orient = []
+    with _recorded_orientation(orient):
+        losses = [float(tr.step()["loss"]) for _ in range(steps)]
     rgb, depth = tr.render_image(val_s.poses[0])
     path = tr.save_checkpoint()
     return {"state": state_arrays(tr), "local_budget": tr.local_point_budget(),
             "base_budget": tr.base_point_budget(),
-            "loss": float(metrics["loss"]), "rgb": rgb, "depth": depth,
+            "loss": losses[-1], "losses": losses,
+            "orientation": [float(o) for o in orient], "rgb": rgb,
+            "depth": depth,
             "ckpt": path, "n_dp": tr.n_dp, "n_tp": tr.n_tp,
             "grid_shape": tuple(tr.field.grid.shape)}
 
