@@ -207,6 +207,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
               CDF with dt_gamma 1/128 and cdf_floor 0.05, contraction,
               compact_ratio 0); the step's stages and profile, and the
               repro check of phase 7;
+ 13b. exr  — the light-stage preset trained from EXR captures on disk,
+              read without imageio or cv2: Config().with_preset_lightstage()
+              with rfield (capture_config) on a capture folder
+              (write_capture_folder): the COLMAP model of 9 views x 4
+              LEDs (make_rfield_grid_scene), raw/img_VVV_lL.exr each an
+              RGGB mosaic at 256x256 as one HALF channel with ZIP
+              compression (write_exr, OpenEXR's layout), mask/img_VVV.png
+              and led_positions.txt; loaded by load_scene at 128x128 (the
+              float area resize), the load timed by stage (COLMAP parse,
+              EXR decode, the rest of load_hdr_image, near/far), every
+              decode bit for bit the written halves as float32, the light
+              directions the scene's; 128 steps with every launch counter
+              reset just before and read just after: the fold, the forward
+              with records and B2's flat form launched as in the O phase
+              (128, 128, 2,048; the dense level never); finite falling
+              losses, the HDR val PSNR (EMA) above the untrained field's,
+              the repro check; the EXR decode of one 4032 x 3024 frame
+              from --seed in seconds a megapixel;
+ 13c. dng  — the same preset without rfield and with clip off (black and
+              white from each capture's .json sidecar) on the same
+              captures at 0.3 of their brightness (DNG_BRIGHTNESS: a raw
+              camera's headroom; at full brightness the preset without
+              rfield freezes, port_tools/lightstage_freeze_probe.py) as
+              DNG files (write_dng: an 8-bit thumbnail in IFD0,
+              the 14-bit counts in a SubIFD, lossless JPEG tiles of 256 x
+              256 for half the captures, uncompressed for the rest), read
+              without rawpy: the checks of 13b with the decodes bit for bit
+              the counts (its Trainer reuses 13b's mark_untrained grid:
+              the same cameras); the lossless JPEG decode of one 4032 x
+              3024 frame by route (C++; C++ and Python on a 1,024 x 1,024
+              crop, bit for bit alike);
  14. encode_jvp — the encode's input gradient differentiated in its
               cotangent g (encode_input_jvp, the orientation loss's
               second-order term) on the -O grid (16 x 2, xor), its C = 1
@@ -344,8 +375,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 The train, pose, lightstage and proposal phases also count the encode's
 launches by caller (train forwards, grid refresh chunks, evaluation).
 It prints `render`, `train`, `disk`, `jpeg`, `pose`, `lightstage`,
-`proposal`, `O`, `reg`, `unfused` (the disk and jpeg lines and the last
-five with the card's name and power limit),
+`proposal`, `O`, `exr`, `dng`, `reg`, `unfused` (the disk, jpeg, exr and
+dng lines and the last five with the card's name and power limit),
 `pose_recovery`, `cli`, `multi` (with the card's name and power limit),
 `hdr` (with the card's name and power limit), `host`, `tools`,
 `table_grad` and `kernels` JSON lines (each kernel's
@@ -354,6 +385,7 @@ says whether it ran there; `launches_O` and `O_launched` the -O
 phase's, its launches in one chunk of the normal render ride as
 `launches_O_normal_render_chunk`, the other phases' counts beside them,
 `launches_disk` the disk phase's, `launches_jpeg` the jpeg phase's,
+`launches_exr` and `launches_dng` the exr and dng phases',
 `launches_cli` the cli phase's,
 `launches_hdr` the hdr phase's 128 steps, `launches_tools_quality_run`
 the tools phase's quality_run,
@@ -2233,16 +2265,21 @@ def phase_train(dev, cfg, steps=128, timed=32, repro=32):
 
 
 def write_colmap_scene(root, images, poses, intrinsics, step=2,
-                       image_format="png", quality=95):
+                       image_format="png", quality=95, names=None,
+                       units=1.0, size=None):
     """Writes a scene (images [n, H, W, 3] in [0, 1], OpenGL cam2world
     poses [n, 4, 4], intrinsics [4]) as a COLMAP dataset with the port's
     writers: sparse/0/cameras.bin (one PINHOLE camera), images.bin (the
     OpenCV-convention world-to-camera poses, tests/test_providers.py's
     construction), points3D.bin (the first surface point of the synthetic
     spheres on the ray of every `step`-th pixel of each image, observed by
-    that image alone at that pixel) and images/img_XXX.<image_format> (8
+    that image alone at that pixel) and images/<name>.<image_format> (8
     bits, round(255 img); "png", or "jpg" at `quality` as cv2.imwrite
-    writes it). Returns the number of points."""
+    writes it; None writes no images, and `images` may be None with
+    `size` (H, W) given). `names` are the images' stems (default
+    img_XXX); `units` scales the world (camera centres and points), so a
+    loader's data.scale of 1 / units gives back the scene's own units.
+    Returns the number of points."""
     import os
     import numpy as np
     from raw_ngp_torch.data.colmap_io import (ColmapCamera, ColmapImage,
@@ -2253,11 +2290,15 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2,
     from raw_ngp_torch.data.image_io import write_png
     from raw_ngp_torch.data.jpeg import write_jpeg
     from raw_ngp_torch.data.synthetic import _trace
-    if image_format not in ("png", "jpg"):
-        raise ValueError(f"image_format {image_format!r}: png or jpg")
-    n, H, W, _ = images.shape
+    if image_format not in ("png", "jpg", None):
+        raise ValueError(f"image_format {image_format!r}: png, jpg or None")
+    n = len(poses)
+    H, W = images.shape[1:3] if size is None else size
+    if names is None:
+        names = [f"img_{i:03d}" for i in range(n)]
     os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
-    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    if image_format is not None:
+        os.makedirs(os.path.join(root, "images"), exist_ok=True)
     fx, fy, cx, cy = (float(v) for v in intrinsics)
     write_cameras_binary({1: ColmapCamera(1, "PINHOLE", W, H,
                                           np.array([fx, fy, cx, cy]))},
@@ -2279,13 +2320,17 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2,
                                  )[:, None]
         ids = np.arange(len(pts) + 1, len(pts) + 1 + hit.sum())
         for k, p in zip(ids, xyz):
-            pts[int(k)] = ColmapPoint3D(int(k), p, np.zeros(3), 0.5)
-        w2c = np.linalg.inv(c2w @ np.diag([1.0, -1.0, -1.0, 1.0]))
+            pts[int(k)] = ColmapPoint3D(int(k), p * units, np.zeros(3), 0.5)
+        c2w_u = c2w.copy()
+        c2w_u[:3, 3] *= units
+        w2c = np.linalg.inv(c2w_u @ np.diag([1.0, -1.0, -1.0, 1.0]))
         xys = np.stack([cols[hit] + 0.5, rows[hit] + 0.5], -1)
-        name = f"img_{i:03d}.{image_format}"
+        name = f"{names[i]}.{image_format or 'png'}"
         ims[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(w2c[:3, :3]),
                                  w2c[:3, 3], 1, name, xys,
                                  ids.astype(np.int64))
+        if image_format is None:
+            continue
         pixels = np.round(images[i] * 255.0).astype(np.uint8)
         if image_format == "png":
             write_png(os.path.join(root, "images", name), pixels)
@@ -2297,6 +2342,317 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2,
     return len(pts)
 
 
+EXR_COMPRESSIONS = {"NONE": (0, 1), "RLE": (1, 1), "ZIPS": (2, 1),
+                    "ZIP": (3, 16)}
+EXR_PIXELS = {"HALF": (1, "<f2"), "FLOAT": (2, "<f4")}
+
+
+def _exr_predict(raw):
+    """The ZIP / RLE byte predictor of OpenEXR's writer: the even bytes,
+    then the odd ones, each byte stored as its difference with the one
+    before plus 128 (mod 256)."""
+    import numpy as np
+    t = np.concatenate([raw[0::2], raw[1::2]])
+    d = t.copy()
+    d[1:] = t[1:] - t[:-1] + np.uint8(128)
+    return d
+
+
+def _exr_rle(t):
+    """OpenEXR's run-length code of the bytes `t`: a run of 3 to 128 equal
+    bytes as (count - 1, byte), anything else as literals after -count."""
+    out = bytearray()
+    data = t.tobytes()
+    n, i = len(data), 0
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i - 1, data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 127 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([256 - (j - i)]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def write_exr(path, img, compression="ZIP", pixel="HALF", level=4):
+    """Writes a float [H, W] (one channel, "Y") or [H, W, 3] (R, G, B)
+    image as a single-part scanline OpenEXR file: `compression` NONE, RLE,
+    ZIPS or ZIP (zlib at `level`), `pixel` HALF or FLOAT, little-endian,
+    increasing y, the data window at the origin; a chunk that does not
+    shrink is stored raw, as OpenEXR's writer does. Returns the bytes
+    written."""
+    import struct
+    import zlib
+    import numpy as np
+    img = np.asarray(img, np.float32)
+    code, per = EXR_COMPRESSIONS[compression]
+    ptype, dtype = EXR_PIXELS[pixel]
+    H, W = img.shape[:2]
+    if img.ndim == 2:
+        channels = [("Y", img)]
+    else:
+        channels = [(c, img[..., "RGB".index(c)]) for c in "BGR"]
+    lines = np.concatenate([np.ascontiguousarray(ch.astype(dtype)).view(
+        np.uint8).reshape(H, -1) for _, ch in channels], 1)
+
+    def attr(name, kind, value):
+        return (name.encode() + b"\0" + kind.encode() + b"\0"
+                + struct.pack("<i", len(value)) + value)
+
+    chlist = b"".join(c.encode() + b"\0" + struct.pack("<iB3xii", ptype, 0,
+                                                        1, 1)
+                      for c, _ in channels) + b"\0"
+    window = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    header = (b"v/1\x01" + struct.pack("<I", 2)
+              + attr("channels", "chlist", chlist)
+              + attr("compression", "compression", bytes([code]))
+              + attr("dataWindow", "box2i", window)
+              + attr("displayWindow", "box2i", window)
+              + attr("lineOrder", "lineOrder", b"\0")
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\0")
+    chunks = []
+    for y in range(0, H, per):
+        raw = lines[y:y + per].reshape(-1)
+        packed = raw.tobytes()
+        if code == 1:
+            packed = _exr_rle(_exr_predict(raw))
+        elif code in (2, 3):
+            packed = zlib.compress(_exr_predict(raw).tobytes(), level)
+        if len(packed) >= raw.size:
+            packed = raw.tobytes()
+        chunks.append(struct.pack("<ii", y, len(packed)) + packed)
+    offsets, at = [], len(header) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(at)
+        at += len(c)
+    data = header + struct.pack(f"<{len(chunks)}Q", *offsets) + \
+        b"".join(chunks)
+    with open(path, "wb") as f:
+        f.write(data)
+    return data
+
+
+def huffman_table(counts):
+    """libjpeg's jpeg_gen_optimal_table (jchuff.c) for symbol counts [n
+    <= 256]: (bits [16], symbols) of a canonical Huffman table with no
+    code longer than 16 bits and no all-ones code."""
+    import numpy as np
+    freq = [int(c) for c in counts] + [0] * (257 - len(counts))
+    freq[256] = 1                     # reserves the all-ones code
+    codesize = [0] * 257
+    others = [-1] * 257
+    while True:
+        c1 = c2 = -1
+        v = v2 = 1 << 62
+        for i in range(257):
+            if freq[i] and freq[i] <= v:
+                v, c1 = freq[i], i
+        for i in range(257):
+            if freq[i] and freq[i] <= v2 and i != c1:
+                v2, c2 = freq[i], i
+        if c2 < 0:
+            break
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        codesize[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            codesize[c1] += 1
+        others[c1] = c2
+        codesize[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            codesize[c2] += 1
+    bits = [0] * 33
+    for i in range(257):
+        if codesize[i]:
+            bits[codesize[i]] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1                      # drops the reserved code
+    symbols = [s for length in range(1, 33) for s in range(256)
+               if codesize[s] == length]
+    return np.array(bits[1:17], np.uint8), bytes(symbols)
+
+
+def _bit_length_table():
+    import numpy as np
+    return np.array([int(i).bit_length() for i in range(1 << 16)],
+                    np.int64)
+
+
+def lj92_encode_tiles(raw, tile=256, precision=16):
+    """Lossless JPEG (T.81 process 14) streams of the `tile` x `tile`
+    tiles of a uint16 mosaic [H, W] (row-major tiles; edge tiles padded
+    by repeating the last row and column), as DNG writers code them: two
+    components of tile / 2 samples a line, predictor 1, no point
+    transform, one Huffman table built from the mosaic's differences."""
+    import numpy as np
+    H, W = raw.shape
+    ty, tx = -(-H // tile), -(-W // tile)
+    full = np.pad(raw, ((0, ty * tile - H), (0, tx * tile - W)), "edge")
+    t = full.reshape(ty, tile, tx, tile).transpose(0, 2, 1, 3).astype(
+        np.int64)
+    pred = np.empty_like(t)
+    pred[..., 0, :2] = 1 << (precision - 1)
+    pred[..., 0, 2:] = t[..., 0, :-2]
+    pred[..., 1:, :2] = t[..., :-1, :2]
+    pred[..., 1:, 2:] = t[..., 1:, :-2]
+    d = ((t - pred + 32768) & 0xFFFF) - 32768
+    cat = _bit_length_table()[np.abs(d)]
+    # SSSS 16 is 32768 and carries no extra bits
+    n_extra = np.where(cat == 16, 0, cat)
+    extra = np.where(d >= 0, d, d + (1 << cat) - 1) & ((1 << n_extra) - 1)
+    bits, symbols = huffman_table(np.bincount(cat.reshape(-1),
+                                              minlength=17))
+    code = np.zeros(17, np.int64)
+    size = np.zeros(17, np.int64)
+    c, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code[symbols[k]], size[symbols[k]] = c, length
+            c, k = c + 1, k + 1
+        c <<= 1
+    word = (code[cat] << n_extra) | extra
+    nbits = size[cat] + n_extra
+    dht = bytes([0]) + bits.tobytes() + symbols
+    half = tile // 2
+    head = (b"\xff\xd8" + b"\xff\xc4" + (2 + len(dht)).to_bytes(2, "big")
+            + dht + b"\xff\xc3" + (8 + 6).to_bytes(2, "big")
+            + bytes([precision]) + tile.to_bytes(2, "big")
+            + half.to_bytes(2, "big") + bytes([2, 1, 0x11, 0, 2, 0x11, 0])
+            + b"\xff\xda" + (6 + 4).to_bytes(2, "big")
+            + bytes([2, 1, 0, 2, 0, 1, 0, 0]))
+    streams = []
+    for w, n in zip(word.reshape(ty * tx, -1), nbits.reshape(ty * tx, -1)):
+        total = int(n.sum())
+        start = np.cumsum(n) - n
+        owner = np.repeat(np.arange(len(n)), n)
+        k = np.arange(total) - start[owner]
+        stream = (w[owner] >> (n[owner] - 1 - k)) & 1
+        stream = np.concatenate([stream, np.ones(-total % 8, np.int64)])
+        packed = np.packbits(stream.astype(np.uint8))
+        ff = np.flatnonzero(packed == 0xFF)
+        packed = np.insert(packed, ff + 1, 0)
+        streams.append(head + packed.tobytes() + b"\xff\xd9")
+    return streams
+
+
+def _tiff_ifd(entries, offset, bo="<"):
+    """One TIFF IFD at `offset`: entries (tag, type, values) sorted by
+    tag, values of more than 4 bytes placed after the IFD; next IFD 0.
+    Types 1 BYTE, 2 ASCII (values a bytes string), 3 SHORT, 4 LONG, 5
+    RATIONAL and 10 SRATIONAL (values (num, den) pairs flattened)."""
+    import struct
+    codes = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 10: "i"}
+    per = {1: 1, 2: 1, 3: 1, 4: 1, 5: 2, 10: 2}
+    entries = sorted(entries)
+    extra_at = offset + 2 + 12 * len(entries) + 4
+    body, extra = b"", b""
+    for tag, kind, values in entries:
+        values = list(values)
+        payload = struct.pack(f"{bo}{len(values)}{codes[kind]}", *values)
+        count = len(values) // per[kind]
+        if len(payload) <= 4:
+            field = payload.ljust(4, b"\0")
+        else:
+            field = struct.pack(bo + "I", extra_at + len(extra))
+            extra += payload + b"\0" * (len(payload) % 2)
+        body += struct.pack(bo + "HHI", tag, kind, count) + field
+    return (struct.pack(bo + "H", len(entries)) + body
+            + struct.pack(bo + "I", 0) + extra)
+
+
+def write_dng(path, raw, compression="lj92", black=0, white=65535,
+              color_matrix=None, neutral=(1.0, 1.0, 1.0), tile=256):
+    """Writes a uint16 RGGB mosaic [H, W] as a DNG 1.4 file laid out as
+    cameras write them: IFD0 an 8-bit RGB thumbnail (NewSubFileType 1, a
+    quarter of the size, every 4th pixel of the mosaic's green sites
+    scaled to 8 bits), its SubIFD the raw (NewSubFileType 0, CFA, 16
+    bits, BlackLevel and WhiteLevel), `compression` "none" (one strip) or
+    "lj92" (`tile` x `tile` lossless JPEG tiles, lj92_encode_tiles).
+    Little-endian. Returns the bytes written."""
+    import numpy as np
+    raw = np.ascontiguousarray(raw, np.uint16)
+    H, W = raw.shape
+    cm = np.eye(3) if color_matrix is None else np.asarray(color_matrix)
+    thumb = (raw[1::4, 0::4].astype(np.float64) * (255.0 / 65535.0))
+    thumb = np.round(thumb).astype(np.uint8)
+    thumb = np.repeat(thumb[..., None], 3, -1)
+    th, tw = thumb.shape[:2]
+    if compression == "lj92":
+        blocks = lj92_encode_tiles(raw, tile)
+        layout = [(322, 4, [tile]), (323, 4, [tile])]
+    elif compression == "none":
+        blocks = [raw.astype("<u2").tobytes()]
+        layout = [(278, 4, [H])]
+    else:
+        raise ValueError(f"compression {compression!r}: none or lj92")
+    srat = [v for x in cm.reshape(-1) for v in (int(round(x * 10000)),
+                                                10000)]
+    rat = [v for x in neutral for v in (int(round(x * 10000)), 10000)]
+    ifd0 = [(254, 4, [1]), (256, 4, [tw]), (257, 4, [th]),
+            (258, 3, [8, 8, 8]), (259, 3, [1]), (262, 3, [2]),
+            (273, 4, [0]), (277, 3, [3]), (278, 4, [th]),
+            (279, 4, [thumb.size]), (284, 3, [1]), (330, 4, [0]),
+            (50706, 1, [1, 4, 0, 0]), (50707, 1, [1, 1, 0, 0]),
+            (50708, 2, list(b"raw_ngp synthetic\0")),
+            (50721, 10, srat), (50722, 10, srat), (50728, 5, rat),
+            (50778, 3, [21])]
+    offsets_tag, counts_tag = (324, 325) if compression == "lj92" else \
+        (273, 279)
+    sub = [(254, 4, [0]), (256, 4, [W]), (257, 4, [H]), (258, 3, [16]),
+           (259, 3, [7 if compression == "lj92" else 1]),
+           (262, 3, [32803]), (277, 3, [1]), (284, 3, [1]),
+           (33421, 3, [2, 2]), (33422, 1, [0, 1, 1, 2]),
+           (50714, 4, [int(black)]), (50717, 4, [int(white)]),
+           (offsets_tag, 4, [0] * len(blocks)),
+           (counts_tag, 4, [len(b) for b in blocks])] + layout
+    # sizes do not depend on the offsets: lay out once, then fill them in
+    at0 = 8
+    size0 = len(_tiff_ifd(ifd0, at0))
+    at1 = at0 + size0
+    size1 = len(_tiff_ifd(sub, at1))
+    data_at = at1 + size1
+    thumb_at = data_at
+    block_at = []
+    at = thumb_at + thumb.size
+    for b in blocks:
+        at += at % 2
+        block_at.append(at)
+        at += len(b)
+    ifd0 = [(t, k, [thumb_at] if t == 273 else [at1] if t == 330 else v)
+            for t, k, v in ifd0]
+    sub = [(t, k, block_at if t == offsets_tag else v) for t, k, v in sub]
+    out = bytearray(b"II*\0" + (8).to_bytes(4, "little"))
+    out += _tiff_ifd(ifd0, at0) + _tiff_ifd(sub, at1) + thumb.tobytes()
+    for b, where in zip(blocks, block_at):
+        out += b"\0" * (where - len(out)) + b
+    with open(path, "wb") as f:
+        f.write(out)
+    return bytes(out)
+
+
 class timed_calls:
     """While active, each call of the targeted functions (module or class
     attributes, given as (stage, owner, attribute name)) is timed on the
@@ -2305,6 +2661,7 @@ class timed_calls:
     def __init__(self, targets):
         self.targets = targets
         self.calls = []
+        self.first_args = []
 
     def __enter__(self):
         self.saved = []
@@ -2319,6 +2676,7 @@ class timed_calls:
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             self.calls.append((stage, time.perf_counter() - t0, out))
+            self.first_args.append(args[0] if args else None)
             return out
         return call
 
@@ -2341,14 +2699,24 @@ LOAD_STAGES = {"colmap_parse": ("providers", ("read_cameras_binary",
                "near_far": ("providers", ("sparse_depth_near_far",))}
 
 
-def timed_load_stages():
+# the HDR loads' stages: the decode of each capture (EXR or DNG) and the
+# whole of load_hdr_image, which holds it (levels, demosaic, resize, mask)
+HDR_LOAD_STAGES = {"colmap_parse": LOAD_STAGES["colmap_parse"],
+                   "decode": ("image_io", ("load_exr_image",
+                                           "load_dng_raw")),
+                   "hdr_image": ("image_io", ("load_hdr_image",)),
+                   "near_far": LOAD_STAGES["near_far"]}
+
+
+def timed_load_stages(stages=LOAD_STAGES):
     """While active, the COLMAP loader's stages are timed: the binary
     parses (colmap_io readers), the image decodes (image_io.load_ldr_image:
     PNG decode, and resize where the size differs) and the sparse-depth
-    near/far (timed_calls: `totals()` sums each stage's calls)."""
+    near/far (timed_calls: `totals()` sums each stage's calls), or the
+    stages of `stages`."""
     import importlib
     targets = []
-    for stage, (module, names) in LOAD_STAGES.items():
+    for stage, (module, names) in stages.items():
         mod = importlib.import_module(f"raw_ngp_torch.data.{module}")
         targets += [(stage, mod, name) for name in names]
     return timed_calls(targets)
@@ -3728,6 +4096,362 @@ def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[O] phase took {out['phase_s']:.1f} s")
     return launches, chunk_launches, out
+
+
+# the light-stage captures of the exr and dng phases: a ring of views, each
+# under each LED, rendered at twice the training size
+CAPTURE_VIEWS, CAPTURE_LEDS, CAPTURE_SIZE = 9, 4, 128
+# the DNG captures' 14-bit levels and their exiftool-style sidecar; the
+# captures are written at DNG_BRIGHTNESS of the scene's linear values, the
+# headroom a raw camera keeps below its white level (the brightest pixels
+# near 0.26 of it): at full brightness the preset without rfield freezes
+# in its first steps, every hit ray past the RawNeRF clip where the loss
+# has no gradient (port_tools/lightstage_freeze_probe.py)
+DNG_BLACK, DNG_WHITE, DNG_BRIGHTNESS = 512, 16383, 0.3
+DNG_EXIF = {"AsShotNeutral": "0.4521 1 0.6738",
+            "ColorMatrix2": "0.6722 -0.0635 -0.0963 -0.4287 1.2460 0.2028 "
+                            "-0.0908 0.2162 0.5668",
+            "BlackLevel": DNG_BLACK, "WhiteLevel": DNG_WHITE}
+CAPTURE_KERNELS = ("decimate_compact", "hash_encode", "hash_encode_records",
+                   "segment_grad_outer")
+
+
+def capture_scene(n_views=CAPTURE_VIEWS, n_leds=CAPTURE_LEDS,
+                  size=CAPTURE_SIZE):
+    """The light-stage capture set: make_rfield_grid_scene's ring of
+    `n_views` cameras (radius 2.2, the textured spheres), each under
+    `n_leds` spiral LEDs, rendered at twice `size`. Returns (images [V *
+    L, 2 size, 2 size, 3] view by view, their poses, the intrinsics at
+    `size`, the LEDs' light directions [L, 3])."""
+    from raw_ngp_torch.data import make_rfield_grid_scene
+    train, _ = make_rfield_grid_scene(n_views=n_views, n_lights=n_leds,
+                                      n_heldout_lights=1, n_val_views=1,
+                                      H=2 * size, W=2 * size)
+    return (train.images, train.poses, train.intrinsics / 2.0,
+            train.ldirs[:n_leds])
+
+
+def rggb(img):
+    """The RGGB Bayer mosaic [H, W] of an RGB image [H, W, 3]."""
+    import numpy as np
+    m = np.empty(img.shape[:2], np.float32)
+    m[0::2, 0::2] = img[0::2, 0::2, 0]
+    m[0::2, 1::2] = img[0::2, 1::2, 1]
+    m[1::2, 0::2] = img[1::2, 0::2, 1]
+    m[1::2, 1::2] = img[1::2, 1::2, 2]
+    return m
+
+
+def led_positions(ldirs):
+    """LED positions whose load_light_dirs are `ldirs` (unit, pointing at
+    the scene): -d for each LED, and one LED more at the directions' sum,
+    which puts the rig's centre of mass at the origin (no capture uses
+    it)."""
+    import numpy as np
+    d = np.asarray(ldirs, np.float64)
+    return np.concatenate([-d, d.sum(0, keepdims=True)])
+
+
+def write_capture_folder(root, kind, images, poses, intrinsics, ldirs):
+    """Writes a light-stage capture folder at `root`: the COLMAP model
+    (write_colmap_scene: one image a capture, named img_VVV_lL, the world
+    at half scale so that the preset's data.scale 2 gives back the scene's
+    units; no LDR images), mask/img_VVV.png (the view's surface pixels at
+    the training size), led_positions.txt (led_positions) and
+    raw/img_VVV_lL.<kind>: "exr" the capture's RGGB mosaic as one HALF
+    channel with ZIP compression (write_exr); "dng" its 14-bit counts
+    (DNG_BLACK + mosaic (DNG_WHITE - DNG_BLACK), rounded) in a DNG
+    (write_dng: lossless JPEG tiles for the even captures, uncompressed
+    for the odd ones) with a .json sidecar (DNG_EXIF). Returns {capture
+    path: the float32 array its reader must give}."""
+    import json
+    import numpy as np
+    from raw_ngp_torch.data.image_io import write_png
+    from raw_ngp_torch.data.reflectance import write_light_dirs_calibration
+    n_leds = len(ldirs)
+    size = images.shape[1] // 2
+    names = [f"img_{i // n_leds:03d}_l{i % n_leds}"
+             for i in range(len(images))]
+    write_colmap_scene(str(root), None, poses, intrinsics, image_format=None,
+                       names=names, units=0.5, size=(size, size))
+    for sub in ("raw", "mask"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    write_light_dirs_calibration(os.path.join(root, "led_positions.txt"),
+                                 led_positions(ldirs))
+    matrix = np.array(DNG_EXIF["ColorMatrix2"].split(), float).reshape(3, 3)
+    neutral = [float(v) for v in DNG_EXIF["AsShotNeutral"].split()]
+    written = {}
+    for i, name in enumerate(names):
+        mosaic = rggb(images[i])
+        if i % n_leds == 0:
+            hit = (images[i].max(-1) > 0).reshape(size, 2, size, 2)
+            write_png(os.path.join(root, "mask", name.split("_l")[0]
+                                   + ".png"),
+                      hit.any((1, 3)).astype(np.uint8) * 255)
+        path = os.path.join(root, "raw", f"{name}.{kind}")
+        if kind == "exr":
+            write_exr(path, mosaic, "ZIP", "HALF")
+            written[path] = mosaic.astype(np.float16).astype(np.float32)
+            continue
+        counts = np.clip(np.round(DNG_BLACK + mosaic * (DNG_WHITE
+                                                        - DNG_BLACK)),
+                         0, 65535).astype(np.uint16)
+        write_dng(path, counts, "lj92" if i % 2 == 0 else "none",
+                  DNG_BLACK, DNG_WHITE, matrix, neutral)
+        with open(os.path.join(root, "raw", f"{name}.json"), "w") as f:
+            json.dump([dict(DNG_EXIF, SourceFile=f"{name}.dng")], f)
+        written[path] = counts.astype(np.float32)
+    return written
+
+
+def capture_config(root, kind):
+    """The light-stage preset, Config().with_preset_lightstage() (the -O
+    grid and span march, HDR, clamped_exp, COLMAP, masked, data.scale 2,
+    clip), on the capture folder at `root`: "exr" with rfield (each
+    capture's light direction from its _l<led> name and
+    led_positions.txt); "dng" without rfield and with clip off, so black
+    and white come from each capture's .json sidecar."""
+    from raw_ngp_torch import Config
+    cfg = Config().with_preset_lightstage()
+    data, model = replace(cfg.data, path=str(root)), cfg.model
+    if kind == "exr":
+        model = replace(model, rfield=True)
+    else:
+        data = replace(data, clip=False)
+    return replace(cfg, data=data, model=model).validate()
+
+
+def raw_frame(seed, H=3024, W=4032):
+    """A camera-sized 14-bit mosaic of counts [H, W] drawn from `seed`: a
+    random field at 1/32 of the size enlarged by resize_area (smooth
+    shading) plus N(0, 30) noise, between DNG_BLACK and DNG_WHITE."""
+    import numpy as np
+    from raw_ngp_torch.data.image_io import resize_area
+    rng = np.random.default_rng(seed)
+    field = rng.random((H // 32, W // 32)).astype(np.float32)
+    img = resize_area(field, H, W) * (0.9 * (DNG_WHITE - DNG_BLACK)) \
+        + DNG_BLACK + rng.normal(0, 30, (H, W))
+    return np.clip(np.round(img), DNG_BLACK, DNG_WHITE).astype(np.uint16)
+
+
+def capture_host_timings(kind, seed, crop=1024):
+    """The decode of one 4032 x 3024 capture (raw_frame(seed)) on the host
+    clock, in seconds a megapixel: "exr" its levels as one HALF channel
+    with ZIP compression (read_exr; the samples bit for bit float16's);
+    "dng" its counts in lossless JPEG tiles (read_dng_raw by route: C++ on
+    the whole frame, and C++ and Python on its `crop` x `crop` corner, a
+    second file; the samples bit for bit the counts, the routes alike)."""
+    import numpy as np
+    from raw_ngp_torch.data.dng import read_dng_raw
+    from raw_ngp_torch.data.exr import read_exr
+    from raw_ngp_torch.kernels import _build
+    counts = raw_frame(seed)
+    mp = counts.size / 1e6
+    root = _build.BUILD_DIR.parent / f"{kind}_frame"
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"frame": f"raw_frame(seed={seed}): {counts.shape[1]}x"
+                    f"{counts.shape[0]} RGGB, 14-bit counts",
+           "megapixels": mp}
+    try:
+        if kind == "exr":
+            levels = ((counts.astype(np.float32) - DNG_BLACK)
+                      / np.float32(DNG_WHITE - DNG_BLACK))
+            path = str(root / "frame.exr")
+            t0 = time.perf_counter()
+            data = write_exr(path, levels, "ZIP", "HALF")
+            out["write_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = read_exr(path)
+            out["decode_s_per_megapixel"] = (time.perf_counter() - t0) / mp
+            out["bytes"] = len(data)
+            check(same_bits_np(got, levels.astype(np.float16).astype(
+                np.float32)), "exr: the frame's decode differs")
+        else:
+            path, small = str(root / "frame.dng"), str(root / "crop.dng")
+            part = np.ascontiguousarray(counts[:crop, :crop])
+            t0 = time.perf_counter()
+            data = write_dng(path, counts, "lj92", DNG_BLACK, DNG_WHITE)
+            out["write_s"] = time.perf_counter() - t0
+            out["bytes"] = len(data)
+            write_dng(small, part, "lj92", DNG_BLACK, DNG_WHITE)
+            t0 = time.perf_counter()
+            got = read_dng_raw(path, "native")
+            native_s = time.perf_counter() - t0
+            check(same_bits_np(got, counts), "dng: the frame's decode "
+                                             "differs from its counts")
+            by_route = {}
+            for route in ("native", "python"):
+                t0 = time.perf_counter()
+                by_route[route] = read_dng_raw(small, route)
+                out[f"crop_{route}_s_per_megapixel"] = \
+                    (time.perf_counter() - t0) / (part.size / 1e6)
+            check(same_bits_np(by_route["native"], by_route["python"])
+                  and same_bits_np(by_route["python"], part),
+                  "dng: the C++ and Python routes decode the crop "
+                  "differently")
+            out.update(native_s_per_megapixel=native_s / mp,
+                       crop=f"{crop}x{crop}", routes_bitwise=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[{kind}] host {json.dumps(out)}")
+    return out
+
+
+def phase_capture(dev, kind, o_launches, captures, seed=0, steps=128,
+                  timed=32, repro=32):
+    """The light-stage preset trained from a capture folder on disk, read
+    without imageio, cv2 or rawpy: the capture set (capture_scene) written
+    as a folder of `kind` "exr" or "dng" captures (write_capture_folder;
+    the DNG captures at DNG_BRIGHTNESS),
+    loaded by load_scene (capture_config; "train" and "val", every 8th
+    capture) with the load timed by stage, every decoded capture bit for
+    bit the written array before the loader's levels, demosaic, resize
+    and mask (EXR: the halves as float32; DNG: the counts), rfield's
+    light directions those of the scene; the val PSNR (EMA, HDR)
+    untrained; `steps` steps with every launch counter reset just before
+    and read just after: the fold, the forward with records once a step
+    and B2's flat form once a window level, as many as the O phase's
+    steps launched (`o_launches`), the dense level, the fold's backward,
+    the input gradient and the 2C totals never; finite falling losses;
+    the val PSNR above the untrained field's; the repro check over the
+    first `repro` steps; then capture_host_timings(kind, seed). The JPEG
+    library must build here for the DNG captures: no quiet fallback.
+    Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+    from raw_ngp_torch import native
+    from raw_ngp_torch.data import load_scene
+    from raw_ngp_torch.kernels import _build
+    from raw_ngp_torch.kernels import hash_encode as th
+    from raw_ngp_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    if kind == "dng":
+        check(native.jpeg_library() is not None,
+              "dng: the JPEG library (lossless JPEG decode) did not build")
+    images, poses, intrinsics, ldirs = captures
+    if kind == "dng":
+        images = images * DNG_BRIGHTNESS
+    size = images.shape[1] // 2
+    root = _build.BUILD_DIR.parent / f"{kind}_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        written = write_capture_folder(root, kind, images, poses,
+                                       intrinsics, ldirs)
+        write_s = time.perf_counter() - t0
+        cfg = capture_config(root, kind)
+        load, scenes, decoded = {}, {}, {}
+        for split in ("train", "val"):
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            with timed_load_stages(HDR_LOAD_STAGES) as stages:
+                scenes[split] = load_scene(cfg, split)
+            total = time.perf_counter() - t0
+            seconds = stages.totals()
+            seconds["hdr_chain"] = seconds.pop("hdr_image") \
+                - seconds["decode"]
+            seconds[f"{kind}_decode"] = seconds.pop("decode")
+            load[split] = dict(seconds, total=total,
+                               other=total - sum(seconds.values()))
+            for (stage, _, got), path in zip(stages.calls,
+                                             stages.first_args):
+                if stage == "decode":
+                    decoded[str(path)] = got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(sorted(decoded) == sorted(written),
+          f"{kind}: the loads decoded {len(decoded)} of the {len(written)} "
+          f"captures")
+    check(all(same_bits_np(decoded[p], written[p]) for p in written),
+          f"{kind}: a decoded capture is not bit for bit the written one")
+    train_d, val_d = scenes["train"], scenes["val"]
+    ids = np.arange(len(images))
+    want = {"train": np.setdiff1d(ids, ids[::8]), "val": ids[::8]}
+    for split, scene in scenes.items():
+        check(scene.images.shape == (len(want[split]), size, size, 3)
+              and scene.images.dtype == np.float32
+              and bool(np.isfinite(scene.images).all()),
+              f"{kind}: the {split} images are {scene.images.shape}")
+    ldir_err = None
+    if kind == "exr":
+        ref = ldirs[want["train"] % len(ldirs)]
+        ldir_err = float(np.abs(train_d.ldirs - ref).max())
+        check(ldir_err < 1e-6, f"{kind}: light directions off by "
+                               f"{ldir_err}")
+    pixels = sum(w.size for w in written.values())
+    decode_s = load["train"][f"{kind}_decode"] \
+        + load["val"][f"{kind}_decode"]
+    print(f"[{kind}] wrote {len(written)} captures of {2 * size}x"
+          f"{2 * size} in {write_s:.2f} s; loaded (s) {json.dumps(load)}; "
+          f"{kind.upper()} decode {decode_s / pixels * 1e6:.4f} s a "
+          f"megapixel; decodes bitwise the written arrays; light "
+          f"directions max err {ldir_err}")
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_d, val_d, device=dev,
+                 workspace=scratch_workspace())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec = tr.spec.grid_spec
+    n_windows = len(th.level_windows(spec, th.matmul_split(spec)))
+    psnr_0, _ = evaluate_counted(tr)
+    print(f"[{kind}] Trainer ready in {init_s:.2f} s; grid "
+          f"{spec.num_levels} x {spec.level_dim} {spec.hash_variant}, "
+          f"{n_windows} window levels; HDR val PSNR (EMA) untrained "
+          f"{psnr_0:.3f} dB over {val_d.n_images} captures")
+    snap = trainer_snapshot(tr)
+    launches, (first, last), step_ms, ref = run_steps(
+        tr, steps, CAPTURE_KERNELS, kind, capture_at=repro,
+        per_step={"decimate_compact": 1, "hash_encode_records": 1,
+                  "segment_grad_outer": n_windows})
+    same = {k: (launches[k], o_launches[k])
+            for k in ("decimate_compact", "hash_encode_records",
+                      "segment_grad_outer", "mm_grad_table")}
+    check(all(a == b for a, b in same.values()),
+          f"{kind}: launches differ from the O phase's {same}")
+    for name in ("mm_grad_table", "decimate_compact_bwd",
+                 "encode_input_grad", "segment_totals_channel"):
+        check(launches[name] == 0, f"{kind}: kernel {name} is off the path "
+                                   f"but launched {launches[name]} times")
+    window = step_ms[-timed:]
+    med = sorted(window)[timed // 2]
+    psnr, launches["hash_encode_by_caller"]["eval"] = evaluate_counted(tr)
+    print(f"[{kind}] last {timed} steps: median {med:.3f} ms/step; HDR val "
+          f"PSNR (EMA) {psnr_0:.3f} -> {psnr:.3f} dB")
+    check(bool(np.isfinite(psnr)) and psnr > psnr_0,
+          f"{kind}: val PSNR {psnr} did not rise above the untrained "
+          f"field's {psnr_0}")
+    out = {"config": "Config().with_preset_lightstage() (the -O grid 16 x "
+                     "2 xor log2 19, span march, HDR, clamped_exp, colmap, "
+                     "masked, scale 2) "
+                     + ("+ rfield, clip" if kind == "exr" else
+                        "with clip off (levels from the sidecars)"),
+           "captures": f"make_rfield_grid_scene: {CAPTURE_VIEWS} views x "
+                       f"{CAPTURE_LEDS} LEDs at {2 * size}x{2 * size}, "
+                       + ("RGGB mosaics as one HALF channel, ZIP" if kind
+                          == "exr" else f"14-bit RGGB counts at "
+                          f"{DNG_BRIGHTNESS} of the scene's brightness in "
+                          f"DNGs (LJ92 tiles and uncompressed) with .json "
+                          f"sidecars")
+                       + f", trained at {size}x{size}",
+           "gpu": gpu_line(), "write_s": write_s, "load_s": load,
+           f"{kind}_decode_s_per_megapixel": decode_s / pixels * 1e6,
+           "decodes_bitwise_written": True, "ldir_max_err": ldir_err,
+           "train_captures": train_d.n_images,
+           "val_captures": val_d.n_images, "trainer_init_s": init_s,
+           "steps": steps, "grid_refreshes": tr.host_grid_updates,
+           "num_rays": tr.num_rays, "ms_per_step": med,
+           "ms_per_step_runs": window, "val_psnr_ema_untrained": psnr_0,
+           "val_psnr_ema": psnr, "loss_first8": first, "loss_last8": last,
+           "launches_as_O_phase": same}
+    out["repro"] = repro_check(tr, snap, ref, repro, kind)
+    del tr
+    out["host"] = capture_host_timings(kind, seed)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{kind}] phase took {out['seconds']:.1f} s")
+    return launches, out
 
 
 def reg_config(fused=True):
@@ -5518,7 +6242,8 @@ def main() -> int:
              "this tree's, in one process (prints one `ab` line per TREE)")
     parser.add_argument(
         "--seed", type=int, default=0,
-        help="seed of the jpeg phase's 4032x3024 host-timing image")
+        help="seed of the jpeg, exr and dng phases' 4032x3024 host-timing "
+             "images")
     parser.add_argument(
         "--deterministic-ops", action="store_true",
         help="only build and run the deterministic-algorithms diagnostic: "
@@ -5605,6 +6330,12 @@ def main() -> int:
             proposal_launches, proposal = timed("proposal", phase_proposal,
                                                 dev)
             o_launches, o_render_launches, o_phase = timed("O", phase_o, dev)
+            captures = timed("captures", capture_scene)
+            exr_launches, exr_phase = timed("exr", phase_capture, dev, "exr",
+                                            o_launches, captures, args.seed)
+            dng_launches, dng_phase = timed("dng", phase_capture, dev, "dng",
+                                            o_launches, captures, args.seed)
+            del captures
             k_jvp = timed("encode_jvp", phase_encode_jvp, dev, o_config(),
                           flagship=cfg)
             launches, reg, reg_ms = timed("reg", phase_reg, dev)
@@ -5650,6 +6381,8 @@ def main() -> int:
         k["launches_train"] = train_launches[k["name"]]
         k["launches_disk"] = disk_launches[k["name"]]
         k["launches_jpeg"] = jpeg_launches[k["name"]]
+        k["launches_exr"] = exr_launches[k["name"]]
+        k["launches_dng"] = dng_launches[k["name"]]
         k["launches_cli"] = cli_launches[k["name"]]
         k["launches_hdr"] = hdr_launches[k["name"]]
         k["launches_tools_quality_run"] = tools_launches[k["name"]]
@@ -5674,6 +6407,8 @@ def main() -> int:
                 "pose": pose_launches["hash_encode_by_caller"],
                 "disk": disk_launches["hash_encode_by_caller"],
                 "jpeg": jpeg_launches["hash_encode_by_caller"],
+                "exr": exr_launches["hash_encode_by_caller"],
+                "dng": dng_launches["hash_encode_by_caller"],
                 "train": train_launches["hash_encode_by_caller"]}
         if k["name"] in REGISTER_CHECKED:
             k["ptxas"] = checked_instantiations(ptxas, k["name"])
@@ -5688,6 +6423,8 @@ def main() -> int:
     print(json.dumps({"lightstage": lightstage}))
     print(json.dumps({"proposal": proposal}))
     print(json.dumps({"O": o_phase}))
+    print(json.dumps({"exr": exr_phase}))
+    print(json.dumps({"dng": dng_phase}))
     print(json.dumps({"reg": reg}))
     print(json.dumps({"unfused": unfused}))
     print(json.dumps({"pose_recovery": pose_recovery}))

@@ -1,10 +1,11 @@
-// The serial parts of raw_ngp_torch/data/jpeg.py: the Huffman entropy
-// decode of one JPEG scan into the coefficient array (libjpeg-turbo's
-// jdhuff.c and jdphuff.c) and the entropy encode of quantised blocks
-// (jchuff.c). Everything else (markers, tables, the IDCT, upsampling,
-// colour) is numpy in jpeg.py, whose pure-Python decoder and encoder are
-// the oracles of these two functions: the same coefficients, the same
-// bytes.
+// The serial parts of raw_ngp_torch/data/jpeg.py and data/dng.py: the
+// Huffman entropy decode of one JPEG scan into the coefficient array
+// (libjpeg-turbo's jdhuff.c and jdphuff.c), the entropy encode of
+// quantised blocks (jchuff.c), and the entropy decode and prediction of a
+// lossless JPEG scan (T.81 process 14). Everything else (markers, tables,
+// the IDCT, upsampling, colour) is numpy in jpeg.py and dng.py, whose
+// pure-Python decoders and encoder are the oracles of these functions:
+// the same coefficients, samples and bytes.
 //
 // Built with g++ at first use by raw_ngp_torch/native.py and bound with
 // ctypes; a plain C interface, no dependency beyond the C++ library.
@@ -358,6 +359,105 @@ int64_t jpeg_encode_blocks(const int16_t* blocks, const int32_t* owner,
   }
   if (nacc > 0) emit(0x7F, 8 - nacc);
   return overflow ? -1 : len;
+}
+
+// Decodes the scan of one lossless JPEG stream (T.81 process 14, the
+// entropy decode of jdlhuff.c and the prediction of jdlossls.c) into out
+// [height, width * n_comp] uint16, the components interleaved along each
+// line in the scan's order. table_of: each component's DC table slot
+// (0-3) in `tables` (the 8-slot layout of jpeg_decode_scan). The first
+// line, and the first line after each restart (restart_interval MCUs, a
+// whole number of lines), is predicted by 2^(precision - pt - 1) at its
+// first sample and by Ra after; every other line by Rb at its first
+// sample and by `predictor` (1-7) after. Values are modulo 2^16, stored
+// shifted left by pt. Returns 0 and the position after the scan's data in
+// *end_pos, or an error code.
+int lj92_decode_scan(const uint8_t* data, int64_t size, int64_t pos,
+                     int n_comp, const int32_t* table_of,
+                     const uint8_t* tables, int width, int height,
+                     int predictor, int pt, int precision,
+                     int restart_interval, uint16_t* out, int64_t* end_pos) {
+  uint16_t* luts = static_cast<uint16_t*>(
+      std::malloc(sizeof(uint16_t) * 65536 * n_comp));
+  int32_t* buf = static_cast<int32_t*>(
+      std::malloc(sizeof(int32_t) * 2 * width * n_comp));
+  if (luts == nullptr || buf == nullptr) {
+    std::free(luts);
+    std::free(buf);
+    return kTruncated;
+  }
+  for (int c = 0; c < n_comp; ++c)
+    build_lut(tables + 272 * table_of[c], luts + 65536 * c);
+  const int64_t n = static_cast<int64_t>(width) * n_comp;
+  int32_t* prev = buf;
+  int32_t* row = buf + n;
+  const int half = 1 << (precision - pt - 1);
+  const int lines = restart_interval ? restart_interval / width : 0;
+  BitReader br{data, size, pos};
+  int next_rst = 0;
+  bool first = true;
+  int rc = kOk;
+  for (int y = 0; y < height && rc == kOk; ++y) {
+    if (lines && y && y % lines == 0) {
+      int64_t p = br.pos;
+      int code = next_marker(data, size, &p);
+      if (code != 0xD0 + next_rst) {
+        rc = code < 0 ? kTruncated : kBadRestart;
+        break;
+      }
+      br.pos = p;
+      br.restart();
+      next_rst = (next_rst + 1) & 7;
+      first = true;
+    }
+    for (int64_t i = 0; i < n; ++i) {
+      const int t = br.decode(luts + 65536 * (i % n_comp));
+      if (t < 0) {
+        rc = kBadCode;
+        break;
+      }
+      int d = 0;
+      if (t == 16) {
+        d = 32768;
+      } else if (t) {
+        d = extend(br.get(t), t);
+      }
+      int px;
+      if (first) {
+        px = i < n_comp ? half : row[i - n_comp];
+      } else if (i < n_comp) {
+        px = prev[i];
+      } else {
+        const int ra = row[i - n_comp], rb = prev[i], rc_ = prev[i - n_comp];
+        switch (predictor) {
+          case 1: px = ra; break;
+          case 2: px = rb; break;
+          case 3: px = rc_; break;
+          case 4: px = ra + rb - rc_; break;
+          case 5: px = ra + ((rb - rc_) >> 1); break;
+          case 6: px = rb + ((ra - rc_) >> 1); break;
+          default: px = (ra + rb) >> 1; break;
+        }
+      }
+      row[i] = (px + d) & 0xFFFF;
+    }
+    if (rc != kOk) break;
+    if (br.cnt < br.pad) {
+      rc = kTruncated;
+      break;
+    }
+    uint16_t* o = out + static_cast<int64_t>(y) * n;
+    for (int64_t i = 0; i < n; ++i)
+      o[i] = static_cast<uint16_t>(static_cast<uint32_t>(row[i]) << pt);
+    int32_t* t = prev;
+    prev = row;
+    row = t;
+    first = false;
+  }
+  std::free(buf);
+  std::free(luts);
+  *end_pos = br.pos;
+  return rc;
 }
 
 }  // extern "C"

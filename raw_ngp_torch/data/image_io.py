@@ -15,16 +15,20 @@ Key constants preserved for parity:
     (image_utils.py:92-94), relative exposure = shutter / max shutter
     (image_utils.py:107-121)
 
-The JAX package decodes every image through cv2. The port reads PNG
-(:func:`read_png`, numpy + ``zlib``) and JPEG (``data/jpeg.py``
-:func:`read_jpeg`, libjpeg-turbo's decoder in numpy with a C++ entropy
-decode) itself, choosing by the file's signature as cv2 does, and resizes
-with :func:`resize_area`, a numpy copy of cv2's ``INTER_AREA`` (its area
-downscale and, where an axis enlarges, its linear branch with area-mode
-coefficients); all give cv2's values and dtypes on every machine. Other
-formats go to cv2, EXR to imageio, then cv2, and DNG to rawpy, by JAX's
-lazy imports, and raise ``ImportError`` where the library is absent;
-nothing imports them with this module.
+The JAX package decodes every image through cv2, EXR through imageio
+or cv2 and DNG through rawpy. The port reads PNG (:func:`read_png`, numpy
++ ``zlib``) and JPEG (``data/jpeg.py`` :func:`read_jpeg`, libjpeg-turbo's
+decoder in numpy with a C++ entropy decode) itself, choosing by the
+file's signature as cv2 does, and resizes with :func:`resize_area`, a
+numpy copy of cv2's ``INTER_AREA`` (its area downscale and, where an axis
+enlarges, its linear branch with area-mode coefficients); all give cv2's
+values and dtypes on every machine. It reads EXR captures with
+``data/exr.py`` :func:`read_exr` (single-part scanline OpenEXR: NONE,
+RLE, ZIPS and ZIP) and DNG captures with ``data/dng.py``
+:func:`read_dng_raw` (the CFA samples rawpy's ``raw_image`` gives:
+uncompressed, deflate and lossless JPEG), so no capture needs a library.
+Other formats go to cv2, by JAX's lazy import, and raise ``ImportError``
+where it is absent; nothing imports it with this module.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from raw_ngp_torch import native
+from raw_ngp_torch.data.dng import read_dng_raw
+from raw_ngp_torch.data.exr import read_exr
 from raw_ngp_torch.data.jpeg import jpeg_size, read_jpeg
 from raw_ngp_torch.postprocess.raw import linear_to_srgb
 
@@ -520,31 +526,16 @@ def load_ldr_image(path: str, H: int, W: int) -> np.ndarray:
 
 
 def load_exr_image(path: str) -> np.ndarray:
-    """EXR via imageio (or cv2 fallback)."""
-    try:
-        import imageio.v2 as iio
-        return np.asarray(iio.imread(path)).astype(np.float32)
-    except Exception:
-        import cv2
-        img = cv2.imread(path, cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH)
-        if img is None:
-            raise
-        if img.ndim == 3 and img.shape[-1] >= 3:
-            img = cv2.cvtColor(img[..., :3], cv2.COLOR_BGR2RGB)
-        return img.astype(np.float32)
+    """An EXR capture as float32 (:func:`read_exr`): [H, W] for a mosaic,
+    [H, W, 3] RGB for R, G, B, as JAX's cv2 branch returns it."""
+    return read_exr(path)
 
 
 def load_dng_raw(path: str) -> np.ndarray:
-    """Raw sensor mosaic from a DNG (image_utils.py:129-131). Requires
-    rawpy; raises ImportError with guidance otherwise."""
-    try:
-        import rawpy
-    except ImportError as e:
-        raise ImportError(
-            "rawpy is required for DNG captures; convert to EXR or install "
-            "rawpy") from e
-    with open(path, "rb") as f:
-        return rawpy.imread(f).raw_image.astype(np.float32)
+    """Raw sensor mosaic from a DNG (image_utils.py:129-131): the CFA
+    samples of rawpy's ``raw_image`` (:func:`read_dng_raw`) as
+    float32."""
+    return read_dng_raw(path).astype(np.float32)
 
 
 def dng_cam2rgb(exif: dict) -> np.ndarray:

@@ -15,7 +15,10 @@ Host numpy, as JAX's, with three departures so that the card's machine
 :func:`raw_ngp_torch.data.image_io.read_png`, the image-size probes read
 the image's header (:func:`raw_ngp_torch.data.image_io.image_size`), and
 DTU's projection matrices decompose with ``scipy.linalg.rq`` in place of
-``cv2.decomposeProjectionMatrix``.
+``cv2.decomposeProjectionMatrix``. And one repair: the COLMAP loader
+takes the images' extension from the folder's sorted listing, skipping
+``.json`` sidecars, where JAX takes ``os.listdir``'s first name (the file
+system's order, which in a DNG folder can name a sidecar).
 """
 
 from __future__ import annotations
@@ -205,7 +208,12 @@ def load_colmap_scene(cfg: Config, split: str = "train",
         folder = os.path.join(root, f"raw_{d}")
         if not os.path.exists(folder):
             folder = os.path.join(root, "raw")
-    ext = os.listdir(folder)[0].rsplit(".", 1)[-1]
+    # the extension of the folder's first image in sorted order (JAX takes
+    # os.listdir's first name, whose order is the file system's, and can
+    # take a DNG's .json sidecar)
+    names = sorted(os.listdir(folder))
+    ext = next((n for n in names if not n.endswith(".json")),
+               names[0]).rsplit(".", 1)[-1]
     img_paths = np.array([os.path.join(folder, n + "." + ext)
                           for n in img_names])
     exist = np.array([os.path.exists(p) for p in img_paths])

@@ -2,8 +2,8 @@
 (``raw_ngp_torch/csrc/host_native.cpp``; counterpart of
 ``raw_ngp_tpu/native.py``) and for the JPEG entropy coder
 (``raw_ngp_torch/csrc/jpeg_host.cpp``, :func:`jpeg_library`, used by
-``data/jpeg.py``, which keeps a pure-Python route for a machine without
-``g++``).
+``data/jpeg.py`` and, for lossless JPEG DNGs, ``data/dng.py``, which keep
+a pure-Python route for a machine without ``g++``).
 
 Each library is built at first use with ``g++ -O3 -march=native -shared
 -fPIC -fopenmp`` (and without ``-fopenmp`` where that fails), the flags of
@@ -50,6 +50,7 @@ _u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 
 
 def library_path(source: Path = SOURCE) -> Path:
@@ -109,7 +110,8 @@ def _load() -> Optional[ctypes.CDLL]:
 
 
 def jpeg_library() -> Optional[ctypes.CDLL]:
-    """The JPEG entropy coder (``csrc/jpeg_host.cpp``), built at first
+    """The JPEG entropy coder (``csrc/jpeg_host.cpp``: the JPEG scan
+    decode and encode and the lossless JPEG scan decode), built at first
     use; None where it does not build."""
     global _JPEG_LIB, _JPEG_TRIED
     with _LOCK:
@@ -128,6 +130,10 @@ def jpeg_library() -> Optional[ctypes.CDLL]:
         lib.jpeg_encode_blocks.argtypes = [_i16p, _i32p, i64, _u32p, i32,
                                            i32, i32, _u8p, i64]
         lib.jpeg_encode_blocks.restype = i64
+        lib.lj92_decode_scan.argtypes = [
+            ctypes.c_char_p, i64, i64, i32, _i32p, _u8p, i32, i32, i32, i32,
+            i32, i32, _u16p, _i64p]
+        lib.lj92_decode_scan.restype = i32
         lib.jpeg_host_version.restype = i32
         _JPEG_LIB = lib
         return _JPEG_LIB

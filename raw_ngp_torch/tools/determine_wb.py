@@ -3,9 +3,9 @@ package's ``tools/determine_wb.py``; reference img/determineWB.py +
 image_utils.py:263-363, with the hard-coded capture path/crop promoted to
 arguments).
 
-Reads ``.npy`` and PNG (the port's reader); EXR goes through
-``data.image_io.load_exr_image``, which needs imageio or cv2 and raises
-``ImportError`` without them.
+Reads ``.npy``, PNG (the port's reader) and EXR (``data.exr.read_exr``,
+single-part scanline OpenEXR; the JAX tool reads it through imageio), so
+it needs no image library.
 
 Usage:
   python -m raw_ngp_torch.tools.determine_wb chart.npy \
@@ -19,18 +19,19 @@ import argparse
 
 import numpy as np
 
-from raw_ngp_torch.data.image_io import load_exr_image, read_png
+from raw_ngp_torch.data.exr import read_exr
+from raw_ngp_torch.data.image_io import read_png
 from raw_ngp_torch.postprocess import determine_wb
 
 
 def read_chart(path: str) -> np.ndarray:
     """The capture as an array: ``.npy`` as saved, PNG as the port's
-    reader decodes it (RGB), anything else as an EXR."""
+    reader decodes it (RGB), anything else as an EXR (read_exr)."""
     if path.endswith(".npy"):
         return np.load(path)
     if path.lower().endswith(".png"):
         return read_png(path)
-    return load_exr_image(path)
+    return read_exr(path)
 
 
 def main(argv=None):

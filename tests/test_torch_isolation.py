@@ -7,7 +7,8 @@ Checked two ways: a fresh interpreter imports every module of the port
 either. The HDR merge, the colour checker, the native library and the
 tools, the JPEG reader and writer and a JPEG COLMAP scene's load also run
 in an interpreter where cv2, imageio, PIL and rawpy cannot be imported (the
-card's machine has none of them).
+card's machine has none of them), and so do the EXR and DNG readers, an
+EXR and a DNG capture folder's loads and the EXR tools.
 """
 
 import os
@@ -145,3 +146,63 @@ def test_hdr_colorchecker_native_tools_without_image_libraries():
     assert out.returncode == 0, out.stderr[-3000:]
     line = [l for l in out.stdout.splitlines() if l.startswith("LEAKED:")]
     assert line == ["LEAKED:"], out.stdout[-3000:]
+
+
+_CAPTURES = r"""
+import os, sys, tempfile
+for name in ("cv2", "imageio", "imageio.v2", "PIL", "rawpy", "tifffile"):
+    sys.modules[name] = None
+import numpy as np
+import chip_smoke
+from raw_ngp_torch import native
+from raw_ngp_torch.data import load_scene
+from raw_ngp_torch.data.dng import read_dng_raw
+from raw_ngp_torch.data.exr import read_exr
+from raw_ngp_torch.tools import determine_wb, exr_tools
+root = tempfile.mkdtemp()
+captures = chip_smoke.capture_scene(n_views=3, n_leds=2, size=8)
+for kind in ("exr", "dng"):
+    folder = os.path.join(root, kind)
+    written = chip_smoke.write_capture_folder(folder, kind, *captures)
+    read = read_exr if kind == "exr" else read_dng_raw
+    assert all(np.array_equal(read(p).astype(np.float32), w)
+               for p, w in written.items())
+    for split in ("train", "val"):
+        np.random.seed(0)
+        scene = load_scene(chip_smoke.capture_config(folder, kind), split)
+        print("LOADED", kind, split, scene.images.shape,
+              None if scene.ldirs is None else scene.ldirs.shape)
+one = os.path.join(root, "exr", "raw", "img_000_l0.exr")
+exr_tools.main(["convert", one, os.path.join(root, "c.png")])
+exr_tools.main(["wb", one, "--crop=0,0,16,16", "--patch0", "0,0,2,2",
+                "--delta", "2"])
+determine_wb.main([one, "--first_patch", "0", "0", "2", "2", "--spacing",
+                   "2", "-o", os.path.join(root, "wb.npy")])
+print("DNG-ROUTE", "native" if native.jpeg_library() is not None
+      else "python")
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("cv2", "imageio", "PIL", "rawpy",
+                                     "tifffile", "jax", "raw_ngp_tpu"))
+print("LEAKED:" + ",".join(bad))
+"""
+
+
+def test_exr_and_dng_capture_folders_load_without_image_libraries():
+    """With cv2, imageio, PIL, rawpy and tifffile unimportable: a capture
+    folder of EXR files (HALF mosaics, ZIP) and one of DNG files (lossless
+    JPEG and uncompressed, .json sidecars), written by chip_smoke's
+    writers, decode bit for bit and load through load_scene with the
+    light-stage preset (rfield on the EXR folder, clip off on the DNG
+    one); exr_tools convert and wb and determine_wb run on an EXR."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OPENBLAS_NUM_THREADS="1",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _CAPTURES], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    for kind, ldirs in (("exr", "(5, 3)"), ("dng", "None")):
+        assert f"LOADED {kind} train (5, 8, 8, 3) {ldirs}" in lines, lines
+    assert "DNG-ROUTE native" in lines, lines
+    assert [l for l in lines if l.startswith("LEAKED:")] == ["LEAKED:"], \
+        lines

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import raw_ngp_torch.config as tcfg
 import raw_ngp_tpu.config as jcfg
 from raw_ngp_torch import native as tnative
@@ -706,11 +707,12 @@ def test_load_colmap_test_trajectories_match_jax(tmp_path, traj):
     assert len(t.poses) == (100 if traj == "circle" else 28)
 
 
-def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None):
-    """A light-stage layout: the COLMAP model of make_colmap_dataset,
-    placeholder EXR captures under raw/ (bracketed _e<micros> names, or
-    one _l<led> name per LED of ``leds``), mask PNGs and an LED
-    calibration."""
+def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None, pixel="HALF"):
+    """A light-stage layout: the COLMAP model of make_colmap_dataset, EXR
+    captures under raw/ (bracketed _e<micros> names, or one _l<led> name
+    per LED of ``leds``; each a one-channel mosaic drawn from its name,
+    written by chip_smoke.write_exr as `pixel` HALF with ZIP or FLOAT with
+    ZIPS), mask PNGs and an LED calibration."""
     make_colmap_dataset(root, n_images=n_images, H=H, W=W)
     for sub in ("raw", "mask"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -720,7 +722,9 @@ def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None):
         names = ([f"{stem}_e{exp}" for exp in jprov.BRACKETING_EXPOSURES]
                  if leds is None else [f"{stem}_l{led}" for led in leds])
         for name in names:
-            open(os.path.join(root, "raw", name + ".exr"), "w").close()
+            path = os.path.join(root, "raw", name + ".exr")
+            chip_smoke.write_exr(path, _mosaic(path), "ZIP" if pixel ==
+                                 "HALF" else "ZIPS", pixel)
         mask = (rng.random((H, W)) > 0.3).astype(np.uint8) * 255
         cv2.imwrite(os.path.join(root, "mask", stem + ".png"), mask)
     trefl.write_light_dirs_calibration(
@@ -730,10 +734,18 @@ def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None):
 
 
 def _mosaic(path, H=32, W=40):
-    """The placeholder EXR's pixels: a mosaic drawn from its name."""
+    """A capture's pixels: a mosaic drawn from its name."""
     seed = zlib.crc32(os.path.basename(path).encode())
     return np.random.default_rng(seed).uniform(0, 1.2, (H, W)).astype(
         np.float32)
+
+
+def _written(path, pixel):
+    """The array an EXR of _mosaic(path) holds: float16's values as
+    float32 for HALF, the mosaic for FLOAT (what JAX's imageio or cv2
+    branch returns for the file)."""
+    m = _mosaic(path)
+    return m.astype(np.float16).astype(np.float32) if pixel == "HALF" else m
 
 
 _HDR_CASES = {
@@ -749,27 +761,15 @@ _HDR_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(_HDR_CASES))
-def test_load_colmap_hdr_branches_match_jax(tmp_path, monkeypatch, case):
-    """The HDR branches of load_colmap_scene on placeholder EXRs, each
-    package's load_exr_image monkeypatched to the same mosaic
-    (tests/test_tools.py's device): bracketing (exposures from the _e
-    names), the mask PNGs (JAX reads them with imageio, the port with
-    read_png), the Bayer mosaic kept, exposing to sRGB, a mosaic at twice
-    the size (the float area resize), and rfield (light directions from
-    the calibration, one image per LED or every LED, the LEDs from the
-    capture names), for train, val and test: every SceneData field bit
-    for bit JAX's, with both packages' native libraries switched off
-    (their numpy routes; test_native_numpy_forms holds the C++ routes
-    against each other)."""
+def _check_hdr_case(tmp_path, monkeypatch, case, pixel):
     spec = _HDR_CASES[case]
     H = spec.get("H", 32)
     root = _hdr_dataset(str(tmp_path), H=H, W=H * 5 // 4,
-                        leds=(0, 2, 3) if spec.get("rfield") else None)
+                        leds=(0, 2, 3) if spec.get("rfield") else None,
+                        pixel=pixel)
     monkeypatch.setattr(jnative, "_load", lambda: None)
     monkeypatch.setattr(tnative, "_load", lambda: None)
-    monkeypatch.setattr(jio, "load_exr_image", _mosaic)
-    monkeypatch.setattr(tio, "load_exr_image", _mosaic)
+    monkeypatch.setattr(jio, "load_exr_image", lambda p: _written(p, pixel))
     jc, tc = _cfgs(path=root, data_format="colmap", image_mode="HDR",
                    enable_cam_near_far=True, **spec["data"])
     if spec.get("rfield"):
@@ -783,6 +783,139 @@ def test_load_colmap_hdr_branches_match_jax(tmp_path, monkeypatch, case):
     assert train.exposures is not None and train.images.shape[1] == H
     if spec.get("rfield"):
         assert train.ldirs is not None and train.ldirs.shape[1] == 3
+
+
+@pytest.mark.parametrize("case", sorted(_HDR_CASES))
+def test_load_colmap_hdr_branches_match_jax(tmp_path, monkeypatch, case):
+    """The HDR branches of load_colmap_scene on EXR captures (HALF, ZIP)
+    that the port reads from disk, while JAX's load_exr_image is
+    monkeypatched to the array each file holds (tests/test_tools.py's
+    device: no EXR backend here): bracketing (exposures from the _e
+    names), the mask PNGs (JAX reads them with imageio, the port with
+    read_png), the Bayer mosaic kept, exposing to sRGB, a mosaic at twice
+    the size (the float area resize), and rfield (light directions from
+    the calibration, one image per LED or every LED, the LEDs from the
+    capture names), for train, val and test: every SceneData field bit
+    for bit JAX's, with both packages' native libraries switched off
+    (their numpy routes; test_native_numpy_forms holds the C++ routes
+    against each other)."""
+    _check_hdr_case(tmp_path, monkeypatch, case, "HALF")
+
+
+@pytest.mark.parametrize("case", sorted(_HDR_CASES))
+def test_load_colmap_hdr_float_exr_match_jax(tmp_path, monkeypatch, case):
+    """test_load_colmap_hdr_branches_match_jax on FLOAT captures (ZIPS)."""
+    _check_hdr_case(tmp_path, monkeypatch, case, "FLOAT")
+
+
+_DNG_EXIF = {"AsShotNeutral": "0.4521 1 0.6738",
+             "ColorMatrix2": "0.6722 -0.0635 -0.0963 -0.4287 1.2460 0.2028 "
+                             "-0.0908 0.2162 0.5668",
+             "BlackLevel": 512, "WhiteLevel": 16383}
+
+
+def _dng_dataset(root, compression, n_images=6, H=16, W=20):
+    """A RAW capture folder: the COLMAP model of make_colmap_dataset,
+    raw/img_XXX.dng (a 2H x 2W RGGB mosaic of 14-bit counts above the
+    black level, written by chip_smoke.write_dng: `compression` "lj92"
+    or "none") with exiftool-style raw/img_XXX.json sidecars, and mask
+    PNGs. Returns {path: the written counts}."""
+    make_colmap_dataset(root, n_images=n_images, H=H, W=W)
+    for sub in ("raw", "mask"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    rng = np.random.default_rng(8)
+    written = {}
+    for i in range(n_images):
+        stem = os.path.join(root, "raw", f"img_{i:03d}")
+        raw = rng.integers(0, 16383, (2 * H, 2 * W)).astype(np.uint16)
+        raw[:4] = 300                         # some counts below black
+        chip_smoke.write_dng(stem + ".dng", raw, compression,
+                             black=_DNG_EXIF["BlackLevel"],
+                             white=_DNG_EXIF["WhiteLevel"], tile=16)
+        with open(stem + ".json", "w") as f:
+            json.dump([dict(_DNG_EXIF, SourceFile=stem + ".dng")], f)
+        written[stem + ".dng"] = raw
+        mask = (rng.random((H, W)) > 0.3).astype(np.uint8) * 255
+        cv2.imwrite(os.path.join(root, "mask", f"img_{i:03d}.png"), mask)
+    return written
+
+
+def _listing(folder, first_json):
+    """os.listdir with the names of `folder` listed sidecars first
+    (`first_json`) or images first: the file system's order decides
+    which JAX's COLMAP loader sees first."""
+    listdir = os.listdir
+
+    def fake(path):
+        names = listdir(path)
+        if os.path.abspath(path) != os.path.abspath(folder):
+            return names
+        return sorted(names, key=lambda n: (n.endswith(".json")
+                                            != first_json, n))
+    return fake
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("clip", [True, False], ids=["clip", "no_clip"])
+@pytest.mark.parametrize("compression", ["lj92", "none"])
+def test_load_colmap_dng_captures_match_jax(tmp_path, monkeypatch,
+                                            compression, clip, masked):
+    """RAW camera captures: DNG files (lossless JPEG tiles or
+    uncompressed) with their .json sidecars, read by the port from disk
+    while JAX's load_dng_raw is monkeypatched to the written counts (no
+    rawpy here): cam2rgb from the sidecar, black and white from it when
+    not clipping, the demosaic and the area resize from twice the size,
+    the masks; train, val and test, every SceneData field bit for bit."""
+    root = str(tmp_path)
+    written = _dng_dataset(root, compression)
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    monkeypatch.setattr(jio, "load_dng_raw",
+                        lambda p: written[p].astype(np.float32))
+    # the images listed first, the one listing JAX loads correctly
+    # (test_listing_order_repair_skips_json_sidecars)
+    monkeypatch.setattr(os, "listdir", _listing(os.path.join(root, "raw"),
+                                                False))
+    jc, tc = _cfgs(path=root, data_format="colmap", image_mode="HDR",
+                   clip=clip, masked=masked)
+    for split in ("train", "val", "test"):
+        j, t = _both(split, jc, tc, jprov.load_colmap_scene,
+                     tprov.load_colmap_scene, n_test=4)
+        _same_scene(t, j)
+    train = tprov.load_colmap_scene(tc, "train")
+    assert train.images.shape[1:] == (16, 20, 3)
+    assert all(n.endswith(".dng") for n in train.meta.filenames)
+    assert len(train.meta.cam2rgb) == train.n_images
+
+
+def test_listing_order_repair_skips_json_sidecars(tmp_path, monkeypatch):
+    """A DNG folder whose listing puts a .json sidecar first: the port
+    takes the images' extension from the sorted listing without the
+    sidecars, and loads what JAX loads where JAX's first listed name is
+    an image (the only listing it loads correctly); with the sidecar
+    first, JAX's load names the sidecars as its images."""
+    root = str(tmp_path)
+    written = _dng_dataset(root, "lj92")
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    monkeypatch.setattr(jio, "load_dng_raw",
+                        lambda p: written[p.rsplit(".", 1)[0] + ".dng"]
+                        .astype(np.float32))
+    jc, tc = _cfgs(path=root, data_format="colmap", image_mode="HDR",
+                   clip=False)
+    raw_dir = os.path.join(root, "raw")
+    monkeypatch.setattr(os, "listdir", _listing(raw_dir, False))
+    np.random.seed(1)
+    j = jprov.load_colmap_scene(jc, "train")
+    monkeypatch.setattr(os, "listdir", _listing(raw_dir, True))
+    assert os.listdir(raw_dir)[0].endswith(".json")
+    np.random.seed(1)
+    t = tprov.load_colmap_scene(tc, "train")
+    _same_scene(t, j)
+    np.random.seed(1)
+    j_json = jprov.load_colmap_scene(jc, "train")
+    assert all(n.endswith(".json") for n in j_json.meta.filenames)
+    assert all(n.endswith(".dng") for n in t.meta.filenames)
 
 
 def _nerf_dataset(root, style, with_hw=False, rgba=False):

@@ -7,8 +7,12 @@ package's (tools/) on the same inputs, on the CPU.
 - downscale: the pixels of cv2's INTER_AREA (8 and 16 bits, grey, RGB and
   RGBA PNGs, factors 2 and 3), and of the JAX tool's files; on JPEG
   folders the JAX tool's files byte for byte;
-- exr_tools mask: the pixels of the JAX tool's PNG;
-- determine_wb: the same matrix from a ``.npy`` and a PNG capture;
+- exr_tools mask: the pixels of the JAX tool's PNG; convert (with and
+  without --wb) the pixels of the JAX tool's PNG, and wb its 3 x 3 within
+  1e-10 relative, the port reading the EXR file where the JAX tool gets
+  the file's array through its monkeypatched ``load_exr_image``;
+- determine_wb: the same matrix from a ``.npy``, a PNG and an EXR
+  capture;
 - quality_run: the same configuration and scenes for each flag, the
   Trainer stubbed out on both sides (the flagship's Trainer takes ~30 s
   to build on the CPU);
@@ -387,3 +391,100 @@ def test_summarize_quality_matches_jax(tmp_path, capsys, monkeypatch):
     jax_tool("summarize_quality").main()
     assert capsys.readouterr().out == got == "\n".join(lines) + "\n"
     assert "NO (final 21.0)" in lines[2] and "error" in lines[4]
+
+
+def _capture(seed, shape):
+    """A smooth positive linear capture with a hot spot: a mosaic [H, W]
+    or RGB [H, W, 3]."""
+    rng = np.random.default_rng(seed)
+    H, W = shape[:2]
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    base = 0.1 + 0.5 * (1 + np.sin(xx / 9.0 + yy / 13.0))
+    base += 3.0 * np.exp(-((xx - W * 0.3) ** 2 + (yy - H * 0.6) ** 2) / 40)
+    img = base[..., None] * np.array([0.8, 1.0, 0.6]) if len(shape) == 3 \
+        else base
+    return (img * rng.uniform(0.9, 1.1, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("wb", [False, True], ids=["plain", "wb"])
+@pytest.mark.parametrize("kind", ["mosaic_half", "rgb_float"])
+def test_exr_tools_convert_matches_jax(tmp_path, monkeypatch, kind, wb):
+    """The port's `exr_tools convert` reads the EXR file itself (a HALF
+    mosaic, or FLOAT R, G, B, written by chip_smoke.write_exr); the JAX
+    tool gets the file's array through its monkeypatched load_exr_image
+    (tests/test_tools.py's device: no EXR backend here) and writes with
+    imageio. The PNG pixels bit for bit, with and without --wb."""
+    pytest.importorskip("imageio")
+    import chip_smoke
+    from raw_ngp_torch.data.exr import read_exr
+    from raw_ngp_torch.data.image_io import read_png
+    from raw_ngp_torch.tools import exr_tools
+
+    shape = (36, 52) if kind == "mosaic_half" else (36, 52, 3)
+    path = str(tmp_path / "cap.exr")
+    chip_smoke.write_exr(path, _capture(3, shape), "ZIP",
+                         "HALF" if kind == "mosaic_half" else "FLOAT")
+    written = read_exr(path)
+    extra = ["--wb", "1.2,-0.1,0.05,0.02,0.9,-0.03,0.0,-0.2,1.4"] if wb \
+        else []
+    got = exr_tools.main(["convert", path, str(tmp_path / "port.png"),
+                          *extra])
+    jtool = jax_tool("exr_tools")
+    monkeypatch.setattr(jtool, "load_exr_image", lambda p: written.copy())
+    jtool.main(["convert", path, str(tmp_path / "jax.png"), *extra])
+    want = read_png(str(tmp_path / "jax.png"))
+    assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "port.png")), want)
+    assert 0 < want.mean() < 255
+
+
+@pytest.mark.parametrize("crop", ["3,2,103,138", "-4,9,100,151"],
+                         ids=["inside", "over_the_edges"])
+def test_exr_tools_wb_matches_jax(tmp_path, monkeypatch, crop):
+    """The port's `exr_tools wb` (read_exr, a numpy crop and quarter
+    turn) against the JAX tool's (PIL's crop, 0 outside the image, and
+    rotate(-90, expand=True)) on a FLOAT mosaic EXR: the 3 x 3 within
+    1e-10 relative."""
+    pytest.importorskip("PIL")
+    import chip_smoke
+    from raw_ngp_torch.data.exr import read_exr
+    from raw_ngp_torch.tools import exr_tools
+
+    path = str(tmp_path / "checker.exr")
+    chip_smoke.write_exr(path, _capture(4, (140, 110)), "ZIPS", "FLOAT")
+    written = read_exr(path)
+    argv = ["wb", path, f"--crop={crop}", "--patch0", "6,5,14,13",
+            "--delta", "20"]
+    got = exr_tools.main(argv)
+    jtool = jax_tool("exr_tools")
+    monkeypatch.setattr(jtool, "load_exr_image", lambda p: written.copy())
+    want = jtool.main(argv)
+    assert got.shape == want.shape == (3, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
+
+
+def test_determine_wb_reads_exr_like_jax(tmp_path, monkeypatch):
+    """determine_wb on an EXR capture: the port reads the file with
+    read_exr, the JAX tool gets the same array from its monkeypatched
+    imageio reader; the same matrix."""
+    import imageio.v2 as iio
+
+    import chip_smoke
+    from raw_ngp_torch.data.exr import read_exr
+    from raw_ngp_torch.tools import determine_wb
+    from test_torch_colorchecker import make_chart
+
+    mat = np.array([[1.3, -0.1, 0.0], [0.0, 1.2, -0.1], [0.1, 0.0, 1.4]])
+    chart = make_chart(np.linalg.inv(mat) * 0.7).astype(np.float32)
+    path = str(tmp_path / "chart.exr")
+    chip_smoke.write_exr(path, chart, "ZIP", "FLOAT")
+    written = read_exr(path)
+    got = determine_wb.main([path, "-o", str(tmp_path / "port.npy")])
+    monkeypatch.setattr(iio, "imread", lambda p: written.copy())
+    monkeypatch.setattr(sys, "argv", ["determine_wb.py", path, "-o",
+                                      str(tmp_path / "jax.npy")])
+    jax_tool("determine_wb").main()
+    np.testing.assert_array_equal(got, np.load(tmp_path / "jax.npy"))
+    np.testing.assert_allclose(got, mat / 0.7, atol=0.02)
