@@ -2343,8 +2343,11 @@ def write_colmap_scene(root, images, poses, intrinsics, step=2,
 
 
 EXR_COMPRESSIONS = {"NONE": (0, 1), "RLE": (1, 1), "ZIPS": (2, 1),
-                    "ZIP": (3, 16)}
+                    "ZIP": (3, 16), "PIZ": (4, 32), "PXR24": (5, 16),
+                    "B44": (6, 32), "B44A": (7, 32)}
 EXR_PIXELS = {"HALF": (1, "<f2"), "FLOAT": (2, "<f4")}
+# zlib's level in OpenEXR's ZIP compressor (its default)
+EXR_ZIP_LEVEL = 4
 
 
 def _exr_predict(raw):
@@ -2381,65 +2384,481 @@ def _exr_rle(t):
     return bytes(out)
 
 
-def write_exr(path, img, compression="ZIP", pixel="HALF", level=4):
-    """Writes a float [H, W] (one channel, "Y") or [H, W, 3] (R, G, B)
-    image as a single-part scanline OpenEXR file: `compression` NONE, RLE,
-    ZIPS or ZIP (zlib at `level`), `pixel` HALF or FLOAT, little-endian,
-    increasing y, the data window at the origin; a chunk that does not
-    shrink is stored raw, as OpenEXR's writer does. Returns the bytes
-    written."""
+def _pack_msb(values, nbits):
+    """The bit stream of the codes `values` (each `nbits` long, MSB
+    first, up to 58 bits) and its length in bits, zero-padded to bytes:
+    each code's share of each byte it touches summed by np.bincount (the
+    codes' bits are disjoint, so the sums are ORs)."""
+    import numpy as np
+    values = np.asarray(values, np.uint64)
+    nbits = np.asarray(nbits, np.int64)
+    end = np.cumsum(nbits)
+    start = end - nbits
+    total = int(end[-1]) if len(end) else 0
+    out = np.zeros(-(-total // 8), np.float64)
+    for k in range(int(((nbits + 7) // 8).max(initial=0)) + 1):
+        byte = (start >> 3) + k
+        ok = (byte * 8 < end) & (nbits > 0)
+        s = end[ok] - (byte[ok] * 8 + 8)
+        v = values[ok]
+        part = np.where(s >= 0, v >> np.maximum(s, 0).astype(np.uint64),
+                        v << np.maximum(-s, 0).astype(np.uint64))
+        out += np.bincount(byte[ok], weights=(part & np.uint64(255))
+                           .astype(np.float64), minlength=len(out))
+    return out.astype(np.uint8).tobytes(), total
+
+
+def _huffman_lengths(counts):
+    """Huffman code lengths of symbols with the given counts (> 0): a heap
+    of (count, node), each merge recording the two nodes' parent; a leaf's
+    length is its depth."""
+    import heapq
+    import numpy as np
+    n = len(counts)
+    if n == 1:
+        return np.ones(1, np.int64)
+    heap = [(int(c), i) for i, c in enumerate(counts)]
+    heapq.heapify(heap)
+    parent = np.zeros(2 * n - 1, np.int64)
+    node = n
+    while len(heap) > 1:
+        ca, a = heapq.heappop(heap)
+        cb, b = heapq.heappop(heap)
+        parent[a] = parent[b] = node
+        heapq.heappush(heap, (ca + cb, node))
+        node += 1
+    depth = np.zeros(2 * n - 1, np.int64)
+    for i in range(2 * n - 3, -1, -1):       # parents come after children
+        depth[i] = depth[parent[i]] + 1
+    return depth[:n]
+
+
+def piz_huffman(values):
+    """OpenEXR's hufCompress of uint16 `values`: the counts (and the run
+    symbol iM = max + 1, count 1), Huffman lengths, canonical codes
+    (shorter codes numerically higher), the packed table (6-bit lengths,
+    59-62 and 63 + 8 bits for runs of unused symbols), then each run of
+    equal values in pieces of at most 256, a piece of n sent as its code,
+    the run code and n - 1 in 8 bits where that is shorter than n codes."""
     import struct
+    import numpy as np
+    values = np.asarray(values, np.int64)
+    if not len(values):
+        return b""
+    counts = np.bincount(values, minlength=65537)
+    im, iM = int(values.min()), int(values.max()) + 1
+    counts[iM] = 1
+    syms = np.flatnonzero(counts)
+    L = np.zeros(65537, np.int64)
+    L[syms] = _huffman_lengths(counts[syms])
+    n_len = np.bincount(L[syms], minlength=59)
+    first, c = np.zeros(59, np.int64), 0
+    for length in range(58, 0, -1):
+        first[length], c = c, (c + int(n_len[length])) >> 1
+    order = syms[np.lexsort((syms, L[syms]))]
+    rank = np.arange(len(order)) - np.searchsorted(L[order], L[order])
+    code = np.zeros(65537, np.int64)
+    code[order] = first[L[order]] + rank
+    # the table: lengths of im..iM, zero runs in pieces of at most 261
+    lens = L[im:iM + 1]
+    zero = lens == 0
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], zero, [0]])))
+    z_start, z_len = edges[0::2], edges[1::2] - edges[0::2]
+    pieces = -(-z_len // 261)
+    p_start = np.repeat(z_start, pieces) + 261 * (
+        np.arange(pieces.sum()) - np.repeat(np.cumsum(pieces) - pieces,
+                                            pieces))
+    p_len = np.minimum(np.repeat(z_start + z_len, pieces) - p_start, 261)
+    pv = np.where(p_len >= 6, (63 << 8) | (p_len - 6),
+                  np.where(p_len >= 2, 59 + p_len - 2, 0))
+    pb = np.where(p_len >= 6, 14, 6)
+    nz = np.flatnonzero(~zero)
+    pos = np.concatenate([nz, p_start])
+    tv = np.concatenate([lens[nz], pv])[np.argsort(pos, kind="stable")]
+    tb = np.concatenate([np.full(len(nz), 6), pb])[np.argsort(
+        pos, kind="stable")]
+    table, _ = _pack_msb(tv, tb)
+    # the codes: runs of equal values in pieces of at most 256
+    cut = np.flatnonzero(values[1:] != values[:-1]) + 1
+    r_start = np.concatenate([[0], cut])
+    r_len = np.diff(np.concatenate([r_start, [len(values)]]))
+    per = -(-r_len // 256)
+    piece_sym = np.repeat(values[r_start], per)
+    piece_n = np.minimum(np.repeat(r_len, per) - 256 * (
+        np.arange(per.sum()) - np.repeat(np.cumsum(per) - per, per)), 256)
+    ls, lr = L[piece_sym], L[iM]
+    run = ls + lr + 8 < ls * (piece_n - 1)
+    n_tok = np.where(run, 3, piece_n)
+    tok_piece = np.repeat(np.arange(len(piece_n)), n_tok)
+    k = np.arange(n_tok.sum()) - np.repeat(np.cumsum(n_tok) - n_tok, n_tok)
+    s = piece_sym[tok_piece]
+    is_run = run[tok_piece]
+    tok_v = np.where(is_run & (k == 1), code[iM],
+                     np.where(is_run & (k == 2), piece_n[tok_piece] - 1,
+                              code[s]))
+    tok_b = np.where(is_run & (k == 1), lr,
+                     np.where(is_run & (k == 2), 8, ls[tok_piece]))
+    data, nbits = _pack_msb(tok_v, tok_b)
+    return struct.pack("<5i", im, iM, len(table), nbits, 0) + table + data
+
+
+def _wav_enc14(a, b):
+    a_s, b_s = (a ^ 0x8000) - 0x8000, (b ^ 0x8000) - 0x8000
+    return ((a_s + b_s) >> 1) & 0xFFFF, (a_s - b_s) & 0xFFFF
+
+
+def _wav_enc16(a, b):
+    import numpy as np
+    ao = (a + 0x8000) & 0xFFFF
+    m = (ao + b) >> 1
+    d = ao - b
+    return np.where(d < 0, (m + 0x8000) & 0xFFFF, m), d & 0xFFFF
+
+
+def wav2_encode_np(v, mx):
+    """OpenEXR's wav2Encode of a 2-D int64 array [ny, nx] in place, level
+    by level (the pairs of every 2 x 2 group horizontally then
+    vertically, the odd column, the odd line); the 14-bit form where `mx`
+    < 2^14, else the 16-bit modular one."""
+    import numpy as np
+    ny, nx = v.shape
+    enc = _wav_enc14 if mx < (1 << 14) else _wav_enc16
+    n = min(nx, ny)
+    p, p2 = 1, 2
+    while p2 <= n:
+        ys = np.arange(0, ny - p2 + 1, p2)
+        xs = np.arange(0, nx - p2 + 1, p2)
+        if len(ys) and len(xs):
+            Y, X = np.ix_(ys, xs)
+            i00, i01 = enc(v[Y, X], v[Y, X + p])
+            i10, i11 = enc(v[Y + p, X], v[Y + p, X + p])
+            v[Y, X], v[Y + p, X] = enc(i00, i10)
+            v[Y, X + p], v[Y + p, X + p] = enc(i01, i11)
+        if nx & p and len(ys):
+            x = len(xs) * p2
+            v[ys, x], v[ys + p, x] = enc(v[ys, x], v[ys + p, x])
+        if ny & p and len(xs):
+            y = len(ys) * p2
+            v[y, xs], v[y, xs + p] = enc(v[y, xs], v[y, xs + p])
+        p, p2 = p2, p2 << 1
+    return v
+
+
+def _piz_chunk(block):
+    """A PIZ chunk of `block` [(pixel type, bits [lines, width])]: the
+    bitmap of the 16-bit values used (a 32-bit sample's low and high
+    halves), the LUT to their ranks, each channel's each half through
+    wav2Encode, piz_huffman."""
+    import struct
+    import numpy as np
+    planes = []
+    for ptype, bits in block:
+        b = bits.astype(np.int64)[..., None]
+        planes.append(b if ptype == "HALF" else
+                      np.concatenate([b & 0xFFFF, b >> 16], 2))
+    flat = np.concatenate([p.reshape(-1) for p in planes])
+    used = np.unique(np.concatenate([[0], flat]))
+    bitmap = np.zeros(8192, np.uint8)
+    np.bitwise_or.at(bitmap, used[used > 0] >> 3,
+                     (1 << (used[used > 0] & 7)).astype(np.uint8))
+    nonzero = np.flatnonzero(bitmap)
+    lo, hi = (int(nonzero[0]), int(nonzero[-1])) if len(nonzero) else \
+        (8191, 0)
+    mx = len(used) - 1
+    out = []
+    for p in planes:
+        q = np.searchsorted(used, p)
+        for j in range(q.shape[2]):
+            q[:, :, j] = wav2_encode_np(np.ascontiguousarray(q[:, :, j]), mx)
+        out.append(q.reshape(-1))
+    huf = piz_huffman(np.concatenate(out))
+    head = struct.pack("<HH", lo, hi) + (bitmap[lo:hi + 1].tobytes()
+                                         if lo <= hi else b"")
+    return head + struct.pack("<i", len(huf)) + huf
+
+
+def float24(bits):
+    """OpenEXR's floatToFloat24 of float32 bits (uint32): the top 24 bits
+    rounded (a NaN keeps its sign and top 15 mantissa bits, a finite value
+    that would round to infinity is truncated)."""
+    import numpy as np
+    b = bits.astype(np.int64)
+    s, e, m = b & 0x80000000, b & 0x7F800000, b & 0x007FFFFF
+    rounded = ((e | m) + (m & 0x80)) >> 8
+    finite = np.where(rounded >= 0x7F8000, (e | m) >> 8, rounded)
+    nan = (e >> 8) | (m >> 8) | ((m >> 8) == 0)
+    i = np.where(e == 0x7F800000, np.where(m > 0, nan, e >> 8), finite)
+    return (s >> 8) | i
+
+
+def _pxr24_chunk(block):
+    """A PXR24 chunk of `block`: each line's each channel's differences
+    (24-bit for FLOAT, from float24) in big-endian byte planes, deflated.
+    Returns (the chunk, each channel's bits as a reader gets them)."""
     import zlib
+    import numpy as np
+    rows, back = [], []
+    for ptype, bits in block:
+        v = bits.astype(np.int64)
+        nb = 2 if ptype == "HALF" else 3
+        if ptype != "HALF":
+            v = float24(bits)
+            back.append((v << 8).astype(np.uint32))
+        else:
+            back.append(bits)
+        d = np.diff(v, axis=1, prepend=0) & ((1 << (8 * nb)) - 1)
+        rows.append(np.stack([(d >> (8 * (nb - 1 - k))) & 255
+                              for k in range(nb)], 1).reshape(len(v), -1))
+    return zlib.compress(np.concatenate(rows, 1).astype(np.uint8)
+                         .tobytes()), back
+
+
+# B44's pairs of differences, in its byte order
+_B44_PAIRS = ((0, 4), (4, 8), (8, 12), (0, 1), (4, 5), (8, 9), (12, 13),
+              (1, 2), (5, 6), (9, 10), (13, 14), (2, 3), (6, 7), (10, 11),
+              (14, 15))
+
+
+def b44_pack_blocks(s, flat_ok):
+    """B44's pack of 4 x 4 blocks of half bits s [n, 16] (not pLinear, so
+    the block's maximum is exact): the ordered values t, the least shift
+    whose rounded differences d from the maximum fit 6-bit steps, t0 and
+    the 15 steps in 14 bytes, or a 3-byte flat block where `flat_ok`
+    (B44A) and every step is 0. Returns (the blocks' bytes in order, the
+    bits each block decodes to [n, 16]: t0 plus the steps, ordered back)."""
+    import numpy as np
+    s = s.astype(np.int64)
+    t = np.where(s & 0x7C00 == 0x7C00, 0x8000,
+                 np.where(s & 0x8000, ~s & 0xFFFF, s | 0x8000))
+    t_max = t.max(1)
+    a, b = np.array(_B44_PAIRS).T
+    n = len(s)
+    shift = np.zeros(n, np.int64)
+    d = np.zeros((n, 16), np.int64)
+    todo = np.arange(n)
+    for sh in range(16):
+        x = (t_max[todo, None] - t[todo]) << 1
+        dd = (x + (1 << sh) - 1 + ((x >> (sh + 1)) & 1)) >> (sh + 1)
+        r = dd[:, a] - dd[:, b] + 32
+        ok = (r.min(1) >= 0) & (r.max(1) <= 63)
+        shift[todo[ok]] = sh
+        d[todo[ok]] = dd[ok]
+        todo = todo[~ok]
+        if not len(todo):
+            break
+    r = d[:, a] - d[:, b] + 32
+    flat = flat_ok & (r == 32).all(1)
+    t0 = (t_max - (d[:, 0] << shift)) & 0xFFFF
+    t0 = np.where(flat, t[:, 0], t0)
+    out = np.zeros((n, 14), np.int64)
+    out[:, 0], out[:, 1] = t0 >> 8, t0 & 255
+    out[:, 2] = np.where(flat, 0xFC, (shift << 2) | (r[:, 0] >> 4))
+    out[:, 3] = (r[:, 0] << 4) | (r[:, 1] >> 2)
+    out[:, 4] = (r[:, 1] << 6) | r[:, 2]
+    for g in range(3):                  # r3-r6, r7-r10, r11-r14
+        i, at = 3 + 4 * g, 5 + 3 * g
+        out[:, at] = (r[:, i] << 2) | (r[:, i + 1] >> 4)
+        out[:, at + 1] = (r[:, i + 1] << 4) | (r[:, i + 2] >> 2)
+        out[:, at + 2] = (r[:, i + 2] << 6) | r[:, i + 3]
+    keep = np.ones((n, 14), bool)
+    keep[flat, 3:] = False
+    data = (out & 255).astype(np.uint8)[keep].tobytes()
+    back = (t0[:, None] + ((d[:, :1] - d) << shift[:, None])) & 0xFFFF
+    back = np.where(flat[:, None], t0[:, None], back)
+    back = np.where(back & 0x8000, back & 0x7FFF, ~back & 0xFFFF)
+    return data, back.astype(np.uint16)
+
+
+def _b44_chunk(block, flat_ok):
+    """A B44 (B44A where `flat_ok`) chunk of `block`: each HALF channel's
+    4 x 4 blocks (the last line and column repeated to fill them), FLOAT
+    channels raw. Returns (the chunk, each channel's bits as read)."""
+    import numpy as np
+    out, back = [], []
+    for ptype, bits in block:
+        if ptype != "HALF":
+            out.append(bits.astype("<u4").tobytes())
+            back.append(bits)
+            continue
+        ny, nx = bits.shape
+        by, bx = -(-ny // 4), -(-nx // 4)
+        full = np.pad(bits, ((0, 4 * by - ny), (0, 4 * bx - nx)), "edge")
+        blocks = full.reshape(by, 4, bx, 4).transpose(0, 2, 1, 3).reshape(
+            -1, 16)
+        data, got = b44_pack_blocks(blocks, flat_ok)
+        out.append(data)
+        back.append(got.reshape(by, bx, 4, 4).transpose(0, 2, 1, 3)
+                    .reshape(4 * by, 4 * bx)[:ny, :nx])
+    return b"".join(out), back
+
+
+def _exr_chunk(block, code):
+    """One chunk's data of `block` [(pixel type, bits [lines, width])]
+    compressed with `code` (stored raw where that is not smaller, as
+    OpenEXR's writer does) and each channel's bits as a reader gets
+    them."""
+    import zlib
+    import numpy as np
+    lines = block[0][1].shape[0]
+    raw = np.concatenate([b.astype("<u2" if t == "HALF" else "<u4").view(
+        np.uint8).reshape(lines, -1) for t, b in block], 1).reshape(-1)
+    back = [b for _, b in block]
+    packed = raw.tobytes()
+    if code == 1:
+        packed = _exr_rle(_exr_predict(raw))
+    elif code in (2, 3):
+        packed = zlib.compress(_exr_predict(raw).tobytes(), EXR_ZIP_LEVEL)
+    elif code == 4:
+        packed = _piz_chunk(block)
+    elif code == 5:
+        packed, lossy = _pxr24_chunk(block)
+    elif code in (6, 7):
+        packed, lossy = _b44_chunk(block, code == 7)
+    if len(packed) >= raw.size:
+        return raw.tobytes(), back
+    return packed, (lossy if code >= 5 else back)
+
+
+def _exr_levels(W, H, mode, rounding):
+    """The (level x, level y, width, height) of a tiled part's levels in
+    offset-table order (ONE_LEVEL, MIPMAP_LEVELS, RIPMAP_LEVELS)."""
+    def log2(x):
+        y, up = 0, 0
+        while x > 1:
+            up |= x & 1
+            y, x = y + 1, x >> 1
+        return y + (up if rounding else 0)
+
+    def size(n, level):
+        m = n >> level
+        return max(m + (1 if rounding and m << level < n else 0), 1)
+
+    if mode == 0:
+        levels = [(0, 0)]
+    elif mode == 1:
+        levels = [(l, l) for l in range(log2(max(W, H)) + 1)]
+    else:
+        levels = [(lx, ly) for ly in range(log2(H) + 1)
+                  for lx in range(log2(W) + 1)]
+    return [(lx, ly, size(W, lx), size(H, ly)) for lx, ly in levels]
+
+
+def _exr_part(img, compression, pixel, tiles):
+    """The channels' header bytes and the chunks (in offset-table order)
+    of one part of a float image [H, W] ("Y") or [H, W, 3] (B, G, R), and
+    the image as a reader gets it back."""
+    import struct
     import numpy as np
     img = np.asarray(img, np.float32)
     code, per = EXR_COMPRESSIONS[compression]
     ptype, dtype = EXR_PIXELS[pixel]
     H, W = img.shape[:2]
-    if img.ndim == 2:
-        channels = [("Y", img)]
+    names = ["Y"] if img.ndim == 2 else ["B", "G", "R"]
+    planes = [img] if img.ndim == 2 else [img[..., "RGB".index(c)]
+                                          for c in names]
+    bits = [np.ascontiguousarray(p.astype(dtype)).view(
+        "<u2" if pixel == "HALF" else "<u4") for p in planes]
+    back = [np.empty_like(b) for b in bits]
+    chunks = []
+    if tiles is None:
+        for y in range(0, H, per):
+            data, got = _exr_chunk([(pixel, b[y:y + per]) for b in bits],
+                                   code)
+            for dst, g in zip(back, got):
+                dst[y:y + per] = g
+            chunks.append(struct.pack("<ii", y, len(data)) + data)
     else:
-        channels = [(c, img[..., "RGB".index(c)]) for c in "BGR"]
-    lines = np.concatenate([np.ascontiguousarray(ch.astype(dtype)).view(
-        np.uint8).reshape(H, -1) for _, ch in channels], 1)
+        tw, th, mode, rounding = tiles
+        for lx, ly, lw, lh in _exr_levels(W, H, mode, rounding):
+            lev = [b[::1 << ly, ::1 << lx][:lh, :lw] for b in bits]
+            for dy in range(-(-lh // th)):
+                for dx in range(-(-lw // tw)):
+                    ys = slice(dy * th, (dy + 1) * th)
+                    xs = slice(dx * tw, (dx + 1) * tw)
+                    data, got = _exr_chunk(
+                        [(pixel, np.ascontiguousarray(b[ys, xs]))
+                         for b in lev], code)
+                    if (lx, ly) == (0, 0):
+                        for dst, g in zip(back, got):
+                            dst[ys, xs] = g
+                    chunks.append(struct.pack("<5i", dx, dy, lx, ly,
+                                              len(data)) + data)
+    read = [b.view(dtype).astype(np.float32) for b in back]
+    read = read[0] if img.ndim == 2 else np.stack(
+        [read[names.index(c)] for c in "RGB"], -1)
+    chlist = b"".join(c.encode() + b"\0" + struct.pack("<iB3xii", ptype, 0,
+                                                        1, 1)
+                      for c in names) + b"\0"
+    return chlist, code, (W, H), chunks, read
+
+
+def write_exr(path, img, compression="ZIP", pixel="HALF", tiles=None,
+              second=None, values=False):
+    """Writes a float [H, W] (one channel, "Y") or [H, W, 3] (R, G, B)
+    image as an OpenEXR file: `compression` NONE, RLE, ZIPS, ZIP (zlib at
+    EXR_ZIP_LEVEL), PIZ, PXR24, B44 or B44A, `pixel` HALF or FLOAT,
+    little-endian, increasing y, the data window at the origin; a chunk
+    that does not shrink is stored raw, as OpenEXR's writer does. `tiles`
+    (width, height, level mode 0-2, rounding 0-1) writes a tiled part with
+    every level (level l the image's every 2^l-th pixel); `second` (image,
+    compression, pixel, tiles) makes a two-part file with that image as
+    part 1, its chunks interleaved with part 0's. Returns the bytes
+    written, and with `values` also the array a reader gets from part 0
+    (B44's blocks and PXR24's FLOAT are lossy)."""
+    import struct
 
     def attr(name, kind, value):
         return (name.encode() + b"\0" + kind.encode() + b"\0"
                 + struct.pack("<i", len(value)) + value)
 
-    chlist = b"".join(c.encode() + b"\0" + struct.pack("<iB3xii", ptype, 0,
-                                                        1, 1)
-                      for c, _ in channels) + b"\0"
-    window = struct.pack("<4i", 0, 0, W - 1, H - 1)
-    header = (b"v/1\x01" + struct.pack("<I", 2)
-              + attr("channels", "chlist", chlist)
-              + attr("compression", "compression", bytes([code]))
-              + attr("dataWindow", "box2i", window)
-              + attr("displayWindow", "box2i", window)
-              + attr("lineOrder", "lineOrder", b"\0")
-              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
-              + attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
-              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
-              + b"\0")
-    chunks = []
-    for y in range(0, H, per):
-        raw = lines[y:y + per].reshape(-1)
-        packed = raw.tobytes()
-        if code == 1:
-            packed = _exr_rle(_exr_predict(raw))
-        elif code in (2, 3):
-            packed = zlib.compress(_exr_predict(raw).tobytes(), level)
-        if len(packed) >= raw.size:
-            packed = raw.tobytes()
-        chunks.append(struct.pack("<ii", y, len(packed)) + packed)
-    offsets, at = [], len(header) + 8 * len(chunks)
-    for c in chunks:
-        offsets.append(at)
-        at += len(c)
-    data = header + struct.pack(f"<{len(chunks)}Q", *offsets) + \
-        b"".join(chunks)
+    parts = [(img, compression, pixel, tiles)]
+    if second is not None:
+        parts.append(second)
+    heads, tables, read = [], [], None
+    for i, (im, comp, pix, tl) in enumerate(parts):
+        chlist, code, (W, H), chunks, got = _exr_part(im, comp, pix, tl)
+        read = got if i == 0 else read
+        window = struct.pack("<4i", 0, 0, W - 1, H - 1)
+        head = (attr("channels", "chlist", chlist)
+                + attr("compression", "compression", bytes([code]))
+                + attr("dataWindow", "box2i", window)
+                + attr("displayWindow", "box2i", window)
+                + attr("lineOrder", "lineOrder", b"\0")
+                + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+                + attr("screenWindowCenter", "v2f",
+                       struct.pack("<2f", 0, 0))
+                + attr("screenWindowWidth", "float", struct.pack("<f", 1.0)))
+        if tl is not None:
+            head += attr("tiles", "tiledesc", struct.pack(
+                "<IIB", tl[0], tl[1], tl[2] | (tl[3] << 4)))
+        if second is not None:
+            head += (attr("name", "string", f"part{i}".encode())
+                     + attr("type", "string", b"tiledimage" if tl else
+                            b"scanlineimage")
+                     + attr("chunkCount", "int",
+                            struct.pack("<i", len(chunks))))
+            chunks = [struct.pack("<i", i) + c for c in chunks]
+        heads.append(head + b"\0")
+        tables.append(chunks)
+    flags = 0x1000 if second is not None else (0x200 if tiles else 0)
+    header = b"v/1\x01" + struct.pack("<I", 2 | flags) + b"".join(heads) + \
+        (b"\0" if second is not None else b"")
+    order = [(0, k) for k in range(len(tables[0]))]
+    if second is not None:
+        for k in range(len(tables[1])):
+            order.insert(min(2 * k + 1, len(order)), (1, k))
+    at = len(header) + 8 * sum(len(t) for t in tables)
+    offsets = [[0] * len(t) for t in tables]
+    body = []
+    for i, k in order:
+        offsets[i][k] = at
+        body.append(tables[i][k])
+        at += len(tables[i][k])
+    data = header + b"".join(struct.pack(f"<{len(o)}Q", *o)
+                             for o in offsets) + b"".join(body)
     with open(path, "wb") as f:
         f.write(data)
-    return data
+    return (data, read) if values else data
 
 
 def huffman_table(counts):
@@ -2583,17 +3002,56 @@ def _tiff_ifd(entries, offset, bo="<"):
             + struct.pack(bo + "I", 0) + extra)
 
 
+def pack_bits(raw, bits):
+    """The rows of a uint [H, W] array as `bits`-bit samples packed MSB
+    first, each row padded to a whole byte (TIFF 6.0, FillOrder 1)."""
+    import numpy as np
+    H, W = raw.shape
+    b = (raw.astype(np.uint32)[..., None] >> np.arange(bits - 1, -1, -1,
+                                                       dtype=np.uint32)) & 1
+    return np.packbits(b.reshape(H, W * bits).astype(np.uint8),
+                       axis=1).tobytes()
+
+
+def linearization_table(n, white):
+    """A LinearizationTable of `n` entries: a square law from 0 to
+    `white`, the curve of a camera that stores fewer bits than it
+    measures (rounded; non-decreasing)."""
+    import numpy as np
+    x = np.arange(n, dtype=np.float64) / (n - 1)
+    return np.round(white * x * x).astype(np.uint16)
+
+
+def linearize_inverse(table, counts):
+    """The stored samples whose table entries are nearest the counts (the
+    first such where several are): what a writer stores so that a reader
+    applying `table` gets table[stored] back."""
+    import numpy as np
+    t = table.astype(np.int64)
+    hi = np.clip(np.searchsorted(t, counts, side="left"), 0, len(t) - 1)
+    lo = np.clip(hi - 1, 0, len(t) - 1)
+    c = counts.astype(np.int64)
+    pick = np.where(np.abs(t[lo] - c) <= np.abs(t[hi] - c), lo, hi)
+    # the first index of the chosen entry's value
+    return np.searchsorted(t, t[pick], side="left").astype(np.uint16)
+
+
 def write_dng(path, raw, compression="lj92", black=0, white=65535,
-              color_matrix=None, neutral=(1.0, 1.0, 1.0), tile=256):
+              color_matrix=None, neutral=(1.0, 1.0, 1.0), tile=256,
+              bits=16, table=None):
     """Writes a uint16 RGGB mosaic [H, W] as a DNG 1.4 file laid out as
     cameras write them: IFD0 an 8-bit RGB thumbnail (NewSubFileType 1, a
     quarter of the size, every 4th pixel of the mosaic's green sites
-    scaled to 8 bits), its SubIFD the raw (NewSubFileType 0, CFA, 16
-    bits, BlackLevel and WhiteLevel), `compression` "none" (one strip) or
-    "lj92" (`tile` x `tile` lossless JPEG tiles, lj92_encode_tiles).
-    Little-endian. Returns the bytes written."""
+    scaled to 8 bits), its SubIFD the raw (NewSubFileType 0, CFA,
+    BlackLevel and WhiteLevel, a LinearizationTable where `table` is
+    given), `compression` "none" (one strip of 16-bit samples, or of
+    `bits`-bit samples packed MSB first, pack_bits) or "lj92" (`tile` x
+    `tile` lossless JPEG tiles of 16 bits, lj92_encode_tiles). `raw` is
+    the stored samples. Little-endian. Returns the bytes written."""
     import numpy as np
     raw = np.ascontiguousarray(raw, np.uint16)
+    if compression == "lj92" and bits != 16:
+        raise ValueError("write_dng: lossless JPEG tiles are 16 bits")
     H, W = raw.shape
     cm = np.eye(3) if color_matrix is None else np.asarray(color_matrix)
     thumb = (raw[1::4, 0::4].astype(np.float64) * (255.0 / 65535.0))
@@ -2604,7 +3062,8 @@ def write_dng(path, raw, compression="lj92", black=0, white=65535,
         blocks = lj92_encode_tiles(raw, tile)
         layout = [(322, 4, [tile]), (323, 4, [tile])]
     elif compression == "none":
-        blocks = [raw.astype("<u2").tobytes()]
+        blocks = [raw.astype("<u2").tobytes() if bits == 16 else
+                  pack_bits(raw, bits)]
         layout = [(278, 4, [H])]
     else:
         raise ValueError(f"compression {compression!r}: none or lj92")
@@ -2621,7 +3080,9 @@ def write_dng(path, raw, compression="lj92", black=0, white=65535,
             (50778, 3, [21])]
     offsets_tag, counts_tag = (324, 325) if compression == "lj92" else \
         (273, 279)
-    sub = [(254, 4, [0]), (256, 4, [W]), (257, 4, [H]), (258, 3, [16]),
+    if table is not None:
+        layout = layout + [(50712, 3, [int(v) for v in table])]
+    sub = [(254, 4, [0]), (256, 4, [W]), (257, 4, [H]), (258, 3, [bits]),
            (259, 3, [7 if compression == "lj92" else 1]),
            (262, 3, [32803]), (277, 3, [1]), (284, 3, [1]),
            (33421, 3, [2, 2]), (33422, 1, [0, 1, 1, 2]),
@@ -4152,6 +4613,33 @@ def led_positions(ldirs):
     return np.concatenate([-d, d.sum(0, keepdims=True)])
 
 
+# the EXR captures' codecs, round robin over the captures, and the two
+# captures written as a tiled PIZ file (MIPMAP levels, 48 x 40 tiles, which
+# divide no capture size) and as a two-part file (part 1 a FLOAT preview
+# at half the size, tiled, ZIP)
+CAPTURE_EXR_CODECS = ("PIZ", "PXR24", "B44", "B44A", "ZIP")
+CAPTURE_EXR_TILED, CAPTURE_EXR_TWO_PART = 7, 11
+CAPTURE_EXR_TILES = (48, 40, 1, 0)
+# the DNG captures' layouts by capture index mod 6: lossless JPEG tiles;
+# 14-bit samples packed, uncompressed; 12-bit samples packed, uncompressed,
+# through a square-law LinearizationTable of 4,096 entries; lossless JPEG
+# tiles of 14-bit stored samples through a square-law table of 16,384;
+# 16-bit samples, uncompressed; 16-bit samples, uncompressed, through a
+# square-law table of 65,536 (a table on half the files, its inverse
+# applied on write)
+CAPTURE_DNG_LAYOUTS = (("lj92", 16, None), ("none", 14, None),
+                       ("none", 12, 1 << 12), ("lj92", 16, 1 << 14),
+                       ("none", 16, None), ("none", 16, 1 << 16))
+
+
+def capture_exr_layout(i):
+    """The EXR codec, tiles and second part of capture `i`."""
+    codec = CAPTURE_EXR_CODECS[i % len(CAPTURE_EXR_CODECS)]
+    if i == CAPTURE_EXR_TILED:
+        return "PIZ", CAPTURE_EXR_TILES, False
+    return codec, None, i == CAPTURE_EXR_TWO_PART
+
+
 def write_capture_folder(root, kind, images, poses, intrinsics, ldirs):
     """Writes a light-stage capture folder at `root`: the COLMAP model
     (write_colmap_scene: one image a capture, named img_VVV_lL, the world
@@ -4159,11 +4647,14 @@ def write_capture_folder(root, kind, images, poses, intrinsics, ldirs):
     units; no LDR images), mask/img_VVV.png (the view's surface pixels at
     the training size), led_positions.txt (led_positions) and
     raw/img_VVV_lL.<kind>: "exr" the capture's RGGB mosaic as one HALF
-    channel with ZIP compression (write_exr); "dng" its 14-bit counts
-    (DNG_BLACK + mosaic (DNG_WHITE - DNG_BLACK), rounded) in a DNG
-    (write_dng: lossless JPEG tiles for the even captures, uncompressed
-    for the odd ones) with a .json sidecar (DNG_EXIF). Returns {capture
-    path: the float32 array its reader must give}."""
+    channel (write_exr: the codecs of CAPTURE_EXR_CODECS round robin, one
+    tiled PIZ file and one two-part file, capture_exr_layout); "dng" its
+    14-bit counts (DNG_BLACK + mosaic (DNG_WHITE - DNG_BLACK), rounded)
+    in a DNG (write_dng, the layouts of CAPTURE_DNG_LAYOUTS: lossless
+    JPEG tiles, packed 14 and 12-bit and plain 16-bit strips, and a
+    LinearizationTable on half the files, the stored samples linearize_inverse of the counts)
+    with a .json sidecar (DNG_EXIF). Returns {capture path: the float32
+    array its reader must give}."""
     import json
     import numpy as np
     from raw_ngp_torch.data.image_io import write_png
@@ -4190,17 +4681,28 @@ def write_capture_folder(root, kind, images, poses, intrinsics, ldirs):
                       hit.any((1, 3)).astype(np.uint8) * 255)
         path = os.path.join(root, "raw", f"{name}.{kind}")
         if kind == "exr":
-            write_exr(path, mosaic, "ZIP", "HALF")
-            written[path] = mosaic.astype(np.float16).astype(np.float32)
+            codec, tiles, two_part = capture_exr_layout(i)
+            second = (mosaic[::2, ::2], "ZIP", "FLOAT", (32, 32, 0, 0)) \
+                if two_part else None
+            _, written[path] = write_exr(path, mosaic, codec, "HALF",
+                                         tiles=tiles, second=second,
+                                         values=True)
             continue
         counts = np.clip(np.round(DNG_BLACK + mosaic * (DNG_WHITE
                                                         - DNG_BLACK)),
                          0, 65535).astype(np.uint16)
-        write_dng(path, counts, "lj92" if i % 2 == 0 else "none",
-                  DNG_BLACK, DNG_WHITE, matrix, neutral)
+        compression, bits, n_table = \
+            CAPTURE_DNG_LAYOUTS[i % len(CAPTURE_DNG_LAYOUTS)]
+        table, stored = None, counts
+        if n_table:
+            table = linearization_table(n_table, DNG_WHITE)
+            stored = linearize_inverse(table, counts)
+        write_dng(path, stored, compression, DNG_BLACK, DNG_WHITE, matrix,
+                  neutral, bits=bits, table=table)
         with open(os.path.join(root, "raw", f"{name}.json"), "w") as f:
             json.dump([dict(DNG_EXIF, SourceFile=f"{name}.dng")], f)
-        written[path] = counts.astype(np.float32)
+        written[path] = (stored if table is None else table[stored]).astype(
+            np.float32)
     return written
 
 
@@ -4236,11 +4738,16 @@ def raw_frame(seed, H=3024, W=4032):
 
 def capture_host_timings(kind, seed, crop=1024):
     """The decode of one 4032 x 3024 capture (raw_frame(seed)) on the host
-    clock, in seconds a megapixel: "exr" its levels as one HALF channel
-    with ZIP compression (read_exr; the samples bit for bit float16's);
-    "dng" its counts in lossless JPEG tiles (read_dng_raw by route: C++ on
-    the whole frame, and C++ and Python on its `crop` x `crop` corner, a
-    second file; the samples bit for bit the counts, the routes alike)."""
+    clock, in seconds a megapixel: "exr" its levels as one HALF channel in
+    each of ZIP, PIZ, PXR24, B44 and B44A (read_exr, PIZ's Huffman decode
+    in C++; the samples bit for bit what write_exr stored), and PIZ by
+    route on its `crop` x `crop` corner (C++ and Python, a second file;
+    the routes alike); "dng" its counts in lossless JPEG tiles
+    (read_dng_raw by route: C++ on the whole frame, and C++ and Python on
+    its `crop` x `crop` corner, a second file; the samples bit for bit
+    the counts, the routes alike), as packed 14-bit samples, and as packed
+    12-bit samples through a LinearizationTable (the table's values at the
+    stored samples)."""
     import numpy as np
     from raw_ngp_torch.data.dng import read_dng_raw
     from raw_ngp_torch.data.exr import read_exr
@@ -4252,24 +4759,43 @@ def capture_host_timings(kind, seed, crop=1024):
     os.makedirs(root)
     out = {"frame": f"raw_frame(seed={seed}): {counts.shape[1]}x"
                     f"{counts.shape[0]} RGGB, 14-bit counts",
-           "megapixels": mp}
+           "megapixels": mp, "gpu": gpu_line()}
+    part = np.ascontiguousarray(counts[:crop, :crop])
     try:
         if kind == "exr":
             levels = ((counts.astype(np.float32) - DNG_BLACK)
                       / np.float32(DNG_WHITE - DNG_BLACK))
             path = str(root / "frame.exr")
-            t0 = time.perf_counter()
-            data = write_exr(path, levels, "ZIP", "HALF")
-            out["write_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            got = read_exr(path)
-            out["decode_s_per_megapixel"] = (time.perf_counter() - t0) / mp
-            out["bytes"] = len(data)
-            check(same_bits_np(got, levels.astype(np.float16).astype(
-                np.float32)), "exr: the frame's decode differs")
+            out["codecs"] = {}
+            for codec in ("ZIP",) + tuple(c for c in CAPTURE_EXR_CODECS
+                                         if c != "ZIP"):
+                t0 = time.perf_counter()
+                data, want = write_exr(path, levels, codec, "HALF",
+                                       values=True)
+                write_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                got = read_exr(path, "native" if codec == "PIZ" else None)
+                out["codecs"][codec] = dict(
+                    decode_s_per_megapixel=(time.perf_counter() - t0) / mp,
+                    write_s=write_s, bytes=len(data))
+                check(same_bits_np(got, want),
+                      f"exr: the frame's {codec} decode differs")
+            small = str(root / "crop.exr")
+            _, want = write_exr(small, levels[:crop, :crop], "PIZ", "HALF",
+                                values=True)
+            by_route = {}
+            for route in ("native", "python"):
+                t0 = time.perf_counter()
+                by_route[route] = read_exr(small, route)
+                out[f"piz_crop_{route}_s_per_megapixel"] = \
+                    (time.perf_counter() - t0) / (crop * crop / 1e6)
+            check(same_bits_np(by_route["native"], by_route["python"])
+                  and same_bits_np(by_route["python"], want),
+                  "exr: the C++ and Python routes decode the PIZ crop "
+                  "differently")
+            out.update(crop=f"{crop}x{crop}", piz_routes_bitwise=True)
         else:
             path, small = str(root / "frame.dng"), str(root / "crop.dng")
-            part = np.ascontiguousarray(counts[:crop, :crop])
             t0 = time.perf_counter()
             data = write_dng(path, counts, "lj92", DNG_BLACK, DNG_WHITE)
             out["write_s"] = time.perf_counter() - t0
@@ -4292,6 +4818,21 @@ def capture_host_timings(kind, seed, crop=1024):
                   "differently")
             out.update(native_s_per_megapixel=native_s / mp,
                        crop=f"{crop}x{crop}", routes_bitwise=True)
+            table = linearization_table(1 << 12, DNG_WHITE)
+            for name, bits, lut in (("packed14", 14, None),
+                                    ("packed12_table", 12, table)):
+                stored = counts if lut is None else \
+                    linearize_inverse(lut, counts)
+                data = write_dng(path, stored, "none", DNG_BLACK, DNG_WHITE,
+                                 bits=bits, table=lut)
+                t0 = time.perf_counter()
+                got = read_dng_raw(path)
+                out[f"{name}_s_per_megapixel"] = \
+                    (time.perf_counter() - t0) / mp
+                out[f"{name}_bytes"] = len(data)
+                check(same_bits_np(got, stored if lut is None else
+                                   lut[stored]),
+                      f"dng: the frame's {name} decode differs")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[{kind}] host {json.dumps(out)}")
@@ -4316,7 +4857,8 @@ def phase_capture(dev, kind, o_launches, captures, seed=0, steps=128,
     the input gradient and the 2C totals never; finite falling losses;
     the val PSNR above the untrained field's; the repro check over the
     first `repro` steps; then capture_host_timings(kind, seed). The JPEG
-    library must build here for the DNG captures: no quiet fallback.
+    library must build here for the DNG captures and the EXR library for
+    the EXR ones: no quiet fallback.
     Returns (launches, numbers)."""
     import numpy as np
     import torch
@@ -4330,6 +4872,9 @@ def phase_capture(dev, kind, o_launches, captures, seed=0, steps=128,
     if kind == "dng":
         check(native.jpeg_library() is not None,
               "dng: the JPEG library (lossless JPEG decode) did not build")
+    else:
+        check(native.exr_library() is not None,
+              "exr: the EXR library (PIZ's Huffman decode) did not build")
     images, poses, intrinsics, ldirs = captures
     if kind == "dng":
         images = images * DNG_BRIGHTNESS
@@ -4430,10 +4975,14 @@ def phase_capture(dev, kind, o_launches, captures, seed=0, steps=128,
                         "with clip off (levels from the sidecars)"),
            "captures": f"make_rfield_grid_scene: {CAPTURE_VIEWS} views x "
                        f"{CAPTURE_LEDS} LEDs at {2 * size}x{2 * size}, "
-                       + ("RGGB mosaics as one HALF channel, ZIP" if kind
-                          == "exr" else f"14-bit RGGB counts at "
+                       + ("RGGB mosaics as one HALF channel, "
+                          + ", ".join(CAPTURE_EXR_CODECS) + " round robin, "
+                          "one tiled PIZ (MIPMAP) and one two-part file"
+                          if kind == "exr" else f"14-bit RGGB counts at "
                           f"{DNG_BRIGHTNESS} of the scene's brightness in "
-                          f"DNGs (LJ92 tiles and uncompressed) with .json "
+                          f"DNGs (LJ92 tiles, packed 14 and 12-bit and "
+                          f"16-bit strips, a LinearizationTable on half) "
+                          f"with .json "
                           f"sidecars")
                        + f", trained at {size}x{size}",
            "gpu": gpu_line(), "write_s": write_s, "load_s": load,

@@ -12,10 +12,17 @@ black subtraction, no scaling. The file is read as the TIFF 6.0 and DNG
   (262) is CFA (32803). Cameras put it in a SubIFD behind an 8-bit
   thumbnail in IFD0; some writers put it in IFD0;
 * the samples: strips (273 / 279, RowsPerStrip 278) or tiles (322-325,
-  edge tiles cropped), one sample a pixel (SamplesPerPixel 1), 8 or 16
-  bits in the file's byte order;
+  edge tiles cropped), one sample a pixel (SamplesPerPixel 1): 8 bits,
+  16 bits in the file's byte order, or any other BitsPerSample from 1 to
+  16 packed MSB first with each row of a strip or tile starting on a
+  byte (TIFF 6.0's FillOrder 1, as LibRaw's getbits reads them in either
+  byte order);
 * the compression: 1 (none), 8 or 32946 (deflate with Predictor 1, zlib)
-  or 7 (lossless JPEG: each strip or tile one stream).
+  or 7 (lossless JPEG: each strip or tile one stream);
+* the LinearizationTable (tag 50712), applied after any compression as
+  LibRaw's ``curve``: sample s becomes table[min(s, len - 1)] (LibRaw's
+  linear_table extends the table with its last entry to 65,536, and
+  adobe_copy_pixel passes every sample through it).
 
 Lossless JPEG is ITU-T T.81's process 14 (Annex H, "LJ92"): SOI, DHT, DRI,
 SOF3 (precision 2-16, Nc components of sampling 1 x 1), SOS (predictor
@@ -35,11 +42,10 @@ not build, in the pure Python of this module, its oracle: both give the
 same samples.
 
 Departures, each raising with the file and its name:
-``NotImplementedError`` for BigTIFF, packed samples of 10, 12 or 14 bits,
-a LinearizationTable (tag 50712), LinearRaw (Photometric 34892) and lossy
-JPEG DNGs, a deflate Predictor other than 1, a lossless JPEG whose restart
-interval is not whole lines or whose components are subsampled or coded
-in several scans; ``ValueError`` for a file that is not TIFF, has no CFA
+``NotImplementedError`` for BigTIFF, LinearRaw (Photometric 34892) and
+lossy JPEG DNGs, a deflate Predictor other than 1, a lossless JPEG whose
+restart interval is not whole lines or whose components are subsampled
+or coded in several scans; ``ValueError`` for a file that is not TIFF, has no CFA
 raw IFD, or is cut short or corrupt.
 """
 
@@ -385,12 +391,28 @@ def _block(data: bytes, bo: str, tags, off: int, count: int, rows: int,
             raise _fail(path, f"a deflate block does not inflate ({e})"
                         ) from None
     bits = tags[258][0]
-    need = rows * cols * bits // 8
+    need = rows * -(-cols * bits // 8)
     if len(raw) < need:
         raise _fail(path, f"a block of {len(raw)} bytes where {need} are "
                           "needed")
+    if bits not in (8, 16):
+        return unpack_bits(raw, rows, cols, bits)
     dtype = np.uint8 if bits == 8 else np.dtype(bo + "u2")
     return np.frombuffer(raw[:need], dtype).reshape(rows, cols).astype(
+        np.uint16)
+
+
+def unpack_bits(raw: bytes, rows: int, cols: int, bits: int) -> np.ndarray:
+    """[rows, cols] uint16 samples of `bits` (1-16) packed MSB first, each
+    row starting on a byte boundary."""
+    row_bytes = -(-cols * bits // 8)
+    buf = np.frombuffer(raw, np.uint8, rows * row_bytes).reshape(
+        rows, row_bytes)
+    buf = np.pad(buf, ((0, 0), (0, 2))).astype(np.uint32)
+    at = np.arange(cols) * bits
+    byte, shift = at >> 3, at & 7
+    word = (buf[:, byte] << 16) | (buf[:, byte + 1] << 8) | buf[:, byte + 2]
+    return ((word >> (24 - bits - shift)) & ((1 << bits) - 1)).astype(
         np.uint16)
 
 
@@ -399,9 +421,6 @@ def decode_dng_raw(data: bytes, path: str = "<bytes>",
     """:func:`read_dng_raw` of a file's bytes."""
     bo, ifds = tiff_ifds(data, path)
     tags = _raw_ifd(ifds, path)
-    if LINEARIZATION_TABLE in tags:
-        raise NotImplementedError(f"{path}: a DNG with a LinearizationTable "
-                                  "(tag 50712) is not read")
     tiled = 322 in tags
     needed = (256, 257) + ((322, 323, 324, 325) if tiled else (273, 279))
     missing = [t for t in needed if t not in tags]
@@ -421,10 +440,7 @@ def decode_dng_raw(data: bytes, path: str = "<bytes>",
         raise NotImplementedError(f"{path}: DNG compression {comp} is not "
                                   "read (1, 7, 8 and 32946)")
     lossless = comp == LOSSLESS_JPEG
-    if not lossless and bits not in (8, 16):
-        raise NotImplementedError(f"{path}: packed {bits}-bit DNG samples "
-                                  "are not read (8 and 16 bits)")
-    if lossless and not 2 <= bits <= 16:
+    if not (2 if lossless else 1) <= bits <= 16:
         raise _fail(path, f"BitsPerSample {bits}")
     if comp in (ADOBE_DEFLATE, DEFLATE) and tags.get(317, (1,))[0] != 1:
         raise NotImplementedError(f"{path}: deflate with Predictor "
@@ -452,6 +468,13 @@ def decode_dng_raw(data: bytes, path: str = "<bytes>",
             out[k * per:k * per + rows] = _block(
                 data, bo, tags, offsets[k], counts[k], rows, W, path, lib,
                 lossless)
+    table = tags.get(LINEARIZATION_TABLE)
+    if table is not None:
+        if not table or max(table) > 0xFFFF or min(table) < 0:
+            raise _fail(path, "a LinearizationTable of no or out-of-range "
+                              "entries")
+        table = np.asarray(table[:1 << 16], np.uint16)
+        out = table[np.minimum(out, len(table) - 1)]
     return out
 
 

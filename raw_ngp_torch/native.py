@@ -2,8 +2,10 @@
 (``raw_ngp_torch/csrc/host_native.cpp``; counterpart of
 ``raw_ngp_tpu/native.py``) and for the JPEG entropy coder
 (``raw_ngp_torch/csrc/jpeg_host.cpp``, :func:`jpeg_library`, used by
-``data/jpeg.py`` and, for lossless JPEG DNGs, ``data/dng.py``, which keep
-a pure-Python route for a machine without ``g++``).
+``data/jpeg.py`` and, for lossless JPEG DNGs, ``data/dng.py``) and for
+the PIZ Huffman decoder (``raw_ngp_torch/csrc/exr_host.cpp``,
+:func:`exr_library`, used by ``data/exr.py``); those modules keep a
+pure-Python route for a machine without ``g++``.
 
 Each library is built at first use with ``g++ -O3 -march=native -shared
 -fPIC -fopenmp`` (and without ``-fopenmp`` where that fails), the flags of
@@ -37,11 +39,11 @@ from raw_ngp_torch.postprocess.raw import bilinear_demosaic
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
-_JPEG_LIB: Optional[ctypes.CDLL] = None
-_JPEG_TRIED = False
+_HOST_LIBS = {}
 
 SOURCE = CSRC / "host_native.cpp"
 JPEG_SOURCE = CSRC / "jpeg_host.cpp"
+EXR_SOURCE = CSRC / "exr_host.cpp"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -109,34 +111,53 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
 
 
+def _host_library(source: Path, bind) -> Optional[ctypes.CDLL]:
+    """The library of `source`, built and bound (`bind(lib)`) at first
+    use; None where it does not build."""
+    with _LOCK:
+        if source not in _HOST_LIBS:
+            so = _build(library_path(source), source)
+            lib = None if so is None else ctypes.CDLL(so)
+            if lib is not None:
+                bind(lib)
+            _HOST_LIBS[source] = lib
+        return _HOST_LIBS[source]
+
+
+def _bind_jpeg(lib):
+    i64, i32 = ctypes.c_int64, ctypes.c_int
+    lib.jpeg_decode_scan.argtypes = [
+        ctypes.c_char_p, i64, i64, i32, _i32p, _u8p, i32, i32, i32, i32,
+        i32, i32, i32, _i16p, _i64p]
+    lib.jpeg_decode_scan.restype = i32
+    lib.jpeg_encode_blocks.argtypes = [_i16p, _i32p, i64, _u32p, i32,
+                                       i32, i32, _u8p, i64]
+    lib.jpeg_encode_blocks.restype = i64
+    lib.lj92_decode_scan.argtypes = [
+        ctypes.c_char_p, i64, i64, i32, _i32p, _u8p, i32, i32, i32, i32,
+        i32, i32, _u16p, _i64p]
+    lib.lj92_decode_scan.restype = i32
+    lib.jpeg_host_version.restype = i32
+
+
+def _bind_exr(lib):
+    lib.piz_huf_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, _u16p,
+                                   ctypes.c_int64]
+    lib.piz_huf_decode.restype = ctypes.c_int
+    lib.exr_host_version.restype = ctypes.c_int
+
+
 def jpeg_library() -> Optional[ctypes.CDLL]:
     """The JPEG entropy coder (``csrc/jpeg_host.cpp``: the JPEG scan
     decode and encode and the lossless JPEG scan decode), built at first
     use; None where it does not build."""
-    global _JPEG_LIB, _JPEG_TRIED
-    with _LOCK:
-        if _JPEG_LIB is not None or _JPEG_TRIED:
-            return _JPEG_LIB
-        _JPEG_TRIED = True
-        so = _build(library_path(JPEG_SOURCE), JPEG_SOURCE)
-        if so is None:
-            return None
-        lib = ctypes.CDLL(so)
-        i64, i32 = ctypes.c_int64, ctypes.c_int
-        lib.jpeg_decode_scan.argtypes = [
-            ctypes.c_char_p, i64, i64, i32, _i32p, _u8p, i32, i32, i32, i32,
-            i32, i32, i32, _i16p, _i64p]
-        lib.jpeg_decode_scan.restype = i32
-        lib.jpeg_encode_blocks.argtypes = [_i16p, _i32p, i64, _u32p, i32,
-                                           i32, i32, _u8p, i64]
-        lib.jpeg_encode_blocks.restype = i64
-        lib.lj92_decode_scan.argtypes = [
-            ctypes.c_char_p, i64, i64, i32, _i32p, _u8p, i32, i32, i32, i32,
-            i32, i32, _u16p, _i64p]
-        lib.lj92_decode_scan.restype = i32
-        lib.jpeg_host_version.restype = i32
-        _JPEG_LIB = lib
-        return _JPEG_LIB
+    return _host_library(JPEG_SOURCE, _bind_jpeg)
+
+
+def exr_library() -> Optional[ctypes.CDLL]:
+    """The PIZ Huffman decoder (``csrc/exr_host.cpp``), built at first
+    use; None where it does not build."""
+    return _host_library(EXR_SOURCE, _bind_exr)
 
 
 def available() -> bool:

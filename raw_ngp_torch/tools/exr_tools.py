@@ -17,8 +17,8 @@ the sRGB curve as 8 bits. ``mask`` keeps the image's first three
 channels, in [0, 1], where the matte's first channel is above 0 and
 writes the background elsewhere. ``wb`` averages the 24 patches of a
 checker after the JAX tool's PIL crop (outside the image is 0) and
-``rotate(-90, expand=True)`` (an exact quarter turn clockwise), here in
-numpy; other angles than multiples of 90 degrees raise.
+``rotate(rotate_deg, expand=True)`` (NEAREST; -90 by default, an exact
+quarter turn clockwise), here in numpy at any angle.
 
 Usage: python -m raw_ngp_torch.tools.exr_tools <subcommand> ...
 """
@@ -26,6 +26,7 @@ Usage: python -m raw_ngp_torch.tools.exr_tools <subcommand> ...
 from __future__ import annotations
 
 import argparse
+import math
 
 import numpy as np
 
@@ -68,11 +69,84 @@ def convert_exr_to_png(exr_path: str, png_path: str,
     return pixels
 
 
+def _affine_nearest(image: np.ndarray, size, m) -> np.ndarray:
+    """Pillow's ImagingTransformAffine with NEAREST on a float image: each
+    output pixel (x, y) takes the input pixel at floor(m . (x + 0.5, y +
+    0.5, 1)), 0 outside the input. Where the four corners map inside
+    +-32768 Pillow steps 16.16 fixed-point coordinates (each matrix entry
+    rounded to 1/65536, the centre offset folded into the translation),
+    else doubles accumulated pixel by pixel; both are followed here."""
+    w, h = size
+    H, W = image.shape[:2]
+
+    def inside(x, y):
+        return abs(x * m[0] + y * m[1] + m[2]) < 32768.0 and \
+            abs(x * m[3] + y * m[4] + m[5]) < 32768.0
+
+    xs, ys = np.arange(w, dtype=np.int64), np.arange(h, dtype=np.int64)
+    if all(inside(x, y) for x, y in ((0, 0), (w, h), (0, h), (w, 0))):
+        def fix(v):
+            return math.floor(v * 65536.0 + 0.5)
+        a0, a1, a3, a4 = fix(m[0]), fix(m[1]), fix(m[3]), fix(m[4])
+        a2 = fix(m[2] + m[0] * 0.5 + m[1] * 0.5)
+        a5 = fix(m[5] + m[3] * 0.5 + m[4] * 0.5)
+        xin = (a2 + ys[:, None] * a1 + xs[None] * a0) >> 16
+        yin = (a5 + ys[:, None] * a4 + xs[None] * a3) >> 16
+    else:
+        def walk(start, row_step, col_step):
+            rows = np.add.accumulate(np.concatenate(
+                [[start], np.full(h - 1, row_step)]))
+            grid = np.concatenate([rows[:, None], np.full(
+                (h, w - 1), col_step)], 1)
+            v = np.add.accumulate(grid, axis=1)
+            return np.where(v < 0, -1, v.astype(np.int64))
+        xin = walk(m[2] + m[1] * 0.5 + m[0] * 0.5, m[1], m[0])
+        yin = walk(m[5] + m[4] * 0.5 + m[3] * 0.5, m[4], m[3])
+    ok = (xin >= 0) & (xin < W) & (yin >= 0) & (yin < H)
+    out = np.zeros((h, w) + image.shape[2:], image.dtype)
+    out[ok] = image[yin[ok], xin[ok]]
+    return out
+
+
+def rotate_expand(image: np.ndarray, angle: float) -> np.ndarray:
+    """PIL's ``Image.rotate(angle, expand=True)`` of a float image (mode
+    F, NEAREST, counter-clockwise degrees): 0 a copy, 180 a flip, 90 and
+    270 exact quarter turns; any other angle the inverse affine map about
+    the centre (its sines and cosines rounded to 15 places), the output
+    the rotated corners' bounding box (floor to ceil), sampled at pixel
+    centres (_affine_nearest)."""
+    angle = float(angle) % 360.0
+    if angle == 0:
+        return image.copy()
+    if angle == 180:
+        return image[::-1, ::-1].copy()
+    if angle in (90, 270):
+        return np.ascontiguousarray(np.rot90(image, 1 if angle == 90 else 3))
+    h, w = image.shape[:2]
+    cx, cy = w / 2, h / 2
+    a = -math.radians(angle)
+    m = [round(math.cos(a), 15), round(math.sin(a), 15), 0.0,
+         round(-math.sin(a), 15), round(math.cos(a), 15), 0.0]
+
+    def transform(x, y):
+        return m[0] * x + m[1] * y + m[2], m[3] * x + m[4] * y + m[5]
+
+    m[2], m[5] = transform(-cx - 0, -cy - 0)
+    m[2] += cx
+    m[5] += cy
+    corners = [transform(x, y) for x, y in ((0, 0), (w, 0), (w, h), (0, h))]
+    xx, yy = [c[0] for c in corners], [c[1] for c in corners]
+    nw = math.ceil(max(xx)) - math.floor(min(xx))
+    nh = math.ceil(max(yy)) - math.floor(min(yy))
+    m[2], m[5] = transform(-(nw - w) / 2.0, -(nh - h) / 2.0)
+    return _affine_nearest(image, (nw, nh), m)
+
+
 def crop_rotate(image: np.ndarray, crop, rotate_deg: float) -> np.ndarray:
     """PIL's ``Image.crop(crop).rotate(rotate_deg, expand=True)`` of a
     float image: the box (left, upper, right, lower), 0 where it leaves
-    the image, then a turn by a multiple of 90 degrees counter-clockwise
-    (a negative angle turns clockwise)."""
+    the image, then rotate_expand by `rotate_deg` counter-clockwise (a
+    negative angle turns clockwise)."""
     left, upper, right, lower = (int(v) for v in crop)
     H, W = image.shape[:2]
     out = np.zeros((max(lower - upper, 0), max(right - left, 0))
@@ -81,11 +155,7 @@ def crop_rotate(image: np.ndarray, crop, rotate_deg: float) -> np.ndarray:
     x0, x1 = max(left, 0), min(right, W)
     if y1 > y0 and x1 > x0:
         out[y0 - upper:y1 - upper, x0 - left:x1 - left] = image[y0:y1, x0:x1]
-    turns, rest = divmod(float(rotate_deg), 90.0)
-    if rest:
-        raise NotImplementedError(f"exr_tools wb: a rotation of {rotate_deg}"
-                                  " degrees (multiples of 90 only)")
-    return np.rot90(out, int(turns) % 4)
+    return rotate_expand(out, rotate_deg)
 
 
 def solve_wb(checker_path: str, crop=(2280, 1065, 2890, 1982),

@@ -18,13 +18,22 @@ here, so the reader is held to two independent writers:
   at 8 bits and one component the same streams are also decoded by cv2's
   libjpeg-turbo, a decoder this repository did not write.
 
+Packed samples of 1-16 bits (strips and tiles, either byte order,
+uncompressed or deflated) are held to libtiff through cv2 (on a copy of
+the file with Photometric 1: it leaves CFA pages to the caller; the
+bundled tifffile's pure-Python unpack_ints refuses 10, 12 and 14 bits)
+and to np.unpackbits; a LinearizationTable to LibRaw's curve,
+table[min(s, len - 1)], after each compression.
+
 ``chip_smoke.write_dng``'s files (an 8-bit thumbnail in IFD0, the raw in
-a SubIFD, uncompressed or in lossless JPEG tiles) read bit for bit by
-both routes, and every case the reader leaves out raises with its name.
+a SubIFD, uncompressed, packed or in lossless JPEG tiles, with or without
+a LinearizationTable) read bit for bit by both routes, and every case the
+reader leaves out raises with its name.
 The module runs on one torch and BLAS thread.
 """
 
 import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -396,37 +405,250 @@ def _small_dng(compression="none"):
 
 
 _DNG_UNSUPPORTED = {
-    "packed 12-bit": lambda: _patch_raw_tag(_small_dng(), 258, 12),
     "LinearRaw": lambda: _patch_raw_tag(_small_dng(), 262, 34892),
     "lossy JPEG": lambda: _patch_raw_tag(_small_dng(), 259, 34892),
     "compression 5": lambda: _patch_raw_tag(_small_dng(), 259, 5),
     "BigTIFF": lambda: b"II+\x00" + bytes(60),
 }
+# once refused, now read: the 16-bit strip's bytes as 12-bit samples
+_DNG_NOW_READ = {
+    "packed 12-bit": lambda: _patch_raw_tag(_small_dng(), 258, 12),
+}
 
 
-@pytest.mark.parametrize("what", sorted(_DNG_UNSUPPORTED))
+def _unpack_reference(block, rows, cols, bits):
+    """Samples of `bits` packed MSB first, rows on byte boundaries, by
+    np.unpackbits and powers of two."""
+    row_bytes = -(-cols * bits // 8)
+    b = np.unpackbits(np.frombuffer(block, np.uint8, rows * row_bytes)
+                      .reshape(rows, row_bytes), axis=1)[:, :cols * bits]
+    return (b.reshape(rows, cols, bits).astype(np.int64)
+            << np.arange(bits - 1, -1, -1)).sum(-1).astype(np.uint16)
+
+
+@pytest.mark.parametrize("what", sorted(_DNG_UNSUPPORTED)
+                         + sorted(_DNG_NOW_READ))
 def test_dng_unsupported_raise_with_their_name(tmp_path, what):
+    """What the reader leaves out raises NotImplementedError with its
+    name; packed 12-bit samples, read since, come back as the strip's
+    bytes unpacked 12 bits at a time."""
     path = tmp_path / "u.dng"
-    path.write_bytes(_DNG_UNSUPPORTED[what]())
+    data = (_DNG_UNSUPPORTED.get(what) or _DNG_NOW_READ[what])()
+    path.write_bytes(data)
+    if what in _DNG_NOW_READ:
+        tags = dng.tiff_ifds(data)[1][1]
+        at = tags[273][0]
+        _same(dng.read_dng_raw(str(path)),
+              _unpack_reference(data[at:at + tags[279][0]], 32, 48, 12))
+        return
     with pytest.raises(NotImplementedError, match=what):
         dng.read_dng_raw(str(path))
 
 
 @pytest.mark.parametrize("what", ["LinearizationTable", "Predictor"])
 def test_tifffile_unsupported_raise_with_their_name(tmp_path, what):
-    """A LinearizationTable (tag 50712) and deflate with horizontal
-    differencing (Predictor 2), as tifffile writes them."""
+    """Deflate with horizontal differencing (Predictor 2), as tifffile
+    writes it, raises with its name; a LinearizationTable (tag 50712) of
+    4 entries, refused before, now maps each sample s to table[min(s,
+    3)]."""
     tf = pytest.importorskip("imageio.plugins._tifffile")
     raw = np.arange(16 * 32, dtype=np.uint16).reshape(16, 32)
     path = str(tmp_path / "p.dng")
     if what == "LinearizationTable":
+        table = np.array([0, 10, 20, 30], np.uint16)
         tf.imsave(path, raw, photometric="cfa", extratags=DNG_TAGS + [
-            (50712, "H", 4, (0, 10, 20, 30), True)])
-    else:
-        tf.imsave(path, raw, photometric="cfa", extratags=DNG_TAGS,
-                  compress=6, predictor=True)
+            (50712, "H", 4, tuple(table), True)])
+        _same(dng.read_dng_raw(path), table[np.minimum(raw, 3)])
+        return
+    tf.imsave(path, raw, photometric="cfa", extratags=DNG_TAGS,
+              compress=6, predictor=True)
     with pytest.raises(NotImplementedError, match=what):
         dng.read_dng_raw(path)
+
+
+# ---------------------------------------------------------------------------
+# packed samples and the LinearizationTable
+# ---------------------------------------------------------------------------
+
+def packed_tiff(path, raw, bits, bo="<", photometric=32803, tile=None,
+                rows_per_strip=None, deflate=False, table=None):
+    """A one-IFD classic TIFF of `raw` [H, W] as `bits`-bit samples packed
+    MSB first (each row of a strip or tile from a new byte): strips of
+    `rows_per_strip` or `tile` (width, length) tiles padded with zeros,
+    deflated where `deflate`; the CFA tags where `photometric` is 32803,
+    tag 50712 where `table` is given. Returns the bytes."""
+    H, W = raw.shape
+
+    def pack(a):
+        b = (a.astype(np.int64)[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+        return np.packbits(b.reshape(a.shape[0], -1).astype(np.uint8),
+                           axis=1).tobytes()
+
+    if tile:
+        tw, tl = tile
+        blocks = []
+        for y in range(0, H, tl):
+            for x in range(0, W, tw):
+                t = np.zeros((tl, tw), np.int64)
+                part = raw[y:y + tl, x:x + tw]
+                t[:part.shape[0], :part.shape[1]] = part
+                blocks.append(pack(t))
+    else:
+        per = rows_per_strip or H
+        blocks = [pack(raw[y:y + per]) for y in range(0, H, per)]
+    if deflate:
+        blocks = [zlib.compress(b) for b in blocks]
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bits]),
+            (259, 3, [8 if deflate else 1]), (262, 3, [photometric]),
+            (277, 3, [1])]
+    if tile:
+        tags += [(322, 4, [tile[0]]), (323, 4, [tile[1]]),
+                 (324, 4, [0] * len(blocks)),
+                 (325, 4, [len(b) for b in blocks])]
+    else:
+        tags += [(273, 4, [0] * len(blocks)), (278, 4, [per]),
+                 (279, 4, [len(b) for b in blocks])]
+    if photometric == 32803:
+        tags += [(33421, 3, [2, 2]), (33422, 1, [0, 1, 1, 2]),
+                 (50706, 1, [1, 4, 0, 0])]
+    if table is not None:
+        tags += [(50712, 3, [int(v) for v in table])]
+    tags.sort()
+    codes = {1: "B", 3: "H", 4: "I"}
+    extra_at = 8 + 2 + 12 * len(tags) + 4
+    sizes = [len(struct.pack(f"{bo}{len(v)}{codes[k]}", *v))
+             for _, k, v in tags]
+    at = extra_at + sum(n for n in sizes if n > 4)
+    offsets = []
+    for b in blocks:
+        offsets.append(at)
+        at += len(b)
+    body, extra = b"", b""
+    for tag, kind, values in tags:
+        if tag in (273, 324):
+            values = offsets
+        payload = struct.pack(f"{bo}{len(values)}{codes[kind]}", *values)
+        if len(payload) <= 4:
+            field = payload.ljust(4, b"\0")
+        else:
+            field = struct.pack(bo + "I", extra_at + len(extra))
+            extra += payload
+        body += struct.pack(bo + "HHI", tag, kind, len(values)) + field
+    head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(bo + "I", 8)
+    data = head + struct.pack(bo + "H", len(tags)) + body + \
+        struct.pack(bo + "I", 0) + extra + b"".join(blocks)
+    with open(path, "wb") as f:
+        f.write(data)
+    return data
+
+
+_PACKED_LAYOUTS = {"strips": dict(rows_per_strip=5),
+                   "strips_deflate": dict(rows_per_strip=16, deflate=True),
+                   "tiles": dict(tile=(16, 16)),
+                   "tiles_deflate": dict(tile=(32, 16), deflate=True)}
+
+
+@pytest.mark.parametrize("layout", sorted(_PACKED_LAYOUTS))
+@pytest.mark.parametrize("byteorder", ["<", ">"])
+@pytest.mark.parametrize("bits", [10, 12, 14])
+def test_packed_samples_match_libtiff(tmp_path, bits, byteorder, layout):
+    """10, 12 and 14-bit samples packed MSB first in strips or tiles
+    (edge tiles cropped, rows from a new byte), little- and big-endian,
+    uncompressed or deflated: read_dng_raw gives what libtiff (through
+    cv2, on the same file with Photometric 1, since it leaves CFA pages
+    to the caller) gives, shifted back from its 16 bits. (imageio's
+    bundled tifffile refuses these sizes without its C extension.)"""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(bits * 10 + len(layout))
+    raw = rng.integers(0, 1 << bits, (37, 41)).astype(np.uint16)
+    raw[:3] = (1 << bits) - 1
+    path = str(tmp_path / "p.dng")
+    packed_tiff(path, raw, bits, byteorder, **_PACKED_LAYOUTS[layout])
+    grey = str(tmp_path / "p.tif")
+    packed_tiff(grey, raw, bits, byteorder, photometric=1,
+                **_PACKED_LAYOUTS[layout])
+    ref = cv2.imread(grey, cv2.IMREAD_UNCHANGED)
+    assert ref is not None and ref.dtype == np.uint16
+    ref = ref >> (16 - bits)
+    np.testing.assert_array_equal(ref, raw)
+    _same(dng.read_dng_raw(path), ref)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 5, 7, 9, 11, 13, 15])
+def test_packed_odd_sizes(tmp_path, bits):
+    """Every other packed size from 1 to 15 bits against the written
+    samples and the np.unpackbits reference (rows of 13 samples end
+    inside a byte)."""
+    rng = np.random.default_rng(bits)
+    raw = rng.integers(0, 1 << bits, (9, 13)).astype(np.uint16)
+    path = str(tmp_path / "o.dng")
+    data = packed_tiff(path, raw, bits, tile=(8, 8))
+    _same(dng.read_dng_raw(path), raw)
+    row_bytes = -(-8 * bits // 8)
+    first = dng.tiff_ifds(data)[1][0][324][0]
+    np.testing.assert_array_equal(
+        _unpack_reference(data[first:first + 8 * row_bytes], 8, 8, bits),
+        raw[:8, :8])
+
+
+_TABLES = {"longer": lambda bits: chip_smoke.linearization_table(
+    1 << bits, 16383),
+    "shorter": lambda bits: np.arange(0, 3000, 7, dtype=np.uint16)[::-1]
+    .copy()}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("table", sorted(_TABLES))
+@pytest.mark.parametrize("layout", ["packed12", "strips16_deflate",
+                                    "lj92"])
+def test_linearization_table_applies_after_decoding(tmp_path, layout, table,
+                                                    route):
+    """A LinearizationTable after packed 12-bit strips, deflated 16-bit
+    strips and lossless JPEG tiles: each sample s becomes table[min(s,
+    len - 1)], as LibRaw's curve (filled from the table and extended
+    with its last entry) maps it; a table shorter than the largest sample
+    (and not increasing) included."""
+    rng = np.random.default_rng(len(layout) + len(table))
+    bits = 12 if layout == "packed12" else 16
+    raw = rng.integers(0, 1 << bits, (40, 56)).astype(np.uint16)
+    lut = _TABLES[table](bits if bits == 12 else 12)
+    path = str(tmp_path / "l.dng")
+    if layout == "packed12":
+        packed_tiff(path, raw, 12, table=lut, rows_per_strip=16)
+    elif layout == "strips16_deflate":
+        packed_tiff(path, raw, 16, bo=">", table=lut, rows_per_strip=16,
+                    deflate=True)
+    else:
+        chip_smoke.write_dng(path, raw, "lj92", tile=32, table=lut)
+    want = lut[np.minimum(raw, len(lut) - 1)]
+    if table == "shorter":
+        assert raw.max() >= len(lut)
+    _same(dng.read_dng_raw(path, _route(route)), want)
+
+
+@pytest.mark.parametrize("table", [False, True], ids=["plain", "table"])
+@pytest.mark.parametrize("bits", [12, 14])
+def test_chip_smoke_packed_dng_read_bitwise(tmp_path, bits, table):
+    """chip_smoke.write_dng's packed strips (the card's dng phase writes
+    12- and 14-bit captures) with and without its LinearizationTable
+    (linearization_table, the stored samples from linearize_inverse):
+    the table's values at the stored samples, within half a step of the
+    counts."""
+    rng = np.random.default_rng(bits)
+    counts = rng.integers(512, 16384, (30, 44))
+    path = str(tmp_path / "c.dng")
+    if table:
+        lut = chip_smoke.linearization_table(1 << bits, 16383)
+        stored = chip_smoke.linearize_inverse(lut, counts)
+        want = lut[stored]
+        step = np.diff(lut.astype(np.int64)).max()
+        assert np.abs(want.astype(np.int64) - counts).max() <= step // 2 + 1
+    else:
+        stored = want = (counts >> (14 - bits)).astype(np.uint16)
+    chip_smoke.write_dng(path, stored, "none", bits=bits,
+                         table=lut if table else None)
+    assert dng.tiff_ifds(open(path, "rb").read())[1][1][258] == (bits,)
+    _same(dng.read_dng_raw(path), want.astype(np.uint16))
 
 
 @pytest.mark.parametrize("damage", ["not_tiff", "no_cfa", "cut"])

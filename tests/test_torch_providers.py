@@ -707,12 +707,15 @@ def test_load_colmap_test_trajectories_match_jax(tmp_path, traj):
     assert len(t.poses) == (100 if traj == "circle" else 28)
 
 
-def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None, pixel="HALF"):
+def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None, pixel="HALF",
+                 codecs=None, written=None):
     """A light-stage layout: the COLMAP model of make_colmap_dataset, EXR
     captures under raw/ (bracketed _e<micros> names, or one _l<led> name
     per LED of ``leds``; each a one-channel mosaic drawn from its name,
     written by chip_smoke.write_exr as `pixel` HALF with ZIP or FLOAT with
-    ZIPS), mask PNGs and an LED calibration."""
+    ZIPS, or with `codecs` [(compression, tiles)] round robin, each
+    file's values as read put in `written`), mask PNGs and an LED
+    calibration."""
     make_colmap_dataset(root, n_images=n_images, H=H, W=W)
     for sub in ("raw", "mask"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -721,10 +724,15 @@ def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None, pixel="HALF"):
         stem = f"img_{i:03d}"
         names = ([f"{stem}_e{exp}" for exp in jprov.BRACKETING_EXPOSURES]
                  if leds is None else [f"{stem}_l{led}" for led in leds])
-        for name in names:
+        for k, name in enumerate(names):
             path = os.path.join(root, "raw", name + ".exr")
-            chip_smoke.write_exr(path, _mosaic(path), "ZIP" if pixel ==
-                                 "HALF" else "ZIPS", pixel)
+            if codecs is None:
+                chip_smoke.write_exr(path, _mosaic(path), "ZIP" if pixel ==
+                                     "HALF" else "ZIPS", pixel)
+                continue
+            codec, tiles = codecs[(i * len(names) + k) % len(codecs)]
+            _, written[path] = chip_smoke.write_exr(
+                path, _mosaic(path), codec, pixel, tiles=tiles, values=True)
         mask = (rng.random((H, W)) > 0.3).astype(np.uint8) * 255
         cv2.imwrite(os.path.join(root, "mask", stem + ".png"), mask)
     trefl.write_light_dirs_calibration(
@@ -761,15 +769,17 @@ _HDR_CASES = {
 }
 
 
-def _check_hdr_case(tmp_path, monkeypatch, case, pixel):
+def _check_hdr_case(tmp_path, monkeypatch, case, pixel, codecs=None):
     spec = _HDR_CASES[case]
     H = spec.get("H", 32)
+    written = {}
     root = _hdr_dataset(str(tmp_path), H=H, W=H * 5 // 4,
                         leds=(0, 2, 3) if spec.get("rfield") else None,
-                        pixel=pixel)
+                        pixel=pixel, codecs=codecs, written=written)
     monkeypatch.setattr(jnative, "_load", lambda: None)
     monkeypatch.setattr(tnative, "_load", lambda: None)
-    monkeypatch.setattr(jio, "load_exr_image", lambda p: _written(p, pixel))
+    monkeypatch.setattr(jio, "load_exr_image", lambda p: (
+        written[p].copy() if codecs else _written(p, pixel)))
     jc, tc = _cfgs(path=root, data_format="colmap", image_mode="HDR",
                    enable_cam_near_far=True, **spec["data"])
     if spec.get("rfield"):
@@ -808,6 +818,22 @@ def test_load_colmap_hdr_float_exr_match_jax(tmp_path, monkeypatch, case):
     _check_hdr_case(tmp_path, monkeypatch, case, "FLOAT")
 
 
+_NEW_EXR_CODECS = [("PIZ", None), ("PXR24", None), ("B44", None),
+                   ("B44A", None), ("PIZ", (8, 8, 1, 0))]
+
+
+@pytest.mark.parametrize("pixel", ["HALF", "FLOAT"])
+@pytest.mark.parametrize("case", ["bracketing_masked_mosaiced",
+                                  "rfield_all"])
+def test_load_colmap_hdr_new_codecs_match_jax(tmp_path, monkeypatch, case,
+                                              pixel):
+    """test_load_colmap_hdr_branches_match_jax on captures in PIZ, PXR24,
+    B44, B44A and tiled PIZ round robin (JAX's load_exr_image gets each
+    file's values as the writer stored them: B44 and PXR24 FLOAT are
+    lossy): every SceneData field bit for bit."""
+    _check_hdr_case(tmp_path, monkeypatch, case, pixel, _NEW_EXR_CODECS)
+
+
 _DNG_EXIF = {"AsShotNeutral": "0.4521 1 0.6738",
              "ColorMatrix2": "0.6722 -0.0635 -0.0963 -0.4287 1.2460 0.2028 "
                              "-0.0908 0.2162 0.5668",
@@ -817,9 +843,12 @@ _DNG_EXIF = {"AsShotNeutral": "0.4521 1 0.6738",
 def _dng_dataset(root, compression, n_images=6, H=16, W=20):
     """A RAW capture folder: the COLMAP model of make_colmap_dataset,
     raw/img_XXX.dng (a 2H x 2W RGGB mosaic of 14-bit counts above the
-    black level, written by chip_smoke.write_dng: `compression` "lj92"
-    or "none") with exiftool-style raw/img_XXX.json sidecars, and mask
-    PNGs. Returns {path: the written counts}."""
+    black level, written by chip_smoke.write_dng: `compression` "lj92",
+    "none", "packed14" (14-bit samples packed) or "packed12_table" (12-bit
+    samples packed through a square-law LinearizationTable, the stored
+    samples linearize_inverse of the counts)) with exiftool-style
+    raw/img_XXX.json sidecars, and mask PNGs. Returns {path: the counts
+    a reader gets}."""
     make_colmap_dataset(root, n_images=n_images, H=H, W=W)
     for sub in ("raw", "mask"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -829,9 +858,21 @@ def _dng_dataset(root, compression, n_images=6, H=16, W=20):
         stem = os.path.join(root, "raw", f"img_{i:03d}")
         raw = rng.integers(0, 16383, (2 * H, 2 * W)).astype(np.uint16)
         raw[:4] = 300                         # some counts below black
-        chip_smoke.write_dng(stem + ".dng", raw, compression,
+        bits, table = 16, None
+        if compression.startswith("packed"):
+            bits = int(compression[6:8])
+            if compression.endswith("table"):
+                table = chip_smoke.linearization_table(1 << bits, 16383)
+                stored = chip_smoke.linearize_inverse(table, raw)
+                raw = table[stored]
+            else:
+                stored = raw >> (14 - bits)
+                raw = stored
+        chip_smoke.write_dng(stem + ".dng", stored if bits != 16 else raw,
+                             "none" if bits != 16 else compression,
                              black=_DNG_EXIF["BlackLevel"],
-                             white=_DNG_EXIF["WhiteLevel"], tile=16)
+                             white=_DNG_EXIF["WhiteLevel"], tile=16,
+                             bits=bits, table=table)
         with open(stem + ".json", "w") as f:
             json.dump([dict(_DNG_EXIF, SourceFile=stem + ".dng")], f)
         written[stem + ".dng"] = raw
@@ -857,11 +898,13 @@ def _listing(folder, first_json):
 
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
 @pytest.mark.parametrize("clip", [True, False], ids=["clip", "no_clip"])
-@pytest.mark.parametrize("compression", ["lj92", "none"])
+@pytest.mark.parametrize("compression", ["lj92", "none", "packed14",
+                                         "packed12_table"])
 def test_load_colmap_dng_captures_match_jax(tmp_path, monkeypatch,
                                             compression, clip, masked):
-    """RAW camera captures: DNG files (lossless JPEG tiles or
-    uncompressed) with their .json sidecars, read by the port from disk
+    """RAW camera captures: DNG files (lossless JPEG tiles,
+    uncompressed, packed 14-bit, or packed 12-bit through a
+    LinearizationTable) with their .json sidecars, read by the port from disk
     while JAX's load_dng_raw is monkeypatched to the written counts (no
     rawpy here): cam2rgb from the sidecar, black and white from it when
     not clipping, the demosaic and the area resize from twice the size,

@@ -152,18 +152,111 @@ def test_downscale_matches_cv2(tmp_path, factor):
 
 
 @pytest.mark.parametrize("name,head", [
-    ("a.tif", b"II*\x00" + bytes(60)), ("a.exr", b"v/1\x01" + bytes(60)),
+    ("a.tif", b"II*\x00" + bytes(60)),
+    ("a.exr.tif", b"v/1\x01" + bytes(60)),
     ("a.jpg.tif", b"\xff\xd8\xff\xe0" + bytes(60))],
     ids=["tiff", "exr", "jpeg_written_as_tiff"])
 def test_downscale_other_formats_raise(tmp_path, name, head):
-    """A TIFF or EXR image, or a JPEG whose name asks for a TIFF, raises
-    ImportError naming what the port reads and writes (PNG and JPEG)."""
+    """A TIFF image, or an EXR or a JPEG whose name asks for a TIFF, raises
+    ImportError naming what the port reads and writes (PNG and JPEG, and
+    OpenEXR as .exr; EXR itself reads since the port's EXR writer came)."""
     from raw_ngp_torch.tools import downscale
 
     os.makedirs(tmp_path / "images")
     (tmp_path / "images" / name).write_bytes(head)
-    with pytest.raises(ImportError, match="PNG and JPEG"):
+    with pytest.raises(ImportError, match="PNG and JPEG, and OpenEXR"):
         downscale.main([str(tmp_path), "--factor", "2"])
+
+
+@pytest.mark.parametrize("factor", [2, 3])
+def test_downscale_exr_folder(tmp_path, factor):
+    """An EXR folder (a HALF mosaic in PIZ, a tiled B44A RGB capture,
+    FLOAT RGB and RGBA written as cv2 writes them) through the port's
+    tool: each output is OpenCV's EXR layout (FLOAT, ZIP, Y; B, G, R; or
+    A, B, G, R: an A channel is kept, as cv2's IMREAD_UNCHANGED reads it)
+    and reads back bit for bit as resize_area of the input's pixels,
+    which are cv2.resize's INTER_AREA pixels."""
+    cv2 = pytest.importorskip("cv2")
+    import chip_smoke
+    from raw_ngp_torch.data import exr
+    from raw_ngp_torch.data.image_io import resize_area
+    from raw_ngp_torch.tools import downscale
+
+    src = tmp_path / "images"
+    os.makedirs(src)
+    rng = np.random.default_rng(factor)
+    chip_smoke.write_exr(str(src / "mosaic.exr"), _capture(5, (46, 61)),
+                         "PIZ", "HALF")
+    chip_smoke.write_exr(str(src / "tiled.exr"), _capture(6, (37, 50, 3)),
+                         "B44A", "HALF", tiles=(16, 16, 1, 0))
+    exr.write_exr(str(src / "float.exr"),
+                  rng.lognormal(0, 2, (40, 33, 3)).astype(np.float32))
+    exr.write_exr(str(src / "rgba.exr"),
+                  rng.lognormal(0, 2, (29, 44, 4)).astype(np.float32))
+    (src / "notes.txt").write_text("not an image\n")
+    downscale.main([str(tmp_path), "--factor", str(factor)])
+    dst = tmp_path / f"images_{factor}"
+    assert sorted(os.listdir(dst)) == ["float.exr", "mosaic.exr",
+                                       "rgba.exr", "tiled.exr"]
+    for name in sorted(os.listdir(dst)):
+        img = exr.read_exr(str(src / name), alpha=True)
+        H, W = img.shape[:2]
+        want = resize_area(img, H // factor, W // factor)
+        ref = cv2.resize(img, (W // factor, H // factor),
+                         interpolation=cv2.INTER_AREA)
+        np.testing.assert_array_equal(want.view(np.uint32),
+                                      ref.view(np.uint32))
+        data = (dst / name).read_bytes()
+        part, _, multipart = exr.read_header(data)
+        assert part.compression == 3 and part.tiles is None
+        assert [(c, t) for c, t, _ in part.channels] == (
+            [("Y", 2)] if img.ndim == 2 else
+            [(c, 2) for c in "ABGR"[4 - img.shape[2]:]])
+        got = exr.read_exr(str(dst / name), alpha=True)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+_ANGLES = [-90, 30, 45.5, -135, 1e-3, 179.9]
+
+
+@pytest.mark.parametrize("shape", [(61, 47), (917, 610), (2, 9)],
+                         ids=["61x47", "917x610", "2x9"])
+@pytest.mark.parametrize("angle", _ANGLES, ids=[str(a) for a in _ANGLES])
+def test_crop_rotate_matches_pillow(angle, shape):
+    """exr_tools.crop_rotate is PIL's Image.crop(box).rotate(angle,
+    expand=True) on mode F with NEAREST, bit for bit: the expanded size
+    and every sample, at quarter turns and free angles, on a box that
+    leaves the image (0 there)."""
+    Image = pytest.importorskip("PIL.Image")
+    from raw_ngp_torch.tools import exr_tools
+
+    rng = np.random.default_rng(len(str(angle)) + shape[0])
+    img = rng.normal(0, 1, shape).astype(np.float32)
+    box = (-3, -1, shape[1] + 4, shape[0] + 2)
+    ref = np.asarray(Image.fromarray(img).crop(box).rotate(
+        angle, expand=True), np.float32)
+    got = exr_tools.crop_rotate(img, box, angle)
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+def test_affine_float_path_matches_pillow():
+    """Where a corner maps beyond +-32768 Pillow's affine NEAREST steps
+    doubles instead of 16.16 fixed point: a 40,000-pixel row sampled
+    through such a map, bit for bit."""
+    Image = pytest.importorskip("PIL.Image")
+    from raw_ngp_torch.tools import exr_tools
+
+    img = np.random.default_rng(3).normal(0, 1, (3, 40000)).astype(
+        np.float32)
+    m = (1.0000001, 0.2, 0.3, 0.0, 0.0001, 0.2)
+    ref = np.asarray(Image.fromarray(img).transform(
+        (40000, 2), Image.Transform.AFFINE, m), np.float32)
+    got = exr_tools._affine_nearest(img, (40000, 2), list(m))
+    assert (ref != 0).sum() > 70000
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
 
 
 def _jpeg_folder(root):
@@ -460,6 +553,30 @@ def test_exr_tools_wb_matches_jax(tmp_path, monkeypatch, crop):
     jtool = jax_tool("exr_tools")
     monkeypatch.setattr(jtool, "load_exr_image", lambda p: written.copy())
     want = jtool.main(argv)
+    assert got.shape == want.shape == (3, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("angle", [30.0, -135.0, 1e-3])
+def test_solve_wb_free_angle_matches_jax(tmp_path, monkeypatch, angle):
+    """solve_wb at an angle that is not a quarter turn: the port's numpy
+    rotation against the JAX tool's PIL rotate(angle, expand=True), the
+    3 x 3 within 1e-10 relative."""
+    pytest.importorskip("PIL")
+    import chip_smoke
+    from raw_ngp_torch.data.exr import read_exr
+    from raw_ngp_torch.tools import exr_tools
+
+    path = str(tmp_path / "checker.exr")
+    chip_smoke.write_exr(path, _capture(7, (150, 120)), "PIZ", "FLOAT")
+    written = read_exr(path)
+    kwargs = dict(crop=(3, 2, 113, 140), rotate_deg=angle,
+                  patch0=(40, 30, 48, 38), delta=12)
+    got = exr_tools.solve_wb(path, **kwargs)
+    jtool = jax_tool("exr_tools")
+    monkeypatch.setattr(jtool, "load_exr_image", lambda p: written.copy())
+    want = jtool.solve_wb(path, **kwargs)
     assert got.shape == want.shape == (3, 3)
     np.testing.assert_allclose(got, want, rtol=1e-10,
                                atol=1e-10 * np.abs(want).max())
