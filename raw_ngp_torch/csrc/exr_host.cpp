@@ -1,7 +1,9 @@
-// The serial part of raw_ngp_torch/data/exr.py: the Huffman decode of a
-// PIZ chunk (OpenEXR's hufUncompress). The bitmap, the LUT, the wavelet
-// and the reordering are numpy in exr.py, whose pure-Python decoder is the
-// oracle of this function: the same values.
+// The serial parts of raw_ngp_torch/data/exr.py and exr_dwa.py: the
+// Huffman decode of a PIZ chunk (OpenEXR's hufUncompress), which a DWA
+// chunk's STATIC_HUFFMAN AC values use too, and the expansion of a DWA
+// chunk's AC runs. The bitmap, the LUT, the wavelet, the reordering and
+// the DWA blocks' arithmetic are numpy in those modules, whose pure-Python
+// loops are the oracles of these functions: the same values.
 //
 // The stream: im, iM, the table's length, the number of bits and a
 // reserved word (five little-endian int32), the code lengths of symbols im
@@ -21,7 +23,15 @@
 
 namespace {
 
-enum { kOk = 0, kTruncated = 1, kBadTable = 2, kBadCode = 3, kBadCount = 4 };
+enum {
+  kOk = 0,
+  kTruncated = 1,
+  kBadTable = 2,
+  kBadCode = 3,
+  kBadCount = 4,
+  kAcShort = 5,
+  kAcRun = 6
+};
 
 constexpr int kEncSize = (1 << 16) + 1;
 constexpr int kDecBits = 14;
@@ -214,6 +224,39 @@ int piz_huf_decode(const uint8_t* data, int64_t size, uint16_t* out,
     if (rc) return rc;
   }
   return d.at == n_out ? kOk : kBadCount;
+}
+
+// Expands the run-length code of a DWA chunk's AC values ac[0:n_ac] for
+// n_blocks component blocks in stream order: each block's 63 AC halves
+// (zig-zag positions 1-63) into out[64 k + 1 .. 64 k + 63], which the
+// caller zeroes (position 0, the DC, is left alone), and the zig-zag index
+// of its last literal into last[k] (0 for none). 0xff00 ends a block,
+// 0xffnn (nn > 0) skips nn zeros, any other value is a literal. Returns 0
+// with *used the number of values read, or 5 (the stream ends inside a
+// block) or 6 (a run past the end of its block).
+int dwa_unrle_ac(const uint16_t* ac, int64_t n_ac, int64_t n_blocks,
+                 uint16_t* out, uint8_t* last, int64_t* used) {
+  int64_t p = 0;
+  for (int64_t k = 0; k < n_blocks; ++k) {
+    uint16_t* block = out + 64 * k;
+    int comp = 1, last_nonzero = 0;
+    while (comp < 64) {
+      if (p >= n_ac) return kAcShort;
+      const uint16_t v = ac[p++];
+      if (v == 0xff00) {
+        comp = 64;
+      } else if ((v >> 8) == 0xff) {
+        comp += v & 0xff;
+        if (comp > 64) return kAcRun;
+      } else {
+        last_nonzero = comp;
+        block[comp++] = v;
+      }
+    }
+    last[k] = static_cast<uint8_t>(last_nonzero);
+  }
+  *used = p;
+  return kOk;
 }
 
 }  // extern "C"

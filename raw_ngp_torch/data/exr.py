@@ -4,33 +4,42 @@
 :func:`read_exr` returns a float32 array of the data window: [H, W] for one
 channel, [H, W, 3] in RGB order for R, G, B (an A channel is dropped, as
 the JAX package's cv2 branch drops it; ``alpha=True`` asks for [H, W, 4]
-RGBA, as cv2.imread(IMREAD_UNCHANGED) reads it). It reads the layout of
-the OpenEXR file format ("The OpenEXR File Layout", openexr.com):
+RGBA, as cv2.imread(IMREAD_UNCHANGED) reads it) and for a luminance-chroma
+file's Y, RY and BY (converted to RGB as cv2's EXR decoder converts
+them). It reads the layout of the OpenEXR file format ("The OpenEXR File
+Layout", openexr.com):
 
 * the magic number ``76 2f 31 01`` and a version field whose low byte is
   2; its flags mark a single-part tiled file (0x200), long names (0x400,
   which need nothing), deep data (0x800) or several parts (0x1000);
 * each header's attributes (``name\\0type\\0``, an int32 size, the value)
   up to a null byte, of which ``channels`` (chlist: pixel type, pLinear,
-  sampling), ``compression``, ``dataWindow`` (box2i), ``lineOrder``,
-  ``tiles`` (tiledesc), ``type`` and ``chunkCount`` are read. A multipart
-  file holds a header a part and an empty header after the last; its
-  parts' offset tables follow in order, and each of its chunks starts
-  with its part's number. Part 0 is read, as ``InputFile`` reads it; the
-  other parts' chunks are not decoded;
+  x and y sampling), ``compression``, ``dataWindow`` (box2i),
+  ``lineOrder``, ``tiles`` (tiledesc), ``type``, ``chunkCount`` and
+  ``chromaticities`` are read. A multipart file holds a header a part
+  and an empty header after the last; its parts' offset tables follow in
+  order, and each of its chunks starts with its part's number. Part 0 is
+  read, as ``InputFile`` reads it; the other parts' chunks are not
+  decoded;
 * scanline parts: one uint64 offset a chunk, each chunk an int32 y, an
   int32 size and the data: line by line, each channel's row in the
-  header's (alphabetical) order, little-endian. Tiled parts (the
-  ``tiles`` attribute: the tile size, ONE_LEVEL, MIPMAP_LEVELS or
-  RIPMAP_LEVELS and ROUND_DOWN or ROUND_UP) give level (0, 0), whose
-  tiles come first in the offset table of every level mode; a tile chunk
-  is its int32 tile x, tile y, level x and level y, an int32 size and the
-  tile's data laid out as a scanline chunk of the tile's (edge-cropped)
-  width. Chunks are placed by their own coordinates, so every line order
-  reads the same image;
+  header's (alphabetical) order, little-endian. A channel sampled every
+  xs-th column and ys-th line has a row only on the lines y with y % ys
+  == 0, of W / xs samples; the codecs that store planes (PIZ, B44, DWA)
+  store its samples in the chunk, ny rows of W / xs. As OpenEXR's header
+  check requires, the data window's corner and size are multiples of
+  every channel's sampling, and a tiled part samples every channel at
+  1. Tiled parts (the ``tiles`` attribute: the tile size, ONE_LEVEL,
+  MIPMAP_LEVELS or RIPMAP_LEVELS and ROUND_DOWN or ROUND_UP) give level
+  (0, 0), whose tiles come first in the offset table of every level
+  mode; a tile chunk is its int32 tile x, tile y, level x and level y,
+  an int32 size and the tile's data laid out as a scanline chunk of the
+  tile's (edge-cropped) width. Chunks are placed by their own
+  coordinates, so every line order reads the same image;
 * the compressions NONE (1 line a chunk), RLE (1), ZIPS (1), ZIP (16),
-  PIZ (32), PXR24 (16), B44 (32) and B44A (32); a tile is one chunk. A
-  chunk whose size is not below its uncompressed size is stored raw.
+  PIZ (32), PXR24 (16), B44 (32), B44A (32), DWAA (32) and DWAB (256); a
+  tile is one chunk. A chunk whose size is not below its uncompressed
+  size is stored raw.
 
   - ZIP and ZIPS are zlib's inflate; RLE is a signed count byte, -n then n
     literal bytes, n >= 0 then one byte repeated n + 1 times. Both are
@@ -67,16 +76,30 @@ the OpenEXR file format ("The OpenEXR File Layout", openexr.com):
     :func:`raw_ngp_torch.native.exr_library`) and, where that library
     does not build, in the pure Python of this module, its oracle: both
     give the same values. ``route`` picks one as in ``data/dng.py``.
+  - DWAA and DWAB: the lossy DCT codec of ``data/exr_dwa.py``, whose
+    docstring gives its layout (the AC stream's Huffman decode and run
+    expansion are its serial loops, in the same C++ library and in
+    Python by ``route``).
 
 HALF samples go through numpy's ``float16``, bit for bit (infinities,
 NaNs, -0 and subnormals included); FLOAT samples are copied bit for bit;
 UINT samples are their value as float32.
 
+Subsampled channels come back at the data window's size, each sample
+repeated over its xs x ys pixels (cv2's ExrDecoder::UpSample). A file of
+Y, RY and BY (luminance and chroma, the chroma often at 2 x 2) reads as
+cv2's ExrDecoder::ChromaToBGR makes it, in float64 from the float32
+samples: R = (RY + 1) Y, B = (BY + 1) Y, G = (Y - B wb - R wr) / wg, the
+weights (wr, wg, wb) the y coordinates of the header's ``chromaticities``
+(Rec. 709's, 0.33, 0.6 and 0.06, where it has none), then float32; Y
+alone reads as one channel.
+
 Departures, each raising with the file and its name:
-``NotImplementedError`` for DWAA and DWAB compression, deep data and
-subsampled channels; ``ValueError`` for a file that is not OpenEXR, is
-cut short or is inconsistent, and for a channel set other than one
-channel or R, G, B (with or without A).
+``NotImplementedError`` for deep data; ``ValueError`` for a file that is
+not OpenEXR, is cut short or is inconsistent (a subsampled channel in a
+tiled part, or a data window that its sampling does not divide, among
+them), and for a channel set other than one channel, R, G, B or Y, RY,
+BY (each with or without A).
 
 :func:`write_exr` writes a float32 image as ``cv2.imwrite`` writes one
 through OpenCV's OpenEXR encoder.
@@ -100,8 +123,8 @@ UINT, HALF, FLOAT = 0, 1, 2
 # compression codes: (name, scanlines a chunk) for the ones read
 COMPRESSIONS = {0: ("NONE", 1), 1: ("RLE", 1), 2: ("ZIPS", 1), 3: ("ZIP", 16),
                 4: ("PIZ", 32), 5: ("PXR24", 16), 6: ("B44", 32),
-                7: ("B44A", 32)}
-UNSUPPORTED_COMPRESSIONS = {8: "DWAA", 9: "DWAB"}
+                7: ("B44A", 32), 8: ("DWAA", 32), 9: ("DWAB", 256)}
+DWA_CODES = (8, 9)
 LINE_ORDERS = {0: "INCREASING_Y", 1: "DECREASING_Y", 2: "RANDOM_Y"}
 LEVEL_MODES = {0: "ONE_LEVEL", 1: "MIPMAP_LEVELS", 2: "RIPMAP_LEVELS"}
 ROUNDING_MODES = {0: "ROUND_DOWN", 1: "ROUND_UP"}
@@ -113,6 +136,10 @@ B44_FLAT = 13 << 2
 HUF_ERRORS = {1: "the Huffman stream ends early", 2: "a malformed Huffman "
               "code table", 3: "an undefined Huffman code",
               4: "the Huffman stream decodes to the wrong number of values"}
+# the chromaticities attribute's default: Rec. 709's red, green, blue and
+# white (x, y), as float32 (Imf::Chromaticities())
+REC709 = tuple(float(np.float32(v)) for v in (
+    0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290))
 
 
 def _cut(path, what):
@@ -133,14 +160,22 @@ class _Corrupt(Exception):
 class Part:
     """One part's header: its channels [(name, pixel type, pLinear)] in
     file order, compression, data window (x0, y0, x1, y1), line order,
-    tiles ((width, height, level mode, rounding mode) or None) and
-    chunkCount (None where absent)."""
+    tiles ((width, height, level mode, rounding mode) or None), chunkCount
+    (None where absent), each channel's (x, y) sampling (None: all 1) and
+    the chromaticities (red, green, blue and white x, y; None where
+    absent)."""
     channels: List[Tuple[str, int, bool]]
     compression: int
     data_window: Tuple[int, int, int, int]
     line_order: int = 0
     tiles: Optional[Tuple[int, int, int, int]] = None
     chunk_count: Optional[int] = None
+    sampling: Optional[List[Tuple[int, int]]] = None
+    chromaticities: Optional[Tuple[float, ...]] = None
+
+    @property
+    def samplings(self) -> List[Tuple[int, int]]:
+        return self.sampling or [(1, 1)] * len(self.channels)
 
     @property
     def size(self) -> Tuple[int, int]:
@@ -155,9 +190,10 @@ def _cstring(data: bytes, pos: int, path: str) -> Tuple[str, int]:
     return data[pos:end].decode("latin-1"), end + 1
 
 
-def _read_chlist(value: bytes, path: str) -> List[Tuple[str, int, bool]]:
-    """The channels of a chlist value: (name, pixel type, pLinear) in file
-    order."""
+def _read_chlist(value: bytes, path: str
+                 ) -> List[Tuple[str, int, bool, int, int]]:
+    """The channels of a chlist value: (name, pixel type, pLinear, x
+    sampling, y sampling) in file order."""
     out, pos = [], 0
     while True:
         if pos >= len(value):
@@ -173,11 +209,10 @@ def _read_chlist(value: bytes, path: str) -> List[Tuple[str, int, bool]]:
         if ptype not in PIXEL_TYPES:
             raise ValueError(f"{path}: OpenEXR channel {name!r} has pixel "
                              f"type {ptype} (0 UINT, 1 HALF, 2 FLOAT)")
-        if (xs, ys) != (1, 1):
-            raise NotImplementedError(
-                f"{path}: OpenEXR channel {name!r} is subsampled ({xs} x "
-                f"{ys}); subsampled channels are not read")
-        out.append((name, ptype, bool(linear)))
+        if xs < 1 or ys < 1:
+            raise ValueError(f"{path}: OpenEXR channel {name!r} has "
+                             f"sampling {xs} x {ys}")
+        out.append((name, ptype, bool(linear), xs, ys))
 
 
 def _read_attributes(data: bytes, pos: int, path: str) -> Tuple[Dict, int]:
@@ -200,7 +235,9 @@ def _read_attributes(data: bytes, pos: int, path: str) -> Tuple[Dict, int]:
         value = data[pos:pos + size]
         pos += size
         if name == "channels" and kind == "chlist":
-            header["channels"] = _read_chlist(value, path)
+            chlist = _read_chlist(value, path)
+            header["channels"] = [c[:3] for c in chlist]
+            header["sampling"] = [c[3:] for c in chlist]
         elif name == "compression" and kind == "compression" and size == 1:
             header["compression"] = value[0]
         elif name == "dataWindow" and kind == "box2i" and size == 16:
@@ -214,6 +251,9 @@ def _read_attributes(data: bytes, pos: int, path: str) -> Tuple[Dict, int]:
             header["type"] = value.rstrip(b"\0").decode("latin-1")
         elif name == "chunkCount" and kind == "int" and size == 4:
             header["chunk_count"] = struct.unpack("<i", value)[0]
+        elif name == "chromaticities" and kind == "chromaticities" and \
+                size == 32:
+            header["chromaticities"] = struct.unpack("<8f", value)
 
 
 def _part(header: Dict, tiled: bool, path: str) -> Part:
@@ -236,11 +276,6 @@ def _part(header: Dict, tiled: bool, path: str) -> Part:
         if key not in header:
             raise ValueError(f"{path}: OpenEXR header without {attr!r}")
     code = header["compression"]
-    if code in UNSUPPORTED_COMPRESSIONS:
-        raise NotImplementedError(
-            f"{path}: OpenEXR {UNSUPPORTED_COMPRESSIONS[code]} compression "
-            "is not read (NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44 and B44A "
-            "only)")
     if code not in COMPRESSIONS:
         raise ValueError(f"{path}: OpenEXR compression {code} is not "
                          "defined")
@@ -260,8 +295,23 @@ def _part(header: Dict, tiled: bool, path: str) -> Part:
         if tw < 1 or th < 1 or mode not in LEVEL_MODES or \
                 rounding not in ROUNDING_MODES:
             raise ValueError(f"{path}: OpenEXR tile description {tiles}")
+    sampling = header["sampling"]
+    for (name, _, _), (xs, ys) in zip(header["channels"], sampling):
+        if (xs, ys) == (1, 1):
+            continue
+        if tiled:
+            raise ValueError(f"{path}: OpenEXR channel {name!r} of a tiled "
+                             f"part is subsampled ({xs} x {ys}); OpenEXR "
+                             "samples a tiled part's channels at 1")
+        if x0 % xs or y0 % ys or (x1 - x0 + 1) % xs or (y1 - y0 + 1) % ys:
+            raise ValueError(f"{path}: OpenEXR channel {name!r} is sampled "
+                             f"{xs} x {ys}, which does not divide the data "
+                             f"window {header['data_window']}")
+    if all(s == (1, 1) for s in sampling):
+        sampling = None
     return Part(header["channels"], code, header["data_window"], order,
-                tiles, header.get("chunk_count"))
+                tiles, header.get("chunk_count"), sampling,
+                header.get("chromaticities"))
 
 
 def read_header(data: bytes, path: str = "<bytes>"
@@ -414,18 +464,20 @@ def _zip_rle(packed: bytes, size: int, code: int, path: str) -> np.ndarray:
 _PXR24_BYTES = {UINT: 4, HALF: 2, FLOAT: 3}
 
 
-def _pxr24(packed: bytes, types: List[int], width: int, lines: int,
+def _pxr24(packed: bytes, types: List[int], shapes, present,
            path: str) -> List[np.ndarray]:
-    """Each channel's samples [lines, width] (uint16 or uint32 bits) of a
-    PXR24 chunk."""
+    """Each channel's samples [rows, samples a row] (uint16 or uint32
+    bits) of a PXR24 chunk."""
     planes = [_PXR24_BYTES[t] for t in types]
-    raw = _inflate(packed, lines * width * sum(planes), "PXR24", path)
-    buf = np.frombuffer(raw, np.uint8).reshape(lines, width * sum(planes))
-    out, col = [], 0
-    for ptype, nb in zip(types, planes):
-        b = buf[:, col:col + nb * width].reshape(lines, nb, width).astype(
-            np.uint32)
-        col += nb * width
+    row_bytes = [nb * nx for nb, (_, nx) in zip(planes, shapes)]
+    raw = _inflate(packed, sum(ny * r for (ny, _), r in zip(shapes,
+                                                             row_bytes)),
+                   "PXR24", path)
+    rows = _split_rows(np.frombuffer(raw, np.uint8), row_bytes, shapes,
+                       present)
+    out = []
+    for ptype, nb, (lines, width), buf in zip(types, planes, shapes, rows):
+        b = buf.reshape(lines, nb, width).astype(np.uint32)
         diff = np.zeros((lines, width), np.uint32)
         for k in range(nb):
             diff = (diff << np.uint32(8)) | b[:, k]
@@ -517,13 +569,13 @@ def _b44_unpack(buf: np.ndarray, starts: np.ndarray) -> np.ndarray:
     return np.where(s & 0x8000, s & 0x7FFF, ~s & 0xFFFF).astype(np.uint16)
 
 
-def _b44(packed: bytes, channels: List[Tuple[str, int, bool]], width: int,
-         lines: int, path: str) -> List[np.ndarray]:
-    """Each channel's samples [lines, width] (uint16 or uint32 bits) of a
-    B44 or B44A chunk."""
+def _b44(packed: bytes, channels: List[Tuple[str, int, bool]], shapes,
+         path: str) -> List[np.ndarray]:
+    """Each channel's samples [rows, samples a row] (uint16 or uint32
+    bits) of a B44 or B44A chunk."""
     buf = np.frombuffer(packed, np.uint8)
     out, pos = [], 0
-    for _, ptype, linear in channels:
+    for (_, ptype, linear), (lines, width) in zip(channels, shapes):
         if ptype != HALF:
             n = lines * width * 4
             if pos + n > len(packed):
@@ -767,10 +819,10 @@ def wav2_decode(a: np.ndarray, mx: int) -> np.ndarray:
     return v
 
 
-def _piz(packed: bytes, types: List[int], width: int, lines: int,
-         path: str, lib) -> List[np.ndarray]:
-    """Each channel's samples [lines, width] (uint16 or uint32 bits) of a
-    PIZ chunk."""
+def _piz(packed: bytes, types: List[int], shapes, path: str, lib
+         ) -> List[np.ndarray]:
+    """Each channel's samples [rows, samples a row] (uint16 or uint32
+    bits) of a PIZ chunk."""
     if len(packed) < 4:
         raise _cut(path, "a PIZ chunk")
     lo, hi = struct.unpack("<HH", packed[:4])
@@ -798,11 +850,13 @@ def _piz(packed: bytes, types: List[int], width: int, lines: int,
     halves = [1 if t == HALF else 2 for t in types]
     try:
         raw = _huf_decode(packed[pos:pos + length],
-                         lines * width * sum(halves), lib)
+                         sum(ny * nx * h for (ny, nx), h in zip(shapes,
+                                                                halves)),
+                         lib)
     except _Corrupt as e:
         raise _bad(path, "PIZ: " + HUF_ERRORS[e.code]) from None
     out, at = [], 0
-    for ptype, size in zip(types, halves):
+    for ptype, size, (lines, width) in zip(types, halves, shapes):
         n = lines * width * size
         plane = raw[at:at + n].reshape(lines, width, size).astype(np.int64)
         at += n
@@ -820,6 +874,7 @@ def _piz(packed: bytes, types: List[int], width: int, lines: int,
 # ---------------------------------------------------------------------------
 
 def _library(route: Optional[str]):
+    """The EXR library for `route` ("python": None)."""
     if route == "python":
         return None
     if route not in (None, "native"):
@@ -835,34 +890,72 @@ def _widths(channels) -> List[int]:
     return [np.dtype(PIXEL_TYPES[t][1]).itemsize for _, t, _ in channels]
 
 
+def chunk_shapes(width: int, lines: int, sampling=None, y: int = 0):
+    """Each channel's samples in a chunk of `lines` lines from line `y`
+    (absolute) and `width` pixels, (rows, samples a row), and which of
+    the chunk's lines hold a row of it (None where every channel is
+    sampled at 1)."""
+    if sampling is None:
+        return None, None
+    present = [(np.arange(y, y + lines) % ys == 0) for _, ys in sampling]
+    shapes = [(int(p.sum()), width // xs) for p, (xs, _) in
+              zip(present, sampling)]
+    return shapes, present
+
+
+def _split_rows(raw: np.ndarray, row_bytes, shapes, present
+                ) -> List[np.ndarray]:
+    """Each channel's rows [rows, row bytes] of a buffer laid out line by
+    line, in each line the rows of the channels that have one there."""
+    if present is None:
+        lines = shapes[0][0] if shapes else 0
+        rows = raw.reshape(lines, sum(row_bytes))
+        out, col = [], 0
+        for r in row_bytes:
+            out.append(rows[:, col:col + r])
+            col += r
+        return out
+    sizes = np.stack(present, 1) * np.array(row_bytes, np.int64)
+    starts = (np.cumsum(sizes.reshape(-1)) - sizes.reshape(-1)).reshape(
+        sizes.shape)
+    return [raw[starts[p, c][:, None] + np.arange(r)]
+            for c, (p, r) in enumerate(zip(present, row_bytes))]
+
+
 def _decode_block(packed: bytes, code: int, channels, width: int, lines: int,
-                 path: str = "<bytes>", lib=None) -> List[np.ndarray]:
-    """Each channel's sample bits [lines, width] (uint16 for HALF, uint32
-    otherwise) of one chunk or tile of `width` x `lines` compressed with
-    `code`."""
+                 path: str = "<bytes>", lib=None, sampling=None, y: int = 0
+                 ) -> List[np.ndarray]:
+    """Each channel's sample bits (uint16 for HALF, uint32 otherwise) of
+    one chunk or tile of `width` x `lines` from line `y` compressed with
+    `code`: [lines, width], or [rows, width / xs] for a channel of
+    `sampling` (xs, ys)."""
     widths = _widths(channels)
-    size = lines * width * sum(widths)
+    shapes, present = chunk_shapes(width, lines, sampling, y)
+    if shapes is None:
+        shapes = [(lines, width)] * len(channels)
+    size = sum(ny * nx * w for (ny, nx), w in zip(shapes, widths))
     types = [t for _, t, _ in channels]
     if code == 0 or len(packed) >= size:
         if len(packed) != size:
             raise ValueError(f"{path}: an OpenEXR chunk holds {len(packed)} "
                              f"bytes where {size} are stored")
         code = 0
-    if code in (4, 5, 6, 7):
-        if code == 4:
-            return _piz(packed, types, width, lines, path, lib)
-        if code == 5:
-            return _pxr24(packed, types, width, lines, path)
-        return _b44(packed, channels, width, lines, path)
+    if code == 4:
+        return _piz(packed, types, shapes, path, lib)
+    if code == 5:
+        return _pxr24(packed, types, shapes, present, path)
+    if code in (6, 7):
+        return _b44(packed, channels, shapes, path)
+    if code in DWA_CODES:
+        from raw_ngp_torch.data import exr_dwa
+        return exr_dwa.decode_chunk(packed, channels, shapes, sampling,
+                                    path, lib)
     raw = np.frombuffer(packed, np.uint8) if code == 0 else \
         _zip_rle(packed, size, code, path)
-    rows = raw.reshape(lines, width * sum(widths))
-    out, col = [], 0
-    for ptype, w in zip(types, widths):
-        out.append(rows[:, col:col + width * w].copy().view(
-            "<u2" if ptype == HALF else "<u4"))
-        col += width * w
-    return out
+    rows = _split_rows(raw, [nx * w for (_, nx), w in zip(shapes, widths)],
+                       shapes, present)
+    return [r.copy().view("<u2" if t == HALF else "<u4")
+            for r, t in zip(rows, types)]
 
 
 def _chunks(data: bytes, part: Part, pos: int, multipart: bool, path: str):
@@ -919,48 +1012,104 @@ def _chunks(data: bytes, part: Part, pos: int, multipart: bool, path: str):
         yield box + (data[at:at + size],)
 
 
+def _channel_set(names: List[str], path: str) -> str:
+    """"one", "rgb" or "yc" (Y, RY, BY) for the channel sets read."""
+    if len(names) == 1:
+        return "one"
+    if len(set(names)) == len(names):
+        rest = sorted(set(names) - {"A"})
+        if rest == ["B", "G", "R"]:
+            return "rgb"
+        if rest == ["BY", "RY", "Y"]:
+            return "yc"
+    raise ValueError(f"{path}: OpenEXR channels {names} (one channel, or R, "
+                     "G, B or Y, RY, BY with or without A)")
+
+
+def _planes(data: bytes, part: Part, pos: int, multipart: bool, path: str,
+            route: Optional[str]) -> List[np.ndarray]:
+    """Part 0's channels' samples as float32, each [H / ys, W / xs]."""
+    H, W = part.size
+    sampling = part.samplings
+    lib = _library(route) if part.compression in (4,) + DWA_CODES else None
+    planes = [np.empty((H // ys, W // xs), "<u2" if t == HALF else "<u4")
+              for (_, t, _), (xs, ys) in zip(part.channels, sampling)]
+    y0 = part.data_window[1]
+    for x, y, width, lines, packed in _chunks(data, part, pos, multipart,
+                                              path):
+        got = _decode_block(packed, part.compression, part.channels, width,
+                            lines, path, lib, part.sampling, y0 + y)
+        for plane, block, (_, ys) in zip(planes, got, sampling):
+            row = -(-y // ys)
+            plane[row:row + block.shape[0], x:x + block.shape[1]] = block
+    return [plane.view(PIXEL_TYPES[t][1]).astype(np.float32)
+            for plane, (_, t, _) in zip(planes, part.channels)]
+
+
+def luminance_chroma_rgb(y: np.ndarray, ry: np.ndarray, by: np.ndarray,
+                         chromaticities: Optional[Tuple[float, ...]] = None
+                         ) -> np.ndarray:
+    """cv2's ExrDecoder::ChromaToBGR of float32 Y, RY, BY [H, W] as RGB
+    [H, W, 3] float32: in float64, R = (RY + 1) Y, B = (BY + 1) Y, G = (Y
+    - B wb - R wr) / wg with (wr, wg, wb) the red, green and blue y of
+    `chromaticities` (Rec. 709's where None)."""
+    c = REC709 if chromaticities is None else chromaticities
+    wr, wg, wb = (float(np.float32(c[k])) for k in (1, 3, 5))
+    lum = y.astype(np.float64)
+    r = (ry.astype(np.float64) + 1) * lum
+    b = (by.astype(np.float64) + 1) * lum
+    with np.errstate(all="ignore"):
+        g = (lum - b * wb - r * wr) / wg
+        return np.stack([r, g, b], -1).astype(np.float32)
+
+
 def decode_exr(data: bytes, path: str = "<bytes>",
                route: Optional[str] = None, alpha: bool = False
                ) -> np.ndarray:
     """:func:`read_exr` of a file's bytes."""
     part, pos, multipart = read_header(data, path)
-    channels = part.channels
-    H, W = part.size
-    names = [c for c, _, _ in channels]
-    if len(channels) == 1:
-        keep = [0]
-    elif sorted(set(names) - {"A"}) == ["B", "G", "R"] and \
-            len(set(names)) == len(names):
-        keep = [names.index(c) for c in
-                ("RGBA" if alpha and "A" in names else "RGB")]
+    names = [c for c, _, _ in part.channels]
+    kind = _channel_set(names, path)
+    planes = _planes(data, part, pos, multipart, path, route)
+    by = {}
+    for name, plane, (xs, ys) in zip(names, planes, part.samplings):
+        if (xs, ys) != (1, 1):
+            plane = np.repeat(np.repeat(plane, ys, 0), xs, 1)
+        by[name] = plane
+    if kind == "one":
+        return by[names[0]]
+    if kind == "rgb":
+        rgb = np.stack([by[c] for c in "RGB"], -1)
     else:
-        raise ValueError(f"{path}: OpenEXR channels {names} (one channel, "
-                         "or R, G, B with or without A)")
-    lib = _library(route) if part.compression == 4 else None
-    planes = [np.empty((H, W), "<u2" if t == HALF else "<u4")
-              for _, t, _ in channels]
-    for x, y, width, lines, packed in _chunks(data, part, pos, multipart,
-                                              path):
-        got = _decode_block(packed, part.compression, channels, width, lines,
-                           path, lib)
-        for plane, block in zip(planes, got):
-            plane[y:y + lines, x:x + width] = block
-    out = [plane.view(PIXEL_TYPES[t][1]).astype(np.float32)
-           for plane, (_, t, _) in zip(planes, channels)]
-    if len(keep) == 1:
-        return out[0]
-    return np.stack([out[i] for i in keep], -1)
+        rgb = luminance_chroma_rgb(by["Y"], by["RY"], by["BY"],
+                                   part.chromaticities)
+    if alpha and "A" in by:
+        return np.concatenate([rgb, by["A"][..., None]], -1)
+    return rgb
 
 
 def read_exr(path: str, route: Optional[str] = None,
              alpha: bool = False) -> np.ndarray:
     """The data window of an OpenEXR file's part 0 (scanline, or level 0
     of a tiled part) as float32: [H, W] for one channel, [H, W, 3] RGB
-    for R, G, B (A dropped; with `alpha`, [H, W, 4] RGBA where the file
-    has A). `route` "native" or "python" picks PIZ's Huffman decode; None
-    takes the C++ library where it builds."""
+    for R, G, B or Y, RY, BY (A dropped; with `alpha`, [H, W, 4] RGBA
+    where the file has A), subsampled channels repeated over their
+    pixels. `route` "native" or "python" picks the serial loops of PIZ
+    and DWA (the Huffman decode, DWA's AC runs); None takes the C++
+    library where it builds."""
     with open(path, "rb") as f:
         return decode_exr(f.read(), path, route, alpha)
+
+
+def read_exr_channels(path: str, route: Optional[str] = None
+                      ) -> Dict[str, np.ndarray]:
+    """Each channel of an OpenEXR file's part 0 as float32 at its own
+    sampling, [H / ys, W / xs], by name (any channel set)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    part, pos, multipart = read_header(data, path)
+    planes = _planes(data, part, pos, multipart, path, route)
+    return {name: p for (name, _, _), p in zip(part.channels, planes)}
 
 
 # ---------------------------------------------------------------------------

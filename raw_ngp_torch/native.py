@@ -3,8 +3,9 @@
 ``raw_ngp_tpu/native.py``) and for the JPEG entropy coder
 (``raw_ngp_torch/csrc/jpeg_host.cpp``, :func:`jpeg_library`, used by
 ``data/jpeg.py`` and, for lossless JPEG DNGs, ``data/dng.py``) and for
-the PIZ Huffman decoder (``raw_ngp_torch/csrc/exr_host.cpp``,
-:func:`exr_library`, used by ``data/exr.py``); those modules keep a
+the PIZ Huffman decoder and the DWA AC run expansion
+(``raw_ngp_torch/csrc/exr_host.cpp``, :func:`exr_library`, used by
+``data/exr.py`` and ``data/exr_dwa.py``); those modules keep a
 pure-Python route for a machine without ``g++``.
 
 Each library is built at first use with ``g++ -O3 -march=native -shared
@@ -144,6 +145,9 @@ def _bind_exr(lib):
     lib.piz_huf_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, _u16p,
                                    ctypes.c_int64]
     lib.piz_huf_decode.restype = ctypes.c_int
+    lib.dwa_unrle_ac.argtypes = [_u16p, ctypes.c_int64, ctypes.c_int64,
+                                 _u16p, _u8p, _i64p]
+    lib.dwa_unrle_ac.restype = ctypes.c_int
     lib.exr_host_version.restype = ctypes.c_int
 
 
@@ -155,8 +159,9 @@ def jpeg_library() -> Optional[ctypes.CDLL]:
 
 
 def exr_library() -> Optional[ctypes.CDLL]:
-    """The PIZ Huffman decoder (``csrc/exr_host.cpp``), built at first
-    use; None where it does not build."""
+    """The PIZ Huffman decoder and the DWA AC run expansion
+    (``csrc/exr_host.cpp``), built at first use; None where it does not
+    build."""
     return _host_library(EXR_SOURCE, _bind_exr)
 
 

@@ -22,10 +22,12 @@ floats are held to numpy's ``float16`` and the inflate to ``zlib``.
   channels; one hand-worked stream a new codec; corrupt PIZ chunks.
 * ``chip_smoke.write_exr``'s files and ``exr.write_exr``'s read back
   bit for bit.
-* What is left out (DWAA, DWAB; deep files; subsampled channels)
-  raising NotImplementedError with its name, and a truncated file,
-  another channel set and a file that is not OpenEXR raising
-  ValueError.
+* What is left out (deep files) raising NotImplementedError with its
+  name, what was once left out (DWAA, DWAB, subsampled channels) read
+  back, and a truncated file, another channel set and a file that is
+  not OpenEXR raising ValueError. DWA and subsampled files come from
+  test_torch_exr_dwa's scalar encoder and are held there to its decode
+  model.
 
 The module runs on one torch and BLAS thread.
 """
@@ -49,6 +51,7 @@ COMPRESSIONS = {"NONE": (0, 1), "RLE": (1, 1), "ZIPS": (2, 1),
 NEW_CODECS = {"PIZ": (4, 32), "PXR24": (5, 16), "B44": (6, 32),
               "B44A": (7, 32)}
 ALL_CODECS = {**COMPRESSIONS, **NEW_CODECS}
+DWA_CODECS = {"DWAA": (8, 32), "DWAB": (9, 256)}
 PIXELS = {"UINT": (0, "<u4"), "HALF": (1, "<f2"), "FLOAT": (2, "<f4")}
 CHANNEL_SETS = {"Y": ("Y",), "R": ("R",), "BGR": ("B", "G", "R"),
                 "ABGR": ("A", "B", "G", "R")}
@@ -151,31 +154,45 @@ def _float24(bits):
     return (s >> 8) | i
 
 
+def _rows_of(block):
+    """The chunk's rows in their file order: (channel, its row index) for
+    each line and each channel with a row there (a block entry's third
+    field marks the lines a subsampled channel has a row on)."""
+    lines = len(block[0][2]) if len(block[0]) > 2 else block[0][1].shape[0]
+    at = [0] * len(block)
+    out = []
+    for y in range(lines):
+        for c, entry in enumerate(block):
+            if len(entry) > 2 and not entry[2][y]:
+                continue
+            out.append((c, at[c]))
+            at[c] += 1
+    return out
+
+
 def _pxr24_chunk(block):
-    """A PXR24 chunk of `block` [(pixel type, bits [lines, width])]: per
+    """A PXR24 chunk of `block` [(pixel type, bits [rows, samples])]: per
     line and channel the differences of successive (24-bit for FLOAT)
     samples from 0, in big-endian byte planes, then zlib. Returns (the
     chunk, each channel's bits as read back)."""
-    lines = block[0][1].shape[0]
     out = bytearray()
-    back = [np.zeros_like(b) for _, b in block]
-    for y in range(lines):
-        for c, (ptype, bits) in enumerate(block):
-            nb = {"HALF": 2, "UINT": 4, "FLOAT": 3}[ptype]
-            planes = [bytearray() for _ in range(nb)]
-            prev = 0
-            for x, v in enumerate(int(b) for b in bits[y]):
-                if ptype == "FLOAT":
-                    v = _float24(v)
-                    back[c][y, x] = v << 8
-                d = (v - prev) & ((1 << (8 * nb)) - 1)
-                prev = v
-                for k in range(nb):
-                    planes[k].append((d >> (8 * (nb - 1 - k))) & 255)
-            out += b"".join(planes)
-        for c, (ptype, bits) in enumerate(block):
-            if ptype != "FLOAT":
-                back[c][y] = bits[y]
+    back = [np.zeros_like(e[1]) for e in block]
+    for c, y in _rows_of(block):
+        ptype, bits = block[c][:2]
+        nb = {"HALF": 2, "UINT": 4, "FLOAT": 3}[ptype]
+        planes = [bytearray() for _ in range(nb)]
+        prev = 0
+        for x, v in enumerate(int(b) for b in bits[y]):
+            if ptype == "FLOAT":
+                v = _float24(v)
+                back[c][y, x] = v << 8
+            d = (v - prev) & ((1 << (8 * nb)) - 1)
+            prev = v
+            for k in range(nb):
+                planes[k].append((d >> (8 * (nb - 1 - k))) & 255)
+        out += b"".join(planes)
+        if ptype != "FLOAT":
+            back[c][y] = bits[y]
     return zlib.compress(bytes(out)), back
 
 
@@ -280,7 +297,7 @@ def _b44_chunk(block, flat_ok, linear):
     chunk, each channel's bits as read back)."""
     log, exp = b44_tables() if any(linear) else (None, None)
     out, back = bytearray(), []
-    for (ptype, bits), lin in zip(block, linear):
+    for (ptype, bits, *_), lin in zip(block, linear):
         if ptype != "HALF":
             out += bits.astype("<u4").tobytes()
             back.append(bits.copy())
@@ -453,7 +470,7 @@ def _piz_chunk(block):
     high half), the bitmap of the values used and the forward LUT, each
     channel's each half through wav2Encode, hufCompress."""
     data, planes = [], []
-    for ptype, bits in block:
+    for ptype, bits, *_ in block:
         lines, width = bits.shape
         size = 1 if ptype == "HALF" else 2
         vals = bits.astype(np.uint32).reshape(lines, width, 1)
@@ -486,16 +503,31 @@ def _piz_chunk(block):
 
 # chunks, tiles, parts ----------------------------------------------------
 
-def _chunk(block, code, linear):
-    """One chunk's data of `block` [(pixel type, bits [lines, width])]
-    with compression `code`, stored raw where that is not larger, and
-    each channel's bits as read back."""
+def _chunk(block, code, linear, names=None, dwa=None):
+    """One chunk's data of `block` [(pixel type, bits [rows, samples]
+    [, the lines with a row of a subsampled channel])] with compression
+    `code`, stored raw where that is not larger, and each channel's bits
+    as read back. DWAA and DWAB chunks come from test_torch_exr_dwa's
+    scalar encoder (`names` the channels' names, `dwa` its options), their
+    values from its scalar decode model."""
     raw = b"".join(
-        bits[y].astype(PIXELS[ptype][1].replace("f", "u")).tobytes()
-        for y in range(block[0][1].shape[0]) for ptype, bits in block)
-    back = [b.copy() for _, b in block]
-    if code == 0 or code > 7:          # DWAA / DWAB: not coded here
+        block[c][1][y].astype(PIXELS[block[c][0]][1].replace("f", "u"))
+        .tobytes() for c, y in _rows_of(block))
+    back = [e[1].copy() for e in block]
+    if code == 0:
         return raw, back
+    if code in (8, 9):
+        import test_torch_exr_dwa as dwa_t
+        chans = [(n, e[0], e[1], lin) for n, e, lin in zip(names, block,
+                                                           linear)]
+        packed = dwa_t.dwa_chunk(chans, **(dwa or {}))
+        if len(packed) >= len(raw):
+            return raw, back
+        got = dwa_t.model_chunk(packed, [(n, e[0], lin) for n, e, lin in
+                                         zip(names, block, linear)],
+                                [e[1].shape for e in block],
+                                (dwa or {}).get("sampling"))
+        return packed, [g["bits"] for g in got]
     if code in (1, 2, 3):
         packed = _rle(_predict(raw)) if code == 1 else \
             zlib.compress(_predict(raw), 9)
@@ -535,22 +567,43 @@ def _levels(W, H, mode, rounding):
             for lx in range(_log2(W, rounding) + 1)]
 
 
-def _part_chunks(bits, code, origin, order, raw_chunks, tiles, linear):
+CHUNK_LINES = {3: 16, 4: 32, 5: 16, 6: 32, 7: 32, 8: 32, 9: 256}
+
+
+def _part_chunks(bits, code, origin, order, raw_chunks, tiles, linear,
+                 names=None, sampling=None, dwa=None):
     """The chunks (header fields + data) of one part in offset-table
-    order, and each channel's bits [H, W] as read back (level 0)."""
+    order, and each channel's bits as read back (level 0; a channel of
+    `sampling` (xs, ys) stores and gives back its samples [H / ys, W /
+    xs], every xs-th column of every ys-th line)."""
     H, W = bits[0][1].shape
     x0, y0 = origin
-    back = [np.zeros_like(b) for _, b in bits]
-    chunks = []
+    sampling = sampling or [(1, 1)] * len(bits)
+    if code in (8, 9):
+        dwa = dict(dwa or {}, sampling=sampling)
     if tiles is None:
-        per = {3: 16, 4: 32, 5: 16, 6: 32, 7: 32}.get(code, 1)
+        per = CHUNK_LINES.get(code, 1)
+        subs = [(t, b[::ys, ::xs]) for (t, b), (xs, ys) in zip(bits,
+                                                               sampling)]
+        back = [np.zeros_like(b) for _, b in subs]
+        chunks = []
         for k, y in enumerate(range(0, H, per)):
-            block = [(t, b[y:y + per]) for t, b in bits]
-            data, got = _chunk(block, 0 if k in raw_chunks else code, linear)
-            for dst, g in zip(back, got):
-                dst[y:y + per] = g
+            lines = min(per, H - y)
+            block = []
+            for (t, b), (xs, ys) in zip(subs, sampling):
+                present = (y0 + y + np.arange(lines)) % ys == 0
+                first = -(-y // ys)
+                block.append((t, b[first:first + int(present.sum())],
+                              present))
+            data, got = _chunk(block, 0 if k in raw_chunks else code, linear,
+                               names, dwa)
+            for dst, g, (_, ys) in zip(back, got, sampling):
+                first = -(-y // ys)
+                dst[first:first + len(g)] = g
             chunks.append(struct.pack("<ii", y0 + y, len(data)) + data)
         return chunks, back
+    back = [np.zeros_like(b) for _, b in bits]
+    chunks = []
     tw, th, mode, rounding = tiles
     k = 0
     for lx, ly in _levels(W, H, mode, rounding):
@@ -563,7 +616,7 @@ def _part_chunks(bits, code, origin, order, raw_chunks, tiles, linear):
                 block = [(t, np.ascontiguousarray(b[ys, xs]))
                          for t, b in level]
                 data, got = _chunk(block, 0 if k in raw_chunks else code,
-                                   linear)
+                                   linear, names, dwa)
                 if (lx, ly) == (0, 0):
                     for dst, g in zip(back, got):
                         dst[ys, xs] = g
@@ -577,9 +630,12 @@ def _header(channels, code, origin, order, attrs, sampling, linear, tiles,
             extra=b""):
     H, W = channels[0][2].shape
     x0, y0 = origin
+    if isinstance(sampling[0], int):
+        sampling = [sampling] * len(channels)
     chlist = b"".join(name.encode() + b"\0" + struct.pack(
-        "<iB3xii", PIXELS[ptype][0], int(lin), *sampling)
-        for (name, ptype, _), lin in zip(channels, linear)) + b"\0"
+        "<iB3xii", PIXELS[ptype][0], int(lin), *sc)
+        for (name, ptype, _), lin, sc in zip(channels, linear, sampling)) + \
+        b"\0"
     window = struct.pack("<4i", x0, y0, x0 + W - 1, y0 + H - 1)
     head = _attr("channels", "chlist", chlist) + \
         _attr("compression", "compression", bytes([code])) + \
@@ -603,7 +659,7 @@ def _bits(ptype, samples):
 
 def encode(channels, compression="ZIP", origin=(0, 0), order=0,
            raw_chunks=(), version_flags=0, attrs=(), sampling=(1, 1),
-           tiles=None, linear=None, parts=None, values=False):
+           tiles=None, linear=None, parts=None, values=False, dwa=None):
     """An OpenEXR file of `channels` [(name, pixel type name, samples [H,
     W] as that type)] in the given order (the layout's order is sorted by
     name; the caller passes them sorted), `compression`, the data window
@@ -614,22 +670,32 @@ def encode(channels, compression="ZIP", origin=(0, 0), order=0,
     each level's pixels every 2^l-th of the image's), `linear` marks
     channels pLinear, and `parts` [(channels, compression, tiles)] makes it
     multipart with these after it as parts 1, 2, ... (their chunks
-    interleaved with part 0's). With `values`, also returns each channel's
-    samples as the reader must give them (B44 and PXR24 FLOAT are
-    lossy)."""
-    code = ALL_CODECS[compression][0] if compression in ALL_CODECS \
-        else compression
+    interleaved with part 0's). `sampling` (x, y) samples every channel,
+    or a list of them each channel, so (the file holds every xs-th sample
+    of every ys-th line of the samples given); `dwa` are the DWA
+    encoder's options (test_torch_exr_dwa.dwa_chunk). With `values`, also
+    returns each channel's samples as the reader must give them,
+    subsampled channels repeated over their pixels (B44, PXR24 FLOAT and
+    DWA are lossy)."""
+    codecs = {**ALL_CODECS, **DWA_CODECS}
+    code = codecs[compression][0] if compression in codecs else compression
+    if isinstance(sampling[0], int):
+        sampling = [sampling] * len(channels)
     linear = tuple(linear or [False] * len(channels))
     spec = [(channels, code, tiles, origin, order, raw_chunks, linear)]
-    spec += [(c, ALL_CODECS[z][0], t, (0, 0), 0, (), [False] * len(c))
+    spec += [(c, codecs[z][0], t, (0, 0), 0, (), [False] * len(c))
              for c, z, t in (parts or ())]
     multipart = parts is not None
     headers, all_chunks, back = [], [], None
     for i, (chans, z, t, org, od, raws, lin) in enumerate(spec):
         bits = [(ptype, _bits(ptype, s)) for _, ptype, s in chans]
-        chunks, got = _part_chunks(bits, z, org, od, raws, t, lin)
+        chunks, got = _part_chunks(bits, z, org, od, raws, t, lin,
+                                   [n for n, _, _ in chans],
+                                   sampling if i == 0 else None,
+                                   dwa if i == 0 else None)
         if i == 0:
-            back = got
+            back = [np.repeat(np.repeat(g, ys, 0), xs, 1)
+                    for g, (xs, ys) in zip(got, sampling)]
         extra = b""
         if multipart:
             kind = b"tiledimage" if t is not None else b"scanlineimage"
@@ -637,7 +703,8 @@ def encode(channels, compression="ZIP", origin=(0, 0), order=0,
                 _attr("type", "string", kind) + \
                 _attr("chunkCount", "int", struct.pack("<i", len(chunks)))
         headers.append(_header(chans, z, org, od, attrs if i == 0 else (),
-                               sampling, lin, t, extra))
+                               sampling if i == 0 else (1, 1), lin, t,
+                               extra))
         if multipart:
             chunks = [struct.pack("<i", i) + c for c in chunks]
         all_chunks.append(chunks)
@@ -1153,20 +1220,56 @@ def test_write_exr_as_cv2_reads_back(tmp_path, channels):
     _same(exr.read_exr(path, alpha=True), img)
 
 
+def _dwa_writer_agrees(data, got, tmp_path):
+    """chip_smoke.write_exr's DWA file and values held to
+    test_torch_exr_dwa's scalar model: the port reads the model's values
+    bit for bit (both routes) within the tolerance of the float64
+    decode, inside the writer's band, and the writer's values are the
+    model's float64 decode through toLinear (but where the two float64
+    forms round across a half's tie)."""
+    import test_torch_exr_dwa as dwa_t
+    read, dct = dwa_t._check_file(data, tmp_path, "BGR" if got.values.ndim
+                                  == 3 else "Y")
+    assert dct > 0
+    assert ((got.lo <= read) & (read <= got.hi)).all()
+    part, planes = dwa_t.model_file(data)
+    names = [n for n, _, _ in part.channels]
+    ref = [dwa_t.table("linear")[p["ref"].astype(np.float16).view(
+        np.uint16)].view(np.float16).astype(np.float32) for p in planes]
+    ref = ref[0] if len(ref) == 1 else np.stack(
+        [ref[names.index(c)] for c in "RGB"], -1)
+    dct_samples = ~np.isnan(np.stack([p["ref"] for p in planes], -1)
+                            .reshape(ref.shape))
+    assert (ref == got.values)[dct_samples].mean() > 0.999
+
+
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("pixel", ["HALF", "FLOAT"])
-@pytest.mark.parametrize("compression", sorted(NEW_CODECS))
+@pytest.mark.parametrize("compression", sorted(NEW_CODECS) +
+                         sorted(DWA_CODECS))
 def test_chip_smoke_writer_new_codecs(tmp_path, compression, pixel,
                                       channels):
-    """chip_smoke.write_exr's vectorised PIZ, PXR24, B44 and B44A (the
-    card's captures and frames): the file reads back as the values the
-    writer reports, and those are this module's scalar encoder's (B44's
-    blocks and PXR24's 24-bit floats included)."""
+    """chip_smoke.write_exr's vectorised PIZ, PXR24, B44, B44A, DWAA and
+    DWAB (the card's captures and frames): the file reads back as the
+    values the writer reports, and those are this module's scalar
+    encoder's (B44's blocks and PXR24's 24-bit floats included); DWA
+    files as _dwa_writer_agrees holds them."""
     rng = np.random.default_rng(6)
     shape = (45, 38) if channels == 1 else (45, 38, 3)
     img = rng.lognormal(-1, 2, shape).astype(np.float32)
     img[:10] = 0.25
     path = str(tmp_path / "w.exr")
+    if compression in DWA_CODECS:
+        import test_torch_exr_dwa as dwa_t
+        yy, xx = np.mgrid[:70, :90]
+        img = (0.5 + 0.4 * np.sin(xx / 6) * np.cos(yy / 9) + rng.normal(
+            0, 0.002, (70, 90))).astype(np.float32) * 2
+        if channels == 3:
+            img = np.stack([img, img[::-1], img[:, ::-1]], -1)
+        data, got = chip_smoke.write_exr(path, img, compression, pixel,
+                                         values=True)
+        _dwa_writer_agrees(data, got, tmp_path)
+        return
     _, got = chip_smoke.write_exr(path, img, compression, pixel,
                                   values=True)
     dtype = np.float16 if pixel == "HALF" else np.float32
@@ -1179,30 +1282,47 @@ def test_chip_smoke_writer_new_codecs(tmp_path, compression, pixel,
     _same(exr.read_exr(path), got)
 
 
-@pytest.mark.parametrize("layout", ["tiled_mipmap", "tiled_ripmap_up",
-                                    "two_part"])
+_WRITER_LAYOUTS = {
+    "tiled_mipmap": ("PIZ", dict(tiles=(48, 40, 1, 0))),
+    "tiled_ripmap_up": ("PIZ", dict(tiles=(48, 40, 2, 1))),
+    "two_part": ("PIZ", "second"),
+    "dwaa_tiled_mipmap": ("DWAA", dict(tiles=(48, 40, 1, 0))),
+    "dwaa_tiled_ripmap_up": ("DWAA", dict(tiles=(48, 40, 2, 1))),
+    "dwaa_two_part": ("DWAA", "second"),
+    "dwab_tiled_mipmap": ("DWAB", dict(tiles=(48, 40, 1, 0))),
+    "dwab_tiled_ripmap_up": ("DWAB", dict(tiles=(48, 40, 2, 1))),
+    "dwab_two_part": ("DWAB", "second"),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(_WRITER_LAYOUTS))
 def test_chip_smoke_writer_tiles_and_parts(tmp_path, layout):
-    """chip_smoke.write_exr's tiled PIZ parts (48 x 40 tiles, which do not
-    divide 100 x 70) and its two-part files read back bit for bit."""
+    """chip_smoke.write_exr's tiled PIZ, DWAA and DWAB parts (48 x 40
+    tiles, which do not divide 100 x 70) and its two-part files read back
+    bit for bit (DWA: as _dwa_writer_agrees holds them)."""
+    codec, kwargs = _WRITER_LAYOUTS[layout]
     img = np.random.default_rng(8).lognormal(-1, 1, (70, 100)).astype(
         np.float32)
-    kwargs = {"tiled_mipmap": dict(tiles=(48, 40, 1, 0)),
-              "tiled_ripmap_up": dict(tiles=(48, 40, 2, 1)),
-              "two_part": dict(second=(img[::2, ::2], "ZIP", "FLOAT",
-                                       (32, 32, 0, 0)))}[layout]
+    if codec != "PIZ":
+        yy, xx = np.mgrid[:70, :100]
+        img = (0.6 + 0.4 * np.sin(xx / 9) * np.cos(yy / 7)).astype(
+            np.float32)
+    if kwargs == "second":
+        kwargs = dict(second=(img[::2, ::2], "ZIP", "FLOAT", (32, 32, 0, 0)))
     path = str(tmp_path / "t.exr")
-    data, got = chip_smoke.write_exr(path, img, "PIZ", "HALF", values=True,
+    data, got = chip_smoke.write_exr(path, img, codec, "HALF", values=True,
                                      **kwargs)
     part, _, multipart = exr.read_header(data)
-    assert multipart == (layout == "two_part")
+    assert multipart == layout.endswith("two_part")
+    if codec != "PIZ":
+        _dwa_writer_agrees(data, got, tmp_path)
+        return
     _same(got, img.astype(np.float16).astype(np.float32))
     _same(exr.read_exr(path), got)
 
 
 _UNSUPPORTED = {
-    "DWAA": dict(compression=8), "DWAB": dict(compression=9),
     "deep": dict(version_flags=exr.DEEP),
-    "subsampled": dict(sampling=(2, 2)),
     "deepscanline": dict(attrs=[("type", "string", b"deepscanline")]),
 }
 # features the reader once refused and now reads: each case reads back
@@ -1212,6 +1332,8 @@ _NOW_READ = {
     "tiled": dict(tiles=(3, 3, 0, 0)),
     "multipart": dict(parts=[([("Z", "FLOAT", np.ones((2, 5), np.float32))],
                               "ZIP", None)]),
+    "DWAA": dict(compression="DWAA"), "DWAB": dict(compression="DWAB"),
+    "subsampled": dict(sampling=(2, 2)),
 }
 
 
@@ -1219,14 +1341,31 @@ _NOW_READ = {
 def test_unsupported_features_raise_with_their_name(tmp_path, feature):
     """What the reader leaves out raises NotImplementedError with its
     name; the features it reads since PIZ, PXR24, B44 and B44A, tiled and
-    multipart files were ported read back bit for bit instead."""
+    multipart files, DWAA and DWAB and subsampled channels were ported
+    read back instead: bit for bit, DWA (a 48 x 32 image, so that its
+    chunks are coded) within test_torch_exr_dwa's tolerance of the
+    float64 decode of the stored coefficients, and a 2 x 2 subsampled
+    channel each sample over its pixels."""
     rng = np.random.default_rng(len(feature))
-    chans = [("Y", "HALF", rng.normal(0, 1, (4, 4)).astype(np.float16))]
+    shape = (32, 48) if feature.startswith("DWA") else (4, 4)
+    yy, xx = np.mgrid[:shape[0], :shape[1]]
+    chans = [("Y", "HALF", (rng.normal(0, 1, shape) if shape == (4, 4) else
+                            np.sin(xx / 5) + np.cos(yy / 7)).astype(
+                                np.float16))]
     path = tmp_path / "u.exr"
     kwargs = dict(_UNSUPPORTED.get(feature) or _NOW_READ[feature])
     compression = kwargs.pop("compression", "NONE")
     data, want = encode(chans, compression, values=True, **kwargs)
     path.write_bytes(data)
+    if feature.startswith("DWA"):
+        import test_torch_exr_dwa as dwa_t
+        got = exr.read_exr(str(path))
+        part, planes = dwa_t.model_file(data)
+        lo, hi = dwa_t.band(planes[0]["ref"], planes[0]["tol"], True)
+        assert (~np.isnan(planes[0]["ref"])).all()
+        assert ((lo <= got) & (got <= hi)).all()
+        assert np.abs(got - chans[0][2]).max() < 0.5
+        return
     if feature in _NOW_READ:
         _same(exr.read_exr(str(path)), _want(want))
         return

@@ -165,7 +165,7 @@ for kind in ("exr", "dng"):
     folder = os.path.join(root, kind)
     written = chip_smoke.write_capture_folder(folder, kind, *captures)
     read = read_exr if kind == "exr" else read_dng_raw
-    assert all(np.array_equal(read(p).astype(np.float32), w)
+    assert all(chip_smoke.decode_agrees(read(p).astype(np.float32), w)[0]
                for p, w in written.items())
     for split in ("train", "val"):
         np.random.seed(0)
@@ -189,9 +189,11 @@ print("LEAKED:" + ",".join(bad))
 
 def test_exr_and_dng_capture_folders_load_without_image_libraries():
     """With cv2, imageio, PIL, rawpy and tifffile unimportable: a capture
-    folder of EXR files (HALF mosaics, ZIP) and one of DNG files (lossless
-    JPEG and uncompressed, .json sidecars), written by chip_smoke's
-    writers, decode bit for bit and load through load_scene with the
+    folder of EXR files (HALF mosaics in the captures' codec mix) and one
+    of DNG files (lossless JPEG and uncompressed, .json sidecars), written
+    by chip_smoke's writers, decode as written (bit for bit; a DWA file
+    within its writer's band: chip_smoke.decode_agrees) and load through
+    load_scene with the
     light-stage preset (rfield on the EXR folder, clip off on the DNG
     one); exr_tools convert and wb and determine_wb run on an EXR."""
     env = dict(os.environ, PYTHONPATH=ROOT, OPENBLAS_NUM_THREADS="1",

@@ -58,6 +58,7 @@ from raw_ngp_tpu.data import synthetic as jsyn
 from raw_ngp_tpu.data import trajectories as jtraj
 from raw_ngp_tpu.postprocess import raw as jraw
 from raw_ngp_tpu.utils import cameras as jcam
+import test_torch_exr_dwa as dwa_t
 from test_torch_train import mini_cfg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -714,8 +715,11 @@ def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None, pixel="HALF",
     per LED of ``leds``; each a one-channel mosaic drawn from its name,
     written by chip_smoke.write_exr as `pixel` HALF with ZIP or FLOAT with
     ZIPS, or with `codecs` [(compression, tiles)] round robin, each
-    file's values as read put in `written`), mask PNGs and an LED
-    calibration."""
+    file's values as read put in `written`: DWA captures a smooth mosaic
+    (_smooth_mosaic, whose chunks the codec shrinks) with the values of
+    test_torch_exr_dwa's decode model, "YC" an RGB capture as Y, RY, BY
+    (RY and BY at 2 x 2, ZIP) with the values of its scalar transcription
+    of cv2's conversion), mask PNGs and an LED calibration."""
     make_colmap_dataset(root, n_images=n_images, H=H, W=W)
     for sub in ("raw", "mask"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -731,6 +735,23 @@ def _hdr_dataset(root, n_images=6, H=16, W=20, leds=None, pixel="HALF",
                                      "HALF" else "ZIPS", pixel)
                 continue
             codec, tiles = codecs[(i * len(names) + k) % len(codecs)]
+            if codec.startswith("DWA"):
+                data = chip_smoke.write_exr(path, _smooth_mosaic(path),
+                                            codec, pixel, tiles=tiles)
+                part, planes = dwa_t.model_file(data)
+                assert (~np.isnan(planes[0]["ref"])).any()
+                written[path] = planes[0]["bits"].view(
+                    "<f2" if pixel == "HALF" else "<f4").astype(np.float32)
+                continue
+            if codec == "YC":
+                rgb = np.stack([_smooth_mosaic(path, c) for c in range(3)],
+                               -1)[::2, ::2]
+                _, ch = chip_smoke.write_exr(path, rgb, "ZIP", pixel,
+                                             values=True, yc=True)
+                written[path] = dwa_t.chroma_to_rgb(
+                    ch["Y"], dwa_t.upsample(ch["RY"], 2, 2),
+                    dwa_t.upsample(ch["BY"], 2, 2))
+                continue
             _, written[path] = chip_smoke.write_exr(
                 path, _mosaic(path), codec, pixel, tiles=tiles, values=True)
         mask = (rng.random((H, W)) > 0.3).astype(np.uint8) * 255
@@ -745,6 +766,16 @@ def _mosaic(path, H=32, W=40):
     """A capture's pixels: a mosaic drawn from its name."""
     seed = zlib.crc32(os.path.basename(path).encode())
     return np.random.default_rng(seed).uniform(0, 1.2, (H, W)).astype(
+        np.float32)
+
+
+def _smooth_mosaic(path, shift=0, H=32, W=40):
+    """A capture's pixels, smooth shading drawn from its name."""
+    rng = np.random.default_rng(zlib.crc32(os.path.basename(path).encode())
+                                + shift)
+    yy, xx = np.mgrid[:H, :W]
+    a, b = rng.uniform(3, 9, 2)
+    return (0.55 + 0.4 * np.sin(xx / a + shift) * np.cos(yy / b)).astype(
         np.float32)
 
 
@@ -776,6 +807,10 @@ def _check_hdr_case(tmp_path, monkeypatch, case, pixel, codecs=None):
     root = _hdr_dataset(str(tmp_path), H=H, W=H * 5 // 4,
                         leds=(0, 2, 3) if spec.get("rfield") else None,
                         pixel=pixel, codecs=codecs, written=written)
+    for path, want in written.items():
+        got = tio.load_exr_image(path)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
     monkeypatch.setattr(jnative, "_load", lambda: None)
     monkeypatch.setattr(tnative, "_load", lambda: None)
     monkeypatch.setattr(jio, "load_exr_image", lambda p: (
@@ -819,7 +854,8 @@ def test_load_colmap_hdr_float_exr_match_jax(tmp_path, monkeypatch, case):
 
 
 _NEW_EXR_CODECS = [("PIZ", None), ("PXR24", None), ("B44", None),
-                   ("B44A", None), ("PIZ", (8, 8, 1, 0))]
+                   ("B44A", None), ("PIZ", (8, 8, 1, 0)), ("DWAA", None),
+                   ("DWAB", None), ("YC", None)]
 
 
 @pytest.mark.parametrize("pixel", ["HALF", "FLOAT"])
@@ -828,9 +864,12 @@ _NEW_EXR_CODECS = [("PIZ", None), ("PXR24", None), ("B44", None),
 def test_load_colmap_hdr_new_codecs_match_jax(tmp_path, monkeypatch, case,
                                               pixel):
     """test_load_colmap_hdr_branches_match_jax on captures in PIZ, PXR24,
-    B44, B44A and tiled PIZ round robin (JAX's load_exr_image gets each
-    file's values as the writer stored them: B44 and PXR24 FLOAT are
-    lossy): every SceneData field bit for bit."""
+    B44, B44A, tiled PIZ, DWAA, DWAB and Y / RY / BY round robin (JAX's
+    load_exr_image gets each file's values as the writer stored them, B44
+    and PXR24 FLOAT being lossy; for DWA the values of
+    test_torch_exr_dwa's decode model, for Y / RY / BY its transcription
+    of cv2's conversion, which the port's decode of those files equals
+    bit for bit, as asserted): every SceneData field bit for bit."""
     _check_hdr_case(tmp_path, monkeypatch, case, pixel, _NEW_EXR_CODECS)
 
 

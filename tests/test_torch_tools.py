@@ -218,6 +218,46 @@ def test_downscale_exr_folder(tmp_path, factor):
                                       want.view(np.uint32))
 
 
+@pytest.mark.parametrize("codec", ["DWAA", "DWAB"])
+def test_downscale_dwa_exr(tmp_path, codec):
+    """A DWA capture folder (an RGB capture, the CSC set, and a HALF
+    mosaic, each a DWA file of chip_smoke.write_exr) through the port's
+    downscale tool: the tool reads DWA (the port's decode, which
+    test_torch_exr_dwa holds to its scalar model) and writes OpenCV's EXR
+    layout (FLOAT, ZIP; Y or B, G, R), which reads back bit for bit as
+    resize_area of the decoded pixels."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from raw_ngp_torch.data import exr
+    from raw_ngp_torch.data.image_io import resize_area
+    from raw_ngp_torch.tools import downscale
+
+    src = tmp_path / "images"
+    os.makedirs(src)
+    yy, xx = np.mgrid[:48, :64]
+    smooth = (0.5 + 0.3 * np.sin(xx / 7.0) * np.cos(yy / 5.0)).astype(
+        np.float32)
+    data = chip_smoke.write_exr(str(src / "rgb.exr"), np.stack(
+        [smooth, smooth[::-1], smooth[:, ::-1]], -1), codec, "HALF")
+    assert exr.read_header(data)[0].compression == (8 if codec == "DWAA"
+                                                    else 9)
+    chip_smoke.write_exr(str(src / "mosaic.exr"), smooth * 2, codec, "HALF")
+    downscale.main([str(tmp_path), "--factor", "2"])
+    dst = tmp_path / "images_2"
+    assert sorted(os.listdir(dst)) == ["mosaic.exr", "rgb.exr"]
+    for name in ("mosaic.exr", "rgb.exr"):
+        img = exr.read_exr(str(src / name), alpha=True)
+        H, W = img.shape[:2]
+        want = resize_area(img, H // 2, W // 2)
+        part, _, multipart = exr.read_header((dst / name).read_bytes())
+        assert part.compression == 3 and not multipart
+        assert [(c, t) for c, t, _ in part.channels] == (
+            [("Y", 2)] if img.ndim == 2 else [(c, 2) for c in "BGR"])
+        got = exr.read_exr(str(dst / name), alpha=True)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
 _ANGLES = [-90, 30, 45.5, -135, 1e-3, 179.9]
 
 
