@@ -29,9 +29,10 @@
 // followed by a gather over rows:
 //  1. cell_keys_kernel: each point's cell, res^3 for a point outside
 //     [0, 1]^3 or NaN (it sorts last and adds nothing); the same launch
-//     zeroes the cell sums. The wrapper sorts the keys with
-//     torch.sort(stable=True), a stable radix sort and so deterministic,
-//     as the window levels sort theirs.
+//     zeroes the cell sums. The wrapper sorts the keys stably over their
+//     (res^3).bit_length() bits with the port's radix sort
+//     (csrc/radix_sort.cu, kernels/sort.py: torch.sort(stable=True)'s
+//     order, int32 indices), as the window levels sort theirs.
 //  2. cell_sums_kernel (pass 1): a warp owns segments::kChunk (128)
 //     consecutive sorted points; its lanes hold the 8C corner sums (corner
 //     i = xi + 2 yi + 4 zi, channel c) of the current cell in registers.
@@ -65,8 +66,8 @@
 // g (2C B a point) and the level's f32 gradient, 11.8 MB or 3.5 us; its
 // 67 M flop take 1.0 us at the f32 peak. The design moves more:
 // cell_keys reads x01 (3.1 MB), writes the keys (1 MB) and zeroes the cell
-// sums (2.1 MB). Pass 1 reads the sorted keys and the int64 permutation
-// (3.1 MB), then x01 and the g slice through the permutation (3.1 + 8.4
+// sums (2.1 MB). Pass 1 reads the sorted keys and the int32 permutation
+// (2.1 MB), then x01 and the g slice through the permutation (3.1 + 8.4
 // MB, gathered by 32-byte sectors: about three sectors a point where the
 // order is random), and writes the cell sums once; it issues some 30 warp
 // instructions a point, so it is bound by issue and the latency of the
@@ -74,10 +75,10 @@
 // and the fix-up read three keys a chunk and the edge partials (at most
 // 2 x 512 B a chunk; a cell that holds every point spans 2,048 chunks, 64
 // group sums). Pass 2 reads the cell sums (2.1 MB) and writes the level
-// (0.26 MB): about 0.004 ms. The sort is torch.sort of B int32 keys, a
-// CUB radix sort over all 32 bits with its index iota: some 14 launches
-// and 0.050 ms of device time at B = 262,144, the largest part of the
-// function's time.
+// (0.26 MB): about 0.004 ms. The sort, the largest part of the
+// function's time, is the radix sort over the cells' 13 bits (two 7 +
+// 6-bit passes, three launches), not torch.sort's CUB sort over all 32
+// bits with an int64 index (some 14 launches, 0.050 ms at B = 262,144).
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,7 +171,7 @@ cell_keys_kernel(const float* __restrict__ x01, int32_t* __restrict__ keys,
 template <int C, bool BF16>
 __global__ void __launch_bounds__(kThreads)
 cell_sums_kernel(const int32_t* __restrict__ keys,
-                 const int64_t* __restrict__ perm,
+                 const int32_t* __restrict__ perm,
                  const float* __restrict__ x01, const void* __restrict__ g,
                  float* __restrict__ cellsum, float* __restrict__ head,
                  float* __restrict__ tail, int B, int res, int64_t g_stride,
@@ -333,7 +334,7 @@ unsigned warp_blocks(int64_t warps) {
 // pass 1, its group sums and its fix-up; edges holds head, tail and group
 // rows of 8C (n_edge chunk slots)
 template <int C>
-cudaError_t launch_cells(const int32_t* keys, const int64_t* perm,
+cudaError_t launch_cells(const int32_t* keys, const int32_t* perm,
                          const float* x01, const void* g, float* cellsum,
                          float* edges, int64_t n_edge, int B, int res,
                          int64_t g_stride, int g_col, int align_corners,
@@ -384,9 +385,10 @@ extern "C" int mm_grad_keys_fwd(const float* x01, int32_t* keys,
 }
 
 // One dense level's table gradient from its points sorted by cell:
-// keys_sorted [B] i32 and perm [B] i64 (torch.sort(keys, stable=True) of
-// mm_grad_keys_fwd's keys), x01 [B, 3] f32, g [B, g_stride] (bf16 if
-// bf16, else f32; the level's C channels at column g_col), cellsum
+// keys_sorted [B] i32 and perm [B] i32 (kernels/sort.py sort_keys of
+// mm_grad_keys_fwd's keys: torch.sort(keys, stable=True)'s order), x01
+// [B, 3] f32, g [B, g_stride] (bf16 if bf16, else f32; the level's C
+// channels at column g_col), cellsum
 // [res^3 * 8 * C] f32 as mm_grad_keys_fwd left it, edges scratch of
 // segments::edge_rows(n_edge) rows of 8C f32 with n_edge >= ceil(B / 128)
 // -> grad
@@ -395,7 +397,7 @@ extern "C" int mm_grad_keys_fwd(const float* x01, int32_t* keys,
 // cudaGetLastError(); cudaErrorInvalidValue for an unsupported C or too
 // few edge rows.
 extern "C" int mm_grad_table_fwd(const int32_t* keys_sorted,
-                                 const int64_t* perm, const float* x01,
+                                 const int32_t* perm, const float* x01,
                                  const void* g, float* cellsum, float* edges,
                                  float* grad, int B, int res,
                                  int C, int hmap, int64_t g_stride, int g_col,

@@ -43,7 +43,9 @@ same samples.
 
 Departures, each raising with the file and its name:
 ``NotImplementedError`` for BigTIFF, LinearRaw (Photometric 34892) and
-lossy JPEG DNGs, a deflate Predictor other than 1, a lossless JPEG whose
+lossy JPEG DNGs, a SampleFormat (tag 339) other than 1 (unsigned
+integers: float and signed samples are refused before any decode), a
+deflate Predictor other than 1, a lossless JPEG whose
 restart interval is not whole lines or whose components are subsampled
 or coded in several scans; ``ValueError`` for a file that is not TIFF, has no CFA
 raw IFD, or is cut short or corrupt.
@@ -65,6 +67,7 @@ CFA, LINEAR_RAW = 32803, 34892
 NONE, LOSSLESS_JPEG, DEFLATE, ADOBE_DEFLATE, LOSSY_JPEG = 1, 7, 32946, 8, \
     34892
 LINEARIZATION_TABLE = 50712
+SAMPLE_FORMAT = 339
 
 # TIFF field types: (struct code, bytes)
 _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
@@ -421,6 +424,10 @@ def decode_dng_raw(data: bytes, path: str = "<bytes>",
     """:func:`read_dng_raw` of a file's bytes."""
     bo, ifds = tiff_ifds(data, path)
     tags = _raw_ifd(ifds, path)
+    if any(v != 1 for v in tags.get(SAMPLE_FORMAT, (1,))):
+        raise NotImplementedError(f"{path}: SampleFormat "
+                                  f"{tags[SAMPLE_FORMAT]} is not read "
+                                  "(1, unsigned integers, only)")
     tiled = 322 in tags
     needed = (256, 257) + ((322, 323, 324, 325) if tiled else (273, 279))
     missing = [t for t in needed if t not in tags]

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "raw_ngp_torch"
-SOURCES = ("compact", "hash_encode", "hash_grad", "segsum")
+SOURCES = ("compact", "hash_encode", "hash_grad", "radix_sort", "segsum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,9 @@
 """Hash-grid encode, forward, table gradient and input gradient: wrapper of
 the CUDA kernels in ``csrc/hash_encode.cu`` (the encode, which also
 writes the window records, and its input gradient), ``csrc/hash_grad.cu``
-(the dense levels' table gradient) and ``csrc/segsum.cu`` (kernel B2,
-through :mod:`raw_ngp_torch.kernels.segsum`).
+(the dense levels' table gradient), ``csrc/segsum.cu`` (kernel B2,
+through :mod:`raw_ngp_torch.kernels.segsum`) and ``csrc/radix_sort.cu``
+(the sorts in front of both, through :mod:`raw_ngp_torch.kernels.sort`).
 
 Replaces ``raw_ngp_tpu/kernels/hash_fused.py`` ``hash_encode_fused``
 (``:497``, forward ``_fused_fwd`` ``:513``, backward ``_fused_bwd``
@@ -24,8 +25,10 @@ gradient: the dense leading levels (``_matmul_split``) by
 cell, per-cell corner sums and a per-row gather, in a fixed order without
 atomics (:func:`mm_grad_table_cells_plain` is that arithmetic in torch,
 for the tests); the window levels as
-``_window_bwd_table_chunked`` (``:633-689``): per level a ``torch.sort``
-of the record keys and kernel B2's flat mode, which reads the level's g
+``_window_bwd_table_chunked`` (``:633-689``): per level a stable radix
+sort of the record keys over the level's row bits
+(:func:`~raw_ngp_torch.kernels.sort.sort_keys`, ``torch.sort``'s order)
+and kernel B2's flat mode, which reads the level's g
 channels in place as bf16 pairs, sums the bf16-rounded products w0*g and
 w1*g per row and writes ``grad[r] = G0[r] + G1[r-1]`` into the level's
 slice itself (:func:`raw_ngp_torch.kernels.segsum.segment_grad_outer`).
@@ -68,6 +71,7 @@ import os
 import torch
 
 from raw_ngp_torch.kernels import _build
+from raw_ngp_torch.kernels.sort import sort_keys, sort_keys_plain
 from raw_ngp_torch.kernels.segsum import (combine_totals_plain, edge_buffer,
                                           g_words_plain, pack_bf16_pairs,
                                           round_bf16, segment_grad_outer,
@@ -401,8 +405,8 @@ def mm_grad_table_cells_plain(x01, g, spec: HashGridSpec, compute_dtype=None):
         hmap = spec.offsets[lv + 1] - spec.offsets[lv]
         (_, ax, _), (_, ay, _), (_, az, _) = (
             _mm_lanes(*_corner_axis(x, res, spec), res) for x in xs)
-        keys = dense_cell_keys(x01, spec, lv)
-        perm = torch.sort(keys, stable=True).indices
+        keys = dense_cell_keys(x01, spec, lv).to(torch.int32)
+        perm = sort_keys_plain(keys, (res ** 3).bit_length())[1].long()
         g_lv = rnd(g[:, lv * C:(lv + 1) * C].float())
         prods = torch.stack([
             (rnd(az[i >> 2] * ay[(i >> 1) & 1])[:, None]
@@ -442,10 +446,13 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
     encode's cotangent g [B, L*C] (``_window_bwd_table_chunked``), written
     into one flat [n_params * C] f32 tensor: the dense levels' slice by
     :func:`mm_grad_table`; per window level the keys (rows relative to
-    the level) sorted and the bf16-rounded outer products summed per row
-    (kernel B2). On CUDA, B2's flat mode (:func:`segment_grad_outer`)
-    reads the level's g channels in place and writes G0[r] + G1[r-1] into
-    the level's slice itself; ``plain`` and CPU tensors take JAX's shape
+    the level) sorted stably over the level's ``(rows - 1).bit_length()``
+    bits (:func:`~raw_ngp_torch.kernels.sort.sort_keys`, which reads the
+    records in place and subtracts the level's offset as it loads; its
+    plain version on the plain path) and the bf16-rounded outer products
+    summed per row (kernel B2). On CUDA, B2's flat mode
+    (:func:`segment_grad_outer`) reads the level's g channels in place and
+    writes G0[r] + G1[r-1] into the level's slice itself; ``plain`` and CPU tensors take JAX's shape
     with every kernel's plain version: g packed (:func:`pack_g_words_plain`),
     the levels' [rows, 2C] totals, then :func:`combine_totals_plain` over
     all of them (the same bits for a finite g; a non-finite g can differ
@@ -469,10 +476,10 @@ def table_grad(spec: HashGridSpec, x01, base, w_word, g, compute_dtype=None,
     for i, (lv, w0, nw) in enumerate(level_windows(spec, m)):
         off = spec.offsets[lv]
         rows = spec.offsets[lv + 1] - off
-        keys = base[w0:w0 + nw].reshape(-1) - off
-        keys_s, perm = torch.sort(keys, stable=True)
-        stream = (keys_s, perm.to(torch.int32),
-                  w_word[w0:w0 + nw].reshape(-1))
+        bits = max((rows - 1).bit_length(), 1)
+        keys_s, perm = (sort_keys if flat else sort_keys_plain)(
+            base[w0:w0 + nw].reshape(-1), bits, offset=off)
+        stream = (keys_s, perm, w_word[w0:w0 + nw].reshape(-1))
         if flat:
             segment_grad_outer(*stream, g, rows, C, g_col=lv * C,
                                out=grad[off * C:(off + rows) * C])
@@ -997,8 +1004,10 @@ def mm_grad_level(x01, g, spec: HashGridSpec, lv: int, compute_dtype=None,
     encode's cotangent g [B, L*C] -> flat [hmap * C] f32 (into ``out`` if
     given). CPU tensors take :func:`mm_grad_level_plain`; CUDA tensors
     launch the kernels of ``csrc/hash_grad.cu`` (one counted launch of
-    :func:`mm_grad_table`): the points' cells, ``torch.sort(stable=True)``
-    by cell, per-cell corner sums and the per-row gather, every sum in a
+    :func:`mm_grad_table`): the points' cells, the stable radix sort by
+    cell over the cells' ``(res ** 3).bit_length()`` bits
+    (:func:`~raw_ngp_torch.kernels.sort.sort_keys`, one counted launch of
+    its own), per-cell corner sums and the per-row gather, every sum in a
     fixed order without atomics, so two calls give the same bits. Against
     the plain version: the same exact products, f32 sums in another order,
     rounded once under bf16."""
@@ -1032,7 +1041,7 @@ def mm_grad_level(x01, g, spec: HashGridSpec, lv: int, compute_dtype=None,
     _raise_if(_lib("mm_grad_keys_fwd")(
         x01.data_ptr(), keys.data_ptr(), cellsum.data_ptr(), B, res, C,
         align, smooth, stream), "mm_grad_table")
-    keys_s, perm = torch.sort(keys, stable=True)
+    keys_s, perm = sort_keys(keys, (res ** 3).bit_length())
     edges, n_edge = edge_buffer(B, 8 * C, x01.device)
     _raise_if(_lib("mm_grad_table_fwd")(
         keys_s.data_ptr(), perm.data_ptr(), x01.data_ptr(), g.data_ptr(),

@@ -445,15 +445,26 @@ def test_dng_unsupported_raise_with_their_name(tmp_path, what):
         dng.read_dng_raw(str(path))
 
 
-@pytest.mark.parametrize("what", ["LinearizationTable", "Predictor"])
+@pytest.mark.parametrize("what", [
+    "LinearizationTable", "Predictor", "SampleFormat-float16",
+    "SampleFormat-float16-deflate", "SampleFormat-float32",
+    "SampleFormat-float32-deflate"])
 def test_tifffile_unsupported_raise_with_their_name(tmp_path, what):
     """Deflate with horizontal differencing (Predictor 2), as tifffile
-    writes it, raises with its name; a LinearizationTable (tag 50712) of
-    4 entries, refused before, now maps each sample s to table[min(s,
-    3)]."""
+    writes it, raises with its name; so does a float16 or float32 CFA
+    page (SampleFormat 3), in strips or deflated, before any decode; a
+    LinearizationTable (tag 50712) of 4 entries, refused before, now maps
+    each sample s to table[min(s, 3)]."""
     tf = pytest.importorskip("imageio.plugins._tifffile")
     raw = np.arange(16 * 32, dtype=np.uint16).reshape(16, 32)
     path = str(tmp_path / "p.dng")
+    if what.startswith("SampleFormat"):
+        _, dtype, *deflate = what.split("-")
+        tf.imsave(path, (raw / 512.0).astype(dtype), photometric="cfa",
+                  extratags=DNG_TAGS, compress=6 if deflate else 0)
+        with pytest.raises(NotImplementedError, match="SampleFormat"):
+            dng.read_dng_raw(path)
+        return
     if what == "LinearizationTable":
         table = np.array([0, 10, 20, 30], np.uint16)
         tf.imsave(path, raw, photometric="cfa", extratags=DNG_TAGS + [

@@ -16,9 +16,11 @@ import torch
 from raw_ngp_torch.kernels import compact as tc
 from raw_ngp_torch.kernels import hash_encode as th
 from raw_ngp_torch.kernels import segsum as ts
+from raw_ngp_torch.kernels import sort as tsort
 from raw_ngp_torch.ops.hashgrid import HashGridSpec, hash_encode_01
 
 from decimate_cases import DECIMATE_CASES, decimate_case
+from sort_cases import SORT_BITS, SORT_CASES, SORT_SIZES, sort_case
 
 
 @pytest.fixture
@@ -1063,3 +1065,44 @@ def test_segsum_channel_mode_widths(cuda_device, n_chan):
     ref = ts.segment_totals_plain(keys_s, packed, 4000, n_chan)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SORT_SIZES + (1 << 20,))
+@pytest.mark.parametrize("bits", SORT_BITS)
+@pytest.mark.parametrize("name", SORT_CASES)
+def test_radix_sort_is_torch_sort(cuda_device, name, bits, M):
+    """The radix sort (csrc/radix_sort.cu) bit for bit torch.sort(keys -
+    offset, stable=True) with int32 indices and its plain version, on the
+    edge cases (empty, one key, around the 4,096-key tile, all equal,
+    descending, long runs, 1 and 31 bits: an odd pass count), two calls
+    alike, no key outside the range, one counted launch a call."""
+    keys_np, offset = sort_case(name, M, bits)
+    keys = torch.from_numpy(keys_np).to(cuda_device)
+    ref_k, ref_i = torch.sort(keys - offset, stable=True)
+    plain = tsort.sort_keys_plain(keys, bits, offset)
+    before = tsort.sort_keys.launches
+    runs = [tsort.sort_keys(keys, bits, offset, out_of_range=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tsort.sort_keys.launches == before + (2 if M else 0)
+    for got_k, got_p, oor in runs:
+        assert _same_bits(got_k, ref_k) and _same_bits(got_k, plain[0])
+        assert _same_bits(got_p, ref_i.to(torch.int32))
+        assert _same_bits(got_p, plain[1])
+        assert int(oor) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", (9, 13, 19))
+def test_radix_sort_counts_keys_outside_the_range(cuda_device, bits):
+    """Keys outside [0, 2^bits) are counted in the scratch and sorted by
+    their low bits, as the plain version does."""
+    gen = torch.Generator(device=cuda_device).manual_seed(bits)
+    keys = torch.randint(-50, (1 << bits) + 50, (3 * tsort.TILE + 7,),
+                         generator=gen, device=cuda_device,
+                         dtype=torch.int32)
+    got_k, got_p, oor = tsort.sort_keys(keys, bits, out_of_range=True)
+    want_k, want_p = tsort.sort_keys_plain(keys, bits)
+    assert _same_bits(got_k, want_k) and _same_bits(got_p, want_p)
+    assert int(oor) == int(tsort.out_of_range_plain(keys, bits)) > 0
