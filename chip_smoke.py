@@ -104,8 +104,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and EMA, the val PSNR (EMA), one step on a fixed batch
               that agrees between the kernel path and the plain path, and
               the repro check: the Trainer's state from before step 1
-              restored and 32 steps (two grid refreshes) run again, params,
-              EMA and Adam moments bitwise equal to the first run's;
+              restored and 32 steps (two grid refreshes) run again
+              through Trainer.train's chains of CUDA-graph replays,
+              params, EMA, Adam moments, poses, grid, bitfield and
+              generator state bitwise equal to the eager run's, a second
+              graphed run bitwise the first; then the line's `dispatch`:
+              graphed beside eager ms a step, the captures, peak memory,
+              one profiled chain's busy and idle share and its
+              hand-written kernels' device launches a step (equal to an
+              eager step's, profiler events by kernel name), and the
+              synchronizing calls of one eager step (none);
   7b. disk — the flagship trained from a COLMAP scene on disk: the train
               phase's scene (its 38 views) written with the port's writers
               (cameras.bin, images.bin, points3D.bin with each view's
@@ -224,8 +232,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               profiled; five 16,384-ray branch chunks with normals, kernels
               against plain (span + uniform probes, span + log probes, the
               CDF with dt_gamma 1/128 and cdf_floor 0.05, contraction,
-              compact_ratio 0); the step's stages and profile, and the
-              repro check of phase 7;
+              compact_ratio 0); the step's stages and profile, the
+              repro check of phase 7, the adaptive-batch key forced to
+              change (forced_key: the graphed steps bitwise the eager
+              ones at the new key) and a sweep across keys (key_sweep:
+              one graph held at the end, the memory after each chain);
  13b. exr  — the light-stage preset trained from EXR captures on disk,
               read without imageio or cv2: Config().with_preset_lightstage()
               with rfield (capture_config) on a capture folder
@@ -415,7 +426,11 @@ phase's, its launches in one chunk of the normal render ride as
 `launches_exr` and `launches_dng` the exr and dng phases',
 `launches_cli` the cli phase's,
 `launches_hdr` the hdr phase's 128 steps, `launches_tools_quality_run`
-the tools phase's quality_run,
+the tools phase's quality_run (the cli's and quality_run's training runs
+in chained CUDA-graph replays, so these two count the wrappers' calls on
+the host: the eager steps' launches and one for each call a capture
+records, not the replays', which each training phase counts on the
+device in its `dispatch.profile_chain`),
 `launches_multi` each rank's in the multi phase's dp and tp runs, and
 `shard_C8` the encode's kernels' numbers at the tp shard's width;
 the numbers of the proposal path's three kernels are at its shapes, a
@@ -2293,12 +2308,25 @@ def training_tensors(tr):
     return out
 
 
+def graphed_tensors(tr):
+    """training_tensors plus the density bitfield and the generators'
+    states: what the chained run must leave as the eager steps do."""
+    out = training_tensors(tr)
+    if tr.state.density_bitfield is not None:
+        out["density_bitfield"] = tr.state.density_bitfield.clone()
+    out["generator"] = tr.generator.get_state()
+    if tr.batch_generator is not tr.generator:
+        out["batch_generator"] = tr.batch_generator.get_state()
+    return out
+
+
 def trainer_snapshot(tr):
     """Everything Trainer.step reads and changes, taken before a step: the
     training tensors and the grid state, the optimizers' counts, the step
     and host counters, the coarse cache and the generators' states (on a
     mesh the batch stream is the dp row's own)."""
     st = tr.state
+    coarse = tr.scene_arrays.get("coarse_lin")
     return {"tensors": training_tensors(tr),
             "grid": {k: v.clone() for k, v in st.grid_state().items()
                      if v is not None},
@@ -2309,13 +2337,15 @@ def trainer_snapshot(tr):
             "host": (tr.host_step, tr.host_grid_updates, tr._pts_ema,
                      tr._point_budget, tr.num_rays, tr._adapt_stash,
                      tr._metrics, tr._train_step),
-            "coarse": tr.scene_arrays.get("coarse_lin"),
+            "coarse": None if coarse is None else coarse.clone(),
             "generator": tr.generator.get_state(),
             "batch_generator": tr.batch_generator.get_state()}
 
 
 def trainer_restore(tr, snap):
-    """Puts the Trainer back to `snap` (trainer_snapshot), in place."""
+    """Puts the Trainer back to `snap` (trainer_snapshot), in place: into
+    the state's own buffers and the cached coarse volume, which a
+    captured step reads."""
     import torch
     st, t = tr.state, snap["tensors"]
     with torch.no_grad():
@@ -2328,42 +2358,341 @@ def trainer_restore(tr, snap):
             st.pose_params.copy_(t["pose"])
             st.pose_opt_state.mu["pose"].copy_(t["pose.mu"])
             st.pose_opt_state.nu["pose"].copy_(t["pose.nu"])
-    for k, v in snap["grid"].items():
-        setattr(st, k, v.clone())
+        for k, v in snap["grid"].items():
+            getattr(st, k).copy_(v)
+        if snap["coarse"] is None:
+            # a fresh Trainer's: its first step's refresh writes the cache
+            # before anything reads it, so the live one (whose buffer a
+            # graph may read) stays
+            pass
+        elif "coarse_lin" in tr.scene_arrays:
+            tr.scene_arrays["coarse_lin"].copy_(snap["coarse"])
+        else:
+            tr.scene_arrays["coarse_lin"] = snap["coarse"].clone()
     st.opt_state.count = snap["counts"][0]
     if st.pose_opt_state is not None:
         st.pose_opt_state.count = snap["counts"][1]
     st.step = snap["step"]
     (tr.host_step, tr.host_grid_updates, tr._pts_ema, tr._point_budget,
      tr.num_rays, tr._adapt_stash, tr._metrics, tr._train_step) = snap["host"]
-    if snap["coarse"] is None:
-        tr.scene_arrays.pop("coarse_lin", None)
-    else:
-        tr.scene_arrays["coarse_lin"] = snap["coarse"]
     tr.generator.set_state(snap["generator"])
     tr.batch_generator.set_state(snap["batch_generator"])
 
 
+def bit_diff(now, ref):
+    """{name: max abs diff} of the tensors of `ref` whose bits `now`
+    does not hold."""
+    return {k: float((now[k].double() - v.double()).abs().max())
+            for k, v in ref.items() if not same_bits(now[k], v)}
+
+
+# each run_steps' eager numbers by its `what`: the step ms and the peak
+# device memory, which the dispatch report sets beside the graphed run's
+EAGER_RUNS = {}
+
+
 def repro_check(tr, snap, ref, steps, what):
-    """The repro check: the Trainer put back to `snap` (taken before step
-    1), `steps` steps run again, and what they leave compared bit for bit
-    with `ref`, captured after the same steps of the first run."""
+    """The repro check. On one card through the chained path: the Trainer
+    put back to `snap` (taken before step 1), `steps` steps through
+    Trainer.train at the default chain length (CUDA-graph replays) and
+    what they leave (graphed_tensors) compared bit for bit with `ref`,
+    the eager steps' after the same steps; then the same again, bitwise
+    equal to the first graphed run; then dispatch_report. A mesh's
+    Trainer (no graphs: its gloo collectives stay eager) reruns its
+    steps eagerly. -> (repro, dispatch)."""
     import torch
     trainer_restore(tr, snap)
+    if tr._graphs is None:
+        for _ in range(steps):
+            tr.step()
+        torch.cuda.synchronize()
+        diff = bit_diff(graphed_tensors(tr), ref)
+        differ = f"; max abs diff {json.dumps(diff)}" if diff else ""
+        print(f"[{what}] repro: {steps} eager steps again from the state "
+              f"before step 1: {len(ref) - len(diff)} of {len(ref)} "
+              f"tensors bitwise equal to the first run's{differ}")
+        check(not diff, f"{what}: training did not reproduce at a fixed "
+              f"seed")
+        return ({"steps": steps, "grid_refreshes": tr.host_grid_updates,
+                 "tensors": sorted(ref), "bitwise_equal": not diff},
+                {"chained": False, "why": "a mesh: gloo collectives are "
+                 "host calls a CUDA graph cannot hold, so every step runs "
+                 "eagerly"})
+    graphs = tr._graphs
+    captured = len(graphs.captures)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, runs = [], []
+    for run in range(2):
+        trainer_restore(tr, snap)
+        graphs.record = [] if run == 1 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(steps, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        runs.append(graphed_tensors(tr))
+    diff = bit_diff(runs[0], ref)
+    again = bit_diff(runs[1], runs[0])
+    differ = f"; max abs diff {json.dumps(diff)}" if diff else ""
+    print(f"[{what}] repro: {steps} steps again from the state before step "
+          f"1 through Trainer.train, chains of {tr.steps_per_dispatch()} "
+          f"CUDA-graph replays ({tr.host_grid_updates} grid refreshes): "
+          f"{len(ref) - len(diff)} of {len(ref)} tensors bitwise equal to "
+          f"the eager steps'{differ}; a second graphed run "
+          f"{len(ref) - len(again)} of {len(ref)} bitwise equal to the "
+          f"first")
+    check(not diff, f"{what}: the graphed steps differ from the eager "
+          f"steps in {sorted(diff)}")
+    check(not again, f"{what}: two graphed runs differ in {sorted(again)}")
+    repro = {"steps": steps, "grid_refreshes": tr.host_grid_updates,
+             "tensors": sorted(ref), "bitwise_equal": not diff,
+             "path": "Trainer.train, chained (CUDA-graph replays)",
+             "second_graphed_run_bitwise_equal": not again}
+    return repro, dispatch_report(tr, what, steps, walls, captured)
+
+
+def _refresh_if_due(tr):
+    """The refresh a step at tr.host_step would run first, run now."""
+    cfg = tr.cfg
+    if (cfg.render.occupancy
+            and tr.host_step % cfg.render.update_extra_interval == 0):
+        tr._refresh()
+
+
+def _profiled_dispatch(tr, n, chained):
+    """n steps as one dispatch (chained: the graph's replays; else eager
+    steps) under torch.profiler, the refresh due before them run outside
+    it -> (host-clock wall us, the device's kernel events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _refresh_if_due(tr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._metrics = tr._dispatch(n, chained)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    tr.host_step += n
+    return wall_us, [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def hand_kernel_launches(kernels, n=1):
+    """{CUDA_KERNELS name: device launches a step} of profiler events."""
+    from raw_ngp_torch.kernels import kernel_of
+    out = {}
+    for e in kernels:
+        name = kernel_of(e.key)
+        if name is not None:
+            out[name] = out.get(name, 0) + e.count / n
+    return out
+
+
+def profile_chain(tr, tries=3):
+    """One eager step, then one whole chain of replays, each under
+    torch.profiler (a refresh due before either left out): the chain's
+    busy share of the host-clock window (unclamped: a busy time above the
+    wall shows as a share above 1), its kernels a step, and each
+    hand-written kernel's device launches a step in the chain beside the
+    eager step's, which the caller holds equal (the replays launch what
+    the eager step launches). The profiler now and then drops a window's
+    device events (device_launches), so a pair whose counts differ is
+    taken again, up to `tries` pairs."""
+    cfg = tr.cfg
+    interval = cfg.render.update_extra_interval
+    for attempt in range(1, tries + 1):
+        eager_us, eager_kernels = _profiled_dispatch(tr, 1, False)
+        n = tr.steps_per_dispatch()
+        if cfg.render.occupancy:
+            n = min(n, interval - tr.host_step % interval)
+        wall_us, kernels = _profiled_dispatch(tr, n, True)
+        launches = {"chain_per_step": hand_kernel_launches(kernels, n),
+                    "eager_step": hand_kernel_launches(eager_kernels),
+                    "pairs_profiled": attempt}
+        if (launches["eager_step"]
+                and launches["chain_per_step"] == launches["eager_step"]):
+            break
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        return {"steps": n, "wall_ms": wall_us / 1e3,
+                "device_time": "not measured (no device events)",
+                "hand_kernel_launches": launches}
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    return {"steps": n, "wall_ms": wall_us / 1e3,
+            "wall_ms_per_step": wall_us / n / 1e3,
+            "device_busy_ms_per_step": busy_us / n / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "kernel_launches_per_step":
+                sum(e.count for e in kernels) / n,
+            "hand_kernel_launches": launches,
+            "eager_step_wall_ms": eager_us / 1e3,
+            "top_kernels": [{"name": e.key[:70], "calls": e.count / n,
+                             "ms_per_step":
+                                 e.self_device_time_total / n / 1e3}
+                            for e in top]}
+
+
+def sync_calls_of_step(tr):
+    """The synchronizing CUDA calls of one eager train step (the refresh
+    due before it run first, outside the check) under
+    torch.cuda.set_sync_debug_mode: their count and where each was
+    made."""
+    import warnings
+    import torch
+    _refresh_if_due(tr)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr._metrics = tr._dispatch(1, False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    tr.host_step += 1
+    torch.cuda.synchronize()
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}: "
+             f"{str(w.message)[:80]}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return {"count": len(syncs), "calls": syncs}
+
+
+def dispatch_report(tr, what, steps, walls, captured):
+    """The phase line's `dispatch`: the chain length, the graphs captured
+    (keys, seconds), graphed ms/step (CUDA events around each chain of
+    the second graphed run / its replays, each sample listed) beside the
+    eager ms/step over the same steps, the peak device memory of the
+    eager and the graphed runs, one profiled chain's busy and idle share
+    and its hand-written kernels' device launches a step (must equal an
+    eager step's), and the synchronizing calls of one eager step (must
+    be 0)."""
+    import torch
+    graphs = tr._graphs
+    samples = [(r.n, r.start.elapsed_time(r.end) / r.n)
+               for r in graphs.record]
+    graphs.record = None
+    peak = {"graphed_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "graphed_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+    eager = EAGER_RUNS.get(what, {})
+    peak.update({k: v for k, v in eager.items() if k.endswith("_gib")})
+    per_step = sorted(ms for _, ms in samples)
+    eager_ms = eager.get("step_ms", [])[:steps]
+    out = {"chained": True,
+           "chain_length": tr.steps_per_dispatch(),
+           "graphs_captured": graphs.captures[captured:],
+           "graphs_held": [list(k) for k in graphs.graphs],
+           "capture_s": sum(c["seconds"] for c in graphs.captures[captured:]),
+           "graphed_ms_per_step": (per_step[len(per_step) // 2]
+                                   if per_step else None),
+           "graphed_ms_per_step_samples": samples,
+           "eager_ms_per_step_same_steps": (sorted(eager_ms)[len(eager_ms) // 2]
+                                            if eager_ms else None),
+           "wall_s": {"graphed_runs": walls,
+                      "eager_same_steps": sum(eager_ms) / 1e3},
+           # the second graphed run (no capture) on the host clock, its
+           # refreshes included, as the eager steps' events include them
+           "graphed_wall_ms_per_step": walls[1] / steps * 1e3,
+           "peak_memory": peak}
+    out["profile_chain"] = chain = profile_chain(tr)
+    out["sync_calls_eager_step"] = sync_calls_of_step(tr)
+    print(f"[{what}] dispatch: chains of {out['chain_length']}, graphed "
+          f"{out['graphed_ms_per_step']} ms/step against eager "
+          f"{out['eager_ms_per_step_same_steps']} over the same steps; "
+          f"captures {out['graphs_captured']}; peak memory {peak}; chain "
+          f"profile {out['profile_chain']}; synchronizing calls of an "
+          f"eager step {out['sync_calls_eager_step']}")
+    launches = chain["hand_kernel_launches"]
+    check(launches["chain_per_step"] == launches["eager_step"]
+          and launches["eager_step"],
+          f"{what}: the chain's replays launched the hand-written kernels "
+          f"{launches['chain_per_step']} times a step on the card, an eager "
+          f"step {launches['eager_step']}")
+    check(out["sync_calls_eager_step"]["count"] == 0,
+          f"{what}: an eager step made synchronizing calls: "
+          f"{out['sync_calls_eager_step']['calls']}")
+    return out
+
+
+def forced_key_check(tr, snap, steps=32):
+    """The adaptive-batch key changed by hand: from `snap`, _adapt_batch
+    fed a stash of few live points (num_rays grows, the point budget
+    shrinks: a new key, a new graph), then `steps` eager steps against
+    `steps` steps through Trainer.train from the same state, bitwise."""
+    import torch
+    trainer_restore(tr, snap)
+    before = (tr.num_rays, tr._point_budget)
+    tr._adapt_batch({"num_points": 100.0, "num_points_raw": 100.0})
+    key = (tr.num_rays, tr._point_budget)
+    check(key != before and tr.num_rays > before[0],
+          f"forced key: _adapt_batch left the key at {key}")
+    snap2 = trainer_snapshot(tr)
     for _ in range(steps):
         tr.step()
     torch.cuda.synchronize()
-    now = training_tensors(tr)
-    diff = {k: float((now[k].double() - v.double()).abs().max())
-            for k, v in ref.items() if not same_bits(now[k], v)}
-    differ = f"; max abs diff {json.dumps(diff)}" if diff else ""
-    print(f"[{what}] repro: {steps} steps ({tr.host_grid_updates} grid "
-          f"refreshes) again from the state before step 1: "
-          f"{len(ref) - len(diff)} of {len(ref)} tensors bitwise equal to "
-          f"the first run's{differ}")
-    check(not diff, f"{what}: training did not reproduce at a fixed seed")
-    return {"steps": steps, "grid_refreshes": tr.host_grid_updates,
-            "tensors": sorted(ref), "bitwise_equal": not diff}
+    eager = graphed_tensors(tr)
+    trainer_restore(tr, snap2)
+    captured = len(tr._graphs.captures)
+    tr.train(steps, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    diff = bit_diff(graphed_tensors(tr), eager)
+    print(f"[O] forced key change {before} -> {key}: {steps} graphed steps "
+          f"{len(eager) - len(diff)} of {len(eager)} tensors bitwise equal "
+          f"to {steps} eager steps; captures "
+          f"{tr._graphs.captures[captured:]}")
+    check(not diff, f"O: after the key change the graphed steps differ "
+          f"from the eager ones in {sorted(diff)}")
+    return {"key_before": list(before), "key": [key[0], key[1]],
+            "steps": steps, "bitwise_equal": not diff,
+            "graphs_captured": tr._graphs.captures[captured:],
+            "graphs_held": [list(k) for k in tr._graphs.graphs]}
+
+
+def key_sweep_memory(tr, snap, chain=16):
+    """The memory of a graphed run that crosses several adaptive-batch
+    keys: from `snap`, _adapt_batch fed three stashes of few live points
+    (num_rays doubles to its cap, the point budget halves toward its
+    floor), then one of many (the budget grows back), each followed by
+    `chain` steps through Trainer.train (its own refreshes may move the
+    key again). -> the keys crossed and those captured (a key whose graph
+    is held already is not captured again), the graphs held at the end
+    (the last key's alone), the reserved memory after each chain and the
+    peak allocated / reserved of the sweep, beside the eager run's
+    peak."""
+    import torch
+    trainer_restore(tr, snap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captured = len(tr._graphs.captures)
+    few = {"num_points": 100.0, "num_points_raw": 100.0}
+    many = {"num_points": 1e9, "num_points_raw": 1e9}
+    reserved = []
+    for stash in (few, few, few, many):
+        tr._adapt_batch(stash)
+        tr.train(chain, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        reserved.append({"key": [tr.num_rays, tr._point_budget],
+                         "reserved_gib": torch.cuda.memory_reserved()
+                         / 2 ** 30})
+    caps = tr._graphs.captures[captured:]
+    crossed = [r["key"] for r in reserved]
+    out = {"keys_crossed": crossed,
+           "keys_captured": [c["key"] for c in caps],
+           "capture_s": [c["seconds"] for c in caps],
+           "graphs_held": [list(k) for k in tr._graphs.graphs],
+           "reserved_after_each_chain": reserved,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "eager_run": {k: v for k, v in EAGER_RUNS.get("O", {}).items()
+                         if k.endswith("_gib")}}
+    print(f"[O] key sweep: {json.dumps(out)}")
+    check(len({tuple(k) for k in crossed}) >= 3
+          and out["graphs_held"] == [crossed[-1]],
+          f"O: the key sweep crossed {crossed} and holds "
+          f"{out['graphs_held']}")
+    return out
 
 
 # launches a step of the kernels each train step must launch an exact
@@ -2399,6 +2728,7 @@ def run_steps(tr, steps, kernels, what, capture_at=None,
     if update is not None:
         tr._grid_update = counted_update
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
@@ -2410,7 +2740,7 @@ def run_steps(tr, steps, kernels, what, capture_at=None,
             events[i].record()
             losses.append(tr.step()["loss"])
             if i + 1 == capture_at:
-                captured = training_tensors(tr)
+                captured = graphed_tensors(tr)
         events[steps].record()
         torch.cuda.synchronize()
     finally:
@@ -2454,6 +2784,10 @@ def run_steps(tr, steps, kernels, what, capture_at=None,
             check(bool(torch.isfinite(t).all()),
                   f"{what}: {kind} {k} not finite")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    EAGER_RUNS[what] = {
+        "step_ms": step_ms,
+        "eager_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "eager_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
     return launches, (first, last), step_ms, captured
 
 
@@ -2560,7 +2894,7 @@ def phase_train(dev, cfg, steps=128, timed=32, repro=32):
              "fixed_batch_kernel_vs_plain": fixed, "sorts": sorts,
              "stages_ms": step_breakdown(tr),
              "profile": profile_device(tr.step, 1, "step")}
-    train["repro"] = repro_check(tr, snap, ref, repro, "train")
+    train["repro"], train["dispatch"] = repro_check(tr, snap, ref, repro, "train")
     return launches, train
 
 
@@ -4006,7 +4340,7 @@ def phase_disk(dev, train_launches, steps=128, timed=32, repro=32,
             "render_512_ms": render_ms,
             "stages_ms": step_breakdown(tr),
             "profile": profile_device(tr.step, 1, "step")}
-    disk["repro"] = repro_check(tr, snap, ref, repro, "disk")
+    disk["repro"], disk["dispatch"] = repro_check(tr, snap, ref, repro, "disk")
     disk["seconds"] = time.perf_counter() - t_phase
     return launches, disk
 
@@ -4234,7 +4568,7 @@ def phase_jpeg(dev, train_launches, seed=0, steps=128, timed=32,
            "ms_per_step_runs": window, "val_psnr_ema_untrained": psnr_0,
            "val_psnr_ema": psnr, "loss_first8": first, "loss_last8": last,
            "launches_as_train_phase": same}
-    out["repro"] = repro_check(tr, snap, ref, repro, "jpeg")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "jpeg")
     del tr
     out["host"] = jpeg_host_timings(seed, quality)
     out["seconds"] = time.perf_counter() - t_phase
@@ -4326,7 +4660,7 @@ def phase_pose(dev, steps=128, timed=32, repro=32):
            "fixed_batch_kernel_vs_plain": fixed}
     out["stages_ms"] = step_breakdown(tr)
     out["profile"] = profile_device(tr.step, 1, "step")
-    out["repro"] = repro_check(tr, snap, ref, repro, "pose")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "pose")
     return launches, out
 
 
@@ -4484,7 +4818,7 @@ def phase_lightstage(dev, steps=128, timed=32, repro=32, large=512,
            "stages_ms": step_breakdown(tr),
            "profile": profile_device(tr.step, 1, "step"),
            "gpu": gpu_line()}
-    out["repro"] = repro_check(tr, snap, ref, repro, "lightstage")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "lightstage")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[lightstage] phase took {out['phase_s']:.1f} s")
     return launches, out
@@ -4942,7 +5276,7 @@ def phase_proposal(dev, steps=128, timed=32, repro=32, large=512, reps=7):
            "stages_ms": step_breakdown(tr),
            "profile": profile_device(tr.step, 1, "step"),
            "gpu": gpu_line()}
-    out["repro"] = repro_check(tr, snap, ref, repro, "proposal")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "proposal")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[proposal] phase took {out['phase_s']:.1f} s")
     return launches, out
@@ -5216,7 +5550,9 @@ def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
            "stages_ms": step_breakdown(tr),
            "profile": profile_device(tr.step, 1, "step"),
            "gpu": gpu_line()}
-    out["repro"] = repro_check(tr, snap, ref, repro, "O")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "O")
+    out["forced_key"] = forced_key_check(tr, snap, repro)
+    out["key_sweep"] = key_sweep_memory(tr, snap)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[O] phase took {out['phase_s']:.1f} s")
     return launches, chunk_launches, out
@@ -5738,7 +6074,7 @@ def phase_capture(dev, kind, o_launches, captures, seed=0, steps=128,
            "ms_per_step_runs": window, "val_psnr_ema_untrained": psnr_0,
            "val_psnr_ema": psnr, "loss_first8": first, "loss_last8": last,
            "launches_as_O_phase": same}
-    out["repro"] = repro_check(tr, snap, ref, repro, kind)
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, kind)
     del tr
     out["host"] = capture_host_timings(kind, seed)
     out["seconds"] = time.perf_counter() - t_phase
@@ -6054,7 +6390,7 @@ def phase_reg(dev, steps=128, timed=32, repro=32):
            "stages_ms": step_breakdown(tr),
            "profile": profile_device(tr.step, 1, "step"),
            "gpu": gpu_line()}
-    out["repro"] = repro_check(tr, snap, ref, repro, "reg")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "reg")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[reg] phase took {out['phase_s']:.1f} s")
     return launches, out, med
@@ -6104,7 +6440,7 @@ def phase_unfused(dev, fused_ms, steps=32, repro=32):
            "fixed_batch_kernel_vs_plain": fixed,
            "profile": profile_device(tr.step, 1, "step"),
            "gpu": gpu_line()}
-    out["repro"] = repro_check(tr, snap, ref, repro, "unfused")
+    out["repro"], out["dispatch"] = repro_check(tr, snap, ref, repro, "unfused")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[unfused] phase took {out['phase_s']:.1f} s")
     return launches, out
@@ -6245,7 +6581,10 @@ def phase_cli(dev, steps=128):
     """The port's entry point end to end: raw_ngp_torch.cli.main in
     process on CLI_ARGV with --iters `steps`, --save_cnt 2, --eval_cnt 2
     in a temporary workspace, every launch counter reset just before and
-    read just after (the kernels of CLI_KERNELS must have launched); the
+    read just after (the kernels of CLI_KERNELS must have been called: its
+    training runs in chained CUDA-graph replays, so the counters count
+    the eager steps' launches and each capture's recorded calls, not the
+    replays'); the
     Trainer's logger given a recording writer in place of tensorboardX's
     (which the card's machine lacks), so that fit's gradient histograms
     run at each of its evaluations, finite and under JAX's tags; the
@@ -6256,12 +6595,13 @@ def phase_cli(dev, steps=128):
     (faces > 0) in place. Then the step-`steps` checkpoint's tensors
     (params, EMA, moments, grid) and counters held bit for bit against an
     in-process Trainer of the same configuration and scene that took
-    train(`steps`) unbroken (the CLI's evaluations, histograms and saves
-    do not disturb training), and `python -m raw_ngp_torch.cli --test
-    --ckpt latest` run as a subprocess in the same workspace: exit 0,
-    restored at step `steps`, the result frames and the inner mesh
-    written again, and the seconds of its stages as its log lines give
-    them."""
+    train(`steps`) unbroken, both through the chained path (CUDA-graph
+    replays; the CLI's evaluations, histograms and saves between its
+    chains do not disturb training), the generator's state too, and
+    `python -m raw_ngp_torch.cli --test --ckpt latest` run as a
+    subprocess in the same workspace: exit 0, restored at step `steps`,
+    the result frames and the inner mesh written again, and the seconds
+    of its stages as its log lines give them."""
     import collections
     import re
 
@@ -6338,7 +6678,7 @@ def phase_cli(dev, steps=128):
               f"{launches}")
         for name in CLI_KERNELS:
             check(launches[name] > 0,
-                  f"cli: kernel {name} was never launched")
+                  f"cli: kernel {name} was never called")
         check_sort_launches(launches, "cli")
         check(np.isfinite(final["psnr"]) and np.isfinite(final["ssim"]),
               f"cli: the final eval is not finite: {final}")
@@ -6393,6 +6733,7 @@ def phase_cli(dev, steps=128):
         tr.train(steps, log_every=steps)
         torch.cuda.synchronize()
     mine = checkpoint.state_tensors(tr.state)
+    mine["extra.generator"] = tr.generator.get_state()
     with np.load(last, allow_pickle=False) as data:
         differ = [k for k, t in mine.items()
                   if k not in data.files or not np.array_equal(
@@ -6610,11 +6951,11 @@ def multi_train(tr, what, steps, kernels=TRAIN_KERNELS,
         tr, steps, kernels, what, capture_at=steps, per_step=per_step)
     launches.pop("hash_encode_by_caller")
     after = digests(training_tensors(tr))
-    repro = repro_check(tr, snap, ref, steps, what)
+    repro, dispatch = repro_check(tr, snap, ref, steps, what)
     return {"launches": launches, "loss_first8": first, "loss_last8": last,
             "ms_per_step": sorted(step_ms)[steps // 2],
             "ms_per_step_runs": step_ms, "digests": after,
-            "repro_bitwise": repro["bitwise_equal"]}
+            "repro_bitwise": repro["bitwise_equal"], "dispatch": dispatch}
 
 
 ORIENT_STEPS = 32
@@ -7010,7 +7351,8 @@ def phase_multi(dev):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     result = {"label": MULTI_LABEL, "steps": MULTI_STEPS,
-              "ranks_s": ranks_s}
+              "ranks_s": ranks_s,
+              "dispatch": ranks[0]["dp"]["dispatch"]}
     for kind in ("dp", "tp", "orient"):
         a, b = ranks[0][kind], ranks[1][kind]
         steps = ORIENT_STEPS if kind == "orient" else MULTI_STEPS
@@ -7348,8 +7690,9 @@ def phase_tools(dev, tr, iters=256, eval_every=128):
     write_colmap_scene writes (removed after); quality_run --iters
     `iters` --eval_every `eval_every` on the card with every launch
     counter reset just before and read just after (the train path's
-    kernels launched), then summarize_quality on its JSON. Returns
-    (launches, numbers)."""
+    kernels called: its training is chained, so the counters count the
+    eager launches and each capture's recorded calls, not the replays'),
+    then summarize_quality on its JSON. Returns (launches, numbers)."""
     import numpy as np
     import torch
     from raw_ngp_torch.data import make_synthetic_scene
@@ -7405,7 +7748,7 @@ def phase_tools(dev, tr, iters=256, eval_every=128):
     quality_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     for name in TRAIN_KERNELS:
-        check(launches[name] > 0, f"tools: quality_run never launched "
+        check(launches[name] > 0, f"tools: quality_run never called "
               f"{name}")
     check_sort_launches(launches, "tools")
     held = [c["psnr_heldout"] for c in run["curve"]]

@@ -48,7 +48,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,9 +113,29 @@ def make_field_spec(cfg: Config) -> FieldSpec:
 # coarse-to-fine annealing (BARF / BAA-NGP)
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class DeviceAnnealing:
+    """A train step's annealing on the device, read from host-built tables
+    at the step's device counter (:class:`raw_ngp_torch.train.scalars.
+    AnnealingTables`), so that a captured step anneals as the step it
+    replays: the ramp position ``alpha`` (0-d f32, the bits of
+    :func:`_anneal_alpha`) of ramp length ``L`` and, for BAA-NGP, the
+    finest active level ``j_star`` (0-d int64)."""
+
+    L: int
+    alpha: torch.Tensor
+    j_star: Optional[torch.Tensor] = None
+
+
 def _anneal_alpha(cfg: Config, annealing, L: int):
     """The ramp position, an f32 host scalar: JAX computes it from an f32
-    annealing with the config's numbers taken as f32."""
+    annealing with the config's numbers taken as f32. A
+    :class:`DeviceAnnealing` gives its own (a 0-d device tensor)."""
+    if isinstance(annealing, DeviceAnnealing):
+        if annealing.L != L:
+            raise ValueError(f"annealing tables of ramp length "
+                             f"{annealing.L}, the field's ramp is {L}")
+        return annealing.alpha
     f32 = np.float32
     start, end = cfg.pose_opt.start_annealing, cfg.pose_opt.end_annealing
     if end == 0:
@@ -124,9 +144,11 @@ def _anneal_alpha(cfg: Config, annealing, L: int):
 
 
 def _cosine_ramp(alpha, L: int, device):
-    """(1 - cos(clip(alpha - k, 0, 1) * pi)) / 2 for levels k < L, f32."""
+    """(1 - cos(clip(alpha - k, 0, 1) * pi)) / 2 for levels k < L, f32;
+    ``alpha`` a host scalar or a 0-d device tensor (the same f32 ops)."""
     k = torch.arange(L, dtype=torch.float32, device=device)
-    return (1.0 - torch.cos(torch.clamp(float(alpha) - k, 0.0, 1.0)
+    a = alpha if torch.is_tensor(alpha) else float(alpha)
+    return (1.0 - torch.cos(torch.clamp(a - k, 0.0, 1.0)
                             * math.pi)) / 2.0
 
 
@@ -147,7 +169,9 @@ def baangp_blend(cfg: Config, annealing, feats):
 
     The annealed levels are L - 1 (the reference anneals dim_out - 1). The
     weight vector's first two *features* are forced to 1, as the reference
-    does (``weights[:2] = 1``): two features, not two levels."""
+    does (``weights[:2] = 1``): two features, not two levels. Under a
+    :class:`DeviceAnnealing` the finest active level is gathered at its
+    device index."""
     m = cfg.model
     C = m.level_dim
     L_levels = m.num_levels
@@ -158,8 +182,12 @@ def baangp_blend(cfg: Config, annealing, feats):
                          w.repeat_interleave(C)])
     weights[:2] = 1.0
     # the finest level with weight > 0 (level 0 always active)
-    j_star = min(max(math.ceil(float(alpha)), 0), L_levels - 1)
-    coarse = feats[..., j_star * C:(j_star + 1) * C]
+    if isinstance(annealing, DeviceAnnealing):
+        coarse = feats.unflatten(-1, (L_levels, C)).index_select(
+            -2, annealing.j_star.reshape(1)).flatten(-2)
+    else:
+        j_star = min(max(math.ceil(float(alpha)), 0), L_levels - 1)
+        coarse = feats[..., j_star * C:(j_star + 1) * C]
     coarse_f = coarse.repeat(*([1] * (feats.ndim - 1)), L_levels)
     return feats.float() * weights + coarse_f.float() * (1.0 - weights)
 

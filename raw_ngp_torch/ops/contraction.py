@@ -18,7 +18,7 @@ def contract(x):
     """[-inf, inf]^C -> [-2, 2]^C, identity within the unit cube."""
     mag = torch.abs(x).amax(dim=-1, keepdim=True)
     # avoid div-by-zero at the origin; the result there is selected away
-    safe_mag = torch.maximum(mag, mag.new_tensor(1e-12))
+    safe_mag = torch.maximum(mag, mag.new_full((), 1e-12))
     is_max = torch.abs(x) == mag
     scale = torch.where(is_max, (2.0 - 1.0 / safe_mag) / safe_mag,
                         1.0 / safe_mag)
@@ -29,7 +29,8 @@ def uncontract(z):
     """Inverse of :func:`contract`."""
     mag = torch.abs(z).amax(dim=-1, keepdim=True)
     is_max = torch.abs(z) == mag
-    denom_other = torch.maximum(2.0 - mag, mag.new_tensor(1e-8))
-    denom_max = torch.maximum(2.0 * mag - mag * mag, mag.new_tensor(1e-8))
+    denom_other = torch.maximum(2.0 - mag, mag.new_full((), 1e-8))
+    denom_max = torch.maximum(2.0 * mag - mag * mag,
+                              mag.new_full((), 1e-8))
     scale = torch.where(is_max, 1.0 / denom_max, 1.0 / denom_other)
     return torch.where(mag <= 1.0, z, z * scale)

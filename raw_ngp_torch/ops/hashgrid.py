@@ -208,9 +208,11 @@ def hash_encode_01(params, x01, spec: HashGridSpec, max_level=None):
     inb = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1, keepdim=True)
     x01 = torch.where(inb, x01, 0.5)
 
-    bits = torch.tensor([[(c >> d) & 1 for d in range(D)]
-                         for c in range(n_corners)], dtype=torch.float32,
-                        device=x01.device)
+    # corner c's offset along axis d, bit d of c (made on the device: no
+    # copy from the host inside a step)
+    corners = torch.arange(n_corners, device=x01.device)
+    bits = ((corners[:, None] >> torch.arange(D, device=x01.device))
+            & 1).float()
     active = L if max_level is None else min(max_level, L)
     all_idx, all_w = [], []
     for lv in range(L):

@@ -21,7 +21,7 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near: float = 0.05):
     near = torch.where(miss, 1e9, near)
     far = torch.where(miss, 1e9, far)
     # maximum, not clamp_min: a tie splits the gradient as jnp.maximum does
-    near = torch.maximum(near, near.new_tensor(min_near))
+    near = torch.maximum(near, near.new_full((), min_near))
     return near, far
 
 

@@ -14,7 +14,8 @@ encode is the hash kernel) and composited on the compacted stream; the
 expand path (normals) scatters the slots back to the [N, K] grid by the
 fold's ``pos`` for the dense composite, and ``compact_ratio <= 0`` runs
 the field on all N K samples. No step reads a device value back to the
-host. Every branch of the JAX render is ported. In training with
+host or copies one to the device (its constants are filled there), so a
+train step captured in a CUDA graph replays as it ran. Every branch of the JAX render is ported. In training with
 ``lambda_orientation > 0`` the render also takes the expand path and
 returns the Ref-NeRF orientation loss (:func:`orientation_loss`) at all
 N K march positions, whose inner gradient is the field's
@@ -243,7 +244,7 @@ def coarse_spans(rays_o, rays_d, coarse_lin, nears, fars, bound: float,
     occ, t, spacing = _probe_occupancy(
         rays_o, rays_d, coarse_lin, nears, fars, bound, grid_size,
         cascades, n_probes, contract, log_spacing)
-    inf = torch.tensor(float("inf"), device=t.device)
+    inf = float("inf")
     tin = torch.where(occ, t - spacing, inf).amin(dim=1, keepdim=True)
     tout = torch.where(occ, t + spacing, -inf).amax(dim=1, keepdim=True)
     empty = tin > tout
@@ -366,8 +367,9 @@ def march_rays(rays_o, rays_d, bitfield, nears, fars, bound: float,
                              device=nears.device)[None]
         if dt_gamma > 0.0:
             # t_i ~ near * (1 + dt_gamma)^i (raymarching.cu:396-401, 412)
-            g1 = torch.tensor(np.float32(1.0) + np.float32(dt_gamma),
-                              device=nears.device)
+            # 1 + dt_gamma in f32, filled on the device (no host copy)
+            g1 = nears.new_full((), float(np.float32(1.0)
+                                          + np.float32(dt_gamma)))
             denom = torch.pow(g1, float(S)) - 1.0
             t_cand = nears + span * ((torch.pow(g1, steps + jitter) - 1.0)
                                      / denom)
@@ -503,7 +505,7 @@ def expand_from_slots(packed, pos, M: int):
 def _clip_bound(x, bound: float):
     """clip(x, -bound, bound) through torch.minimum / torch.maximum, whose
     gradient splits at a tie as ``jnp.clip``'s does."""
-    b = torch.tensor(bound, dtype=x.dtype, device=x.device)
+    b = x.new_full((), bound)
     return torch.minimum(torch.maximum(x, -b), b)
 
 
@@ -591,8 +593,10 @@ def render_occupancy(field, rays_o, rays_d, aabb, bitfield, bg_color=0.0,
                    march_cdf=r.march_cdf, max_steps=r.max_steps,
                    probe_log=r.probe_log, cdf_floor=r.cdf_floor)
     ts, deltas, mask = m["ts"], m["deltas"], m["mask"]
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=rays_d.dtype,
-                      device=rays_d.device)
+    # the unit z axis, filled on the device (``ez[2] = 1.0`` would copy a
+    # host scalar)
+    ez = rays_d.new_zeros(3)
+    ez[2:].fill_(1.0)
 
     results = {}
     if r.compact_ratio > 0:

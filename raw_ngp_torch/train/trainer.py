@@ -13,7 +13,10 @@ refinement and on the proposal path of the ``-O2`` preset (port of
 ``:1102-1140``, ``fit`` ``:1141`` and ``test`` ``:1169``).
 
 JAX jits the step and chains steps with ``lax.scan``; here a step is one
-eager Python call that updates the state in place. The random streams
+Python call that updates the state in place, and ``Trainer.train`` runs
+JAX's chains on one card as replays of a CUDA graph of the step
+(:mod:`raw_ngp_torch.train.dispatch`), reading every per-step scalar on
+the device (:mod:`raw_ngp_torch.train.scalars`). The random streams
 differ (Philox ``torch.Generator`` against threefry keys); a ``None``
 generator gives the deterministic path of ``key=None``.
 
@@ -107,7 +110,8 @@ from raw_ngp_torch.data.image_io import write_png
 from raw_ngp_torch.data.sampler import sample_ray_batch
 from raw_ngp_torch.data.scene import SceneData
 from raw_ngp_torch.device import resolve_device
-from raw_ngp_torch.models.ngp import FieldSpec, init_field, make_field_spec
+from raw_ngp_torch.models.ngp import (DeviceAnnealing, FieldSpec, init_field,
+                                     make_field_spec)
 from raw_ngp_torch.ops.hashgrid import (total_variation_loss,
                                         weight_decay_loss)
 from raw_ngp_torch.ops.lie import se3_to_SE3
@@ -122,7 +126,12 @@ from raw_ngp_torch.train.losses import (blend_gt_background, entropy_loss,
                                        ldr_loss, loss_weight_fn,
                                        rawnerf_loss)
 from raw_ngp_torch.train import checkpoint
+from raw_ngp_torch.train.dispatch import GraphedSteps
 from raw_ngp_torch.train.metrics import PSNRMeter
+from raw_ngp_torch.train.scalars import (AnnealingTables, CountTable,
+                                        annealing_at, divide,
+                                        first_count_at, on_device,
+                                        sync_counter)
 from raw_ngp_torch.train.state import AdamState, TrainState
 from raw_ngp_torch.utils.logging import RunLogger, ThroughputMeter
 
@@ -160,11 +169,27 @@ def pose_lr_schedule(cfg: Config):
 
 class _Optimizer:
     """init / update_apply pair from :func:`fused_adam_ema` or
-    :func:`pose_adam`."""
+    :func:`pose_adam`, with their host-side ``prepare(state)``: the
+    state's device counter set to its host count and the per-count tables
+    made on its device (run before a step or a chain of steps, outside any
+    capture); ``scalars(state)`` gives the per-count device scalars the
+    next update reads, which ``update_apply`` takes (``scalars=``) or
+    reads itself. An optimizer without ``scalars`` (a wrapper that keeps
+    only init / update_apply) reads its own in ``update_apply``."""
 
-    def __init__(self, init, update_apply):
+    def __init__(self, init, update_apply, prepare=None, scalars=None,
+                 annealing=None):
         self.init = init
         self.update_apply = update_apply
+        self.prepare = prepare
+        self.scalars = scalars
+        self.annealing = annealing
+
+
+def _bias_correction(b):
+    """count -> 1 - b^(count + 1) in f32, as the eager update computed
+    Adam's bias correction."""
+    return lambda c: _F32(1.0) - _F32(b) ** _F32(c + 1)
 
 
 def fused_adam_ema(cfg: Config) -> _Optimizer:
@@ -177,46 +202,80 @@ def fused_adam_ema(cfg: Config) -> _Optimizer:
     moments as they were (the EMA still moves toward the params). The
     decision is taken on the device: no host sync.
 
-    ``update_apply(grads, state, params, ema, ok=None)`` updates params,
-    ema and the moments in place and returns (params, ema, state); ``ok``
-    (a bool tensor), where given, takes the place of the gradients' own
-    finite check (a mesh's global gate).
+    ``update_apply(grads, state, params, ema, ok=None, scalars=None)``
+    updates params, ema and the moments in place and returns (params, ema,
+    state); ``ok`` (a bool tensor), where given, takes the place of the
+    gradients' own finite check (a mesh's global gate). The LR over the
+    bias correction and the second moment's correction are read at the
+    device counter ``state.count_t`` from tables of the f32 host values
+    (:class:`raw_ngp_torch.train.scalars.CountTable`), so the update can
+    be captured in a CUDA graph; it advances ``count_t`` and its host
+    mirror ``count``. ``prepare(state)`` sets ``count_t`` from ``count``.
     """
     lr_fn = network_lr_schedule(cfg)
     b1, b2 = 0.9, 0.999
     eps = cfg.train.adam_eps
     d = cfg.train.ema_decay
 
+    mu_corr, nu_corr = _bias_correction(b1), _bias_correction(b2)
+
+    def scale_at(c):        # lr(c) / (1 - b1^(c + 1)), f32
+        return lr_fn(c) / mu_corr(c)
+
+    lr_const = 6000 if cfg.train.anneal_lr else cfg.train.iters
+    one = _F32(1.0)
+    tables = on_device(lambda dev: (
+        CountTable(scale_at, dev, const_from=max(
+            lr_const, first_count_at(mu_corr, one))),
+        CountTable(nu_corr, dev, const_from=first_count_at(nu_corr, one),
+                   divisor=True)))
+
     def init(params):
+        dev = next(iter(params.values())).device if params else "cpu"
         return AdamState(
             count=0, mu={k: torch.zeros_like(p) for k, p in params.items()},
-            nu={k: torch.zeros_like(p) for k, p in params.items()})
+            nu={k: torch.zeros_like(p) for k, p in params.items()},
+            count_t=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def prepare(state: AdamState):
+        dev = next(iter(state.mu.values())).device
+        sync_counter(state, "count", dev)
+        tables(dev)
+
+    def read_scalars(state: AdamState):
+        scale, nu = tables(state.count_t.device)
+        return {"lr_over_bias_correction": scale.at(state.count_t),
+                **nu.entry("nu_correction", state.count_t)}
 
     @torch.no_grad()
-    def update_apply(grads, state: AdamState, params, ema, ok=None):
+    def update_apply(grads, state: AdamState, params, ema, ok=None,
+                     scalars=None):
+        if state.count_t is None:
+            prepare(state)
+        sc = scalars if scalars is not None else read_scalars(state)
         if ok is None:
             ok = torch.stack([torch.isfinite(g).all()
                               for g in grads.values()]).all()
         okf = ok.float()
-        cf = _F32(state.count + 1)
-        scale = float(lr_fn(state.count) / (_F32(1.0) - _F32(b1) ** cf))
-        nu_corr = float(_F32(1.0) - _F32(b2) ** cf)
-        step_scale = okf * scale
+        step_scale = okf * sc["lr_over_bias_correction"]
         for k, p in params.items():
             m, v, e = state.mu[k], state.nu[k], ema[k]
             # select, not multiply: inf * 0 == NaN would poison the step
             g = torch.where(ok, grads[k], 0.0)
             m2 = b1 * m + (1.0 - b1) * g
             v2 = b2 * v + (1.0 - b2) * g * g
-            p2 = p - step_scale * m2 / (torch.sqrt(v2 / nu_corr) + eps)
+            p2 = p - step_scale * m2 / (torch.sqrt(
+                divide(v2, sc, "nu_correction")) + eps)
             m.copy_(okf * m2 + (1.0 - okf) * m)
             v.copy_(okf * v2 + (1.0 - okf) * v)
             e.copy_(d * e + (1.0 - d) * p2)
             p.copy_(p2)
+        state.count_t.add_(1)
         state.count += 1
         return params, ema, state
 
-    return _Optimizer(init=init, update_apply=update_apply)
+    return _Optimizer(init=init, update_apply=update_apply, prepare=prepare,
+                      scalars=read_scalars)
 
 
 def pose_adam(cfg: Config) -> _Optimizer:
@@ -229,31 +288,65 @@ def pose_adam(cfg: Config) -> _Optimizer:
     value *zeroes the gradient before Adam* (skip_nonfinite), so the
     moments still decay and the pose still moves by the momentum.
 
-    ``update_apply(grad, state, params)`` updates params and the moments
-    in place and returns (params, state)."""
+    ``update_apply(grad, state, params, scalars=None)`` updates params and
+    the moments in place and returns (params, state). Its bias
+    corrections and LR are read at ``state.count_t`` as
+    :func:`fused_adam_ema`'s are (the LR table runs to the count where the
+    decaying f32 LR reaches 0). ``annealing(device)`` gives the
+    refinement's coarse-to-fine annealing tables
+    (:class:`raw_ngp_torch.train.scalars.AnnealingTables`), which the
+    train step reads at its own counter."""
     lr_fn = pose_lr_schedule(cfg)
     b1, b2, eps = 0.9, 0.999, 1e-8
 
+    def minus_lr(c):
+        return -lr_fn(c)
+
+    corrs = [_bias_correction(b) for b in (b1, b2)]
+    tables = on_device(lambda dev: tuple(
+        CountTable(f, dev, const_from=first_count_at(f, _F32(1.0)),
+                   divisor=True) for f in corrs) + (
+        CountTable(minus_lr, dev,
+                   const_from=first_count_at(minus_lr, _F32(0.0))),))
+    annealing = on_device(lambda dev: AnnealingTables(cfg, dev))
+
     def init(params):
         return AdamState(count=0, mu={"pose": torch.zeros_like(params)},
-                         nu={"pose": torch.zeros_like(params)})
+                         nu={"pose": torch.zeros_like(params)},
+                         count_t=torch.zeros((), dtype=torch.int64,
+                                             device=params.device))
+
+    def prepare(state: AdamState):
+        dev = state.mu["pose"].device
+        sync_counter(state, "count", dev)
+        tables(dev)
+        annealing(dev)
+
+    def read_scalars(state: AdamState):
+        mu_c, nu_c, lr = tables(state.count_t.device)
+        return {**mu_c.entry("mu_correction", state.count_t),
+                **nu_c.entry("nu_correction", state.count_t),
+                "minus_lr": lr.at(state.count_t)}
 
     @torch.no_grad()
-    def update_apply(grad, state: AdamState, params):
+    def update_apply(grad, state: AdamState, params, scalars=None):
+        if state.count_t is None:
+            prepare(state)
+        sc = scalars if scalars is not None else read_scalars(state)
         # skip_nonfinite: select, not multiply (inf * 0 == NaN)
         g = torch.where(torch.isfinite(grad).all(), grad, 0.0)
         mu, nu = state.mu["pose"], state.nu["pose"]
         mu.copy_((1 - b1) * g + b1 * mu)
         nu.copy_((1 - b2) * (g * g) + b2 * nu)
-        cf = _F32(state.count + 1)
-        mu_hat = mu / float(_F32(1.0) - _F32(b1) ** cf)
-        nu_hat = nu / float(_F32(1.0) - _F32(b2) ** cf)
-        step = float(-lr_fn(state.count))
-        params.add_(step * (mu_hat / (torch.sqrt(nu_hat) + eps)))
+        mu_hat = divide(mu, sc, "mu_correction")
+        nu_hat = divide(nu, sc, "nu_correction")
+        params.add_(sc["minus_lr"] * (mu_hat / (torch.sqrt(nu_hat) + eps)))
+        state.count_t.add_(1)
         state.count += 1
         return params, state
 
-    return _Optimizer(init=init, update_apply=update_apply)
+    return _Optimizer(init=init, update_apply=update_apply, prepare=prepare,
+                      scalars=read_scalars, annealing=annealing)
 
 
 def init_train_state(cfg: Config, spec: FieldSpec, device="cuda",
@@ -391,18 +484,18 @@ def make_loss_fn(cfg: Config, spec: FieldSpec, num_rays: int):
     return loss_fn
 
 
-def annealing_at(cfg: Config, step: int):
-    """The BARF / BAA-NGP annealing of a train step, clip(step / iters, 0,
-    1) in f32 at the step before its increment."""
-    return min(max(_F32(step) / _F32(cfg.train.iters), _F32(0.0)),
-               _F32(1.0))
-
-
 def proposal_gate(step: int) -> float:
     """The factor of the proposal networks' gradients at a step (counted
     before its increment): 1 on the first 3001 steps and on every fifth
-    step after, else 0."""
+    step after, else 0. The step reads it on the device
+    (:func:`proposal_gate_t`)."""
     return 1.0 if step <= 3000 or step % 5 == 0 else 0.0
+
+
+def proposal_gate_t(step_t: torch.Tensor) -> torch.Tensor:
+    """:func:`proposal_gate` at the device counter ``step_t`` (0-d f32):
+    (step <= 3000) | (step % 5 == 0), as JAX's step computes it."""
+    return ((step_t <= 3000) | (step_t % 5 == 0)).float()
 
 
 def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
@@ -420,19 +513,70 @@ def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
     device. ``reduce`` (a mesh's, :func:`raw_ngp_torch.parallel.mesh.
     make_reduce`) takes (grads, pose gradient, loss, aux) after the
     backward and returns them reduced over the ranks with the update's
-    finite gate."""
+    finite gate.
+
+    The step reads every per-step scalar (annealing, gate, freeze, the
+    optimizers' LR and bias corrections) on the device at the state's
+    counters (``state.step_t``, the optimizers' ``count_t``), which it
+    advances with their host mirrors: ``train_step.device_step`` is that
+    part, the one a CUDA graph captures
+    (:mod:`raw_ngp_torch.train.dispatch`), and ``train_step.prepare(state)``
+    the host work before a step or a chain of them (the device counters
+    set from the host ones, the tables made). ``train_step`` is
+    ``prepare(state)`` then ``device_step``. ``train_step.scalars(state)``
+    gives the device scalars the next step reads: ``device_step`` reads
+    them there, once, and hands the optimizers theirs."""
     loss_fn = make_loss_fn(cfg, spec, num_rays)
     pose_freeze_step = int(cfg.pose_opt.end_annealing * cfg.train.iters)
+    annealed = cfg.pose_opt.mode != "none"
+    txs = (("net", net_tx, lambda st: st.opt_state),
+           ("pose", pose_tx, lambda st: st.pose_opt_state))
 
-    def train_step(field, state: TrainState, scene, aabb, generator):
+    def prepare(state: TrainState):
+        sync_counter(state, "step", next(iter(state.params.values())).device)
+        for _, tx, st in txs:
+            if st(state) is not None and tx.prepare is not None:
+                tx.prepare(st(state))
+
+    def scalars(state: TrainState) -> Dict[str, torch.Tensor]:
+        step_t = state.step_t
+        out = {}
+        if annealed:
+            a = pose_tx.annealing(step_t.device).at(step_t)
+            out["annealing_alpha"] = a.alpha
+            if a.j_star is not None:
+                out["j_star"] = a.j_star
+        if spec.prop_specs:
+            out["proposal_gate"] = proposal_gate_t(step_t)
+        if state.pose_params is not None:
+            out["pose_freeze"] = (step_t >= pose_freeze_step).float()
+        for name, tx, st in txs:
+            if st(state) is not None and tx.scalars is not None:
+                out.update({f"{name}.{k}": v
+                            for k, v in tx.scalars(st(state)).items()})
+        return out
+
+    def of(sc, name, tx):
+        """update_apply's keyword: ``tx``'s scalars out of the step's."""
+        if tx.scalars is None:
+            return {}
+        n = len(name) + 1
+        return {"scalars": {k[n:]: v for k, v in sc.items()
+                            if k.startswith(name + ".")}}
+
+    def device_step(field, state: TrainState, scene, aabb, generator):
+        sc = scalars(state)
         for p in state.params.values():
             p.grad = None
         pose = state.pose_params
         if pose is not None:
             pose.grad = None
+        annealing = (DeviceAnnealing(
+            L=pose_tx.annealing(state.step_t.device).L,
+            alpha=sc["annealing_alpha"], j_star=sc.get("j_star"))
+            if annealed else 1.0)
         loss, aux = loss_fn(field, state, scene, aabb, generator,
-                            point_budget=point_budget,
-                            annealing=annealing_at(cfg, state.step))
+                            point_budget=point_budget, annealing=annealing)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
@@ -443,21 +587,33 @@ def make_train_step(cfg: Config, spec: FieldSpec, net_tx: _Optimizer,
         if reduce is not None:
             grads, g_pose, loss, aux, ok = reduce(grads, g_pose, loss, aux)
         if spec.prop_specs:
-            gate = proposal_gate(state.step)
             for k in grads:
                 if k.startswith("prop_"):
-                    grads[k] = grads[k] * gate
+                    grads[k] = grads[k] * sc["proposal_gate"]
         # a mesh's global finite gate, where it has one
         gate_kw = {} if ok is None else {"ok": ok}
         net_tx.update_apply(grads, state.opt_state, state.params,
-                            state.ema_params, **gate_kw)
+                            state.ema_params, **of(sc, "net", net_tx),
+                            **gate_kw)
         if pose is not None:
-            freeze = 1.0 if state.step >= pose_freeze_step else 0.0
-            pose_tx.update_apply(g_pose * (1.0 - freeze),
-                                 state.pose_opt_state, pose.data)
+            pose_tx.update_apply(g_pose * (1.0 - sc["pose_freeze"]),
+                                 state.pose_opt_state, pose.data,
+                                 **of(sc, "pose", pose_tx))
+        state.step_t.add_(1)
         state.step += 1
-        return {"loss": loss.detach(), **aux}
+        # detached: a metric that kept the step's autograd graph would keep
+        # its activations, and its AccumulateGrad nodes on their stream
+        return {"loss": loss.detach(),
+                **{k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in aux.items()}}
 
+    def train_step(field, state: TrainState, scene, aabb, generator):
+        prepare(state)
+        return device_step(field, state, scene, aabb, generator)
+
+    train_step.prepare = prepare
+    train_step.device_step = device_step
+    train_step.scalars = scalars
     return train_step
 
 
@@ -559,6 +715,10 @@ class Trainer:
         self._adapt_stash = None
         self._metrics = None
         self._train_step = self._make_step()
+        # JAX's chained dispatch on one card: a CUDA graph of the step a
+        # key (a mesh's gloo collectives stay eager)
+        self._graphs = (GraphedSteps(self) if self.device.type == "cuda"
+                        and self.mesh is None else None)
         # observability (train_utils.py:428-432 console+file, :919-937
         # tensorboard) and the auto-resume policy (train_utils.py:444-463)
         self.logger = RunLogger(self.workspace, enabled=self.is_main)
@@ -667,11 +827,17 @@ class Trainer:
 
     def _refresh_coarse_cache(self):
         """The probe coarse-occupancy volume of the current bitfield, valid
-        for the whole refresh interval."""
+        for the whole refresh interval: written into the cached tensor in
+        place once there is one (a captured step reads that buffer)."""
         if self.cfg.render.coarse_probes <= 0:
             return
-        self.scene_arrays["coarse_lin"] = coarse_volume(
-            self.cfg, self.state.density_bitfield)
+        vol = coarse_volume(self.cfg, self.state.density_bitfield)
+        old = self.scene_arrays.get("coarse_lin")
+        if (old is not None and old.shape == vol.shape
+                and old.dtype == vol.dtype and old.device == vol.device):
+            old.copy_(vol)
+        else:
+            self.scene_arrays["coarse_lin"] = vol
 
     def adaptation_quiescent(self, margin: float = 1.1) -> bool:
         """True when no adaptive-batch change is within ``margin`` of
@@ -702,48 +868,107 @@ class Trainer:
         return (cfg.train.adaptive_num_rays and cfg.render.occupancy
                 and cfg.render.compact_ratio > 0)
 
-    def step(self):
-        """One training step, preceded on the occupancy path at every
-        ``update_extra_interval`` boundary by the grid refresh, the coarse
+    def _refresh(self):
+        """The work at an ``update_extra_interval`` boundary of the
+        occupancy path, between chains: the grid refresh, copied into the
+        state's own grid buffers (a captured step reads those), the coarse
         cache and (after the 16 full sweeps) the batch adaptation from the
-        previous interval's metrics. Returns the step's metrics (device
-        tensors)."""
+        previous interval's last metrics."""
+        grid = self._grid_update(self.field, self.state.grid_state(),
+                                 self.host_grid_updates, self.generator)
+        with torch.no_grad():
+            for k, v in grid.items():
+                getattr(self.state, k).copy_(v)
+        self.host_grid_updates += 1
+        self._refresh_coarse_cache()
+        if self._adaptive() and self.host_grid_updates > 16:
+            if self._adapt_stash is not None:
+                self._adapt_batch(self._adapt_stash)
+            self._adapt_stash = self._metrics
+
+    def step(self):
+        """One eager training step, preceded on the occupancy path at every
+        ``update_extra_interval`` boundary by :meth:`_refresh`. Returns the
+        step's metrics (device tensors)."""
         cfg = self.cfg
         if (cfg.render.occupancy
                 and self.host_step % cfg.render.update_extra_interval == 0):
-            grid = self._grid_update(self.field, self.state.grid_state(),
-                                     self.host_grid_updates, self.generator)
-            for k, v in grid.items():
-                setattr(self.state, k, v)
-            self.host_grid_updates += 1
-            self._refresh_coarse_cache()
-            if self._adaptive() and self.host_grid_updates > 16:
-                if self._adapt_stash is not None:
-                    self._adapt_batch(self._adapt_stash)
-                self._adapt_stash = self._metrics
+            self._refresh()
         self._metrics = self._train_step(self.field, self.state,
                                          self.scene_arrays, self.aabb,
                                          self.batch_generator)
         self.host_step += 1
         return self._metrics
 
+    def steps_per_dispatch(self) -> int:
+        """The dispatch chain length (``trainer.py:809-811``):
+        ``train.steps_per_dispatch``, or where it is 0 the refresh
+        interval on the occupancy path and 16 on the proposal path."""
+        n = self.cfg.train.steps_per_dispatch
+        if n == 0:
+            n = (self.cfg.render.update_extra_interval
+                 if self.cfg.render.occupancy else 16)
+        return n
+
+    def _dispatch(self, n: int, chained: bool):
+        """n steps at the current key with nothing between them on the
+        host: a chain's replays of the step's CUDA graph where ``chained``
+        on one card, else n eager steps. Returns the last step's
+        metrics."""
+        if chained and self._graphs is not None:
+            return self._graphs.run(n)
+        for _ in range(n):
+            metrics = self._train_step(self.field, self.state,
+                                       self.scene_arrays, self.aabb,
+                                       self.batch_generator)
+        return metrics
+
     def train(self, iters: Optional[int] = None, log_every: int = 100):
-        """``iters`` steps, the loss logged after the first and every
-        ``log_every``-th; returns wall time and rays/s (the clock stops
-        after the last step's loss has reached the host)."""
+        """``iters`` steps in JAX's dispatch chains (``Trainer.train``,
+        ``trainer.py:797-848``): chains of :meth:`steps_per_dispatch`
+        steps, cut at the refresh boundaries of the occupancy path, where
+        :meth:`_refresh` runs between them; a chain of the full length runs
+        as one dispatch, a shorter remainder step by step. On one card a
+        chain of more than one step is replays of a CUDA graph of the step
+        (:mod:`raw_ngp_torch.train.dispatch`, one graph an adaptive-batch
+        key, bitwise the eager steps); ``steps_per_dispatch=1`` runs every
+        step eagerly, as on the CPU and on a mesh (whose gloo collectives a
+        graph cannot hold). The loss is logged after the first chain and
+        where a chain crosses a multiple of ``log_every``; returns wall
+        time and rays/s (the clock stops after the last step's loss has
+        reached the host)."""
         iters = iters or self.cfg.train.iters
+        cfg = self.cfg
+        occupancy = cfg.render.occupancy
+        interval = cfg.render.update_extra_interval
+        scan_n = self.steps_per_dispatch()
+        chained = scan_n > 1
         t0 = time.time()
         total_rays = 0
-        for i in range(iters):
-            metrics = self.step()
-            total_rays += self.num_rays
-            self.throughput.update(self.num_rays)
-            if i == 0 or i // log_every != (i + 1) // log_every:
+        metrics = None
+        i = 0
+        while i < iters:
+            if occupancy and self.host_step % interval == 0:
+                self._refresh()
+            n = min(scan_n, iters - i)
+            if occupancy:
+                n = min(n, interval - self.host_step % interval)
+            if n == scan_n or n == 1:
+                metrics = self._dispatch(n, chained)
+            else:
+                for _ in range(n):
+                    metrics = self._dispatch(1, chained)
+            self._metrics = metrics
+            prev_i, i = i, i + n
+            self.host_step += n
+            total_rays += n * self.num_rays
+            self.throughput.update(n * self.num_rays)
+            if prev_i == 0 or prev_i // log_every != i // log_every:
                 loss = float(metrics["loss"])
                 self.stats["loss"].append(loss)
                 self.logger.log(
                     f"[train] step {self.host_step:6d} loss {loss:.6f} "
-                    f"({(i + 1) / (time.time() - t0):.1f} it/s)")
+                    f"({i / (time.time() - t0):.1f} it/s)")
                 self.logger.scalar("train/loss", loss, self.host_step)
                 if self.logger.active:   # a read for tensorboard
                     self.logger.scalar("train/num_points",

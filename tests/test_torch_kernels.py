@@ -1106,3 +1106,92 @@ def test_radix_sort_counts_keys_outside_the_range(cuda_device, bits):
     want_k, want_p = tsort.sort_keys_plain(keys, bits)
     assert _same_bits(got_k, want_k) and _same_bits(got_p, want_p)
     assert int(oor) == int(tsort.out_of_range_plain(keys, bits)) > 0
+
+
+def _dispatch_cfg(kind):
+    """A small occupancy (the flagship's miniature, interval 4) or -O2
+    configuration, chains of 4 steps."""
+    from dataclasses import replace
+    import raw_ngp_torch.config as tcfg
+    if kind == "occupancy":
+        cfg = tcfg.Config().with_preset_O().with_tpu_profile()
+        cfg = replace(cfg, render=replace(
+            cfg.render, grid_size=32, samples_per_ray=24,
+            march_candidates=24, max_ray_batch=4096,
+            update_extra_interval=4))
+        model = dict(log2_hashmap_size=12, hashgrid_resolution=64)
+    else:
+        cfg = tcfg.Config().with_preset_O2()
+        cfg = replace(cfg, render=replace(cfg.render, num_steps=(32, 16, 8),
+                                          max_ray_batch=1024))
+        model = dict(num_levels=4, log2_hashmap_size=12,
+                     hashgrid_resolution=64, prop_num_levels=3,
+                     prop_log2_hashmap_size=10, prop_resolutions=(32, 64))
+    cfg = replace(cfg, model=replace(cfg.model, grid_mlp_hidden=16,
+                                     view_mlp_hidden=16, **model))
+    cfg = replace(cfg, train=replace(cfg.train, iters=64, num_rays=512,
+                                     seed=0, steps_per_dispatch=4,
+                                     adaptive_num_rays=False))
+    return replace(cfg, ckpt="scratch").validate()
+
+
+def _device_launches(run):
+    """{CUDA_KERNELS name: launches} of the hand-written kernels that
+    ``run()`` launched on the card, from the profiler's device events
+    (graph replays included)."""
+    from torch.profiler import ProfilerActivity, profile
+    from raw_ngp_torch.kernels import kernel_of
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = kernel_of(e.key)
+        if (name is not None
+                and e.device_type == torch.autograd.DeviceType.CUDA):
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["occupancy", "proposal"])
+def test_graphed_chains_equal_eager_steps(cuda_device, tmp_path, kind):
+    """Trainer.train(13) at steps_per_dispatch 4 (CUDA-graph replays: one
+    capture, chains of 4 cut at the refreshes) leaves the params, EMA,
+    moments, grid and generator state of 13 eager Trainer.step calls, bit
+    for bit, and launches each hand-written kernel on the card as often
+    (the profiler's device events)."""
+    from raw_ngp_torch.data import make_synthetic_scene
+    from raw_ngp_torch.train.trainer import Trainer
+    train, val = make_synthetic_scene(n_train=8, n_val=1, H=32, W=32)
+    runs, launches = {}, {}
+    for mode in ("eager", "graphed"):
+        tr = Trainer(_dispatch_cfg(kind), train, val, device=cuda_device,
+                     workspace=str(tmp_path / mode))
+
+        def run():
+            if mode == "eager":
+                for _ in range(13):
+                    tr.step()
+            else:
+                tr.train(13, log_every=10 ** 9)
+        launches[mode] = _device_launches(run)
+        if mode == "graphed":
+            assert len(tr._graphs.captures) == 1
+        st = tr.state
+        assert (st.step, st.opt_state.count, int(st.step_t)) == (13, 13, 13)
+        out = {f"{name}.{k}": v.detach().clone()
+               for name, tensors in (("param", st.params),
+                                     ("ema", st.ema_params),
+                                     ("mu", st.opt_state.mu),
+                                     ("nu", st.opt_state.nu))
+               for k, v in tensors.items()}
+        out.update({k: v.clone() for k, v in st.grid_state().items()
+                    if v is not None})
+        out["generator"] = tr.generator.get_state()
+        runs[mode] = out
+    assert launches["graphed"] == launches["eager"]
+    assert launches["eager"].get("hash_encode_kernel", 0) > 0
+    differ = sorted(k for k, v in runs["eager"].items()
+                    if not _same_bits(runs["graphed"][k], v))
+    assert not differ, differ
