@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (raw_ngp_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--b2-parent TREE]
     python3 chip_smoke.py --against TREE [TREE ...]
     python3 chip_smoke.py --deterministic-ops
 
@@ -58,7 +58,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the totals plus combine_totals_plain (one f32 add a row);
               two calls bitwise equal on each; both streams timed, split
               by stage; the plain versions and zero_ + index_add_ timed
-              beside them;
+              beside them; then the flat form at the narrow widths the
+              walk of several chunks a warp takes (NARROW_STREAMS: C = 2
+              at -O2's finest field level, the tp shards' C = 1 and C =
+              8), random and skew: bit for bit the 2C totals (the one-
+              chunk-a-warp walk) plus combine_totals_plain, two calls the
+              same bits, its plain version's values, device time by stage
+              beside the bound and zero_ + index_add_ (with --b2-parent
+              TREE beside that tree's kernel too, here and over a
+              proposal and an O step's own B2 calls);
   6. encode_bwd — the encode forward's records mode (the window records
               written by the forward's launch) at uniform and ray-ordered
               points, f32 and bf16: records bit for bit
@@ -619,16 +627,20 @@ def phase_build():
 # must have or None) that must keep everything in registers: the encode's
 # two gathers (every channel quad, window and row; the forward without
 # and with records, its third argument), B2's flat form (its running
-# totals and the previous segment's G1; the second argument), the fold's
-# four kernels and the radix sort's two (its keys, ranks and look-back)
+# totals and the previous segment's G1: the one-chunk-a-warp walk's flat
+# instantiations, its second argument, at C = 32; below, the walk's every
+# instantiation, as a (prefix, argument) entry gives; its fix-up and
+# join), the fold's four kernels and the radix sort's two (its keys,
+# ranks and look-back)
 REGISTER_CHECKED = {
     "hash_encode": ("hash_encode", ("hash_encode_kernel<",), (2, "false")),
     "hash_encode_records": ("hash_encode", ("hash_encode_kernel<",),
                             (2, "true")),
     "encode_input_grad": ("hash_encode", ("encode_input_grad_kernel",), None),
     "encode_input_jvp": ("hash_encode", ("encode_input_jvp_kernel",), None),
-    "segment_grad_outer": ("segsum", ("segsum_outer_kernel<",
-                                      "segsum_edge_fixup_kernel<",
+    "segment_grad_outer": ("segsum", (("segsum_flat_walk_kernel<", None),
+                                      "segsum_outer_kernel<",
+                                      "segsum_flat_fixup_kernel<",
                                       "segsum_flat_join_kernel"), (1, "true")),
     "decimate_compact": ("compact", ("decimate_count_kernel",
                                      "decimate_scan_kernel",
@@ -644,10 +656,14 @@ def checked_instantiations(ptxas, entry):
     source, prefixes, arg = REGISTER_CHECKED[entry]
 
     def wanted(name):
-        if not name.startswith(prefixes):
-            return False
-        args = name.partition("<")[2].rstrip(">").split(", ")
-        return arg is None or len(args) <= 1 or args[arg[0]] == arg[1]
+        for prefix in prefixes:
+            prefix, need = prefix if isinstance(prefix, tuple) \
+                else (prefix, arg)
+            if name.startswith(prefix):
+                args = name.partition("<")[2].rstrip(">").split(", ")
+                return (need is None or len(args) <= 1
+                        or args[need[0]] == need[1])
+        return False
 
     return [k for k in ptxas.get(source, ()) if wanted(k["kernel"])]
 
@@ -1040,6 +1056,18 @@ def _outer_stream(dev, M, B, n_rows, C, skew):
             head + (ts.g_words_plain(g, C, C), n_rows, C))
 
 
+# B2's flat form below 16 channels, on _outer_stream's streams: (C,
+# records, points, rows, the shape): the -O2 field grid's finest level (a
+# step's 196,608 points, 8 windows a point: 8 x 196,608 records into its
+# 2^19 rows), the -O grid's C = 1 tp shard at its finest level (131,072
+# points, 8 windows), the flagship's C = 8 tp shard at level 1
+NARROW_STREAMS = (
+    (2, 1572864, 196608, 1 << 19, "-O2's field grid, its finest level"),
+    (1, 1 << 20, 131072, 1 << 19, "the -O grid's C = 1 shard, level 15"),
+    (8, 1 << 20, 1 << 18, 1 << 19, "the flagship's C = 8 shard, level 1"),
+)
+
+
 def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
     """B2's outer mode at level 1 in both of its forms, random keys and the
     skew stream: the 2C totals (segment_totals_outer; off the training
@@ -1175,6 +1203,14 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                                                           lib_vals), 20)
     f_lib_dev = device_ms(lambda: flat_rows.zero_().index_add_(
         0, lib_rows, lib_vals))
+    f_parent = {}
+    if b2_parent() is not None:
+        turns = b2_step([dict(keys=keys_s, perm=perm, w_word=w_word,
+                              g=stream[3], n_rows=n_rows, C=C, g_col=C)],
+                        b2_parent(), reps=20)
+        f_parent = {k: turns[k] for k in (
+            "same_bits_as_parent", "turns_ms", "turns_device_ms", "ms",
+            "parent_ms", "device_ms", "parent_device_ms")}
     f_bytes = 12 * M + 4 * n_words * rows_read + 4 * C * n_rows
     f_bytes_ms = f_bytes / HBM_BYTES_PER_S * 1e3
     print(f"[segsum] flat form {f_ms:.4f} ms (zero fill included; device "
@@ -1195,10 +1231,255 @@ def phase_segsum(dev, M=1 << 20, B=1 << 18, n_rows=1 << 19, C=16):
                   library="zero_ + index_add_ of the bf16-rounded products "
                           "into rows keys and keys + 1",
                   skew_device_ms=flat_skew,
+                  parent_same_call=f_parent or "no --b2-parent",
                   bit_equal_to_totals_plus_combine=True,
                   reads_g_in_place="bf16, level 1's columns of [B, 2C]",
                   deterministic=True)
+    k_flat["narrow_widths"] = segsum_narrow(dev)
     return k_2c, k_flat
+
+
+# a parent tree's segsum.cu to time B2 beside (--b2-parent), and its
+# flat form once built (parent_flat)
+B2_PARENT = {"tree": None, "call": None}
+SEGSUM_FILES = ("segsum.cu", "segments.cuh")
+
+
+def segsum_sources(tree):
+    """The directory holding a tree's segsum.cu and segments.cuh: `tree`
+    itself or its raw_ngp_torch/csrc."""
+    for d in (tree, os.path.join(tree, "raw_ngp_torch", "csrc")):
+        if all(os.path.exists(os.path.join(d, n)) for n in SEGSUM_FILES):
+            return d
+    raise PhaseError(f"no {' and '.join(SEGSUM_FILES)} under {tree}")
+
+
+def build_segsum(tree, tag):
+    """nvcc of a tree's segsum.cu (the port's flags) into
+    build/segsum_trees/<tag>-<hash>/ -> (ctypes library, the ptxas log)."""
+    import ctypes
+    import hashlib
+    from raw_ngp_torch.kernels import _build
+    src = segsum_sources(tree)
+    h = hashlib.sha256()
+    for name in SEGSUM_FILES:
+        with open(os.path.join(src, name), "rb") as f:
+            h.update(f.read())
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "segsum_trees", f"{tag}-{h.hexdigest()[:12]}")
+    os.makedirs(where, exist_ok=True)
+    for name in SEGSUM_FILES:
+        shutil.copy(os.path.join(src, name), os.path.join(where, name))
+    lib_path = os.path.join(where, "libsegsum.so")
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
+         os.path.join(where, "segsum.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    check(proc.returncode == 0, f"{tree}'s segsum.cu failed to build\n"
+                                f"{proc.stdout}")
+    return ctypes.CDLL(lib_path), proc.stdout
+
+
+def parent_flat(tree, tag="parent"):
+    """The flat form of another tree's segsum.cu, called as this tree's
+    wrapper calls its own on CUDA tensors (the zero fill, then the C entry
+    on the same edge scratch: `flat_edge_buffer`'s layout is unchanged
+    since the flat form began) -> (call, ptxas log)."""
+    import ctypes
+    import torch
+    from raw_ngp_torch.kernels import segsum as ts
+    lib, log = build_segsum(tree, tag)
+    fn = lib.segment_grad_outer_fwd
+    fn.argtypes, fn.restype = ts._ARGTYPES["segment_grad_outer_fwd"], \
+        ctypes.c_int
+
+    def call(keys_s, perm, w_word, g, n_rows, C, *, g_col=0, out=None):
+        dev = keys_s.device
+        if out is None:
+            out = torch.empty(n_rows * C, dtype=torch.float32, device=dev)
+        out.zero_()
+        M = keys_s.shape[0]
+        if M == 0:
+            return out
+        scratch, n_edge = ts.flat_edge_buffer(M, C, dev)
+        err = fn(keys_s.data_ptr(), perm.data_ptr(), w_word.data_ptr(),
+                 g.data_ptr(), g.stride(0), g_col,
+                 int(g.dtype == torch.bfloat16), out.data_ptr(),
+                 scratch.data_ptr(), M, g.shape[0], C, n_rows, n_edge,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"{tree}'s segment_grad_outer_fwd: error {err}")
+        return out
+    return call, log
+
+
+def b2_parent():
+    """The parent tree's flat form (built on first use), None without
+    --b2-parent."""
+    if B2_PARENT["tree"] and B2_PARENT["call"] is None:
+        B2_PARENT["call"] = parent_flat(B2_PARENT["tree"])[0]
+    return B2_PARENT["call"]
+
+
+def capture_b2(run, call=None):
+    """Every segment_grad_outer call that run() makes through the table
+    gradient: [dict(keys, perm, w_word, g, n_rows, C, g_col)], the
+    streams cloned (one clone of each g); `call` (default: the wrapper)
+    computes each."""
+    from raw_ngp_torch.kernels import hash_encode as th
+    fn = th.segment_grad_outer
+    call = call or fn
+    calls, gs = [], {}
+
+    def capture(keys_s, perm, w_word, g, n_rows, C, *, g_col=0, out=None):
+        key = (g.data_ptr(), tuple(g.shape))
+        if key not in gs:
+            gs[key] = g.detach().clone()
+        calls.append(dict(keys=keys_s.clone(), perm=perm.clone(),
+                          w_word=w_word.clone(), g=gs[key], n_rows=n_rows,
+                          C=C, g_col=g_col))
+        return call(keys_s, perm, w_word, g, n_rows, C, g_col=g_col, out=out)
+
+    th.segment_grad_outer = capture
+    try:
+        run()
+    finally:
+        th.segment_grad_outer = fn
+    return calls
+
+
+def _mean_of(a, b):
+    return None if a is None or b is None else (a + b) / 2
+
+
+def b2_step(calls, parent=None, reps=5, fn=None):
+    """B2's flat form over a list of calls (capture_b2's, or one stream's)
+    by `fn` (default: this tree's wrapper), each into its own output: the
+    CUDA-event ms and profiler device ms of all of them, the device time
+    by stage (FLAT_STAGES: zero fill, main pass, group sums, fix-up,
+    join), the bound (each record's key, index and w-word read once, each
+    point's channels once at g's own width, the rows written once; or the
+    multiplies and adds, where more) and one zero_ + index_add_ a call of
+    its bf16-rounded products into rows k and k + 1. With `parent`
+    (parent_flat's call): its bits checked against these and both timed in
+    turns, parent, this, this, parent."""
+    import torch
+    from raw_ngp_torch.kernels import segsum as ts
+    outs = [torch.empty(c["n_rows"] * c["C"], device=c["keys"].device)
+            for c in calls]
+
+    def runner(f):
+        def run():
+            for c, o in zip(calls, outs):
+                f(c["keys"], c["perm"], c["w_word"], c["g"], c["n_rows"],
+                  c["C"], g_col=c["g_col"], out=o)
+        return run
+
+    this = runner(fn or ts.segment_grad_outer)
+    this()
+    res = {"calls": len(calls)}
+    order = (this,)
+    if parent is not None:
+        mine = [o.clone() for o in outs]
+        par = runner(parent)
+        par()
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(mine, outs)),
+              "segment_grad_outer differs in its bits from the parent "
+              "tree's kernel")
+        order = (par, this, this, par)
+    events = [time_ms(f, reps) for f in order]
+    profs = [profile_full(f, reps, 5 * len(calls)) for f in order]
+    dev = [p.get("device_busy_ms_per_call") for p in profs]
+    mine = 1 if parent is not None else 0
+    res.update(ms=_mean_of(events[mine], events[-1 - mine]),
+               device_ms=_mean_of(dev[mine], dev[-1 - mine]),
+               stages_device_ms=stage_split(profs[mine], FLAT_STAGES,
+                                            "zero_fill"),
+               device_launches=profs[mine].get("kernel_launches_per_call"))
+    if parent is not None:
+        res.update(same_bits_as_parent=True, turns_ms=events,
+                   turns_device_ms=dev,
+                   parent_ms=_mean_of(events[0], events[3]),
+                   parent_device_ms=_mean_of(dev[0], dev[3]),
+                   parent_stages_device_ms=stage_split(
+                       profs[0], FLAT_STAGES, "zero_fill"))
+    n_bytes = n_ops = 0
+    lib = []
+    for c, o in zip(calls, outs):
+        C, M, g = c["C"], c["keys"].numel(), c["g"]
+        points = int(torch.unique(c["perm"].long() % g.shape[0]).numel())
+        n_bytes += (12 * M + g.element_size() * C * points
+                    + 4 * C * c["n_rows"])
+        n_ops += 2 * 2 * C * M       # one multiply and one add a channel
+        keys = c["keys"].long()
+        words = ts.g_words_plain(g, c["g_col"], C)
+        prod = ts._outer_products(c["perm"], c["w_word"], words, C)
+        rows = torch.cat([keys, keys + 1])
+        vals = torch.cat([prod[:, :C], prod[:, C:]])
+        keep = rows < c["n_rows"]
+        lib.append((o.view(c["n_rows"], C), rows[keep],
+                    vals[keep].contiguous()))
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+
+    def library():
+        for o, r, v in lib:
+            o.zero_().index_add_(0, r, v)
+
+    res.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=n_bytes, library_ms=time_ms(library, reps),
+               library_device_ms=device_ms(library, reps))
+    this()
+    return res
+
+
+def segsum_narrow(dev, streams=NARROW_STREAMS):
+    """B2's flat form below 16 channels (the walk of 32 / C chunks a
+    warp, lanes over chunks and channels) on NARROW_STREAMS, random keys
+    and the skew stream (90% of records into one row): bit for bit the 2C
+    totals (the one-chunk-a-warp walk) plus combine_totals_plain, two
+    calls the same bits, within rtol 1e-5 (atol 1e-5; the f32 sum bound
+    on the skew stream) of its plain version; then b2_step's times, bound
+    and library yardstick, with --b2-parent the parent tree's kernel in
+    the same call. -> [a row a stream]"""
+    import torch
+    from raw_ngp_torch.kernels import segsum as ts
+    rows = []
+    for C, M, B, n_rows, what in streams:
+        for skew in (False, True):
+            stream, packed = _outer_stream(dev, M, B, n_rows, C, skew)
+            keys_s, perm, w_word, g_words = packed[:4]
+            flat = ts.segment_grad_outer(*stream, g_col=C)
+            flat_2 = ts.segment_grad_outer(*stream, g_col=C)
+            oracle = ts.combine_totals_plain(
+                ts.segment_totals_outer(*stream, g_col=C),
+                torch.empty(n_rows * C, device=dev))
+            flat_p = ts.segment_grad_outer_plain(*packed)
+            torch.cuda.synchronize()
+            label = f"segment_grad_outer C={C} skew={skew}"
+            check(same_bits(flat, oracle), f"{label}: differs in its bits "
+                  "from segment_totals_outer + combine_totals_plain")
+            check(same_bits(flat, flat_2), f"{label}: two calls differ")
+            prod = ts._outer_products(perm, w_word, g_words, C)
+            mass = torch.zeros(n_rows, 2 * C, device=dev).index_add_(
+                0, keys_s.long(), prod.abs())
+            flat_mass = (mass[:, :C] + torch.cat(
+                [mass.new_zeros(1, C), mass[:-1, C:]])).reshape(-1)
+            err = float((flat - flat_p).abs().max())
+            ok = (within_sum_error(flat, flat_p, flat_mass, 1e-5) if skew
+                  else torch.allclose(flat, flat_p, rtol=1e-5, atol=1e-5))
+            check(ok, f"{label}: max abs err {err} exceeds the bound")
+            call = dict(keys=keys_s, perm=perm, w_word=w_word, g=stream[3],
+                        n_rows=n_rows, C=C, g_col=C)
+            row = dict(C=C, records=M, points=B, rows=n_rows, skew=skew,
+                       shape=what, max_abs_err=err,
+                       **b2_step([call], b2_parent(), reps=20))
+            print(f"[segsum] flat form at C = {C}, {what}, skew={skew}: "
+                  f"bitwise equal to the 2C totals + combine_totals_plain "
+                  f"and between two calls; {json.dumps(row)}")
+            rows.append(row)
+    return rows
 
 
 def ray_points(B, gen, dev, per_ray=32):
@@ -1270,7 +1551,11 @@ DENSE_STAGES = (("cell_keys_kernel", "keys"),
 SEGSUM_STAGES = (("segsum_outer_kernel", "main"),
                  ("segsum_edge_group_kernel", "group_sums"),
                  ("segsum_edge_fixup_kernel", "fixup"))
-FLAT_STAGES = SEGSUM_STAGES + (("segsum_flat_join_kernel", "join"),)
+# (the 2C mode's kernels, which the flat form at C = 32 and an older
+# tree's flat form launch too, then the flat form's own)
+FLAT_STAGES = SEGSUM_STAGES + (("segsum_flat_walk_kernel", "main"),
+                               ("segsum_flat_fixup_kernel", "fixup"),
+                               ("segsum_flat_join_kernel", "join"))
 
 
 def stage_split(prof, stages, rest):
@@ -2177,6 +2462,21 @@ def profile_device(fn, reps, unit, tries=3):
                              f"ms_per_{unit}":
                                  e.self_device_time_total / reps / 1e3}
                             for e in top]}
+
+
+def profile_full(fn, reps, launches, tries=4):
+    """profile_device of fn a call, taken again (up to `tries` times)
+    while the profiler dropped device events: a window short of
+    `launches` kernel launches a call."""
+    best = {}
+    for _ in range(tries):
+        prof = profile_device(fn, reps, "call")
+        got = prof.get("kernel_launches_per_call") or 0
+        if got >= (best.get("kernel_launches_per_call") or 0):
+            best = prof
+        if got >= launches:
+            break
+    return best
 
 
 def _counters():
@@ -4962,6 +5262,33 @@ def proposal_grid_checks(tr, batch):
     return out
 
 
+def b2_step_check(tr, batch, what, n_calls):
+    """B2's flat form over one train step's own calls (capture_b2 of a
+    loss and backward on `batch`), timed by b2_step: the step's device
+    time by stage (zero fill, main pass, group sums, fix-up, join), CUDA
+    events, the bound, one zero_ + index_add_ a call, and with
+    --b2-parent the parent tree's kernel in the same call (the same bits,
+    in turns parent, this, this, parent)."""
+    from raw_ngp_torch.train.trainer import make_batch_loss_fn
+    loss_fn = make_batch_loss_fn(tr.cfg, tr.spec)
+
+    def run():
+        loss, _ = loss_fn(tr.field, tr.state, batch, tr.aabb, None)
+        loss.backward()
+        for p in tr.field.parameters():
+            p.grad = None
+
+    calls = capture_b2(run)
+    check(len(calls) == n_calls, f"{what}: {len(calls)} B2 calls a step, "
+                                 f"not {n_calls}")
+    res = b2_step(calls, b2_parent())
+    res["records"] = sum(c["keys"].numel() for c in calls)
+    res["C"] = sorted({c["C"] for c in calls})
+    print(f"[{what}] B2's flat form over a step's {len(calls)} calls "
+          f"({res['records']} records): {json.dumps(res)}")
+    return res
+
+
 def b2_alone(spec, base, w_word, g, grad_plain):
     """B2's flat form alone over every window level of a grid (the 26
     calls of an -O2 step are 5 + 5 + 16 of these), on streams sorted
@@ -5175,6 +5502,7 @@ def phase_proposal(dev, steps=128, timed=32, repro=32, large=512, reps=7):
     n_windows = sum(len(th.level_windows(s, th.matmul_split(s)))
                     for s in specs)
     sorts = proposal_sorts(tr, batch, specs, n_windows)
+    b2_step = b2_step_check(tr, batch, "proposal", n_windows)
 
     snap = trainer_snapshot(tr)
     launches, (first, last), step_ms, ref = run_steps(
@@ -5265,7 +5593,7 @@ def phase_proposal(dev, steps=128, timed=32, repro=32, large=512, reps=7):
            "serving_encodes": serving,
            "kernel_rows": proposal_kernel_rows(grids, serving,
                                                sorts["summed"]),
-           "sorts": sorts,
+           "sorts": sorts, "b2_step": b2_step,
            "fixed_batch_kernel_vs_plain": fixed,
            "render": {"image": f"{large}x{large}", "chunks": n_chunks,
                       "ms_per_image": img_ms, "ms_per_image_runs": times,
@@ -5438,6 +5766,7 @@ def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
                                "O")
     check(len(sorts["streams"]) == n_windows, f"O: the step sorted "
           f"{len(sorts['streams'])} streams, not {n_windows}")
+    b2_step = b2_step_check(tr, batch, "O", n_windows)
 
     # the serving render of the EMA field with normals, each of `reps` timed
     field_n = with_render(tr.ema_field, compute_normals=True)
@@ -5538,6 +5867,7 @@ def phase_o(dev, steps=128, timed=32, repro=32, large=512, reps=7):
            "loss_first8": first, "loss_last8": last,
            "trainer_init_s": init_s,
            "fixed_batch_kernel_vs_plain": fixed, "sorts": sorts,
+           "b2_step": b2_step,
            "render": {"image": f"{large}x{large}", "normals": True,
                       "chunks": n_chunks, "ms_per_image": img_ms,
                       "ms_per_image_runs": times,
@@ -7935,6 +8265,12 @@ def main() -> int:
         help="seed of the jpeg, exr and dng phases' 4032x3024 host-timing "
              "images")
     parser.add_argument(
+        "--b2-parent", metavar="TREE",
+        help="a parent tree (or a directory holding its segsum.cu and "
+             "segments.cuh: port_tools/segsum_probe.py --extract) whose B2 "
+             "flat form is built beside this one and timed with it in the "
+             "segsum, proposal and O phases, the same bits checked")
+    parser.add_argument(
         "--deterministic-ops", action="store_true",
         help="only build and run the deterministic-algorithms diagnostic: "
              "one train and one pose step under torch."
@@ -7956,6 +8292,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
+    B2_PARENT["tree"] = args.b2_parent
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "

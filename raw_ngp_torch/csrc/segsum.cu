@@ -29,21 +29,22 @@
 // So no packed copy of g exists, and the words, and every sum, are the
 // bits of a packed copy.
 //
-// Design. One warp owns a chunk of segments::kChunk (128) consecutive
-// sorted records; its lanes are output channels (2C of them, two per
-// lane when 2C = 64). The warp walks its records in order and keeps each
-// lane's running total in a register; when the key changes it stores the
-// finished row with a plain 128-byte store. So a segment that holds most
-// of the stream (a dense level funnels ~1M records into 4,096 rows) costs
-// each warp it spans one register sum, not a serial chain on one thread.
-// Only a chunk's first and last segment can continue into a neighbouring
-// chunk: those partials go to the chunk's head / tail slot of an edge
-// buffer, and a second launch adds each crossing row's partials in chunk
-// order and stores it once (csrc/segments.cuh; no float atomic). Per 32
-// records, the lanes load the keys, permutation and w-words in one
-// coalesced pass, then stage the 32 points' g words in shared memory (8
-// lanes read one point's 32 bytes of bf16 g at C = 16), so every global
-// load of a sub-chunk is issued before any is consumed.
+// Design (the 2C mode, and the flat mode at C = 32; below that the flat
+// mode's walk, further down). One warp owns a chunk of segments::kChunk
+// (128) consecutive sorted records; its lanes are output channels (2C of
+// them, two per lane when 2C = 64). The warp walks its records in order
+// and keeps each lane's running total in a register; when the key changes
+// it stores the finished row with a plain 128-byte store. So a segment
+// that holds most of the stream (a dense level funnels ~1M records into
+// 4,096 rows) costs each warp it spans one register sum, not a serial
+// chain on one thread. Only a chunk's first and last segment can continue
+// into a neighbouring chunk: those partials go to the chunk's head / tail
+// slot of an edge buffer, and a second launch adds each crossing row's
+// partials in chunk order and stores it once (csrc/segments.cuh; no float
+// atomic). Per 32 records, the lanes load the keys, permutation and
+// w-words in one coalesced pass, then stage the 32 points' g words in
+// shared memory (8 lanes read one point's 32 bytes of bf16 g at C = 16),
+// so every global load of a sub-chunk is issued before any is consumed.
 //
 // Bound: bytes. Per record the kernel reads the key, the permutation and
 // one w-word (12 B) and one point's C g-channels (2C B in bf16; cached, at
@@ -71,10 +72,28 @@
 // both halves). Every other pair involves a chunk's first or last plain
 // segment (their G0 / G1 go to per-chunk slots) or a row that crosses
 // chunks (the fix-up stores its total in a slot with the chunk where it
-// ends), and a third small launch, the join, writes it: one warp a chunk,
-// its successor found in O(1) (segsum_flat_join_kernel). The wrapper
+// ends), and a third small launch, the join, writes it: a group of C lanes
+// a chunk, its successor found in O(1) (segsum_flat_join_kernel). The wrapper
 // zeroes `out` once, which leaves the rows between pairs at +0. Bound at
 // level 1: 12.6 + 8.4 MB read, 33.5 MB written once.
+//
+// The narrow widths (C <= kWalkMaxC = 16; every preset but the TPU profile
+// runs C = 2, the tp shards C = 1 and 8). With a lane an output channel, a
+// warp of the walk above holds 2C of 32 lanes busy (4 at C = 2), yet every
+// lane issues each record's shuffles, compare, shared load, product and add:
+// an `-O2` step's 63 M records cost some 1 G warp instructions, most of them
+// for idle lanes, and that walk, not bytes, bound the main pass (3.31 of
+// B2's 3.92 ms of device time a step on an H100 at 700 W). The flat mode's
+// walk there (segsum_flat_walk_kernel) gives a warp 32 / C consecutive
+// chunks and a group of C lanes each: lane c of a group sums channel c of
+// both halves, so every lane works, a warp instruction advances 32 / C
+// records, and G1 needs no shuffle. Each group walks its chunk as a warp
+// does above (the same records in the same order, the same slots), so the
+// sums, the fix-up and the join are bit for bit the walk above's, and the 2C
+// mode keeps that walk as their oracle. The fix-up and the join take a group
+// of C lanes a chunk too, at every width. At C = 32 the walk above stays:
+// there it was faster (one chunk a warp either way, and its g staging
+// spreads a point's 16 words over lanes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -283,6 +302,168 @@ segsum_outer_kernel(const int32_t* __restrict__ keys,
   }
 }
 
+// The flat mode's walk below 32 channels (C <= kWalkMaxC): the lanes of a
+// warp over chunks and channels. A warp owns kChunks = 32 / C consecutive
+// chunks and a group of C lanes each; lane c of a group holds channel c of
+// both halves (G0 = sum w0 g_c, G1 = sum w1 g_c), so every lane sums and
+// no shuffle moves G1 onto the lanes that write. Each group walks its
+// chunk exactly as a warp of segsum_outer_kernel walks one: the same
+// records in the same order, the same head / tail / plain / meta slots;
+// so every f32 addition and every slot is that kernel's, bit for bit.
+// Per kSub records of each of its chunks the warp stages keys, w-words
+// and g words in shared memory with coalesced loads (item t = lane + 32 u
+// is record t % kSub of chunk t / kSub), every gather of the sub-chunk
+// issued before the first add; a group then reads its records there, a
+// broadcast within the group, the groups' reads of one record index in
+// distinct banks (the rows' strides below).
+template <int C>
+struct Walk {
+  static constexpr int kChunks = 32 / C;               // chunks a warp
+  static constexpr int kSub = 256 / kChunks < 32 ? 256 / kChunks : 32;
+  static constexpr int kNW = (C + 1) / 2;               // g words a point
+  static constexpr int kPerLane = kChunks * kSub / 32;  // items a lane
+  static constexpr int kKeyStride = kSub + 1;           // odd
+  static constexpr int kGStride = kSub * kNW + kNW;     // = kNW mod 32
+  static constexpr int kWords = kChunks * (2 * kKeyStride + kGStride);
+};
+
+constexpr int kWalkWarps = 4;               // warps per block of the walk
+constexpr int kWalkMaxC = 16;               // widths the walk takes
+
+template <int C, bool kBf16>
+__global__ void __launch_bounds__(kWalkWarps * 32)
+segsum_flat_walk_kernel(const int32_t* __restrict__ keys,
+                        const int32_t* __restrict__ perm,
+                        const uint32_t* __restrict__ w_word,
+                        const void* __restrict__ g, int64_t g_stride,
+                        int g_col, float* __restrict__ out,
+                        float* __restrict__ head, float* __restrict__ tail,
+                        float* __restrict__ plain,
+                        int32_t* __restrict__ meta, int M, int B,
+                        int n_rows) {
+  using W = Walk<C>;
+  constexpr int kCh = 2 * C;
+  __shared__ uint32_t smem[kWalkWarps][W::kWords];
+
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int64_t first =                      // the warp's first chunk
+      ((int64_t)blockIdx.x * kWalkWarps + wib) * W::kChunks;
+  if (first * kChunk >= M) return;           // whole warp leaves together
+  int32_t* sk = reinterpret_cast<int32_t*>(smem[wib]);
+  uint32_t* sw = smem[wib] + W::kChunks * W::kKeyStride;
+  uint32_t* sg = sw + W::kChunks * W::kKeyStride;
+
+  const int q = lane / C, c = lane % C;      // the lane's chunk, channel
+  const bool active = (first + q) * kChunk < M;
+  segments::Chunk chunk;
+  if (active) {
+    chunk = segments::chunk_of(keys, M, first + q);
+  } else {
+    chunk.w = first + q;
+    chunk.s0 = chunk.end = M;
+    chunk.first_shared = chunk.last_shared = false;
+  }
+  float g0 = 0.0f, g1 = 0.0f;
+  int cur = active ? keys[chunk.s0] : 0;
+  bool in_first = true;
+
+  // the finished segment `cur`: its head / tail partial, or the rows of
+  // its pair with the previous plain segment of this chunk, whose key and
+  // G1 stay here (segsum_outer_kernel's finish, one group a chunk)
+  bool has_prev = false;
+  int prev_key = 0;
+  float prev_g1 = 0.0f;
+  auto finish = [&](bool is_last) {
+    const int which = segments::role(chunk, in_first, is_last);
+    if (which != segments::kPlain) {
+      float* dst = (which == segments::kHead ? head : tail) + chunk.w * kCh;
+      dst[c] = g0;
+      dst[C + c] = g1;
+      return;
+    }
+    if (has_prev) {
+      write_pair(out, n_rows, C, c, true, prev_key, prev_g1, true, cur, g0);
+    } else if (chunk.w == 0) {               // the stream's first key
+      write_pair(out, n_rows, C, c, false, 0, 0.0f, true, cur, g0);
+    } else {                                 // the join pairs it
+      plain[chunk.w * kCh + c] = g0;
+      if (c == 0) meta[chunk.w * 4 + kFirstKey] = cur;
+    }
+    has_prev = true;
+    prev_key = cur;
+    prev_g1 = g1;
+  };
+  auto step = [&](int j) {
+    const int kj = sk[q * W::kKeyStride + j];
+    const uint32_t wj = sw[q * W::kKeyStride + j];
+    if (kj != cur) {
+      finish(false);
+      in_first = false;
+      cur = kj;
+      g0 = 0.0f;
+      g1 = 0.0f;
+    }
+    const uint32_t gw = sg[q * W::kGStride + j * W::kNW + (c >> 1)];
+    const float gv = (c & 1) ? lo_bf16(gw) : hi_bf16(gw);
+    g0 += __bfloat162float(__float2bfloat16_rn(__fmul_rn(hi_bf16(wj), gv)));
+    g1 += __bfloat162float(__float2bfloat16_rn(__fmul_rn(lo_bf16(wj), gv)));
+  };
+
+  const int64_t base = first * kChunk;       // the warp's first record
+  for (int sub = 0; sub < kChunk; sub += W::kSub) {
+    int kk[W::kPerLane];
+    uint32_t pp[W::kPerLane];
+#pragma unroll
+    for (int u = 0; u < W::kPerLane; ++u) {
+      const int t = lane + 32 * u;
+      const int64_t i =
+          base + (int64_t)(t / W::kSub) * kChunk + sub + t % W::kSub;
+      kk[u] = i < M ? keys[i] : 0;
+      pp[u] = i < M ? (uint32_t)perm[i] : 0xffffffffu;
+    }
+    uint32_t ww[W::kPerLane], gw[W::kPerLane][W::kNW];
+#pragma unroll
+    for (int u = 0; u < W::kPerLane; ++u) {
+      const bool ok = pp[u] != 0xffffffffu;
+      ww[u] = ok ? w_word[pp[u]] : 0u;
+      const int64_t at = (int64_t)(ok ? pp[u] % (uint32_t)B : 0u) * g_stride
+                         + g_col;
+#pragma unroll
+      for (int p = 0; p < W::kNW; ++p) {
+        gw[u][p] = ok ? payload_word<C, kBf16>(g, at, p) : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < W::kPerLane; ++u) {
+      const int t = lane + 32 * u;
+      const int r = t / W::kSub, j = t % W::kSub;
+      sk[r * W::kKeyStride + j] = kk[u];
+      sw[r * W::kKeyStride + j] = ww[u];
+#pragma unroll
+      for (int p = 0; p < W::kNW; ++p) {
+        sg[r * W::kGStride + j * W::kNW + p] = gw[u][p];
+      }
+    }
+    __syncwarp();
+    const int n = min(W::kSub, chunk.end - (chunk.s0 + sub));
+    if (n == W::kSub) {
+#pragma unroll 4
+      for (int j = 0; j < W::kSub; ++j) step(j);
+    } else {
+      for (int j = 0; j < n; ++j) step(j);
+    }
+    __syncwarp();
+  }
+  if (!active) return;
+  finish(true);
+  if (has_prev) plain[chunk.w * kCh + C + c] = prev_g1;
+  if (c == 0) {
+    meta[chunk.w * 4 + kHasPlain] = has_prev;
+    meta[chunk.w * 4 + kLastKey] = prev_key;
+  }
+}
+
 // the sums of the chunk groups that lie inside one row
 // (segments::group_sum), one warp a group
 template <int kPerLane>
@@ -296,39 +477,75 @@ segsum_edge_group_kernel(const int32_t* __restrict__ keys,
 }
 
 // adds each row that crosses chunks from its edge partials, in chunk
-// order (segments::fixup_chain), one warp a chunk; in the flat mode the
-// total and the row's last chunk go to the chunk's cross and meta slots
-// instead, for the join
-template <int kPerLane, bool kFlat>
+// order (segments::fixup_chain), one warp a chunk
+template <int kPerLane>
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_edge_fixup_kernel(const int32_t* __restrict__ keys,
                          const float* __restrict__ head,
                          const float* __restrict__ tail,
                          const float* __restrict__ group,
-                         float* __restrict__ out, float* __restrict__ cross,
-                         int32_t* __restrict__ meta, int M, int n_rows,
+                         float* __restrict__ out, int M, int n_rows,
                          int width) {
-  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  segments::fixup_chain<kPerLane>(
+      keys, M, head, tail, group, out, n_rows, width,
+      (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5), threadIdx.x & 31);
+}
+
+// The flat mode's fix-up, a group of C lanes a chunk w (32 / C chunks a
+// warp; lane c holds channels c and C + c): where a row starts in w and
+// crosses (segments::crossing_row), its total and last chunk go to w's
+// cross and meta slots, for the join. A row that ends in chunk w + 1 (the
+// chunk after it does not start with the row) totals tail[w] + head[w +
+// 1], the one addition segments::row_total makes for it, in the group; a
+// longer one the whole warp adds afterwards, one row at a time, by
+// row_total itself. So each total is the 2C mode's fix-up's, bit for bit,
+// and a warp tests 32 / C chunks.
+template <int C>
+__global__ void __launch_bounds__(kWarps * 32)
+segsum_flat_fixup_kernel(const int32_t* __restrict__ keys,
+                         const float* __restrict__ head,
+                         const float* __restrict__ tail,
+                         const float* __restrict__ group,
+                         float* __restrict__ cross,
+                         int32_t* __restrict__ meta, int M) {
+  constexpr int kChunks = 32 / C;               // chunks a warp
+  constexpr int width = 2 * C;
+  constexpr int kPerLane = (width + 31) / 32;
   const int lane = threadIdx.x & 31;
-  if constexpr (!kFlat) {
-    segments::fixup_chain<kPerLane>(keys, M, head, tail, group, out, n_rows,
-                                    width, w, lane);
-  } else {
-    int r;
-    if (!segments::crossing_row(keys, M, w, &r)) return;
+  const int64_t w =
+      ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kChunks
+      + lane / C;
+  const int c = lane % C;
+  int r = 0;
+  const bool starts = segments::crossing_row(keys, M, w, &r);
+  const int64_t after = (w + 2) * kChunk;        // the chunk after w + 1
+  const bool longer = starts && after < M && keys[after] == r;
+  if (starts && !longer) {
+    const float* t = tail + w * width;
+    const float* h = head + (w + 1) * width;
+    cross[w * width + c] = __fadd_rn(t[c], h[c]);
+    cross[w * width + C + c] = __fadd_rn(t[C + c], h[C + c]);
+    if (c == 0) meta[w * 4 + kRowEnd] = (int32_t)(w + 1);
+  }
+  for (unsigned mask = __ballot_sync(kFull, longer && c == 0); mask;
+       mask &= mask - 1) {
+    const int src = __ffs(mask) - 1;
+    const int64_t wl = __shfl_sync(kFull, w, src);
+    const int rl = __shfl_sync(kFull, r, src);
     float acc[kPerLane];
     const int64_t last = segments::row_total<kPerLane>(
-        keys, M, head, tail, group, width, w, r, lane, acc);
+        keys, M, head, tail, group, width, wl, rl, lane, acc);
 #pragma unroll
     for (int s = 0; s < kPerLane; ++s) {
-      const int c = lane + 32 * s;
-      if (c < width) cross[w * width + c] = acc[s];
+      const int ch = lane + 32 * s;
+      if (ch < width) cross[wl * width + ch] = acc[s];
     }
-    if (lane == 0) meta[w * 4 + kRowEnd] = (int32_t)last;
+    if (lane == 0) meta[wl * 4 + kRowEnd] = (int32_t)last;
   }
 }
 
-// The flat mode's join, one warp a chunk w: the pairs of finished keys
+// The flat mode's join, a group of C lanes a chunk w (32 / C chunks a
+// warp; lane c of a group writes channel c): the pairs of finished keys
 // that are not two plain segments of one chunk. Chunk w's last finished
 // key a is the row that starts in w and crosses, else w's last plain
 // segment; its successor b is the first finished key of the chunk where
@@ -336,18 +553,22 @@ segsum_edge_fixup_kernel(const int32_t* __restrict__ keys,
 // row), or of the chunk after that when a's row fills its last chunk to
 // the end. A crossing row also pairs with w's last plain segment before
 // it, and is the stream's first key when chunk 0 has no plain segment.
+template <int C>
 __global__ void __launch_bounds__(kWarps * 32)
 segsum_flat_join_kernel(const int32_t* __restrict__ keys,
                         const float* __restrict__ plain,
                         const float* __restrict__ cross,
                         const int32_t* __restrict__ meta,
-                        float* __restrict__ out, int M, int n_rows, int C) {
-  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+                        float* __restrict__ out, int M, int n_rows) {
+  constexpr int kChunks = 32 / C;               // chunks a warp
   const int lane = threadIdx.x & 31;
+  const int64_t w =
+      ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kChunks
+      + lane / C;
+  const int c = lane % C;
   const int64_t n = ((int64_t)M + kChunk - 1) / kChunk;
   if (w >= n) return;
-  const int width = 2 * C;
-  const int c = lane < C ? lane : 0;
+  constexpr int width = 2 * C;
   const bool has_plain = meta[w * 4 + kHasPlain] != 0;
   int a;
   float g1a;
@@ -355,10 +576,10 @@ segsum_flat_join_kernel(const int32_t* __restrict__ keys,
   if (segments::crossing_row(keys, M, w, &a)) {
     const float* total = cross + w * width;
     if (has_plain) {
-      write_pair(out, n_rows, C, lane, true, meta[w * 4 + kLastKey],
+      write_pair(out, n_rows, C, c, true, meta[w * 4 + kLastKey],
                  plain[w * width + C + c], true, a, total[c]);
     } else if (w == 0) {
-      write_pair(out, n_rows, C, lane, false, 0, 0.0f, true, a, total[c]);
+      write_pair(out, n_rows, C, c, false, 0, 0.0f, true, a, total[c]);
     }
     g1a = total[C + c];
     next = meta[w * 4 + kRowEnd];
@@ -382,7 +603,7 @@ segsum_flat_join_kernel(const int32_t* __restrict__ keys,
       g0b = cross[q * width + c];
     }
   }
-  write_pair(out, n_rows, C, lane, true, a, g1a, has_b, b, g0b);
+  write_pair(out, n_rows, C, c, true, a, g1a, has_b, b, g0b);
 }
 
 unsigned blocks_for(int64_t warps) {
@@ -411,25 +632,27 @@ Edges edges_of(float* edges, int64_t n_edge, int width) {
   return e;
 }
 
-// the group sums and the fix-up of a stream whose main kernel has run,
-// and in the flat mode the join
-template <int kPerLane, bool kFlat>
+// the group sums of a stream whose main kernel has run
+template <int kPerLane>
+cudaError_t group_sums(const int32_t* keys, const Edges& e, int M, int width,
+                       cudaStream_t s) {
+  const int64_t n_groups =
+      (chunks_of(M) + segments::kGroup - 1) / segments::kGroup;
+  segsum_edge_group_kernel<kPerLane><<<blocks_for(n_groups), kWarps * 32, 0,
+                                       s>>>(keys, e.head, e.group, M, width);
+  return cudaGetLastError();
+}
+
+// the group sums and the fix-up of a stream of rows of `width` whose main
+// kernel has run (the 2C and channel modes)
+template <int kPerLane>
 cudaError_t finish_rows(const int32_t* keys, const Edges& e, float* out,
                         int M, int n_rows, int width, cudaStream_t s) {
-  const int64_t n_chunks = chunks_of(M);
-  segsum_edge_group_kernel<kPerLane>
-      <<<blocks_for((n_chunks + segments::kGroup - 1) / segments::kGroup),
-         kWarps * 32, 0, s>>>(keys, e.head, e.group, M, width);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = group_sums<kPerLane>(keys, e, M, width, s);
   if (err != cudaSuccess) return err;
-  segsum_edge_fixup_kernel<kPerLane, kFlat>
-      <<<blocks_for(n_chunks), kWarps * 32, 0, s>>>(
-          keys, e.head, e.tail, e.group, out, e.cross, e.meta, M, n_rows,
-          width);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !kFlat) return err;
-  segsum_flat_join_kernel<<<blocks_for(n_chunks), kWarps * 32, 0, s>>>(
-      keys, e.plain, e.cross, e.meta, out, M, n_rows, width / 2);
+  segsum_edge_fixup_kernel<kPerLane>
+      <<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
+          keys, e.head, e.tail, e.group, out, M, n_rows, width);
   return cudaGetLastError();
 }
 
@@ -439,21 +662,49 @@ cudaError_t launch(const int32_t* keys, const int32_t* perm,
                    int g_col, bool g_bf16, float* out, float* edges, int M,
                    int B, int n_rows, int64_t n_edge, cudaStream_t s) {
   const Edges e = edges_of(edges, n_edge, 2 * C);
-  if (g_bf16) {
+  const int64_t n_chunks = chunks_of(M);
+  if constexpr (kFlat && C <= kWalkMaxC) {
+    const int64_t warps = (n_chunks + Walk<C>::kChunks - 1) / Walk<C>::kChunks;
+    const unsigned blocks = (unsigned)((warps + kWalkWarps - 1) / kWalkWarps);
+    if (g_bf16) {
+      segsum_flat_walk_kernel<C, true><<<blocks, kWalkWarps * 32, 0, s>>>(
+          keys, perm, w_word, g, g_stride, g_col, out, e.head, e.tail,
+          e.plain, e.meta, M, B, n_rows);
+    } else {
+      segsum_flat_walk_kernel<C, false><<<blocks, kWalkWarps * 32, 0, s>>>(
+          keys, perm, w_word, g, g_stride, g_col, out, e.head, e.tail,
+          e.plain, e.meta, M, B, n_rows);
+    }
+  } else if (g_bf16) {
     segsum_outer_kernel<C, kFlat, true>
-        <<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
+        <<<blocks_for(n_chunks), kWarps * 32, 0, s>>>(
             keys, perm, w_word, g, g_stride, g_col, out, e.head, e.tail,
             e.plain, e.meta, M, B, n_rows);
   } else {
     segsum_outer_kernel<C, kFlat, false>
-        <<<blocks_for(chunks_of(M)), kWarps * 32, 0, s>>>(
+        <<<blocks_for(n_chunks), kWarps * 32, 0, s>>>(
             keys, perm, w_word, g, g_stride, g_col, out, e.head, e.tail,
             e.plain, e.meta, M, B, n_rows);
   }
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return finish_rows<(2 * C + 31) / 32, kFlat>(keys, e, out, M, n_rows,
-                                               2 * C, s);
+  constexpr int kPerLane = (2 * C + 31) / 32;
+  if constexpr (!kFlat) {
+    return finish_rows<kPerLane>(keys, e, out, M, n_rows, 2 * C, s);
+  }
+  err = group_sums<kPerLane>(keys, e, M, 2 * C, s);
+  if (err != cudaSuccess) return err;
+  // the flat fix-up and join: a group of C lanes a chunk
+  constexpr int kGroupChunks = 32 / C;
+  const unsigned blocks = blocks_for(
+      (n_chunks + kGroupChunks - 1) / kGroupChunks);
+  segsum_flat_fixup_kernel<C><<<blocks, kWarps * 32, 0, s>>>(
+      keys, e.head, e.tail, e.group, e.cross, e.meta, M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segsum_flat_join_kernel<C><<<blocks, kWarps * 32, 0, s>>>(
+      keys, e.plain, e.cross, e.meta, out, M, n_rows);
+  return cudaGetLastError();
 }
 
 constexpr int kMaxChan = 64;                // two channels a lane
@@ -561,8 +812,8 @@ extern "C" int segment_totals_fwd(const int32_t* keys, const uint32_t* packed,
       keys, packed, out, e.head, e.tail, M, n_rows, n_chan);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish_rows<kMaxChan / 32, false>(
-      keys, e, out, M, n_rows, n_chan, s));
+  return static_cast<int>(finish_rows<kMaxChan / 32>(keys, e, out, M,
+                                                     n_rows, n_chan, s));
 }
 
 // keys [M] i32 ascending, perm [M] i32, w_word [*] u32, g [B, g_stride]

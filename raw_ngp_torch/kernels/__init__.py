@@ -26,7 +26,8 @@ CUDA_KERNELS = (
     "cell_sums_kernel", "cell_edge_group_kernel", "cell_edge_fixup_kernel",
     "cell_keys_kernel", "cell_gather_kernel",
     "radix_histogram_kernel", "radix_pass_kernel",
-    "segsum_channel_kernel", "segsum_outer_kernel", "segsum_flat_join_kernel",
+    "segsum_channel_kernel", "segsum_outer_kernel", "segsum_flat_walk_kernel",
+    "segsum_flat_fixup_kernel", "segsum_flat_join_kernel",
     "segsum_edge_group_kernel", "segsum_edge_fixup_kernel",
 )
 

@@ -784,6 +784,62 @@ def test_segsum_flat_mode_bit_exact_ragged(cuda_device, M, C):
                        ts.segment_grad_outer(*args))
 
 
+def _walk_stream(case, C):
+    """Keys that meet the layout of the flat mode's walk below 32 channels
+    (csrc/segsum.cu segsum_flat_walk_kernel: a warp owns G = 32 / C
+    consecutive 128-record chunks, a group of C lanes each) -> (keys,
+    n_rows)."""
+    K, G = 128, 32 // C
+    if case == "group_to_group":
+        # rows crossing from lane group 0's chunk into group 1's, and from
+        # group 1's over group 2's whole chunk into group 3's (G >= 2)
+        return _runs((0, K - 5), (1, 10), (2, K), (3, 3 * K // 2),
+                     (4, 7)), 8
+    if case == "warp_to_warp":
+        # a row out of the warp's last chunk into the next warp's first
+        return torch.cat([torch.arange(0, G * K - 9),
+                          torch.full((20,), G * K),
+                          torch.arange(G * K + 1, G * K + 40)]).to(
+                              torch.int32), G * K + 64
+    if case == "ragged_warp":
+        # the last warp holds fewer chunks than lane groups, its last chunk
+        # short: G + 3 chunks and 17 records in all
+        gen = torch.Generator().manual_seed(C)
+        return torch.sort(torch.randint(0, 500, ((G + 3) * K + 17,),
+                                        generator=gen,
+                                        dtype=torch.int32)).values, 500
+    # a row over more than kGroup = 32 chunks, with the aligned group of
+    # chunks 32-63 inside it (its group sum feeds the row's total)
+    return _runs((0, 3), (2, 66 * K), (3, 2), (5, 2 * K)), 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["group_to_group", "warp_to_warp",
+                                  "ragged_warp", "row_over_groups"])
+def test_segsum_flat_walk_layout_bit_exact(cuda_device, case, C):
+    """The flat mode's walk below 32 channels, several chunks a warp and
+    lanes over chunks and channels, on streams built around that layout:
+    rows that cross from one lane group's chunk into the next group's in
+    the same warp, out of a warp's last chunk into the next warp, a warp
+    with fewer chunks left than lane groups, a row over more than kGroup
+    chunks; bf16 g read in place at an odd level's columns and f32 g: bit
+    for bit the 2C mode (the one-chunk-a-warp walk) plus
+    combine_totals_plain, two calls the same bits."""
+    keys, n_rows = _walk_stream(case, C)
+    if case == "row_over_groups":
+        # group 1 (records 4096-8191) lies inside the row: its group sum
+        # fires (segments.cuh group_sum)
+        assert keys[32 * 128 - 1] == keys[64 * 128] == 2
+    args = _flat_case(cuda_device, keys, n_rows, C, seed=C + len(case))
+    _assert_flat_bits(args)
+    g = torch.randn(300, 4 * C, generator=torch.Generator(
+        device=cuda_device).manual_seed(C), device=cuda_device)
+    _assert_flat_bits(args[:3] + (g.to(torch.bfloat16),) + args[4:],
+                      g_col=2 * C if C > 1 else 3)
+    _assert_flat_bits(args[:3] + (g,) + args[4:], g_col=C)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("skew", [False, True])
 def test_segsum_flat_mode_bit_exact_at_flagship_shape(cuda_device, skew):

@@ -84,7 +84,7 @@ def test_random_stream(n_chan):
     assert empty.size and np.all(out_t[empty] == 0)
 
 
-@pytest.mark.parametrize("C", [2, 16])
+@pytest.mark.parametrize("C", [1, 2, 8, 16])
 def test_outer_random_stream(C):
     rng = np.random.default_rng(4)
     M, n_rows = 3072, 1300
@@ -145,7 +145,7 @@ def test_outer_reads_payload_through_permutation():
     np.testing.assert_allclose(out_perm, out_j, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("C", [2, 16])
+@pytest.mark.parametrize("C", [1, 2, 8, 16])
 def test_outer_flat_gradient_matches_jax(C):
     """The flat form of the outer mode (segment_grad_outer on CPU tensors,
     i.e. segment_grad_outer_plain) against JAX's window-level gradient:
